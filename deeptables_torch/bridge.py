@@ -1,0 +1,155 @@
+# -*- coding:utf-8 -*-
+"""Carry a JAX model's weights into the port.
+
+:func:`state_dict_from_flax` maps the flax variable tree of a
+``deeptables_tpu`` ``DeepTabularModel`` (``{'params': ..., 'batch_stats':
+...}`` as nested dicts of numpy arrays, e.g. after ``jax.device_get``) onto
+the ``state_dict`` of the port's ``DeepTabularModel`` for the same schema and
+config. It imports no JAX.
+
+What it maps:
+
+- Dense: ``kernel (in, out)`` → ``weight (out, in)``; ``bias`` → ``bias``.
+- BatchNorm: ``scale`` → ``weight``, ``bias`` → ``bias``, ``batch_stats``
+  ``mean``/``var`` → ``running_mean``/``running_var``.
+- Embedding tables: the JAX table ``embeddings_d{D}`` is lane-packed,
+  ``(P, k·D)`` with ``k = 128 // D`` when D divides 128, and its column
+  regions follow the TPU plan (vocab-ascending, each region padded to a
+  multiple of ``k·TILE_P`` rows, when that padding is cheap). Each column's
+  rows are copied to the port's logical table in column order at offsets
+  ``cumsum(vocab)``.
+- Field order: with that aligned plan, the JAX stacked field tensor is in
+  plan order, so the parameters that follow the field axis are too: rows
+  ``[0:F]`` of ``linear_logit`` and the first ``F·D`` entries of
+  ``bn_concat_emb_dense`` and rows of ``dnn_dense_1`` (blocks of D). They are
+  permuted into column order.
+"""
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from .utils import consts
+
+# The JAX package's TPU layout constants (ops/embedding.py, ops/kernels/
+# emb_grad.py), copied: the bridge has to reproduce that layout to read it.
+_LANES = 128
+_TILE_P = 256
+
+_EMBEDDING = consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all'
+_BRIDGED_NETS = ('linear', 'fm_nets', 'dnn_nets')
+
+
+def _pack_factor(dim: int) -> int:
+    if dim < _LANES and _LANES % dim == 0:
+        return _LANES // dim
+    return 1
+
+
+def flax_plan(input_dims: Sequence[int], output_dims: Sequence[int]):
+    """The JAX package's ``plan_groups`` layout:
+    ``[(dim, col_indices in plan order, logical row offsets)]``."""
+    groups = {}
+    for idx, (voc, dim) in enumerate(zip(input_dims, output_dims)):
+        groups.setdefault(int(dim), []).append((idx, int(voc)))
+    plan = []
+    for dim in sorted(groups):
+        cols = groups[dim]
+        k = _pack_factor(dim)
+        logical = sum(v for _, v in cols)
+        align = k * _TILE_P
+        aligned_total = sum(-(-v // align) * align for _, v in cols)
+        if k > 1 and aligned_total <= max(4 * logical, logical + 8 * align):
+            cols = sorted(cols, key=lambda cv: (cv[1], cv[0]))
+            offsets, cur = [], 0
+            for _, v in cols:
+                offsets.append(cur)
+                cur += -(-v // align) * align
+        else:
+            offsets = np.concatenate(
+                [[0], np.cumsum([v for _, v in cols])[:-1]]).tolist()
+        plan.append((dim, [c for c, _ in cols], [int(o) for o in offsets]))
+    return plan
+
+
+def flax_field_order(input_dims, output_dims) -> List[int]:
+    """``order[p]`` = the column at field position p of the JAX stacked
+    tensor (identity unless every column has one width)."""
+    plan = flax_plan(input_dims, output_dims)
+    if len(plan) == 1:
+        return list(plan[0][1])
+    return list(range(len(input_dims)))
+
+
+def _to_column_order(a: np.ndarray, order: List[int], block: int):
+    """Reorder the leading ``len(order)·block`` entries of axis 0 from JAX
+    field order to column order."""
+    n = len(order) * block
+    head = a[:n].reshape((len(order), block) + a.shape[1:])
+    out = np.empty_like(head)
+    out[np.asarray(order)] = head
+    return np.concatenate([out.reshape((n,) + a.shape[1:]), a[n:]])
+
+
+def _f32(a) -> np.ndarray:
+    return np.asarray(a).astype(np.float32)
+
+
+def state_dict_from_flax(variables, categorical_columns, continuous_columns,
+                         config) -> Dict[str, torch.Tensor]:
+    """flax variables of a JAX ``DeepTabularModel`` → the port's
+    ``state_dict`` (CPU float32 tensors) for the same schema and config."""
+    unknown = [n for n in config.nets if n not in _BRIDGED_NETS]
+    if unknown:
+        raise NotImplementedError(
+            f'no weight bridge yet for nets {unknown}; bridged: '
+            f'{list(_BRIDGED_NETS)}')
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    input_dims = [int(c.vocabulary_size) for c in categorical_columns]
+    output_dims = [int(c.embeddings_output_dim) for c in categorical_columns]
+    order = flax_field_order(input_dims, output_dims)
+    # flax layers whose leading axis follows the fields → entries per field:
+    # the per-field sums of `linear`, the flattened (F, D) embeddings
+    dim = output_dims[0] if output_dims else 0
+    blocks = {'linear_logit': 1, 'bn_concat_emb_dense': dim,
+              'dnn_dense_1': dim}
+
+    out = {}
+    for name, node in params.items():
+        if name == _EMBEDDING:
+            out.update(_embedding_tables(node, input_dims, output_dims))
+        elif name.startswith(consts.LAYER_PREFIX_EMBEDDING):
+            raise NotImplementedError(f'no weight bridge yet for {name!r}')
+        elif 'kernel' in node:
+            kernel = _f32(node['kernel'])
+            if name in blocks and order:
+                kernel = _to_column_order(kernel, order, blocks[name])
+            out[f'{name}.weight'] = kernel.T
+            if 'bias' in node:
+                out[f'{name}.bias'] = _f32(node['bias'])
+        elif 'scale' in node:
+            entries = {'weight': node['scale'], 'bias': node['bias'],
+                       'running_mean': stats[name]['mean'],
+                       'running_var': stats[name]['var']}
+            for key, value in entries.items():
+                value = _f32(value)
+                if name in blocks and order:
+                    value = _to_column_order(value, order, blocks[name])
+                out[f'{name}.{key}'] = value
+        else:
+            raise NotImplementedError(
+                f'no weight bridge yet for flax module {name!r}')
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def _embedding_tables(node, input_dims, output_dims):
+    tables = {}
+    for dim, cols, offsets in flax_plan(input_dims, output_dims):
+        logical = _f32(node[f'embeddings_d{dim}']).reshape(-1, dim)
+        rows = {c: logical[o:o + input_dims[c]] for c, o in zip(cols, offsets)}
+        tables[f'{_EMBEDDING}.embeddings_d{dim}'] = np.concatenate(
+            [rows[c] for c in sorted(cols)])
+    return tables

@@ -1,0 +1,135 @@
+# -*- coding:utf-8 -*-
+"""Multi-column embedding (counterpart of ``deeptables_tpu/ops/embedding.py``).
+
+Columns are grouped by embedding width; each group keeps ONE logical
+``(Σ vocab, dim)`` table (parameter ``embeddings_d{dim}``) whose column
+regions follow the original column order at offsets ``cumsum(vocab)``, and
+is read with one gather per group. The TPU layout (lane-packed rows,
+``TILE_P``-aligned regions, vocab-ascending column order) is not ported;
+``deeptables_torch.bridge`` maps a JAX table onto this one.
+
+``EmbeddingList`` keeps the "list of per-column (B, 1, d) tensors" contract
+and exposes ``.stacked``, the (B, F, D) tensor in column order when every
+width agrees.
+"""
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .initializers import get_initializer
+
+
+class EmbeddingList(list):
+    """A list of per-column (B, 1, d_i) embeddings with an optional fused view.
+
+    ``stacked`` is the (B, F, D) tensor when all widths agree, else None.
+    """
+
+    def __init__(self, items=(), stacked=None):
+        super().__init__(items)
+        self.stacked = stacked
+
+
+def concat_embeddings(embeddings) -> Optional[torch.Tensor]:
+    """(B, F, D) from a (possibly fused) embedding list; None when empty."""
+    if embeddings is None:
+        return None
+    if isinstance(embeddings, torch.Tensor):
+        return embeddings
+    if getattr(embeddings, 'stacked', None) is not None:
+        return embeddings.stacked
+    if len(embeddings) == 0:
+        return None
+    if len(embeddings) == 1:
+        return embeddings[0]
+    return torch.cat(list(embeddings), dim=1)
+
+
+def flatten_embeddings(embeddings) -> Optional[torch.Tensor]:
+    """(B, Σ d_i) flat view; works with heterogeneous widths."""
+    if embeddings is None or len(embeddings) == 0:
+        return None
+    if getattr(embeddings, 'stacked', None) is not None:
+        st = embeddings.stacked
+        return st.reshape(st.shape[0], -1)
+    flat = [e.reshape(e.shape[0], -1) for e in embeddings]
+    return flat[0] if len(flat) == 1 else torch.cat(flat, dim=1)
+
+
+def plan_groups(input_dims: Sequence[int], output_dims: Sequence[int]):
+    """Group column indices by embedding width, widths ascending.
+
+    Returns ``[(dim, col_indices, offsets, total_vocab)]``: columns in
+    their original order, each column's rows at ``offsets[i]`` of the
+    group's logical table of ``total_vocab`` rows."""
+    groups = {}
+    for idx, (voc, dim) in enumerate(zip(input_dims, output_dims)):
+        groups.setdefault(int(dim), []).append((idx, int(voc)))
+    plan = []
+    for dim in sorted(groups):
+        cols = [c for c, _ in groups[dim]]
+        vocabs = [v for _, v in groups[dim]]
+        offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]]).astype(np.int32)
+        plan.append((dim, cols, offsets, int(np.sum(vocabs))))
+    return plan
+
+
+class MultiColumnEmbedding(nn.Module):
+    """Fused per-column embedding over a single (B, n_cat) int tensor."""
+
+    def __init__(self, input_dims: Sequence[int], output_dims: Sequence[int],
+                 dropout_rate: float = 0.,
+                 embeddings_initializer='uniform', generator=None):
+        super().__init__()
+        if len(input_dims) != len(output_dims):
+            raise ValueError(
+                'The length of [input_dims] and [output_dims] must be the same.')
+        self.n_cols = len(input_dims)
+        self.dropout_rate = dropout_rate
+        init = get_initializer(embeddings_initializer, default='uniform')
+        self._groups = []
+        for dim, cols, offsets, total_vocab in plan_groups(input_dims,
+                                                           output_dims):
+            self.register_parameter(
+                f'embeddings_d{dim}',
+                nn.Parameter(init(generator, (total_vocab, dim))))
+            self.register_buffer(f'offsets_d{dim}', torch.from_numpy(offsets),
+                                 persistent=False)
+            self.register_buffer(f'cols_d{dim}', torch.tensor(cols),
+                                 persistent=False)
+            self._groups.append((dim, cols))
+
+    def forward(self, ids: torch.Tensor, training: bool = False):
+        if self.n_cols == 0 or ids.shape[1] == 0:
+            return EmbeddingList()
+        if ids.shape[1] != self.n_cols:
+            raise ValueError(
+                'The inputs dimension on axis 1 must be the same as the '
+                'length of [input_dims].')
+        batch = ids.shape[0]
+        one_group = len(self._groups) == 1
+        per_col = [None] * self.n_cols
+        stacked = None
+        for dim, cols in self._groups:
+            table = getattr(self, f'embeddings_d{dim}')
+            # one group holds every column in order: no column gather
+            group_ids = ids if one_group \
+                else ids[:, getattr(self, f'cols_d{dim}')]
+            group_ids = group_ids + getattr(self, f'offsets_d{dim}')
+            emb = table.index_select(0, group_ids.reshape(-1)).reshape(
+                batch, len(cols), dim)
+            if training and self.dropout_rate > 0:
+                # SpatialDropout1D: drop whole embedding channels per
+                # (example, channel), the same channels in every field
+                keep = F.dropout(emb.new_ones(batch, 1, dim),
+                                 self.dropout_rate, training=True)
+                emb = emb * keep
+            if one_group:
+                stacked = emb
+            for k, col in enumerate(cols):
+                per_col[col] = emb[:, k:k + 1, :]
+        return EmbeddingList(per_col, stacked=stacked)

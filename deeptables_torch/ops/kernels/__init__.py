@@ -1,0 +1,7 @@
+# -*- coding:utf-8 -*-
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Each module holds a wrapper that launches its kernel on a CUDA tensor (or
+raises), runs the plain version on a CPU tensor, and counts its launches.
+Kernels are built from ``deeptables_torch/csrc`` at first launch
+(``_build.py``); importing these modules builds nothing."""

@@ -1,0 +1,24 @@
+# -*- coding:utf-8 -*-
+"""Framework-wide constants: the port's own copy of the names it uses from
+``deeptables_tpu/utils/consts.py`` (same values, so configs and layer names
+carry over unchanged)."""
+
+TASK_AUTO = 'auto'
+TASK_BINARY = 'binary'
+TASK_MULTICLASS = 'multiclass'
+TASK_REGRESSION = 'regression'
+TASK_MULTILABEL = 'multilabel'
+
+INPUT_PREFIX_CAT = 'cat_'
+LAYER_PREFIX_EMBEDDING = 'emb_'
+
+LAYER_NAME_BN_DENSE_ALL = 'bn_dense_all'
+
+MODEL_SELECTOR_CURRENT = 'current'
+
+GBM_FEATURE_TYPE_EMB = 'embedding'
+
+STACKING_OP_CONCAT = 'concat'
+STACKING_OP_ADD = 'add'
+
+ENV_DEEPTABLES_HOME = 'DEEPTABLES_HOME'

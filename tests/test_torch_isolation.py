@@ -1,0 +1,94 @@
+# -*- coding:utf-8 -*-
+"""The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
+JAX package, so that it runs on a machine that has none of them.
+
+A subprocess blocks those modules (``sys.modules[name] = None`` makes any
+import of them fail), then imports every module of ``deeptables_torch`` and
+``chip_smoke.py``, and runs a DeepFM forward on ``device='cpu'``. It hides
+any CUDA device, so that ``DeepModel`` without a device must raise.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
+           'deeptables_tpu')
+
+SCRIPT = r'''
+import importlib, importlib.util, pkgutil, sys
+for name in BLOCKED:
+    sys.modules[name] = None
+
+import numpy as np
+import deeptables_torch
+
+modules = ['deeptables_torch']
+for info in pkgutil.walk_packages(deeptables_torch.__path__,
+                                  'deeptables_torch.'):
+    importlib.import_module(info.name)
+    modules.append(info.name)
+
+spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+from deeptables_torch import (CategoricalColumn, ContinuousColumn, DeepModel,
+                              ModelConfig, Predictor)
+from deeptables_torch.data.datasets import load_criteo_synthetic
+
+cat, dense, _, vocabs = load_criteo_synthetic(n_rows=9, n_cat=4, n_dense=3,
+                                              max_vocab=50,
+                                              return_arrays=True)
+cats = tuple(CategoricalColumn(f'C{i}', int(v), 8) for i, v in
+             enumerate(vocabs))
+conts = (ContinuousColumn('input_continuous_all', ['I1', 'I2', 'I3']),)
+config = ModelConfig(nets=['linear', 'fm_nets', 'dnn_nets'],
+                     embedding_dropout=0,
+                     dnn_params={'hidden_units': ((16, 0, False),)})
+try:
+    DeepModel('binary', 2, config, cats, conts)
+except RuntimeError as e:
+    assert 'CUDA' in str(e), e
+else:
+    raise AssertionError('DeepModel without a device ran without CUDA')
+
+model = DeepModel('binary', 2, config, cats, conts, device='cpu')
+proba = model.predict({'cat': cat, 'input_continuous_all': dense})
+assert proba.shape == (9, 1) and np.isfinite(proba).all()
+holder = type('Holder', (), {'task': 'binary', 'preprocessor': None,
+                             'get_model': lambda self, selector: model})()
+assert Predictor(holder).predict_proba_arrays(
+    {'cat': cat, 'input_continuous_all': dense}).shape == (9, 2)
+for name in BLOCKED:
+    assert sys.modules[name] is None, name
+print(len(modules))
+'''
+
+
+def test_port_runs_without_jax_pandas_or_the_jax_package():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
+               PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, '-c', f'BLOCKED = {BLOCKED!r}\n' + SCRIPT],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def test_sources_name_no_blocked_module():
+    """No import statement of the port or chip_smoke.py names a blocked
+    module; pandas only inside a function."""
+    files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
+    files.append(REPO / 'chip_smoke.py')
+    for path in files:
+        for number, line in enumerate(path.read_text().splitlines(), 1):
+            words = line.split()
+            if not words or words[0] not in ('import', 'from'):
+                continue
+            top = words[1].split('.')[0]
+            if top == 'pandas' and line[:1].isspace():
+                continue  # a lazy import inside a function
+            assert top not in BLOCKED, f'{path}:{number}: {line.strip()}'

@@ -1,0 +1,120 @@
+# -*- coding:utf-8 -*-
+"""Shared set-up for the port's parity tests (tests/test_torch_*.py): the
+same schema, config, weights and inputs for a JAX ``DeepModel`` and its
+counterpart in ``deeptables_torch``. Inputs and the BatchNorm statistics
+come from numpy seeds; the port's weights are bridged from JAX."""
+
+import jax
+import numpy as np
+import torch
+
+from deeptables_tpu.data.datasets import load_criteo_synthetic
+from deeptables_tpu.models import (CategoricalColumn, ContinuousColumn,
+                                   DeepModel, ModelConfig)
+from deeptables_tpu.ops.embedding import plan_groups
+from deeptables_torch import bridge
+from deeptables_torch.models import CategoricalColumn as TCategoricalColumn
+from deeptables_torch.models import ContinuousColumn as TContinuousColumn
+from deeptables_torch.models import DeepModel as TDeepModel
+from deeptables_torch.models import ModelConfig as TModelConfig
+
+torch.set_num_threads(1)  # the suite runs several xdist workers
+
+DEEPFM = ['linear', 'fm_nets', 'dnn_nets']
+HIDDEN = ((64, 0, False), (32, 0, False))
+
+
+def _criteo_vocabs():
+    return [int(v) + 1 for v in
+            load_criteo_synthetic(n_rows=1, return_arrays=True)[3]]
+
+
+# name → (vocabulary sizes, embedding widths, dense columns, nets). The
+# non-ascending schemas make the TPU plan reorder the fields; the bench
+# schema is the criteo one of bench.py (26 columns at D=16, 13 dense); the
+# mixed one has two width groups.
+SCHEMAS = {
+    'nonascending_d16': ([50, 7, 300, 20], [16] * 4, 3, DEEPFM),
+    'nonascending_d8': ([50, 7, 300, 20, 9], [8] * 5, 3, DEEPFM),
+    'bench': (_criteo_vocabs(), [16] * 26, 13, DEEPFM),
+    'mixed_widths': ([50, 7, 300, 20], [8, 16, 8, 16], 3, ['dnn_nets']),
+}
+
+
+class Case:
+    """One schema and dtype policy, built in both packages."""
+
+    def __init__(self, schema, dtype_policy='float32', seed=0):
+        vocabs, dims, n_dense, nets = SCHEMAS[schema]
+        self.vocabs, self.dims, self.nets = vocabs, dims, nets
+        kwargs = dict(nets=nets, metrics=['AUC'], task='binary',
+                      embedding_dropout=0,
+                      dnn_params={'hidden_units': HIDDEN,
+                                  'activation': 'relu'},
+                      dtype_policy=dtype_policy)
+        dense_names = [f'I{i + 1}' for i in range(n_dense)]
+        self.jax_cats = tuple(CategoricalColumn(f'C{i + 1}', v, d)
+                              for i, (v, d) in enumerate(zip(vocabs, dims)))
+        self.jax_conts = (ContinuousColumn('input_continuous_all',
+                                           dense_names),)
+        self.port_cats = tuple(TCategoricalColumn(f'C{i + 1}', v, d)
+                               for i, (v, d) in enumerate(zip(vocabs, dims)))
+        self.port_conts = (TContinuousColumn('input_continuous_all',
+                                             dense_names),)
+        self.jax_config = ModelConfig(**kwargs)
+        self.port_config = TModelConfig(**kwargs)
+
+        self.jax_model = DeepModel('binary', 2, self.jax_config,
+                                   self.jax_cats, self.jax_conts)
+        self.jax_model.build()
+        randomize_batch_norm(self.jax_model.variables, seed)
+        self.variables = jax.device_get(self.jax_model.variables)
+        self.state_dict = bridge.state_dict_from_flax(
+            self.variables, self.port_cats, self.port_conts, self.port_config)
+
+    def port_model(self):
+        """A port DeepModel on the CPU holding the bridged weights."""
+        model = TDeepModel('binary', 2, self.port_config, self.port_cats,
+                           self.port_conts, device='cpu')
+        model.build().load_state_dict(self.state_dict, strict=True)
+        return model
+
+    def batch(self, n, seed=1):
+        rng = np.random.default_rng(seed)
+        cat = np.stack([rng.integers(0, v, n) for v in self.vocabs], axis=1)
+        dense = rng.normal(0.5, 1.5, (n, self.jax_conts[0].input_dim))
+        return {'cat': cat.astype(np.int32),
+                'input_continuous_all': dense.astype(np.float32)}
+
+    def field_order(self):
+        """JAX stacked field position → column, from the JAX package's own
+        plan (not the bridge's copy of it)."""
+        plan = plan_groups([int(v) for v in self.vocabs], self.dims)
+        if len(plan) == 1:
+            return list(plan[0][1])
+        return list(range(len(self.vocabs)))
+
+
+def randomize_batch_norm(variables, seed):
+    """Random scale/bias/mean/var for every BatchNorm, so that eval-mode
+    BatchNorm is no identity."""
+    rng = np.random.default_rng(seed)
+    for name, stats in variables.get('batch_stats', {}).items():
+        n = stats['mean'].shape[0]
+        stats['mean'] = rng.normal(0., 0.5, n).astype(np.float32)
+        stats['var'] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+        params = variables['params'][name]
+        params['scale'] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+        params['bias'] = rng.normal(0., 0.2, n).astype(np.float32)
+
+
+def to_column_order(a, order, block):
+    """Leading ``len(order)·block`` entries of the last axis, from JAX field
+    order to column order."""
+    a = np.asarray(a)
+    n = len(order) * block
+    head = a[..., :n].reshape(a.shape[:-1] + (len(order), block))
+    out = np.empty_like(head)
+    out[..., np.asarray(order), :] = head
+    return np.concatenate([out.reshape(a.shape[:-1] + (n,)), a[..., n:]],
+                          axis=-1)
