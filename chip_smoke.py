@@ -28,10 +28,33 @@ these phases, each printing one JSON line:
    atol 1e-2.
 4. ``profile``: device time by kernel over three 4096-row requests
    (``torch.profiler``), and the device's busy share of that window.
+5. ``kernel`` for ``fm_bwd`` (the FM backward kernel against
+   ``fm_backward_reference``, float32 and bfloat16) and ``emb_grad`` (the
+   embedding-gradient kernel against ``emb_grad_reference``, on
+   ``load_criteo_synthetic`` ids, which follow a Zipf law, and on uniform
+   ids), at the training shapes B = 64, 512, 4093, 8192 (F=26, D=16), with
+   the same timings; ``emb_grad`` rows also time ``index_add_`` into a zeroed
+   table, the one PyTorch call that computes the same function.
+6. ``train``, under ``dtype_policy='bfloat16'`` and then ``'float32'``: the
+   same DeepFM on the card, ``DeepModel.fit`` over 8 batches of 8192 rows of
+   ``load_criteo_synthetic`` for 3 epochs, one more batch for validation. It
+   checks that every loss is finite, that the loss fell from epoch 1 to
+   epoch 3, and that the FM backward and embedding-gradient kernels each
+   launched once per step; it prints the median step time and examples/s
+   over epochs 2-3 and ``val_auc``. Then ``train_profile``: two train steps
+   under ``torch.profiler`` (device time by kernel, busy share). Then the
+   same initial weights on the card and on ``device='cpu'`` (the plain
+   path) give the same step-1 gradients (float32 rtol 1e-4, bfloat16 rtol
+   1e-2, both atol 1e-2 of each tensor's largest gradient: a ReLU input
+   within rounding of zero may flip one example's gradient) and, fitting three
+   batches, the same losses (float32 rtol 1e-4, bfloat16 atol 1e-2) and, in
+   float32, parameters within atol 2e-4 for all but at most 1% of a
+   tensor's elements (Adam turns rounding in a gradient near zero into
+   steps of ~lr).
 
 Then one ``kernels`` line (every ported kernel, its launches on the serving
-run, error and times), the ``nvidia-smi`` line again, and last
-``{"ok": true, "device": {...}}``. Any failed check raises and exits
+and training runs, error and times), the ``nvidia-smi`` line again, and
+last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
 """
@@ -44,6 +67,8 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the float32 rate outside the
@@ -54,11 +79,18 @@ L2_BYTES = 50 * 2 ** 20
 
 F_CRITEO, D_CRITEO, N_DENSE = 26, 16, 13
 KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 12288)
+TRAIN_KERNEL_BATCHES = (64, 512, 4093, 8192)
 REQUESTS = (1, 37, 4096, 10000)
 REPEATS = 5
 HEADLINE = ('bfloat16', 4096)  # the kernels line: bench dtype, largest bucket
+TRAIN_HEADLINE = ('bfloat16', 8192)  # ... and the training batch of bench.py
 RTOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 SERVING_ATOL = {'float32': 1e-5, 'bfloat16': 1e-2}
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 8192, 8, 3
+# float atomics add in a run-dependent order: only rounding may differ
+EMB_GRAD_RTOL = 1e-5
+# card against CPU after three float32 Adam steps (see train_phase)
+PARAM_ATOL, PARAM_OUTLIERS = 2e-4, 1e-2
 
 
 def emit(obj):
@@ -95,10 +127,14 @@ def call_ms(torch, fn, inputs, iters):
 
 
 def device_kernels(torch, prof):
-    """The device-side events of a ``torch.profiler`` run, busiest first."""
+    """The device-side events of a ``torch.profiler`` run (kernels, copies,
+    fills), busiest first. User annotations on the device's timeline (such
+    as ``Optimizer.step#Adam.step``) span kernels already counted and are
+    left out."""
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
     return sorted(events, key=lambda e: -e.self_device_time_total)
 
 
@@ -151,6 +187,11 @@ def card_phase(torch, _build):
     return smi
 
 
+def n_buffers(nbytes):
+    """Distinct inputs to rotate over so that they come from HBM."""
+    return max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
+
+
 def kernel_phase(torch, fm_module):
     """FM kernel against fm_reference on the card; returns the rows."""
     fm, fm_reference = fm_module.fm, fm_module.fm_reference
@@ -177,7 +218,7 @@ def kernel_phase(torch, fm_module):
             check(ok, f'fm kernel disagrees with fm_reference: {dtype_name} '
                       f'B={B} max_abs_err={max_abs_err}')
             # rotate over enough distinct inputs to read them from HBM
-            n_buf = max(1, min(64, math.ceil(2 * L2_BYTES / x.nbytes)))
+            n_buf = n_buffers(x.nbytes)
             bufs = [x] + [torch.randn(shape, generator=gen, device='cuda')
                           .to(dtype) for _ in range(n_buf - 1)]
             iters = 200 if B <= 4096 else 100
@@ -195,6 +236,163 @@ def kernel_phase(torch, fm_module):
             del bufs, x
     emit({'phase': 'kernel', 'kernel': 'fm_fwd', 'library_ms': None,
           'library_note': 'no single PyTorch call computes FM pooling',
+          'rows': rows})
+    return rows
+
+
+def fm_bwd_bound(B, F, D, itemsize):
+    """Least time for the FM gradient in ms: read x and g once, write dx
+    once; 3 operations per element (the sum over f, a subtraction, a
+    multiplication)."""
+    bytes_ms = 1e3 * (2 * B * F * D + B) * itemsize / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 3 * B * F * D / FP32_OPS_PER_S
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
+
+
+def emb_grad_bound(N, D, V):
+    """Least time for the embedding gradient in ms: read the N int32 ids and
+    the (N, D) float32 g once, write the (V, D) float32 gradient once (the
+    zero fill of the rows no id touches included); one addition per element
+    of g."""
+    bytes_ms = 1e3 * (4 * N + 4 * N * D + 4 * V * D) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * N * D / FP32_OPS_PER_S
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
+
+
+def fm_bwd_kernel_phase(torch, fm_module):
+    """FM backward kernel against fm_backward_reference on the card."""
+    fm_backward = fm_module.fm_backward
+    reference = fm_module.fm_backward_reference
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    rows = []
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for B in TRAIN_KERNEL_BATCHES:
+            shape = (B, F_CRITEO, D_CRITEO)
+
+            def make():
+                return (torch.randn(shape, generator=gen, device='cuda')
+                        .to(dtype),
+                        torch.randn((B, 1), generator=gen, device='cuda')
+                        .to(dtype))
+            x, g = make()
+            dx = fm_backward(x, g)
+            ref = reference(x, g)
+            torch.cuda.synchronize()
+            check(dx.shape == x.shape and dx.dtype == dtype,
+                  f'fm_backward returned {tuple(dx.shape)} {dx.dtype}')
+            rtol = RTOL[dtype_name]
+            # dx = g·(Σ_f x − x): its terms are of size |g|·Σ_f |x|
+            scale = float((g.float().abs().reshape(-1, 1, 1)
+                           * x.float().abs().sum(dim=1, keepdim=True)).max())
+            err = (dx.float() - ref.float()).abs()
+            max_abs_err = float(err.max())
+            check(bool((err <= rtol * scale + rtol * ref.float().abs()).all()),
+                  f'fm_backward kernel disagrees with fm_backward_reference: '
+                  f'{dtype_name} B={B} max_abs_err={max_abs_err}')
+            bufs = [(x, g)] + [make() for _ in range(
+                n_buffers(2 * x.nbytes) - 1)]
+            iters = 200 if B <= 4096 else 100
+            bound_ms, bound_by = fm_bwd_bound(B, F_CRITEO, D_CRITEO, itemsize)
+
+            def kernel(a):
+                return fm_backward(*a)
+
+            def plain(a):
+                return reference(*a)
+            rows.append({
+                'dtype': dtype_name, 'B': B, 'F': F_CRITEO, 'D': D_CRITEO,
+                'max_abs_err': max_abs_err, 'rtol': rtol,
+                'atol': rtol * scale,
+                'ms': device_ms(torch, kernel, bufs, iters),
+                'plain_ms': device_ms(torch, plain, bufs, iters),
+                'call_ms': call_ms(torch, kernel, bufs, iters),
+                'plain_call_ms': call_ms(torch, plain, bufs, iters),
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'buffers': len(bufs)})
+            del bufs, x, g
+    emit({'phase': 'kernel', 'kernel': 'fm_bwd', 'library_ms': None,
+          'library_note': 'no single PyTorch call computes the FM gradient',
+          'rows': rows})
+    return rows
+
+
+def flat_ids(torch, cat, vocabs):
+    """(B, 26) column ids → the flat int32 ids of the fused table."""
+    offsets = np.concatenate([[0], np.cumsum(np.asarray(vocabs) + 1)[:-1]])
+    return torch.from_numpy((cat + offsets).astype(np.int32).reshape(-1))
+
+
+def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic):
+    """Embedding-gradient kernel against emb_grad_reference on the card,
+    on Zipf-distributed (criteo) and uniform ids."""
+    emb_grad, reference = eg_module.emb_grad, eg_module.emb_grad_reference
+    V = int(np.sum(np.asarray(vocabs) + 1))
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    rows = []
+    for ids_kind in ('criteo', 'uniform'):
+        for B in TRAIN_KERNEL_BATCHES:
+            N = B * F_CRITEO
+
+            def make(seed):
+                if ids_kind == 'criteo':
+                    cat = load_criteo_synthetic(n_rows=B, seed=seed,
+                                                return_arrays=True)[0]
+                else:
+                    rng = np.random.default_rng(seed)
+                    cat = np.stack([rng.integers(0, v + 1, B)
+                                    for v in vocabs], axis=1)
+                return (flat_ids(torch, cat, vocabs).cuda(),
+                        torch.randn((N, D_CRITEO), generator=gen,
+                                    device='cuda'))
+            ids, g = make(300)
+            out = emb_grad(ids, g, V)
+            ref = reference(ids, g, V)
+            row_abs = reference(ids, g.abs(), V)
+            torch.cuda.synchronize()
+            check(out.shape == (V, D_CRITEO) and out.dtype == torch.float32,
+                  f'emb_grad returned {tuple(out.shape)} {out.dtype}')
+            err = (out - ref).abs()
+            max_abs_err = float(err.max())
+            atol = EMB_GRAD_RTOL * float(row_abs.max())
+            check(bool((err <= atol + EMB_GRAD_RTOL * ref.abs()).all()),
+                  f'emb_grad kernel disagrees with emb_grad_reference: '
+                  f'{ids_kind} B={B} max_abs_err={max_abs_err}')
+            # the share of its column's B rows that the most frequent id
+            # takes
+            top_share = float(torch.bincount(ids.long()).max()) / B
+            touched = int((torch.bincount(ids.long(), minlength=V) > 0).sum())
+            bufs = [(ids, g)] + [make(301 + i) for i in range(
+                n_buffers(ids.nbytes + g.nbytes) - 1)]
+            iters = 100
+            bound_ms, bound_by = emb_grad_bound(N, D_CRITEO, V)
+
+            def kernel(a):
+                return emb_grad(a[0], a[1], V)
+
+            def plain(a):
+                return reference(a[0], a[1], V)
+
+            def library(a):
+                return torch.zeros((V, D_CRITEO), device='cuda').index_add_(
+                    0, a[0], a[1])
+            rows.append({
+                'ids': ids_kind, 'B': B, 'N': N, 'D': D_CRITEO, 'V': V,
+                'touched_rows': touched, 'top_id_column_share': top_share,
+                'max_abs_err': max_abs_err, 'rtol': EMB_GRAD_RTOL,
+                'atol': atol,
+                'ms': device_ms(torch, kernel, bufs, iters),
+                'plain_ms': device_ms(torch, plain, bufs, iters),
+                'library_ms': device_ms(torch, library, bufs, iters),
+                'call_ms': call_ms(torch, kernel, bufs, iters),
+                'plain_call_ms': call_ms(torch, plain, bufs, iters),
+                'library_call_ms': call_ms(torch, library, bufs, iters),
+                'bound_ms': bound_ms, 'bound_by': bound_by,
+                'buffers': len(bufs)})
+            del bufs, ids, g, out, ref, row_abs
+    emit({'phase': 'kernel', 'kernel': 'emb_grad',
+          'library_call': 'torch.zeros(V, D).index_add_(0, ids, g)',
           'rows': rows})
     return rows
 
@@ -305,6 +503,177 @@ def profile_phase(torch, predictor, arrays, n):
                         for e in device[:12]]})
 
 
+def train_data(load_criteo_synthetic, n_batches, seed):
+    cat, dense, y, _ = load_criteo_synthetic(n_rows=n_batches * TRAIN_BATCH,
+                                             seed=seed, return_arrays=True)
+    return {'cat': cat, 'input_continuous_all': dense}, y
+
+
+def rows_of(arrays, start, stop):
+    return {k: v[start:stop] for k, v in arrays.items()}
+
+
+def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
+    """fit on the card; the kernels' launch counts are read around exactly
+    this run."""
+    arrays, y = data
+    n_train = TRAIN_STEPS * TRAIN_BATCH
+    train = rows_of(arrays, 0, n_train), y[:n_train]
+    val = rows_of(arrays, n_train, n_train + TRAIN_BATCH), y[n_train:]
+    model = criteo_model(port, dtype_policy, None, vocabs)
+    module = model.build()
+    init_state = {k: v.detach().cpu().clone()
+                  for k, v in module.state_dict().items()}
+
+    step_s = []
+    train_step = model._train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+    model._train_step = timed_step
+
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    history = model.fit(train[0], train[1], batch_size=TRAIN_BATCH,
+                        epochs=TRAIN_EPOCHS, validation_data=val, verbose=0)
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    del model._train_step
+    steps = len(step_s)
+    logs = {k: list(v) for k, v in history.history.data.items()}
+    check(steps == TRAIN_STEPS * TRAIN_EPOCHS, f'fit ran {steps} steps')
+    check(all(math.isfinite(v) for vs in logs.values() for v in vs),
+          f'non-finite logs: {logs}')
+    check(logs['loss'][-1] < logs['loss'][0],
+          f'the loss did not fall from epoch 1 to {TRAIN_EPOCHS}: '
+          f'{logs["loss"]}')
+    # one width group and one FM: each backward kernel once a step; the FM
+    # forward once a step and once a validation batch
+    check(launches['emb_grad'] == steps and launches['fm_bwd'] == steps,
+          f'{steps} steps launched {launches}')
+    check(launches['fm_fwd'] == steps + TRAIN_EPOCHS,
+          f'{steps} steps and {TRAIN_EPOCHS} validations launched {launches}')
+    later = sorted(step_s[TRAIN_STEPS:])
+    median_s = later[len(later) // 2]
+
+    # two steps under the profiler: device time by kernel, busy share
+    from torch.profiler import ProfilerActivity, profile
+    loss_fn = model._loss_fn()
+    batches = [(rows_of(train[0], i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH),
+                train[1][i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+               for i in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for batch, yb in batches:
+            model._train_step(batch, yb, None, loss_fn)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    device = device_kernels(torch, prof)
+    busy_us = sum(e.self_device_time_total for e in device)
+    check(busy_us > 0, 'the profiler saw no device time')
+
+    # the same initial weights on the card and the CPU: the gradients of
+    # one step, then the losses and parameters of a fit over three batches
+    compare = rows_of(train[0], 0, 3 * TRAIN_BATCH), train[1][:3 * TRAIN_BATCH]
+    twins, grads, fits = {}, {}, {}
+    for run, device_name in (('card', None), ('cpu', 'cpu')):
+        twin = criteo_model(port, dtype_policy, device_name, vocabs)
+        twin_module = twin.build()
+        twin_module.load_state_dict(init_state)
+        logits, _ = twin_module(twin.to_device(batches[0][0]), training=True)
+        twin._loss_fn()(logits, torch.from_numpy(batches[0][1]).to(
+            twin.device), None).backward()
+        grads[run] = {k: p.grad.detach().cpu().clone()
+                      for k, p in twin_module.named_parameters()}
+        twin_module.zero_grad(set_to_none=True)
+        twin_module.load_state_dict(init_state)  # undo the BN statistics
+        h = twin.fit(compare[0], compare[1], batch_size=TRAIN_BATCH, epochs=1,
+                     validation_data=val, shuffle=False, verbose=0)
+        fits[run] = ({k: v.detach().cpu() for k, v in
+                      twin_module.state_dict().items()},
+                     {k: v[0] for k, v in h.history.data.items()})
+        del twin, twin_module
+    card_state, card_logs = fits['card']
+    cpu_state, cpu_logs = fits['cpu']
+    loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                 for k in ('loss', 'val_loss')}
+    # step-1 gradients: f32 sums in another order (rtol 1e-4), bf16 rounds
+    # at other places (rtol 1e-2). Both with 1e-2 of the tensor's largest
+    # gradient: a ReLU input within rounding of zero may take the other side
+    # on the other device and change that one example's gradient, which is
+    # all an embedding row of a rare id sees (measured on the card: one
+    # example's embedding gradient moved by 7%, 8.9e-4 of the largest)
+    g_rtol, g_atol = (1e-4 if dtype_policy == 'float32' else 1e-2), 1e-2
+    grad_err = {}
+    for k, ref in grads['cpu'].items():
+        err = (grads['card'][k] - ref).abs()
+        scale = float(ref.abs().max())
+        grad_err[k] = float(err.max()) / max(scale, 1e-30)
+        check(bool((err <= g_rtol * ref.abs() + g_atol * scale).all()),
+              f'{dtype_policy}: card and CPU step-1 gradients of {k} differ '
+              f'by {float(err.max())} (largest gradient {scale})')
+    params = None
+    if dtype_policy == 'float32':
+        for k, d in loss_diff.items():
+            check(d <= 1e-4 * abs(cpu_logs[k]),
+                  f'{dtype_policy}: card {k} {card_logs[k]} vs CPU '
+                  f'{cpu_logs[k]}')
+        # parameters atol 2e-4 after three Adam steps, but Adam moves an
+        # element by ~lr = 1e-3 a step whatever its gradient's size, so an
+        # element whose gradient is near zero, where the two devices' sums
+        # differ in relative terms, may move apart by a few lr: at most
+        # PARAM_OUTLIERS of a tensor's elements may exceed the atol
+        params = {}
+        for k, v in card_state.items():
+            d = (v - cpu_state[k]).abs()
+            params[k] = {'max_abs_diff': float(d.max()),
+                         'over_atol': int((d > PARAM_ATOL).sum()),
+                         'elements': d.numel()}
+            check(params[k]['over_atol'] <= PARAM_OUTLIERS * d.numel(),
+                  f'{dtype_policy}: card and CPU parameters {k} differ after '
+                  f'3 steps: {params[k]}')
+        tolerance = {'loss_rtol': 1e-4, 'grad_rtol': g_rtol,
+                     'grad_atol_of_max': g_atol, 'param_atol': PARAM_ATOL,
+                     'param_outlier_share': PARAM_OUTLIERS}
+    else:
+        # bf16 rounds at other places on the card (kernels) and the CPU
+        # (plain path)
+        check(all(d <= 1e-2 for d in loss_diff.values()),
+              f'{dtype_policy}: card and CPU losses differ by {loss_diff}')
+        tolerance = {'loss_atol': 1e-2, 'grad_rtol': g_rtol,
+                     'grad_atol_of_max': g_atol}
+
+    emit({'phase': 'train', 'dtype_policy': dtype_policy,
+          'batch_size': TRAIN_BATCH, 'steps': steps, 'epochs': TRAIN_EPOCHS,
+          'fit_s': fit_s, 'step_ms': [1e3 * t for t in step_s],
+          'median_step_ms_after_epoch_1': 1e3 * median_s,
+          'examples_per_s_after_epoch_1': TRAIN_BATCH / median_s,
+          'launches': launches, 'logs': logs,
+          'val_auc': logs['val_auc'][-1],
+          'card_vs_cpu': {'card': card_logs, 'cpu': cpu_logs,
+                          'loss_diff': loss_diff,
+                          'step1_grad_err_of_max': grad_err,
+                          'params_vs_cpu': params,
+                          'tolerance': tolerance}})
+    emit({'phase': 'train_profile', 'dtype_policy': dtype_policy,
+          'steps': 2, 'wall_ms': wall_us / 1e3,
+          'device_busy_ms': busy_us / 1e3,
+          'device_busy_share': busy_us / wall_us,
+          'by_kernel': [{'name': e.key[:90], 'count': e.count,
+                         'device_ms': e.self_device_time_total / 1e3}
+                        for e in device[:16]]})
+    del model, fits
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -319,6 +688,7 @@ def main():
     import deeptables_torch as port
     from deeptables_torch.data.datasets import load_criteo_synthetic
     from deeptables_torch.ops.kernels import _build
+    from deeptables_torch.ops.kernels import emb_grad as eg_module
     from deeptables_torch.ops.kernels import fm as fm_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -328,35 +698,69 @@ def main():
 
     smi = card_phase(torch, _build)
     rows = kernel_phase(torch, fm_module)
-
     vocabs = load_criteo_synthetic(n_rows=1, return_arrays=True)[3]
+    bwd_rows = fm_bwd_kernel_phase(torch, fm_module)
+    grad_rows = emb_grad_kernel_phase(torch, eg_module, vocabs,
+                                      load_criteo_synthetic)
+
     requests = []
     for i, n in enumerate(REQUESTS):
         cat, dense, _, _ = load_criteo_synthetic(n_rows=n, seed=100 + i,
                                                  return_arrays=True)
         requests.append((n, {'cat': cat, 'input_continuous_all': dense}))
-    launches = 0
+    launches = {'fm_fwd': 0, 'fm_bwd': 0, 'emb_grad': 0}
     for dtype_policy in ('bfloat16', 'float32'):
         predictor, count = serving_phase(torch, port, fm_module.fm,
                                          dtype_policy, vocabs, requests)
-        launches += count
+        launches['fm_fwd'] += count
         if dtype_policy == HEADLINE[0]:
             profile_phase(torch, predictor, dict(requests)[4096], 4096)
         del predictor
         torch.cuda.empty_cache()
 
+    kernel_fns = {'fm_fwd': fm_module.fm, 'fm_bwd': fm_module.fm_backward,
+                  'emb_grad': eg_module.emb_grad}
+    data = train_data(load_criteo_synthetic, TRAIN_STEPS + 1, seed=7)
+    for dtype_policy in ('bfloat16', 'float32'):
+        for name, count in train_phase(torch, port, kernel_fns, dtype_policy,
+                                       vocabs, data).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+
     head = next(r for r in rows if (r['dtype'], r['B']) == HEADLINE)
+    bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
+    grad = next(r for r in grad_rows
+                if (r['ids'], r['B']) == ('criteo', TRAIN_HEADLINE[1]))
+    train_at = {'B': TRAIN_HEADLINE[1], 'F': F_CRITEO, 'D': D_CRITEO}
     emit({'kernels': [{
         'name': 'fm_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/fm.cu',
         'replaces': 'deeptables_tpu/ops/kernels/fm.py:22',
-        'launches': launches, 'max_abs_err': head['max_abs_err'],
+        'launches': launches['fm_fwd'], 'max_abs_err': head['max_abs_err'],
         'ms': head['ms'], 'plain_ms': head['plain_ms'],
         'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
         'library_ms': None,
         'library_note': 'no single PyTorch call computes FM pooling',
         'at': {'dtype': HEADLINE[0], 'B': HEADLINE[1], 'F': F_CRITEO,
-               'D': D_CRITEO}}]})
+               'D': D_CRITEO}}, {
+        'name': 'fm_bwd', 'route': 'cuda',
+        'source': 'deeptables_torch/csrc/fm.cu',
+        'replaces': 'deeptables_tpu/ops/kernels/fm.py:29',
+        'launches': launches['fm_bwd'], 'max_abs_err': bwd['max_abs_err'],
+        'ms': bwd['ms'], 'plain_ms': bwd['plain_ms'],
+        'bound_ms': bwd['bound_ms'], 'bound_by': bwd['bound_by'],
+        'library_ms': None,
+        'library_note': 'no single PyTorch call computes the FM gradient',
+        'at': dict(train_at, dtype=TRAIN_HEADLINE[0])}, {
+        'name': 'emb_grad', 'route': 'cuda',
+        'source': 'deeptables_torch/csrc/emb_grad.cu',
+        'replaces': 'deeptables_tpu/ops/kernels/emb_grad.py:37',
+        'launches': launches['emb_grad'], 'max_abs_err': grad['max_abs_err'],
+        'ms': grad['ms'], 'plain_ms': grad['plain_ms'],
+        'bound_ms': grad['bound_ms'], 'bound_by': grad['bound_by'],
+        'library_ms': grad['library_ms'],
+        'library_note': 'torch.zeros(V, D).index_add_(0, ids, g)',
+        'at': dict(train_at, ids='criteo', dtype='float32')}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -5,7 +5,10 @@
 ``deeptables_tpu`` ``DeepTabularModel`` (``{'params': ..., 'batch_stats':
 ...}`` as nested dicts of numpy arrays, e.g. after ``jax.device_get``) onto
 the ``state_dict`` of the port's ``DeepTabularModel`` for the same schema and
-config. It imports no JAX.
+config. It imports no JAX. A tree without ``batch_stats`` (a gradient tree
+from ``jax.grad``, as ``{'params': grads}``) maps the same way, to the
+parameters' entries only: every layout step and the field-order permutation
+below are linear, so they carry gradients exactly as weights.
 
 What it maps:
 
@@ -130,9 +133,10 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
             if 'bias' in node:
                 out[f'{name}.bias'] = _f32(node['bias'])
         elif 'scale' in node:
-            entries = {'weight': node['scale'], 'bias': node['bias'],
-                       'running_mean': stats[name]['mean'],
-                       'running_var': stats[name]['var']}
+            entries = {'weight': node['scale'], 'bias': node['bias']}
+            if name in stats:
+                entries.update(running_mean=stats[name]['mean'],
+                               running_var=stats[name]['var'])
             for key, value in entries.items():
                 value = _f32(value)
                 if name in blocks and order:

@@ -1,0 +1,111 @@
+// Embedding-table gradient of a fused multi-column lookup, for NVIDIA Hopper
+// (sm_90a).
+//
+//   dtable = 0;  dtable[ids[n], :] += g[n, :]   for n in [0, N)
+//
+// Replaces deeptables_tpu/ops/kernels/emb_grad.py::emb_grad_matmul
+// (_grad_kernel): the backward of the gather that reads one width group of
+// the fused embedding table. ids is (N,) int32, the group's flat ids
+// (B * n_cols) with the column offsets already added; g is (N, D) float32;
+// dtable is the dense float32 (V, D) gradient of the logical table
+// (V = sum of the group's vocabularies), which the optimizer updates whole.
+//
+// The TPU kernel built a one-hot tile in VMEM and contracted it on the
+// MXU, over lane-packed, TILE_P-aligned table regions: a way around the
+// TPU's slow scatter, and nothing Hopper needs. Here the scheme is the
+// plain one, chosen for being right and simple first: atomics.
+//
+// 1. A fill kernel zeroes dtable with 16-byte stores.
+// 2. A scatter kernel gives one thread to each element (n, d) of g. The
+//    threads of a warp read neighbouring elements of g (coalesced) and add
+//    them into dtable with atomicAdd, which compiles to a fire-and-forget
+//    reduction in L2 (RED.ADD.F32) since its result is unused.
+//
+// What bounds it: memory. The function must read ids and g once and write
+// dtable once: (4 N + 4 N D + 4 V D) bytes, and the fill is most of that at
+// the criteo shapes (20.8 MB of 35 MB at B=8192). The touched rows are
+// read and written again by the reductions, in L2 where they fit.
+//
+// Order: float atomics add in a different order on every run, so the
+// result is deterministic only up to rounding; tests allow for it. A sort
+// of the ids followed by a segment sum would be the deterministic scheme.
+//
+// Skew: under a Zipf law most of a column's rows hit a few ids, and their
+// reductions serialize on those addresses in L2. A block-local
+// pre-reduction in shared memory is the known remedy (later work).
+//
+// Bad ids: an id outside [0, V) is skipped so memory stays safe; the
+// caller checks every id on the host before it reaches the device
+// (pipeline.check_categorical_ids), so none arrives here.
+//
+// Plain C interface for ctypes: the entry point launches on the given
+// stream, does not synchronise, and returns cudaGetLastError().
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+    zero_kernel(float* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t n4 = n / 4;
+  if (i < n4) {
+    reinterpret_cast<float4*>(out)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if (i < n4 + (n - 4 * n4)) {
+    out[4 * n4 + (i - n4)] = 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    scatter_kernel(const int32_t* __restrict__ ids, const float* __restrict__ g,
+                   float* __restrict__ out, int64_t total, int D, int64_t V) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= total) return;
+  const int64_t n = i / D;
+  const int64_t d = i - n * D;
+  const int64_t row = __ldg(ids + n);
+  if (row < 0 || row >= V) return;
+  atomicAdd(out + row * D + d, __ldg(g + i));
+}
+
+cudaError_t launch(const int32_t* ids, const float* g, float* out, int64_t N,
+                   int D, int64_t V, cudaStream_t stream) {
+  if (N < 0 || D < 1 || V < 1) return cudaErrorInvalidValue;
+  // out is 16-byte aligned (a fresh allocation); the fill's tail of
+  // n % 4 floats takes the threads after the float4 ones
+  const int64_t n = V * D;
+  const int64_t fill_threads = n / 4 + n % 4;
+  const int64_t fill_blocks = (fill_threads + kThreads - 1) / kThreads;
+  const int64_t total = N * D;
+  const int64_t scatter_blocks = (total + kThreads - 1) / kThreads;
+  if (fill_blocks > 0x7fffffff || scatter_blocks > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  zero_kernel<<<static_cast<unsigned>(fill_blocks), kThreads, 0, stream>>>(out, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || total == 0) return err;
+  scatter_kernel<<<static_cast<unsigned>(scatter_blocks), kThreads, 0, stream>>>(
+      ids, g, out, total, D, V);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int dt_emb_grad_f32(const void* ids, const void* g, void* out, int64_t N,
+                    int D, int64_t V, void* stream) {
+  return static_cast<int>(launch(static_cast<const int32_t*>(ids),
+                                 static_cast<const float*>(g),
+                                 static_cast<float*>(out), N, D, V,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+const char* dt_emb_grad_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -152,3 +152,13 @@ class BatchIterator:
                 wb = np.ones(bs, dtype=np.float32) if wb is None else wb.copy()
                 wb[valid:] = 0.0
             yield batch, yb, wb, valid
+
+
+def class_weight_to_sample_weight(y: np.ndarray, class_weight: dict
+                                  ) -> np.ndarray:
+    """Per-example weights from a ``{class: weight}`` map (others weigh 1)."""
+    w = np.ones(len(y), dtype=np.float32)
+    yy = np.asarray(y).reshape(-1)
+    for cls, cw in class_weight.items():
+        w[yy == int(cls)] = float(cw)
+    return w

@@ -8,9 +8,13 @@
   does. Its submodules carry the flax names (``emb_categorical_vars_all``,
   ``bn_concat_emb_dense``, ``linear_logit``, ``dnn_dense_1``,
   ``task_output``, …), so the ``state_dict`` keys read like the flax tree.
-- ``DeepModel`` holds one on a device and serves ``predict`` and ``apply``.
-  Training (``fit``, ``evaluate``, ``save``, ``load``) comes with the
-  training slice.
+- ``DeepModel`` holds one on a device: ``fit`` (the train step is forward,
+  weighted loss, backward and the optimizer's update; BatchNorm statistics
+  move in the training forward), ``evaluate``, ``predict``, ``apply``,
+  ``save``/``load`` and ``release``. Dropout masks come from a
+  ``torch.Generator`` that the model owns on its device, seeded from
+  ``config.seed + 13`` at the start of ``fit`` as the JAX package seeds its
+  dropout key.
 
 ``dtype_policy='bfloat16'`` casts the embeddings and the dense inputs to
 bfloat16, as the JAX package does; every Dense and BatchNorm keeps float32
@@ -20,17 +24,22 @@ net's per-field sums and FM. Logits are float32.
 """
 
 import collections
-from typing import Any, Dict, Optional, Tuple
+import pickle
+import time
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from . import deepnets
-from ..data import pipeline
+from .callbacks import Callback, History
+from ..data import pipeline, split
+from ..ops import losses as losses_lib
+from ..ops import metrics as metrics_lib
 from ..ops.embedding import EmbeddingList, MultiColumnEmbedding, \
     flatten_embeddings
-from ..ops.layers import BatchNorm, Dense
+from ..ops.layers import BatchNorm, Dense, dropout
 from ..utils import consts, dt_logging
 from ..utils.device import resolve_device
 
@@ -48,9 +57,12 @@ class DeepTabularModel(nn.Module):
         if var_len_categorical_columns:
             raise NotImplementedError(
                 'var-len categorical embeddings: remaining-towers slice')
-        if config.embeddings_activity_regularizer is not None:
-            raise NotImplementedError(
-                'embeddings_activity_regularizer: training slice')
+        for name in ('embeddings_regularizer',
+                     'embeddings_activity_regularizer'):
+            if getattr(config, name) is not None:
+                raise NotImplementedError(
+                    f'{name}: comes with the heads-and-losses slice '
+                    f'(ROADMAP Queue 1 item 11)')
         # parameters are drawn on the CPU from config.seed, then moved, so a
         # model has the same weights on every device
         generator = torch.Generator().manual_seed(config.seed)
@@ -159,16 +171,19 @@ class DeepTabularModel(nn.Module):
                 raise ValueError(f'Duplicate layer name {name!r} among nets.')
             self.add_module(name, layer)
 
-    def forward(self, batch: Dict[str, torch.Tensor], training: bool = False):
-        if training:
-            raise NotImplementedError('training forward: training slice')
-        ctx = deepnets.TraceContext(training)
+    def forward(self, batch: Dict[str, torch.Tensor], training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``training=True`` applies dropout (masks from ``generator``, on
+        the batch's device) and BatchNorm with batch statistics, which also
+        moves BatchNorm's running statistics."""
+        ctx = deepnets.TraceContext(training, generator)
 
         embeddings = EmbeddingList()
         if self.categorical_columns:
             emb_layer = getattr(
                 self, consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all')
-            embeddings = emb_layer(batch[pipeline.CAT_KEY], training=training)
+            embeddings = emb_layer(batch[pipeline.CAT_KEY], training=training,
+                                   generator=generator)
         if self.compute_dtype != torch.float32 and len(embeddings) > 0:
             stacked = embeddings.stacked
             embeddings = EmbeddingList(
@@ -182,6 +197,9 @@ class DeepTabularModel(nn.Module):
                       for g in self.continuous_columns]
             dense_layer = groups[0] if len(groups) == 1 \
                 else torch.cat(groups, dim=-1)
+            if training:  # flax 'dropout_dense_input'
+                dense_layer = dropout(dense_layer, self.config.dense_dropout,
+                                      generator)
             if self.config.dense_batch_norm:
                 dense_layer = getattr(self, consts.LAYER_NAME_BN_DENSE_ALL)(
                     dense_layer, training=training)
@@ -232,18 +250,83 @@ def probas_from_logits(logits: torch.Tensor, task: str) -> torch.Tensor:
     return torch.sigmoid(logits)  # binary & multilabel
 
 
+def _sanitize_config_for_pickle(config):
+    """The config without what cannot be pickled: no distribution strategy,
+    and metrics, loss and optimizer by name when they are callables that do
+    not pickle."""
+    cfg = config._replace(distribute_strategy=None)
+    try:
+        pickle.dumps(cfg)
+        return cfg
+    except (pickle.PicklingError, AttributeError, TypeError):
+        pass
+    metrics = tuple(
+        m if isinstance(m, str) else getattr(m, '__name__', 'metric')
+        for m in (cfg.metrics or ()))
+    loss = cfg.loss if isinstance(cfg.loss, str) else \
+        getattr(cfg.loss, '__name__', 'auto')
+    optimizer = cfg.optimizer if isinstance(cfg.optimizer, str) else 'auto'
+    return cfg._replace(metrics=metrics, loss=loss, optimizer=optimizer)
+
+
+def _resolve_optimizer(optimizer, learning_rate, params):
+    """``'auto'``/``'adam'`` → Adam (the update of ``optax.adam``: betas
+    0.9/0.999, eps 1e-8 outside the square root); ``'sgd'`` → SGD without
+    momentum (``optax.sgd``)."""
+    name = optimizer.lower() if isinstance(optimizer, str) else optimizer
+    if name in ('auto', 'adam'):
+        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
+                                eps=1e-8)
+    if name == 'sgd':
+        return torch.optim.SGD(params, lr=learning_rate)
+    if name in ('adamw', 'rmsprop', 'adagrad', 'lamb'):
+        raise NotImplementedError(
+            f'optimizer {optimizer!r} is not ported to deeptables_torch yet: '
+            f'it comes with the heads-and-losses slice (ROADMAP Queue 1 '
+            f'item 11).')
+    raise ValueError(f'Cannot interpret optimizer: {optimizer!r}')
+
+
+# the first key of a model file the port writes; a file without it (a JAX
+# package's .dt file among them) is refused
+SAVE_FORMAT = 'deeptables_torch.DeepModel/1'
+
+
+class _ModelFileUnpickler(pickle.Unpickler):
+    """Refuses the JAX package's classes: unpickling a JAX ``.dt`` file
+    would import ``deeptables_tpu`` (and JAX)."""
+
+    def find_class(self, module, name):
+        if module.split('.')[0] == 'deeptables_tpu':
+            raise ValueError(
+                'this is a model file of the JAX package (deeptables_tpu), '
+                'which the port does not read; carry its variables over with '
+                'deeptables_torch.bridge.state_dict_from_flax in a process '
+                'that has JAX.')
+        return super().find_class(module, name)
+
+
+def _read_model_file(filepath) -> dict:
+    with open(filepath, 'rb') as f:
+        payload = _ModelFileUnpickler(f).load()
+    if not isinstance(payload, dict) or payload.get('format') != SAVE_FORMAT:
+        raise ValueError(f'{filepath} is not a deeptables_torch model file.')
+    return payload
+
+
 class DeepModel:
-    """A ``DeepTabularModel`` on a device, with the inference entry points.
+    """A ``DeepTabularModel`` on a device, with the training and inference
+    entry points.
 
     ``device=None`` runs on the current CUDA device and raises without one;
-    ``device='cpu'`` runs the plain PyTorch path."""
+    ``device='cpu'`` runs the plain PyTorch path. ``model_file`` loads a
+    file written by :meth:`save` (its task, classes and columns win over the
+    arguments, as in the JAX package)."""
 
     def __init__(self, task, num_classes, config, categorical_columns,
                  continuous_columns, model_file=None,
                  var_categorical_len_columns=None, custom_objects=None,
                  device=None):
-        if model_file is not None:
-            raise NotImplementedError('DeepModel.load: training slice')
         if custom_objects:
             raise NotImplementedError('custom objects: remaining-towers slice')
         self.device = resolve_device(device)
@@ -255,7 +338,13 @@ class DeepModel:
         self.var_len_categorical_columns = \
             tuple(var_categorical_len_columns or ())
         self.model_desc = ModelDesc()
+        self.stop_training = False
         self.module: Optional[DeepTabularModel] = None
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        # draws the dropout masks of training; made by fit
+        self.generator: Optional[torch.Generator] = None
+        if model_file is not None:
+            self._load_weights(model_file)
 
     def build(self) -> DeepTabularModel:
         """Initialize the parameters from ``config.seed`` (idempotent)."""
@@ -268,6 +357,25 @@ class DeepModel:
             self.model_desc = module.model_desc
             logger.info(str(self.model_desc))
         return self.module
+
+    def _loss_fn(self):
+        loss = self.config.loss
+        if loss == 'auto':
+            loss = losses_lib.auto_loss_name(self.task, self.num_classes)
+            self.model_desc.loss = loss
+        return losses_lib.get_loss(loss)
+
+    # ------------------------------------------------------------------
+    # snapshot protocol used by EarlyStopping
+    # ------------------------------------------------------------------
+    def get_state_snapshot(self) -> Dict[str, torch.Tensor]:
+        """A copy of every parameter and BatchNorm statistic (the optimizer
+        updates the live tensors in place, so a reference would move)."""
+        return {k: v.detach().clone()
+                for k, v in self.build().state_dict().items()}
+
+    def set_state_snapshot(self, snapshot: Dict[str, torch.Tensor]):
+        self.build().load_state_dict(snapshot)
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch → tensors on the model's device, ids checked first."""
@@ -365,6 +473,243 @@ class DeepModel:
         return transformer.fit_transform(outputs)
 
 
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _train_step(self, batch: Dict[str, np.ndarray], yb: np.ndarray,
+                    wb: Optional[np.ndarray], loss_fn):
+        """One step on a host batch: the training forward (which also moves
+        BatchNorm's running statistics), the weighted loss, backward and the
+        optimizer's update. Returns (loss, logits) on the device."""
+        inputs = self.to_device(batch)
+        y = torch.from_numpy(np.ascontiguousarray(yb)).to(self.device)
+        w = None if wb is None else torch.from_numpy(wb).to(self.device)
+        logits, _ = self.module(inputs, training=True,
+                                generator=self.generator)
+        loss = loss_fn(logits, y, w)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach(), logits.detach()
+
+    def _split_validation(self, X, y, validation_split, validation_data):
+        if validation_data is not None:
+            if len(validation_data) != 2:
+                raise ValueError(
+                    f'Unexpected validation_data length, expected 2 but '
+                    f'{len(validation_data)}.')
+            return X, validation_data[0], y, validation_data[1]
+        stratify = None
+        if self.task in (consts.TASK_BINARY, consts.TASK_MULTICLASS):
+            _, counts = np.unique(np.asarray(y), return_counts=True)
+            if counts.min() >= 2:
+                stratify = np.asarray(y)
+        return split.train_test_split(X, y, test_size=validation_split,
+                                      random_state=self.config.seed,
+                                      stratify=stratify)
+
+    def fit(self, X=None, y=None, batch_size=128, epochs=1, verbose=1,
+            callbacks=None, validation_split=0.2, validation_data=None,
+            shuffle=True, class_weight=None, sample_weight=None,
+            initial_epoch=0, steps_per_epoch=None, validation_steps=None,
+            validation_freq=1, max_queue_size=10, workers=1,
+            use_multiprocessing=False):
+        """Train on packed arrays (a dict) or a preprocessed DataFrame, as
+        the JAX ``DeepModel.fit``: the same validation split (numpy, the rows
+        scikit-learn would pick), batches, callbacks and ``logs`` keys
+        (``loss``, the training metrics, ``val_loss``, ``val_<metric>``).
+        Returns the ``History`` callback, its ``history`` an
+        ``IgnoreCaseDict``."""
+        if batch_size is None:
+            batch_size = 128
+        if y is None and self._is_batch_loader(X):
+            raise NotImplementedError(
+                'fit over a streaming batch loader: ROADMAP Queue 1 item 12')
+        X, X_val, y, y_val = self._split_validation(
+            X, y, validation_split, validation_data)
+        arrays, _ = self._arrays(X)
+        y_arr = pipeline.prepare_labels(y, self.task, self.num_classes)
+        val_arrays, _ = self._arrays(X_val)
+        y_val_arr = pipeline.prepare_labels(y_val, self.task, self.num_classes)
+        weights = None
+        if sample_weight is not None:
+            weights = np.asarray(sample_weight, np.float32)
+        elif class_weight:
+            weights = pipeline.class_weight_to_sample_weight(y_arr,
+                                                             class_weight)
+
+        module = self.build()
+        loss_fn = self._loss_fn()
+        if self.optimizer is None:
+            self.optimizer = _resolve_optimizer(
+                self.config.optimizer, self.config.learning_rate,
+                module.parameters())
+            self.model_desc.optimizer = type(self.optimizer).__name__
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.config.seed + 13)
+        metric_specs = [metrics_lib.get_metric(m) for m in self.config.metrics]
+
+        history = History()
+        history.set_model(self)
+        cbs: List[Callback] = [history]
+        for cb in (callbacks or []):
+            cb.set_model(self)
+            cbs.append(cb)
+        self.stop_training = False
+        for cb in cbs:
+            cb.on_train_begin()
+
+        it = pipeline.BatchIterator(arrays, y_arr, weights,
+                                    batch_size=batch_size, shuffle=shuffle,
+                                    drop_remainder=True, seed=self.config.seed)
+        steps = steps_per_epoch or it.steps
+        metric_cap = self.config.train_metrics_sample_limit
+        logger.info('training...')
+        t_start = time.time()
+        for epoch in range(initial_epoch, epochs):
+            for cb in cbs:
+                cb.on_epoch_begin(epoch)
+            epoch_losses, train_logits, train_ys = [], [], []
+            metric_examples = 0
+            for step, (batch, yb, wb, _valid) in enumerate(it, 1):
+                loss, logits = self._train_step(batch, yb, wb, loss_fn)
+                epoch_losses.append(loss)
+                if metric_cap is None or metric_examples < metric_cap:
+                    # device logits; one host copy for the epoch below
+                    train_logits.append(logits)
+                    train_ys.append(yb)
+                    metric_examples += len(yb)
+                if step >= steps:
+                    break
+
+            logs = {'loss': float(torch.stack(epoch_losses).mean())}
+            if train_logits:
+                tp = probas_from_logits(torch.cat(train_logits),
+                                        self.task).cpu().numpy()
+                ty = np.concatenate(train_ys)
+                for name, fn in metric_specs:
+                    try:
+                        logs[name] = float(fn(ty, tp))
+                    except Exception as e:  # a user metric must not end fit
+                        logger.warning(f'metric {name} failed: {e}')
+
+            if (epoch + 1) % validation_freq == 0:
+                val_logits = torch.from_numpy(self._predict_logits(
+                    val_arrays, len(y_val_arr), batch_size))
+                val_probas = probas_from_logits(val_logits, self.task).numpy()
+                logs['val_loss'] = float(loss_fn(
+                    val_logits, torch.from_numpy(y_val_arr)))
+                for name, fn in metric_specs:
+                    try:
+                        logs[f'val_{name}'] = float(fn(y_val_arr, val_probas))
+                    except Exception as e:  # a user metric must not end fit
+                        logger.warning(f'val metric {name} failed: {e}')
+
+            if verbose:
+                msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())
+                logger.info(f'Epoch {epoch + 1}/{epochs} - {msg}')
+            for cb in cbs:
+                cb.on_epoch_end(epoch, logs)
+            if self.stop_training:
+                break
+
+        for cb in cbs:
+            cb.on_train_end()
+        logger.info(f'Training finished in {time.time() - t_start:.2f}s.')
+        history.history = IgnoreCaseDict(history.history)
+        return history
+
+    def evaluate(self, X_test, y_test=None, batch_size=256, verbose=0,
+                 return_dict=True):
+        """Loss and ``config.metrics`` over packed arrays, a DataFrame, or a
+        batch loader that yields labels (``y_test`` None)."""
+        logger.info('Performing evaluation...')
+        loss_fn = self._loss_fn()
+        if self._is_batch_loader(X_test):
+            logits, y_arr = self._loader_logits(X_test)
+            if y_arr is None:
+                raise ValueError('evaluate over a batch loader needs one that '
+                                 'yields labels.')
+        else:
+            y_arr = pipeline.prepare_labels(y_test, self.task,
+                                            self.num_classes)
+            arrays, _ = self._arrays(X_test)
+            logits = self._predict_logits(arrays, len(y_arr), batch_size)
+        logits = torch.from_numpy(logits)
+        proba = probas_from_logits(logits, self.task).numpy()
+        result = {'loss': float(loss_fn(logits, torch.from_numpy(
+            np.asarray(y_arr, np.float32))))}
+        result.update(metrics_lib.compute_metrics(
+            self.config.metrics, y_arr, proba, self.task))
+        if return_dict:
+            return IgnoreCaseDict(result)
+        return [result['loss']] + [v for k, v in result.items() if k != 'loss']
+
+    # ------------------------------------------------------------------
+    # persistence
+    # ------------------------------------------------------------------
+    def save(self, filepath):
+        """A pickle (protocol 4) of the schema, the config and the
+        ``state_dict`` as numpy arrays; it loads on any device."""
+        module = self.build()
+        payload = {
+            'format': SAVE_FORMAT,
+            'meta': {
+                'task': self.task,
+                'num_classes': self.num_classes,
+                'config': _sanitize_config_for_pickle(self.config),
+                'categorical_columns': self.categorical_columns,
+                'continuous_columns': self.continuous_columns,
+                'var_len_categorical_columns':
+                    self.var_len_categorical_columns,
+            },
+            'state_dict': {k: v.detach().cpu().numpy()
+                           for k, v in module.state_dict().items()},
+        }
+        with open(filepath, 'wb') as f:
+            pickle.dump(payload, f, protocol=4)
+
+    def _load_state(self, state_dict: Dict[str, np.ndarray]):
+        self.build().load_state_dict(
+            {k: torch.from_numpy(v) for k, v in state_dict.items()})
+
+    def _load_weights(self, filepath):
+        payload = _read_model_file(filepath)
+        meta = payload['meta']
+        self.task = meta['task']
+        self.num_classes = meta['num_classes']
+        self.categorical_columns = tuple(meta['categorical_columns'])
+        self.continuous_columns = tuple(meta['continuous_columns'])
+        self.var_len_categorical_columns = \
+            tuple(meta['var_len_categorical_columns'])
+        self.module = None
+        self._load_state(payload['state_dict'])
+
+    @staticmethod
+    def load(filepath, config=None, custom_objects=None, device=None):
+        """A ``DeepModel`` from a file written by :meth:`save`, on
+        ``device`` (default: the current CUDA device)."""
+        payload = _read_model_file(filepath)
+        meta = payload['meta']
+        dm = DeepModel(meta['task'], meta['num_classes'],
+                       config or meta['config'],
+                       meta['categorical_columns'],
+                       meta['continuous_columns'],
+                       var_categorical_len_columns=meta[
+                           'var_len_categorical_columns'],
+                       custom_objects=custom_objects, device=device)
+        dm._load_state(payload['state_dict'])
+        return dm
+
+    def release(self):
+        """Drop the module, the optimizer state and the generator, and give
+        their device memory back."""
+        self.module = None
+        self.optimizer = None
+        self.generator = None
+        if self.device.type == 'cuda':
+            torch.cuda.empty_cache()
+
 class ModelDesc:
     """Human-readable model description. Shapes carry ``None`` for the
     batch axis: the torch module is built from the schema, not traced on a
@@ -420,3 +765,32 @@ class ModelDesc:
                 f'output: {self.output}\n'
                 f'loss: {self.loss}\n'
                 f'optimizer: {self.optimizer}\n')
+
+
+class IgnoreCaseDict(collections.UserDict):
+    """Case-insensitive str-keyed dict (a copy of the JAX package's)."""
+
+    def __init__(self, inputs: Union[dict, collections.UserDict] = None):
+        if isinstance(inputs, collections.UserDict):
+            super().__init__(inputs.data)
+        else:
+            super().__init__(inputs)
+        for k in list(self.data):
+            if not isinstance(k, str):
+                raise KeyError(f'Key should be str but is {k}')
+        self.data.update({k.lower(): self.data[k] for k in list(self.data)})
+
+    def __contains__(self, item):
+        if not isinstance(item, str):
+            raise KeyError(f'Key should be str but is {item}')
+        return item.lower() in self.data
+
+    def __setitem__(self, item, value):
+        if not isinstance(item, str):
+            raise KeyError(f'Key should be str but is {item}')
+        self.data[item.lower()] = value
+
+    def __getitem__(self, item):
+        if not isinstance(item, str):
+            raise KeyError(f'Key should be str but is {item}')
+        return self.data[item.lower()]

@@ -20,11 +20,11 @@ import inspect
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.embedding import concat_embeddings
 from ..ops.initializers import get_activation
+from ..ops import layers
 from ..ops.interactions import FM
 from ..ops.layers import BatchNorm, Dense
 
@@ -50,10 +50,12 @@ class NetInputs(NamedTuple):
 
 class TraceContext:
     """Per-forward state shared between the model and its nets: the
-    ``training`` flag and the taps (named intermediate activations)."""
+    ``training`` flag, the ``torch.Generator`` that draws dropout masks in
+    training, and the taps (named intermediate activations)."""
 
-    def __init__(self, training=False):
+    def __init__(self, training=False, generator=None):
         self.training = training
+        self.generator = generator
         self.taps = {}
 
     def tap(self, name, tensor):
@@ -139,8 +141,8 @@ class Dnn(nn.Module):
             if bn_name is not None:
                 x = getattr(self, bn_name)(x, training=ctx.training)
             x = self.activation(x)
-            if dropout > 0:
-                x = F.dropout(x, dropout, training=ctx.training)
+            if ctx.training:
+                x = layers.dropout(x, dropout, ctx.generator)
         return x
 
 

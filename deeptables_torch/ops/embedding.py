@@ -11,16 +11,46 @@ is read with one gather per group. The TPU layout (lane-packed rows,
 ``EmbeddingList`` keeps the "list of per-column (B, 1, d) tensors" contract
 and exposes ``.stacked``, the (B, F, D) tensor in column order when every
 width agrees.
+
+The gather of a group is the forward half of :class:`EmbeddingLookup`, whose
+backward is the embedding-gradient kernel (``kernels/emb_grad.py``, K1): a
+dense float32 gradient of the whole logical table.
 """
 
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .initializers import get_initializer
+from .kernels.emb_grad import emb_grad
+from .layers import dropout
+
+
+class EmbeddingLookup(torch.autograd.Function):
+    """Rows ``table[ids]`` of a ``(V, D)`` float32 table; the backward is
+    :func:`~.kernels.emb_grad.emb_grad` (the kernel on a CUDA tensor, its
+    plain version on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return emb_grad(ids, g.float().contiguous(), ctx.num_rows), None
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Gather rows of ``table`` at the flat int32 ``ids``; differentiable
+    through :class:`EmbeddingLookup` when the table needs a gradient."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return EmbeddingLookup.apply(table, ids)
+    return table.index_select(0, ids)
 
 
 class EmbeddingList(list):
@@ -103,13 +133,16 @@ class MultiColumnEmbedding(nn.Module):
                                  persistent=False)
             self._groups.append((dim, cols))
 
-    def forward(self, ids: torch.Tensor, training: bool = False):
+    def forward(self, ids: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout mask in training."""
         if self.n_cols == 0 or ids.shape[1] == 0:
             return EmbeddingList()
         if ids.shape[1] != self.n_cols:
             raise ValueError(
                 'The inputs dimension on axis 1 must be the same as the '
                 'length of [input_dims].')
+        ids = ids.to(torch.int32)
         batch = ids.shape[0]
         one_group = len(self._groups) == 1
         per_col = [None] * self.n_cols
@@ -120,14 +153,13 @@ class MultiColumnEmbedding(nn.Module):
             group_ids = ids if one_group \
                 else ids[:, getattr(self, f'cols_d{dim}')]
             group_ids = group_ids + getattr(self, f'offsets_d{dim}')
-            emb = table.index_select(0, group_ids.reshape(-1)).reshape(
+            emb = lookup(table, group_ids.reshape(-1)).reshape(
                 batch, len(cols), dim)
-            if training and self.dropout_rate > 0:
+            if training:
                 # SpatialDropout1D: drop whole embedding channels per
                 # (example, channel), the same channels in every field
-                keep = F.dropout(emb.new_ones(batch, 1, dim),
-                                 self.dropout_rate, training=True)
-                emb = emb * keep
+                emb = dropout(emb, self.dropout_rate, generator,
+                              broadcast_dims=(1,))
             if one_group:
                 stacked = emb
             for k, col in enumerate(cols):

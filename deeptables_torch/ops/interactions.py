@@ -18,7 +18,8 @@ class FM(nn.Module):
     ``0.5 · Σ_d [(Σ_f x)² − Σ_f x²]``. No parameters.
 
     Runs the FM kernel (``ops/kernels/fm.py``) on a CUDA input; the output
-    has the input's type."""
+    has the input's type. An input that needs a gradient (training) goes
+    through ``FMFunction``, whose backward is the FM backward kernel."""
 
     def forward(self, x, training: bool = False) -> torch.Tensor:
         """``x``: a stacked (B, F, D) tensor or a list of (B, 1, D)."""

@@ -1,14 +1,16 @@
 # -*- coding:utf-8 -*-
-"""FM second-order pooling, forward: ``(B, F, D) → (B, 1)``,
-``out_b = 0.5 · Σ_d [(Σ_f x_bfd)² − Σ_f x_bfd²]``.
+"""FM second-order pooling, ``(B, F, D) → (B, 1)``,
+``out_b = 0.5 · Σ_d [(Σ_f x_bfd)² − Σ_f x_bfd²]``, and its gradient
+``dx_bfd = g_b · (Σ_f' x_bf'd − x_bfd)``.
 
-Port of ``deeptables_tpu/ops/kernels/fm.py::fm_pallas`` (forward). The CUDA
-kernel is ``deeptables_torch/csrc/fm.cu``; its header says what bounds it
-(memory: one read of x) and how the design meets that. :func:`fm` launches
-it for a CUDA tensor and runs :func:`fm_reference` for a CPU tensor only.
-
-Inference only: the backward kernel (``_fm_bwd``, ``dx = g·(Σ_f x − x)``)
-comes with training.
+Port of ``deeptables_tpu/ops/kernels/fm.py::fm_pallas`` and the backward of
+its custom VJP (``_fm_bwd``). The CUDA kernels are in
+``deeptables_torch/csrc/fm.cu``; its header says what bounds them (memory)
+and how the design meets that. :func:`fm` and :func:`fm_backward` launch
+them for a CUDA tensor and run :func:`fm_reference` and
+:func:`fm_backward_reference` for a CPU tensor only. :class:`FMFunction`
+pairs the two as a ``torch.autograd.Function``; :func:`fm` goes through it
+whenever its input needs a gradient.
 """
 
 import ctypes
@@ -18,10 +20,8 @@ import torch
 
 from . import _build
 
-_ENTRY_POINTS = {
-    torch.float32: 'dt_fm_fwd_f32',
-    torch.bfloat16: 'dt_fm_fwd_bf16',
-}
+_FWD = {torch.float32: 'dt_fm_fwd_f32', torch.bfloat16: 'dt_fm_fwd_bf16'}
+_BWD = {torch.float32: 'dt_fm_bwd_f32', torch.bfloat16: 'dt_fm_bwd_bf16'}
 
 
 def fm_reference(x: torch.Tensor) -> torch.Tensor:
@@ -34,51 +34,128 @@ def fm_reference(x: torch.Tensor) -> torch.Tensor:
     return (0.5 * (s * s - q).sum(dim=1, keepdim=True)).to(x.dtype)
 
 
+def fm_backward_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch FM gradient: float32 sums, one rounding to x's type.
+
+    The CPU path of :func:`fm_backward` and the kernel's oracle."""
+    xf = x.float()
+    dx = g.float().reshape(-1, 1, 1) * (xf.sum(dim=1, keepdim=True) - xf)
+    return dx.to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('fm')
-    for name in _ENTRY_POINTS.values():
+    for name in _FWD.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _BWD.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.dt_fm_error_string.argtypes = [ctypes.c_int]
     lib.dt_fm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def fm(x: torch.Tensor) -> torch.Tensor:
-    """FM pooling of a contiguous ``(B, F, D)`` float32 or bfloat16 tensor.
+def _check_cuda(x: torch.Tensor, what: str):
+    if x.device.type != 'cuda':
+        raise ValueError(f'{what} runs on cuda or cpu tensors, got {x.device}')
+    if x.dtype not in _FWD:
+        raise TypeError(f'{what} kernel takes float32 or bfloat16, got '
+                        f'{x.dtype}')
+    if not x.is_contiguous():
+        raise ValueError(f'{what} kernel needs a contiguous (B, F, D) tensor')
 
-    On a CUDA tensor this launches the kernel or raises; it never falls
-    back to the plain version. ``fm.launches`` counts the launches."""
-    if x.dim() != 3:
-        raise ValueError(f'fm expects a (B, F, D) tensor, got shape '
-                         f'{tuple(x.shape)}')
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError(f'{what} kernel launch failed: CUDA error {err} '
+                           f'({lib.dt_fm_error_string(err).decode()})')
+
+
+def _fm_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == 'cpu':
         return fm_reference(x)
-    if x.device.type != 'cuda':
-        raise ValueError(f'fm runs on cuda or cpu tensors, got {x.device}')
-    if x.dtype not in _ENTRY_POINTS:
-        raise TypeError(f'fm kernel takes float32 or bfloat16, got {x.dtype}')
-    if not x.is_contiguous():
-        raise ValueError('fm kernel needs a contiguous (B, F, D) tensor')
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError('FM backward kernel: training slice')
+    _check_cuda(x, 'fm')
     B, F, D = x.shape
     out = torch.empty((B, 1), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
     lib = _library()
     with torch.cuda.device(x.device):
-        err = getattr(lib, _ENTRY_POINTS[x.dtype])(
+        err = getattr(lib, _FWD[x.dtype])(
             x.data_ptr(), out.data_ptr(), B, F, D,
             torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'fm kernel launch failed: CUDA error {err} '
-                           f'({lib.dt_fm_error_string(err).decode()})')
+    _raise_on(err, lib, 'fm')
     fm.launches += 1
     return out
 
 
+def fm_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Gradient of FM pooling with respect to a contiguous ``(B, F, D)``
+    float32 or bfloat16 ``x``, given the output's gradient ``g`` (``B`` values
+    in x's type). On a CUDA tensor this launches the kernel or raises;
+    ``fm_backward.launches`` counts the launches."""
+    if x.dim() != 3:
+        raise ValueError(f'fm_backward expects a (B, F, D) tensor, got shape '
+                         f'{tuple(x.shape)}')
+    if g.numel() != x.shape[0]:
+        raise ValueError(f'fm_backward expects one gradient per example, got '
+                         f'{tuple(g.shape)} for B={x.shape[0]}')
+    if x.device.type == 'cpu':
+        return fm_backward_reference(x, g)
+    _check_cuda(x, 'fm_backward')
+    if g.device != x.device or g.dtype != x.dtype or not g.is_contiguous():
+        raise TypeError(f'fm_backward kernel takes g contiguous on {x.device} '
+                        f'in {x.dtype}, got {g.dtype} on {g.device}')
+    B, F, D = x.shape
+    dx = torch.empty_like(x)
+    if B == 0:
+        return dx
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = getattr(lib, _BWD[x.dtype])(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, F, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, lib, 'fm_backward')
+    fm_backward.launches += 1
+    return dx
+
+
+class FMFunction(torch.autograd.Function):
+    """FM pooling with its backward kernel. Saves x, not Σ_f x, as the JAX
+    VJP does."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _fm_forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return fm_backward(x, g.to(x.dtype).contiguous())
+
+
+def fm(x: torch.Tensor) -> torch.Tensor:
+    """FM pooling of a contiguous ``(B, F, D)`` float32 or bfloat16 tensor.
+
+    On a CUDA tensor this launches the kernel or raises; it never falls
+    back to the plain version. ``fm.launches`` counts the launches. When
+    ``x`` needs a gradient, the call goes through :class:`FMFunction`, whose
+    backward is :func:`fm_backward`."""
+    if x.dim() != 3:
+        raise ValueError(f'fm expects a (B, F, D) tensor, got shape '
+                         f'{tuple(x.shape)}')
+    if x.requires_grad and torch.is_grad_enabled():
+        return FMFunction.apply(x)
+    return _fm_forward(x)
+
+
 fm.launches = 0
+fm_backward.launches = 0

@@ -12,14 +12,39 @@ semantics in torch:
   starts at zero;
 - BatchNorm normalizes the last axis with ``epsilon=1e-3`` and keeps
   ``weight``/``bias`` (flax ``scale``/``bias``) and
-  ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``).
+  ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``);
+- dropout (flax ``nn.Dropout``) keeps an element with probability ``1 − rate``
+  and scales it by ``1 / (1 − rate)``; its mask comes from an explicit
+  ``torch.Generator``, as flax's comes from an explicit key.
 """
+
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .initializers import get_initializer
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
+    """Training-mode dropout of ``x`` with a mask drawn from ``generator``
+    (on x's device); the mask is shared along ``broadcast_dims``."""
+    if rate <= 0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in training needs a torch.Generator '
+                         '(DeepModel owns one; pass it through the trace '
+                         'context).')
+    if rate >= 1:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    shape = [1 if i in broadcast_dims else s for i, s in enumerate(x.shape)]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class Dense(nn.Module):
@@ -35,10 +60,16 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over the last axis of a ``(B, C)`` input.
+    """BatchNorm over the last axis of a ``(B, C)`` input, as flax 0.12's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` computes it.
 
-    Training-mode statistics and the running-stat update (flax: biased
-    batch variance, momentum 0.9) come with the training slice."""
+    Training: float32 batch statistics ``mean = E[x]`` and the biased "fast"
+    variance ``var = max(E[x²] − E[x]², 0)``; the output is normalized with
+    them, the gradient flows through them, and the running statistics move
+    to ``0.9·running + 0.1·batch``. (``F.batch_norm(training=True)`` would
+    update ``running_var`` with the unbiased variance.)"""
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, epsilon=1e-3):
         super().__init__()
@@ -49,9 +80,17 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x, training=False):
-        if training:
-            raise NotImplementedError(
-                'BatchNorm training statistics: training slice')
-        return F.batch_norm(x.to(self.weight.dtype), self.running_mean,
-                            self.running_var, self.weight, self.bias,
-                            training=False, eps=self.epsilon)
+        x = x.to(self.weight.dtype)
+        if not training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.epsilon)
+        mean = x.mean(dim=0)
+        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                mean.detach(), alpha=1 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(
+                var.detach(), alpha=1 - self.momentum)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean) * mul + self.bias

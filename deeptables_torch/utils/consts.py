@@ -22,3 +22,10 @@ STACKING_OP_CONCAT = 'concat'
 STACKING_OP_ADD = 'add'
 
 ENV_DEEPTABLES_HOME = 'DEEPTABLES_HOME'
+
+# Metric names whose "higher is better" (model selection / early stopping).
+METRICS_BIGGER_IS_BETTER = frozenset({
+    'auc', 'acc', 'accuracy', 'precision', 'recall', 'f1', 'r2',
+    'val_auc', 'val_acc', 'val_accuracy', 'val_precision', 'val_recall',
+    'val_f1', 'val_r2',
+})

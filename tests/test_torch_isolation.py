@@ -4,8 +4,10 @@ JAX package, so that it runs on a machine that has none of them.
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch`` and
-``chip_smoke.py``, and runs a DeepFM forward on ``device='cpu'``. It hides
-any CUDA device, so that ``DeepModel`` without a device must raise.
+``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
+(stratified) validation split on ``device='cpu'``, so that training needs
+no scikit-learn. It hides any CUDA device, so that ``DeepModel`` without a
+device must raise.
 """
 
 import os
@@ -62,6 +64,12 @@ holder = type('Holder', (), {'task': 'binary', 'preprocessor': None,
                              'get_model': lambda self, selector: model})()
 assert Predictor(holder).predict_proba_arrays(
     {'cat': cat, 'input_continuous_all': dense}).shape == (9, 2)
+y = (np.arange(9) % 2).astype(np.float32)
+history = model.fit({'cat': cat, 'input_continuous_all': dense}, y,
+                    batch_size=4, epochs=2, verbose=0)
+assert np.isfinite(history.history['val_loss']).all()
+assert set(model.evaluate({'cat': cat, 'input_continuous_all': dense}, y)) \
+    == {'loss', 'accuracy'}
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))
