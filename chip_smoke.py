@@ -17,40 +17,55 @@ these phases, each printing one JSON line:
    rotated over more than twice the 50 MB L2. ``ms`` is the device time of
    one call (``torch.profiler``), ``call_ms`` the time between back-to-back
    calls (CUDA events), beside the bound (bytes over 3.35 TB/s).
-3. ``serving``: a DeepFM ``DeepModel`` at full criteo width (26 categorical
-   columns at D=16, 13 dense, DNN 1024/512 relu), random weights from
-   ``config.seed``, served through ``Predictor`` with the default buckets,
-   under ``dtype_policy='bfloat16'`` and then ``'float32'``. Requests of
-   1, 37, 4096 and 10000 rows from ``load_criteo_synthetic``. It checks the
-   probabilities (finite, ``(n, 2)``, rows sum to 1), that the FM kernel ran
-   once per padded chunk, and that the same weights on ``device='cpu'`` (the
-   plain path) give the same probabilities: float32 atol 1e-5, bfloat16
-   atol 1e-2.
-4. ``profile``: device time by kernel over three 4096-row requests
-   (``torch.profiler``), and the device's busy share of that window.
-5. ``kernel`` for ``fm_bwd`` (the FM backward kernel against
+3. ``kernel`` for ``fm_bwd`` (the FM backward kernel against
    ``fm_backward_reference``, float32 and bfloat16) and ``emb_grad`` (the
    embedding-gradient kernel against ``emb_grad_reference``, on
    ``load_criteo_synthetic`` ids, which follow a Zipf law, and on uniform
    ids), at the training shapes B = 64, 512, 4093, 8192 (F=26, D=16), with
    the same timings; ``emb_grad`` rows also time ``index_add_`` into a zeroed
    table, the one PyTorch call that computes the same function.
-6. ``train``, under ``dtype_policy='bfloat16'`` and then ``'float32'``: the
-   same DeepFM on the card, ``DeepModel.fit`` over 8 batches of 8192 rows of
-   ``load_criteo_synthetic`` for 3 epochs, one more batch for validation. It
-   checks that every loss is finite, that the loss fell from epoch 1 to
-   epoch 3, and that the FM backward and embedding-gradient kernels each
-   launched once per step; it prints the median step time and examples/s
-   over epochs 2-3 and ``val_auc``. Then ``train_profile``: two train steps
-   under ``torch.profiler`` (device time by kernel, busy share). Then the
-   same initial weights on the card and on ``device='cpu'`` (the plain
-   path) give the same step-1 gradients (float32 rtol 1e-4, bfloat16 rtol
-   1e-2, both atol 1e-2 of each tensor's largest gradient: a ReLU input
-   within rounding of zero may flip one example's gradient) and, fitting three
-   batches, the same losses (float32 rtol 1e-4, bfloat16 atol 1e-2) and, in
-   float32, parameters within atol 2e-4 for all but at most 1% of a
-   tensor's elements (Adam turns rounding in a gradient near zero into
-   steps of ~lr).
+4. ``kernel`` for ``cin_fwd`` (K4, the CIN contraction) and ``cin_bwd`` (K3,
+   its gradient) against ``cin_fwd_reference`` and ``cin_bwd_reference``
+   at xDeepFM's two CIN layers, (F, G, L) = (26, 26, 128) and (26, 64, 128),
+   B = 4096, 8192 and 4093, D=16, float32 and bfloat16, every output within
+   1e-5 of the sum of its terms' magnitudes (dx0 and dh in bfloat16 also
+   rtol 1e-2, their one rounding). Beside each: the yardstick
+   ``torch.einsum('bfd,bgd,lfg->bld')`` (K4) and ``torch.autograd.grad`` of
+   it (K3, several kernels), which the port never calls, and the bound (the
+   larger of bytes over 3.35 TB/s and operations over the card's rate for
+   the input type: 989 TFLOP/s bfloat16, 67 float32).
+5. For DeepFM and then xDeepFM (26 categorical columns at D=16, 13 dense,
+   DNN 1024/512 relu; xDeepFM's CIN (128, 128) relu), random weights from
+   ``config.seed``:
+   - ``serving`` under ``dtype_policy='bfloat16'`` and then ``'float32'``,
+     through ``Predictor`` with the default buckets, requests of 1, 37, 4096
+     and 10000 rows from ``load_criteo_synthetic``. It checks the
+     probabilities (finite, ``(n, 2)``, rows sum to 1), that the forward
+     kernel ran once (FM) or twice (the CIN layers) per padded chunk, and
+     that the same weights on ``device='cpu'`` (the plain path) and, for
+     xDeepFM, the batch-minor CIN tower give the same probabilities:
+     float32 atol 1e-5, bfloat16 atol 1e-2. ``profile`` (bfloat16): device
+     time by kernel over three 4096-row requests and the busy share.
+   - ``train``, under ``'bfloat16'`` and then ``'float32'``:
+     ``DeepModel.fit`` over 8 batches of 8192 rows of
+     ``load_criteo_synthetic`` for 3 epochs, one more batch for validation.
+     It checks that every loss is finite, that the loss fell from epoch 1 to
+     epoch 3, and each kernel's launches: the embedding gradient once a
+     step; DeepFM's FM backward once a step and FM forward once a step and
+     validation batch; xDeepFM's K3 twice a step and K4 twice a step and
+     validation batch. It prints the median step time and examples/s over
+     epochs 2-3 and ``val_auc``. Then ``train_profile``: two train steps
+     under ``torch.profiler`` (device time by kernel, busy share). Then the
+     same initial weights on the card and on ``device='cpu'`` (the plain
+     path), at 8192-row batches for DeepFM and 1024-row batches for xDeepFM
+     (the CPU plain path materialises the CIN pair), give the same step-1
+     gradients (float32 rtol 1e-4, bfloat16 rtol 1e-2, both atol 1e-2 of
+     each tensor's largest gradient: a ReLU input within rounding of zero
+     may flip one example's gradient) and, fitting three batches, the same
+     losses (float32 rtol 1e-4, bfloat16 atol 1e-2) and, in float32,
+     parameters within atol 2e-4 for all but at most 1% of a tensor's
+     elements (Adam turns rounding in a gradient near zero into steps of
+     ~lr).
 
 Then one ``kernels`` line (every ported kernel, its launches on the serving
 and training runs, error and times), the ``nvidia-smi`` line again, and
@@ -77,7 +92,18 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
+BF16_OPS_PER_S = 989e12  # dense bfloat16 tensor cores
+
 F_CRITEO, D_CRITEO, N_DENSE = 26, 16, 13
+NETS = {'DeepFM': ['linear', 'fm_nets', 'dnn_nets'],
+        'xDeepFM': ['linear', 'cin_nets', 'dnn_nets']}
+XDEEPFM_CIN = {'cross_layer_size': (128, 128), 'activation': 'relu'}
+# the forward kernel a request runs, and its launches per padded chunk
+SERVING_KERNEL = {'DeepFM': ('fm_fwd', 1), 'xDeepFM': ('cin_fwd', 2)}
+# xDeepFM's CIN layers, (F, G, L): G = 26 input fields, then 64 = 128 / 2
+CIN_LAYERS = {'layer1': (26, 26, 128), 'layer2': (26, 64, 128)}
+CIN_BATCHES = (4096, 8192, 4093)
+CIN_HEADLINE = ('bfloat16', 'layer2', 8192)
 KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 12288)
 TRAIN_KERNEL_BATCHES = (64, 512, 4093, 8192)
 REQUESTS = (1, 37, 4096, 10000)
@@ -87,6 +113,8 @@ TRAIN_HEADLINE = ('bfloat16', 8192)  # ... and the training batch of bench.py
 RTOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 SERVING_ATOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 8192, 8, 3
+# the card-against-CPU comparison's batch (three of them and one validation)
+COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024}
 # float atomics add in a run-dependent order: only rounding may differ
 EMB_GRAD_RTOL = 1e-5
 # card against CPU after three float32 Adam steps (see train_phase)
@@ -318,6 +346,130 @@ def fm_bwd_kernel_phase(torch, fm_module):
     return rows
 
 
+def cin_bound(kernel, B, F, G, L, D, itemsize):
+    """Least time of the CIN contraction (``cin_fwd``) or its gradient
+    (``cin_bwd``) in ms, and what bounds it. Bytes: each input read once,
+    each output written once (z and dW float32, dx0 and dh in the input
+    type). Operations: the GEMM (2·L·F·G per column) and the pair products
+    (F·G per column); the gradient twice the GEMM (dpair and dW) and 5·F·G
+    per column (pair, dx0 and dh products and sums). Peak: the card's rate
+    for the input type (bfloat16 on the tensor cores, float32 off them)."""
+    N = B * D
+    if kernel == 'cin_fwd':
+        nbytes = itemsize * (N * F + N * G + L * F * G) + 4 * L * N
+        ops = 2 * L * F * G * N + F * G * N
+    else:
+        nbytes = itemsize * (2 * N * F + 2 * N * G + L * F * G + L * N) \
+            + 4 * L * F * G
+        ops = 4 * L * F * G * N + 5 * F * G * N
+    peak = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+    bound = (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
+                                                            'operations')
+    return bound + (ops,)
+
+
+def cin_kernel_phase(torch, cin_module):
+    """K4 (``cin_fwd``) and K3 (``cin_bwd``) against their plain versions
+    on the card, at the xDeepFM layers' shapes; returns the rows by
+    kernel. Every output is held to 1e-5 times the sum of the magnitudes
+    of its terms (both sum float32 products of the same inputs, in another
+    order); dx0 and dh in bfloat16 add rtol 1e-2 for their one rounding."""
+    fwd, bwd = cin_module.cin_fwd, cin_module.cin_bwd
+    fwd_ref, bwd_ref = cin_module.cin_fwd_reference, cin_module.cin_bwd_reference
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    rows = {'cin_fwd': [], 'cin_bwd': []}
+    D = D_CRITEO
+    for dtype_name in ('float32', 'bfloat16'):
+        dtype = getattr(torch, dtype_name)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        rtol_out = 0. if dtype_name == 'float32' else 1e-2
+        for layer, (F, G, L) in CIN_LAYERS.items():
+            for B in CIN_BATCHES:
+                def make():
+                    return tuple(
+                        torch.randn(shape, generator=gen, device='cuda')
+                        .to(dtype) for shape in
+                        ((B, F, D), (B, G, D), (L, F, G), (B, L, D)))
+                x0, h, w, dz = make()
+                outs = {'cin_fwd': (fwd(x0, h, w),),
+                        'cin_bwd': bwd(x0, h, w, dz)}
+                refs = {'cin_fwd': (fwd_ref(x0, h, w),),
+                        'cin_bwd': bwd_ref(x0, h, w, dz)}
+                scales = {'cin_fwd': (fwd_ref(x0.abs(), h.abs(), w.abs()),),
+                          'cin_bwd': bwd_ref(x0.abs(), h.abs(), w.abs(),
+                                             dz.abs())}
+                torch.cuda.synchronize()
+                errs, shares = {}, {}
+                for name in rows:
+                    errs[name], shares[name] = 0., 0.
+                    for i, (out, ref, scale) in enumerate(zip(
+                            outs[name], refs[name], scales[name])):
+                        check(out.shape == ref.shape and out.dtype == ref.dtype,
+                              f'{name} output {i}: {tuple(out.shape)} '
+                              f'{out.dtype}')
+                        err = (out.float() - ref.float()).abs()
+                        r = rtol_out if ref.dtype != torch.float32 else 0.
+                        limit = 1e-5 * scale.float() + r * ref.float().abs()
+                        errs[name] = max(errs[name], float(err.max()))
+                        shares[name] = max(shares[name], float(
+                            (err / limit.clamp_min(1e-30)).max()))
+                        check(bool((err <= limit).all()),
+                              f'{name} kernel disagrees with its plain '
+                              f'version: {dtype_name} {layer} B={B} output '
+                              f'{i} max_abs_err={float(err.max())}')
+                del outs, refs, scales
+                bufs = [(x0, h, w, dz)] + [make() for _ in range(
+                    n_buffers(x0.nbytes + h.nbytes + dz.nbytes) - 1)]
+                iters = 10
+                einsum = 'bfd,bgd,lfg->bld'
+
+                def graph(a):
+                    leaves = [t.detach().requires_grad_(True) for t in a[:3]]
+                    return leaves, torch.einsum(einsum, *leaves), a[3]
+                graphs = [graph(a) for a in bufs]
+                fns = {'cin_fwd': (lambda a: fwd(*a[:3]),
+                                   lambda a: fwd_ref(*a[:3]),
+                                   lambda a: torch.einsum(einsum, *a[:3]),
+                                   bufs),
+                       'cin_bwd': (lambda a: bwd(*a), lambda a: bwd_ref(*a),
+                                   lambda g: torch.autograd.grad(
+                                       g[1], g[0], g[2], retain_graph=True),
+                                   graphs)}
+                for name, (kernel, plain, library, lib_inputs) in fns.items():
+                    bound_ms, bound_by, ops = cin_bound(name, B, F, G, L, D,
+                                                        itemsize)
+                    row = {'dtype': dtype_name, 'layer': layer, 'B': B,
+                           'F': F, 'G': G, 'L': L, 'D': D,
+                           'max_abs_err': errs[name],
+                           'max_err_share_of_tolerance': shares[name],
+                           'rtol_terms': 1e-5,
+                           'rtol_out': rtol_out,
+                           'ms': device_ms(torch, kernel, bufs, iters),
+                           'plain_ms': device_ms(torch, plain, bufs, iters),
+                           'library_ms': device_ms(torch, library,
+                                                   lib_inputs, iters),
+                           'call_ms': call_ms(torch, kernel, bufs, iters),
+                           'plain_call_ms': call_ms(torch, plain, bufs,
+                                                    iters),
+                           'library_call_ms': call_ms(
+                               torch, library, lib_inputs, iters),
+                           'bound_ms': bound_ms, 'bound_by': bound_by,
+                           'gflop': ops / 1e9, 'buffers': len(bufs)}
+                    row['tflop_per_s'] = ops / row['ms'] / 1e9
+                    rows[name].append(row)
+                del bufs, graphs, x0, h, w, dz
+                torch.cuda.empty_cache()
+    emit({'phase': 'kernel', 'kernel': 'cin_fwd',
+          'library_call': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
+          'rows': rows['cin_fwd']})
+    emit({'phase': 'kernel', 'kernel': 'cin_bwd',
+          'library_call': 'autograd: torch.autograd.grad of that einsum '
+                          '(several kernels, not one call)',
+          'rows': rows['cin_bwd']})
+    return rows
+
+
 def flat_ids(torch, cat, vocabs):
     """(B, 26) column ids → the flat int32 ids of the fused table."""
     offsets = np.concatenate([[0], np.cumsum(np.asarray(vocabs) + 1)[:-1]])
@@ -397,13 +549,17 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic):
     return rows
 
 
-def criteo_model(port, dtype_policy, device, vocabs):
+def criteo_model(port, dtype_policy, device, vocabs, model='DeepFM',
+                 cin_params=None):
+    """DeepFM or xDeepFM at full criteo width; ``cin_params`` updates
+    xDeepFM's CIN (128, 128) relu."""
     config = port.ModelConfig(
-        nets=['linear', 'fm_nets', 'dnn_nets'], metrics=['AUC'],
+        nets=NETS[model], metrics=['AUC'],
         task='binary', embedding_dropout=0,
         embeddings_output_dim=D_CRITEO,
         dnn_params={'hidden_units': ((1024, 0, False), (512, 0, False)),
                     'activation': 'relu'},
+        cin_params=dict(XDEEPFM_CIN, **(cin_params or {})),
         dtype_policy=dtype_policy)
     cats = tuple(port.CategoricalColumn(f'C{i + 1}', int(v) + 1, D_CRITEO)
                  for i, v in enumerate(vocabs))
@@ -418,22 +574,27 @@ def estimator(model):
                                  get_model=lambda selector: model)
 
 
-def serving_phase(torch, port, fm_fn, dtype_policy, vocabs, requests):
-    """Serve the requests on the card; the FM launch count is read around
-    exactly this run."""
+def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
+                  model_name='DeepFM'):
+    """Serve the requests on the card; the forward kernel's launch count
+    (FM for DeepFM, once a padded chunk; the CIN contraction for xDeepFM,
+    once a layer and chunk) is read around exactly this run."""
+    name, per_chunk = SERVING_KERNEL[model_name]
+    fn = kernel_fns[name]
     t0 = time.perf_counter()
-    model = criteo_model(port, dtype_policy, None, vocabs)
+    model = criteo_model(port, dtype_policy, None, vocabs, model_name)
     predictor = port.Predictor(estimator(model))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     check(model.device.type == 'cuda', f'model is on {model.device}')
 
-    fm_fn.launches = 0
+    for other in kernel_fns.values():
+        other.launches = 0
     t0 = time.perf_counter()
     predictor.warmup()
     warmup_s = time.perf_counter() - t0
-    check(fm_fn.launches == len(predictor.buckets),
-          f'warmup launched the FM kernel {fm_fn.launches} times for '
+    check(fn.launches == per_chunk * len(predictor.buckets),
+          f'warmup launched {name} {fn.launches} times for '
           f'{len(predictor.buckets)} buckets')
     served, outputs = [], {}
     for n, arrays in requests:
@@ -441,12 +602,12 @@ def serving_phase(torch, port, fm_fn, dtype_policy, vocabs, requests):
         chunks = math.ceil(n / bucket)
         times = []
         for _ in range(REPEATS):
-            before = fm_fn.launches
+            before = fn.launches
             t = time.perf_counter()
             proba = predictor.predict_proba_arrays(arrays)
             times.append(1e3 * (time.perf_counter() - t))
-            check(fm_fn.launches - before == chunks,
-                  f'n={n}: {fm_fn.launches - before} FM launches for '
+            check(fn.launches - before == per_chunk * chunks,
+                  f'n={n}: {fn.launches - before} {name} launches for '
                   f'{chunks} padded chunks')
         check(proba.shape == (n, 2), f'n={n}: proba shape {proba.shape}')
         check(bool(torch.isfinite(torch.from_numpy(proba)).all()),
@@ -457,29 +618,41 @@ def serving_phase(torch, port, fm_fn, dtype_policy, vocabs, requests):
         served.append({'n': n, 'bucket': bucket, 'chunks': chunks,
                        'ms': times, 'ms_median': sorted(times)[REPEATS // 2],
                        'row_sum_err': row_sum_err})
-    launches = fm_fn.launches
-    check(launches > 0, 'the serving run never launched the FM kernel')
+    launches = {k: f.launches for k, f in kernel_fns.items()}
+    check(launches[name] > 0, f'the serving run never launched {name}')
+    check(all(v == 0 for k, v in launches.items() if k != name),
+          f'{model_name} serving launched {launches}')
 
-    # the same weights on the CPU run the plain path
-    cpu_model = criteo_model(port, dtype_policy, 'cpu', vocabs)
-    cpu_model.build().load_state_dict(model.module.state_dict())
-    cpu_predictor = port.Predictor(estimator(cpu_model))
+    # the same weights on the CPU run the plain path; for xDeepFM, the
+    # batch-minor CIN tower on the card gives the same probabilities
+    twins = [('cpu', criteo_model(port, dtype_policy, 'cpu', vocabs,
+                                  model_name))]
+    if model_name == 'xDeepFM':
+        twins.append(('batch_minor', criteo_model(
+            port, dtype_policy, None, vocabs, model_name,
+            {'layout': 'batch_minor'})))
     atol = SERVING_ATOL[dtype_policy]
-    for row, (n, arrays) in zip(served, requests):
-        diff = float(abs(cpu_predictor.predict_proba_arrays(arrays)
-                         - outputs[n]).max())
-        check(diff <= atol, f'{dtype_policy} n={n}: card and CPU plain path '
-                            f'differ by {diff} > {atol}')
-        row['max_abs_diff_vs_cpu'] = diff
-    check(fm_fn.launches == launches, 'the CPU path launched the FM kernel')
-    emit({'phase': 'serving', 'dtype_policy': dtype_policy,
+    for twin_name, twin in twins:
+        twin.build().load_state_dict(model.module.state_dict())
+        twin_predictor = port.Predictor(estimator(twin))
+        for row, (n, arrays) in zip(served, requests):
+            diff = float(abs(twin_predictor.predict_proba_arrays(arrays)
+                             - outputs[n]).max())
+            check(diff <= atol, f'{model_name} {dtype_policy} n={n}: the '
+                                f'card and {twin_name} differ by {diff} > '
+                                f'{atol}')
+            row[f'max_abs_diff_vs_{twin_name}'] = diff
+        del twin, twin_predictor
+    emit({'phase': 'serving', 'model': model_name,
+          'dtype_policy': dtype_policy,
           'build_s': build_s, 'warmup_s': warmup_s,
-          'buckets': predictor.buckets, 'fm_launches': launches,
-          'atol_vs_cpu': atol, 'requests': served})
-    return predictor, launches
+          'buckets': predictor.buckets, 'kernel': name,
+          'launches': launches[name], 'launches_per_chunk': per_chunk,
+          'atol_vs_twins': atol, 'requests': served})
+    return predictor, launches[name]
 
 
-def profile_phase(torch, predictor, arrays, n):
+def profile_phase(torch, predictor, arrays, n, model_name='DeepFM'):
     """Device time by kernel over three requests, and the busy share."""
     from torch.profiler import ProfilerActivity, profile
     predictor.predict_proba_arrays(arrays)
@@ -494,8 +667,8 @@ def profile_phase(torch, predictor, arrays, n):
     device = device_kernels(torch, prof)
     busy_us = sum(e.self_device_time_total for e in device)
     check(busy_us > 0, 'the profiler saw no device time')
-    emit({'phase': 'profile', 'dtype_policy': predictor.model.config.dtype_policy,
-          'n': n, 'requests': 3, 'wall_ms': wall_us / 1e3,
+    emit({'phase': 'profile', 'model': model_name,
+          'dtype_policy': predictor.model.config.dtype_policy, 'n': n, 'requests': 3, 'wall_ms': wall_us / 1e3,
           'device_busy_ms': busy_us / 1e3,
           'device_busy_share': busy_us / wall_us,
           'by_kernel': [{'name': e.key[:90], 'count': e.count,
@@ -513,14 +686,15 @@ def rows_of(arrays, start, stop):
     return {k: v[start:stop] for k, v in arrays.items()}
 
 
-def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
+def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
+                model_name='DeepFM'):
     """fit on the card; the kernels' launch counts are read around exactly
     this run."""
     arrays, y = data
     n_train = TRAIN_STEPS * TRAIN_BATCH
     train = rows_of(arrays, 0, n_train), y[:n_train]
     val = rows_of(arrays, n_train, n_train + TRAIN_BATCH), y[n_train:]
-    model = criteo_model(port, dtype_policy, None, vocabs)
+    model = criteo_model(port, dtype_policy, None, vocabs, model_name)
     module = model.build()
     init_state = {k: v.detach().cpu().clone()
                   for k, v in module.state_dict().items()}
@@ -553,12 +727,20 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
     check(logs['loss'][-1] < logs['loss'][0],
           f'the loss did not fall from epoch 1 to {TRAIN_EPOCHS}: '
           f'{logs["loss"]}')
-    # one width group and one FM: each backward kernel once a step; the FM
-    # forward once a step and once a validation batch
-    check(launches['emb_grad'] == steps and launches['fm_bwd'] == steps,
-          f'{steps} steps launched {launches}')
-    check(launches['fm_fwd'] == steps + TRAIN_EPOCHS,
-          f'{steps} steps and {TRAIN_EPOCHS} validations launched {launches}')
+    # one width group: K1 once a step. DeepFM: K2-bwd once a step, K2-fwd
+    # once a step and once a validation batch. xDeepFM: K3 once a CIN layer
+    # and step, K4 once a layer and step or validation batch
+    layers = len(XDEEPFM_CIN['cross_layer_size'])
+    expected = dict.fromkeys(kernel_fns, 0)
+    expected['emb_grad'] = steps
+    if model_name == 'DeepFM':
+        expected.update(fm_bwd=steps, fm_fwd=steps + TRAIN_EPOCHS)
+    else:
+        expected.update(cin_bwd=layers * steps,
+                        cin_fwd=layers * (steps + TRAIN_EPOCHS))
+    check(launches == expected, f'{model_name}: {steps} steps and '
+                                f'{TRAIN_EPOCHS} validations launched '
+                                f'{launches}, expected {expected}')
     later = sorted(step_s[TRAIN_STEPS:])
     median_s = later[len(later) // 2]
 
@@ -582,21 +764,27 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
 
     # the same initial weights on the card and the CPU: the gradients of
     # one step, then the losses and parameters of a fit over three batches
-    compare = rows_of(train[0], 0, 3 * TRAIN_BATCH), train[1][:3 * TRAIN_BATCH]
+    # (xDeepFM at smaller batches: the CPU plain path materialises the
+    # pair, 218 M values a layer at B=8192)
+    cb = COMPARE_BATCH[model_name]
+    compare = rows_of(train[0], 0, 3 * cb), train[1][:3 * cb]
+    compare_val = rows_of(val[0], 0, cb), val[1][:cb]
+    first = rows_of(train[0], 0, cb), train[1][:cb]
     twins, grads, fits = {}, {}, {}
     for run, device_name in (('card', None), ('cpu', 'cpu')):
-        twin = criteo_model(port, dtype_policy, device_name, vocabs)
+        twin = criteo_model(port, dtype_policy, device_name, vocabs,
+                            model_name)
         twin_module = twin.build()
         twin_module.load_state_dict(init_state)
-        logits, _ = twin_module(twin.to_device(batches[0][0]), training=True)
-        twin._loss_fn()(logits, torch.from_numpy(batches[0][1]).to(
+        logits, _ = twin_module(twin.to_device(first[0]), training=True)
+        twin._loss_fn()(logits, torch.from_numpy(first[1]).to(
             twin.device), None).backward()
         grads[run] = {k: p.grad.detach().cpu().clone()
                       for k, p in twin_module.named_parameters()}
         twin_module.zero_grad(set_to_none=True)
         twin_module.load_state_dict(init_state)  # undo the BN statistics
-        h = twin.fit(compare[0], compare[1], batch_size=TRAIN_BATCH, epochs=1,
-                     validation_data=val, shuffle=False, verbose=0)
+        h = twin.fit(compare[0], compare[1], batch_size=cb, epochs=1,
+                     validation_data=compare_val, shuffle=False, verbose=0)
         fits[run] = ({k: v.detach().cpu() for k, v in
                       twin_module.state_dict().items()},
                      {k: v[0] for k, v in h.history.data.items()})
@@ -618,13 +806,13 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
         scale = float(ref.abs().max())
         grad_err[k] = float(err.max()) / max(scale, 1e-30)
         check(bool((err <= g_rtol * ref.abs() + g_atol * scale).all()),
-              f'{dtype_policy}: card and CPU step-1 gradients of {k} differ '
+              f'{model_name} {dtype_policy}: card and CPU step-1 gradients of {k} differ '
               f'by {float(err.max())} (largest gradient {scale})')
     params = None
     if dtype_policy == 'float32':
         for k, d in loss_diff.items():
             check(d <= 1e-4 * abs(cpu_logs[k]),
-                  f'{dtype_policy}: card {k} {card_logs[k]} vs CPU '
+                  f'{model_name} {dtype_policy}: card {k} {card_logs[k]} vs CPU '
                   f'{cpu_logs[k]}')
         # parameters atol 2e-4 after three Adam steps, but Adam moves an
         # element by ~lr = 1e-3 a step whatever its gradient's size, so an
@@ -638,7 +826,7 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
                          'over_atol': int((d > PARAM_ATOL).sum()),
                          'elements': d.numel()}
             check(params[k]['over_atol'] <= PARAM_OUTLIERS * d.numel(),
-                  f'{dtype_policy}: card and CPU parameters {k} differ after '
+                  f'{model_name} {dtype_policy}: card and CPU parameters {k} differ after '
                   f'3 steps: {params[k]}')
         tolerance = {'loss_rtol': 1e-4, 'grad_rtol': g_rtol,
                      'grad_atol_of_max': g_atol, 'param_atol': PARAM_ATOL,
@@ -647,23 +835,25 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data):
         # bf16 rounds at other places on the card (kernels) and the CPU
         # (plain path)
         check(all(d <= 1e-2 for d in loss_diff.values()),
-              f'{dtype_policy}: card and CPU losses differ by {loss_diff}')
+              f'{model_name} {dtype_policy}: card and CPU losses differ by {loss_diff}')
         tolerance = {'loss_atol': 1e-2, 'grad_rtol': g_rtol,
                      'grad_atol_of_max': g_atol}
 
-    emit({'phase': 'train', 'dtype_policy': dtype_policy,
-          'batch_size': TRAIN_BATCH, 'steps': steps, 'epochs': TRAIN_EPOCHS,
+    emit({'phase': 'train', 'model': model_name,
+          'dtype_policy': dtype_policy, 'batch_size': TRAIN_BATCH, 'steps': steps, 'epochs': TRAIN_EPOCHS,
           'fit_s': fit_s, 'step_ms': [1e3 * t for t in step_s],
           'median_step_ms_after_epoch_1': 1e3 * median_s,
           'examples_per_s_after_epoch_1': TRAIN_BATCH / median_s,
           'launches': launches, 'logs': logs,
           'val_auc': logs['val_auc'][-1],
-          'card_vs_cpu': {'card': card_logs, 'cpu': cpu_logs,
+          'card_vs_cpu': {'batch_size': cb, 'card': card_logs,
+                          'cpu': cpu_logs,
                           'loss_diff': loss_diff,
                           'step1_grad_err_of_max': grad_err,
                           'params_vs_cpu': params,
                           'tolerance': tolerance}})
-    emit({'phase': 'train_profile', 'dtype_policy': dtype_policy,
+    emit({'phase': 'train_profile', 'model': model_name,
+          'dtype_policy': dtype_policy,
           'steps': 2, 'wall_ms': wall_us / 1e3,
           'device_busy_ms': busy_us / 1e3,
           'device_busy_share': busy_us / wall_us,
@@ -688,6 +878,7 @@ def main():
     import deeptables_torch as port
     from deeptables_torch.data.datasets import load_criteo_synthetic
     from deeptables_torch.ops.kernels import _build
+    from deeptables_torch.ops.kernels import cin as cin_module
     from deeptables_torch.ops.kernels import emb_grad as eg_module
     from deeptables_torch.ops.kernels import fm as fm_module
 
@@ -702,36 +893,48 @@ def main():
     bwd_rows = fm_bwd_kernel_phase(torch, fm_module)
     grad_rows = emb_grad_kernel_phase(torch, eg_module, vocabs,
                                       load_criteo_synthetic)
+    cin_rows = cin_kernel_phase(torch, cin_module)
 
     requests = []
     for i, n in enumerate(REQUESTS):
         cat, dense, _, _ = load_criteo_synthetic(n_rows=n, seed=100 + i,
                                                  return_arrays=True)
         requests.append((n, {'cat': cat, 'input_continuous_all': dense}))
-    launches = {'fm_fwd': 0, 'fm_bwd': 0, 'emb_grad': 0}
-    for dtype_policy in ('bfloat16', 'float32'):
-        predictor, count = serving_phase(torch, port, fm_module.fm,
-                                         dtype_policy, vocabs, requests)
-        launches['fm_fwd'] += count
-        if dtype_policy == HEADLINE[0]:
-            profile_phase(torch, predictor, dict(requests)[4096], 4096)
-        del predictor
-        torch.cuda.empty_cache()
-
     kernel_fns = {'fm_fwd': fm_module.fm, 'fm_bwd': fm_module.fm_backward,
-                  'emb_grad': eg_module.emb_grad}
+                  'emb_grad': eg_module.emb_grad,
+                  'cin_fwd': cin_module.cin_fwd,
+                  'cin_bwd': cin_module.cin_bwd}
+    launches = dict.fromkeys(kernel_fns, 0)
     data = train_data(load_criteo_synthetic, TRAIN_STEPS + 1, seed=7)
-    for dtype_policy in ('bfloat16', 'float32'):
-        for name, count in train_phase(torch, port, kernel_fns, dtype_policy,
-                                       vocabs, data).items():
-            launches[name] += count
-        torch.cuda.empty_cache()
+    for model_name in ('DeepFM', 'xDeepFM'):
+        for dtype_policy in ('bfloat16', 'float32'):
+            predictor, count = serving_phase(torch, port, kernel_fns,
+                                             dtype_policy, vocabs, requests,
+                                             model_name)
+            launches[SERVING_KERNEL[model_name][0]] += count
+            if dtype_policy == HEADLINE[0]:
+                profile_phase(torch, predictor, dict(requests)[4096], 4096,
+                              model_name)
+            del predictor
+            torch.cuda.empty_cache()
+        for dtype_policy in ('bfloat16', 'float32'):
+            for name, count in train_phase(torch, port, kernel_fns,
+                                           dtype_policy, vocabs, data,
+                                           model_name).items():
+                launches[name] += count
+            torch.cuda.empty_cache()
 
     head = next(r for r in rows if (r['dtype'], r['B']) == HEADLINE)
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
     grad = next(r for r in grad_rows
                 if (r['ids'], r['B']) == ('criteo', TRAIN_HEADLINE[1]))
+    cin_head = {name: next(r for r in cin_rows[name]
+                           if (r['dtype'], r['layer'], r['B']) == CIN_HEADLINE)
+                for name in cin_rows}
     train_at = {'B': TRAIN_HEADLINE[1], 'F': F_CRITEO, 'D': D_CRITEO}
+    cin_at = dict(zip(('dtype', 'layer', 'B'), CIN_HEADLINE))
+    cin_at.update(zip(('F', 'G', 'L'), CIN_LAYERS[CIN_HEADLINE[1]]),
+                  D=D_CRITEO)
     emit({'kernels': [{
         'name': 'fm_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/fm.cu',
@@ -760,7 +963,32 @@ def main():
         'bound_ms': grad['bound_ms'], 'bound_by': grad['bound_by'],
         'library_ms': grad['library_ms'],
         'library_note': 'torch.zeros(V, D).index_add_(0, ids, g)',
-        'at': dict(train_at, ids='criteo', dtype='float32')}]})
+        'at': dict(train_at, ids='criteo', dtype='float32')}, {
+        'name': 'cin_fwd', 'route': 'cuda',
+        'source': 'deeptables_torch/csrc/cin.cu',
+        'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',
+        'launches': launches['cin_fwd'],
+        'max_abs_err': cin_head['cin_fwd']['max_abs_err'],
+        'ms': cin_head['cin_fwd']['ms'],
+        'plain_ms': cin_head['cin_fwd']['plain_ms'],
+        'bound_ms': cin_head['cin_fwd']['bound_ms'],
+        'bound_by': cin_head['cin_fwd']['bound_by'],
+        'library_ms': cin_head['cin_fwd']['library_ms'],
+        'library_note': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
+        'at': cin_at}, {
+        'name': 'cin_bwd', 'route': 'cuda',
+        'source': 'deeptables_torch/csrc/cin.cu',
+        'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:42',
+        'launches': launches['cin_bwd'],
+        'max_abs_err': cin_head['cin_bwd']['max_abs_err'],
+        'ms': cin_head['cin_bwd']['ms'],
+        'plain_ms': cin_head['cin_bwd']['plain_ms'],
+        'bound_ms': cin_head['cin_bwd']['bound_ms'],
+        'bound_by': cin_head['cin_bwd']['bound_by'],
+        'library_ms': cin_head['cin_bwd']['library_ms'],
+        'library_note': 'autograd: torch.autograd.grad of that einsum '
+                        '(several kernels, not one call)',
+        'at': cin_at}]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -26,6 +26,11 @@ What it maps:
   ``[0:F]`` of ``linear_logit`` and the first ``F·D`` entries of
   ``bn_concat_emb_dense`` and rows of ``dnn_dense_1`` (blocks of D). They are
   permuted into column order.
+- CIN (``cin_layer``): ``f_i``, ``bias_i``, ``f0_i``/``f__i`` as they are,
+  ``exFM_out0``/``exFM_out`` as Dense. Every axis that runs over the input
+  fields is in plan order and is permuted: axes 1 and 2 of ``f_0`` (h = x0
+  at layer 0), axis 1 of ``f_i`` (i > 0) and ``f0_i``, axis 2 of ``f__0``.
+  The hidden-unit axes are not.
 """
 
 from typing import Dict, List, Sequence
@@ -41,7 +46,8 @@ _LANES = 128
 _TILE_P = 256
 
 _EMBEDDING = consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all'
-_BRIDGED_NETS = ('linear', 'fm_nets', 'dnn_nets')
+_BRIDGED_NETS = ('linear', 'fm_nets', 'cin_nets', 'dnn_nets')
+_CIN = 'cin_layer'
 
 
 def _pack_factor(dim: int) -> int:
@@ -125,6 +131,8 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
             out.update(_embedding_tables(node, input_dims, output_dims))
         elif name.startswith(consts.LAYER_PREFIX_EMBEDDING):
             raise NotImplementedError(f'no weight bridge yet for {name!r}')
+        elif name == _CIN:
+            out.update(_cin_weights(node, order))
         elif 'kernel' in node:
             kernel = _f32(node['kernel'])
             if name in blocks and order:
@@ -147,6 +155,35 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
                 f'no weight bridge yet for flax module {name!r}')
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+def _permute_axis(a: np.ndarray, order: List[int], axis: int):
+    """Axis ``axis`` of ``a`` (one entry per field) from JAX field order to
+    column order."""
+    return np.moveaxis(_to_column_order(np.moveaxis(a, axis, 0), order, 1),
+                       0, axis)
+
+
+def _cin_weights(node, order):
+    out = {}
+    for key, value in node.items():
+        if 'kernel' in value:  # exFM_out0, exFM_out
+            out[f'{_CIN}.{key}.weight'] = _f32(value['kernel']).T
+            if 'bias' in value:
+                out[f'{_CIN}.{key}.bias'] = _f32(value['bias'])
+            continue
+        value = _f32(value)
+        kind, layer = key.rsplit('_', 1)
+        axes = {'f': (1, 2) if layer == '0' else (1,), 'f0': (1,),
+                'f_': (2,) if layer == '0' else (), 'bias': ()}
+        if kind not in axes:
+            raise NotImplementedError(
+                f'no weight bridge yet for {_CIN}/{key}')
+        if order:
+            for axis in axes[kind]:
+                value = _permute_axis(value, order, axis)
+        out[f'{_CIN}.{key}'] = value
+    return out
 
 
 def _embedding_tables(node, input_dims, output_dims):

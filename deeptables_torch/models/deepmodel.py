@@ -20,7 +20,9 @@
 bfloat16, as the JAX package does; every Dense and BatchNorm keeps float32
 parameters and promotes its input to float32 (flax's promotion), so the
 bfloat16 part of DeepFM is the embeddings, their flat view, the linear
-net's per-field sums and FM. Logits are float32.
+net's per-field sums and FM. xDeepFM's CIN reads the bfloat16 embeddings
+and keeps its layer outputs in float32, as the JAX package does. Logits
+are float32.
 """
 
 import collections
@@ -161,11 +163,18 @@ class DeepTabularModel(nn.Module):
         self.model_desc = desc
 
     def _register_layers(self, net: nn.Module):
-        """Register the net's leaf layers here under their own names, the
-        flat scope in which flax names them."""
+        """Register the net's layers here under their own names, the flat
+        scope in which flax names them: each leaf module, and each module
+        that holds parameters of its own (``cin_layer``) with its children
+        inside it, as flax nests them."""
+        scopes = []
         for path, layer in net.named_modules():
-            if not path or any(True for _ in layer.children()):
+            if not path or any(path.startswith(s + '.') for s in scopes):
                 continue
+            if any(True for _ in layer.children()) and not any(
+                    True for _ in layer.parameters(recurse=False)):
+                continue
+            scopes.append(path)
             name = path.rsplit('.', 1)[-1]
             if name in self._modules:
                 raise ValueError(f'Duplicate layer name {name!r} among nets.')

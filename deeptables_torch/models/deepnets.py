@@ -11,9 +11,9 @@ fields for FM), as the JAX builder returns None. The net's layers carry the
 flax names (``linear_logit``, ``dnn_dense_1``, ``fm_layer``, …), and
 ``DeepTabularModel`` registers them in one flat scope, as flax does.
 
-Ported: ``linear``, ``fm_nets``, ``dnn_nets`` and the shared ``dnn``. The
-other builders raise ``NotImplementedError`` naming the slice that ports
-them.
+Ported: ``linear``, ``fm_nets``, ``cin_nets``, ``dnn_nets`` and the shared
+``dnn``. The other builders raise ``NotImplementedError`` naming the slice
+that ports them.
 """
 
 import inspect
@@ -25,7 +25,7 @@ from torch import nn
 from ..ops.embedding import concat_embeddings
 from ..ops.initializers import get_activation
 from ..ops import layers
-from ..ops.interactions import FM
+from ..ops.interactions import CIN, FM
 from ..ops.layers import BatchNorm, Dense
 
 WideDeep = ['linear', 'dnn_nets']
@@ -99,6 +99,19 @@ class FMNet(nn.Module):
                 concat_emb_dense, ctx):
         return self.fm_layer(concat_embeddings(embeddings),
                              training=ctx.training)
+
+
+class CINNet(nn.Module):
+    output_dim = 1
+
+    def __init__(self, n_fields, dim, params, generator=None):
+        super().__init__()
+        self.cin_layer = CIN(n_fields, dim, params, generator=generator)
+
+    def forward(self, embeddings, flatten_emb_layer, dense_layer,
+                concat_emb_dense, ctx):
+        return self.cin_layer(concat_embeddings(embeddings),
+                              training=ctx.training)
 
 
 class Dnn(nn.Module):
@@ -184,6 +197,19 @@ def fm_nets(inputs: NetInputs, config, model_desc, generator=None):
     return FMNet()
 
 
+def cin_nets(inputs: NetInputs, config, model_desc, generator=None):
+    """Compressed Interaction Network (xDeepFM) over the stacked
+    embeddings."""
+    if inputs.n_fields == 0:
+        model_desc.add_net('cin', None, None)
+        return None
+    _check_one_width(inputs, 'cin_nets')
+    model_desc.add_net('cin', (None, inputs.n_fields, inputs.emb_dim),
+                       (None, 1))
+    return CINNet(inputs.n_fields, inputs.emb_dim, config.cin_params,
+                  generator=generator)
+
+
 def dnn_nets(inputs: NetInputs, config, model_desc, generator=None):
     """MLP over the concatenated inputs."""
     net = DnnNet(dnn(inputs.concat_dim, config.dnn_params,
@@ -204,7 +230,7 @@ def _not_ported(name, slice_name):
 
 _BUILTIN = {
     'linear': linear,
-    'cin_nets': _not_ported('cin_nets', 'xDeepFM'),
+    'cin_nets': cin_nets,
     'fm_nets': fm_nets,
     'afm_nets': _not_ported('afm_nets', 'remaining-towers'),
     'opnn_nets': _not_ported('opnn_nets', 'remaining-towers'),

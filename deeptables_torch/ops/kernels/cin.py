@@ -1,0 +1,205 @@
+# -*- coding:utf-8 -*-
+"""The CIN field-pair contraction and its gradient.
+
+``z[b,l,d] = Σ_{f,g} w[l,f,g]·x0[b,f,d]·h[b,g,d]`` with x0 ``(B, F, D)``,
+h ``(B, G, D)``, w ``(L, F, G)`` and z ``(B, L, D)`` float32; the gradient
+takes dz ``(B, L, D)`` and gives dx0, dh and the float32 dW.
+
+Port of ``deeptables_tpu/ops/kernels/cin_bwd.py``: :func:`cin_fwd` of
+``cin_fwd_pallas`` (K4) and :func:`cin_bwd` of ``cin_bwd_pallas`` (K3). The
+CUDA kernels are in ``deeptables_torch/csrc/cin.cu``; its header says what
+bounds them (operations) and how the pair stays out of device memory. On a
+CUDA tensor each wrapper launches its kernel or raises; :func:`cin_fwd_reference`
+and :func:`cin_bwd_reference` run for CPU tensors only. The JAX package's
+batch-minor ``(F, D·B)`` operands are ``(1, F, D·B)`` tensors here.
+
+The autograd Functions and the rounding points of the JAX custom VJPs are
+in ``ops/cin_grad.py``.
+"""
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+
+_FWD = {torch.float32: 'dt_cin_fwd_f32', torch.bfloat16: 'dt_cin_fwd_bf16'}
+_BWD = {torch.float32: 'dt_cin_bwd_f32', torch.bfloat16: 'dt_cin_bwd_bf16'}
+
+# csrc/cin.cu's tiling, which sizes the scratch buffers of the backward
+_DW_TILE = 128
+_SM_COUNT = 132  # H100 SXM
+_MIN_COLS_PER_SPLIT = 512
+
+
+def cin_fwd_reference(x0: torch.Tensor, h: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch contraction: the (B, F·G, D) pair materialised in
+    float32, contracted with ``torch.matmul``; float32 out.
+
+    The CPU path of :func:`cin_fwd` and the oracle the kernel is held
+    against."""
+    B, F, D = x0.shape
+    G = h.shape[1]
+    L = w.shape[0]
+    pair = (x0.float()[:, :, None, :] * h.float()[:, None, :, :]
+            ).reshape(B, F * G, D)
+    return torch.matmul(w.float().reshape(L, F * G), pair)
+
+
+def cin_bwd_reference(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+                      dz: torch.Tensor):
+    """Plain PyTorch gradient of the contraction, ``cin_bwd_oracle``'s math:
+    float32 products and sums, one rounding of dx0 and dh to x0's and h's
+    types; dW float32.
+
+    The CPU path of :func:`cin_bwd` and the kernel's oracle."""
+    B, F, D = x0.shape
+    G = h.shape[1]
+    L = w.shape[0]
+    x0f, hf, dzf = x0.float(), h.float(), dz.float()
+    dpair = torch.matmul(w.float().reshape(L, F * G).t(), dzf
+                         ).reshape(B, F, G, D)
+    dx0 = (dpair * hf[:, None, :, :]).sum(dim=2)
+    dh = (dpair * x0f[:, :, None, :]).sum(dim=1)
+    pair = (x0f[:, :, None, :] * hf[:, None, :, :]).reshape(B, F * G, D)
+    dw = torch.einsum('bld,bkd->lk', dzf, pair).reshape(L, F, G)
+    return dx0.to(x0.dtype), dh.to(h.dtype), dw
+
+
+def bwd_plan(N: int, F: int, G: int, L: int):
+    """``(splits, g_tiles)`` of the backward for N = B·D columns: the dW
+    reduction over N is cut into ``splits`` column ranges (enough blocks for
+    four waves over the card's SMs, none under 512 columns), and dx0 sums
+    over ``g_tiles`` tiles of G (one for G ≤ 64), as ``csrc/cin.cu`` tiles
+    them."""
+    tiles = math.ceil(F * G / _DW_TILE) * math.ceil(L / _DW_TILE)
+    splits = max(1, min(math.ceil(4 * _SM_COUNT / tiles),
+                        math.ceil(N / _MIN_COLS_PER_SPLIT), 65535))
+    g_tiles = math.ceil(G / (32 if G <= 32 else 64))
+    return splits, g_tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.library('cin')
+    for name in _FWD.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    for name in _BWD.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.dt_cin_error_string.argtypes = [ctypes.c_int]
+    lib.dt_cin_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_shapes(what, x0, h, w, dz=None):
+    if x0.dim() != 3 or h.dim() != 3 or w.dim() != 3:
+        raise ValueError(f'{what} expects x0 (B, F, D), h (B, G, D) and w '
+                         f'(L, F, G), got {tuple(x0.shape)}, '
+                         f'{tuple(h.shape)} and {tuple(w.shape)}')
+    B, F, D = x0.shape
+    L = w.shape[0]
+    if h.shape[0] != B or h.shape[2] != D or w.shape[1:] != (F, h.shape[1]):
+        raise ValueError(f'{what}: shapes do not agree: x0 {tuple(x0.shape)}, '
+                         f'h {tuple(h.shape)}, w {tuple(w.shape)}')
+    if dz is not None and tuple(dz.shape) != (B, L, D):
+        raise ValueError(f'{what}: dz must be {(B, L, D)}, got '
+                         f'{tuple(dz.shape)}')
+
+
+def _check_cuda(what, *tensors):
+    x0 = tensors[0]
+    for t in tensors:
+        if t.device != x0.device:
+            raise ValueError(f'{what} runs on cuda or cpu tensors on one '
+                             f'device, got {t.device} and {x0.device}')
+        if t.dtype != x0.dtype or t.dtype not in _FWD:
+            raise TypeError(f'{what} kernel takes float32 or bfloat16 '
+                            f'operands of one type, got {t.dtype} beside '
+                            f'{x0.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{what} kernel needs contiguous operands')
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError(f'{what} kernel launch failed: CUDA error {err} '
+                           f'({lib.dt_cin_error_string(err).decode()})')
+
+
+def cin_fwd(x0: torch.Tensor, h: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """The contraction z ``(B, L, D)`` float32 of contiguous x0, h and w of
+    one type (float32 or bfloat16).
+
+    On a CUDA tensor this launches the kernel or raises; it never falls
+    back to the plain version. ``cin_fwd.launches`` counts the launches."""
+    _check_shapes('cin_fwd', x0, h, w)
+    if x0.device.type == 'cpu':
+        return cin_fwd_reference(x0, h, w)
+    _check_cuda('cin_fwd', x0, h, w)
+    B, F, D = x0.shape
+    L, _, G = w.shape
+    z = torch.empty((B, L, D), dtype=torch.float32, device=x0.device)
+    if z.numel() == 0:
+        return z
+    if F * G == 0:
+        return z.zero_()
+    lib = _library()
+    with torch.cuda.device(x0.device):
+        err = getattr(lib, _FWD[x0.dtype])(
+            x0.data_ptr(), h.data_ptr(), w.data_ptr(), z.data_ptr(), B, F, G,
+            L, D, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, lib, 'cin_fwd')
+    cin_fwd.launches += 1
+    return z
+
+
+def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+            dz: torch.Tensor):
+    """Gradient of :func:`cin_fwd` given dz ``(B, L, D)``, all operands
+    contiguous and of one type: ``(dx0, dh, dW)``, dx0 and dh in that type,
+    dW ``(L, F, G)`` float32.
+
+    On a CUDA tensor this launches the kernel (its passes, one call) or
+    raises. ``cin_bwd.launches`` counts the calls."""
+    _check_shapes('cin_bwd', x0, h, w, dz)
+    if x0.device.type == 'cpu':
+        return cin_bwd_reference(x0, h, w, dz)
+    _check_cuda('cin_bwd', x0, h, w, dz)
+    B, F, D = x0.shape
+    L, _, G = w.shape
+    dx0 = torch.empty_like(x0)
+    dh = torch.empty_like(h)
+    dw = torch.empty((L, F, G), dtype=torch.float32, device=x0.device)
+    if B * D == 0 or L == 0 or F * G == 0:
+        return dx0.zero_(), dh.zero_(), dw.zero_()
+    N = B * D
+    splits, g_tiles = bwd_plan(N, F, G, L)
+    dw_part = torch.empty((splits, L, F, G), dtype=torch.float32,
+                          device=x0.device)
+    dx0_part = torch.empty((g_tiles, B, F, D), dtype=torch.float32,
+                           device=x0.device) if g_tiles > 1 else None
+    lib = _library()
+    with torch.cuda.device(x0.device):
+        err = getattr(lib, _BWD[x0.dtype])(
+            x0.data_ptr(), h.data_ptr(), w.data_ptr(), dz.data_ptr(),
+            dx0.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+            None if dx0_part is None else dx0_part.data_ptr(),
+            dw_part.data_ptr(), B, F, G, L, D, splits,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, lib, 'cin_bwd')
+    cin_bwd.launches += 1
+    return dx0, dh, dw
+
+
+cin_fwd.launches = 0
+cin_bwd.launches = 0

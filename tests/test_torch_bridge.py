@@ -2,13 +2,16 @@
 """The weight bridge (``deeptables_torch.bridge``) against the JAX package's
 own layout code: every table row is checked against ``unpack_table`` at the
 JAX ``plan_groups`` offsets, and every Dense and BatchNorm entry that
-follows the field axis against the JAX plan's field order. Copies are exact.
+follows the field axis against the JAX plan's field order. The CIN weights
+of xDeepFM on a non-ascending schema: every axis over the input fields in
+column order, the hidden-unit axes as they are. Copies are exact.
 """
 
 import numpy as np
 import pytest
 
 from deeptables_tpu.ops.embedding import plan_groups, unpack_table
+from deeptables_torch import bridge
 from torch_parity import Case, to_column_order
 
 
@@ -73,3 +76,72 @@ def test_batch_norm(case):
                 else np.asarray(value)
             np.testing.assert_array_equal(
                 case.state_dict[f'{name}.{port_key}'].numpy(), expected)
+
+
+CIN_VARIANTS = {'default': None,
+                'reduce_D-residual-bias': {'reduce_D': True,
+                                           'use_residual': True,
+                                           'use_bias': True},
+                'direct-residual': {'direct': True, 'use_residual': True}}
+
+
+@pytest.fixture(scope='module', params=list(CIN_VARIANTS))
+def cin_case(request):
+    return Case('xdeepfm_nonascending_d8',
+                cin_params=CIN_VARIANTS[request.param])
+
+
+def _cin_expected(key, value, order):
+    """The JAX CIN weight ``key`` with its field axes in column order."""
+    value = np.asarray(value)
+    kind, layer = key.rsplit('_', 1)
+    out = np.empty_like(value)
+    index = [slice(None)] * value.ndim
+    if kind == 'f' or kind == 'f0':
+        index[1] = order
+    if layer == '0' and kind in ('f', 'f_'):
+        index[2] = order
+    out[np.ix_(*[np.arange(n) if i == slice(None) else np.asarray(i)
+                 for n, i in zip(value.shape, index)])] = value
+    return out
+
+
+def test_cin_weights_follow_the_column_order(cin_case):
+    params = cin_case.variables['params']['cin_layer']
+    order = cin_case.field_order()
+    assert order != sorted(order)  # the plan reorders these fields
+    state = cin_case.state_dict
+    expected_keys = set()
+    for key, value in params.items():
+        if isinstance(value, dict):
+            np.testing.assert_array_equal(
+                state[f'cin_layer.{key}.weight'].numpy(), value['kernel'].T)
+            np.testing.assert_array_equal(
+                state[f'cin_layer.{key}.bias'].numpy(), value['bias'])
+            expected_keys |= {f'cin_layer.{key}.weight',
+                              f'cin_layer.{key}.bias'}
+        else:
+            np.testing.assert_array_equal(state[f'cin_layer.{key}'].numpy(),
+                                          _cin_expected(key, value, order))
+            expected_keys.add(f'cin_layer.{key}')
+    assert expected_keys == {k for k in state if k.startswith('cin_layer.')}
+    config = cin_case.port_config.cin_params
+    names = {k.split('.')[1] for k in expected_keys}
+    assert ('f0_0' in names) == bool(config.get('reduce_D'))
+    assert ('exFM_out0' in names) == bool(config.get('use_residual'))
+    assert ('bias_1' in names) == bool(config.get('use_bias'))
+
+
+def test_cin_state_dict_loads_strictly_and_maps_gradients(cin_case):
+    model = cin_case.port_model().module
+    assert set(cin_case.state_dict) == set(model.state_dict())
+    # a gradient tree (no batch_stats) maps through the same linear steps
+    grads = {'params': cin_case.variables['params']}
+    mapped = bridge.state_dict_from_flax(grads, cin_case.port_cats,
+                                         cin_case.port_conts,
+                                         cin_case.port_config)
+    for key, value in mapped.items():
+        np.testing.assert_array_equal(value.numpy(),
+                                      cin_case.state_dict[key].numpy())
+    assert {k for k in mapped if k.startswith('cin_layer.')} == \
+        {k for k in cin_case.state_dict if k.startswith('cin_layer.')}

@@ -23,12 +23,20 @@ Tolerances:
 - DeepFM fit on the card against the CPU: losses rtol 1e-4; parameters atol
   2e-4 (Adam moves each parameter by up to lr = 1e-3 a step whatever the
   gradient's size, so rounding in a gradient near zero shows at that scale).
+- CIN forward and backward: the kernels and the plain versions both take
+  float32 products and sums of the same inputs (bfloat16 inputs are exact in
+  float32), so every output is held to 1e-5 times the sum of the magnitudes
+  of its terms (the plain version run on |x0|, |h|, |w|, |dz|): only the
+  order of the sums differs. dx0 and dh in bfloat16 add rtol 1e-2 for their
+  one rounding to bfloat16 (the two may round neighbouring values apart).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeptables_torch.ops.kernels.cin import (cin_bwd, cin_bwd_reference,
+                                              cin_fwd, cin_fwd_reference)
 from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
                                              fm_backward_reference,
@@ -275,3 +283,188 @@ def test_model_file_moves_between_card_and_cpu(cuda, tmp_path):
     back = DeepModel.load(tmp_path / 'cpu.pt', device=cuda)
     assert back.device.type == 'cuda'
     np.testing.assert_array_equal(back.predict(X), gpu.predict(X))
+
+
+# ---------------------------------------------------------------- CIN
+
+CIN_SHAPES = [(4096, 26, 26, 128, 16), (8192, 26, 64, 128, 16),
+              (4093, 26, 26, 128, 16), (37, 5, 7, 12, 16), (3, 4, 130, 9, 5),
+              (1, 26, 64, 128, 4096), (2, 1, 1, 1, 1)]
+
+
+def _cin_inputs(B, F, G, L, D, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype).cuda()
+            for shape in ((B, F, D), (B, G, D), (L, F, G), (B, L, D))]
+
+
+def _cin_close(actual, expected, scale, rtol_out=0.):
+    actual, expected = actual.float().cpu(), expected.float().cpu()
+    err = (actual - expected).abs()
+    limit = 1e-5 * scale.float().cpu() + rtol_out * expected.abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,G,L,D', CIN_SHAPES)
+def test_cin_fwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
+    x0, h, w, _ = _cin_inputs(B, F, G, L, D, dtype, B + F + G + L + D)
+    before = cin_fwd.launches
+    z = cin_fwd(x0, h, w)
+    torch.cuda.synchronize()
+    assert cin_fwd.launches == before + 1
+    assert z.shape == (B, L, D) and z.dtype == torch.float32
+    _cin_close(z, cin_fwd_reference(x0, h, w),
+               cin_fwd_reference(x0.abs(), h.abs(), w.abs()))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,G,L,D', CIN_SHAPES)
+def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
+    x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 7 * B + F + G + L)
+    before = cin_bwd.launches
+    dx0, dh, dw = cin_bwd(x0, h, w, dz)
+    torch.cuda.synchronize()
+    assert cin_bwd.launches == before + 1
+    assert (dx0.shape, dh.shape, dw.shape) == (x0.shape, h.shape, w.shape)
+    assert dx0.dtype == dh.dtype == dtype and dw.dtype == torch.float32
+    expected = cin_bwd_reference(x0, h, w, dz)
+    scale = cin_bwd_reference(x0.abs(), h.abs(), w.abs(), dz.abs())
+    rtol_out = 0. if dtype == torch.float32 else 1e-2
+    _cin_close(dx0, expected[0], scale[0].float(), rtol_out)
+    _cin_close(dh, expected[1], scale[1].float(), rtol_out)
+    _cin_close(dw, expected[2], scale[2])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('formulation', ['pallas', 'auto', 'assoc', 'bm'])
+def test_cin_contract_runs_the_kernels_for_every_formulation(
+        cuda, formulation, dtype):
+    from deeptables_torch.ops.cin_grad import cin_contract
+    x0, h, w, dz = _cin_inputs(64, 6, 9, 10, 16, dtype, 3)
+    h = h.float()  # a previous layer's float32 output
+    w = w.float()  # a float32 parameter
+    leaves = [t.clone().requires_grad_(True) for t in (x0, h, w)]
+    before = cin_fwd.launches, cin_bwd.launches
+    z = cin_contract(*leaves, formulation=formulation)
+    z.backward(dz.float())
+    torch.cuda.synchronize()
+    assert (cin_fwd.launches, cin_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (x0, h, w)]
+    z_cpu = cin_contract(*cpu, formulation=formulation)
+    z_cpu.backward(dz.float().cpu())
+    rtol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(z.cpu(), z_cpu.detach(), rtol=1e-5,
+                               atol=1e-4)
+    for card, host in zip(leaves, cpu):
+        assert card.grad.dtype == host.grad.dtype == card.dtype
+        scale = float(host.grad.abs().max())
+        torch.testing.assert_close(card.grad.cpu(), host.grad, rtol=rtol,
+                                   atol=rtol * scale)
+
+
+@pytest.mark.parametrize('extra', [{}, {'use_bias': True}, {'direct': True},
+                                   {'use_residual': True}, {'reduce_D': True},
+                                   {'layout': 'batch_minor'}])
+def test_cin_module_on_cuda_matches_cpu(cuda, extra):
+    from deeptables_torch.ops.interactions import CIN
+    params = dict({'cross_layer_size': (8, 4), 'activation': 'relu'},
+                  **extra)
+    cpu = CIN(5, 16, params, generator=torch.Generator().manual_seed(0))
+    card = CIN(5, 16, params).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(37, 5, 16, generator=torch.Generator().manual_seed(1))
+    xc = x.cuda().requires_grad_(True)
+    before = cin_fwd.launches, cin_bwd.launches
+    out = card(xc)
+    (out * out.cos()).sum().backward()
+    torch.cuda.synchronize()
+    assert (cin_fwd.launches, cin_bwd.launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    xh = x.clone().requires_grad_(True)
+    ref = cpu(xh)
+    (ref * ref.cos()).sum().backward()
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=1e-5,
+                               atol=1e-5)
+    # gradients: sums of hundreds of terms in another order, so the absolute
+    # term scales with the largest gradient of the tensor
+    grads = {'x': (xc.grad, xh.grad)}
+    host = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        grads[name] = (p.grad, host[name].grad)
+    for name, (card_grad, host_grad) in grads.items():
+        torch.testing.assert_close(
+            card_grad.cpu(), host_grad, rtol=1e-4,
+            atol=1e-5 * float(host_grad.abs().max()), msg=name)
+
+
+def test_cin_kernels_reject_what_they_do_not_take(cuda):
+    x0, h, w, dz = _cin_inputs(8, 3, 4, 5, 16, torch.float32, 0)
+    with pytest.raises(TypeError):
+        cin_fwd(x0.half(), h.half(), w.half())
+    with pytest.raises(TypeError):
+        cin_fwd(x0, h.bfloat16(), w)
+    with pytest.raises(ValueError):
+        cin_fwd(x0.transpose(0, 2).contiguous().transpose(0, 2), h, w)
+    with pytest.raises(ValueError):
+        cin_fwd(x0, h, w.cpu())
+    with pytest.raises(ValueError):
+        cin_bwd(x0, h, w, dz[:, :4])
+    with pytest.raises(TypeError):
+        cin_bwd(x0, h, w, dz.bfloat16())
+
+
+def _xdeepfm(cuda, cin_params=None):
+    from deeptables_torch.models import (CategoricalColumn, ContinuousColumn,
+                                         DeepModel, ModelConfig)
+    vocabs = [50, 7, 300, 20]
+    cats = tuple(CategoricalColumn(f'C{i}', v, 16)
+                 for i, v in enumerate(vocabs))
+    conts = (ContinuousColumn('input_continuous_all', ['I1', 'I2', 'I3']),)
+    config = ModelConfig(
+        nets=['linear', 'cin_nets', 'dnn_nets'], task='binary',
+        embedding_dropout=0, metrics=['AUC'],
+        cin_params=dict({'cross_layer_size': (16, 8), 'activation': 'relu'},
+                        **(cin_params or {})),
+        dnn_params={'hidden_units': ((64, 0, False), (32, 0, False))})
+    gpu = DeepModel('binary', 2, config, cats, conts, device=cuda)
+    cpu = DeepModel('binary', 2, config, cats, conts, device='cpu')
+    cpu.build().load_state_dict(gpu.build().state_dict())
+    rng = np.random.default_rng(0)
+    n = 96
+    X = {'cat': np.stack([rng.integers(0, v, n) for v in vocabs],
+                         axis=1).astype(np.int32),
+         'input_continuous_all': rng.normal(size=(n, 3)).astype(np.float32)}
+    y = rng.integers(0, 2, n).astype(np.float32)
+    return gpu, cpu, X, y
+
+
+@pytest.mark.parametrize('layout', ['auto', 'batch_minor'])
+def test_xdeepfm_on_cuda_matches_cpu(cuda, layout):
+    gpu, cpu, X, _ = _xdeepfm(cuda, {'layout': layout})
+    before = cin_fwd.launches
+    proba = gpu.predict(X, batch_size=32)
+    assert cin_fwd.launches == before + 6  # two layers, three batches
+    np.testing.assert_allclose(proba, cpu.predict(X, batch_size=32),
+                               atol=1e-5)
+
+
+def test_xdeepfm_fit_on_cuda_matches_cpu(cuda):
+    gpu, cpu, X, y = _xdeepfm(cuda)
+    val = ({k: v[:32] for k, v in X.items()}, y[:32])
+    fwd, bwd = cin_fwd.launches, cin_bwd.launches
+    h_gpu = gpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    assert cin_bwd.launches == bwd + 4  # two layers, two steps
+    assert cin_fwd.launches == fwd + 6  # ... and one validation batch
+    h_cpu = cpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    for key in ('loss', 'val_loss', 'val_auc'):
+        np.testing.assert_allclose(h_gpu.history[key], h_cpu.history[key],
+                                   rtol=1e-4, err_msg=key)
+    cpu_state = cpu.module.state_dict()
+    for key, value in gpu.module.state_dict().items():
+        np.testing.assert_allclose(value.cpu().numpy(),
+                                   cpu_state[key].numpy(), atol=2e-4,
+                                   err_msg=key)

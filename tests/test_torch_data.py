@@ -49,7 +49,7 @@ def test_every_builtin_net_is_known():
 
 @pytest.mark.parametrize('name', [n for n in jax_deepnets._BUILTIN
                                   if n not in ('linear', 'fm_nets',
-                                               'dnn_nets')])
+                                               'cin_nets', 'dnn_nets')])
 def test_unported_nets_name_their_slice(name):
     inputs = deepnets.NetInputs(4, 8, 32, 3, 35)
     with pytest.raises(NotImplementedError, match='slice'):

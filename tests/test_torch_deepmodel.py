@@ -5,7 +5,8 @@ package's, with the same weights (bridged) and the same inputs, on the CPU.
 Every tap and the logits of ``DeepTabularModel`` are compared under both
 dtype policies, on a schema whose vocabularies are not ascending (the TPU
 plan reorders its fields) and on the bench schema; a schema of two
-embedding widths runs ``dnn_nets`` alone. The JAX taps that follow
+embedding widths runs ``dnn_nets`` alone; two schemas run xDeepFM (with a
+CIN of (8, 4)). The JAX taps that follow
 the field axis (``flatten_embeddings``, ``concat_embedding_dense``) are in
 the plan's field order and are put in column order first.
 
@@ -34,7 +35,9 @@ FIELD_TAPS = ('flatten_embeddings', 'concat_embedding_dense')
 @pytest.fixture(scope='module', params=[
     ('nonascending_d16', 'float32'), ('nonascending_d16', 'bfloat16'),
     ('nonascending_d8', 'float32'), ('bench', 'float32'),
-    ('bench', 'bfloat16'), ('mixed_widths', 'float32')],
+    ('bench', 'bfloat16'), ('mixed_widths', 'float32'),
+    ('xdeepfm_nonascending_d8', 'float32'),
+    ('xdeepfm_nonascending_d16', 'bfloat16')],
     ids=lambda p: '-'.join(p))
 def case(request):
     case = Case(*request.param)

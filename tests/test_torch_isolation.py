@@ -6,7 +6,8 @@ A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch`` and
 ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
-no scikit-learn. It hides any CUDA device, so that ``DeepModel`` without a
+no scikit-learn, and an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
+and ``ops/kernels/cin.py``). It hides any CUDA device, so that ``DeepModel`` without a
 device must raise.
 """
 
@@ -70,6 +71,18 @@ history = model.fit({'cat': cat, 'input_continuous_all': dense}, y,
 assert np.isfinite(history.history['val_loss']).all()
 assert set(model.evaluate({'cat': cat, 'input_continuous_all': dense}, y)) \
     == {'loss', 'accuracy'}
+# xDeepFM: the CIN contraction and its gradient take the plain path on the
+# CPU
+assert {'deeptables_torch.ops.cin_grad',
+        'deeptables_torch.ops.kernels.cin'} <= set(modules)
+xconfig = ModelConfig(nets=['linear', 'cin_nets', 'dnn_nets'],
+                      embedding_dropout=0,
+                      cin_params={'cross_layer_size': (4, 2)},
+                      dnn_params={'hidden_units': ((16, 0, False),)})
+xmodel = DeepModel('binary', 2, xconfig, cats, conts, device='cpu')
+history = xmodel.fit({'cat': cat, 'input_continuous_all': dense}, y,
+                     batch_size=4, epochs=1, verbose=0)
+assert np.isfinite(history.history['loss']).all()
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))

@@ -21,7 +21,10 @@ from deeptables_torch.models import ModelConfig as TModelConfig
 torch.set_num_threads(1)  # the suite runs several xdist workers
 
 DEEPFM = ['linear', 'fm_nets', 'dnn_nets']
+XDEEPFM = ['linear', 'cin_nets', 'dnn_nets']
 HIDDEN = ((64, 0, False), (32, 0, False))
+# the xDeepFM schemas' CIN, cut from (128, 128) to (8, 4)
+CIN_PARAMS = {'cross_layer_size': (8, 4), 'activation': 'relu'}
 
 
 def _criteo_vocabs():
@@ -32,19 +35,23 @@ def _criteo_vocabs():
 # name → (vocabulary sizes, embedding widths, dense columns, nets). The
 # non-ascending schemas make the TPU plan reorder the fields; the bench
 # schema is the criteo one of bench.py (26 columns at D=16, 13 dense); the
-# mixed one has two width groups.
+# mixed one has two width groups. The xdeepfm_* schemas run xDeepFM with
+# CIN_PARAMS (or the cin_params given to Case).
 SCHEMAS = {
     'nonascending_d16': ([50, 7, 300, 20], [16] * 4, 3, DEEPFM),
     'nonascending_d8': ([50, 7, 300, 20, 9], [8] * 5, 3, DEEPFM),
     'bench': (_criteo_vocabs(), [16] * 26, 13, DEEPFM),
     'mixed_widths': ([50, 7, 300, 20], [8, 16, 8, 16], 3, ['dnn_nets']),
+    'xdeepfm_nonascending_d8': ([50, 7, 300, 20, 9], [8] * 5, 3, XDEEPFM),
+    'xdeepfm_nonascending_d16': ([50, 7, 300, 20], [16] * 4, 3, XDEEPFM),
 }
 
 
 class Case:
     """One schema and dtype policy, built in both packages."""
 
-    def __init__(self, schema, dtype_policy='float32', seed=0):
+    def __init__(self, schema, dtype_policy='float32', seed=0,
+                 cin_params=None):
         vocabs, dims, n_dense, nets = SCHEMAS[schema]
         self.vocabs, self.dims, self.nets = vocabs, dims, nets
         kwargs = dict(nets=nets, metrics=['AUC'], task='binary',
@@ -52,6 +59,8 @@ class Case:
                       dnn_params={'hidden_units': HIDDEN,
                                   'activation': 'relu'},
                       dtype_policy=dtype_policy)
+        if 'cin_nets' in nets:
+            kwargs['cin_params'] = dict(CIN_PARAMS, **(cin_params or {}))
         dense_names = [f'I{i + 1}' for i in range(n_dense)]
         self.jax_cats = tuple(CategoricalColumn(f'C{i + 1}', v, d)
                               for i, (v, d) in enumerate(zip(vocabs, dims)))
