@@ -34,31 +34,46 @@ these phases, each printing one JSON line:
    it (K3, several kernels), which the port never calls, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the card's rate for
    the input type: 989 TFLOP/s bfloat16, 67 float32).
-5. For DeepFM and then xDeepFM (26 categorical columns at D=16, 13 dense,
-   DNN 1024/512 relu; xDeepFM's CIN (128, 128) relu), random weights from
-   ``config.seed``:
+5. ``kernel`` for ``fa_fwd`` and ``fa_bwd`` (K5, field attention and its
+   gradient) and ``ab_fwd`` and ``ab_bwd`` (K6, the fused attention block)
+   against their plain versions at AutoInt's shapes (F=22, 2 heads of
+   dh=8), B = 8192 and 4096, float32 and bfloat16, and K5 with bfloat16
+   inputs and a float32 output; every output within 1e-5 of its largest
+   value (bfloat16 outputs also rtol 1e-2). Yardsticks for K5:
+   ``scaled_dot_product_attention`` and ``torch.autograd.grad`` of it.
+6. For DeepFM, xDeepFM (26 categorical columns at D=16, 13 dense, DNN
+   1024/512 relu; xDeepFM's CIN (128, 128) relu) and then AutoInt and
+   AutoInt with ``fuse_projections`` (the 22 avazu-style columns of
+   ``load_avazu_synthetic`` at D=16, 3 attention blocks of 2 heads; the
+   bench's 8 batches of 8192 rows, 7 to train on and 1 to validate), random
+   weights from ``config.seed``:
    - ``serving`` under ``dtype_policy='bfloat16'`` and then ``'float32'``,
      through ``Predictor`` with the default buckets, requests of 1, 37, 4096
      and 10000 rows from ``load_criteo_synthetic``. It checks the
      probabilities (finite, ``(n, 2)``, rows sum to 1), that the forward
-     kernel ran once (FM) or twice (the CIN layers) per padded chunk, and
-     that the same weights on ``device='cpu'`` (the plain path) and, for
-     xDeepFM, the batch-minor CIN tower give the same probabilities:
-     float32 atol 1e-5, bfloat16 atol 1e-2. ``profile`` (bfloat16): device
-     time by kernel over three 4096-row requests and the busy share.
+     kernel ran once (FM), twice (the CIN layers) or three times (the
+     attention blocks, K5 or K6) per padded chunk, and that the same
+     weights on ``device='cpu'`` (the plain path) and, for xDeepFM, the
+     batch-minor CIN tower, for AutoInt the batch-major layout, give the
+     same probabilities: float32 atol 1e-5, bfloat16 atol 1e-2. ``profile``
+     (bfloat16): device time by kernel over three 4096-row requests and the
+     busy share.
    - ``train``, under ``'bfloat16'`` and then ``'float32'``:
      ``DeepModel.fit`` over 8 batches of 8192 rows of
-     ``load_criteo_synthetic`` for 3 epochs, one more batch for validation.
-     It checks that every loss is finite, that the loss fell from epoch 1 to
-     epoch 3, and each kernel's launches: the embedding gradient once a
-     step; DeepFM's FM backward once a step and FM forward once a step and
-     validation batch; xDeepFM's K3 twice a step and K4 twice a step and
-     validation batch. It prints the median step time and examples/s over
-     epochs 2-3 and ``val_auc``. Then ``train_profile``: two train steps
-     under ``torch.profiler`` (device time by kernel, busy share). Then the
-     same initial weights on the card and on ``device='cpu'`` (the plain
-     path), at 8192-row batches for DeepFM and 1024-row batches for xDeepFM
-     (the CPU plain path materialises the CIN pair), give the same step-1
+     ``load_criteo_synthetic`` (AutoInt: 7 batches of its rows) for 3
+     epochs, one more batch for validation. It checks that every loss is
+     finite, that the loss fell from epoch 1 to epoch 3, and each kernel's
+     launches: the embedding gradient once a step; DeepFM's FM backward
+     once a step and FM forward once a step and validation batch; xDeepFM's
+     K3 twice a step and K4 twice a step and validation batch; AutoInt's
+     K5-bwd (K6-bwd when fused) three times a step and K5-fwd (K6-fwd)
+     three times a step and validation batch. It prints the median step
+     time and examples/s over epochs 2-3 and ``val_auc``. Then
+     ``train_profile``: two train steps under ``torch.profiler`` (device
+     time by kernel, busy share). Then the same initial weights on the card
+     and on ``device='cpu'`` (the plain path), at 8192-row batches for
+     DeepFM and 1024-row batches for xDeepFM (the CPU plain path
+     materialises the CIN pair) and AutoInt, give the same step-1
      gradients (float32 rtol 1e-4, bfloat16 rtol 1e-2, both atol 1e-2 of
      each tensor's largest gradient: a ReLU input within rounding of zero
      may flip one example's gradient) and, fitting three batches, the same
@@ -96,10 +111,28 @@ BF16_OPS_PER_S = 989e12  # dense bfloat16 tensor cores
 
 F_CRITEO, D_CRITEO, N_DENSE = 26, 16, 13
 NETS = {'DeepFM': ['linear', 'fm_nets', 'dnn_nets'],
-        'xDeepFM': ['linear', 'cin_nets', 'dnn_nets']}
+        'xDeepFM': ['linear', 'cin_nets', 'dnn_nets'],
+        'AutoInt': ['autoint_nets'], 'AutoInt-fused': ['autoint_nets']}
 XDEEPFM_CIN = {'cross_layer_size': (128, 128), 'activation': 'relu'}
+# AutoInt on the avazu-style schema (benchmarks/bench_models.py:176-184):
+# 22 categorical columns, no dense ones, D=16, 3 blocks of 2 heads (dh=8);
+# vocabularies max(id) + 1 over the bench's 8 batches of 8192 rows, + 1
+F_AVAZU, D_AVAZU = 22, 16
+AUTOINT_PARAMS = {'num_attention': 3, 'num_heads': 2, 'dropout_rate': 0,
+                  'use_residual': True}
+AUTOINT_MODELS = {'AutoInt': {}, 'AutoInt-fused': {'fuse_projections': True}}
+AVAZU_BATCHES = 8
 # the forward kernel a request runs, and its launches per padded chunk
-SERVING_KERNEL = {'DeepFM': ('fm_fwd', 1), 'xDeepFM': ('cin_fwd', 2)}
+SERVING_KERNEL = {'DeepFM': ('fm_fwd', 1), 'xDeepFM': ('cin_fwd', 2),
+                  'AutoInt': ('fa_fwd', 3), 'AutoInt-fused': ('ab_fwd', 3)}
+# the field-attention kernels' shapes: F=22, 2 heads of dh=8, the AutoInt
+# training batch and half of it
+FA_BATCHES = (8192, 4096)
+FA_HEADLINE = ('bfloat16', 8192)
+# K6-bwd: examples with a projection within this of 0 may take the other
+# side of its relu mask in the kernel and the plain version (see
+# ab_mask_margin)
+AB_MASK_MARGIN = 1e-5
 # xDeepFM's CIN layers, (F, G, L): G = 26 input fields, then 64 = 128 / 2
 CIN_LAYERS = {'layer1': (26, 26, 128), 'layer2': (26, 64, 128)}
 CIN_BATCHES = (4096, 8192, 4093)
@@ -114,7 +147,8 @@ RTOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 SERVING_ATOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 8192, 8, 3
 # the card-against-CPU comparison's batch (three of them and one validation)
-COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024}
+COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024, 'AutoInt': 1024,
+                 'AutoInt-fused': 1024}
 # float atomics add in a run-dependent order: only rounding may differ
 EMB_GRAD_RTOL = 1e-5
 # card against CPU after three float32 Adam steps (see train_phase)
@@ -166,22 +200,37 @@ def device_kernels(torch, prof):
     return sorted(events, key=lambda e: -e.self_device_time_total)
 
 
+def profile_window(torch, work, tries=3):
+    """Run ``work()`` under ``torch.profiler``: the device events (busiest
+    first), their total µs and the wall µs of the window. A window in which
+    the profiler records no device activity at all (it happens, rarely, on
+    the card) is run again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            work()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t)
+        device = device_kernels(torch, prof)
+        busy_us = sum(e.self_device_time_total for e in device)
+        if busy_us > 0:
+            return device, busy_us, wall_us
+    raise AssertionError('the profiler saw no device time')
+
+
 def device_ms(torch, fn, inputs, iters):
     """Mean device time of one call of ``fn`` in ms: the sum of the
     kernels it launches, from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
     for x in inputs[:3]:
         fn(x)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def work():
         for i in range(iters):
             fn(inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total
-                   for e in device_kernels(torch, prof))
-    check(total_us > 0, 'the profiler saw no device time')
-    return total_us / 1e3 / iters
+    return profile_window(torch, work)[1] / 1e3 / iters
 
 
 def fm_bound(B, F, D, itemsize):
@@ -470,6 +519,205 @@ def cin_kernel_phase(torch, cin_module):
     return rows
 
 
+def fa_bound(kernel, B, F, H, dh, itemsize, out_itemsize):
+    """Least time of a field-attention kernel in ms, and what bounds it.
+    Bytes: each input read once, each output written once (K5: q, k, v and
+    o, or also do, dq, dk, dv; K6: x, w_aug and out, or x, w_aug, do and the
+    4U-wide dpre). Operations, per example and head: 2 per multiply-add of
+    the F x F x dh products (two forward, five backward, six in K6's
+    backward, which recomputes the context) and 4 per score forward (scale,
+    max-subtract, exp, divide), 8 backward; K6 adds the projection, 2 per
+    multiply-add of the (F, U) x (U, 4U) product. Peak: the card's rate for
+    the input type."""
+    U = H * dh
+    N = B * F * U
+    fwd = 4 * F * F * dh + 4 * F * F
+    w_bytes = (U + 1) * 4 * U * itemsize
+    proj = 8 * F * U * U
+    if kernel == 'fa_fwd':
+        nbytes, ops = 3 * N * itemsize + N * out_itemsize, B * H * fwd
+    elif kernel == 'fa_bwd':
+        nbytes = 6 * N * itemsize + N * out_itemsize
+        ops = B * H * (10 * F * F * dh + 8 * F * F)
+    elif kernel == 'ab_fwd':
+        nbytes, ops = 2 * N * itemsize + w_bytes, B * (proj + H * fwd)
+    else:
+        nbytes = 6 * N * itemsize + w_bytes
+        ops = B * (proj + H * (12 * F * F * dh + 8 * F * F))
+    peak = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
+                                                           'operations')
+
+
+def fa_kernel_phase(torch, fa):
+    """K5 (``fa_fwd``, ``fa_bwd``) and K6 (``ab_fwd``, ``ab_bwd``) against
+    their plain versions on the card at AutoInt's shapes (F=22, H=2, dh=8),
+    B = 8192 and 4096, float32 and bfloat16, and K5 with bfloat16 inputs and
+    a float32 output (the batch-major layout). Both sides compute in
+    float32 from the same inputs: every output is held to 1e-5 of its
+    largest value, outputs rounded to bfloat16 also to rtol 1e-2 (their one
+    rounding). K6-bwd leaves out the examples with a projection within
+    AB_MASK_MARGIN of 0 (at most 5% of them). Yardsticks: for K5
+    ``scaled_dot_product_attention`` on (B, H, F, dh) (transposed outside
+    the timed window) and ``torch.autograd.grad`` of it; K6 has none."""
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, dh, F = AUTOINT_PARAMS['num_heads'], D_AVAZU // 2, F_AVAZU
+    U = H * dh
+    rows = {name: [] for name in ('fa_fwd', 'fa_bwd', 'ab_fwd', 'ab_bwd')}
+    for dtype_name, out_name in (('float32', 'float32'),
+                                 ('bfloat16', 'bfloat16'),
+                                 ('bfloat16', 'float32')):
+        dtype, out_dtype = getattr(torch, dtype_name), getattr(torch,
+                                                               out_name)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        out_itemsize = torch.empty((), dtype=out_dtype).element_size()
+        same = dtype_name == out_name
+        for B in FA_BATCHES if same else FA_BATCHES[:1]:
+            def make():
+                def randn(shape, t, std=1.0):
+                    return (std * torch.randn(shape, generator=gen,
+                                              device='cuda')).to(t)
+                return (randn((B, F, U), dtype), randn((B, F, U), dtype),
+                        randn((B, F, U), dtype), randn((B, F, U), out_dtype),
+                        randn((B, F, U), dtype),
+                        randn((U + 1, 4 * U), dtype, 0.35),
+                        randn((B, F, U), dtype))
+            q, k, v, do, x, w, dx = make()
+            outs = {'fa_fwd': (fa.fa_fwd(q, k, v, H, out_dtype),),
+                    'fa_bwd': fa.fa_bwd(q, k, v, do, H)}
+            refs = {'fa_fwd': (fa.fa_fwd_reference(q, k, v, H, out_dtype),),
+                    'fa_bwd': fa.fa_bwd_reference(q, k, v, do, H)}
+            keep = None
+            if same:
+                outs.update(ab_fwd=(fa.ab_fwd(x, w, H),),
+                            ab_bwd=(fa.ab_bwd(x, w, dx, H),))
+                refs.update(ab_fwd=(fa.ab_fwd_reference(x, w, H),),
+                            ab_bwd=(fa.ab_bwd_reference(x, w, dx, H),))
+                keep = fa.ab_mask_margin(x, w, H) >= AB_MASK_MARGIN
+            torch.cuda.synchronize()
+            errs = {}
+            for name in outs:
+                errs[name] = 0.
+                for i, (out, ref) in enumerate(zip(outs[name], refs[name])):
+                    check(out.shape == ref.shape and out.dtype == ref.dtype,
+                          f'{name} output {i}: {tuple(out.shape)} '
+                          f'{out.dtype}, expected {tuple(ref.shape)} '
+                          f'{ref.dtype}')
+                    if name == 'ab_bwd':
+                        out, ref = out[keep], ref[keep]
+                    err = (out.float() - ref.float()).abs()
+                    r = 1e-2 if ref.dtype == torch.bfloat16 else 0.
+                    limit = 1e-5 * float(ref.float().abs().max()) \
+                        + r * ref.float().abs()
+                    errs[name] = max(errs[name], float(err.max()))
+                    check(bool((err <= limit).all()),
+                          f'{name} kernel disagrees with its plain version: '
+                          f'{dtype_name}->{out_name} B={B} output {i} '
+                          f'max_abs_err={float(err.max())}')
+            excluded = 0 if keep is None else int((~keep).sum())
+            check(excluded <= 0.05 * B, f'ab_bwd: {excluded} of {B} examples '
+                                        f'within {AB_MASK_MARGIN} of a relu '
+                                        f'mask')
+            del outs, refs
+            bufs = [(q, k, v, do, x, w, dx)] + [make() for _ in range(
+                n_buffers(7 * q.nbytes) - 1)]
+
+            def heads(t):
+                return t.reshape(B, F, H, dh).transpose(1, 2).contiguous()
+
+            def graph(a):
+                leaves = [heads(t).requires_grad_(True) for t in a[:3]]
+                return leaves, sdpa(*leaves), heads(a[3])
+            head_bufs = [[heads(t) for t in a[:3]] for a in bufs]
+            graphs = [graph(a) for a in bufs] if same else None
+            fns = {'fa_fwd': (lambda a: fa.fa_fwd(*a[:3], H, out_dtype),
+                              lambda a: fa.fa_fwd_reference(*a[:3], H,
+                                                            out_dtype),
+                              (lambda a: sdpa(*a), head_bufs) if same
+                              else None),
+                   'fa_bwd': (lambda a: fa.fa_bwd(*a[:4], H),
+                              lambda a: fa.fa_bwd_reference(*a[:4], H),
+                              (lambda g: torch.autograd.grad(
+                                  g[1], g[0], g[2], retain_graph=True),
+                               graphs) if same else None)}
+            if same:
+                fns.update(ab_fwd=(lambda a: fa.ab_fwd(a[4], a[5], H),
+                                   lambda a: fa.ab_fwd_reference(a[4], a[5],
+                                                                 H), None),
+                           ab_bwd=(lambda a: fa.ab_bwd(*a[4:], H),
+                                   lambda a: fa.ab_bwd_reference(*a[4:], H),
+                                   None))
+            iters = 50
+            for name, (kernel, plain, library) in fns.items():
+                bound_ms, bound_by = fa_bound(name, B, F, H, dh, itemsize,
+                                              out_itemsize)
+                row = {'dtype': dtype_name, 'out_dtype': out_name, 'B': B,
+                       'F': F, 'H': H, 'dh': dh, 'max_abs_err': errs[name],
+                       'rtol_of_max': 1e-5,
+                       'rtol_out': 1e-2 if out_name == 'bfloat16' else 0.,
+                       'ms': device_ms(torch, kernel, bufs, iters),
+                       'plain_ms': device_ms(torch, plain, bufs, iters),
+                       'call_ms': call_ms(torch, kernel, bufs, iters),
+                       'plain_call_ms': call_ms(torch, plain, bufs, iters),
+                       'library_ms': None if library is None else
+                       device_ms(torch, *library, iters),
+                       'library_call_ms': None if library is None else
+                       call_ms(torch, *library, iters),
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       'buffers': len(bufs)}
+                if name == 'ab_bwd':
+                    row['excluded_examples'] = excluded
+                rows[name].append(row)
+            del bufs, head_bufs, graphs, q, k, v, do, x, w, dx
+            torch.cuda.empty_cache()
+    notes = {'fa_fwd': 'torch.nn.functional.scaled_dot_product_attention on '
+                       '(B, H, F, dh)',
+             'fa_bwd': 'autograd: torch.autograd.grad of that call',
+             'ab_fwd': None, 'ab_bwd': None}
+    for name, note in notes.items():
+        line = {'phase': 'kernel', 'kernel': name, 'rows': rows[name]}
+        if note is None:
+            line.update(library_ms=None, library_note='no single PyTorch '
+                        'call computes the fused attention block')
+        else:
+            line['library_call'] = note
+        emit(line)
+    return rows
+
+
+# the field-attention kernels, the TPU kernel body each replaces, and the
+# yardstick of its `kernels` entry
+FA_KERNELS = {
+    'fa_fwd': ('deeptables_tpu/ops/kernels/field_attention.py:71',
+               'torch.nn.functional.scaled_dot_product_attention on '
+               '(B, H, F, dh)'),
+    'fa_bwd': ('deeptables_tpu/ops/kernels/field_attention.py:98',
+               'autograd: torch.autograd.grad of that call (several kernels, '
+               'not one call)'),
+    'ab_fwd': ('deeptables_tpu/ops/kernels/field_attention.py:254',
+               'no single PyTorch call computes the fused attention block'),
+    'ab_bwd': ('deeptables_tpu/ops/kernels/field_attention.py:281',
+               'no single PyTorch call computes the fused block\'s '
+               'gradient')}
+
+
+def fa_entry(name, rows, launches):
+    """The `kernels` entry of a field-attention kernel, at FA_HEADLINE."""
+    head = next(r for r in rows if (r['dtype'], r['B']) == FA_HEADLINE
+                and r['out_dtype'] == r['dtype'])
+    replaces, note = FA_KERNELS[name]
+    return {'name': name, 'route': 'cuda',
+            'source': 'deeptables_torch/csrc/field_attention.cu',
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': head['max_abs_err'], 'ms': head['ms'],
+            'plain_ms': head['plain_ms'], 'bound_ms': head['bound_ms'],
+            'bound_by': head['bound_by'], 'library_ms': head['library_ms'],
+            'library_note': note,
+            'at': {k: head[k] for k in ('dtype', 'B', 'F', 'H', 'dh')}}
+
+
 def flat_ids(torch, cat, vocabs):
     """(B, 26) column ids → the flat int32 ids of the fused table."""
     offsets = np.concatenate([[0], np.cumsum(np.asarray(vocabs) + 1)[:-1]])
@@ -568,6 +816,36 @@ def criteo_model(port, dtype_policy, device, vocabs, model='DeepFM',
     return port.DeepModel('binary', 2, config, cats, conts, device=device)
 
 
+def avazu_data(datasets):
+    """The bench's AutoInt rows (``load_avazu_synthetic(8192 * 8)``,
+    seed 31) as packed arrays, their labels and the vocabularies
+    ``max(id) + 1``."""
+    fields, click = datasets._avazu_fields(n_rows=AVAZU_BATCHES * TRAIN_BATCH)
+    cat = np.stack(list(fields.values()), axis=1)
+    return ({'cat': cat.astype(np.int32)}, click.astype(np.float32),
+            cat.max(axis=0) + 1)
+
+
+def autoint_model(port, dtype_policy, device, vocabs, model='AutoInt',
+                  extra=None):
+    """AutoInt at full avazu width; ``extra`` updates its
+    autoint_params."""
+    params = dict(AUTOINT_PARAMS, **AUTOINT_MODELS[model], **(extra or {}))
+    config = port.ModelConfig(
+        nets=NETS[model], metrics=['AUC'], task='binary',
+        embedding_dropout=0, embeddings_output_dim=D_AVAZU,
+        autoint_params=params, dtype_policy=dtype_policy)
+    cats = tuple(port.CategoricalColumn(f'C{i + 1}', int(v) + 1, D_AVAZU)
+                 for i, v in enumerate(vocabs))
+    return port.DeepModel('binary', 2, config, cats, (), device=device)
+
+
+def make_model(port, model, dtype_policy, device, vocabs, extra=None):
+    if model in AUTOINT_MODELS:
+        return autoint_model(port, dtype_policy, device, vocabs, model, extra)
+    return criteo_model(port, dtype_policy, device, vocabs, model, extra)
+
+
 def estimator(model):
     """What ``Predictor`` reads from a fitted estimator."""
     return types.SimpleNamespace(task=model.task, preprocessor=None,
@@ -582,7 +860,7 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
     name, per_chunk = SERVING_KERNEL[model_name]
     fn = kernel_fns[name]
     t0 = time.perf_counter()
-    model = criteo_model(port, dtype_policy, None, vocabs, model_name)
+    model = make_model(port, model_name, dtype_policy, None, vocabs)
     predictor = port.Predictor(estimator(model))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -624,13 +902,15 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
           f'{model_name} serving launched {launches}')
 
     # the same weights on the CPU run the plain path; for xDeepFM, the
-    # batch-minor CIN tower on the card gives the same probabilities
-    twins = [('cpu', criteo_model(port, dtype_policy, 'cpu', vocabs,
-                                  model_name))]
-    if model_name == 'xDeepFM':
-        twins.append(('batch_minor', criteo_model(
-            port, dtype_policy, None, vocabs, model_name,
-            {'layout': 'batch_minor'})))
+    # batch-minor CIN tower on the card gives the same probabilities, for
+    # AutoInt the batch-major layout (K5 with a float32 output)
+    twins = [('cpu', make_model(port, model_name, dtype_policy, 'cpu',
+                                vocabs))]
+    twin_layout = {'xDeepFM': 'batch_minor', 'AutoInt': 'batch_major'}
+    if model_name in twin_layout:
+        layout = twin_layout[model_name]
+        twins.append((layout, make_model(port, model_name, dtype_policy,
+                                         None, vocabs, {'layout': layout})))
     atol = SERVING_ATOL[dtype_policy]
     for twin_name, twin in twins:
         twin.build().load_state_dict(model.module.state_dict())
@@ -654,19 +934,13 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
 
 def profile_phase(torch, predictor, arrays, n, model_name='DeepFM'):
     """Device time by kernel over three requests, and the busy share."""
-    from torch.profiler import ProfilerActivity, profile
     predictor.predict_proba_arrays(arrays)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def work():
         for _ in range(3):
             predictor.predict_proba_arrays(arrays)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    device = device_kernels(torch, prof)
-    busy_us = sum(e.self_device_time_total for e in device)
-    check(busy_us > 0, 'the profiler saw no device time')
+    device, busy_us, wall_us = profile_window(torch, work)
     emit({'phase': 'profile', 'model': model_name,
           'dtype_policy': predictor.model.config.dtype_policy, 'n': n, 'requests': 3, 'wall_ms': wall_us / 1e3,
           'device_busy_ms': busy_us / 1e3,
@@ -687,14 +961,15 @@ def rows_of(arrays, start, stop):
 
 
 def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
-                model_name='DeepFM'):
-    """fit on the card; the kernels' launch counts are read around exactly
-    this run."""
+                model_name='DeepFM', train_steps=TRAIN_STEPS):
+    """fit on the card, ``train_steps`` batches an epoch and one batch of
+    validation; the kernels' launch counts are read around exactly this
+    run."""
     arrays, y = data
-    n_train = TRAIN_STEPS * TRAIN_BATCH
+    n_train = train_steps * TRAIN_BATCH
     train = rows_of(arrays, 0, n_train), y[:n_train]
     val = rows_of(arrays, n_train, n_train + TRAIN_BATCH), y[n_train:]
-    model = criteo_model(port, dtype_policy, None, vocabs, model_name)
+    model = make_model(port, model_name, dtype_policy, None, vocabs)
     module = model.build()
     init_state = {k: v.detach().cpu().clone()
                   for k, v in module.state_dict().items()}
@@ -721,7 +996,7 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     del model._train_step
     steps = len(step_s)
     logs = {k: list(v) for k, v in history.history.data.items()}
-    check(steps == TRAIN_STEPS * TRAIN_EPOCHS, f'fit ran {steps} steps')
+    check(steps == train_steps * TRAIN_EPOCHS, f'fit ran {steps} steps')
     check(all(math.isfinite(v) for vs in logs.values() for v in vs),
           f'non-finite logs: {logs}')
     check(logs['loss'][-1] < logs['loss'][0],
@@ -729,38 +1004,39 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
           f'{logs["loss"]}')
     # one width group: K1 once a step. DeepFM: K2-bwd once a step, K2-fwd
     # once a step and once a validation batch. xDeepFM: K3 once a CIN layer
-    # and step, K4 once a layer and step or validation batch
-    layers = len(XDEEPFM_CIN['cross_layer_size'])
+    # and step, K4 once a layer and step or validation batch. AutoInt: K5-bwd
+    # once a block and step, K5-fwd once a block and step or validation
+    # batch; with fuse_projections K6 in their place
     expected = dict.fromkeys(kernel_fns, 0)
     expected['emb_grad'] = steps
     if model_name == 'DeepFM':
         expected.update(fm_bwd=steps, fm_fwd=steps + TRAIN_EPOCHS)
-    else:
+    elif model_name == 'xDeepFM':
+        layers = len(XDEEPFM_CIN['cross_layer_size'])
         expected.update(cin_bwd=layers * steps,
                         cin_fwd=layers * (steps + TRAIN_EPOCHS))
+    else:
+        fwd, blocks = SERVING_KERNEL[model_name][0], \
+            AUTOINT_PARAMS['num_attention']
+        expected.update({fwd: blocks * (steps + TRAIN_EPOCHS),
+                         fwd[:-3] + 'bwd': blocks * steps})
     check(launches == expected, f'{model_name}: {steps} steps and '
                                 f'{TRAIN_EPOCHS} validations launched '
                                 f'{launches}, expected {expected}')
-    later = sorted(step_s[TRAIN_STEPS:])
+    later = sorted(step_s[train_steps:])
     median_s = later[len(later) // 2]
 
     # two steps under the profiler: device time by kernel, busy share
-    from torch.profiler import ProfilerActivity, profile
     loss_fn = model._loss_fn()
     batches = [(rows_of(train[0], i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH),
                 train[1][i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
                for i in range(2)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def work():
         for batch, yb in batches:
             model._train_step(batch, yb, None, loss_fn)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    device = device_kernels(torch, prof)
-    busy_us = sum(e.self_device_time_total for e in device)
-    check(busy_us > 0, 'the profiler saw no device time')
+    device, busy_us, wall_us = profile_window(torch, work)
 
     # the same initial weights on the card and the CPU: the gradients of
     # one step, then the losses and parameters of a fit over three batches
@@ -772,15 +1048,18 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     first = rows_of(train[0], 0, cb), train[1][:cb]
     twins, grads, fits = {}, {}, {}
     for run, device_name in (('card', None), ('cpu', 'cpu')):
-        twin = criteo_model(port, dtype_policy, device_name, vocabs,
-                            model_name)
+        twin = make_model(port, model_name, dtype_policy, device_name,
+                          vocabs)
         twin_module = twin.build()
         twin_module.load_state_dict(init_state)
         logits, _ = twin_module(twin.to_device(first[0]), training=True)
         twin._loss_fn()(logits, torch.from_numpy(first[1]).to(
             twin.device), None).backward()
+        # (a parameter that feeds no net, such as bn_concat_emb_dense of an
+        # AutoInt-only model, has no gradient)
         grads[run] = {k: p.grad.detach().cpu().clone()
-                      for k, p in twin_module.named_parameters()}
+                      for k, p in twin_module.named_parameters()
+                      if p.grad is not None}
         twin_module.zero_grad(set_to_none=True)
         twin_module.load_state_dict(init_state)  # undo the BN statistics
         h = twin.fit(compare[0], compare[1], batch_size=cb, epochs=1,
@@ -801,6 +1080,9 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     # example's embedding gradient moved by 7%, 8.9e-4 of the largest)
     g_rtol, g_atol = (1e-4 if dtype_policy == 'float32' else 1e-2), 1e-2
     grad_err = {}
+    check(set(grads['card']) == set(grads['cpu']),
+          f'{model_name}: the card and the CPU give gradients to other '
+          f'parameters')
     for k, ref in grads['cpu'].items():
         err = (grads['card'][k] - ref).abs()
         scale = float(ref.abs().max())
@@ -876,10 +1158,12 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     import deeptables_torch as port
+    from deeptables_torch.data import datasets
     from deeptables_torch.data.datasets import load_criteo_synthetic
     from deeptables_torch.ops.kernels import _build
     from deeptables_torch.ops.kernels import cin as cin_module
     from deeptables_torch.ops.kernels import emb_grad as eg_module
+    from deeptables_torch.ops.kernels import field_attention as fa_module
     from deeptables_torch.ops.kernels import fm as fm_module
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -894,6 +1178,7 @@ def main():
     grad_rows = emb_grad_kernel_phase(torch, eg_module, vocabs,
                                       load_criteo_synthetic)
     cin_rows = cin_kernel_phase(torch, cin_module)
+    fa_rows = fa_kernel_phase(torch, fa_module)
 
     requests = []
     for i, n in enumerate(REQUESTS):
@@ -903,24 +1188,39 @@ def main():
     kernel_fns = {'fm_fwd': fm_module.fm, 'fm_bwd': fm_module.fm_backward,
                   'emb_grad': eg_module.emb_grad,
                   'cin_fwd': cin_module.cin_fwd,
-                  'cin_bwd': cin_module.cin_bwd}
+                  'cin_bwd': cin_module.cin_bwd,
+                  'fa_fwd': fa_module.fa_fwd, 'fa_bwd': fa_module.fa_bwd,
+                  'ab_fwd': fa_module.ab_fwd, 'ab_bwd': fa_module.ab_bwd}
     launches = dict.fromkeys(kernel_fns, 0)
-    data = train_data(load_criteo_synthetic, TRAIN_STEPS + 1, seed=7)
-    for model_name in ('DeepFM', 'xDeepFM'):
+    criteo = (vocabs, requests,
+              train_data(load_criteo_synthetic, TRAIN_STEPS + 1, seed=7),
+              TRAIN_STEPS)
+    # AutoInt: the bench's rows, 7 batches to train on and 1 to validate;
+    # requests drawn from them
+    avazu_arrays, avazu_y, avazu_vocabs = avazu_data(datasets)
+    avazu_requests = [
+        (n, {'cat': avazu_arrays['cat'][
+            np.random.default_rng(100 + i).choice(len(avazu_y), n)]})
+        for i, n in enumerate(REQUESTS)]
+    avazu = (avazu_vocabs, avazu_requests, (avazu_arrays, avazu_y),
+             AVAZU_BATCHES - 1)
+    for model_name in ('DeepFM', 'xDeepFM', 'AutoInt', 'AutoInt-fused'):
+        model_vocabs, model_requests, data, steps = \
+            avazu if model_name in AUTOINT_MODELS else criteo
         for dtype_policy in ('bfloat16', 'float32'):
             predictor, count = serving_phase(torch, port, kernel_fns,
-                                             dtype_policy, vocabs, requests,
-                                             model_name)
+                                             dtype_policy, model_vocabs,
+                                             model_requests, model_name)
             launches[SERVING_KERNEL[model_name][0]] += count
             if dtype_policy == HEADLINE[0]:
-                profile_phase(torch, predictor, dict(requests)[4096], 4096,
-                              model_name)
+                profile_phase(torch, predictor, dict(model_requests)[4096],
+                              4096, model_name)
             del predictor
             torch.cuda.empty_cache()
         for dtype_policy in ('bfloat16', 'float32'):
             for name, count in train_phase(torch, port, kernel_fns,
-                                           dtype_policy, vocabs, data,
-                                           model_name).items():
+                                           dtype_policy, model_vocabs, data,
+                                           model_name, steps).items():
                 launches[name] += count
             torch.cuda.empty_cache()
 
@@ -988,7 +1288,8 @@ def main():
         'library_ms': cin_head['cin_bwd']['library_ms'],
         'library_note': 'autograd: torch.autograd.grad of that einsum '
                         '(several kernels, not one call)',
-        'at': cin_at}]})
+        'at': cin_at}] + [fa_entry(name, fa_rows[name], launches[name])
+                          for name in FA_KERNELS]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

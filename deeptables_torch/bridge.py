@@ -31,6 +31,14 @@ What it maps:
   fields is in plan order and is permuted: axes 1 and 2 of ``f_0`` (h = x0
   at layer 0), axis 1 of ``f_i`` (i > 0) and ``f0_i``, axis 2 of ``f__0``.
   The hidden-unit axes are not.
+- AutoInt (``autoint_attention_{i}``): the nested ``dense_Q``, ``dense_K``,
+  ``dense_V``, ``dense_residual`` as Dense and ``batch_normalize`` (its
+  ``batch_stats`` nested the same way) as BatchNorm. Attention treats every
+  field alike, so these need no permutation; but the net's flattened
+  ``(F·U)`` output is in plan order, so the layer that reads it
+  (``task_output`` when AutoInt is the only net, else
+  ``dense_logit_autoint_nets``) has its rows permuted in blocks of U, like
+  ``dnn_dense_1``.
 """
 
 from typing import Dict, List, Sequence
@@ -46,8 +54,10 @@ _LANES = 128
 _TILE_P = 256
 
 _EMBEDDING = consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all'
-_BRIDGED_NETS = ('linear', 'fm_nets', 'cin_nets', 'dnn_nets')
+_BRIDGED_NETS = ('linear', 'fm_nets', 'cin_nets', 'autoint_nets',
+                 'dnn_nets')
 _CIN = 'cin_layer'
+_AUTOINT = 'autoint_attention_'
 
 
 def _pack_factor(dim: int) -> int:
@@ -124,6 +134,11 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
     dim = output_dims[0] if output_dims else 0
     blocks = {'linear_logit': 1, 'bn_concat_emb_dense': dim,
               'dnn_dense_1': dim}
+    # the layer that reads AutoInt's flattened (F·U) output
+    if tuple(config.nets) == ('autoint_nets',):
+        blocks['task_output'] = dim
+    else:
+        blocks['dense_logit_autoint_nets'] = dim
 
     out = {}
     for name, node in params.items():
@@ -133,28 +148,40 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
             raise NotImplementedError(f'no weight bridge yet for {name!r}')
         elif name == _CIN:
             out.update(_cin_weights(node, order))
-        elif 'kernel' in node:
-            kernel = _f32(node['kernel'])
-            if name in blocks and order:
-                kernel = _to_column_order(kernel, order, blocks[name])
-            out[f'{name}.weight'] = kernel.T
-            if 'bias' in node:
-                out[f'{name}.bias'] = _f32(node['bias'])
-        elif 'scale' in node:
-            entries = {'weight': node['scale'], 'bias': node['bias']}
-            if name in stats:
-                entries.update(running_mean=stats[name]['mean'],
-                               running_var=stats[name]['var'])
-            for key, value in entries.items():
-                value = _f32(value)
-                if name in blocks and order:
-                    value = _to_column_order(value, order, blocks[name])
-                out[f'{name}.{key}'] = value
+        elif name.startswith(_AUTOINT):
+            for key, layer in node.items():
+                out.update(_layer(f'{name}.{key}', layer,
+                                  stats.get(name, {}).get(key)))
+        elif 'kernel' in node or 'scale' in node:
+            out.update(_layer(name, node, stats.get(name),
+                              blocks.get(name) if order else None, order))
         else:
             raise NotImplementedError(
                 f'no weight bridge yet for flax module {name!r}')
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
+
+
+def _layer(name, node, stats=None, block=None, order=None):
+    """A Dense (``kernel``, ``bias``) or BatchNorm (``scale``, ``bias``,
+    ``stats`` ``mean``/``var``) node → the port's entries; with ``block``,
+    the entries along the field axis (a kernel's rows, every BatchNorm
+    vector) go from JAX field order to column order in blocks of that
+    size."""
+    def fields(value):
+        value = _f32(value)
+        return _to_column_order(value, order, block) if block else value
+    if 'kernel' in node:  # kernel (in, out) → weight (out, in)
+        out = {f'{name}.weight': fields(node['kernel']).T}
+        if 'bias' in node:
+            out[f'{name}.bias'] = _f32(node['bias'])
+        return out
+    if 'scale' not in node:
+        raise NotImplementedError(f'no weight bridge yet for {name!r}')
+    entries = {'weight': node['scale'], 'bias': node['bias']}
+    if stats is not None:
+        entries.update(running_mean=stats['mean'], running_var=stats['var'])
+    return {f'{name}.{key}': fields(value) for key, value in entries.items()}
 
 
 def _permute_axis(a: np.ndarray, order: List[int], axis: int):

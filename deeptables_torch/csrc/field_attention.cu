@@ -1,0 +1,703 @@
+// Field attention (AutoInt's interacting layer), forward and backward, and the
+// fused attention block, forward and backward, for NVIDIA Hopper (sm_90a).
+//
+// Replaces deeptables_tpu/ops/kernels/field_attention.py:
+//   K5-fwd  field_attention / _fwd_kernel     o = softmax_g(q k^T * scale) v
+//   K5-bwd  _fa_bwd / _bwd_kernel             dq, dk, dv (softmax recomputed)
+//   K6-fwd  attention_block / _ab_fwd_kernel  relu(w_aug^T [x;1]) -> q, k, v, r;
+//                                             out = relu(attention + r)
+//   K6-bwd  _ab_bwd / _ab_bwd_kernel          dpre = 1[pre > 0] * [dq;dk;dv;dr]
+//
+// Layouts. The TPU kernels took (H, F, dh, B) operands, the batch on the lane
+// axis. Here every operand is the projection's own (B, F, U) layout, U = H*dh,
+// contiguous: head h of field f of example b is columns h*dh .. h*dh + dh - 1
+// of row (b, f), as the JAX package's split takes it. No transposes.
+// w_aug is (U + 1, 4U) = [[Wq | Wk | Wv | Wr]; [bq | bk | bv | br]], already in
+// x's type; dpre is (B, F, 4U) in x's type.
+//
+// What bounds them: memory. Per example and head the attention is an F x F
+// product with a depth of dh (F = 22, dh = 8 on the AutoInt configuration):
+// about 4*F*F*dh float operations for 2*F*U*itemsize bytes moved, ~11
+// operations a byte in bfloat16, far under the card's ~20 (float32 CUDA cores)
+// or ~295 (tensor cores). The least time is the bytes: q, k, v read once and o
+// written once (K5-fwd); q, k, v, do read and dq, dk, dv written (K5-bwd); x
+// read and out written (K6-fwd); x, do read and dpre written (K6-bwd).
+//
+// Design. One warp owns one example b; a block holds up to 8 warps. The warp
+// copies the example's rows into shared memory as float32 (coalesced: the
+// example's F*U values are contiguous), then works per head h with lane =
+// query field f (looping for F > 32): its score row over g goes to a row of an
+// F x F shared buffer, the max-subtracted softmax is taken in float32, and the
+// context is summed in float32 registers (dh <= DHM values). Outputs are
+// staged back into shared memory and written coalesced, rounded once to the
+// output type. The scores, the weights and (in K6) the four projections never
+// reach device memory. Rows of the shared buffers are padded to an odd
+// stride, so a warp reading a column (lane = row) hits 32 distinct banks.
+//
+// The backward sums over the query field f for dv and dk cross lanes. They are
+// done without atomics, so results are deterministic: pass A (lane = f) writes
+// the weights w and ds = w * (dw - sum_g w*dw) * scale to shared memory, pass B
+// (lane = g) reads them by column and sums dv[g] and dk[g] over f, pass C
+// (lane = f) sums dq[f] over g. Each output lands in shared memory where its
+// input is no longer read (dv over v; dq over q after pass B), dk in a scratch
+// buffer.
+//
+// K6 adds the projection of x by w_aug, which the block stages once in shared
+// memory for all its warps; q, k, v and r stay float32 (not rounded), as in
+// the TPU kernel. Its backward recomputes them, then masks exactly as the JAX
+// VJP: dctx = dr = 1[ctx + r > 0] * do, dpre = 1[pre > 0] * [dq; dk; dv; dr]
+// (strict: the derivative of relu at 0 is 0; pre > 0 exactly where post > 0).
+// The two products of the K6 gradient (dW = [x;1] dpre^T, dx = w_aug dpre) run
+// outside the kernel, as they ran in XLA outside the TPU kernel.
+//
+// Every shape: any B (the last block's idle warps return), any F, any dh up to
+// 64 (loops run to the register width DHM and are predicated on dh), as long
+// as one warp's buffers fit in a block's shared memory; the entry points
+// return cudaErrorInvalidValue otherwise.
+//
+// Plain C interface for ctypes: each entry point launches on the given stream,
+// does not synchronise, and returns cudaGetLastError() (or the error of the
+// shared-memory attribute call).
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxWarps = 8;
+// Two blocks an SM when the buffers allow it.
+constexpr int kTargetSmemBytes = 113 * 1024;
+constexpr int kMaxSmemBytes = 232448;  // 227 KB, a block's limit on Hopper
+constexpr int kDefaultSmemBytes = 48 * 1024;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// An odd row stride: a column read (lane = row) meets 32 distinct banks.
+__host__ __device__ __forceinline__ int odd(int n) { return n | 1; }
+
+// The warp copies `rows` x `cols` contiguous values of src into dst (row
+// stride ld), as float32.
+template <typename S>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const S* src,
+                                          int rows, int cols, int lane) {
+  const int n = rows * cols;
+  for (int i = lane; i < n; i += 32) {
+    const int r = i / cols;
+    dst[r * ld + i - r * cols] = to_f32(src[i]);
+  }
+}
+
+template <typename S>
+__device__ __forceinline__ void store_rows(S* dst, const float* src, int ld,
+                                           int rows, int cols, int lane) {
+  const int n = rows * cols;
+  for (int i = lane; i < n; i += 32) {
+    const int r = i / cols;
+    store(dst + i, src[r * ld + i - r * cols]);
+  }
+}
+
+// Row f of the softmax: wrow[g] = softmax_g(scale * q_f . k_g), from q_f in
+// registers and k rows (stride ld) in shared memory. Returns nothing; wrow
+// holds the weights e / z, as the TPU kernel forms them.
+template <int DHM>
+__device__ __forceinline__ void softmax_row(float* wrow, const float* qr,
+                                            const float* k, int ld, int F,
+                                            int dh, float scale) {
+  float m = neg_inf();
+  for (int g = 0; g < F; ++g) {
+    const float* kr = k + g * ld;
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < DHM; ++d)
+      if (d < dh) s = fmaf(qr[d], kr[d], s);
+    s *= scale;
+    wrow[g] = s;
+    m = fmaxf(m, s);
+  }
+  float z = 0.f;
+  for (int g = 0; g < F; ++g) {
+    const float e = expf(wrow[g] - m);
+    wrow[g] = e;
+    z += e;
+  }
+  for (int g = 0; g < F; ++g) wrow[g] = wrow[g] / z;
+}
+
+template <int DHM>
+__device__ __forceinline__ void load_head(float* r, const float* src, int dh) {
+#pragma unroll
+  for (int d = 0; d < DHM; ++d) r[d] = d < dh ? src[d] : 0.f;
+}
+
+// acc[d] = sum_g w[g] * v[g*ld + d]
+template <int DHM>
+__device__ __forceinline__ void weighted_sum(float* acc, const float* w,
+                                             int wstride, const float* v,
+                                             int ld, int n, int dh) {
+#pragma unroll
+  for (int d = 0; d < DHM; ++d) acc[d] = 0.f;
+  for (int g = 0; g < n; ++g) {
+    const float wg = w[g * wstride];
+    const float* vr = v + g * ld;
+#pragma unroll
+    for (int d = 0; d < DHM; ++d)
+      if (d < dh) acc[d] = fmaf(wg, vr[d], acc[d]);
+  }
+}
+
+// ds row: drow[g] = w[g] * (dw[g] - sum_g' w[g'] dw[g']) * scale, with
+// dw[g] = dc . v_g
+template <int DHM>
+__device__ __forceinline__ void softmax_grad_row(float* drow, const float* wrow,
+                                                 const float* dc,
+                                                 const float* v, int ld, int F,
+                                                 int dh, float scale) {
+  float t = 0.f;
+  for (int g = 0; g < F; ++g) {
+    const float* vr = v + g * ld;
+    float dw = 0.f;
+#pragma unroll
+    for (int d = 0; d < DHM; ++d)
+      if (d < dh) dw = fmaf(dc[d], vr[d], dw);
+    drow[g] = dw;
+    t = fmaf(wrow[g], dw, t);
+  }
+  for (int g = 0; g < F; ++g) drow[g] = wrow[g] * (drow[g] - t) * scale;
+}
+
+// ---------------------------------------------------------------- K5 forward
+
+__host__ __device__ __forceinline__ int fa_fwd_floats(int F, int U) {
+  return 3 * F * odd(U) + F * odd(F);
+}
+
+template <typename T, typename TO, int DHM>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, TO* __restrict__ out, int64_t B,
+                  int F, int H, int dh, float scale) {
+  extern __shared__ float smem[];
+  const int U = H * dh, UP = odd(U), FP = odd(F);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (b >= B) return;
+  float* qs = smem + static_cast<size_t>(warp) * fa_fwd_floats(F, U);
+  float* ks = qs + F * UP;
+  float* vs = ks + F * UP;
+  float* ws = vs + F * UP;
+  const int64_t base = b * F * U;
+  load_rows(qs, UP, q + base, F, U, lane);
+  load_rows(ks, UP, k + base, F, U, lane);
+  load_rows(vs, UP, v + base, F, U, lane);
+  __syncwarp();
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    for (int f = lane; f < F; f += 32) {
+      float* wrow = ws + f * FP;
+      float qr[DHM], acc[DHM];
+      load_head<DHM>(qr, qs + f * UP + c0, dh);
+      softmax_row<DHM>(wrow, qr, ks + c0, UP, F, dh, scale);
+      weighted_sum<DHM>(acc, wrow, 1, vs + c0, UP, F, dh);
+      // only this lane reads q's row f: the context takes its place
+#pragma unroll
+      for (int d = 0; d < DHM; ++d)
+        if (d < dh) qs[f * UP + c0 + d] = acc[d];
+    }
+  }
+  __syncwarp();
+  store_rows(out + base, qs, UP, F, U, lane);
+}
+
+// --------------------------------------------------------------- K5 backward
+
+__host__ __device__ __forceinline__ int fa_bwd_floats(int F, int U) {
+  return 5 * F * odd(U) + 2 * F * odd(F);
+}
+
+template <typename T, typename TO, int DHM>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    fa_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const TO* __restrict__ dout,
+                  T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                  int64_t B, int F, int H, int dh, float scale) {
+  extern __shared__ float smem[];
+  const int U = H * dh, UP = odd(U), FP = odd(F);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (b >= B) return;
+  float* qs = smem + static_cast<size_t>(warp) * fa_bwd_floats(F, U);
+  float* ks = qs + F * UP;
+  float* vs = ks + F * UP;
+  float* dos = vs + F * UP;
+  float* dks = dos + F * UP;  // dk, all heads
+  float* ws = dks + F * UP;
+  float* dss = ws + F * FP;
+  const int64_t base = b * F * U;
+  load_rows(qs, UP, q + base, F, U, lane);
+  load_rows(ks, UP, k + base, F, U, lane);
+  load_rows(vs, UP, v + base, F, U, lane);
+  load_rows(dos, UP, dout + base, F, U, lane);
+  __syncwarp();
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    // pass A, lane = f: the weights and ds rows
+    for (int f = lane; f < F; f += 32) {
+      float qr[DHM], dor[DHM];
+      load_head<DHM>(qr, qs + f * UP + c0, dh);
+      load_head<DHM>(dor, dos + f * UP + c0, dh);
+      softmax_row<DHM>(ws + f * FP, qr, ks + c0, UP, F, dh, scale);
+      softmax_grad_row<DHM>(dss + f * FP, ws + f * FP, dor, vs + c0, UP, F, dh,
+                            scale);
+    }
+    __syncwarp();
+    // pass B, lane = g: dv[g] = sum_f w[f,g] do[f], dk[g] = sum_f ds[f,g] q[f]
+    for (int g = lane; g < F; g += 32) {
+      float dvr[DHM], dkr[DHM];
+      weighted_sum<DHM>(dvr, ws + g, FP, dos + c0, UP, F, dh);
+      weighted_sum<DHM>(dkr, dss + g, FP, qs + c0, UP, F, dh);
+#pragma unroll
+      for (int d = 0; d < DHM; ++d) {
+        if (d < dh) {
+          vs[g * UP + c0 + d] = dvr[d];  // v of head h is read no more
+          dks[g * UP + c0 + d] = dkr[d];
+        }
+      }
+    }
+    __syncwarp();
+    // pass C, lane = f: dq[f] = sum_g ds[f,g] k[g]
+    for (int f = lane; f < F; f += 32) {
+      float dqr[DHM];
+      weighted_sum<DHM>(dqr, dss + f * FP, 1, ks + c0, UP, F, dh);
+#pragma unroll
+      for (int d = 0; d < DHM; ++d)
+        if (d < dh) qs[f * UP + c0 + d] = dqr[d];  // q of head h: done
+    }
+    __syncwarp();
+  }
+  store_rows(dq + base, qs, UP, F, U, lane);
+  store_rows(dk + base, dks, UP, F, U, lane);
+  store_rows(dv + base, vs, UP, F, U, lane);
+}
+
+// ---------------------------------------------------------------- K6 forward
+
+__host__ __device__ __forceinline__ int ab_shared_floats(int U) {
+  return (U + 1) * 4 * U;
+}
+__host__ __device__ __forceinline__ int ab_fwd_floats(int F, int U) {
+  return F * odd(U) + F * odd(4 * U) + F * odd(F);
+}
+__host__ __device__ __forceinline__ int ab_bwd_floats(int F, int U) {
+  return 2 * F * odd(U) + F * odd(4 * U) + 2 * F * odd(F);
+}
+
+// The block stages w_aug (U + 1, 4U) as float32.
+template <typename T>
+__device__ __forceinline__ void load_w_aug(float* wsm, const T* w_aug, int U) {
+  const int n = ab_shared_floats(U);
+  for (int i = threadIdx.x; i < n; i += blockDim.x) wsm[i] = to_f32(w_aug[i]);
+}
+
+// post[f, j] = relu(sum_u x[f,u] w[u,j] + w[U,j]) for the warp's F rows.
+__device__ __forceinline__ void project(float* ps, int PP, const float* xs,
+                                        int UP, const float* wsm, int F, int U,
+                                        int lane) {
+  const int U4 = 4 * U;
+  for (int f = lane; f < F; f += 32) {
+    const float* xr = xs + f * UP;
+    for (int j = 0; j < U4; ++j) {
+      float s = 0.f;
+      for (int u = 0; u < U; ++u) s = fmaf(xr[u], wsm[u * U4 + j], s);
+      s += wsm[U * U4 + j];
+      ps[f * PP + j] = fmaxf(s, 0.f);
+    }
+  }
+}
+
+template <typename T, int DHM>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    ab_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_aug,
+                  T* __restrict__ out, int64_t B, int F, int H, int dh,
+                  float scale) {
+  extern __shared__ float smem[];
+  const int U = H * dh, UP = odd(U), PP = odd(4 * U), FP = odd(F);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* wsm = smem;
+  load_w_aug(wsm, w_aug, U);
+  __syncthreads();
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (b >= B) return;
+  float* xs = smem + ab_shared_floats(U) +
+              static_cast<size_t>(warp) * ab_fwd_floats(F, U);
+  float* ps = xs + F * UP;
+  float* ws = ps + F * PP;
+  const int64_t base = b * F * U;
+  load_rows(xs, UP, x + base, F, U, lane);
+  __syncwarp();
+  project(ps, PP, xs, UP, wsm, F, U, lane);
+  __syncwarp();
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    for (int f = lane; f < F; f += 32) {
+      float* wrow = ws + f * FP;
+      const float* pr = ps + f * PP;
+      float qr[DHM], acc[DHM];
+      load_head<DHM>(qr, pr + c0, dh);
+      softmax_row<DHM>(wrow, qr, ps + U + c0, PP, F, dh, scale);
+      weighted_sum<DHM>(acc, wrow, 1, ps + 2 * U + c0, PP, F, dh);
+      // x's row f was read by this lane only, in the projection
+#pragma unroll
+      for (int d = 0; d < DHM; ++d)
+        if (d < dh)
+          xs[f * UP + c0 + d] = fmaxf(acc[d] + pr[3 * U + c0 + d], 0.f);
+    }
+  }
+  __syncwarp();
+  store_rows(out + base, xs, UP, F, U, lane);
+}
+
+// --------------------------------------------------------------- K6 backward
+
+template <typename T, int DHM>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    ab_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w_aug,
+                  const T* __restrict__ dout, T* __restrict__ dpre, int64_t B,
+                  int F, int H, int dh, float scale) {
+  extern __shared__ float smem[];
+  const int U = H * dh, UP = odd(U), PP = odd(4 * U), FP = odd(F);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* wsm = smem;
+  load_w_aug(wsm, w_aug, U);
+  __syncthreads();
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / 32) + warp;
+  if (b >= B) return;
+  float* xs = smem + ab_shared_floats(U) +
+              static_cast<size_t>(warp) * ab_bwd_floats(F, U);
+  float* dks = xs + F * UP;  // dk of the current head
+  float* ps = dks + F * UP;  // post, turned into dpre in place
+  float* ws = ps + F * PP;
+  float* dss = ws + F * FP;
+  const int64_t base = b * F * U;
+  load_rows(xs, UP, x + base, F, U, lane);
+  __syncwarp();
+  project(ps, PP, xs, UP, wsm, F, U, lane);
+  __syncwarp();
+  load_rows(xs, UP, dout + base, F, U, lane);  // x is read no more
+  __syncwarp();
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    float* qc = ps + c0;
+    float* kc = ps + U + c0;
+    float* vc = ps + 2 * U + c0;
+    float* rc = ps + 3 * U + c0;
+    // pass A, lane = f: weights, context, the masks, dr and the ds row
+    for (int f = lane; f < F; f += 32) {
+      float* wrow = ws + f * FP;
+      float qr[DHM], ctx[DHM], dc[DHM];
+      load_head<DHM>(qr, qc + f * PP, dh);
+      softmax_row<DHM>(wrow, qr, kc, PP, F, dh, scale);
+      weighted_sum<DHM>(ctx, wrow, 1, vc, PP, F, dh);
+#pragma unroll
+      for (int d = 0; d < DHM; ++d) {
+        dc[d] = 0.f;
+        if (d < dh) {
+          const float r = rc[f * PP + d];
+          const float g = xs[f * UP + c0 + d];
+          dc[d] = ctx[d] + r > 0.f ? g : 0.f;
+          xs[f * UP + c0 + d] = dc[d];       // dctx, read by pass B
+          rc[f * PP + d] = r > 0.f ? dc[d] : 0.f;  // dpre of r
+        }
+      }
+      softmax_grad_row<DHM>(dss + f * FP, wrow, dc, vc, PP, F, dh, scale);
+    }
+    __syncwarp();
+    // pass B, lane = g: dv[g] = sum_f w[f,g] dctx[f], dk[g] = sum_f ds[f,g] q[f]
+    for (int g = lane; g < F; g += 32) {
+      float dvr[DHM], dkr[DHM];
+      weighted_sum<DHM>(dvr, ws + g, FP, xs + c0, UP, F, dh);
+      weighted_sum<DHM>(dkr, dss + g, FP, qc, PP, F, dh);
+#pragma unroll
+      for (int d = 0; d < DHM; ++d) {
+        if (d < dh) {
+          const float vv = vc[g * PP + d];  // v is read no more
+          vc[g * PP + d] = vv > 0.f ? dvr[d] : 0.f;
+          dks[g * UP + c0 + d] = dkr[d];
+        }
+      }
+    }
+    __syncwarp();
+    // pass C, lane = f: dq[f] = sum_g ds[f,g] k[g]
+    for (int f = lane; f < F; f += 32) {
+      float dqr[DHM];
+      weighted_sum<DHM>(dqr, dss + f * FP, 1, kc, PP, F, dh);
+#pragma unroll
+      for (int d = 0; d < DHM; ++d) {
+        if (d < dh) {
+          const float qq = qc[f * PP + d];
+          qc[f * PP + d] = qq > 0.f ? dqr[d] : 0.f;
+        }
+      }
+    }
+    __syncwarp();
+    // k is read no more: its dpre takes its place
+    for (int g = lane; g < F; g += 32) {
+#pragma unroll
+      for (int d = 0; d < DHM; ++d) {
+        if (d < dh) {
+          const float kk = kc[g * PP + d];
+          kc[g * PP + d] = kk > 0.f ? dks[g * UP + c0 + d] : 0.f;
+        }
+      }
+    }
+    __syncwarp();
+  }
+  store_rows(dpre + base * 4, ps, PP, F, 4 * U, lane);
+}
+
+// ------------------------------------------------------------------ launches
+
+// Warps per block for `per_warp` floats of each warp's buffers beside
+// `shared` floats of the block's; 0 when one warp's do not fit.
+int warps_for(int per_warp, int shared) {
+  const int64_t pw = 4ll * per_warp, sh = 4ll * shared;
+  if (sh + pw > kMaxSmemBytes) return 0;
+  int64_t w = (kTargetSmemBytes - sh) / pw;
+  if (w < 1) w = 1;
+  if (w > kMaxWarps) w = kMaxWarps;
+  return static_cast<int>(w);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, int64_t B, int per_warp, int shared,
+                    dim3* grid, dim3* block, size_t* smem) {
+  const int warps = warps_for(per_warp, shared);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const int64_t blocks = (B + warps - 1) / warps;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  *grid = dim3(static_cast<unsigned>(blocks));
+  *block = dim3(32 * warps);
+  *smem = 4ull * (shared + static_cast<int64_t>(warps) * per_warp);
+  if (*smem > kDefaultSmemBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(*smem));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool valid(int64_t B, int F, int H, int dh) {
+  return B >= 1 && F >= 1 && H >= 1 && dh >= 1 && dh <= 64;
+}
+
+// Calls BODY with DHM, the register width for dh.
+#define DT_FA_DISPATCH_DH(BODY)              \
+  do {                                       \
+    if (dh <= 8) {                           \
+      constexpr int DHM = 8;                 \
+      BODY;                                  \
+    } else if (dh <= 16) {                   \
+      constexpr int DHM = 16;                \
+      BODY;                                  \
+    } else if (dh <= 32) {                   \
+      constexpr int DHM = 32;                \
+      BODY;                                  \
+    } else {                                 \
+      constexpr int DHM = 64;                \
+      BODY;                                  \
+    }                                        \
+  } while (0)
+
+template <typename T, typename TO, int DHM>
+cudaError_t fa_fwd_launch(const T* q, const T* k, const T* v, TO* out,
+                          int64_t B, int F, int H, int dh, float scale,
+                          cudaStream_t stream) {
+  auto kernel = fa_fwd_kernel<T, TO, DHM>;
+  dim3 grid, block;
+  size_t smem;
+  cudaError_t err = prepare(kernel, B, fa_fwd_floats(F, H * dh), 0, &grid,
+                            &block, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(q, k, v, out, B, F, H, dh, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TO>
+cudaError_t fa_fwd(const void* q, const void* k, const void* v, void* out,
+                   int64_t B, int F, int H, int dh, float scale,
+                   void* stream) {
+  if (!valid(B, F, H, dh)) return cudaErrorInvalidValue;
+  DT_FA_DISPATCH_DH(return (fa_fwd_launch<T, TO, DHM>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<TO*>(out), B, F, H, dh, scale,
+      static_cast<cudaStream_t>(stream))));
+}
+
+template <typename T, typename TO, int DHM>
+cudaError_t fa_bwd_launch(const T* q, const T* k, const T* v, const TO* dout,
+                          T* dq, T* dk, T* dv, int64_t B, int F, int H, int dh,
+                          float scale, cudaStream_t stream) {
+  auto kernel = fa_bwd_kernel<T, TO, DHM>;
+  dim3 grid, block;
+  size_t smem;
+  cudaError_t err = prepare(kernel, B, fa_bwd_floats(F, H * dh), 0, &grid,
+                            &block, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(q, k, v, dout, dq, dk, dv, B, F, H, dh,
+                                        scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TO>
+cudaError_t fa_bwd(const void* q, const void* k, const void* v,
+                   const void* dout, void* dq, void* dk, void* dv, int64_t B,
+                   int F, int H, int dh, float scale, void* stream) {
+  if (!valid(B, F, H, dh)) return cudaErrorInvalidValue;
+  DT_FA_DISPATCH_DH(return (fa_bwd_launch<T, TO, DHM>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const TO*>(dout),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), B, F, H,
+      dh, scale, static_cast<cudaStream_t>(stream))));
+}
+
+template <typename T, int DHM>
+cudaError_t ab_fwd_launch(const T* x, const T* w_aug, T* out, int64_t B, int F,
+                          int H, int dh, float scale, cudaStream_t stream) {
+  auto kernel = ab_fwd_kernel<T, DHM>;
+  dim3 grid, block;
+  size_t smem;
+  const int U = H * dh;
+  cudaError_t err = prepare(kernel, B, ab_fwd_floats(F, U),
+                            ab_shared_floats(U), &grid, &block, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(x, w_aug, out, B, F, H, dh, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t ab_fwd(const void* x, const void* w_aug, void* out, int64_t B,
+                   int F, int H, int dh, float scale, void* stream) {
+  if (!valid(B, F, H, dh)) return cudaErrorInvalidValue;
+  DT_FA_DISPATCH_DH(return (ab_fwd_launch<T, DHM>(
+      static_cast<const T*>(x), static_cast<const T*>(w_aug),
+      static_cast<T*>(out), B, F, H, dh, scale,
+      static_cast<cudaStream_t>(stream))));
+}
+
+template <typename T, int DHM>
+cudaError_t ab_bwd_launch(const T* x, const T* w_aug, const T* dout, T* dpre,
+                          int64_t B, int F, int H, int dh, float scale,
+                          cudaStream_t stream) {
+  auto kernel = ab_bwd_kernel<T, DHM>;
+  dim3 grid, block;
+  size_t smem;
+  const int U = H * dh;
+  cudaError_t err = prepare(kernel, B, ab_bwd_floats(F, U),
+                            ab_shared_floats(U), &grid, &block, &smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, stream>>>(x, w_aug, dout, dpre, B, F, H, dh,
+                                        scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t ab_bwd(const void* x, const void* w_aug, const void* dout,
+                   void* dpre, int64_t B, int F, int H, int dh, float scale,
+                   void* stream) {
+  if (!valid(B, F, H, dh)) return cudaErrorInvalidValue;
+  DT_FA_DISPATCH_DH(return (ab_bwd_launch<T, DHM>(
+      static_cast<const T*>(x), static_cast<const T*>(w_aug),
+      static_cast<const T*>(dout), static_cast<T*>(dpre), B, F, H, dh, scale,
+      static_cast<cudaStream_t>(stream))));
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+extern "C" {
+
+// K5 forward: q, k, v (B, F, H*dh) in the first type, out in the second.
+int dt_fa_fwd_f32_f32(const void* q, const void* k, const void* v, void* out,
+                      int64_t B, int F, int H, int dh, float scale,
+                      void* stream) {
+  return static_cast<int>(
+      fa_fwd<float, float>(q, k, v, out, B, F, H, dh, scale, stream));
+}
+int dt_fa_fwd_bf16_bf16(const void* q, const void* k, const void* v,
+                        void* out, int64_t B, int F, int H, int dh,
+                        float scale, void* stream) {
+  return static_cast<int>(
+      fa_fwd<bf16, bf16>(q, k, v, out, B, F, H, dh, scale, stream));
+}
+int dt_fa_fwd_bf16_f32(const void* q, const void* k, const void* v, void* out,
+                       int64_t B, int F, int H, int dh, float scale,
+                       void* stream) {
+  return static_cast<int>(
+      fa_fwd<bf16, float>(q, k, v, out, B, F, H, dh, scale, stream));
+}
+
+// K5 backward: do in the output's type; dq, dk, dv in q's.
+int dt_fa_bwd_f32_f32(const void* q, const void* k, const void* v,
+                      const void* dout, void* dq, void* dk, void* dv,
+                      int64_t B, int F, int H, int dh, float scale,
+                      void* stream) {
+  return static_cast<int>(fa_bwd<float, float>(q, k, v, dout, dq, dk, dv, B, F,
+                                               H, dh, scale, stream));
+}
+int dt_fa_bwd_bf16_bf16(const void* q, const void* k, const void* v,
+                        const void* dout, void* dq, void* dk, void* dv,
+                        int64_t B, int F, int H, int dh, float scale,
+                        void* stream) {
+  return static_cast<int>(fa_bwd<bf16, bf16>(q, k, v, dout, dq, dk, dv, B, F,
+                                             H, dh, scale, stream));
+}
+int dt_fa_bwd_bf16_f32(const void* q, const void* k, const void* v,
+                       const void* dout, void* dq, void* dk, void* dv,
+                       int64_t B, int F, int H, int dh, float scale,
+                       void* stream) {
+  return static_cast<int>(fa_bwd<bf16, float>(q, k, v, dout, dq, dk, dv, B, F,
+                                              H, dh, scale, stream));
+}
+
+// K6 forward and backward: x, w_aug, out, do and dpre all in one type.
+int dt_ab_fwd_f32(const void* x, const void* w_aug, void* out, int64_t B,
+                  int F, int H, int dh, float scale, void* stream) {
+  return static_cast<int>(
+      ab_fwd<float>(x, w_aug, out, B, F, H, dh, scale, stream));
+}
+int dt_ab_fwd_bf16(const void* x, const void* w_aug, void* out, int64_t B,
+                   int F, int H, int dh, float scale, void* stream) {
+  return static_cast<int>(
+      ab_fwd<bf16>(x, w_aug, out, B, F, H, dh, scale, stream));
+}
+int dt_ab_bwd_f32(const void* x, const void* w_aug, const void* dout,
+                  void* dpre, int64_t B, int F, int H, int dh, float scale,
+                  void* stream) {
+  return static_cast<int>(
+      ab_bwd<float>(x, w_aug, dout, dpre, B, F, H, dh, scale, stream));
+}
+int dt_ab_bwd_bf16(const void* x, const void* w_aug, const void* dout,
+                   void* dpre, int64_t B, int F, int H, int dh, float scale,
+                   void* stream) {
+  return static_cast<int>(
+      ab_bwd<bf16>(x, w_aug, dout, dpre, B, F, H, dh, scale, stream));
+}
+
+const char* dt_fa_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

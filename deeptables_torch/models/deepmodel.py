@@ -21,8 +21,11 @@ bfloat16, as the JAX package does; every Dense and BatchNorm keeps float32
 parameters and promotes its input to float32 (flax's promotion), so the
 bfloat16 part of DeepFM is the embeddings, their flat view, the linear
 net's per-field sums and FM. xDeepFM's CIN reads the bfloat16 embeddings
-and keeps its layer outputs in float32, as the JAX package does. Logits
-are float32.
+and keeps its layer outputs in float32, as the JAX package does. AutoInt's
+projections run in their input's type (flax ``Dense(dtype=x.dtype)``), so
+its first attention block runs in bfloat16 and, after that block's
+BatchNorm promotes to float32, the later blocks in float32. Logits are
+float32.
 """
 
 import collections
@@ -165,14 +168,16 @@ class DeepTabularModel(nn.Module):
     def _register_layers(self, net: nn.Module):
         """Register the net's layers here under their own names, the flat
         scope in which flax names them: each leaf module, and each module
-        that holds parameters of its own (``cin_layer``) with its children
-        inside it, as flax nests them."""
+        that holds parameters of its own (``cin_layer``) or is a flax scope
+        (``autoint_attention_{i}``) with its children inside it, as flax
+        nests them."""
         scopes = []
         for path, layer in net.named_modules():
             if not path or any(path.startswith(s + '.') for s in scopes):
                 continue
             if any(True for _ in layer.children()) and not any(
-                    True for _ in layer.parameters(recurse=False)):
+                    True for _ in layer.parameters(recurse=False)) \
+                    and not getattr(layer, 'flax_scope', False):
                 continue
             scopes.append(path)
             name = path.rsplit('.', 1)[-1]

@@ -11,9 +11,9 @@ fields for FM), as the JAX builder returns None. The net's layers carry the
 flax names (``linear_logit``, ``dnn_dense_1``, ``fm_layer``, …), and
 ``DeepTabularModel`` registers them in one flat scope, as flax does.
 
-Ported: ``linear``, ``fm_nets``, ``cin_nets``, ``dnn_nets`` and the shared
-``dnn``. The other builders raise ``NotImplementedError`` naming the slice
-that ports them.
+Ported: ``linear``, ``fm_nets``, ``cin_nets``, ``autoint_nets``,
+``dnn_nets`` and the shared ``dnn``. The other builders raise
+``NotImplementedError`` naming the slice that ports them.
 """
 
 import inspect
@@ -25,7 +25,7 @@ from torch import nn
 from ..ops.embedding import concat_embeddings
 from ..ops.initializers import get_activation
 from ..ops import layers
-from ..ops.interactions import CIN, FM
+from ..ops.interactions import CIN, FM, MultiheadAttention
 from ..ops.layers import BatchNorm, Dense
 
 WideDeep = ['linear', 'dnn_nets']
@@ -112,6 +112,28 @@ class CINNet(nn.Module):
                 concat_emb_dense, ctx):
         return self.cin_layer(concat_embeddings(embeddings),
                               training=ctx.training)
+
+
+class AutoIntNet(nn.Module):
+    """``num_attention`` stacked ``MultiheadAttention`` blocks named
+    ``autoint_attention_{i}``; the output (B, F, U) flattened to
+    (B, F·U)."""
+
+    def __init__(self, n_fields, dim, params, generator=None):
+        super().__init__()
+        self.num_attention = int(params['num_attention'])
+        for i in range(self.num_attention):
+            self.add_module(f'autoint_attention_{i}', MultiheadAttention(
+                dim, params, generator=generator))
+        self.output_dim = n_fields * dim
+
+    def forward(self, embeddings, flatten_emb_layer, dense_layer,
+                concat_emb_dense, ctx):
+        output = concat_embeddings(embeddings)
+        for i in range(self.num_attention):
+            output = getattr(self, f'autoint_attention_{i}')(
+                output, training=ctx.training, generator=ctx.generator)
+        return output.reshape(output.shape[0], -1)
 
 
 class Dnn(nn.Module):
@@ -210,6 +232,19 @@ def cin_nets(inputs: NetInputs, config, model_desc, generator=None):
                   generator=generator)
 
 
+def autoint_nets(inputs: NetInputs, config, model_desc, generator=None):
+    """AutoInt self-attention stack over the stacked embeddings."""
+    if inputs.n_fields == 0:
+        model_desc.add_net('autoint', None, None)
+        return None
+    _check_one_width(inputs, 'autoint_nets')
+    net = AutoIntNet(inputs.n_fields, inputs.emb_dim, config.autoint_params,
+                     generator=generator)
+    model_desc.add_net('autoint', (None, inputs.n_fields, inputs.emb_dim),
+                       (None, net.output_dim))
+    return net
+
+
 def dnn_nets(inputs: NetInputs, config, model_desc, generator=None):
     """MLP over the concatenated inputs."""
     net = DnnNet(dnn(inputs.concat_dim, config.dnn_params,
@@ -240,7 +275,7 @@ _BUILTIN = {
     'cross_nets': _not_ported('cross_nets', 'Wide&Deep+DCN'),
     'cross_dnn_nets': _not_ported('cross_dnn_nets', 'Wide&Deep+DCN'),
     'dcn_nets': _not_ported('dcn_nets', 'Wide&Deep+DCN'),
-    'autoint_nets': _not_ported('autoint_nets', 'AutoInt'),
+    'autoint_nets': autoint_nets,
     'fg_nets': _not_ported('fg_nets', 'remaining-towers'),
     'fgcnn_cin_nets': _not_ported('fgcnn_cin_nets', 'remaining-towers'),
     'fgcnn_fm_nets': _not_ported('fgcnn_fm_nets', 'remaining-towers'),

@@ -2,8 +2,8 @@
 """Feature-interaction blocks (counterpart of
 ``deeptables_tpu/ops/interactions.py``).
 
-Ported: ``FM`` and ``CIN``; the other blocks come with the slices that
-carry their nets (see ``models/deepnets.py``).
+Ported: ``FM``, ``CIN`` and ``MultiheadAttention``; the other blocks come
+with the slices that carry their nets (see ``models/deepnets.py``).
 """
 
 from typing import Any, Dict
@@ -12,11 +12,14 @@ import torch
 from torch import nn
 
 from ..utils import dt_logging
+from .attention_grad import attention_block, field_attention
 from .cin_grad import cin_contract, cin_contract_bm
 from .embedding import concat_embeddings
 from .initializers import get_activation, get_initializer
+from .kernels.field_attention import (attention_weights, merge_heads,
+                                      scale_for, split_heads)
 from .kernels.fm import fm
-from .layers import Dense
+from .layers import BatchNorm, Dense, dropout
 
 
 class FM(nn.Module):
@@ -159,3 +162,104 @@ class CIN(nn.Module):
             out0 = self.activation(self.exFM_out0(result))
             result = torch.cat([out0, result], dim=1)
         return self.exFM_out(result)
+
+
+class MultiheadAttention(nn.Module):
+    """AutoInt interacting layer, (B, F, U) → (B, F, U) float32: the port of
+    ``deeptables_tpu/ops/interactions.py::MultiheadAttention``.
+
+    The projections ``dense_Q``, ``dense_K``, ``dense_V`` (and with
+    ``use_residual`` ``dense_residual``), U → U with he_uniform kernels, run
+    in x's type (flax's ``nn.Dense(dtype=x.dtype)``), then relu. Field
+    attention per head (``ops/attention_grad.field_attention``: the K5
+    kernels on a CUDA input) gives the context; with ``layout``
+    ``'batch_minor'`` (the default) it is cast to x's type before the
+    residual add, with any other layout it stays float32, as in the two JAX
+    layouts. Then the residual, relu and ``batch_normalize`` (flax
+    BatchNorm over the last axis, which returns float32: the next block of
+    a stack runs in float32).
+
+    ``autoint_params``: ``num_heads``, ``dropout_rate``, ``use_residual``,
+    ``layout``, ``fuse_projections`` and ``use_fused_kernel``.
+    - ``fuse_projections`` with ``use_residual`` and ``dropout_rate == 0``
+      runs the whole block but BatchNorm as one kernel pair
+      (``attention_block``: K6), on ``w_aug = [[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``
+      packed from the four Dense parameters each call (their names stay).
+      Its q, k, v and r stay float32.
+    - ``dropout_rate > 0`` drops attention weights in training, with masks
+      from the model's ``torch.Generator``; no kernel runs on that path,
+      whether training or not, as in the JAX package.
+    - ``use_fused_kernel=False`` is accepted with a warning: on the TPU it
+      chose the XLA formulation; here the kernels run all the same.
+    """
+
+    # DeepTabularModel registers this module under its own name with the
+    # layers nested in it (flax's ``autoint_attention_{i}/dense_Q``)
+    flax_scope = True
+
+    def __init__(self, num_units: int, params: Dict[str, Any],
+                 generator=None):
+        super().__init__()
+        self.num_heads = int(params.get('num_heads', 1))
+        self.dropout_rate = float(params.get('dropout_rate', 0))
+        self.use_residual = bool(params.get('use_residual', True))
+        if num_units % self.num_heads != 0:
+            raise ValueError(f'embedding dim {num_units} must be divisible '
+                             f'by num_heads {self.num_heads}')
+        self.batch_minor = params.get('layout', 'batch_minor') == 'batch_minor'
+        self.fused = (bool(params.get('fuse_projections', False))
+                      and self.use_residual and self.dropout_rate == 0)
+        if not params.get('use_fused_kernel', True):
+            dt_logging.get_logger(__name__).warning(
+                "autoint_params={'use_fused_kernel': False}: it selected the "
+                'XLA formulation on a TPU; deeptables_torch runs the field '
+                'attention kernels.')
+        names = ['dense_Q', 'dense_K', 'dense_V']
+        if self.use_residual:
+            names.append('dense_residual')
+        for name in names:
+            self.add_module(name, Dense(num_units, num_units,
+                                        kernel_init='he_uniform',
+                                        generator=generator))
+        self.batch_normalize = BatchNorm(num_units)
+
+    def w_aug(self) -> torch.Tensor:
+        """``(U+1, 4U)`` float32: the four kernels in flax's (in, out)
+        layout side by side, their biases as the last row."""
+        dense = [self.dense_Q, self.dense_K, self.dense_V,
+                 self.dense_residual]
+        return torch.cat([torch.cat([d.weight.t() for d in dense], dim=1),
+                          torch.cat([d.bias for d in dense])[None]])
+
+    def _attend_with_dropout(self, q, k, v, training, generator):
+        """The attention in plain PyTorch, weights dropped in training:
+        float32 (B, F, U)."""
+        qh, kh, vh = (split_heads(t, self.num_heads) for t in (q, k, v))
+        w = attention_weights(qh, kh, scale_for(qh.shape[-1]))
+        if training:
+            w = dropout(w, self.dropout_rate, generator)
+        return merge_heads(torch.matmul(w, vh))
+
+    def forward(self, x, training: bool = False,
+                generator=None) -> torch.Tensor:
+        if x.dim() != 3:
+            raise ValueError(
+                f'Wrong dimensions of inputs, expected 3 but input {x.dim()}.')
+        cd = x.dtype
+        if self.fused:
+            out = attention_block(x, self.w_aug(), self.num_heads)
+            return self.batch_normalize(out, training=training)
+
+        q = torch.relu(self.dense_Q(x, dtype=cd))
+        k = torch.relu(self.dense_K(x, dtype=cd))
+        v = torch.relu(self.dense_V(x, dtype=cd))
+        out_dtype = cd if self.batch_minor else torch.float32
+        if self.dropout_rate > 0:
+            out = self._attend_with_dropout(q, k, v, training,
+                                            generator).to(out_dtype)
+        else:
+            out = field_attention(q, k, v, self.num_heads, out_dtype)
+        if self.use_residual:
+            out = out + torch.relu(self.dense_residual(x, dtype=cd))
+        out = torch.relu(out)
+        return self.batch_normalize(out, training=training)

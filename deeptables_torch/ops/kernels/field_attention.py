@@ -1,0 +1,331 @@
+# -*- coding:utf-8 -*-
+"""Field attention (AutoInt's interacting layer) and the fused attention
+block, with their gradients.
+
+Port of ``deeptables_tpu/ops/kernels/field_attention.py``:
+
+- :func:`fa_fwd` (K5-fwd, ``field_attention``): per example and head,
+  ``o = softmax_g(q·kᵀ·scale)·v`` over the F fields, scores and softmax in
+  float32, ``scale = 1/√dh``;
+- :func:`fa_bwd` (K5-bwd, ``_fa_bwd``): dq, dk, dv with the softmax
+  recomputed from q, k, v;
+- :func:`ab_fwd` (K6-fwd, ``attention_block``): ``post = relu(w_augᵀ·[x;1])``
+  split into q, k, v, r (float32, not rounded), then
+  ``relu(attention(q, k, v) + r)``;
+- :func:`ab_bwd` (K6-bwd, the kernel of ``_ab_bwd``): the masked gradient of
+  the four projections' pre-activations, ``dpre = 1[pre>0]·[dq;dk;dv;dr]``
+  with ``dr = dctx = 1[ctx+r>0]·do``, rounded to x's type.
+
+Layouts are the projections' own: q, k, v, x and the outputs are
+``(B, F, U)`` with ``U = H·dh``, head h in columns ``h·dh:(h+1)·dh`` (the
+JAX package's batch-minor ``(H, F, dh, B)`` was a TPU layout); ``w_aug`` is
+``(U+1, 4U)`` = ``[[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``; dpre is ``(B, F, 4U)``.
+
+The CUDA kernels are in ``deeptables_torch/csrc/field_attention.cu``; its
+header says what bounds them (memory) and how the scores stay out of device
+memory. On a CUDA tensor each wrapper launches its kernel or raises; the
+``*_reference`` functions run for CPU tensors only and are the oracles the
+kernels are held against. The autograd Functions are in
+``ops/attention_grad.py``.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+_FA = {(torch.float32, torch.float32): 'f32_f32',
+       (torch.bfloat16, torch.bfloat16): 'bf16_bf16',
+       (torch.bfloat16, torch.float32): 'bf16_f32'}
+_AB = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
+# csrc/field_attention.cu keeps dh in registers up to this width
+MAX_D_HEAD = 64
+
+
+def scale_for(d_head: int) -> float:
+    """``1/√dh``, the score scale of the JAX package."""
+    return 1.0 / (d_head ** 0.5)
+
+
+def split_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, F, H·dh) → (B, H, F, dh) float32."""
+    B, F, U = t.shape
+    return t.float().reshape(B, F, num_heads, U // num_heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, F, dh) → (B, F, H·dh)."""
+    B, H, F, dh = t.shape
+    return t.transpose(1, 2).reshape(B, F, H * dh)
+
+
+def attention_weights(q, k, scale):
+    """(B, H, F, G) float32 weights, max-subtracted, ``e / Σe``."""
+    return torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+
+
+def fa_fwd_reference(q, k, v, num_heads: int, out_dtype=None):
+    """Plain PyTorch K5 forward: float32 scores, softmax and context, one
+    rounding to ``out_dtype`` (default q's type)."""
+    qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
+    w = attention_weights(qh, kh, scale_for(qh.shape[-1]))
+    return merge_heads(torch.matmul(w, vh)).to(out_dtype or q.dtype)
+
+
+def fa_bwd_reference(q, k, v, do, num_heads: int):
+    """Plain PyTorch K5 backward, the TPU kernel's formulas in float32:
+    ``dv = wᵀ·do``, ``ds = w·(dw − Σ_g w·dw)·scale`` with ``dw = do·vᵀ``,
+    ``dq = ds·k``, ``dk = dsᵀ·q``; each rounded once to q's type."""
+    qh, kh, vh, doh = (split_heads(t, num_heads) for t in (q, k, v, do))
+    scale = scale_for(qh.shape[-1])
+    w = attention_weights(qh, kh, scale)
+    dw = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = w * (dw - (w * dw).sum(dim=-1, keepdim=True)) * scale
+    grads = (torch.matmul(ds, kh), torch.matmul(ds.transpose(-1, -2), qh),
+             torch.matmul(w.transpose(-1, -2), doh))
+    return tuple(merge_heads(g).to(q.dtype) for g in grads)
+
+
+def _block_post(x, w_aug):
+    """(B, F, 4U) float32 ``relu(w_augᵀ·[x;1])`` with w_aug in x's type."""
+    U = x.shape[-1]
+    w = w_aug.to(x.dtype).float()
+    return torch.relu(torch.matmul(x.float(), w[:U]) + w[U])
+
+
+def ab_fwd_reference(x, w_aug, num_heads: int):
+    """Plain PyTorch K6 forward: the projections in float32 from x and w_aug
+    in x's type, attention, ``relu(ctx + r)``, one rounding to x's type."""
+    U = x.shape[-1]
+    post = _block_post(x, w_aug)
+    q, k, v, r = (post[..., i * U:(i + 1) * U] for i in range(4))
+    ctx = fa_fwd_reference(q, k, v, num_heads, torch.float32)
+    return torch.relu(ctx + r).to(x.dtype)
+
+
+def ab_bwd_reference(x, w_aug, do, num_heads: int):
+    """Plain PyTorch K6 backward: dpre ``(B, F, 4U)`` in x's type, the
+    projections and attention recomputed in float32 and masked as the TPU
+    kernel masks (strict ``> 0``)."""
+    U = x.shape[-1]
+    post = _block_post(x, w_aug)
+    q, k, v, r = (post[..., i * U:(i + 1) * U] for i in range(4))
+    ctx = fa_fwd_reference(q, k, v, num_heads, torch.float32)
+    zero = torch.zeros((), device=x.device)
+    dctx = torch.where(ctx + r > 0, do.float(), zero)
+    dq, dk, dv = fa_bwd_reference(q, k, v, dctx, num_heads)
+    dpost = torch.cat([dq, dk, dv, dctx], dim=-1)
+    return torch.where(post > 0, dpost, zero).to(x.dtype)
+
+
+def ab_mask_margin(x, w_aug, num_heads: int) -> torch.Tensor:
+    """Per example, the smallest ``|pre|`` of the block (float32, ``(B,)``):
+    how far its relu masks are from 0. Where it is within rounding, the
+    kernel and the plain version, which sum in another order, may take the
+    two sides of ``pre > 0``, and that example's dpre differs by whole
+    gradient values; comparisons leave such examples out. The other mask,
+    ``ctx + r > 0``, needs no margin: ctx and r are sums of products of
+    relu outputs and softmax weights, never negative, and are exactly 0 on
+    both sides where every relu input of theirs is at most 0."""
+    U = x.shape[-1]
+    w = w_aug.to(x.dtype).float()
+    pre = torch.matmul(x.float(), w[:U]) + w[U]
+    return pre.abs().amin(dim=(1, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = _build.library('field_attention')
+    tail = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]
+    for suffix in _FA.values():
+        fn = getattr(lib, f'dt_fa_fwd_{suffix}')
+        fn.argtypes = [ctypes.c_void_p] * 4 + tail
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f'dt_fa_bwd_{suffix}')
+        fn.argtypes = [ctypes.c_void_p] * 7 + tail
+        fn.restype = ctypes.c_int
+    for suffix in _AB.values():
+        fn = getattr(lib, f'dt_ab_fwd_{suffix}')
+        fn.argtypes = [ctypes.c_void_p] * 3 + tail
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, f'dt_ab_bwd_{suffix}')
+        fn.argtypes = [ctypes.c_void_p] * 4 + tail
+        fn.restype = ctypes.c_int
+    lib.dt_fa_error_string.argtypes = [ctypes.c_int]
+    lib.dt_fa_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _d_head(what, t, num_heads):
+    if t.dim() != 3:
+        raise ValueError(f'{what} expects (B, F, U) tensors, got shape '
+                         f'{tuple(t.shape)}')
+    if num_heads < 1 or t.shape[-1] % num_heads:
+        raise ValueError(f'{what}: U={t.shape[-1]} is not a multiple of '
+                         f'num_heads={num_heads}')
+    return t.shape[-1] // num_heads
+
+
+def _check_like(what, ref, *tensors):
+    for t in tensors:
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f'{what}: shapes differ: {tuple(t.shape)} and '
+                             f'{tuple(ref.shape)}')
+
+
+def _check_cuda(what, dtype, *tensors):
+    for t in tensors:
+        if t.device != tensors[0].device:
+            raise ValueError(f'{what} runs on cuda or cpu tensors on one '
+                             f'device, got {t.device} and {tensors[0].device}')
+        if t.dtype != dtype:
+            raise TypeError(f'{what} kernel takes {dtype} here, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{what} kernel needs contiguous operands')
+
+
+def _launch(what, fn_name, ptrs, B, F, num_heads, d_head):
+    if d_head > MAX_D_HEAD:
+        raise ValueError(f'{what} kernel takes d_head <= {MAX_D_HEAD}, got '
+                         f'{d_head}')
+    lib = _library()
+    err = getattr(lib, fn_name)(*ptrs, B, F, num_heads, d_head,
+                                scale_for(d_head),
+                                torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{what} kernel launch failed at (B, F, H, dh) = '
+                           f'{(B, F, num_heads, d_head)}: CUDA error {err} '
+                           f'({lib.dt_fa_error_string(err).decode()})')
+
+
+def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           num_heads: int, out_dtype=None) -> torch.Tensor:
+    """K5 forward on contiguous ``(B, F, H·dh)`` q, k, v of one type
+    (float32 or bfloat16); the output ``(B, F, H·dh)`` in ``out_dtype``
+    (default q's type; float32 is taken beside bfloat16 inputs).
+
+    On a CUDA tensor this launches the kernel or raises; it never falls back
+    to the plain version. ``fa_fwd.launches`` counts the launches."""
+    dh = _d_head('fa_fwd', q, num_heads)
+    _check_like('fa_fwd', q, k, v)
+    out_dtype = out_dtype or q.dtype
+    if q.device.type == 'cpu':
+        return fa_fwd_reference(q, k, v, num_heads, out_dtype)
+    key = (q.dtype, out_dtype)
+    if key not in _FA:
+        raise TypeError(f'fa_fwd kernel takes float32 or bfloat16 inputs and '
+                        f'their type or float32 out, got {key}')
+    _check_cuda('fa_fwd', q.dtype, q, k, v)
+    B, F, U = q.shape
+    out = torch.empty((B, F, U), dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        _launch('fa_fwd', f'dt_fa_fwd_{_FA[key]}', _ptrs(q, k, v, out), B, F,
+                num_heads, dh)
+    fa_fwd.launches += 1
+    return out
+
+
+def fa_bwd(q, k, v, do, num_heads: int):
+    """K5 backward: ``(dq, dk, dv)`` in q's type, given do ``(B, F, H·dh)``
+    in the forward output's type (q's, or float32). The softmax is recomputed
+    from q, k, v.
+
+    On a CUDA tensor this launches the kernel or raises;
+    ``fa_bwd.launches`` counts the launches."""
+    dh = _d_head('fa_bwd', q, num_heads)
+    _check_like('fa_bwd', q, k, v, do)
+    if q.device.type == 'cpu':
+        return fa_bwd_reference(q, k, v, do, num_heads)
+    key = (q.dtype, do.dtype)
+    if key not in _FA:
+        raise TypeError(f'fa_bwd kernel takes float32 or bfloat16 inputs and '
+                        f'do in their type or float32, got {key}')
+    _check_cuda('fa_bwd', q.dtype, q, k, v)
+    _check_cuda('fa_bwd', do.dtype, do)
+    if do.device != q.device:
+        raise ValueError(f'fa_bwd: do is on {do.device}, q on {q.device}')
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    B, F, U = q.shape
+    with torch.cuda.device(q.device):
+        _launch('fa_bwd', f'dt_fa_bwd_{_FA[key]}',
+                _ptrs(q, k, v, do, dq, dk, dv), B, F, num_heads, dh)
+    fa_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _check_block(what, x, w_aug, num_heads):
+    dh = _d_head(what, x, num_heads)
+    U = x.shape[-1]
+    if tuple(w_aug.shape) != (U + 1, 4 * U):
+        raise ValueError(f'{what}: w_aug must be {(U + 1, 4 * U)}, got '
+                         f'{tuple(w_aug.shape)}')
+    return dh
+
+
+def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
+           num_heads: int) -> torch.Tensor:
+    """K6 forward on a contiguous ``(B, F, U)`` x and ``(U+1, 4U)`` w_aug,
+    both in one type (float32 or bfloat16): the block's output
+    ``(B, F, U)`` in that type.
+
+    On a CUDA tensor this launches the kernel or raises;
+    ``ab_fwd.launches`` counts the launches."""
+    dh = _check_block('ab_fwd', x, w_aug, num_heads)
+    if x.device.type == 'cpu':
+        return ab_fwd_reference(x, w_aug, num_heads)
+    if x.dtype not in _AB:
+        raise TypeError(f'ab_fwd kernel takes float32 or bfloat16, got '
+                        f'{x.dtype}')
+    _check_cuda('ab_fwd', x.dtype, x, w_aug)
+    B, F, U = x.shape
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        _launch('ab_fwd', f'dt_ab_fwd_{_AB[x.dtype]}', _ptrs(x, w_aug, out),
+                B, F, num_heads, dh)
+    ab_fwd.launches += 1
+    return out
+
+
+def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
+           num_heads: int) -> torch.Tensor:
+    """K6 backward: dpre ``(B, F, 4U)`` in x's type, given x, w_aug and do
+    contiguous in one type (float32 or bfloat16).
+
+    On a CUDA tensor this launches the kernel or raises;
+    ``ab_bwd.launches`` counts the launches."""
+    dh = _check_block('ab_bwd', x, w_aug, num_heads)
+    _check_like('ab_bwd', x, do)
+    if x.device.type == 'cpu':
+        return ab_bwd_reference(x, w_aug, do, num_heads)
+    if x.dtype not in _AB:
+        raise TypeError(f'ab_bwd kernel takes float32 or bfloat16, got '
+                        f'{x.dtype}')
+    _check_cuda('ab_bwd', x.dtype, x, w_aug, do)
+    B, F, U = x.shape
+    dpre = torch.empty((B, F, 4 * U), dtype=x.dtype, device=x.device)
+    if dpre.numel() == 0:
+        return dpre
+    with torch.cuda.device(x.device):
+        _launch('ab_bwd', f'dt_ab_bwd_{_AB[x.dtype]}',
+                _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh)
+    ab_bwd.launches += 1
+    return dpre
+
+
+fa_fwd.launches = 0
+fa_bwd.launches = 0
+ab_fwd.launches = 0
+ab_bwd.launches = 0

@@ -6,12 +6,17 @@ semantics in torch:
 
 - parameters are float32 and an input of another type is promoted to
   float32 first (flax's dtype promotion: a bfloat16 activation entering a
-  Dense or BatchNorm leaves it as float32);
+  Dense or BatchNorm leaves it as float32), unless a Dense is called with a
+  compute ``dtype`` (flax's ``nn.Dense(dtype=...)``, as AutoInt's
+  projections take ``dtype=x.dtype``): then the input, the kernel and the
+  bias are cast to it, the product and the bias add each round to it, and
+  the output has it;
 - a Dense kernel is drawn in flax's ``(in, out)`` layout with flax's default
   ``lecun_normal`` and stored transposed as ``weight (out, in)``; the bias
   starts at zero;
-- BatchNorm normalizes the last axis with ``epsilon=1e-3`` and keeps
-  ``weight``/``bias`` (flax ``scale``/``bias``) and
+- BatchNorm normalizes the last axis, its statistics over every other
+  axis (a ``(B, F, U)`` input as ``B·F`` rows), with ``epsilon=1e-3``, and
+  keeps ``weight``/``bias`` (flax ``scale``/``bias``) and
   ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``);
 - dropout (flax ``nn.Dropout``) keeps an element with probability ``1 − rate``
   and scales it by ``1 / (1 − rate)``; its mask comes from an explicit
@@ -55,13 +60,19 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(kernel.t().contiguous())
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
+        """``dtype`` None promotes x to the float32 parameters; a compute
+        type casts x, the kernel and the bias to it."""
+        if dtype is None:
+            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        y = torch.matmul(x.to(dtype), self.weight.to(dtype).t())
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis of a ``(B, C)`` input, as flax 0.12's
-    ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` computes it.
+    """BatchNorm over the last axis of a ``(..., C)`` input, as flax 0.12's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-3)`` computes it: the leading
+    axes are one axis of rows.
 
     Training: float32 batch statistics ``mean = E[x]`` and the biased "fast"
     variance ``var = max(E[x²] − E[x]², 0)``; the output is normalized with
@@ -80,11 +91,12 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x, training=False):
-        x = x.to(self.weight.dtype)
+        shape = x.shape
+        x = x.to(self.weight.dtype).reshape(-1, shape[-1])
         if not training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
-                                eps=self.epsilon)
+                                eps=self.epsilon).reshape(shape)
         mean = x.mean(dim=0)
         var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.)
         with torch.no_grad():
@@ -93,4 +105,4 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(self.momentum).add_(
                 var.detach(), alpha=1 - self.momentum)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).reshape(shape)

@@ -145,3 +145,59 @@ def test_cin_state_dict_loads_strictly_and_maps_gradients(cin_case):
                                       cin_case.state_dict[key].numpy())
     assert {k for k in mapped if k.startswith('cin_layer.')} == \
         {k for k in cin_case.state_dict if k.startswith('cin_layer.')}
+
+
+@pytest.fixture(scope='module', params=['autoint_nonascending_d8',
+                                        'autoint_dnn_d8'])
+def autoint_case(request):
+    return Case(request.param)
+
+
+def test_autoint_weights_are_nested_and_need_no_permutation(autoint_case):
+    params = autoint_case.variables['params']
+    stats = autoint_case.variables['batch_stats']
+    state = autoint_case.state_dict
+    blocks = [n for n in params if n.startswith('autoint_attention_')]
+    assert blocks == ['autoint_attention_0', 'autoint_attention_1']
+    expected_keys = set()
+    for block in blocks:
+        for layer in ('dense_Q', 'dense_K', 'dense_V', 'dense_residual'):
+            node = params[block][layer]
+            np.testing.assert_array_equal(
+                state[f'{block}.{layer}.weight'].numpy(), node['kernel'].T)
+            np.testing.assert_array_equal(
+                state[f'{block}.{layer}.bias'].numpy(), node['bias'])
+            expected_keys |= {f'{block}.{layer}.weight',
+                              f'{block}.{layer}.bias'}
+        bn = f'{block}.batch_normalize'
+        for port_key, value in (
+                ('weight', params[block]['batch_normalize']['scale']),
+                ('bias', params[block]['batch_normalize']['bias']),
+                ('running_mean', stats[block]['batch_normalize']['mean']),
+                ('running_var', stats[block]['batch_normalize']['var'])):
+            np.testing.assert_array_equal(state[f'{bn}.{port_key}'].numpy(),
+                                          value)
+            expected_keys.add(f'{bn}.{port_key}')
+    assert expected_keys == {k for k in state
+                             if k.startswith('autoint_attention_')}
+    assert set(state) == set(autoint_case.port_model().module.state_dict())
+
+
+def test_autoint_output_layer_rows_follow_the_column_order(autoint_case):
+    """The flattened (F·U) AutoInt output is in JAX plan order: the layer
+    that reads it has its rows permuted in blocks of U."""
+    params = autoint_case.variables['params']
+    order = autoint_case.field_order()
+    assert order != sorted(order)
+    dim = autoint_case.dims[0]
+    reader = 'task_output' if autoint_case.nets == ['autoint_nets'] \
+        else 'dense_logit_autoint_nets'
+    kernel = np.asarray(params[reader]['kernel'])
+    np.testing.assert_array_equal(
+        autoint_case.state_dict[f'{reader}.weight'].numpy(),
+        to_column_order(kernel.T, order, dim))
+    if reader != 'task_output':
+        # beside another net, task_output reads the stacked logits
+        np.testing.assert_array_equal(
+            autoint_case.state_dict['task_output.weight'].numpy(),
+            np.asarray(params['task_output']['kernel']).T)

@@ -29,6 +29,12 @@ Tolerances:
   of its terms (the plain version run on |x0|, |h|, |w|, |dz|): only the
   order of the sums differs. dx0 and dh in bfloat16 add rtol 1e-2 for their
   one rounding to bfloat16 (the two may round neighbouring values apart).
+- Field attention (K5) and the fused block (K6), forward and backward:
+  both sides compute in float32 from the same inputs, so every output is
+  held to 1e-5 of its tensor's largest value; outputs in bfloat16 add rtol
+  1e-2 for their one rounding. K6's backward leaves out the examples with a
+  projection within 1e-5 of 0 (``ab_mask_margin``): there the two sums,
+  taken in another order, may take the two sides of its relu mask.
 """
 
 import numpy as np
@@ -37,6 +43,7 @@ import torch
 
 from deeptables_torch.ops.kernels.cin import (cin_bwd, cin_bwd_reference,
                                               cin_fwd, cin_fwd_reference)
+from deeptables_torch.ops.kernels import field_attention as fa
 from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
                                              fm_backward_reference,
@@ -468,3 +475,178 @@ def test_xdeepfm_fit_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(value.cpu().numpy(),
                                    cpu_state[key].numpy(), atol=2e-4,
                                    err_msg=key)
+
+
+# ---------------------------------------------------------------- AutoInt
+
+# (B, F, H, dh): odd shapes (dh not a power of two, F > 32, B = 1) and the
+# AutoInt configuration (F=22, 2 heads of dh=8) at its training batch
+FA_SHAPES = [(37, 7, 3, 5), (5, 40, 2, 8), (1, 22, 2, 8), (9, 3, 1, 64),
+             (8192, 22, 2, 8)]
+FA_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.bfloat16, torch.float32)]
+
+
+def _fa_inputs(B, F, H, dh, dtype, out_dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    U = H * dh
+    q, k, v, x, dx = (torch.randn(B, F, U, generator=gen).to(dtype).cuda()
+                      for _ in range(5))
+    do = torch.randn(B, F, U, generator=gen).to(out_dtype).cuda()
+    w = (0.35 * torch.randn(U + 1, 4 * U, generator=gen)).to(dtype).cuda()
+    return q, k, v, do, x, w, dx
+
+
+def _fa_close(actual, expected, keep=None):
+    assert actual.shape == expected.shape and actual.dtype == expected.dtype
+    if keep is not None:
+        actual, expected = actual[keep], expected[keep]
+    rtol = 1e-2 if expected.dtype == torch.bfloat16 else 0.
+    actual, expected = actual.float().cpu(), expected.float().cpu()
+    limit = 1e-5 * float(expected.abs().max()) + rtol * expected.abs()
+    err = (actual - expected).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+
+
+@pytest.mark.parametrize('dtype,out_dtype', FA_TYPES,
+                         ids=['f32', 'bf16', 'bf16-f32out'])
+@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES)
+def test_field_attention_kernels_match_reference(cuda, B, F, H, dh, dtype,
+                                                 out_dtype):
+    q, k, v, do, _, _, _ = _fa_inputs(B, F, H, dh, dtype, out_dtype,
+                                      B + F + H + dh)
+    before = fa.fa_fwd.launches, fa.fa_bwd.launches
+    out = fa.fa_fwd(q, k, v, H, out_dtype)
+    grads = fa.fa_bwd(q, k, v, do, H)
+    torch.cuda.synchronize()
+    assert (fa.fa_fwd.launches, fa.fa_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    _fa_close(out, fa.fa_fwd_reference(q, k, v, H, out_dtype))
+    for got, ref in zip(grads, fa.fa_bwd_reference(q, k, v, do, H)):
+        _fa_close(got, ref)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES)
+def test_attention_block_kernels_match_reference(cuda, B, F, H, dh, dtype):
+    _, _, _, _, x, w, dx = _fa_inputs(B, F, H, dh, dtype, dtype, 3 * B + F)
+    before = fa.ab_fwd.launches, fa.ab_bwd.launches
+    out = fa.ab_fwd(x, w, H)
+    dpre = fa.ab_bwd(x, w, dx, H)
+    torch.cuda.synchronize()
+    assert (fa.ab_fwd.launches, fa.ab_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    _fa_close(out, fa.ab_fwd_reference(x, w, H))
+    keep = (fa.ab_mask_margin(x, w, H) >= 1e-5).cpu()
+    assert int(keep.sum()) >= B / 2
+    _fa_close(dpre, fa.ab_bwd_reference(x, w, dx, H), keep)
+
+
+def test_field_attention_kernels_reject_what_they_do_not_take(cuda):
+    q, k, v, do, x, w, dx = _fa_inputs(8, 5, 2, 8, torch.float32,
+                                       torch.float32, 0)
+    with pytest.raises(TypeError):
+        fa.fa_fwd(q.half(), k.half(), v.half(), 2)
+    with pytest.raises(TypeError):
+        fa.fa_fwd(q, k, v, 2, torch.bfloat16)  # f32 in, bf16 out
+    with pytest.raises(TypeError):
+        fa.fa_fwd(q, k.bfloat16(), v, 2)
+    with pytest.raises(ValueError):
+        fa.fa_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, 2)
+    with pytest.raises(ValueError):
+        fa.fa_fwd(q, k, v.cpu(), 2)
+    with pytest.raises(ValueError, match='d_head'):
+        big = torch.zeros(2, 3, 65, device='cuda')
+        fa.fa_fwd(big, big, big, 1)
+    with pytest.raises(TypeError):
+        fa.ab_fwd(x, w.bfloat16(), 2)
+    with pytest.raises(TypeError):
+        fa.ab_bwd(x, w, dx.bfloat16(), 2)
+    # buffers beyond a block's shared memory are refused, not run
+    huge = torch.zeros(1, 400, 64, device='cuda')
+    with pytest.raises(RuntimeError, match='launch failed'):
+        fa.ab_bwd(huge, torch.zeros(65, 256, device='cuda'), huge, 1)
+
+
+@pytest.mark.parametrize('extra', [{}, {'layout': 'batch_major'},
+                                   {'fuse_projections': True}],
+                         ids=['batch_minor', 'batch_major', 'fused'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_multihead_attention_on_cuda_matches_cpu(cuda, extra, dtype):
+    from deeptables_torch.ops.interactions import MultiheadAttention
+    params = dict({'num_heads': 2}, **extra)
+    cpu = MultiheadAttention(16, params,
+                             generator=torch.Generator().manual_seed(0))
+    card = MultiheadAttention(16, params).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(37, 22, 16, generator=torch.Generator().manual_seed(1))
+    xc = x.to(dtype).cuda().requires_grad_(True)
+    names = ('ab_fwd', 'ab_bwd') if extra.get('fuse_projections') \
+        else ('fa_fwd', 'fa_bwd')
+    kernels = [getattr(fa, n) for n in names]
+    before = [f.launches for f in kernels]
+    out = card(xc, training=True)
+    (out * out.cos()).sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [n + 1 for n in before]
+    xh = x.to(dtype).requires_grad_(True)
+    ref = cpu(xh, training=True)
+    (ref * ref.cos()).sum().backward()
+    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.detach().cpu(), ref.detach(), rtol=rtol,
+                               atol=rtol * float(ref.detach().abs().max()))
+    grads = {'x': (xc.grad, xh.grad)}
+    host = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        grads[name] = (p.grad, host[name].grad)
+    # a relu input within rounding of 0 may take the other side on the card
+    # and move that example's gradient: 1e-2 of the largest gradient
+    for name, (card_grad, host_grad) in grads.items():
+        torch.testing.assert_close(
+            card_grad.float().cpu(), host_grad.float(), rtol=rtol,
+            atol=1e-2 * float(host_grad.abs().max()), msg=name)
+
+
+def _autoint(cuda, extra=None):
+    from deeptables_torch.models import (CategoricalColumn, DeepModel,
+                                         ModelConfig)
+    vocabs = [24, 7, 7, 400, 30, 9]
+    cats = tuple(CategoricalColumn(f'C{i}', v, 16)
+                 for i, v in enumerate(vocabs))
+    config = ModelConfig(
+        nets=['autoint_nets'], task='binary', embedding_dropout=0,
+        metrics=['AUC'], autoint_params=dict(
+            {'num_attention': 3, 'num_heads': 2, 'dropout_rate': 0,
+             'use_residual': True}, **(extra or {})))
+    gpu = DeepModel('binary', 2, config, cats, (), device=cuda)
+    cpu = DeepModel('binary', 2, config, cats, (), device='cpu')
+    cpu.build().load_state_dict(gpu.build().state_dict())
+    rng = np.random.default_rng(0)
+    n = 96
+    X = {'cat': np.stack([rng.integers(0, v, n) for v in vocabs],
+                         axis=1).astype(np.int32)}
+    y = rng.integers(0, 2, n).astype(np.float32)
+    return gpu, cpu, X, y
+
+
+@pytest.mark.parametrize('extra', [None, {'fuse_projections': True}],
+                         ids=['unfused', 'fused'])
+def test_autoint_fit_on_cuda_matches_cpu(cuda, extra):
+    gpu, cpu, X, y = _autoint(cuda, extra)
+    fwd, bwd = (fa.ab_fwd, fa.ab_bwd) if extra else (fa.fa_fwd, fa.fa_bwd)
+    before = fwd.launches
+    proba = gpu.predict(X, batch_size=32)
+    assert fwd.launches == before + 9  # three blocks, three batches
+    np.testing.assert_allclose(proba, cpu.predict(X, batch_size=32),
+                               atol=1e-5)
+    val = ({k: v[:32] for k, v in X.items()}, y[:32])
+    counts = fwd.launches, bwd.launches
+    h_gpu = gpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    assert bwd.launches == counts[1] + 6  # three blocks, two steps
+    assert fwd.launches == counts[0] + 9  # ... and one validation batch
+    h_cpu = cpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    for key in ('loss', 'val_loss', 'val_auc'):
+        np.testing.assert_allclose(h_gpu.history[key], h_cpu.history[key],
+                                   rtol=1e-4, err_msg=key)

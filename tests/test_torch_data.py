@@ -1,7 +1,7 @@
 # -*- coding:utf-8 -*-
 """The port's own copies of the JAX package's host code: constants, column
-schema, ``ModelConfig``, the input pipeline and the criteo-style synthetic
-data. They must agree exactly with the originals."""
+schema, ``ModelConfig``, the input pipeline and the criteo-style and
+avazu-style synthetic data. They must agree exactly with the originals."""
 
 import dataclasses
 
@@ -49,7 +49,8 @@ def test_every_builtin_net_is_known():
 
 @pytest.mark.parametrize('name', [n for n in jax_deepnets._BUILTIN
                                   if n not in ('linear', 'fm_nets',
-                                               'cin_nets', 'dnn_nets')])
+                                               'cin_nets', 'autoint_nets',
+                                               'dnn_nets')])
 def test_unported_nets_name_their_slice(name):
     inputs = deepnets.NetInputs(4, 8, 32, 3, 35)
     with pytest.raises(NotImplementedError, match='slice'):
@@ -82,6 +83,23 @@ def test_criteo_synthetic_is_bit_identical(seed):
     ref_df = jax_datasets.load_criteo_synthetic(n_rows=50, seed=seed)
     assert list(df.columns) == list(ref_df.columns)
     np.testing.assert_array_equal(df.to_numpy(), ref_df.to_numpy())
+
+
+@pytest.mark.parametrize('seed', [31, 7])
+def test_avazu_synthetic_is_bit_identical(seed):
+    pytest.importorskip('pandas')
+    df = datasets.load_avazu_synthetic(n_rows=600, seed=seed)
+    ref = jax_datasets.load_avazu_synthetic(n_rows=600, seed=seed)
+    assert list(df.columns) == list(ref.columns)
+    assert list(df.dtypes) == list(ref.dtypes)
+    np.testing.assert_array_equal(df.to_numpy(), ref.to_numpy())
+    # the numpy columns that the DataFrame is built from
+    fields, click = datasets._avazu_fields(n_rows=600, seed=seed)
+    assert list(fields) == list(ref.columns[1:])
+    np.testing.assert_array_equal(click, ref['click'].to_numpy())
+    for name, column in fields.items():
+        assert column.dtype == ref[name].dtype
+        np.testing.assert_array_equal(column, ref[name].to_numpy())
 
 
 @pytest.mark.parametrize('n,batch_size,shuffle,drop,pad_multiple', [

@@ -6,8 +6,10 @@ A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch`` and
 ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
-no scikit-learn, and an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
-and ``ops/kernels/cin.py``). It hides any CUDA device, so that ``DeepModel`` without a
+no scikit-learn, an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
+and ``ops/kernels/cin.py``) and an AutoInt ``fit`` on the avazu-style columns
+(``ops/attention_grad.py``, ``ops/kernels/field_attention.py``, the fused
+block too). It hides any CUDA device, so that ``DeepModel`` without a
 device must raise.
 """
 
@@ -83,6 +85,22 @@ xmodel = DeepModel('binary', 2, xconfig, cats, conts, device='cpu')
 history = xmodel.fit({'cat': cat, 'input_continuous_all': dense}, y,
                      batch_size=4, epochs=1, verbose=0)
 assert np.isfinite(history.history['loss']).all()
+# AutoInt on the avazu-style columns, which come without pandas
+assert {'deeptables_torch.ops.attention_grad',
+        'deeptables_torch.ops.kernels.field_attention'} <= set(modules)
+from deeptables_torch.data.datasets import _avazu_fields
+fields, click = _avazu_fields(n_rows=12)
+acat = np.stack(list(fields.values()), axis=1).astype(np.int32)
+acats = tuple(CategoricalColumn(name, int(col.max()) + 2, 8)
+              for name, col in fields.items())
+for extra in ({}, {'fuse_projections': True}):
+    aconfig = ModelConfig(nets=['autoint_nets'], embedding_dropout=0,
+                          autoint_params=dict({'num_attention': 2,
+                                               'num_heads': 2}, **extra))
+    amodel = DeepModel('binary', 2, aconfig, acats, (), device='cpu')
+    history = amodel.fit({'cat': acat}, click.astype(np.float32),
+                         batch_size=4, epochs=1, verbose=0)
+    assert np.isfinite(history.history['loss']).all()
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))

@@ -22,9 +22,14 @@ torch.set_num_threads(1)  # the suite runs several xdist workers
 
 DEEPFM = ['linear', 'fm_nets', 'dnn_nets']
 XDEEPFM = ['linear', 'cin_nets', 'dnn_nets']
+AUTOINT = ['autoint_nets']
 HIDDEN = ((64, 0, False), (32, 0, False))
 # the xDeepFM schemas' CIN, cut from (128, 128) to (8, 4)
 CIN_PARAMS = {'cross_layer_size': (8, 4), 'activation': 'relu'}
+# the AutoInt schemas' attention, cut from 3 blocks to 2 (2 heads, as the
+# avazu configuration)
+AUTOINT_PARAMS = {'num_attention': 2, 'num_heads': 2, 'dropout_rate': 0,
+                  'use_residual': True}
 
 
 def _criteo_vocabs():
@@ -36,7 +41,10 @@ def _criteo_vocabs():
 # non-ascending schemas make the TPU plan reorder the fields; the bench
 # schema is the criteo one of bench.py (26 columns at D=16, 13 dense); the
 # mixed one has two width groups. The xdeepfm_* schemas run xDeepFM with
-# CIN_PARAMS (or the cin_params given to Case).
+# CIN_PARAMS (or the cin_params given to Case); the autoint_* schemas run
+# AutoInt alone with AUTOINT_PARAMS (updated by autoint_params), no dense
+# columns, as the avazu configuration (its first vocabularies, 24, 7, 7,
+# 4000, cut).
 SCHEMAS = {
     'nonascending_d16': ([50, 7, 300, 20], [16] * 4, 3, DEEPFM),
     'nonascending_d8': ([50, 7, 300, 20, 9], [8] * 5, 3, DEEPFM),
@@ -44,6 +52,10 @@ SCHEMAS = {
     'mixed_widths': ([50, 7, 300, 20], [8, 16, 8, 16], 3, ['dnn_nets']),
     'xdeepfm_nonascending_d8': ([50, 7, 300, 20, 9], [8] * 5, 3, XDEEPFM),
     'xdeepfm_nonascending_d16': ([50, 7, 300, 20], [16] * 4, 3, XDEEPFM),
+    'autoint_nonascending_d8': ([24, 7, 7, 400, 30], [8] * 5, 0, AUTOINT),
+    'autoint_nonascending_d16': ([24, 7, 300, 9], [16] * 4, 0, AUTOINT),
+    'autoint_dnn_d8': ([24, 7, 7, 400, 30], [8] * 5, 2,
+                       ['autoint_nets', 'dnn_nets']),
 }
 
 
@@ -51,7 +63,7 @@ class Case:
     """One schema and dtype policy, built in both packages."""
 
     def __init__(self, schema, dtype_policy='float32', seed=0,
-                 cin_params=None):
+                 cin_params=None, autoint_params=None):
         vocabs, dims, n_dense, nets = SCHEMAS[schema]
         self.vocabs, self.dims, self.nets = vocabs, dims, nets
         kwargs = dict(nets=nets, metrics=['AUC'], task='binary',
@@ -61,15 +73,18 @@ class Case:
                       dtype_policy=dtype_policy)
         if 'cin_nets' in nets:
             kwargs['cin_params'] = dict(CIN_PARAMS, **(cin_params or {}))
+        if 'autoint_nets' in nets:
+            kwargs['autoint_params'] = dict(AUTOINT_PARAMS,
+                                            **(autoint_params or {}))
         dense_names = [f'I{i + 1}' for i in range(n_dense)]
         self.jax_cats = tuple(CategoricalColumn(f'C{i + 1}', v, d)
                               for i, (v, d) in enumerate(zip(vocabs, dims)))
         self.jax_conts = (ContinuousColumn('input_continuous_all',
-                                           dense_names),)
+                                           dense_names),) if n_dense else ()
         self.port_cats = tuple(TCategoricalColumn(f'C{i + 1}', v, d)
                                for i, (v, d) in enumerate(zip(vocabs, dims)))
         self.port_conts = (TContinuousColumn('input_continuous_all',
-                                             dense_names),)
+                                             dense_names),) if n_dense else ()
         self.jax_config = ModelConfig(**kwargs)
         self.port_config = TModelConfig(**kwargs)
 
@@ -91,9 +106,11 @@ class Case:
     def batch(self, n, seed=1):
         rng = np.random.default_rng(seed)
         cat = np.stack([rng.integers(0, v, n) for v in self.vocabs], axis=1)
-        dense = rng.normal(0.5, 1.5, (n, self.jax_conts[0].input_dim))
-        return {'cat': cat.astype(np.int32),
-                'input_continuous_all': dense.astype(np.float32)}
+        batch = {'cat': cat.astype(np.int32)}
+        if self.jax_conts:
+            dense = rng.normal(0.5, 1.5, (n, self.jax_conts[0].input_dim))
+            batch['input_continuous_all'] = dense.astype(np.float32)
+        return batch
 
     def field_order(self):
         """JAX stacked field position → column, from the JAX package's own
@@ -105,16 +122,23 @@ class Case:
 
 
 def randomize_batch_norm(variables, seed):
-    """Random scale/bias/mean/var for every BatchNorm, so that eval-mode
+    """Random scale/bias/mean/var for every BatchNorm (nested ones too,
+    such as ``autoint_attention_0/batch_normalize``), so that eval-mode
     BatchNorm is no identity."""
     rng = np.random.default_rng(seed)
-    for name, stats in variables.get('batch_stats', {}).items():
-        n = stats['mean'].shape[0]
-        stats['mean'] = rng.normal(0., 0.5, n).astype(np.float32)
-        stats['var'] = rng.uniform(0.5, 2.0, n).astype(np.float32)
-        params = variables['params'][name]
-        params['scale'] = rng.uniform(0.5, 1.5, n).astype(np.float32)
-        params['bias'] = rng.normal(0., 0.2, n).astype(np.float32)
+
+    def visit(stats_tree, params_tree):
+        for name, stats in stats_tree.items():
+            params = params_tree[name]
+            if 'mean' not in stats:
+                visit(stats, params)
+                continue
+            n = stats['mean'].shape[0]
+            stats['mean'] = rng.normal(0., 0.5, n).astype(np.float32)
+            stats['var'] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+            params['scale'] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+            params['bias'] = rng.normal(0., 0.2, n).astype(np.float32)
+    visit(variables.get('batch_stats', {}), variables['params'])
 
 
 def to_column_order(a, order, block):
