@@ -10,7 +10,8 @@ It builds the port's CUDA kernels from ``deeptables_torch/csrc`` and runs
 these phases, each printing one JSON line:
 
 1. ``card``: the card's name and power limit (``nvidia-smi``), the versions,
-   the kernel build time and what ``ptxas`` reports for each kernel.
+   the kernel build time, what ``ptxas`` reports for each kernel and the
+   kernels that spill (``spills``).
 2. ``kernel``: the FM forward kernel against its plain PyTorch version
    (``fm_reference``) on the card, in float32 and bfloat16, at every batch
    shape the serving path gives it (F=26, D=16) and a ragged B=4093, inputs
@@ -33,7 +34,9 @@ these phases, each printing one JSON line:
    ``torch.einsum('bfd,bgd,lfg->bld')`` (K4) and ``torch.autograd.grad`` of
    it (K3, several kernels), which the port never calls, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the card's rate for
-   the input type: 989 TFLOP/s bfloat16, 67 float32).
+   the input type: 989 TFLOP/s bfloat16, 67 float32). ``cin_fwd`` rows
+   name the kernel that ran: ``design`` ``wgmma`` (bfloat16, tensor
+   cores) or ``simt`` (float32, CUDA cores).
 5. ``kernel`` for ``fa_fwd`` and ``fa_bwd`` (K5, field attention and its
    gradient) and ``ab_fwd`` and ``ab_bwd`` (K6, the fused attention block)
    against their plain versions at AutoInt's shapes (F=22, 2 heads of
@@ -41,6 +44,9 @@ these phases, each printing one JSON line:
    inputs and a float32 output; every output within 1e-5 of its largest
    value (bfloat16 outputs also rtol 1e-2). Yardsticks for K5:
    ``scaled_dot_product_attention`` and ``torch.autograd.grad`` of it.
+   Then one bfloat16 row a kernel (``lifted``) at B=64 past the register
+   width and shared memory: K5 at F=200, one head of dh=128; K6 at F=22,
+   U=128.
 6. For DeepFM, xDeepFM (26 categorical columns at D=16, 13 dense, DNN
    1024/512 relu; xDeepFM's CIN (128, 128) relu) and then AutoInt and
    AutoInt with ``fuse_projections`` (the 22 avazu-style columns of
@@ -133,6 +139,9 @@ FA_HEADLINE = ('bfloat16', 8192)
 # side of its relu mask in the kernel and the plain version (see
 # ab_mask_margin)
 AB_MASK_MARGIN = 1e-5
+# (B, F, H, dh) past the kernels' register width and shared memory: K5 at
+# F=200 and one head of 128, K6 at AutoInt's F=22 and U=128 in one head
+FA_LIFTED = {'fa': (64, 200, 1, 128), 'ab': (64, 22, 1, 128)}
 # xDeepFM's CIN layers, (F, G, L): G = 26 input fields, then 64 = 128 / 2
 CIN_LAYERS = {'layer1': (26, 26, 128), 'layer2': (26, 64, 128)}
 CIN_BATCHES = (4096, 8192, 4093)
@@ -248,17 +257,27 @@ def card_phase(torch, _build):
     t0 = time.perf_counter()
     build_dir = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {}
+    ptxas, spills = {}, {}
     for log in sorted(build_dir.glob('lib*.log')):
+        lines = log.read_text().splitlines()
         ptxas[log.stem[3:]] = sorted({line.split(':', 1)[1].strip()
-                                      for line in log.read_text().splitlines()
+                                      for line in lines
                                       if 'registers' in line})
+        # every kernel (mangled name) that spills, with ptxas's line
+        kernel = None
+        for line in lines:
+            if 'Function properties for' in line:
+                kernel = line.rsplit(' ', 1)[1]
+            elif 'spill stores' in line and \
+                    '0 bytes spill stores, 0 bytes spill loads' not in line:
+                spills.setdefault(log.stem[3:], {})[kernel] = line.strip()
     emit({'phase': 'card', 'nvidia_smi': smi,
           'kind': torch.cuda.get_device_name(0),
           'count': torch.cuda.device_count(),
           'python': sys.version.split()[0], 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'build_s': build_s,
           'sources': [p.name for p in _build.sources()], 'ptxas': ptxas,
+          'spills': spills,
           'tf32': {'matmul': torch.backends.cuda.matmul.allow_tf32,
                    'cudnn': torch.backends.cudnn.allow_tf32}})
     return smi
@@ -506,6 +525,12 @@ def cin_kernel_phase(torch, cin_module):
                            'bound_ms': bound_ms, 'bound_by': bound_by,
                            'gflop': ops / 1e9, 'buffers': len(bufs)}
                     row['tflop_per_s'] = ops / row['ms'] / 1e9
+                    if name == 'cin_fwd':
+                        row['design'] = cin_module.fwd_design(dtype, F, G)
+                        check(row['design'] == ('wgmma' if itemsize == 2
+                                                else 'simt'),
+                              f"cin_fwd ran the {row['design']} kernel on "
+                              f'{dtype_name}')
                     rows[name].append(row)
                 del bufs, graphs, x0, h, w, dz
                 torch.cuda.empty_cache()
@@ -672,6 +697,7 @@ def fa_kernel_phase(torch, fa):
                 rows[name].append(row)
             del bufs, head_bufs, graphs, q, k, v, do, x, w, dx
             torch.cuda.empty_cache()
+    fa_lifted_rows(torch, fa, gen, rows)
     notes = {'fa_fwd': 'torch.nn.functional.scaled_dot_product_attention on '
                        '(B, H, F, dh)',
              'fa_bwd': 'autograd: torch.autograd.grad of that call',
@@ -685,6 +711,62 @@ def fa_kernel_phase(torch, fa):
             line['library_call'] = note
         emit(line)
     return rows
+
+
+def fa_lifted_rows(torch, fa, gen, rows):
+    """One bfloat16 row per K5/K6 kernel at a shape past the register
+    width and past shared memory (FA_LIFTED): dh=128 runs in two slices of
+    64; K5 at F=200 and K6 at U=128 keep their buffers in device memory, and
+    K6 reads w_aug (264 KB in float32) from there. Held to the plain
+    version as the AutoInt rows are; timed as they are, without yardstick."""
+    dtype = torch.bfloat16
+    for name in ('fa_fwd', 'fa_bwd', 'ab_fwd', 'ab_bwd'):
+        B, F, H, dh = FA_LIFTED[name[:2]]
+        U = H * dh
+
+        def randn(shape, std=1.0):
+            return (std * torch.randn(shape, generator=gen, device='cuda')
+                    ).to(dtype)
+        x, k, v, do = (randn((B, F, U)) for _ in range(4))
+        w = randn((U + 1, 4 * U), 0.35)
+        args = {'fa_fwd': (x, k, v), 'fa_bwd': (x, k, v, do),
+                'ab_fwd': (x, w), 'ab_bwd': (x, w, do)}[name]
+        kernel = getattr(fa, name)
+        plain = getattr(fa, name + '_reference')
+        outs, refs = kernel(*args, H), plain(*args, H)
+        torch.cuda.synchronize()
+        if not isinstance(outs, tuple):
+            outs, refs = (outs,), (refs,)
+        keep = fa.ab_mask_margin(x, w, H) >= AB_MASK_MARGIN \
+            if name == 'ab_bwd' else None
+        err_max = 0.
+        for i, (out, ref) in enumerate(zip(outs, refs)):
+            check(out.shape == ref.shape and out.dtype == ref.dtype,
+                  f'{name} output {i}: {tuple(out.shape)} {out.dtype}')
+            if keep is not None:
+                out, ref = out[keep], ref[keep]
+            err = (out.float() - ref.float()).abs()
+            limit = 1e-5 * float(ref.float().abs().max()) \
+                + 1e-2 * ref.float().abs()
+            err_max = max(err_max, float(err.max()))
+            check(bool((err <= limit).all()),
+                  f'{name} kernel disagrees with its plain version at '
+                  f'{(B, F, H, dh)}: output {i} max_abs_err='
+                  f'{float(err.max())}')
+        bound_ms, bound_by = fa_bound(name, B, F, H, dh, 2, 2)
+        row = {'dtype': 'bfloat16', 'out_dtype': 'bfloat16', 'B': B, 'F': F,
+               'H': H, 'dh': dh, 'lifted': True, 'max_abs_err': err_max,
+               'rtol_of_max': 1e-5, 'rtol_out': 1e-2,
+               'ms': device_ms(torch, lambda a: kernel(*a, H), [args], 20),
+               'plain_ms': device_ms(torch, lambda a: plain(*a, H), [args],
+                                     20),
+               'library_ms': None, 'bound_ms': bound_ms,
+               'bound_by': bound_by}
+        if keep is not None:
+            row['excluded_examples'] = int((~keep).sum())
+        rows[name].append(row)
+        del outs, refs, args, x, k, v, do, w
+    torch.cuda.empty_cache()
 
 
 # the field-attention kernels, the TPU kernel body each replaces, and the
@@ -1275,6 +1357,7 @@ def main():
         'bound_by': cin_head['cin_fwd']['bound_by'],
         'library_ms': cin_head['cin_fwd']['library_ms'],
         'library_note': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
+        'design': cin_head['cin_fwd']['design'],
         'at': cin_at}, {
         'name': 'cin_bwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',

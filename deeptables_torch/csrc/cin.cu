@@ -28,13 +28,53 @@
 // would make the kernels memory-bound. So the pair (forward, dW) and dpair
 // (dx0, dh) live only in shared memory and registers.
 //
-// Arithmetic: every product and sum is float32 on the CUDA cores, and each
-// output is rounded once. For bfloat16 inputs the pair product is exact in
-// float32 (two 8-bit significands), so the kernels round nothing before the
-// output; they use no tensor cores, so this first version runs at the CUDA
-// cores' float32 rate, a small share of the bfloat16 tensor-core bound.
+// Arithmetic: every product and sum is float32, and each output is rounded
+// once. For bfloat16 inputs the pair product is exact in float32 (two 8-bit
+// significands), so the kernels round nothing before the output.
 //
-// K4 (cin_fwd_kernel): a GEMM Z(L, N) = W(L, F*G) @ P(F*G, N). Each block of
+// K4 takes 56.05 GFLOP at layer 2, B = 8192 (2*L*F*G*N): 0.0567 ms at the
+// card's 989 TFLOP/s bfloat16 rate, which only the tensor cores reach.
+//
+// K4, bfloat16 (cin_fwd_wgmma_kernel): the GEMM
+// Z^T (N, L) = P^T (N, K) . W^T (K, L), K = F*G, on wgmma m64n128k16
+// (bfloat16 in, float32 accumulators). A block owns 128 columns n (one m64
+// tile for each of its two warpgroups) and 128 l (L past 128: more
+// blocks along y).
+// - A, the pair, is built in registers: each thread reads its x0[f, n] and
+//   h[g, n] from the block's x0 and h tiles in shared memory (bfloat16 as
+//   stored, loaded once before the k loop, any D and the batch-minor
+//   B = 1 alike), forms p = x0 * h in float32 (exact) and splits it into
+//   hi = bf16(p) and lo = bf16(p - hi). p has 16 significant bits, hi the
+//   top 8, and p - hi fits in the 8 of lo, so hi + lo == p exactly (unless
+//   lo falls below float32's normal range, ~1e-38, far under any
+//   activation). Two wgmmas, one with hi and one with lo against the same
+//   W tile, then give the float32 sum of float32-exact products: the
+//   function of the float32 kernel and of cin_fwd_reference, at twice the
+//   tensor work (a 0.113 ms floor at layer 2). (f, g) of each k advances by
+//   16 each step: no division in the loop.
+// - B, W, is streamed by TMA: the wrapper pads W to (L, K_pad), K_pad a
+//   multiple of 64 (TMA wants 16-byte row strides; K = 676 at layer 1 is
+//   not), zeros past K. A ring of 4 stages of 64 k x 128 l (16 KB, 128-byte
+//   swizzle, rows past L read as zeros) is refilled without a producer
+//   warp: the last of the 8 warps to release a stage (a shared counter)
+//   issues the TMA load of its next chunk; full mbarriers say when a stage
+//   has landed. A ninth, producer warp would leave ptxas 96 registers a
+//   thread at two blocks an SM (5 warps on some SM sub-partitions), too few
+//   for the 64 accumulators: it spilled and serialised the wgmmas.
+// - Two fragment sets: the next step's A is built while this step's two
+//   wgmmas run (wait_group 1). The first wgmma writes the accumulators
+//   (scale-d 0): zeroing them with moves also serialised the wgmmas.
+// - Epilogue: the accumulators go through shared memory (the ring, free
+//   after the k loop) and out as runs of D consecutive z values.
+// - 256 threads, 119 registers, two blocks an SM. Every block re-reads W
+//   from L2 (0.44 GB at layer 2); the x0/h tile load is not overlapped
+//   within a block (the SM's other block runs meanwhile).
+// - Shared memory: 68.6 KB + (F + G) * 272 bytes; F + G > 602 does not fit
+//   and takes the float32 kernel (the wrapper's fwd_design).
+//
+// K4, float32 (cin_fwd_kernel): float32 on the tensor cores would be TF32,
+// which is not what the JAX package computes in float32, so float32 runs on
+// the CUDA cores. Z(L, N) = W(L, F*G) @ P(F*G, N): each block of
 // 256 threads owns a 128 x 128 tile of Z, each thread an 8 x 8 register
 // tile (rows l = ty + 16i, columns n = tx + 16j). The block walks K = F*G
 // in chunks of 8: it stages the W chunk in shared memory and builds the P
@@ -52,8 +92,8 @@
 //    otherwise it writes a float32 partial per g-tile and
 // 2. cin_sum_kernel sums them in a fixed order and rounds to T.
 // 3. cin_bwd_dw_kernel: dW(L, F*G) = dz(L, N) @ P(F*G, N)^T, the pair built
-//    in shared memory as in K4. The reduction over N, which the TPU carried
-//    across its sequential grid, is split: a block owns a 128 x 128 tile of
+//    in shared memory as in K4's float32 kernel. The reduction over N,
+//    which the TPU carried across its sequential grid, is split: a block owns a 128 x 128 tile of
 //    dW and one of `splits` column ranges, and writes a float32 partial.
 // 4. cin_sum_kernel sums the partials in a fixed order into dW. No atomics:
 //    the result does not depend on the order blocks run in.
@@ -64,6 +104,7 @@
 
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums only: no driver library link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -170,6 +211,300 @@ __global__ void __launch_bounds__(kThreads)
       const int l = l0 + ty + 16 * i;
       if (l < L) z[zcol + static_cast<int64_t>(l) * D] = acc[i][j];
     }
+  }
+}
+
+// ---------------------------------------------------------------- K4, bf16
+// Z^T (N, L) = P^T (N, K) . W^T (K, L) on the tensor cores (wgmma), K = F*G.
+// See the header for the design; the constants below fix the tiles.
+namespace wg {
+
+constexpr int kCols = 128;   // columns n a block owns: two m64 tiles
+constexpr int kLTile = 128;  // l a block owns: wgmma's n128
+constexpr int kChunk = 64;   // k per W stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kStageBytes = kChunk * kLTile * 2;  // 16 KB of bfloat16
+constexpr int kBlockThreads = 256;                // two warpgroups
+constexpr int kWarps = kBlockThreads / 32;
+constexpr int kTileLd = kCols + 8;   // x0/h tile row stride (bf16): 4 banks apart
+constexpr int kStageLd = kCols + 4;  // z staging row stride (float)
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kStagingBytes = kLTile * kStageLd * 4;
+// the W ring, reused after the k loop to stage z
+constexpr int kRegionBytes =
+    ((kStagingBytes > kRingBytes ? kStagingBytes : kRingBytes) + 1023) / 1024 *
+    1024;
+constexpr int kMaxSmemBytes = 232448;  // 227 KB, a block's limit on Hopper
+
+__host__ __device__ __forceinline__ int tile_bytes(int F, int G) {
+  return ((F + G) * kTileLd * 2 + 7) / 8 * 8;
+}
+// 1024 bytes of slack to align the ring for the 128-byte swizzle
+__host__ __device__ __forceinline__ int smem_bytes(int F, int G) {
+  return 1024 + kRegionBytes + tile_bytes(F, G) + 2 * kStages * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Shared-memory descriptor of a K-major operand in the 128-byte swizzle
+// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x 128 f32, the warpgroup's accumulator fragment) = a (64 x 16
+// bf16, registers) . B (16 x 128 bf16 at desc, K-major), + d unless
+// `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, const uint32_t* a,
+                                                 uint64_t desc,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// returns once at most N committed groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving uses of an accumulator across the waits
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// Two products p, q of bfloat16 values (exact in float32) as the bfloat16
+// pairs hi = bf16(p, q) and lo = bf16(p - hi, q - hi): hi + lo is exact.
+__device__ __forceinline__ void split_pair(float p, float q, uint32_t* hi,
+                                           uint32_t* lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(p, q);  // .x: low half
+  const float2 hf = __bfloat1622float2(h2);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(p - hf.x, q - hf.y);
+  *hi = *reinterpret_cast<const uint32_t*>(&h2);
+  *lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// This thread's hi and lo A fragments of one 16-wide k step (the
+// mma.m16n8k16 A layout in each warp's 16 rows: rows r0 and r0 + 8, k
+// columns c0 + {0, 1, 8, 9}, (f, g) = (kf, kg)[j]), from the x0 and h
+// tiles; the pair is zero past K (f >= F). Advances (kf, kg) by 16.
+__device__ __forceinline__ void pair_fragment(uint32_t* hi, uint32_t* lo,
+                                              const __nv_bfloat16* xs,
+                                              const __nv_bfloat16* hs,
+                                              int* kf, int* kg, int F, int G,
+                                              int r0) {
+  float p[2][4];  // [row][j], exact in float32
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool valid = kf[j] < F;
+    const __nv_bfloat16* xr = xs + (valid ? kf[j] : 0) * kTileLd;
+    const __nv_bfloat16* hr = hs + kg[j] * kTileLd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int nl = r0 + 8 * r;
+      p[r][j] = valid ? __bfloat162float(xr[nl]) * __bfloat162float(hr[nl])
+                      : 0.f;
+    }
+    kg[j] += 16;
+    while (kg[j] >= G) {
+      kg[j] -= G;
+      ++kf[j];
+    }
+  }
+  split_pair(p[0][0], p[0][1], &hi[0], &lo[0]);
+  split_pair(p[1][0], p[1][1], &hi[1], &lo[1]);
+  split_pair(p[0][2], p[0][3], &hi[2], &lo[2]);
+  split_pair(p[1][2], p[1][3], &hi[3], &lo[3]);
+}
+
+}  // namespace wg
+
+__global__ void __launch_bounds__(wg::kBlockThreads, 2)
+    cin_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                         const __nv_bfloat16* __restrict__ x0,
+                         const __nv_bfloat16* __restrict__ h,
+                         float* __restrict__ z, int64_t N, int F, int G,
+                         int L, int D, int chunks) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + kRegionBytes);
+  __nv_bfloat16* hs = xs + F * kTileLd;
+  // full[s]: stage s holds its chunk; released[s]: warps done with it
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRegionBytes +
+                                               tile_bytes(F, G));
+  int* released = reinterpret_cast<int*>(full + kStages);
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  const int l0 = blockIdx.y * kLTile;
+
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < kStages && c < chunks; ++c) {
+      mbar_expect_tx(full + c, kStageBytes);
+      tma_load_2d(smem + c * kStageBytes, &w_map, full + c, c * kChunk, l0);
+    }
+  }
+
+  // the block's x0 and h columns, [row][column], bfloat16 as stored
+  {
+    const int nl = t % kCols;
+    const int64_t n = n0 + nl;
+    const bool valid = n < N;
+    const int64_t b = valid ? n / D : 0;
+    const int d = valid ? static_cast<int>(n % D) : 0;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    const __nv_bfloat16* xc = x0 + b * F * D + d;
+    const __nv_bfloat16* hc = h + b * G * D + d;
+    for (int f = t / kCols; f < F; f += kBlockThreads / kCols)
+      xs[f * kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
+    for (int g = t / kCols; g < G; g += kBlockThreads / kCols)
+      hs[g * kTileLd + nl] = valid ? hc[static_cast<int64_t>(g) * D] : zero;
+  }
+  __syncthreads();
+
+  // This thread's place in the A fragment (see pair_fragment); (kf, kg) =
+  // (f, g) of its four k of the first step.
+  const int r0 = 16 * warp + lane / 4;  // warpgroup w: rows 64w .. 64w + 63
+  const int c0 = 2 * (lane % 4);
+  int kf[4], kg[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = c0 + (j & 1) + 8 * (j >> 1);
+    kf[j] = k / G;
+    kg[j] = k % G;
+  }
+
+  // the first wgmma writes the accumulators (no instruction but a wgmma
+  // defines them: ptxas would serialise the wgmmas otherwise)
+  float acc[64];
+
+  // Two fragment sets: the next step's is built while the wgmmas of this
+  // one run.
+  uint32_t frag[2][2][4];  // [set][hi, lo][register]
+  pair_fragment(frag[0][0], frag[0][1], xs, hs, kf, kg, F, G, r0);
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % kStages;
+    mbar_wait(full + s, (c / kStages) & 1);
+    const uint64_t desc = smem_desc(smem + s * kStageBytes);
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      const int cur = kk & 1;
+      // +2 in the descriptor's address field: 16 bf16 = 32 bytes along k
+      wgmma_fence();
+      wgmma_m64n128k16(acc, frag[cur][0], desc + 2 * kk, c > 0 || kk > 0);
+      wgmma_m64n128k16(acc, frag[cur][1], desc + 2 * kk, 1);
+      wgmma_commit();
+      // the step before is done: its fragment set is free and, at the
+      // first step of a chunk, so is the previous chunk's stage; the last
+      // warp to release a stage loads its next chunk
+      wgmma_wait<1>();
+      if (kk == 0 && c > 0) {
+        __syncwarp();
+        const int ps = (c - 1) % kStages;
+        if (lane == 0) {
+          __threadfence_block();
+          if (atomicAdd(released + ps, 1) == kWarps - 1) {
+            released[ps] = 0;
+            const int next = c - 1 + kStages;
+            if (next < chunks) {
+              mbar_expect_tx(full + ps, kStageBytes);
+              tma_load_2d(smem + ps * kStageBytes, &w_map, full + ps,
+                          next * kChunk, l0);
+            }
+          }
+        }
+      }
+      pair_fragment(frag[cur ^ 1][0], frag[cur ^ 1][1], xs, hs, kf, kg, F, G,
+                    r0);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+
+  // epilogue: stage z^T through shared memory (the ring is free once both
+  // warpgroups are past the k loop), then write runs of D columns
+  __syncthreads();
+  float* zs = reinterpret_cast<float*>(smem);
+  // acc[4j + e]: row r0 + 8 (e / 2), column l = 8j + c0 + e % 2
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      zs[(8 * j + c0 + (e & 1)) * kStageLd + r0 + 8 * (e >> 1)] =
+          acc[4 * j + e];
+  __syncthreads();
+  const int nl = t % kCols;
+  const int64_t n = n0 + nl;
+  if (n < N) {
+    float* zc = z + (n / D) * L * D + n % D;
+    for (int ll = t / kCols; ll < kLTile && l0 + ll < L;
+         ll += kBlockThreads / kCols)
+      zc[static_cast<int64_t>(l0 + ll) * D] = zs[ll * kStageLd + nl];
   }
 }
 
@@ -428,6 +763,71 @@ cudaError_t launch_fwd(const T* x0, const T* h, const T* w, float* z,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime: the library
+// needs no link to libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// w_pad: (L, k_pad) bfloat16, k_pad a multiple of 64 and >= F*G, zeros past
+// F*G (TMA wants row strides in multiples of 16 bytes).
+cudaError_t launch_fwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
+                             const __nv_bfloat16* w_pad, float* z, int64_t B,
+                             int F, int G, int L, int D, int k_pad,
+                             cudaStream_t stream) {
+  const int64_t N = B * D;
+  if (B < 1 || bad_shape(N, F, G, L, D) || k_pad % wg::kChunk != 0 ||
+      k_pad < F * G || wg::smem_bytes(F, G) > wg::kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k_pad),
+                              static_cast<cuuint64_t>(L)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k_pad) * 2};
+  const cuuint32_t box[2] = {wg::kChunk, wg::kLTile};
+  const cuuint32_t steps[2] = {1, 1};
+  // rows l >= L of the last tile read as zeros
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<__nv_bfloat16*>(w_pad), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // once: the limit a launch may ask for, not what it allocates
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      cin_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kMaxSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(static_cast<unsigned>(ceil_div(N, wg::kCols)),
+                  static_cast<unsigned>(ceil_div(L, wg::kLTile)));
+  cin_fwd_wgmma_kernel<<<grid, wg::kBlockThreads, wg::smem_bytes(F, G),
+                         stream>>>(
+      map, x0, h, z, N, F, G, L, D, k_pad / wg::kChunk);
+  return cudaGetLastError();
+}
+
 // dx0_part: (ceil(G / tg) * B*F*D) float32 when G > 64, else unused.
 // dw_part: (splits * L*F*G) float32.
 template <typename T>
@@ -488,6 +888,17 @@ int dt_cin_fwd_bf16(const void* x0, const void* h, const void* w, void* z,
       static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(w), static_cast<float*>(z), B, F, G,
       L, D, static_cast<cudaStream_t>(stream)));
+}
+
+// K4 on the tensor cores: w_pad (L, k_pad) as launch_fwd_wgmma takes it.
+int dt_cin_fwd_bf16_wgmma(const void* x0, const void* h, const void* w_pad,
+                          void* z, int64_t B, int F, int G, int L, int D,
+                          int k_pad, void* stream) {
+  return static_cast<int>(launch_fwd_wgmma(
+      static_cast<const __nv_bfloat16*>(x0),
+      static_cast<const __nv_bfloat16*>(h),
+      static_cast<const __nv_bfloat16*>(w_pad), static_cast<float*>(z), B, F,
+      G, L, D, k_pad, static_cast<cudaStream_t>(stream)));
 }
 
 int dt_cin_bwd_f32(const void* x0, const void* h, const void* w,

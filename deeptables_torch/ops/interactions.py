@@ -181,8 +181,9 @@ class MultiheadAttention(nn.Module):
 
     ``autoint_params``: ``num_heads``, ``dropout_rate``, ``use_residual``,
     ``layout``, ``fuse_projections`` and ``use_fused_kernel``.
-    - ``fuse_projections`` with ``use_residual`` and ``dropout_rate == 0``
-      runs the whole block but BatchNorm as one kernel pair
+    - ``fuse_projections`` with ``use_residual``, ``dropout_rate == 0``,
+      the batch-minor layout and ``use_fused_kernel`` (where the JAX
+      package fuses) runs the whole block but BatchNorm as one kernel pair
       (``attention_block``: K6), on ``w_aug = [[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``
       packed from the four Dense parameters each call (their names stay).
       Its q, k, v and r stay float32.
@@ -190,7 +191,8 @@ class MultiheadAttention(nn.Module):
       from the model's ``torch.Generator``; no kernel runs on that path,
       whether training or not, as in the JAX package.
     - ``use_fused_kernel=False`` is accepted with a warning: on the TPU it
-      chose the XLA formulation; here the kernels run all the same.
+      chose the XLA formulation, the unfused block; here the unfused block
+      runs with the K5 kernels.
     """
 
     # DeepTabularModel registers this module under its own name with the
@@ -207,13 +209,16 @@ class MultiheadAttention(nn.Module):
             raise ValueError(f'embedding dim {num_units} must be divisible '
                              f'by num_heads {self.num_heads}')
         self.batch_minor = params.get('layout', 'batch_minor') == 'batch_minor'
+        use_fused_kernel = bool(params.get('use_fused_kernel', True))
+        # the JAX package fuses the block on its batch-minor kernel path only
         self.fused = (bool(params.get('fuse_projections', False))
-                      and self.use_residual and self.dropout_rate == 0)
-        if not params.get('use_fused_kernel', True):
+                      and self.use_residual and self.dropout_rate == 0
+                      and self.batch_minor and use_fused_kernel)
+        if not use_fused_kernel:
             dt_logging.get_logger(__name__).warning(
                 "autoint_params={'use_fused_kernel': False}: it selected the "
-                'XLA formulation on a TPU; deeptables_torch runs the field '
-                'attention kernels.')
+                'XLA formulation on a TPU; deeptables_torch runs the unfused '
+                'block with the field attention kernels.')
         names = ['dense_Q', 'dense_K', 'dense_V']
         if self.use_residual:
             names.append('dense_residual')

@@ -8,7 +8,8 @@ takes dz ``(B, L, D)`` and gives dx0, dh and the float32 dW.
 Port of ``deeptables_tpu/ops/kernels/cin_bwd.py``: :func:`cin_fwd` of
 ``cin_fwd_pallas`` (K4) and :func:`cin_bwd` of ``cin_bwd_pallas`` (K3). The
 CUDA kernels are in ``deeptables_torch/csrc/cin.cu``; its header says what
-bounds them (operations) and how the pair stays out of device memory. On a
+bounds them (operations), how the pair stays out of device memory and how
+the bfloat16 forward runs on the tensor cores. On a
 CUDA tensor each wrapper launches its kernel or raises; :func:`cin_fwd_reference`
 and :func:`cin_bwd_reference` run for CPU tensors only. The JAX package's
 batch-minor ``(F, D·B)`` operands are ``(1, F, D·B)`` tensors here.
@@ -32,6 +33,14 @@ _BWD = {torch.float32: 'dt_cin_bwd_f32', torch.bfloat16: 'dt_cin_bwd_bf16'}
 _DW_TILE = 128
 _SM_COUNT = 132  # H100 SXM
 _MIN_COLS_PER_SPLIT = 512
+# ... and the bfloat16 forward on the tensor cores (cin.cu's wg::smem_bytes):
+# W's k padded to whole 64-wide TMA chunks; the x0 and h tiles ((F + G) rows
+# of 136 bfloat16) beside a 67,584-byte ring and staging area, 8 barriers
+# and 1 KB of alignment slack must fit a block's 232,448 bytes
+_K_CHUNK = 64
+_TILE_LD = 136
+_WGMMA_REGION_BYTES = 67584
+_MAX_SMEM_BYTES = 232448
 
 
 def cin_fwd_reference(x0: torch.Tensor, h: torch.Tensor,
@@ -82,6 +91,29 @@ def bwd_plan(N: int, F: int, G: int, L: int):
     return splits, g_tiles
 
 
+def fwd_design(dtype: torch.dtype, F: int, G: int) -> str:
+    """Which K4 kernel a CUDA call runs: ``'wgmma'`` (bfloat16 on the
+    tensor cores, the pair split exactly into two bfloat16 halves) or
+    ``'simt'`` (float32 on the CUDA cores: float32 inputs, whose products
+    the tensor cores would take in TF32, and bfloat16 tiles too large for
+    shared memory, F + G > 602)."""
+    tile = ((F + G) * _TILE_LD * 2 + 7) // 8 * 8
+    fits = 1024 + _WGMMA_REGION_BYTES + tile + 64 <= _MAX_SMEM_BYTES
+    return 'wgmma' if dtype == torch.bfloat16 and fits else 'simt'
+
+
+def padded_w(w: torch.Tensor) -> torch.Tensor:
+    """w ``(L, F, G)`` as the tensor-core K4 reads it: ``(L, K_pad)``,
+    K = F·G padded with zeros to a multiple of 64 (TMA takes row strides in
+    multiples of 16 bytes; the chunks are 64 wide)."""
+    L, F, G = w.shape
+    K = F * G
+    k_pad = -(-K // _K_CHUNK) * _K_CHUNK
+    out = w.new_zeros((L, k_pad))
+    out[:, :K] = w.reshape(L, K)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('cin')
@@ -90,6 +122,9 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.dt_cin_fwd_bf16_wgmma.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.dt_cin_fwd_bf16_wgmma.restype = ctypes.c_int
     for name in _BWD.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] \
@@ -140,8 +175,11 @@ def cin_fwd(x0: torch.Tensor, h: torch.Tensor,
     """The contraction z ``(B, L, D)`` float32 of contiguous x0, h and w of
     one type (float32 or bfloat16).
 
-    On a CUDA tensor this launches the kernel or raises; it never falls
-    back to the plain version. ``cin_fwd.launches`` counts the launches."""
+    On a CUDA tensor this launches the kernel :func:`fwd_design` names or
+    raises; it never falls back to the plain version. Both kernels take
+    float32 products of the inputs and sum them in float32, so they compute
+    the plain version's function. ``cin_fwd.launches`` counts the
+    launches."""
     _check_shapes('cin_fwd', x0, h, w)
     if x0.device.type == 'cpu':
         return cin_fwd_reference(x0, h, w)
@@ -155,9 +193,16 @@ def cin_fwd(x0: torch.Tensor, h: torch.Tensor,
         return z.zero_()
     lib = _library()
     with torch.cuda.device(x0.device):
-        err = getattr(lib, _FWD[x0.dtype])(
-            x0.data_ptr(), h.data_ptr(), w.data_ptr(), z.data_ptr(), B, F, G,
-            L, D, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if fwd_design(x0.dtype, F, G) == 'wgmma':
+            w_pad = padded_w(w)
+            err = lib.dt_cin_fwd_bf16_wgmma(
+                x0.data_ptr(), h.data_ptr(), w_pad.data_ptr(), z.data_ptr(),
+                B, F, G, L, D, w_pad.shape[1], stream)
+        else:
+            err = getattr(lib, _FWD[x0.dtype])(
+                x0.data_ptr(), h.data_ptr(), w.data_ptr(), z.data_ptr(), B,
+                F, G, L, D, stream)
     _raise_on(err, lib, 'cin_fwd')
     cin_fwd.launches += 1
     return z

@@ -22,8 +22,9 @@ JAX package's batch-minor ``(H, F, dh, B)`` was a TPU layout); ``w_aug`` is
 ``(U+1, 4U)`` = ``[[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``; dpre is ``(B, F, 4U)``.
 
 The CUDA kernels are in ``deeptables_torch/csrc/field_attention.cu``; its
-header says what bounds them (memory) and how the scores stay out of device
-memory. On a CUDA tensor each wrapper launches its kernel or raises; the
+header says what bounds them (memory), how the scores stay out of device
+memory and how every shape runs (heads wider than 64 in slices, buffers
+past shared memory in a scratch this module allocates). On a CUDA tensor each wrapper launches its kernel or raises; the
 ``*_reference`` functions run for CPU tensors only and are the oracles the
 kernels are held against. The autograd Functions are in
 ``ops/attention_grad.py``.
@@ -40,8 +41,8 @@ _FA = {(torch.float32, torch.float32): 'f32_f32',
        (torch.bfloat16, torch.bfloat16): 'bf16_bf16',
        (torch.bfloat16, torch.float32): 'bf16_f32'}
 _AB = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
-# csrc/field_attention.cu keeps dh in registers up to this width
-MAX_D_HEAD = 64
+# csrc/field_attention.cu's kinds of launch, for dt_fa_scratch_floats
+_KIND = {'fa_fwd': 0, 'fa_bwd': 1, 'ab_fwd': 2, 'ab_bwd': 3}
 
 
 def scale_for(d_head: int) -> float:
@@ -138,22 +139,26 @@ def ab_mask_margin(x, w_aug, num_heads: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('field_attention')
-    tail = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p]
+    shape = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    tail = shape + [ctypes.c_float, ctypes.c_void_p]
     for suffix in _FA.values():
         fn = getattr(lib, f'dt_fa_fwd_{suffix}')
-        fn.argtypes = [ctypes.c_void_p] * 4 + tail
+        fn.argtypes = [ctypes.c_void_p] * 4 + tail + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f'dt_fa_bwd_{suffix}')
-        fn.argtypes = [ctypes.c_void_p] * 7 + tail
+        fn.argtypes = [ctypes.c_void_p] * 7 + tail + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for suffix in _AB.values():
         fn = getattr(lib, f'dt_ab_fwd_{suffix}')
-        fn.argtypes = [ctypes.c_void_p] * 3 + tail
+        fn.argtypes = [ctypes.c_void_p] * 3 + tail + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         fn = getattr(lib, f'dt_ab_bwd_{suffix}')
-        fn.argtypes = [ctypes.c_void_p] * 4 + tail
+        fn.argtypes = [ctypes.c_void_p] * 4 + tail + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
+    lib.dt_fa_scratch_floats.argtypes = [ctypes.c_int] + shape
+    lib.dt_fa_scratch_floats.restype = ctypes.c_int64
+    lib.dt_ab_w_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dt_ab_w_in_smem.restype = ctypes.c_int
     lib.dt_fa_error_string.argtypes = [ctypes.c_int]
     lib.dt_fa_error_string.restype = ctypes.c_char_p
     return lib
@@ -191,13 +196,26 @@ def _check_cuda(what, dtype, *tensors):
             raise ValueError(f'{what} kernel needs contiguous operands')
 
 
-def _launch(what, fn_name, ptrs, B, F, num_heads, d_head):
-    if d_head > MAX_D_HEAD:
-        raise ValueError(f'{what} kernel takes d_head <= {MAX_D_HEAD}, got '
-                         f'{d_head}')
+def _launch(what, fn_name, ptrs, B, F, num_heads, d_head, device,
+            w_aug=None):
+    """Launch ``fn_name``. Where one warp's buffers do not fit in a
+    block's shared memory the kernel keeps them in a float32 scratch that
+    this allocates, and K6 (``w_aug`` given) reads a float32 copy of w_aug
+    where that does not fit either."""
     lib = _library()
+    floats = lib.dt_fa_scratch_floats(_KIND[what], B, F, num_heads, d_head)
+    if floats < 0:
+        raise ValueError(f'{what}: (B, F, H, dh) = '
+                         f'{(B, F, num_heads, d_head)} is out of range')
+    scratch = torch.empty(floats, dtype=torch.float32, device=device) \
+        if floats else None
+    extra = [None if scratch is None else scratch.data_ptr()]
+    if w_aug is not None:
+        w_f32 = None if lib.dt_ab_w_in_smem(num_heads, d_head) \
+            else w_aug.float().contiguous()
+        extra.append(None if w_f32 is None else w_f32.data_ptr())
     err = getattr(lib, fn_name)(*ptrs, B, F, num_heads, d_head,
-                                scale_for(d_head),
+                                scale_for(d_head), *extra,
                                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f'{what} kernel launch failed at (B, F, H, dh) = '
@@ -229,7 +247,7 @@ def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     with torch.cuda.device(q.device):
         _launch('fa_fwd', f'dt_fa_fwd_{_FA[key]}', _ptrs(q, k, v, out), B, F,
-                num_heads, dh)
+                num_heads, dh, q.device)
     fa_fwd.launches += 1
     return out
 
@@ -259,7 +277,8 @@ def fa_bwd(q, k, v, do, num_heads: int):
     B, F, U = q.shape
     with torch.cuda.device(q.device):
         _launch('fa_bwd', f'dt_fa_bwd_{_FA[key]}',
-                _ptrs(q, k, v, do, dq, dk, dv), B, F, num_heads, dh)
+                _ptrs(q, k, v, do, dq, dk, dv), B, F, num_heads, dh,
+                q.device)
     fa_bwd.launches += 1
     return dq, dk, dv
 
@@ -294,7 +313,7 @@ def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
         return out
     with torch.cuda.device(x.device):
         _launch('ab_fwd', f'dt_ab_fwd_{_AB[x.dtype]}', _ptrs(x, w_aug, out),
-                B, F, num_heads, dh)
+                B, F, num_heads, dh, x.device, w_aug)
     ab_fwd.launches += 1
     return out
 
@@ -320,7 +339,8 @@ def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
         return dpre
     with torch.cuda.device(x.device):
         _launch('ab_bwd', f'dt_ab_bwd_{_AB[x.dtype]}',
-                _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh)
+                _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh, x.device,
+                w_aug)
     ab_bwd.launches += 1
     return dpre
 

@@ -232,7 +232,13 @@ def test_wrappers_reject_bad_shapes():
 
 MHA_OPTIONS = {'batch_minor': {}, 'batch_major': {'layout': 'batch_major'},
                'fused': {'fuse_projections': True},
-               'no_residual': {'use_residual': False}}
+               'no_residual': {'use_residual': False},
+               # the JAX package fuses on its batch-minor kernel path only:
+               # these two run the unfused block, in JAX and in the port
+               'fused_batch_major': {'fuse_projections': True,
+                                     'layout': 'batch_major'},
+               'fused_no_kernel': {'fuse_projections': True,
+                                   'use_fused_kernel': False}}
 
 
 def _port_mha(U, params, jax_params, jax_stats):
@@ -271,9 +277,36 @@ def _flat_grads(grads):
 @pytest.mark.parametrize('dtype', [F32, BF16])
 @pytest.mark.parametrize('option', list(MHA_OPTIONS))
 def test_multihead_attention_matches_flax(option, dtype, training):
-    B, F, U = 24, 5, 8
-    params = dict({'num_heads': 2, 'dropout_rate': 0, 'use_residual': True},
-                  **MHA_OPTIONS[option])
+    _check_mha_against_flax(MHA_OPTIONS[option], dtype, training, 24, 5, 8,
+                            2, fused=option == 'fused')
+
+
+# the kernels take every shape the JAX package runs: a head wider than 64
+# and many fields, here through the plain path on the CPU
+@pytest.mark.parametrize('dtype', [F32, BF16])
+@pytest.mark.parametrize('B,F,U,H', [(4, 5, 96, 1), (3, 160, 8, 2)],
+                         ids=['dh96', 'F160'])
+def test_multihead_attention_matches_flax_at_wide_shapes(B, F, U, H, dtype):
+    _check_mha_against_flax({}, dtype, True, B, F, U, H, fused=False)
+
+
+@pytest.mark.parametrize('option,fused', [
+    ('fused', True), ('fused_batch_major', False), ('fused_no_kernel', False),
+    ('batch_minor', False)])
+def test_fused_block_runs_where_jax_fuses(option, fused):
+    params = dict({'num_heads': 2}, **MHA_OPTIONS[option])
+    module = MultiheadAttention(8, params)
+    assert module.fused is fused
+    x = torch.randn(3, 4, 8, generator=torch.Generator().manual_seed(2))
+    before = (ab_fwd.launches, fa_fwd.launches)
+    with torch.no_grad():
+        module(x)
+    assert (ab_fwd.launches, fa_fwd.launches) == before  # CPU: no launch
+
+
+def _check_mha_against_flax(extra, dtype, training, B, F, U, H, fused):
+    params = dict({'num_heads': H, 'dropout_rate': 0, 'use_residual': True},
+                  **extra)
     rng = np.random.default_rng(11)
     x = rng.normal(size=(B, F, U)).astype(np.float32)
     jx = jnp.asarray(x, getattr(jnp, dtype))
@@ -298,11 +331,12 @@ def test_multihead_attention_matches_flax(option, dtype, training):
     port_out = module(tx, training=training)
     port_out.backward(torch.from_numpy(g))
     assert port_out.dtype == torch.float32 and tx.grad.dtype == tx.dtype
-    if option == 'fused' and dtype == BF16:
+    assert module.fused is fused
+    if fused and dtype == BF16:
         # the fused block keeps q, k, v, r in float32: its reference is
         # the oracle of the Pallas block, and flax's BatchNorm
         return _check_fused_bf16(module, x, variables, stats, port_out,
-                                 training)
+                                 training, H)
     _close(port_out.detach(), out, dtype, 'out')
     _close(tx.grad.float(), np.asarray(dx, np.float32), dtype, 'dx')
     flat = _flat_grads(grads)
@@ -316,7 +350,7 @@ def test_multihead_attention_matches_flax(option, dtype, training):
                    new_stats['batch_normalize'][key], dtype, key)
 
 
-def _check_fused_bf16(module, x, variables, stats, port_out, training):
+def _check_fused_bf16(module, x, variables, stats, port_out, training, H):
     p = variables['params']
     U = x.shape[-1]
     w_aug = np.concatenate(
@@ -329,7 +363,7 @@ def _check_fused_bf16(module, x, variables, stats, port_out, training):
     np.testing.assert_array_equal(module.w_aug().detach().numpy(), w_aug)
     block = attention_block_oracle(
         jnp.asarray(x.transpose(2, 1, 0), jnp.bfloat16), jnp.asarray(w_aug),
-        1.0 / np.sqrt(U // 2), 2, U // 2)
+        1.0 / np.sqrt(U // H), H, U // H)
     bn = jax_interactions.nn.BatchNorm(use_running_average=not training,
                                        momentum=0.9, epsilon=1e-3)
     out, _ = bn.apply({'params': p['batch_normalize'],

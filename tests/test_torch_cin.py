@@ -43,7 +43,8 @@ from deeptables_torch.ops import cin_grad, initializers, losses
 from deeptables_torch.ops.interactions import CIN
 from deeptables_torch.ops.kernels.cin import (bwd_plan, cin_bwd,
                                               cin_bwd_reference, cin_fwd,
-                                              cin_fwd_reference)
+                                              cin_fwd_reference, fwd_design,
+                                              padded_w)
 from torch_parity import Case
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
@@ -134,6 +135,46 @@ def test_bwd_plan_covers_every_column():
         splits, g_tiles = bwd_plan(N, F, G, L)
         assert 1 <= splits <= max(1, -(-N // 512))
         assert g_tiles == -(-G // (32 if G <= 32 else 64))
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_pair_splits_exactly_into_two_bfloat16_halves(seed):
+    """The premise of the tensor-core K4: for bfloat16 x0 and h, the float32
+    product p is exact, and hi = bf16(p), lo = bf16(p - hi) give
+    hi + lo == p exactly, so two bfloat16 products against W sum to the
+    float32 pair's. Magnitudes 1e-8 to 1e8, both signs."""
+    rng = np.random.default_rng(seed)
+
+    def values(n):
+        mags = 10.0 ** rng.uniform(-8, 8, n)
+        signs = rng.choice([-1.0, 1.0], n)
+        return torch.from_numpy(mags * signs).bfloat16()
+    x0, h = values(100_000), values(100_000)
+    p = x0.float() * h.float()
+    assert torch.equal(p.double(), x0.double() * h.double())  # exact
+    hi = p.bfloat16()
+    lo = (p - hi.float()).bfloat16()
+    assert torch.equal(hi.float() + lo.float(), p)
+    assert torch.equal(hi.double() + lo.double(), p.double())
+
+
+@pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128), (5, 7, 3)])
+def test_padded_w_is_k_major_with_zeros_past_k(F, G, L):
+    w = torch.randn(L, F, G, generator=torch.Generator().manual_seed(F + G))
+    w = w.bfloat16()
+    out = padded_w(w)
+    K = F * G
+    assert out.dtype == w.dtype and out.shape[0] == L
+    assert out.shape[1] % 64 == 0 and K <= out.shape[1] < K + 64
+    assert torch.equal(out[:, :K], w.reshape(L, K))
+    assert not out[:, K:].any()
+
+
+def test_fwd_design_takes_the_tensor_cores_for_bfloat16_only():
+    assert fwd_design(torch.bfloat16, 26, 64) == 'wgmma'
+    assert fwd_design(torch.bfloat16, 26, 576) == 'wgmma'  # F + G = 602
+    assert fwd_design(torch.bfloat16, 26, 577) == 'simt'   # past the tiles
+    assert fwd_design(torch.float32, 26, 64) == 'simt'     # not TF32
 
 
 def test_wrappers_reject_bad_shapes():

@@ -42,7 +42,8 @@ import pytest
 import torch
 
 from deeptables_torch.ops.kernels.cin import (cin_bwd, cin_bwd_reference,
-                                              cin_fwd, cin_fwd_reference)
+                                              cin_fwd, cin_fwd_reference,
+                                              fwd_design)
 from deeptables_torch.ops.kernels import field_attention as fa
 from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
@@ -297,6 +298,13 @@ def test_model_file_moves_between_card_and_cpu(cuda, tmp_path):
 CIN_SHAPES = [(4096, 26, 26, 128, 16), (8192, 26, 64, 128, 16),
               (4093, 26, 26, 128, 16), (37, 5, 7, 12, 16), (3, 4, 130, 9, 5),
               (1, 26, 64, 128, 4096), (2, 1, 1, 1, 1)]
+# the forward's tensor-core kernel at its edges: L not a multiple of 8, L
+# past one 128-wide tile, D that does not divide its 128 columns, B = 1, and
+# F + G past its shared memory (the float32 kernel then runs)
+CIN_FWD_SHAPES = CIN_SHAPES + [
+    (37, 26, 26, 100, 16), (64, 26, 64, 256, 16), (5, 7, 9, 300, 16),
+    (41, 26, 26, 128, 12), (17, 5, 13, 128, 33), (1, 26, 64, 128, 16),
+    (3, 3, 700, 5, 4)]
 
 
 def _cin_inputs(B, F, G, L, D, dtype, seed):
@@ -313,9 +321,11 @@ def _cin_close(actual, expected, scale, rtol_out=0.):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,F,G,L,D', CIN_SHAPES)
+@pytest.mark.parametrize('B,F,G,L,D', CIN_FWD_SHAPES)
 def test_cin_fwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     x0, h, w, _ = _cin_inputs(B, F, G, L, D, dtype, B + F + G + L + D)
+    expected = 'wgmma' if dtype == torch.bfloat16 and F + G <= 602 else 'simt'
+    assert fwd_design(dtype, F, G) == expected
     before = cin_fwd.launches
     z = cin_fwd(x0, h, w)
     torch.cuda.synchronize()
@@ -482,7 +492,13 @@ def test_xdeepfm_fit_on_cuda_matches_cpu(cuda):
 # (B, F, H, dh): odd shapes (dh not a power of two, F > 32, B = 1) and the
 # AutoInt configuration (F=22, 2 heads of dh=8) at its training batch
 FA_SHAPES = [(37, 7, 3, 5), (5, 40, 2, 8), (1, 22, 2, 8), (9, 3, 1, 64),
-             (8192, 22, 2, 8)]
+             (8192, 22, 2, 8),
+             # heads wider than 64 (in slices), and buffers past shared
+             # memory: K5-bwd at F=200 and at F=160, U=16; K6-bwd at F=80,
+             # U=64; K6 at U=128, where w_aug is read from device memory
+             (37, 7, 1, 96), (37, 7, 2, 128), (37, 200, 2, 8),
+             (37, 160, 2, 8), (37, 80, 1, 64), (37, 22, 1, 128),
+             (37, 22, 2, 64)]
 FA_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
             (torch.bfloat16, torch.float32)]
 
@@ -555,17 +571,22 @@ def test_field_attention_kernels_reject_what_they_do_not_take(cuda):
         fa.fa_fwd(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, 2)
     with pytest.raises(ValueError):
         fa.fa_fwd(q, k, v.cpu(), 2)
-    with pytest.raises(ValueError, match='d_head'):
-        big = torch.zeros(2, 3, 65, device='cuda')
-        fa.fa_fwd(big, big, big, 1)
     with pytest.raises(TypeError):
         fa.ab_fwd(x, w.bfloat16(), 2)
     with pytest.raises(TypeError):
         fa.ab_bwd(x, w, dx.bfloat16(), 2)
-    # buffers beyond a block's shared memory are refused, not run
-    huge = torch.zeros(1, 400, 64, device='cuda')
-    with pytest.raises(RuntimeError, match='launch failed'):
-        fa.ab_bwd(huge, torch.zeros(65, 256, device='cuda'), huge, 1)
+
+
+def test_field_attention_kernels_take_every_shape(cuda):
+    """A head of 65 (two slices) and a block whose buffers are 1.9 MB a
+    warp, past shared memory: both run and match their plain versions."""
+    q, k, v, do, _, _, _ = _fa_inputs(2, 3, 1, 65, torch.float32,
+                                      torch.float32, 1)
+    _fa_close(fa.fa_fwd(q, k, v, 1), fa.fa_fwd_reference(q, k, v, 1))
+    _, _, _, _, x, w, dx = _fa_inputs(2, 400, 1, 64, torch.float32,
+                                      torch.float32, 2)
+    keep = (fa.ab_mask_margin(x, w, 1) >= 1e-5).cpu()
+    _fa_close(fa.ab_bwd(x, w, dx, 1), fa.ab_bwd_reference(x, w, dx, 1), keep)
 
 
 @pytest.mark.parametrize('extra', [{}, {'layout': 'batch_major'},
