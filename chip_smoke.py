@@ -34,9 +34,10 @@ these phases, each printing one JSON line:
    ``torch.einsum('bfd,bgd,lfg->bld')`` (K4) and ``torch.autograd.grad`` of
    it (K3, several kernels), which the port never calls, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the card's rate for
-   the input type: 989 TFLOP/s bfloat16, 67 float32). ``cin_fwd`` rows
-   name the kernel that ran: ``design`` ``wgmma`` (bfloat16, tensor
-   cores) or ``simt`` (float32, CUDA cores).
+   the input type: 989 TFLOP/s bfloat16, 67 float32). ``cin_fwd`` and
+   ``cin_bwd`` rows name the kernels that ran: ``design`` ``wgmma``
+   (bfloat16, tensor cores) or ``simt`` (float32, CUDA cores); the script
+   checks that bfloat16 takes the tensor cores and float32 does not.
 5. ``kernel`` for ``fa_fwd`` and ``fa_bwd`` (K5, field attention and its
    gradient) and ``ab_fwd`` and ``ab_bwd`` (K6, the fused attention block)
    against their plain versions at AutoInt's shapes (F=22, 2 heads of
@@ -76,7 +77,9 @@ these phases, each printing one JSON line:
      three times a step and validation batch. It prints the median step
      time and examples/s over epochs 2-3 and ``val_auc``. Then
      ``train_profile``: two train steps under ``torch.profiler`` (device
-     time by kernel, busy share). Then the same initial weights on the card
+     time by kernel, busy share; ``cin_kernels``: every CIN kernel by name,
+     and for xDeepFM a check that bfloat16 ran K3's tensor-core passes and
+     float32 its CUDA-core ones). Then the same initial weights on the card
      and on ``device='cpu'`` (the plain path), at 8192-row batches for
      DeepFM and 1024-row batches for xDeepFM (the CPU plain path
      materialises the CIN pair) and AutoInt, give the same step-1
@@ -525,12 +528,14 @@ def cin_kernel_phase(torch, cin_module):
                            'bound_ms': bound_ms, 'bound_by': bound_by,
                            'gflop': ops / 1e9, 'buffers': len(bufs)}
                     row['tflop_per_s'] = ops / row['ms'] / 1e9
-                    if name == 'cin_fwd':
-                        row['design'] = cin_module.fwd_design(dtype, F, G)
-                        check(row['design'] == ('wgmma' if itemsize == 2
-                                                else 'simt'),
-                              f"cin_fwd ran the {row['design']} kernel on "
-                              f'{dtype_name}')
+                    row['design'] = (
+                        cin_module.fwd_design(dtype, F, G)
+                        if name == 'cin_fwd'
+                        else cin_module.bwd_design(dtype, F, G, L))
+                    check(row['design'] == ('wgmma' if itemsize == 2
+                                            else 'simt'),
+                          f"{name} ran the {row['design']} kernels on "
+                          f'{dtype_name}')
                     rows[name].append(row)
                 del bufs, graphs, x0, h, w, dz
                 torch.cuda.empty_cache()
@@ -1119,6 +1124,20 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
         for batch, yb in batches:
             model._train_step(batch, yb, None, loss_fn)
     device, busy_us, wall_us = profile_window(torch, work)
+    cin_kernels = [{'name': e.key[:90], 'count': e.count,
+                    'device_ms': e.self_device_time_total / 1e3}
+                   for e in device if 'cin_' in e.key]
+    if model_name == 'xDeepFM':
+        # K3's passes by name: the tensor-core ones in bfloat16, the
+        # CUDA-core ones in float32, and never the other design's
+        ran = {k for k in ('cin_bwd_dx_wgmma_kernel', 'cin_bwd_dw_wgmma_kernel',
+                           'cin_bwd_dx_kernel<', 'cin_bwd_dw_kernel<')
+               if any(k in e['name'] for e in cin_kernels)}
+        want = ({'cin_bwd_dx_wgmma_kernel', 'cin_bwd_dw_wgmma_kernel'}
+                if dtype_policy == 'bfloat16'
+                else {'cin_bwd_dx_kernel<', 'cin_bwd_dw_kernel<'})
+        check(ran == want, f'xDeepFM {dtype_policy} training ran the K3 '
+                           f'kernels {sorted(ran)}, expected {sorted(want)}')
 
     # the same initial weights on the card and the CPU: the gradients of
     # one step, then the losses and parameters of a fit over three batches
@@ -1223,7 +1242,8 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
           'device_busy_share': busy_us / wall_us,
           'by_kernel': [{'name': e.key[:90], 'count': e.count,
                          'device_ms': e.self_device_time_total / 1e3}
-                        for e in device[:16]]})
+                        for e in device[:16]],
+          'cin_kernels': cin_kernels})
     del model, fits
     return launches
 
@@ -1371,6 +1391,7 @@ def main():
         'library_ms': cin_head['cin_bwd']['library_ms'],
         'library_note': 'autograd: torch.autograd.grad of that einsum '
                         '(several kernels, not one call)',
+        'design': cin_head['cin_bwd']['design'],
         'at': cin_at}] + [fa_entry(name, fa_rows[name], launches[name])
                           for name in FA_KERNELS]})
     print(smi, flush=True)

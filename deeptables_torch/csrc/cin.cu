@@ -81,7 +81,62 @@
 // chunk there from x0 and h (two loads and one product per element; the
 // block's x0 and h columns stay in L1), then each thread does 64 FMAs per k.
 //
-// K3 is up to four launches, one kernel call:
+// K3 takes 112.8 GFLOP at layer 2, B = 8192 (4*L*F*G*N for dpair and dW,
+// plus 5*F*G*N for the pair, dx0 and dh): 0.1140 ms at 989 TFLOP/s, so
+// operations bound it, and in bfloat16 only the tensor cores come near.
+//
+// K3, bfloat16 (bwd_design 'wgmma'): two passes on wgmma and two
+// fixed-order sums, four launches a call.
+// 1. cin_bwd_dx_wgmma_kernel: for each f, the GEMM dpair^T (N, G) =
+//    dz^T (N, L) . W[:, f, :] (L, G) in bfloat16 (dz and W already are:
+//    no split), folded in registers. A block owns 128 columns n (an m64
+//    tile a warpgroup) and one G tile: m64n64k16 (G > 32; G past 64 in
+//    more tiles along y) or m64n32k16 (G <= 32, padded with zero W
+//    columns). Its dz columns sit in shared memory for every f, [n][l]
+//    K-major in 64-wide 128-byte-swizzled panels (L padded to 64 with
+//    zeros): 256 * L_pad bytes, gathered once, eight columns a 16-byte load
+//    where D is a multiple of 8 (any D and the batch-minor B = 1
+//    otherwise). W comes as (F, G_pad, L_pad), l contiguous (the wrapper's
+//    dpair_w, 0.4 MB at layer 2), one f's 64 l x G tile per TMA load
+//    through a 4-stage ring refilled by the last warp to release a stage
+//    (each as soon as its wgmmas are done: one f may span more panels than
+//    the ring holds).
+//    After each f's wgmmas the thread's accumulators (rows n, two-column
+//    groups of g) fold into dx0[f, n] = sum_g acc * h (a sum over its
+//    columns, then two shuffles within its quad, in a fixed order) and
+//    dh[g, n] += acc * x0[f, n] (registers across f: the same thread holds
+//    the same (n, g) for every f); h stays in registers as bfloat16 pairs,
+//    x0 in a shared tile. With more than one G tile each writes a float32
+//    dx0 partial and
+// 2. cin_sum_kernel sums them in order and rounds once.
+// 3. cin_bwd_dw_wgmma_kernel: dW^T (K, L) = P (K, N) . dz^T (N, L) on
+//    m64n128k16, K = F*G: K4's GEMM with the roles turned. A block owns
+//    128 pair rows k, 128 l and a range of columns; A, the pair, is built
+//    in registers from x0 and h rows in shared memory and split exactly
+//    into hi and lo bfloat16 halves, as in K4, so dW stays the float32 sum
+//    of float32-exact products (the pair is not rounded to bfloat16, as
+//    the JAX kernel rounds it). B, dz^T, is a [l][64 n] tile in the
+//    128-byte swizzle. Each 64-column chunk's dz, x0 and h rows are
+//    gathered into one of two buffers (cp.async, 16 bytes a copy, where D
+//    is a multiple of 8 and the operands 16-byte aligned; loaded one by one
+//    otherwise) while the chunk before runs; a barrier ends each chunk.
+//    The reduction over N is cut into ranges (wgmma_bwd_plan in
+//    ops/kernels/cin.py: one wave of two blocks an SM, 20 ranges at layer
+//    2), each block writes a float32 partial and
+// 4. cin_sum_kernel sums the partials in a fixed order into dW. No atomics:
+//    dW does not depend on the order blocks run in.
+// Both passes run 256 threads (two warpgroups), two blocks an SM: 128
+// registers for the n64 dx0/dh pass, which spills 28 bytes (ptxas), 96 for
+// n32, 118 for dW, neither spilling. The fold after each f runs with no
+// wgmma in flight in its warpgroup (the SM's other block fills in), and
+// each dW chunk ends in a barrier. Shared memory: dx0/dh 256 * L_pad +
+// 272 * F + the ring (16 or 32 KB) + 1 KB; dW two buffers of 16 KB +
+// 144 * (G + x0 rows + 1). Shapes past a block's
+// 227 KB (L past 704 at F = 26, G past 686 at F = 3) take the float32
+// kernels (bwd_design).
+//
+// K3, float32 (and bfloat16 past shared memory): the CUDA cores, up to four
+// launches:
 // 1. cin_bwd_dx_kernel: a block owns TN = 128 columns and TG (32 or 64) of
 //    the g's, and walks f = 0..F-1. For each f it forms its dpair tile
 //    (TG x TN) = W[:, f, g-tile]^T @ dz[:, n-tile] in registers, over L in
@@ -372,6 +427,157 @@ __device__ __forceinline__ void pair_fragment(uint32_t* hi, uint32_t* lo,
   split_pair(p[1][0], p[1][1], &hi[1], &lo[1]);
   split_pair(p[0][2], p[0][3], &hi[2], &lo[2]);
   split_pair(p[1][2], p[1][3], &hi[3], &lo[3]);
+}
+
+// ---- K3, bfloat16: the tiles of its two passes (see the header)
+// dx0/dh pass: a block owns kDpCols columns n and one G tile (n32 or n64)
+constexpr int kDpCols = 128;   // two m64 tiles, one a warpgroup
+constexpr int kLChunk = 64;    // l per dz panel and per W stage: 128 bytes
+constexpr int kDxStages = 4;
+constexpr int kDxPanelBytes = kDpCols * kLChunk * 2;  // 16 KB
+// dW pass: a block owns kDwRows pair rows k, kLTile l and a column range
+constexpr int kDwRows = 128;   // two m64 tiles, one a warpgroup
+constexpr int kDwCols = 64;    // columns n per chunk: one 128-byte row
+constexpr int kDwLd = kDwCols + 8;  // x0/h chunk row stride (bf16)
+constexpr int kDwDzBytes = kLTile * kDwCols * 2;  // 16 KB
+
+__host__ __device__ __forceinline__ int bwd_g_tile(int G) {
+  return G <= 32 ? 32 : 64;
+}
+__host__ __device__ __forceinline__ int64_t dx_smem_bytes(int F, int G,
+                                                          int l_pad) {
+  return 1024 + static_cast<int64_t>(kDpCols) * l_pad * 2 +
+         kDxStages * bwd_g_tile(G) * kLChunk * 2 + tile_bytes(F, 0) +
+         2 * kDxStages * 8;
+}
+// x0 rows a dW block reads: the f of 128 consecutive pair rows k = f*G + g
+__host__ __device__ __forceinline__ int dw_x0_rows(int F, int G) {
+  const int rows = 127 / G + 2;
+  return rows < F ? rows : F;
+}
+// one chunk's buffer: the dz tile, the x0 rows and a zero row, the h rows
+__host__ __device__ __forceinline__ int64_t dw_buffer_bytes(int F, int G) {
+  return (kDwDzBytes +
+          (static_cast<int64_t>(dw_x0_rows(F, G)) + 1 + G) * kDwLd * 2 +
+          1023) / 1024 * 1024;
+}
+__host__ __device__ __forceinline__ int64_t dw_smem_bytes(int F, int G) {
+  return 1024 + 2 * dw_buffer_bytes(F, G);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d (64 x 64 f32) = A (64 x 16 bf16 at desc_a, K-major) . B (16 x 64
+// bf16 at desc_b, K-major), + d unless `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32 f32) = A (64 x 16 bf16 at desc_a, K-major) . B (16 x 32
+// bf16 at desc_b, K-major), + d unless `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t desc_a,
+                                                  uint64_t desc_b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 32 || N == 64, "n32 or n64");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+}
+
+// The eight columns n .. n+7 of row `row` of a (B, R, D) tensor as one
+// 16-byte vector, zeros at columns >= end; any D.
+__device__ __forceinline__ uint4 gather_columns(const __nv_bfloat16* a, int R,
+                                                int row, int64_t n,
+                                                int64_t end, int D) {
+  uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int64_t c = n + i;
+    const uint32_t bits =
+        c < end ? __bfloat16_as_ushort(
+                      a[column(c, R, D) + static_cast<int64_t>(row) * D])
+                : 0u;
+    v[i / 2] |= bits << (16 * (i % 2));
+  }
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// Columns n .. n+7 of row `row` into 16 bytes of shared memory: cp.async
+// where `vec` (D a multiple of 8, 16-byte aligned operands: the eight are
+// one run in memory), else loaded one by one; zeros past `end` or where the
+// row is out of range.
+__device__ __forceinline__ void load_columns(void* dst,
+                                             const __nv_bfloat16* a, int R,
+                                             int row, bool row_ok, int64_t n,
+                                             int64_t end, int D, bool vec) {
+  if (!row_ok || n >= end)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  else if (vec)
+    cp_async16(dst, a + column(n, R, D) + static_cast<int64_t>(row) * D);
+  else
+    *reinterpret_cast<uint4*>(dst) = gather_columns(a, R, row, n, end, D);
+}
+
+// This thread's hi and lo A fragments of one 16-wide k step of the dW
+// pass: rows are pair rows (its two, at x0 row offset xoff[r] and h row
+// offset hoff[r] of the chunk tiles, c0 included), k is the column n =
+// col + {0, 1, 8, 9}. Products of bfloat16 pairs, exact in float32.
+__device__ __forceinline__ void dw_pair_fragment(uint32_t* hi, uint32_t* lo,
+                                                 const __nv_bfloat16* xt,
+                                                 const __nv_bfloat16* ht,
+                                                 const int* xoff,
+                                                 const int* hoff, int col) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xt + xoff[r] + col + 8 * j));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(ht + hoff[r] + col + 8 * j));
+      split_pair(x.x * y.x, x.y * y.y, &hi[r + 2 * j], &lo[r + 2 * j]);
+    }
 }
 
 }  // namespace wg
@@ -720,6 +926,341 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------- K3, bf16
+// dx0/dh on the tensor cores: for each f, dpair^T (n, g) = dz^T (n, l) .
+// W[:, f, g-tile] (l, g) on wgmma m64nGTk16 (GT = 32 or 64), A (dz) and B
+// (W) from shared memory, folded into dx0 and dh in registers. See the
+// header for the design.
+template <int GT>
+__global__ void __launch_bounds__(wg::kBlockThreads, 2)
+    cin_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                            const __nv_bfloat16* __restrict__ x0,
+                            const __nv_bfloat16* __restrict__ h,
+                            const __nv_bfloat16* __restrict__ dz,
+                            __nv_bfloat16* __restrict__ dx0,
+                            float* __restrict__ dx0_part,
+                            __nv_bfloat16* __restrict__ dh, int64_t N, int F,
+                            int G, int L, int D, int g_pad, int l_pad,
+                            bool vec) {
+  using namespace wg;
+  constexpr int kAcc = GT / 2;  // a thread's share of the 64 x GT tile
+  constexpr int kStage = GT * kLChunk * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // dz^T: panels of 128 n x 64 l, K-major, 128-byte swizzle
+  unsigned char* dzs = smem;
+  unsigned char* ring = smem + static_cast<int64_t>(kDpCols) * l_pad * 2;
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(ring + kDxStages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(xs) + tile_bytes(F, 0));
+  int* released = reinterpret_cast<int*>(full + kDxStages);
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kDpCols;
+  const int g0 = blockIdx.y * GT;
+  const int panels = l_pad / kLChunk;
+  const int chunks = F * panels;  // chunk c: f = c / panels, l panel c % panels
+
+  if (t == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(full + s, 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < kDxStages && c < chunks; ++c) {
+      mbar_expect_tx(full + c, kStage);
+      tma_load_2d(ring + c * kStage, &w_map, full + c, (c % panels) * kLChunk,
+                  (c / panels) * g_pad + g0);
+    }
+  }
+
+  // the block's dz columns, [n][l] in the swizzled panels: each item is
+  // eight columns of one l, scattered into eight rows; zeros past N and L
+  for (int e = t; e < (kDpCols / 8) * l_pad; e += kBlockThreads) {
+    const int l = e % l_pad, grp = e / l_pad;
+    const int64_t n = n0 + 8 * grp;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (l < L && n < N)
+      v = vec ? *reinterpret_cast<const uint4*>(
+                    dz + column(n, L, D) + static_cast<int64_t>(l) * D)
+              : gather_columns(dz, L, l, n, N, D);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    unsigned char* panel = dzs + (l / kLChunk) * kDxPanelBytes;
+    const int lc = l % kLChunk;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int nl = 8 * grp + i;  // nl % 8 == i: the swizzle row
+      *reinterpret_cast<unsigned short*>(
+          panel + nl * 128 + (((lc / 8) ^ i) * 16) + (lc % 8) * 2) =
+          static_cast<unsigned short>(words[i / 2] >> (16 * (i % 2)));
+    }
+  }
+  // the block's x0 columns, [f][n], as K4 stages them
+  {
+    const int nl = t % kDpCols;
+    const int64_t n = n0 + nl;
+    const bool valid = n < N;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    const __nv_bfloat16* xc = x0 + (valid ? column(n, F, D) : 0);
+    for (int f = t / kDpCols; f < F; f += kBlockThreads / kDpCols)
+      xs[f * kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
+  }
+  // This thread's accumulator elements (the wgmma D layout): rows
+  // n = n0 + r0 + 8r, columns g = g0 + 8j + c0 + {0, 1}; acc[4j + 2r + e].
+  const int r0 = 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  __nv_bfloat162 hv[GT / 8][2];  // h at those elements, [j][r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t n = n0 + r0 + 8 * r;
+    const bool valid = n < N;
+    const __nv_bfloat16* hc = h + (valid ? column(n, G, D) : 0);
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j) {
+      const int g = g0 + 8 * j + c0;
+      hv[j][r] = __halves2bfloat162(
+          valid && g < G ? hc[static_cast<int64_t>(g) * D] : zero,
+          valid && g + 1 < G ? hc[static_cast<int64_t>(g + 1) * D] : zero);
+    }
+  }
+  fence_proxy_async();  // the dz tile is read by wgmma (the async proxy)
+  __syncthreads();
+
+  float dhacc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dhacc[i] = 0.f;
+  float acc[kAcc];
+  // warpgroup w reads rows 64w .. 64w + 63 of every panel
+  unsigned char* a_base = dzs + (warp / 4) * 64 * 128;
+
+  // a warp is done with chunk c's stage: the last of the 8 warps to say so
+  // loads the chunk kDxStages ahead into it
+  auto release = [&](int c) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      const int s = c % kDxStages;
+      if (atomicAdd(released + s, 1) == kWarps - 1) {
+        released[s] = 0;
+        const int next = c + kDxStages;
+        if (next < chunks) {
+          mbar_expect_tx(full + s, kStage);
+          tma_load_2d(ring + s * kStage, &w_map, full + s,
+                      (next % panels) * kLChunk, (next / panels) * g_pad + g0);
+        }
+      }
+    }
+  };
+
+  for (int f = 0; f < F; ++f) {
+    for (int p = 0; p < panels; ++p) {
+      const int c = f * panels + p;
+      const int s = c % kDxStages;
+      mbar_wait(full + s, (c / kDxStages) & 1);
+      const uint64_t a_desc = smem_desc(a_base + p * kDxPanelBytes);
+      const uint64_t b_desc = smem_desc(ring + s * kStage);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kLChunk / 16; ++kk)
+        // +2 in the address fields: 16 bf16 = 32 bytes along l
+        wgmma_ss<GT>(acc, a_desc + 2 * kk, b_desc + 2 * kk, p > 0 || kk > 0);
+      wgmma_commit();
+      // the panel before is done: its stage is free at once (waiting for
+      // the end of f would stall a ring shorter than one f's panels)
+      if (p > 0) {
+        wgmma_wait<1>();
+        release(c - 1);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+    release(f * panels + panels - 1);
+
+    // acc = dpair[f, g, n]: dh += acc * x0[f, n]; dx0[f, n] = sum_g acc * h
+    float xv[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      xv[r] = __bfloat162float(xs[f * kTileLd + r0 + 8 * r]);
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 hf = __bfloat1622float2(hv[j][r]);
+        const int i = 4 * j + 2 * r;
+        sum[r] = fmaf(acc[i], hf.x, sum[r]);
+        sum[r] = fmaf(acc[i + 1], hf.y, sum[r]);
+        dhacc[i] = fmaf(acc[i], xv[r], dhacc[i]);
+        dhacc[i + 1] = fmaf(acc[i + 1], xv[r], dhacc[i + 1]);
+      }
+    // the quad of lanes that hold one row's columns, in a fixed order
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int64_t n = n0 + r0 + 8 * r;
+        if (n >= N) continue;
+        const int64_t at = column(n, F, D) + static_cast<int64_t>(f) * D;
+        if (dx0_part != nullptr)
+          dx0_part[blockIdx.y * N * static_cast<int64_t>(F) + at] = sum[r];
+        else
+          store(dx0 + at, sum[r]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t n = n0 + r0 + 8 * r;
+    if (n >= N) continue;
+    __nv_bfloat16* hc = dh + column(n, G, D);
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int g = g0 + 8 * j + c0 + e;
+        if (g < G)
+          store(hc + static_cast<int64_t>(g) * D, dhacc[4 * j + 2 * r + e]);
+      }
+  }
+}
+
+// dW on the tensor cores: dW^T (k, l) = P (k, n) . dz^T (n, l) over one
+// column range, wgmma m64n128k16, A (the pair) built in registers and split
+// into exact hi/lo bfloat16 halves, B (dz) from shared memory. Writes a
+// float32 partial; see the header.
+__global__ void __launch_bounds__(wg::kBlockThreads, 2)
+    cin_bwd_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x0,
+                            const __nv_bfloat16* __restrict__ h,
+                            const __nv_bfloat16* __restrict__ dz,
+                            float* __restrict__ dw_part, int64_t N,
+                            int64_t cols_per_split, int F, int G, int L, int D,
+                            bool vec) {
+  using namespace wg;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int64_t buf_bytes = dw_buffer_bytes(F, G);
+  const int xr = dw_x0_rows(F, G);
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int K = F * G;
+  const int k0 = blockIdx.x * kDwRows;
+  const int l0 = blockIdx.y * kLTile;
+  const int64_t begin = static_cast<int64_t>(blockIdx.z) * cols_per_split;
+  const int64_t end = begin + cols_per_split < N ? begin + cols_per_split : N;
+  float* out = dw_part + blockIdx.z * static_cast<int64_t>(L) * K;
+
+  if (begin >= end) {  // a range past N: its partial is zero
+    for (int e = t; e < kLTile * kDwRows; e += kBlockThreads) {
+      const int l = l0 + e / kDwRows, k = k0 + e % kDwRows;
+      if (l < L && k < K) out[static_cast<int64_t>(l) * K + k] = 0.f;
+    }
+    return;
+  }
+  const int f_lo = k0 / G;
+  const int chunks = static_cast<int>((end - begin + kDwCols - 1) / kDwCols);
+
+  // a buffer: dz^T [l][n] (128-byte swizzle), x0 rows f_lo .. f_lo + xr - 1
+  // and a zero row, h rows 0 .. G - 1, [row][n]
+  auto dz_tile = [&](int b) { return smem + b * buf_bytes; };
+  auto x_tile = [&](int b) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + b * buf_bytes +
+                                            kDwDzBytes);
+  };
+  auto h_tile = [&](int b) { return x_tile(b) + (xr + 1) * kDwLd; };
+  for (int b = 0; b < 2; ++b)
+    for (int e = t; e < kDwLd; e += kBlockThreads)
+      x_tile(b)[xr * kDwLd + e] = __float2bfloat16_rn(0.f);
+
+  auto load = [&](int c, int b) {
+    const int64_t cb = begin + static_cast<int64_t>(c) * kDwCols;
+    unsigned char* dzt = dz_tile(b);
+    for (int e = t; e < kLTile * (kDwCols / 8); e += kBlockThreads) {
+      const int grp = e % 8, l = e / 8;
+      load_columns(dzt + l * 128 + ((grp ^ (l % 8)) * 16), dz, L, l0 + l,
+                   l0 + l < L, cb + 8 * grp, end, D, vec);
+    }
+    __nv_bfloat16* xt = x_tile(b);
+    __nv_bfloat16* ht = h_tile(b);
+    for (int e = t; e < (xr + G) * (kDwCols / 8); e += kBlockThreads) {
+      const int grp = e % 8, row = e / 8;
+      if (row < xr)
+        load_columns(xt + row * kDwLd + 8 * grp, x0, F, f_lo + row,
+                     f_lo + row < F, cb + 8 * grp, end, D, vec);
+      else
+        load_columns(ht + (row - xr) * kDwLd + 8 * grp, h, G, row - xr, true,
+                     cb + 8 * grp, end, D, vec);
+    }
+  };
+
+  // this thread's two pair rows (the A fragment layout, as in K4) and their
+  // x0 and h rows in the chunk tiles; rows past K read the zero row
+  const int r0 = 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  int xoff[2], hoff[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int k = k0 + r0 + 8 * r;
+    const bool valid = k < K;
+    xoff[r] = (valid ? k / G - f_lo : xr) * kDwLd + c0;
+    hoff[r] = (valid ? k % G : 0) * kDwLd + c0;
+  }
+
+  load(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+
+  float acc[64];  // defined by the first wgmma (scale-d 0), as in K4
+  uint32_t frag[2][2][4];  // [set][hi, lo][register]
+  for (int c = 0; c < chunks; ++c) {
+    const int cur = c & 1;
+    // the next chunk streams in while this one's wgmmas run; its buffer's
+    // last readers finished before the barrier that ended the chunk before
+    if (c + 1 < chunks) load(c + 1, cur ^ 1);
+    cp_async_commit();
+    const uint64_t desc = smem_desc(dz_tile(cur));
+    const __nv_bfloat16* xt = x_tile(cur);
+    const __nv_bfloat16* ht = h_tile(cur);
+#pragma unroll
+    for (int kk = 0; kk < kDwCols / 16; ++kk) {
+      const int set = kk & 1;
+      dw_pair_fragment(frag[set][0], frag[set][1], xt, ht, xoff, hoff,
+                       16 * kk);
+      wgmma_fence();
+      wgmma_m64n128k16(acc, frag[set][0], desc + 2 * kk, c > 0 || kk > 0);
+      wgmma_m64n128k16(acc, frag[set][1], desc + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the step before is done: its fragment set is free
+    }
+    wgmma_wait<0>();
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fence_operand(acc[i]);
+
+  // acc[4j + e]: pair row k0 + r0 + 8 (e / 2), l = l0 + 8j + c0 + e % 2
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + r0 + 8 * (e >> 1);
+      const int l = l0 + 8 * j + c0 + (e & 1);
+      if (k < K && l < L) out[static_cast<int64_t>(l) * K + k] = acc[4 * j + e];
+    }
+}
+
 // out[e] = sum_s part[s * size + e], s in order, rounded once to OUT
 template <typename OUT>
 __global__ void __launch_bounds__(kThreads)
@@ -869,6 +1410,100 @@ cudaError_t launch_bwd(const T* x0, const T* h, const T* w, const T* dz,
   return launch_sum<float>(dw_part, dw, L * K, splits, stream);
 }
 
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// K3 on the tensor cores. w_t: (F, g_pad, l_pad) bfloat16, w_t[f, g, l] =
+// w[l, f, g], zeros past G and L; g_pad a multiple of the G tile (32 for
+// G <= 32, else 64), l_pad of 64. dx0_part: (g_pad / tile * B*F*D) float32
+// when G > 64, else unused. dw_part: (splits * L*F*G) float32; the dW
+// reduction over N is cut into ranges of cols_per_split columns (a
+// multiple of 64).
+cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
+                             const __nv_bfloat16* w_t,
+                             const __nv_bfloat16* dz, __nv_bfloat16* dx0,
+                             __nv_bfloat16* dh, float* dw, float* dx0_part,
+                             float* dw_part, int64_t B, int F, int G, int L,
+                             int D, int g_pad, int l_pad, int splits,
+                             int64_t cols_per_split, cudaStream_t stream) {
+  const int64_t N = B * D;
+  const int gt = wg::bwd_g_tile(G);
+  if (B < 1 || bad_shape(N, F, G, L, D) || l_pad % wg::kLChunk != 0 ||
+      l_pad < L || g_pad % gt != 0 || g_pad < G || g_pad - G >= gt ||
+      static_cast<int64_t>(F) * g_pad > 0x7fffffff || splits < 1 ||
+      splits > 65535 || cols_per_split < 1 ||
+      cols_per_split % wg::kDwCols != 0 ||
+      cols_per_split * splits < N ||
+      wg::dx_smem_bytes(F, G, l_pad) > wg::kMaxSmemBytes ||
+      wg::dw_smem_bytes(F, G) > wg::kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  const int gtiles = g_pad / gt;
+  if (gtiles > 1 && dx0_part == nullptr) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(l_pad),
+                              static_cast<cuuint64_t>(F) * g_pad};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(l_pad) * 2};
+  const cuuint32_t box[2] = {wg::kLChunk, static_cast<cuuint32_t>(gt)};
+  const cuuint32_t steps[2] = {1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<__nv_bfloat16*>(w_t), dims, strides, box, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // once per kernel: the limit a launch may ask for
+  static const cudaError_t attr_dx32 = cudaFuncSetAttribute(
+      cin_bwd_dx_wgmma_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kMaxSmemBytes);
+  static const cudaError_t attr_dx64 = cudaFuncSetAttribute(
+      cin_bwd_dx_wgmma_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kMaxSmemBytes);
+  static const cudaError_t attr_dw = cudaFuncSetAttribute(
+      cin_bwd_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wg::kMaxSmemBytes);
+  if (attr_dx32 != cudaSuccess) return attr_dx32;
+  if (attr_dx64 != cudaSuccess) return attr_dx64;
+  if (attr_dw != cudaSuccess) return attr_dw;
+
+  const dim3 dx_grid(static_cast<unsigned>(ceil_div(N, wg::kDpCols)),
+                     static_cast<unsigned>(gtiles));
+  const int dx_smem = static_cast<int>(wg::dx_smem_bytes(F, G, l_pad));
+  float* part = gtiles > 1 ? dx0_part : nullptr;
+  if (gt == 32)
+    cin_bwd_dx_wgmma_kernel<32><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                  stream>>>(map, x0, h, dz, dx0, part, dh, N,
+                                            F, G, L, D, g_pad, l_pad,
+                                            D % 8 == 0 && aligned16(dz));
+  else
+    cin_bwd_dx_wgmma_kernel<64><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                  stream>>>(map, x0, h, dz, dx0, part, dh, N,
+                                            F, G, L, D, g_pad, l_pad,
+                                            D % 8 == 0 && aligned16(dz));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (gtiles > 1) {
+    err = launch_sum<__nv_bfloat16>(dx0_part, dx0, N * F, gtiles, stream);
+    if (err != cudaSuccess) return err;
+  }
+
+  const int64_t K = static_cast<int64_t>(F) * G;
+  const dim3 dw_grid(static_cast<unsigned>(ceil_div(K, wg::kDwRows)),
+                     static_cast<unsigned>(ceil_div(L, wg::kLTile)),
+                     static_cast<unsigned>(splits));
+  cin_bwd_dw_wgmma_kernel<<<dw_grid, wg::kBlockThreads,
+                            static_cast<int>(wg::dw_smem_bytes(F, G)),
+                            stream>>>(
+      x0, h, dz, dw_part, N, cols_per_split, F, G, L, D,
+      D % 8 == 0 && aligned16(x0) && aligned16(h) && aligned16(dz));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_sum<float>(dw_part, dw, L * K, splits, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -927,6 +1562,24 @@ int dt_cin_bwd_bf16(const void* x0, const void* h, const void* w,
       static_cast<float*>(dw), static_cast<float*>(dx0_part),
       static_cast<float*>(dw_part), B, F, G, L, D, splits,
       static_cast<cudaStream_t>(stream)));
+}
+
+// K3 on the tensor cores: w_t, dx0_part and dw_part as launch_bwd_wgmma
+// takes them.
+int dt_cin_bwd_bf16_wgmma(const void* x0, const void* h, const void* w_t,
+                          const void* dz, void* dx0, void* dh, void* dw,
+                          void* dx0_part, void* dw_part, int64_t B, int F,
+                          int G, int L, int D, int g_pad, int l_pad,
+                          int splits, int64_t cols_per_split, void* stream) {
+  return static_cast<int>(launch_bwd_wgmma(
+      static_cast<const __nv_bfloat16*>(x0),
+      static_cast<const __nv_bfloat16*>(h),
+      static_cast<const __nv_bfloat16*>(w_t),
+      static_cast<const __nv_bfloat16*>(dz),
+      static_cast<__nv_bfloat16*>(dx0), static_cast<__nv_bfloat16*>(dh),
+      static_cast<float*>(dw), static_cast<float*>(dx0_part),
+      static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
+      cols_per_split, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dt_cin_error_string(int err) {

@@ -6,13 +6,18 @@ h ``(B, G, D)``, w ``(L, F, G)`` and z ``(B, L, D)`` float32; the gradient
 takes dz ``(B, L, D)`` and gives dx0, dh and the float32 dW.
 
 Port of ``deeptables_tpu/ops/kernels/cin_bwd.py``: :func:`cin_fwd` of
-``cin_fwd_pallas`` (K4) and :func:`cin_bwd` of ``cin_bwd_pallas`` (K3). The
+``cin_fwd_pallas`` (K4, ``_fwd_kernel``) and :func:`cin_bwd` of
+``cin_bwd_pallas`` (K3, ``_bwd_kernel`` and ``_bwd_kernel_chunked``). The
 CUDA kernels are in ``deeptables_torch/csrc/cin.cu``; its header says what
-bounds them (operations), how the pair stays out of device memory and how
-the bfloat16 forward runs on the tensor cores. On a
-CUDA tensor each wrapper launches its kernel or raises; :func:`cin_fwd_reference`
-and :func:`cin_bwd_reference` run for CPU tensors only. The JAX package's
-batch-minor ``(F, D·B)`` operands are ``(1, F, D·B)`` tensors here.
+bounds them (operations: K3 takes 112.8 GFLOP at xDeepFM's second layer,
+B = 8192, a floor of 0.114 ms on the bfloat16 tensor cores), how the pair
+stays out of device memory and how bfloat16 runs on the tensor cores:
+:func:`fwd_design` and :func:`bwd_design` name the kernels a call runs
+(``'wgmma'`` for bfloat16, ``'simt'`` for float32, which the tensor cores
+would take in TF32). On a CUDA tensor each wrapper launches its kernels or
+raises; :func:`cin_fwd_reference` and :func:`cin_bwd_reference` run for CPU
+tensors only. The JAX package's batch-minor ``(F, D·B)`` operands are
+``(1, F, D·B)`` tensors here.
 
 The autograd Functions and the rounding points of the JAX custom VJPs are
 in ``ops/cin_grad.py``.
@@ -41,6 +46,17 @@ _K_CHUNK = 64
 _TILE_LD = 136
 _WGMMA_REGION_BYTES = 67584
 _MAX_SMEM_BYTES = 232448
+# ... and the bfloat16 backward on the tensor cores (cin.cu's
+# wg::dx_smem_bytes and wg::dw_smem_bytes). dx0/dh pass: 128 columns of dz
+# (L padded to 64) beside a 4-stage ring of W tiles (64 l x the G tile) and
+# the x0 tile. dW pass: two buffers, each a 16 KB dz chunk and the x0 and h
+# rows of 64 columns (72 bfloat16 a row) with one zero row.
+_L_CHUNK = 64
+_DX_COLS = 128
+_DX_STAGES = 4
+_DW_ROWS = 128
+_DW_COLS = 64
+_DW_LD = 72
 
 
 def cin_fwd_reference(x0: torch.Tensor, h: torch.Tensor,
@@ -79,7 +95,8 @@ def cin_bwd_reference(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
 
 
 def bwd_plan(N: int, F: int, G: int, L: int):
-    """``(splits, g_tiles)`` of the backward for N = B·D columns: the dW
+    """``(splits, g_tiles)`` of the CUDA-core backward (:func:`bwd_design`
+    ``'simt'``) for N = B·D columns: the dW
     reduction over N is cut into ``splits`` column ranges (enough blocks for
     four waves over the card's SMs, none under 512 columns), and dx0 sums
     over ``g_tiles`` tiles of G (one for G ≤ 64), as ``csrc/cin.cu`` tiles
@@ -87,8 +104,7 @@ def bwd_plan(N: int, F: int, G: int, L: int):
     tiles = math.ceil(F * G / _DW_TILE) * math.ceil(L / _DW_TILE)
     splits = max(1, min(math.ceil(4 * _SM_COUNT / tiles),
                         math.ceil(N / _MIN_COLS_PER_SPLIT), 65535))
-    g_tiles = math.ceil(G / (32 if G <= 32 else 64))
-    return splits, g_tiles
+    return splits, math.ceil(G / bwd_g_tile(G))
 
 
 def fwd_design(dtype: torch.dtype, F: int, G: int) -> str:
@@ -114,6 +130,62 @@ def padded_w(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def bwd_g_tile(G: int) -> int:
+    """The G tile of the tensor-core K3's dx0/dh pass: its wgmma width,
+    n32 for G ≤ 32, else n64 (more tiles past 64, their dx0 partials summed
+    in a fixed order)."""
+    return 32 if G <= 32 else 64
+
+
+def bwd_design(dtype: torch.dtype, F: int, G: int, L: int) -> str:
+    """Which K3 kernels a CUDA call runs: ``'wgmma'`` (bfloat16 on the
+    tensor cores: dpair = Wᵀ·dz as a bfloat16 GEMM folded into dx0 and dh
+    in registers, and dW with the pair split exactly into two bfloat16
+    halves) or ``'simt'`` (float32 on the CUDA cores: float32 inputs, whose
+    products the tensor cores would take in TF32, and bfloat16 shapes whose
+    tiles do not fit a block's shared memory: the dz tile grows with L, the
+    dW pass's h rows with G)."""
+    l_pad = -(-L // _L_CHUNK) * _L_CHUNK
+    dx = (1024 + _DX_COLS * l_pad * 2
+          + _DX_STAGES * bwd_g_tile(G) * _L_CHUNK * 2
+          + (F * _TILE_LD * 2 + 7) // 8 * 8 + 2 * _DX_STAGES * 8)
+    x_rows = min(F, 127 // G + 2)
+    buffer = -(-(_DW_ROWS * _DW_COLS * 2 + (x_rows + 1 + G) * _DW_LD * 2)
+               // 1024) * 1024
+    dw = 1024 + 2 * buffer
+    fits = max(dx, dw) <= _MAX_SMEM_BYTES
+    return 'wgmma' if dtype == torch.bfloat16 and fits else 'simt'
+
+
+def dpair_w(w: torch.Tensor) -> torch.Tensor:
+    """w ``(L, F, G)`` as the tensor-core K3 reads it: ``(F, G_pad, L_pad)``
+    with ``out[f, g, l] = w[l, f, g]``, zeros past G and L. G_pad is a
+    multiple of the G tile (:func:`bwd_g_tile`), L_pad of 64: each TMA load
+    is one f's 64 l × G-tile block, l contiguous (the K-major B operand of
+    ``dpairᵀ = dzᵀ·W[:, f, :]``)."""
+    L, F, G = w.shape
+    g_tile = bwd_g_tile(G)
+    g_pad = -(-G // g_tile) * g_tile
+    l_pad = -(-L // _L_CHUNK) * _L_CHUNK
+    out = w.new_zeros((F, g_pad, l_pad))
+    out[:, :G, :L] = w.permute(1, 2, 0)
+    return out
+
+
+def wgmma_bwd_plan(N: int, F: int, G: int, L: int):
+    """``(splits, cols_per_split, g_tiles)`` of the tensor-core K3 for
+    N = B·D columns. The dW pass's blocks own 128 pair rows × 128 l and one
+    range of ``cols_per_split`` columns (a multiple of 64): as many ranges
+    as fill one wave of two blocks on each of the card's SMs, none under 512
+    columns, and none empty. The dx0/dh pass sums dx0 over ``g_tiles``
+    tiles of G."""
+    tiles = math.ceil(F * G / _DW_ROWS) * math.ceil(L / _DW_ROWS)
+    splits = max(1, min(2 * _SM_COUNT // tiles,
+                        math.ceil(N / _MIN_COLS_PER_SPLIT), 65535))
+    cols = math.ceil(math.ceil(N / splits) / _DW_COLS) * _DW_COLS
+    return math.ceil(N / cols), cols, math.ceil(G / bwd_g_tile(G))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('cin')
@@ -130,6 +202,10 @@ def _library():
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.dt_cin_bwd_bf16_wgmma.argtypes = [ctypes.c_void_p] * 9 \
+        + [ctypes.c_int64] + [ctypes.c_int] * 7 + [ctypes.c_int64] \
+        + [ctypes.c_void_p]
+    lib.dt_cin_bwd_bf16_wgmma.restype = ctypes.c_int
     lib.dt_cin_error_string.argtypes = [ctypes.c_int]
     lib.dt_cin_error_string.restype = ctypes.c_char_p
     return lib
@@ -214,8 +290,11 @@ def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     contiguous and of one type: ``(dx0, dh, dW)``, dx0 and dh in that type,
     dW ``(L, F, G)`` float32.
 
-    On a CUDA tensor this launches the kernel (its passes, one call) or
-    raises. ``cin_bwd.launches`` counts the calls."""
+    On a CUDA tensor this launches the kernels :func:`bwd_design` names
+    (their passes, one call) or raises; it never falls back to the plain
+    version. Both designs take float32 products of the inputs and sum them
+    in float32, rounding dx0 and dh once, so they compute the plain
+    version's function. ``cin_bwd.launches`` counts the calls."""
     _check_shapes('cin_bwd', x0, h, w, dz)
     if x0.device.type == 'cpu':
         return cin_bwd_reference(x0, h, w, dz)
@@ -228,19 +307,31 @@ def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     if B * D == 0 or L == 0 or F * G == 0:
         return dx0.zero_(), dh.zero_(), dw.zero_()
     N = B * D
-    splits, g_tiles = bwd_plan(N, F, G, L)
+    wgmma = bwd_design(x0.dtype, F, G, L) == 'wgmma'
+    if wgmma:
+        splits, cols, g_tiles = wgmma_bwd_plan(N, F, G, L)
+    else:
+        splits, g_tiles = bwd_plan(N, F, G, L)
     dw_part = torch.empty((splits, L, F, G), dtype=torch.float32,
                           device=x0.device)
     dx0_part = torch.empty((g_tiles, B, F, D), dtype=torch.float32,
                            device=x0.device) if g_tiles > 1 else None
+    part_ptr = None if dx0_part is None else dx0_part.data_ptr()
     lib = _library()
     with torch.cuda.device(x0.device):
-        err = getattr(lib, _BWD[x0.dtype])(
-            x0.data_ptr(), h.data_ptr(), w.data_ptr(), dz.data_ptr(),
-            dx0.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-            None if dx0_part is None else dx0_part.data_ptr(),
-            dw_part.data_ptr(), B, F, G, L, D, splits,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if wgmma:
+            w_t = dpair_w(w)
+            err = lib.dt_cin_bwd_bf16_wgmma(
+                x0.data_ptr(), h.data_ptr(), w_t.data_ptr(), dz.data_ptr(),
+                dx0.data_ptr(), dh.data_ptr(), dw.data_ptr(), part_ptr,
+                dw_part.data_ptr(), B, F, G, L, D, w_t.shape[1],
+                w_t.shape[2], splits, cols, stream)
+        else:
+            err = getattr(lib, _BWD[x0.dtype])(
+                x0.data_ptr(), h.data_ptr(), w.data_ptr(), dz.data_ptr(),
+                dx0.data_ptr(), dh.data_ptr(), dw.data_ptr(), part_ptr,
+                dw_part.data_ptr(), B, F, G, L, D, splits, stream)
     _raise_on(err, lib, 'cin_bwd')
     cin_bwd.launches += 1
     return dx0, dh, dw

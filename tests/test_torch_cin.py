@@ -41,10 +41,12 @@ from deeptables_tpu import serving as jax_serving
 from deeptables_torch import bridge, serving
 from deeptables_torch.ops import cin_grad, initializers, losses
 from deeptables_torch.ops.interactions import CIN
-from deeptables_torch.ops.kernels.cin import (bwd_plan, cin_bwd,
+from deeptables_torch.ops.kernels.cin import (bwd_design, bwd_g_tile,
+                                              bwd_plan, cin_bwd,
                                               cin_bwd_reference, cin_fwd,
-                                              cin_fwd_reference, fwd_design,
-                                              padded_w)
+                                              cin_fwd_reference, dpair_w,
+                                              fwd_design, padded_w,
+                                              wgmma_bwd_plan)
 from torch_parity import Case
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
@@ -175,6 +177,69 @@ def test_fwd_design_takes_the_tensor_cores_for_bfloat16_only():
     assert fwd_design(torch.bfloat16, 26, 576) == 'wgmma'  # F + G = 602
     assert fwd_design(torch.bfloat16, 26, 577) == 'simt'   # past the tiles
     assert fwd_design(torch.float32, 26, 64) == 'simt'     # not TF32
+
+
+def test_bwd_design_takes_the_tensor_cores_for_bfloat16_only():
+    for F, G, L in ((26, 26, 128), (26, 64, 128), (26, 128, 128),
+                    (5, 7, 300), (1, 1, 1)):
+        assert bwd_design(torch.bfloat16, F, G, L) == 'wgmma'
+        assert bwd_design(torch.float32, F, G, L) == 'simt'  # not TF32
+    # the dx0/dh pass's dz tile: 128 columns of L padded to 64
+    assert bwd_design(torch.bfloat16, 26, 64, 704) == 'wgmma'
+    assert bwd_design(torch.bfloat16, 26, 64, 705) == 'simt'
+    assert bwd_design(torch.bfloat16, 5, 4, 900) == 'simt'
+    # the dW pass's two buffers of h rows
+    assert bwd_design(torch.bfloat16, 3, 686, 5) == 'wgmma'
+    assert bwd_design(torch.bfloat16, 3, 687, 5) == 'simt'
+    assert bwd_design(torch.bfloat16, 3, 700, 5) == 'simt'
+
+
+@pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
+                                   (26, 128, 128), (4, 130, 9), (5, 7, 300),
+                                   (1, 1, 1)])
+def test_dpair_w_is_f_g_l_with_zeros_past_g_and_l(F, G, L):
+    w = torch.randn(L, F, G, generator=torch.Generator().manual_seed(F * G))
+    w = w.bfloat16()
+    out = dpair_w(w)
+    g_tile = bwd_g_tile(G)
+    assert g_tile == (32 if G <= 32 else 64)
+    _, g_pad, l_pad = out.shape
+    assert out.dtype == w.dtype and out.shape[0] == F and out.is_contiguous()
+    assert g_pad % g_tile == 0 and G <= g_pad < G + g_tile
+    assert l_pad % 64 == 0 and L <= l_pad < L + 64
+    assert torch.equal(out[:, :G, :L], w.permute(1, 2, 0))
+    assert not out[:, G:].any() and not out[:, :, L:].any()
+    # where the kernel reads it: the TMA view (F * G_pad, L_pad), row
+    # f * G_pad + g0 + g of G tile g0, column l
+    view = out.reshape(F * g_pad, l_pad)
+    f, g, l = torch.meshgrid(torch.arange(F), torch.arange(G),
+                             torch.arange(L), indexing='ij')
+    for g0 in range(0, g_pad, g_tile):
+        rows = f * g_pad + g0 + (g - g0)
+        keep = (g >= g0) & (g < g0 + g_tile)
+        assert torch.equal(view[rows[keep], l[keep]], w[l[keep], f[keep],
+                                                         g[keep]])
+
+
+@pytest.mark.parametrize('N,F,G,L', [(131072, 26, 64, 128),
+                                     (131072, 26, 26, 128),
+                                     (65504, 26, 26, 128), (16, 5, 7, 12),
+                                     (65536, 4, 130, 9), (4096, 26, 64, 256),
+                                     (592, 26, 26, 128), (1, 1, 1, 1)])
+def test_wgmma_bwd_plan_covers_every_column_once(N, F, G, L):
+    splits, cols, g_tiles = wgmma_bwd_plan(N, F, G, L)
+    assert cols % 64 == 0 and 1 <= splits <= 65535
+    # every range holds a column, and the ranges [s * cols, (s + 1) * cols)
+    # cover 0 .. N - 1 once
+    assert (splits - 1) * cols < N <= splits * cols
+    covered = np.zeros(N, np.int64)
+    for s in range(splits):
+        covered[s * cols:min((s + 1) * cols, N)] += 1
+    assert (covered == 1).all()
+    assert g_tiles == -(-G // bwd_g_tile(G))
+    # one wave of two blocks an SM at most: 128 pair rows x 128 l a block
+    tiles = -(-F * G // 128) * -(-L // 128)
+    assert splits == 1 or tiles * splits <= 2 * 132
 
 
 def test_wrappers_reject_bad_shapes():

@@ -41,9 +41,10 @@ import numpy as np
 import pytest
 import torch
 
-from deeptables_torch.ops.kernels.cin import (cin_bwd, cin_bwd_reference,
-                                              cin_fwd, cin_fwd_reference,
-                                              fwd_design)
+from deeptables_torch.ops.kernels import cin as cin_module
+from deeptables_torch.ops.kernels.cin import (bwd_design, cin_bwd,
+                                              cin_bwd_reference, cin_fwd,
+                                              cin_fwd_reference, fwd_design)
 from deeptables_torch.ops.kernels import field_attention as fa
 from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
@@ -306,6 +307,19 @@ CIN_FWD_SHAPES = CIN_SHAPES + [
     (41, 26, 26, 128, 12), (17, 5, 13, 128, 33), (1, 26, 64, 128, 16),
     (3, 3, 700, 5, 4)]
 
+# the backward's tensor-core kernels at their edges: L not a multiple of 16
+# and past one 128-wide tile, G of one n32 tile, one n64 tile and two (dx0
+# partials), D that does not divide the 64- and 128-column tiles, B = 1 and
+# the batch-minor (1, F, D·B) call; and bfloat16 shapes past shared memory
+# (G = 700: the dW pass's h rows; L = 900: the dx0/dh pass's dz tile),
+# which take the CUDA-core kernels
+CIN_BWD_SIMT = [(3, 3, 700, 5, 4), (5, 4, 6, 900, 16)]
+CIN_BWD_SHAPES = CIN_SHAPES + [
+    (37, 26, 26, 100, 16), (64, 26, 64, 256, 16), (5, 7, 9, 300, 16),
+    (300, 26, 128, 128, 16), (19, 5, 26, 40, 16), (41, 26, 26, 128, 12),
+    (17, 5, 13, 128, 33), (1, 26, 64, 128, 16), (1, 26, 26, 128, 592),
+    ] + CIN_BWD_SIMT
+
 
 def _cin_inputs(B, F, G, L, D, dtype, seed):
     gen = torch.Generator().manual_seed(seed)
@@ -336,9 +350,11 @@ def test_cin_fwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,F,G,L,D', CIN_SHAPES)
+@pytest.mark.parametrize('B,F,G,L,D', CIN_BWD_SHAPES)
 def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 7 * B + F + G + L)
+    simt = dtype == torch.float32 or (B, F, G, L, D) in CIN_BWD_SIMT
+    assert bwd_design(dtype, F, G, L) == ('simt' if simt else 'wgmma')
     before = cin_bwd.launches
     dx0, dh, dw = cin_bwd(x0, h, w, dz)
     torch.cuda.synchronize()
@@ -351,6 +367,41 @@ def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     _cin_close(dx0, expected[0], scale[0].float(), rtol_out)
     _cin_close(dh, expected[1], scale[1].float(), rtol_out)
     _cin_close(dw, expected[2], scale[2])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,G,L,D', [(4096, 26, 64, 128, 16),
+                                       (3, 4, 130, 9, 5), (3, 3, 700, 5, 4)])
+def test_cin_bwd_runs_the_kernels_its_design_names(cuda, B, F, G, L, D,
+                                                   dtype):
+    """The kernels that ran, by name (torch.profiler): a bfloat16 shape
+    that fits runs the tensor-core passes and never the CUDA-core ones."""
+    from torch.profiler import ProfilerActivity, profile
+    x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 5)
+    cin_bwd(x0, h, w, dz)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cin_bwd(x0, h, w, dz)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    wgmma = {n for n in names if 'cin_bwd_' in n and 'wgmma' in n}
+    simt = {n for n in names if 'cin_bwd_' in n and 'wgmma' not in n}
+    if bwd_design(dtype, F, G, L) == 'wgmma':
+        assert dtype == torch.bfloat16 and len(wgmma) == 2 and not simt, names
+    else:
+        assert len(simt) == 2 and not wgmma, names
+
+
+def test_cin_bwd_launch_failure_raises(cuda, monkeypatch):
+    """A tensor-core launch the C side refuses (here a W layout whose L is
+    not padded to 64) raises, counts no launch and runs nothing else."""
+    x0, h, w, dz = _cin_inputs(64, 5, 7, 12, 16, torch.bfloat16, 2)
+    monkeypatch.setattr(cin_module, 'dpair_w',
+                        lambda w: w.new_zeros((5, 32, 12 + 1)))
+    before = cin_bwd.launches
+    with pytest.raises(RuntimeError, match='cin_bwd kernel launch failed'):
+        cin_bwd(x0, h, w, dz)
+    assert cin_bwd.launches == before
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
