@@ -47,7 +47,10 @@ these phases, each printing one JSON line:
    ``scaled_dot_product_attention`` and ``torch.autograd.grad`` of it.
    Then one bfloat16 row a kernel (``lifted``) at B=64 past the register
    width and shared memory: K5 at F=200, one head of dh=128; K6 at F=22,
-   U=128.
+   U=128. K6's rows name the design that ran (``ab_design``: ``tile`` at
+   AutoInt's shapes in both types, which the script checks; ``warp`` at the
+   lifted shape) and what ``ptxas`` reports for its kernel (registers,
+   spill bytes).
 6. For DeepFM, xDeepFM (26 categorical columns at D=16, 13 dense, DNN
    1024/512 relu; xDeepFM's CIN (128, 128) relu) and then AutoInt and
    AutoInt with ``fuse_projections`` (the 22 avazu-style columns of
@@ -79,7 +82,12 @@ these phases, each printing one JSON line:
      ``train_profile``: two train steps under ``torch.profiler`` (device
      time by kernel, busy share; ``cin_kernels``: every CIN kernel by name,
      and for xDeepFM a check that bfloat16 ran K3's tensor-core passes and
-     float32 its CUDA-core ones). Then the same initial weights on the card
+     float32 its CUDA-core ones; ``fa_kernels``: every field-attention
+     kernel by name, and for the fused AutoInt a check that it ran K6's
+     tile kernels, in bfloat16 (block 0) and float32 (blocks 1-2, after
+     BatchNorm's promotion) under ``'bfloat16'``, in float32 only under
+     ``'float32'``, and never the one-warp ones). Then the same initial
+     weights on the card
      and on ``device='cpu'`` (the plain path), at 8192-row batches for
      DeepFM and 1024-row batches for xDeepFM (the CPU plain path
      materialises the CIN pair) and AutoInt, give the same step-1
@@ -100,6 +108,7 @@ and exits nonzero.
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -254,6 +263,29 @@ def fm_bound(B, F, D, itemsize):
     return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms, 'operations')
 
 
+# ptxas's report of each kernel (mangled name): registers and spill bytes,
+# filled by card_phase
+PTXAS = {}
+
+
+def ptxas_by_kernel(lines):
+    """{mangled name: {'registers', 'spill_stores', 'spill_loads'}} from
+    an ``nvcc -Xptxas -v`` log."""
+    out, kernel = {}, None
+    for line in lines:
+        if 'Function properties for' in line:
+            kernel = line.rsplit(' ', 1)[1]
+            out[kernel] = {}
+        elif kernel and 'spill stores' in line:
+            for n, what in re.findall(r'(\d+) bytes spill (stores|loads)',
+                                      line):
+                out[kernel][f'spill_{what}'] = int(n)
+        elif kernel and re.search(r'Used \d+ registers', line):
+            out[kernel]['registers'] = int(
+                re.search(r'Used (\d+) registers', line).group(1))
+    return out
+
+
 def card_phase(torch, _build):
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -266,6 +298,7 @@ def card_phase(torch, _build):
         ptxas[log.stem[3:]] = sorted({line.split(':', 1)[1].strip()
                                       for line in lines
                                       if 'registers' in line})
+        PTXAS.update(ptxas_by_kernel(lines))
         # every kernel (mangled name) that spills, with ptxas's line
         kernel = None
         for line in lines:
@@ -580,6 +613,25 @@ def fa_bound(kernel, B, F, H, dh, itemsize, out_itemsize):
                                                            'operations')
 
 
+def ab_ptxas(fa, name, dtype, dh, design):
+    """ptxas's report of the K6 kernel a launch runs: the tile kernel's
+    instantiation (type, padded head), or for the one-warp design the most
+    registers and spill bytes over its instantiations for the type."""
+    t = '13__nv_bfloat16' if str(dtype) == 'torch.bfloat16' else 'f'
+    if design == 'tile':
+        needle = f'{name}_tile_kernelI{t}Li{fa._tile_dhp(dh)}EE'
+        found = [v for k, v in PTXAS.items() if needle in k]
+        check(len(found) == 1, f'ptxas reports {len(found)} kernels '
+                               f'{needle}')
+        return dict(found[0], kernel=needle)
+    found = [v for k, v in PTXAS.items() if f'{name}_kernelI{t}' in k]
+    check(len(found) > 0, f'ptxas reports no {name}_kernel for {dtype}')
+    return {'registers': max(v.get('registers', 0) for v in found),
+            'spill_bytes': max(v.get('spill_stores', 0)
+                               + v.get('spill_loads', 0) for v in found),
+            'instantiations': len(found)}
+
+
 def fa_kernel_phase(torch, fa):
     """K5 (``fa_fwd``, ``fa_bwd``) and K6 (``ab_fwd``, ``ab_bwd``) against
     their plain versions on the card at AutoInt's shapes (F=22, H=2, dh=8),
@@ -615,6 +667,10 @@ def fa_kernel_phase(torch, fa):
                         randn((U + 1, 4 * U), dtype, 0.35),
                         randn((B, F, U), dtype))
             q, k, v, do, x, w, dx = make()
+            design = fa.ab_design(dtype, B, F, H, dh)
+            check(design == 'tile', f'AutoInt\'s block ({dtype_name}, B={B}, '
+                                    f'F={F}, H={H}, dh={dh}) runs the '
+                                    f'{design} K6 design')
             outs = {'fa_fwd': (fa.fa_fwd(q, k, v, H, out_dtype),),
                     'fa_bwd': fa.fa_bwd(q, k, v, do, H)}
             refs = {'fa_fwd': (fa.fa_fwd_reference(q, k, v, H, out_dtype),),
@@ -699,6 +755,9 @@ def fa_kernel_phase(torch, fa):
                        'buffers': len(bufs)}
                 if name == 'ab_bwd':
                     row['excluded_examples'] = excluded
+                if name in ('ab_fwd', 'ab_bwd'):
+                    row['design'] = design
+                    row['ptxas'] = ab_ptxas(fa, name, dtype, dh, design)
                 rows[name].append(row)
             del bufs, head_bufs, graphs, q, k, v, do, x, w, dx
             torch.cuda.empty_cache()
@@ -769,6 +828,9 @@ def fa_lifted_rows(torch, fa, gen, rows):
                'bound_by': bound_by}
         if keep is not None:
             row['excluded_examples'] = int((~keep).sum())
+        if name in ('ab_fwd', 'ab_bwd'):
+            row['design'] = fa.ab_design(dtype, B, F, H, dh)
+            row['ptxas'] = ab_ptxas(fa, name, dtype, dh, row['design'])
         rows[name].append(row)
         del outs, refs, args, x, k, v, do, w
     torch.cuda.empty_cache()
@@ -802,7 +864,8 @@ def fa_entry(name, rows, launches):
             'plain_ms': head['plain_ms'], 'bound_ms': head['bound_ms'],
             'bound_by': head['bound_by'], 'library_ms': head['library_ms'],
             'library_note': note,
-            'at': {k: head[k] for k in ('dtype', 'B', 'F', 'H', 'dh')}}
+            'at': {k: head[k] for k in ('dtype', 'B', 'F', 'H', 'dh')},
+            **({'design': head['design']} if 'design' in head else {})}
 
 
 def flat_ids(torch, cat, vocabs):
@@ -1138,6 +1201,24 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
                 else {'cin_bwd_dx_kernel<', 'cin_bwd_dw_kernel<'})
         check(ran == want, f'xDeepFM {dtype_policy} training ran the K3 '
                            f'kernels {sorted(ran)}, expected {sorted(want)}')
+    fa_kernels = [{'name': e.key[:90], 'count': e.count,
+                   'device_ms': e.self_device_time_total / 1e3}
+                  for e in device
+                  if re.search(r'(fa|ab)_(fwd|bwd)(_tile)?_kernel<', e.key)]
+    if model_name == 'AutoInt-fused':
+        # K6 by name: the tile kernels, in bfloat16 (block 0) and float32
+        # (blocks 1-2: BatchNorm returns float32) under 'bfloat16'
+        types = ('__nv_bfloat16', 'float') if dtype_policy == 'bfloat16' \
+            else ('float',)
+        names = [f'ab_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
+                 for t in ('__nv_bfloat16', 'float')] + ['ab_fwd_kernel<',
+                                                         'ab_bwd_kernel<']
+        ran = {k for k in names if any(k in e.key for e in device)}
+        want = {f'ab_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
+                for t in types}
+        check(ran == want, f'AutoInt-fused {dtype_policy} training ran the '
+                           f'K6 kernels {sorted(ran)}, expected '
+                           f'{sorted(want)}')
 
     # the same initial weights on the card and the CPU: the gradients of
     # one step, then the losses and parameters of a fit over three batches
@@ -1243,7 +1324,7 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
           'by_kernel': [{'name': e.key[:90], 'count': e.count,
                          'device_ms': e.self_device_time_total / 1e3}
                         for e in device[:16]],
-          'cin_kernels': cin_kernels})
+          'cin_kernels': cin_kernels, 'fa_kernels': fa_kernels})
     del model, fits
     return launches
 

@@ -15,40 +15,86 @@
 // w_aug is (U + 1, 4U) = [[Wq | Wk | Wv | Wr]; [bq | bk | bv | br]], already in
 // x's type; dpre is (B, F, 4U) in x's type.
 //
-// What bounds them: memory. Per example and head the attention is an F x F
-// product with a depth of dh (F = 22, dh = 8 on the AutoInt configuration):
-// about 4*F*F*dh float operations for 2*F*U*itemsize bytes moved, ~11
-// operations a byte in bfloat16, far under the card's ~20 (float32 CUDA cores)
-// or ~295 (tensor cores). The least time is the bytes: q, k, v read once and o
-// written once (K5-fwd); q, k, v, do read and dq, dk, dv written (K5-bwd); x
-// read and out written (K6-fwd); x, do read and dpre written (K6-bwd).
+// What bounds them. Per example and head the attention is an F x F product
+// with a depth of dh (F = 22, dh = 8 on the AutoInt configuration): about
+// 4*F*F*dh float operations for 2*F*U*itemsize bytes moved, ~11 operations
+// a byte in bfloat16, under the card's ~20 (float32 CUDA cores) or ~295
+// (tensor cores). The least time is the bytes: q, k, v read once and o
+// written once (K5-fwd); q, k, v, do read and dq, dk, dv written (K5-bwd);
+// x read and out written (K6-fwd); x, do read and dpre written (K6-bwd).
+// What holds the kernels back is instructions, not bytes: on an H100 the
+// one-warp K6-fwd (below) took 141 us at bf16 B=8192 for 11.5 MB that the
+// card moves in 3.4 us: a scalar projection of two shared-memory loads an
+// FMA, 10 of 32 lanes idle at F=22, scalar row copies with an integer
+// division an element, w_aug restaged for every 8 examples, and three
+// passes through an F x F row buffer even in the forward.
 //
-// Design. One warp owns one example b; a block holds up to 8 warps. The warp
-// copies the example's rows into shared memory as float32 (coalesced: the
-// example's F*U values are contiguous), then works per head h with lane =
-// query field f (looping for F > 32): its score row over g goes to a row of an
-// F x F shared buffer, the max-subtracted softmax is taken in float32, and the
-// context is summed in float32 registers (up to 64 values at a time).
-// Outputs are staged back into shared memory and written coalesced, rounded
-// once to the output type. The scores, the weights and (in K6) the four
-// projections never reach device memory. Rows of the shared buffers are padded to an odd
+// K6, the tile design (the main path: U <= 64 and tiles that fit in
+// shared memory; ops/kernels/field_attention.py's ab_design names it):
+// - A persistent grid walks tiles of E examples (E*F*U contiguous elements);
+//   thread r owns the (example, head, field) row r of the tile, so E*H*F
+//   rows fill the block to within a warp (AutoInt: 11 examples, 484 threads
+//   forward; 5 examples backward, its shared memory's limit for two blocks
+//   an SM). w_aug is staged once a block.
+// - The next tile's x (and do) comes into a second stage by 16-byte
+//   cp.async while the current one is computed; outputs (K6-bwd: the
+//   4U-wide dpre rows) are staged and written with 16-byte stores. A span
+//   is placed at its address mod 16, so any tile offset and a partial last
+//   tile work: the ragged ends are copied element by element.
+// - The projection runs on mma.sync: bfloat16 x and w_aug as m16n8k16 with
+//   float32 accumulators (exact products, float32 sums, as the TPU kernel's
+//   dot_general with preferred_element_type=float32); float32 as 3xTF32 on
+//   m16n8k8 (lo*hi + hi*lo + hi*hi, the float32 product to ~2^-22; plain
+//   TF32 would miss the 1e-5 tolerance). FMAs on the CUDA cores (8 rows by
+//   4 columns a thread) were timed against 3xTF32 and lost. The bias is
+//   added in float32 in the epilogue, and relu(pre) goes to the float32
+//   q/k/v/r tile through a table of each column's offset. Not wgmma: K = U
+//   is one or a few 16-deep steps and N = 4U = 64, 0.37 GFLOP a call at
+//   B=8192, under a microsecond at mma.sync's rate; a 64-row warpgroup tile
+//   with shared-memory descriptors buys nothing here.
+// - The attention is float32 on the CUDA cores, as in the TPU kernel: a
+//   thread keeps its q row and its context (or gradient) sums in registers
+//   and reads k and v rows as float4 broadcasts (the lanes of one (e, h)
+//   read the same row), two fields a step. The forward keeps no F x F
+//   buffer: the scores' max, then one pass of exp, sum and weighted sum,
+//   scaled by 1/z. The backward keeps w and ds (rows of an odd stride) for
+//   its sums over the query field, which a thread per key field takes in a
+//   fixed order: no atomics, the same bits on every run; it takes
+//   sum_g w dw as dctx . ctx, so dw, ds and dq share one pass over g.
+// - What bounds it now (measured on an H100, PERF.md): the attention, at
+//   ~1 instruction a cycle an SM. Its dependent chains of 16-byte shared
+//   loads and FMAs want more warps than the registers (~120 a thread) and
+//   the backward's shared memory (~20 KB an example: q/k/v/r, w and ds)
+//   leave: 15 warps an SM forward, 14 backward. Two rows a thread (half
+//   the loads) and a row split over two threads (twice the threads, no
+//   more warps for the registers) were both slower.
+//
+// K5, and K6 past the tile (the one-warp design): one warp owns one example
+// b; a block holds up to 8 warps. The warp copies the example's rows into
+// shared memory as float32 (coalesced: the example's F*U values are
+// contiguous), then works per head h with lane = query field f (looping for
+// F > 32): its score row over g goes to a row of an F x F shared buffer, the
+// max-subtracted softmax is taken in float32, and the context is summed in
+// float32 registers (up to 64 values at a time). Outputs are staged back
+// into shared memory and written coalesced, rounded once to the output
+// type. The scores, the weights and (in K6) the four projections never
+// reach device memory. Rows of the shared buffers are padded to an odd
 // stride, so a warp reading a column (lane = row) hits 32 distinct banks.
 //
-// The backward sums over the query field f for dv and dk cross lanes. They are
-// done without atomics, so results are deterministic: pass A (lane = f) writes
-// the weights w and ds = w * (dw - sum_g w*dw) * scale to shared memory, pass B
-// (lane = g) reads them by column and sums dv[g] and dk[g] over f, pass C
-// (lane = f) sums dq[f] over g. Each output lands in shared memory where its
-// input is no longer read (dv over v; dq over q after pass B), dk in a scratch
-// buffer.
+// The one-warp backward sums over the query field f for dv and dk cross
+// lanes. They are done without atomics, so results are deterministic: pass
+// A (lane = f) writes the weights w and ds = w * (dw - sum_g w*dw) * scale
+// to shared memory, pass B (lane = g) reads them by column and sums dv[g]
+// and dk[g] over f, pass C (lane = f) sums dq[f] over g. Each output lands
+// in shared memory where its input is no longer read (dv over v; dq over q
+// after pass B), dk in a scratch buffer.
 //
-// K6 adds the projection of x by w_aug, which the block stages once in shared
-// memory for all its warps; q, k, v and r stay float32 (not rounded), as in
-// the TPU kernel. Its backward recomputes them, then masks exactly as the JAX
-// VJP: dctx = dr = 1[ctx + r > 0] * do, dpre = 1[pre > 0] * [dq; dk; dv; dr]
-// (strict: the derivative of relu at 0 is 0; pre > 0 exactly where post > 0).
-// The two products of the K6 gradient (dW = [x;1] dpre^T, dx = w_aug dpre) run
-// outside the kernel, as they ran in XLA outside the TPU kernel.
+// K6's backward recomputes q, k, v and r (float32, not rounded, as in the
+// TPU kernel), then masks exactly as the JAX VJP: dctx = dr = 1[ctx + r > 0]
+// * do, dpre = 1[pre > 0] * [dq; dk; dv; dr] (strict: the derivative of
+// relu at 0 is 0; pre > 0 exactly where post > 0). The two products of the
+// K6 gradient (dW = [x;1] dpre^T, dx = w_aug dpre) run outside the kernel,
+// as they ran in XLA outside the TPU kernel.
 //
 // Every shape: any B, any F, any dh, any U.
 // - Heads wider than the register width DHM (64) are worked on in slices of
@@ -61,15 +107,16 @@
 //   grid of 4-warp blocks walks the examples, each warp reusing its slice of
 //   the scratch. K6 reads a float32 copy of w_aug from device memory where
 //   w_aug alone does not fit in shared memory (dt_ab_w_in_smem). Slow and
-//   right; every shape that fits runs as before.
-// Every kernel walks its examples in a grid-stride loop (one pass where the
-// buffers are in shared memory, whose grid covers B).
+//   right.
+// Every one-warp kernel walks its examples in a grid-stride loop (one pass
+// where the buffers are in shared memory, whose grid covers B).
 //
 // Plain C interface for ctypes: each entry point launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() (or the error of the
 // shared-memory attribute call, made once per kernel).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -552,6 +599,632 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   }
 }
 
+// ------------------------------------------------------ K6, the tile design
+//
+// A block walks tiles of E examples (a persistent grid); a tile is one
+// contiguous span of E*F*U elements of x (and of do), E*F*U of out or
+// E*F*4U of dpre. Shared memory, from the dynamic base:
+//   w     w_aug as the projection reads it, and where each of the 4U
+//         projection columns goes in post; staged once a block
+//   in    two stages of the input span(s), filled by cp.async (16 bytes)
+//         while the other stage is worked on
+//   post  q, k, v, r in float32, [4][H][E*F][DHP] (a head's row padded
+//         with zeros to DHP floats, so rows are read as float4)
+//   wgt   (backward) the weights w[e][h][f][g], then ds, rows of odd(F)
+//   out   the output span, staged for 16-byte stores
+// A span is placed at its global address mod 16, so its 16-byte chunks land
+// on 16-byte chunks of shared memory whatever the offset of the tile: the
+// ragged head and tail of a span are copied element by element.
+//
+// Thread r of the block owns row (e, h, f) = (r / HF, r / F mod H, r mod F)
+// of the attention: lanes of one (e, h) read the same k and v rows
+// (broadcasts), and E*H*F rows fill the block to within a warp. Its loops
+// over the other field take tile_chunk fields a step, their rows loaded
+// together ahead of the arithmetic.
+
+// The projection: bfloat16 on mma.sync m16n8k16, float32 as 3xTF32 on
+// m16n8k8.
+template <typename T>
+constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+__host__ __device__ constexpr int tile_dhp(int dh) {
+  return dh <= 8 ? 8 : dh <= 16 ? 16 : dh <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int tile_max_threads(int dhp) {
+  return dhp <= 16 ? 512 : 256;
+}
+// fields a step of the loops over the other field, their rows loaded
+// together ahead of the arithmetic
+__host__ __device__ constexpr int tile_chunk(int dhp) {
+  return dhp <= 8 ? 2 : 1;
+}
+__host__ __device__ __forceinline__ int64_t round_up(int64_t a, int64_t b) {
+  return (a + b - 1) / b * b;
+}
+
+// Byte sizes and offsets of a tile launch. ops/kernels/field_attention.py
+// (ab_tile_smem) computes the same total.
+struct Tile {
+  int RT, FP, NP, KS;
+  int64_t span_in, cols_off, in_off, post_off, wgt_off, wgt, out_off, total;
+};
+
+__host__ __device__ __forceinline__ Tile tile_of(bool bwd, int itemsize,
+                                                 int E, int F, int H,
+                                                 int dh) {
+  Tile t;
+  const int U = H * dh;
+  t.RT = E * F;
+  t.FP = odd(F);
+  t.NP = static_cast<int>(round_up(4 * U, 8));
+  const int k = itemsize == 2 ? 16 : 8;  // an mma's depth
+  t.KS = (U + k - 1) / k;
+  const int64_t w = int64_t(t.KS) * t.NP * 32 + int64_t(t.NP) * 4;
+  const int ins = bwd ? 2 : 1;  // x, and do
+  t.span_in = round_up(int64_t(t.RT) * U * itemsize + 16, 16);
+  t.cols_off = w;
+  t.in_off = round_up(w + int64_t(t.NP) * 4, 16);
+  t.post_off = t.in_off + 2 * ins * t.span_in;
+  t.wgt = bwd ? int64_t(H) * t.RT * t.FP * 4 : 0;
+  t.wgt_off = t.post_off + int64_t(4) * H * t.RT * tile_dhp(dh) * 4;
+  t.out_off = round_up(t.wgt_off + 2 * t.wgt, 16);
+  t.total = t.out_off +
+            round_up(int64_t(t.RT) * (bwd ? 4 : 1) * U * itemsize + 16, 16);
+  return t;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Where a span of global memory starting at g is placed after base.
+template <typename T>
+__device__ __forceinline__ T* placed(char* base, const T* g) {
+  return reinterpret_cast<T*>(base + (reinterpret_cast<uintptr_t>(g) & 15));
+}
+
+// Number of leading elements of a span before its first 16-byte boundary.
+template <typename T>
+__device__ __forceinline__ int span_head(const T* g, int n) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+  const int head = ((16 - mis) & 15) / static_cast<int>(sizeof(T));
+  return head < n ? head : n;
+}
+
+// The block starts copying n elements of src into shared memory at base
+// (placed): 16-byte chunks by cp.async, the ragged ends directly.
+template <typename T>
+__device__ __forceinline__ void load_span(char* base, const T* src, int n) {
+  T* dst = placed(base, src);
+  const int head = span_head(src, n);
+  const int chunks = (n - head) * static_cast<int>(sizeof(T)) / 16;
+  const int tail = head + chunks * (16 / static_cast<int>(sizeof(T)));
+  const char* s = reinterpret_cast<const char*>(src + head);
+  char* d = reinterpret_cast<char*>(dst + head);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+    cp_async16(d + 16 * i, s + 16 * i);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int i = tail + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// The block writes n staged elements (placed for dst) to dst: 16-byte
+// stores, the ragged ends element by element.
+template <typename T>
+__device__ __forceinline__ void store_span(T* dst, const T* src, int n) {
+  const int head = span_head(dst, n);
+  const int chunks = (n - head) * static_cast<int>(sizeof(T)) / 16;
+  const int tail = head + chunks * (16 / static_cast<int>(sizeof(T)));
+  const int4* s = reinterpret_cast<const int4*>(src + head);
+  int4* d = reinterpret_cast<int4*>(dst + head);
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) d[i] = s[i];
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int i = tail + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+// w_aug staged for the projection: B fragments in lane order, one 8-byte
+// pair a lane for each (k-step, 8-column tile), zeros past U and 4U, then
+// the bias row in float32 (NP floats). Then, for each of the NP columns n,
+// its offset in post: column n is q, k, v or r (n / U) of head
+// (n mod U) / dh, at d = n mod dh.
+template <typename T>
+__device__ __forceinline__ void stage_w_tile(char* wsm, const T* w_aug,
+                                             int U, int H, int dh,
+                                             const Tile& t) {
+  const int U4 = 4 * U, NT8 = t.NP / 8, frags = t.KS * NT8 * 32;
+  for (int i = threadIdx.x; i < frags; i += blockDim.x) {
+    const int lane = i & 31, nt = (i >> 5) % NT8, ks = (i >> 5) / NT8;
+    const int n = nt * 8 + lane / 4;
+    if constexpr (kBf16<T>) {
+      const int k0 = ks * 16 + 2 * (lane & 3);
+      auto b = [&](int k) -> uint32_t {
+        return k < U && n < U4 ? bf16_bits(w_aug[k * U4 + n]) : 0u;
+      };
+      reinterpret_cast<uint2*>(wsm)[i] =
+          make_uint2(b(k0) | b(k0 + 1) << 16, b(k0 + 8) | b(k0 + 9) << 16);
+    } else {
+      const int k0 = ks * 8 + (lane & 3);
+      auto b = [&](int k) -> float {
+        return k < U && n < U4 ? w_aug[k * U4 + n] : 0.f;
+      };
+      reinterpret_cast<float2*>(wsm)[i] = make_float2(b(k0), b(k0 + 4));
+    }
+  }
+  float* bias = reinterpret_cast<float*>(wsm + int64_t(frags) * 8);
+  for (int n = threadIdx.x; n < t.NP; n += blockDim.x)
+    bias[n] = n < U4 ? to_f32(w_aug[U * U4 + n]) : 0.f;
+  int* cols = reinterpret_cast<int*>(wsm + t.cols_off);
+  for (int n = threadIdx.x; n < t.NP; n += blockDim.x) {
+    const int which = n / U, c = n - which * U, h = c / dh;
+    cols[n] = (which * H + h) * t.RT * tile_dhp(dh) + c - h * dh;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x = hi + lo, both TF32 (hi rounded to nearest, ties away, as the card's
+// cvt.rna does); hi*hi + hi*lo + lo*hi is x*y to ~2^-22.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The projection on mma.sync: warp w takes 16-row tiles w, w + warps, ...
+// of the (rows, K) x tile (zeros past rows and U) against every 8-column
+// tile of w_aug, float32 accumulators, bias and relu in the epilogue.
+template <typename T, int DHP>
+__device__ __forceinline__ void project_tile(float* post, const T* xs,
+                                             const char* wsm, int rows,
+                                             int U, const Tile& t) {
+  constexpr int KSM = kBf16<T> ? 4 : 8;  // k-steps of U <= 64
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q4 = lane & 3, U4 = 4 * U, NT8 = t.NP / 8;
+  const float* bias =
+      reinterpret_cast<const float*>(wsm + int64_t(t.KS) * NT8 * 32 * 8);
+  const int* cols = reinterpret_cast<const int*>(wsm + t.cols_off);
+  for (int mt = warp; mt * 16 < rows; mt += blockDim.x >> 5) {
+    const int r0 = mt * 16 + g, r1 = r0 + 8;
+    uint32_t a[KSM][4];  // bfloat16 pairs, or float32 bits
+#pragma unroll
+    for (int ks = 0; ks < KSM; ++ks) {
+      if (ks >= t.KS) break;
+      if constexpr (kBf16<T>) {
+        auto x = [&](int r, int k) -> uint32_t {
+          return r < rows && k < U ? bf16_bits(xs[r * U + k]) : 0u;
+        };
+        const int k = ks * 16 + 2 * q4;
+        a[ks][0] = x(r0, k) | x(r0, k + 1) << 16;
+        a[ks][1] = x(r1, k) | x(r1, k + 1) << 16;
+        a[ks][2] = x(r0, k + 8) | x(r0, k + 9) << 16;
+        a[ks][3] = x(r1, k + 8) | x(r1, k + 9) << 16;
+      } else {
+        auto x = [&](int r, int k) -> float {
+          return r < rows && k < U ? xs[r * U + k] : 0.f;
+        };
+        const int k = ks * 8 + q4;
+        a[ks][0] = __float_as_uint(x(r0, k));
+        a[ks][1] = __float_as_uint(x(r1, k));
+        a[ks][2] = __float_as_uint(x(r0, k + 4));
+        a[ks][3] = __float_as_uint(x(r1, k + 4));
+      }
+    }
+    for (int nt = 0; nt < NT8; ++nt) {
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < KSM; ++ks) {
+        if (ks >= t.KS) break;
+        const int i = (ks * NT8 + nt) * 32 + lane;
+        if constexpr (kBf16<T>) {
+          mma_bf16(c, a[ks], reinterpret_cast<const uint2*>(wsm)[i]);
+        } else {
+          const float2 b = reinterpret_cast<const float2*>(wsm)[i];
+          uint32_t ah[4], al[4], bh0, bl0, bh1, bl1;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split_tf32(__uint_as_float(a[ks][j]), ah[j], al[j]);
+          split_tf32(b.x, bh0, bl0);
+          split_tf32(b.y, bh1, bl1);
+          mma_tf32(c, al, bh0, bh1);  // the small terms first
+          mma_tf32(c, ah, bl0, bl1);
+          mma_tf32(c, ah, bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = nt * 8 + 2 * q4 + j;
+        if (n >= U4) continue;
+        float* col = post + cols[n];
+        if (r0 < rows) col[r0 * DHP] = fmaxf(c[j] + bias[n], 0.f);
+        if (r1 < rows) col[r1 * DHP] = fmaxf(c[2 + j] + bias[n], 0.f);
+      }
+    }
+  }
+}
+
+template <int DHP>
+__device__ __forceinline__ void load_vec(float (&r)[DHP], const float* p) {
+#pragma unroll
+  for (int d = 0; d < DHP; d += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + d);
+    r[d] = v.x;
+    r[d + 1] = v.y;
+    r[d + 2] = v.z;
+    r[d + 3] = v.w;
+  }
+}
+
+// q . k, summed in the order of d
+template <int DHP>
+__device__ __forceinline__ float dot_regs(const float (&q)[DHP],
+                                          const float (&k)[DHP]) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < DHP; ++d) s = fmaf(q[d], k[d], s);
+  return s;
+}
+
+// acc += a * v
+template <int DHP>
+__device__ __forceinline__ void axpy_regs(float (&acc)[DHP], float a,
+                                          const float (&v)[DHP]) {
+#pragma unroll
+  for (int d = 0; d < DHP; ++d) acc[d] = fmaf(a, v[d], acc[d]);
+}
+
+// The thread's row of the tile: example e, head h, field f.
+struct Row {
+  int e, h, f, row;  // row = e*F + f, the (example, field) row of the tile
+};
+__device__ __forceinline__ Row row_of(int F, int H) {
+  Row w;
+  const int r = threadIdx.x, HF = H * F;
+  w.e = r / HF;
+  const int hf = r - w.e * HF;
+  w.h = hf / F;
+  w.f = hf - w.h * F;
+  w.row = w.e * F + w.f;
+  return w;
+}
+
+// post's row (which, h, row)
+template <int DHP>
+__device__ __forceinline__ float* post_row(float* post, int which, int h,
+                                           int row, int H, const Tile& t) {
+  return post + (int64_t(which * H + h) * t.RT + row) * DHP;
+}
+
+// Forward, thread (e, h, f): two passes over g, with no F x F buffer: the
+// scores' max, then e_g = exp(s_g - m), z = sum e_g and sum e_g v_g, which
+// 1/z turns into the context; out = relu(ctx + r) in the output's type.
+// A step past F repeats field F - 1 and counts for nothing.
+template <typename T, int DHP>
+__device__ __forceinline__ void attend_fwd(float* post, T* os, int ex, int F,
+                                           int H, int dh, int U, float scale,
+                                           const Tile& t) {
+  constexpr int G = tile_chunk(DHP);
+  if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
+  const Row w = row_of(F, H);
+  const float* kb = post_row<DHP>(post, 1, w.h, w.e * F, H, t);
+  const float* vb = post_row<DHP>(post, 2, w.h, w.e * F, H, t);
+  float q[DHP];
+  load_vec(q, post_row<DHP>(post, 0, w.h, w.row, H, t));
+  float m = neg_inf();
+  for (int g0 = 0; g0 < F; g0 += G) {
+    float k[G][DHP];
+#pragma unroll
+    for (int u = 0; u < G; ++u)
+      load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
+#pragma unroll
+    for (int u = 0; u < G; ++u) m = fmaxf(m, dot_regs(q, k[u]) * scale);
+  }
+  float z = 0.f, acc[DHP] = {};
+  for (int g0 = 0; g0 < F; g0 += G) {
+    float k[G][DHP], v[G][DHP];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
+      load_vec(v[u], vb + min(g0 + u, F - 1) * DHP);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const float p =
+          g0 + u < F ? expf(dot_regs(q, k[u]) * scale - m) : 0.f;
+      z += p;
+      axpy_regs(acc, p, v[u]);
+    }
+  }
+  const float rz = 1.f / z;
+  const float* rr = post_row<DHP>(post, 3, w.h, w.row, H, t);
+  T* o = os + w.row * U + w.h * dh;
+#pragma unroll
+  for (int d = 0; d < DHP; ++d)
+    if (d < dh) store(o + d, fmaxf(acc[d] * rz + rr[d], 0.f));
+}
+
+// Backward pass A, thread (e, h, f): the weights w (kept for pass B), the
+// context as in the forward, dctx = dr = 1[ctx + r > 0] do (dctx replaces
+// r in post), ds = w (dw - t) scale with dw = dctx . v_g and
+// t = sum_g w dw = dctx . ctx (ds kept for pass B), dq = sum_g ds k_g; dr
+// and dq masked by r > 0 and q > 0 into the staged dpre. Each step
+// computes G fields, then stores them.
+template <typename T, int DHP>
+__device__ __forceinline__ void attend_bwd_rows(float* post, float* wgt,
+                                                float* dsb, const T* dos,
+                                                T* os, int ex, int F, int H,
+                                                int dh, int U, float scale,
+                                                const Tile& t) {
+  constexpr int G = tile_chunk(DHP);
+  if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
+  const Row w = row_of(F, H);
+  const float* kb = post_row<DHP>(post, 1, w.h, w.e * F, H, t);
+  const float* vb = post_row<DHP>(post, 2, w.h, w.e * F, H, t);
+  const int64_t wr = (int64_t(w.e * H + w.h) * F + w.f) * t.FP;
+  float* wrow = wgt + wr;
+  float* dsrow = dsb + wr;
+  float m = neg_inf();
+  {  // the scores, in w's row for now
+    float q[DHP];
+    load_vec(q, post_row<DHP>(post, 0, w.h, w.row, H, t));
+    for (int g0 = 0; g0 < F; g0 += G) {
+      float k[G][DHP], s[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        s[u] = dot_regs(q, k[u]) * scale;
+        m = fmaxf(m, s[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        if (g0 + u < F) wrow[g0 + u] = s[u];
+    }
+  }
+  // e_g = exp(s_g - m) in w's row, z, and the context sum e_g v_g
+  float z = 0.f, dc[DHP] = {};
+  for (int g0 = 0; g0 < F; g0 += G) {
+    float v[G][DHP], p[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      load_vec(v[u], vb + min(g0 + u, F - 1) * DHP);
+      p[u] = g0 + u < F ? expf(wrow[g0 + u] - m) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      z += p[u];
+      axpy_regs(dc, p[u], v[u]);
+      if (g0 + u < F) wrow[g0 + u] = p[u];
+    }
+  }
+  const float rz = 1.f / z;
+  float* rr = post_row<DHP>(post, 3, w.h, w.row, H, t);
+  const T* dor = dos + w.row * U + w.h * dh;
+  T* o = os + int64_t(w.row) * 4 * U + w.h * dh;
+  // t = sum_g w_g dw_g = dctx . ctx: one dot product, not a pass over g
+  float tsum = 0.f;
+#pragma unroll
+  for (int d = 0; d < DHP; ++d) {
+    if (d < dh) {
+      const float r = rr[d], ctx = dc[d] * rz;
+      dc[d] = ctx + r > 0.f ? to_f32(dor[d]) : 0.f;
+      store(o + 3 * U + d, r > 0.f ? dc[d] : 0.f);
+      tsum = fmaf(dc[d], ctx, tsum);
+    } else {
+      dc[d] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < DHP; d += 4)
+    *reinterpret_cast<float4*>(rr + d) =
+        make_float4(dc[d], dc[d + 1], dc[d + 2], dc[d + 3]);
+  // w_g = e_g * (1/z) in w's row, dw_g = dctx . v_g,
+  // ds_g = w_g (dw_g - t) scale in ds's row, dq = sum_g ds_g k_g
+  float dq[DHP] = {};
+  for (int g0 = 0; g0 < F; g0 += G) {
+    float k[G][DHP], v[G][DHP], p[G], ds[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int g = min(g0 + u, F - 1);
+      load_vec(v[u], vb + g * DHP);
+      load_vec(k[u], kb + g * DHP);
+      p[u] = g0 + u < F ? wrow[g0 + u] * rz : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      ds[u] = p[u] * (dot_regs(dc, v[u]) - tsum) * scale;
+      axpy_regs(dq, ds[u], k[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      if (g0 + u < F) {
+        wrow[g0 + u] = p[u];
+        dsrow[g0 + u] = ds[u];
+      }
+    }
+  }
+  const float* qr = post_row<DHP>(post, 0, w.h, w.row, H, t);
+#pragma unroll
+  for (int d = 0; d < DHP; ++d)
+    if (d < dh) store(o + d, qr[d] > 0.f ? dq[d] : 0.f);
+}
+
+// Backward pass B, thread (e, h, g): dv = sum_f w[f, g] dctx_f and
+// dk = sum_f ds[f, g] q_f in the order of f, masked by v > 0 and k > 0 into
+// the staged dpre. The sums over f read columns of w and ds: no atomics,
+// and the same order on every run.
+template <typename T, int DHP>
+__device__ __forceinline__ void attend_bwd_cols(float* post,
+                                                const float* wgt,
+                                                const float* dsb, T* os,
+                                                int ex, int F, int H, int dh,
+                                                int U, const Tile& t) {
+  constexpr int G = tile_chunk(DHP);
+  if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
+  const Row w = row_of(F, H);  // w.f is g here
+  const float* wcol = wgt + int64_t(w.e * H + w.h) * F * t.FP + w.f;
+  const float* dscol = dsb + (wcol - wgt);
+  const float* qb = post_row<DHP>(post, 0, w.h, w.e * F, H, t);
+  const float* cb = post_row<DHP>(post, 3, w.h, w.e * F, H, t);  // dctx
+  float dv[DHP] = {}, dk[DHP] = {};
+  for (int f0 = 0; f0 < F; f0 += G) {
+    float c[G][DHP], q[G][DHP], a[G], b[G];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int f = min(f0 + u, F - 1);
+      load_vec(c[u], cb + f * DHP);
+      load_vec(q[u], qb + f * DHP);
+      a[u] = f0 + u < F ? wcol[f * t.FP] : 0.f;
+      b[u] = f0 + u < F ? dscol[f * t.FP] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      axpy_regs(dv, a[u], c[u]);
+      axpy_regs(dk, b[u], q[u]);
+    }
+  }
+  const float* kr = post_row<DHP>(post, 1, w.h, w.row, H, t);
+  const float* vr = post_row<DHP>(post, 2, w.h, w.row, H, t);
+  T* o = os + int64_t(w.row) * 4 * U + w.h * dh;
+#pragma unroll
+  for (int d = 0; d < DHP; ++d) {
+    if (d < dh) {
+      store(o + U + d, kr[d] > 0.f ? dk[d] : 0.f);
+      store(o + 2 * U + d, vr[d] > 0.f ? dv[d] : 0.f);
+    }
+  }
+}
+
+// Stages w_aug and zeroes post (its head padding is read as zeros).
+template <typename T>
+__device__ __forceinline__ void tile_prologue(char* smem, const T* w_aug,
+                                              int U, int H, int dh,
+                                              const Tile& t) {
+  stage_w_tile<T>(smem, w_aug, U, H, dh, t);
+  float4* post = reinterpret_cast<float4*>(smem + t.post_off);
+  const int64_t n = (t.wgt_off - t.post_off) / 16;
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x)
+    post[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <typename T, int DHP>
+__global__ void __launch_bounds__(tile_max_threads(DHP))
+    ab_fwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w_aug,
+                       const T* __restrict__ /*dout*/, T* __restrict__ out,
+                       int64_t B, int F, int H, int dh, float scale, int E) {
+  extern __shared__ __align__(16) char tile_smem[];
+  char* smem = tile_smem;
+  const int U = H * dh;
+  const Tile t = tile_of(false, sizeof(T), E, F, H, dh);
+  float* post = reinterpret_cast<float*>(smem + t.post_off);
+  tile_prologue<T>(smem, w_aug, U, H, dh, t);
+  const int64_t tiles = (B + E - 1) / E, span = int64_t(E) * F * U;
+  auto examples = [&](int64_t tile) {
+    return static_cast<int>(B - tile * E < E ? B - tile * E : E);
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < tiles)
+    load_span(smem + t.in_off, x + tile * span, examples(tile) * F * U);
+  cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles)
+      load_span(smem + t.in_off + ((it + 1) & 1) * t.span_in,
+                x + next * span, examples(next) * F * U);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ex = examples(tile);
+    const T* xs =
+        placed(smem + t.in_off + (it & 1) * t.span_in, x + tile * span);
+    project_tile<T, DHP>(post, xs, smem, ex * F, U, t);
+    __syncthreads();
+    T* os = placed(smem + t.out_off, out + tile * span);
+    attend_fwd<T, DHP>(post, os, ex, F, H, dh, U, scale, t);
+    __syncthreads();
+    store_span(out + tile * span, os, ex * F * U);
+  }
+}
+
+template <typename T, int DHP>
+__global__ void __launch_bounds__(tile_max_threads(DHP))
+    ab_bwd_tile_kernel(const T* __restrict__ x, const T* __restrict__ w_aug,
+                       const T* __restrict__ dout, T* __restrict__ dpre,
+                       int64_t B, int F, int H, int dh, float scale, int E) {
+  extern __shared__ __align__(16) char tile_smem[];
+  char* smem = tile_smem;
+  const int U = H * dh;
+  const Tile t = tile_of(true, sizeof(T), E, F, H, dh);
+  float* post = reinterpret_cast<float*>(smem + t.post_off);
+  float* wgt = reinterpret_cast<float*>(smem + t.wgt_off);
+  float* dsb = reinterpret_cast<float*>(smem + t.wgt_off + t.wgt);
+  tile_prologue<T>(smem, w_aug, U, H, dh, t);
+  const int64_t tiles = (B + E - 1) / E, span = int64_t(E) * F * U;
+  auto examples = [&](int64_t tile) {
+    return static_cast<int>(B - tile * E < E ? B - tile * E : E);
+  };
+  auto stage = [&](int s) { return smem + t.in_off + s * 2 * t.span_in; };
+  auto load = [&](int s, int64_t tile) {
+    const int n = examples(tile) * F * U;
+    load_span(stage(s), x + tile * span, n);
+    load_span(stage(s) + t.span_in, dout + tile * span, n);
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) load(0, tile);
+  cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles) load((it + 1) & 1, next);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ex = examples(tile);
+    const T* xs = placed(stage(it & 1), x + tile * span);
+    const T* dos = placed(stage(it & 1) + t.span_in, dout + tile * span);
+    project_tile<T, DHP>(post, xs, smem, ex * F, U, t);
+    __syncthreads();
+    T* os = placed(smem + t.out_off, dpre + 4 * tile * span);
+    attend_bwd_rows<T, DHP>(post, wgt, dsb, dos, os, ex, F, H, dh, U, scale,
+                            t);
+    __syncthreads();
+    attend_bwd_cols<T, DHP>(post, wgt, dsb, os, ex, F, H, dh, U, t);
+    __syncthreads();
+    store_span(dpre + 4 * tile * span, os, 4 * ex * F * U);
+  }
+}
+
 // ------------------------------------------------------------------ launches
 
 enum Kind { kFaFwd = 0, kFaBwd = 1, kAbFwd = 2, kAbBwd = 3 };
@@ -777,6 +1450,58 @@ cudaError_t ab_bwd(const void* x, const void* w_aug, const void* dout,
       static_cast<cudaStream_t>(stream))));
 }
 
+// K6's tile design: E examples a tile (the wrapper's choice, from the
+// shape), a persistent grid of as many blocks as fit on the card's SMs.
+template <typename T, int DHP, bool BWD>
+cudaError_t ab_tile_launch(const T* x, const T* w_aug, const T* dout, T* y,
+                           int64_t B, int F, int H, int dh, float scale,
+                           int E, cudaStream_t stream) {
+  static cudaError_t attr = cudaErrorNotReady;
+  auto kernel = BWD ? &ab_bwd_tile_kernel<T, DHP>
+                    : &ab_fwd_tile_kernel<T, DHP>;
+  const Tile t = tile_of(BWD, sizeof(T), E, F, H, dh);
+  const int64_t threads = round_up(int64_t(E) * H * F, 32);
+  if (E < 1 || threads > tile_max_threads(DHP) || t.total > kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  if (attr == cudaErrorNotReady)
+    attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, static_cast<int>(threads), t.total);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (B + E - 1) / E;
+  const int64_t most = int64_t(per_sm > 0 ? per_sm : 1) * sms;
+  const int64_t grid = tiles < most ? tiles : most;
+  kernel<<<static_cast<unsigned>(grid), static_cast<unsigned>(threads),
+           t.total, stream>>>(x, w_aug, dout, y, B, F, H, dh, scale, E);
+  return cudaGetLastError();
+}
+
+template <typename T, bool BWD>
+cudaError_t ab_tile(const void* x, const void* w_aug, const void* dout,
+                    void* y, int64_t B, int F, int H, int dh, float scale,
+                    int E, void* stream) {
+  if (!valid(B, F, H, dh) || H * dh > 64) return cudaErrorInvalidValue;
+#define DT_AB_TILE(DHP)                                                    \
+  return ab_tile_launch<T, DHP, BWD>(                                      \
+      static_cast<const T*>(x), static_cast<const T*>(w_aug),              \
+      static_cast<const T*>(dout), static_cast<T*>(y), B, F, H, dh, scale, \
+      E, static_cast<cudaStream_t>(stream))
+  switch (tile_dhp(dh)) {
+    case 8: DT_AB_TILE(8);
+    case 16: DT_AB_TILE(16);
+    case 32: DT_AB_TILE(32);
+    default: DT_AB_TILE(64);
+  }
+#undef DT_AB_TILE
+}
+
 using bf16 = __nv_bfloat16;
 
 }  // namespace
@@ -862,6 +1587,38 @@ int dt_ab_bwd_bf16(const void* x, const void* w_aug, const void* dout,
                    void* scratch, const void* w_f32, void* stream) {
   return static_cast<int>(ab_bwd<bf16>(x, w_aug, dout, dpre, B, F, H, dh,
                                        scale, scratch, w_f32, stream));
+}
+
+// K6, the tile design: E examples a tile.
+int dt_ab_tile_fwd_f32(const void* x, const void* w_aug, void* out,
+                       int64_t B, int F, int H, int dh, float scale, int E,
+                       void* stream) {
+  return static_cast<int>(ab_tile<float, false>(
+      x, w_aug, nullptr, out, B, F, H, dh, scale, E, stream));
+}
+int dt_ab_tile_fwd_bf16(const void* x, const void* w_aug, void* out,
+                        int64_t B, int F, int H, int dh, float scale, int E,
+                        void* stream) {
+  return static_cast<int>(ab_tile<bf16, false>(
+      x, w_aug, nullptr, out, B, F, H, dh, scale, E, stream));
+}
+int dt_ab_tile_bwd_f32(const void* x, const void* w_aug, const void* dout,
+                       void* dpre, int64_t B, int F, int H, int dh,
+                       float scale, int E, void* stream) {
+  return static_cast<int>(ab_tile<float, true>(
+      x, w_aug, dout, dpre, B, F, H, dh, scale, E, stream));
+}
+int dt_ab_tile_bwd_bf16(const void* x, const void* w_aug, const void* dout,
+                        void* dpre, int64_t B, int F, int H, int dh,
+                        float scale, int E, void* stream) {
+  return static_cast<int>(ab_tile<bf16, true>(
+      x, w_aug, dout, dpre, B, F, H, dh, scale, E, stream));
+}
+
+// Bytes of shared memory a tile launch takes.
+int64_t dt_ab_tile_smem(int bwd, int itemsize, int E, int F, int H,
+                        int dh) {
+  return tile_of(bwd != 0, itemsize, E, F, H, dh).total;
 }
 
 const char* dt_fa_error_string(int err) {

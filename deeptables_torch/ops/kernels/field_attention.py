@@ -22,12 +22,15 @@ JAX package's batch-minor ``(H, F, dh, B)`` was a TPU layout); ``w_aug`` is
 ``(U+1, 4U)`` = ``[[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``; dpre is ``(B, F, 4U)``.
 
 The CUDA kernels are in ``deeptables_torch/csrc/field_attention.cu``; its
-header says what bounds them (memory), how the scores stay out of device
-memory and how every shape runs (heads wider than 64 in slices, buffers
-past shared memory in a scratch this module allocates). On a CUDA tensor each wrapper launches its kernel or raises; the
-``*_reference`` functions run for CPU tensors only and are the oracles the
-kernels are held against. The autograd Functions are in
-``ops/attention_grad.py``.
+header says what bounds them, how the scores stay out of device memory and
+how every shape runs (heads wider than 64 in slices, buffers past shared
+memory in a scratch this module allocates). K6 has two designs, named by
+:func:`ab_design` from the shape alone: ``'tile'`` (a block walks tiles of
+several examples, the projection on the tensor cores) wherever its tile
+fits, and ``'warp'`` (one warp an example) past that. On a CUDA tensor each
+wrapper launches its kernel or raises; the ``*_reference`` functions run
+for CPU tensors only and are the oracles the kernels are held against. The
+autograd Functions are in ``ops/attention_grad.py``.
 """
 
 import ctypes
@@ -43,6 +46,11 @@ _FA = {(torch.float32, torch.float32): 'f32_f32',
 _AB = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 # csrc/field_attention.cu's kinds of launch, for dt_fa_scratch_floats
 _KIND = {'fa_fwd': 0, 'fa_bwd': 1, 'ab_fwd': 2, 'ab_bwd': 3}
+
+# K6's tile design (csrc/field_attention.cu, "K6, the tile design")
+_TILE_MAX_U = 64
+_TILE_TARGET_SMEM = 113 * 1024  # two blocks an SM
+_TILE_MAX_SMEM = 232448  # 227 KB, a block's limit on Hopper
 
 
 def scale_for(d_head: int) -> float:
@@ -136,6 +144,81 @@ def ab_mask_margin(x, w_aug, num_heads: int) -> torch.Tensor:
     return pre.abs().amin(dim=(1, 2))
 
 
+def _up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _tile_dhp(d_head: int) -> int:
+    """A head's row in the tile, padded to the kernel's register width."""
+    return 8 if d_head <= 8 else 16 if d_head <= 16 else \
+        32 if d_head <= 32 else 64
+
+
+def _tile_max_threads(d_head: int) -> int:
+    return 512 if _tile_dhp(d_head) <= 16 else 256
+
+
+def ab_tile_smem(kind: str, dtype, examples: int, F: int, H: int,
+                 d_head: int) -> int:
+    """Bytes of shared memory a block of K6's tile design takes for
+    ``kind`` (``'ab_fwd'`` or ``'ab_bwd'``) at ``examples`` a tile, as
+    ``tile_of`` in csrc/field_attention.cu lays it out: w_aug as the
+    projection reads it and the post offset of each of its columns, two
+    stages of the input span(s), q/k/v/r in float32 with each head's row
+    padded, the backward's weights and ds (rows of an odd stride), and the
+    staged output span."""
+    bwd = kind == 'ab_bwd'
+    itemsize = dtype.itemsize
+    U, rows = H * d_head, examples * F
+    n_pad = _up(4 * U, 8)
+    # B fragments of the mma's k-steps (16 deep in bfloat16, 8 in TF32),
+    # then the bias row
+    w = -(-U // (16 if itemsize == 2 else 8)) * n_pad * 32 + n_pad * 4
+    span_in = _up(rows * U * itemsize + 16, 16)
+    post = 4 * H * rows * _tile_dhp(d_head) * 4
+    wgt = H * rows * (F | 1) * 4 if bwd else 0
+    out = _up(rows * (4 if bwd else 1) * U * itemsize + 16, 16)
+    return (_up(_up(w + n_pad * 4, 16) + 2 * (2 if bwd else 1) * span_in
+                + post + 2 * wgt, 16) + out)
+
+
+@functools.lru_cache(maxsize=None)
+def ab_tile_examples(kind: str, dtype, F: int, H: int, d_head: int):
+    """Examples a tile of K6's tile design for ``kind``, or None where the
+    design does not take the shape: U past 64, more (head, field) rows than
+    a block's threads, or one example's tile past shared memory. As many
+    examples as fill the block's threads (a thread a row), no more than
+    leave two blocks an SM (113 KB each), at least one."""
+    if H * d_head > _TILE_MAX_U:
+        return None
+    most = _tile_max_threads(d_head)
+    if H * F > most:
+        return None
+    examples = most // (H * F)
+    while examples > 1 and ab_tile_smem(kind, dtype, examples, F, H,
+                                        d_head) > _TILE_TARGET_SMEM:
+        examples -= 1
+    if ab_tile_smem(kind, dtype, examples, F, H, d_head) > _TILE_MAX_SMEM:
+        return None
+    return examples
+
+
+def ab_design(dtype, B: int, F: int, H: int, d_head: int) -> str:
+    """Which K6 kernels a CUDA call runs, by shape alone (every B runs
+    either): ``'tile'`` (csrc/field_attention.cu's tile design: a block
+    walks tiles of several examples, their rows a thread each, the
+    projection on mma.sync) where both the forward's and the backward's
+    tiles fit (U ≤ 64, H·F rows within a block, one example's buffers
+    within shared memory), else ``'warp'`` (one warp an example; its
+    buffers in shared memory or, past it, in a device scratch)."""
+    del B
+    if dtype not in _AB:
+        return 'warp'
+    fits = all(ab_tile_examples(kind, dtype, F, H, d_head) is not None
+               for kind in ('ab_fwd', 'ab_bwd'))
+    return 'tile' if fits else 'warp'
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('field_attention')
@@ -155,6 +238,14 @@ def _library():
         fn = getattr(lib, f'dt_ab_bwd_{suffix}')
         fn.argtypes = [ctypes.c_void_p] * 4 + tail + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
+    for suffix in _AB.values():
+        for kind, n_ptrs in (('fwd', 3), ('bwd', 4)):
+            fn = getattr(lib, f'dt_ab_tile_{kind}_{suffix}')
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + shape + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    lib.dt_ab_tile_smem.argtypes = [ctypes.c_int] * 6
+    lib.dt_ab_tile_smem.restype = ctypes.c_int64
     lib.dt_fa_scratch_floats.argtypes = [ctypes.c_int] + shape
     lib.dt_fa_scratch_floats.restype = ctypes.c_int64
     lib.dt_ab_w_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -221,6 +312,20 @@ def _launch(what, fn_name, ptrs, B, F, num_heads, d_head, device,
         raise RuntimeError(f'{what} kernel launch failed at (B, F, H, dh) = '
                            f'{(B, F, num_heads, d_head)}: CUDA error {err} '
                            f'({lib.dt_fa_error_string(err).decode()})')
+
+
+def _launch_tile(what, ptrs, x, num_heads, d_head):
+    """Launch K6's tile design for x's type, E examples a tile."""
+    lib = _library()
+    B, F, _ = x.shape
+    examples = ab_tile_examples(what, x.dtype, F, num_heads, d_head)
+    fn = getattr(lib, f'dt_{what[:2]}_tile_{what[3:]}_{_AB[x.dtype]}')
+    err = fn(*ptrs, B, F, num_heads, d_head, scale_for(d_head), examples,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'{what} tile kernel launch failed at (B, F, H, '
+                           f'dh) = {(B, F, num_heads, d_head)}: CUDA error '
+                           f'{err} ({lib.dt_fa_error_string(err).decode()})')
 
 
 def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -312,8 +417,12 @@ def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        _launch('ab_fwd', f'dt_ab_fwd_{_AB[x.dtype]}', _ptrs(x, w_aug, out),
-                B, F, num_heads, dh, x.device, w_aug)
+        if ab_design(x.dtype, B, F, num_heads, dh) == 'tile':
+            _launch_tile('ab_fwd', _ptrs(x, w_aug, out), x, num_heads, dh)
+        else:
+            _launch('ab_fwd', f'dt_ab_fwd_{_AB[x.dtype]}',
+                    _ptrs(x, w_aug, out), B, F, num_heads, dh, x.device,
+                    w_aug)
     ab_fwd.launches += 1
     return out
 
@@ -338,9 +447,13 @@ def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
     if dpre.numel() == 0:
         return dpre
     with torch.cuda.device(x.device):
-        _launch('ab_bwd', f'dt_ab_bwd_{_AB[x.dtype]}',
-                _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh, x.device,
-                w_aug)
+        if ab_design(x.dtype, B, F, num_heads, dh) == 'tile':
+            _launch_tile('ab_bwd', _ptrs(x, w_aug, do, dpre), x, num_heads,
+                         dh)
+        else:
+            _launch('ab_bwd', f'dt_ab_bwd_{_AB[x.dtype]}',
+                    _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh,
+                    x.device, w_aug)
     ab_bwd.launches += 1
     return dpre
 

@@ -593,10 +593,47 @@ def test_field_attention_kernels_match_reference(cuda, B, F, H, dh, dtype,
         _fa_close(got, ref)
 
 
+# K6's tile design at ragged tiles: every B, F and (H, dh) of these (the
+# shapes of FA_SHAPES left out), then the shapes on each side of where the
+# design hands over to the one-warp kernels: U = 64 and 72; F = 104 and
+# 105 at (2, 8) in bfloat16, F = 38 and 39 at (4, 16) in float32, where
+# the backward's tile outgrows shared memory
+AB_TILE_SHAPES = [
+    shape for shape in
+    [(B, F, H, dh) for B in (1, 7, 4093, 8192) for F in (3, 7, 22, 39)
+     for H, dh in ((2, 8), (1, 16), (4, 16), (3, 5))]
+    + [(37, 22, 1, 64), (37, 22, 1, 72), (37, 104, 2, 8), (37, 105, 2, 8),
+       (37, 38, 4, 16)]
+    if shape not in FA_SHAPES]
+# (F, H, dh, dtype) that run the one-warp kernels (dtype None: both types):
+# U past 64, and the tiles past shared memory
+AB_WARP = {(7, 1, 96, None), (7, 2, 128, None), (200, 2, 8, None),
+           (160, 2, 8, None), (80, 1, 64, None), (22, 1, 128, None),
+           (22, 2, 64, None), (22, 1, 72, None), (105, 2, 8, None),
+           (104, 2, 8, torch.float32), (39, 4, 16, torch.float32)}
+
+
+def _block_inputs(B, F, H, dh, dtype, seed):
+    """x, w_aug, do for K6 and the examples outside the relu masks'
+    margin (``ab_mask_margin``), at least half of them and one at least:
+    an example within the margin cannot be compared, and at B = 1 a draw
+    may leave none, so this takes the first of a few seeds that leaves
+    enough."""
+    for s in range(seed, seed + 8):
+        _, _, _, _, x, w, dx = _fa_inputs(B, F, H, dh, dtype, dtype, s)
+        keep = (fa.ab_mask_margin(x, w, H) >= 1e-5).cpu()
+        if int(keep.sum()) >= max(1, B / 2):
+            return x, w, dx, keep
+    raise AssertionError(f'no draw of {(B, F, H, dh)} leaves half the '
+                         f'examples outside the mask margin')
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES)
+@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES + AB_TILE_SHAPES)
 def test_attention_block_kernels_match_reference(cuda, B, F, H, dh, dtype):
-    _, _, _, _, x, w, dx = _fa_inputs(B, F, H, dh, dtype, dtype, 3 * B + F)
+    warp = {(F, H, dh, None), (F, H, dh, dtype)} & AB_WARP
+    assert fa.ab_design(dtype, B, F, H, dh) == ('warp' if warp else 'tile')
+    x, w, dx, keep = _block_inputs(B, F, H, dh, dtype, 3 * B + F)
     before = fa.ab_fwd.launches, fa.ab_bwd.launches
     out = fa.ab_fwd(x, w, H)
     dpre = fa.ab_bwd(x, w, dx, H)
@@ -604,9 +641,34 @@ def test_attention_block_kernels_match_reference(cuda, B, F, H, dh, dtype):
     assert (fa.ab_fwd.launches, fa.ab_bwd.launches) == (before[0] + 1,
                                                        before[1] + 1)
     _fa_close(out, fa.ab_fwd_reference(x, w, H))
-    keep = (fa.ab_mask_margin(x, w, H) >= 1e-5).cpu()
-    assert int(keep.sum()) >= B / 2
     _fa_close(dpre, fa.ab_bwd_reference(x, w, dx, H), keep)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,H,dh', [(8192, 22, 2, 8), (4093, 39, 3, 5)])
+def test_attention_block_tile_kernels_are_deterministic(cuda, B, F, H, dh,
+                                                        dtype):
+    """The tile design sums in a fixed order, without atomics: two runs
+    give the same bits."""
+    assert fa.ab_design(dtype, B, F, H, dh) == 'tile'
+    _, _, _, _, x, w, dx = _fa_inputs(B, F, H, dh, dtype, dtype, 5)
+    assert torch.equal(fa.ab_fwd(x, w, H), fa.ab_fwd(x, w, H))
+    assert torch.equal(fa.ab_bwd(x, w, dx, H), fa.ab_bwd(x, w, dx, H))
+
+
+@pytest.mark.parametrize('kind', ['ab_fwd', 'ab_bwd'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('F,H,dh', [(22, 2, 8), (7, 3, 5), (39, 1, 16),
+                                    (22, 1, 64), (3, 4, 16)])
+def test_attention_block_tile_plan_matches_the_kernel(cuda, kind, dtype, F,
+                                                      H, dh):
+    """The wrapper's shared-memory sum is the kernel's layout."""
+    lib = fa._library()
+    examples = fa.ab_tile_examples(kind, dtype, F, H, dh)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert lib.dt_ab_tile_smem(int(kind == 'ab_bwd'), itemsize, examples, F,
+                               H, dh) == fa.ab_tile_smem(kind, dtype,
+                                                         examples, F, H, dh)
 
 
 def test_field_attention_kernels_reject_what_they_do_not_take(cuda):
