@@ -47,10 +47,10 @@ these phases, each printing one JSON line:
    ``scaled_dot_product_attention`` and ``torch.autograd.grad`` of it.
    Then one bfloat16 row a kernel (``lifted``) at B=64 past the register
    width and shared memory: K5 at F=200, one head of dh=128; K6 at F=22,
-   U=128. K6's rows name the design that ran (``ab_design``: ``tile`` at
-   AutoInt's shapes in both types, which the script checks; ``warp`` at the
-   lifted shape) and what ``ptxas`` reports for its kernel (registers,
-   spill bytes).
+   U=128. Every row names the design that ran (``fa_design``,
+   ``ab_design``: ``tile`` at AutoInt's shapes in every type pair, which
+   the script checks; ``warp`` at the lifted shapes) and what ``ptxas``
+   reports for its kernel (registers, spill bytes).
 6. For DeepFM, xDeepFM (26 categorical columns at D=16, 13 dense, DNN
    1024/512 relu; xDeepFM's CIN (128, 128) relu) and then AutoInt and
    AutoInt with ``fuse_projections`` (the 22 avazu-style columns of
@@ -83,11 +83,11 @@ these phases, each printing one JSON line:
      time by kernel, busy share; ``cin_kernels``: every CIN kernel by name,
      and for xDeepFM a check that bfloat16 ran K3's tensor-core passes and
      float32 its CUDA-core ones; ``fa_kernels``: every field-attention
-     kernel by name, and for the fused AutoInt a check that it ran K6's
-     tile kernels, in bfloat16 (block 0) and float32 (blocks 1-2, after
-     BatchNorm's promotion) under ``'bfloat16'``, in float32 only under
-     ``'float32'``, and never the one-warp ones). Then the same initial
-     weights on the card
+     kernel by name, and for both AutoInt models a check that they ran
+     the tile kernels, K5's (K6's when fused), in bfloat16 (block 0) and
+     float32 (blocks 1-2, after BatchNorm's promotion) under
+     ``'bfloat16'``, in float32 only under ``'float32'``, and never the
+     one-warp ones). Then the same initial weights on the card
      and on ``device='cpu'`` (the plain path), at 8192-row batches for
      DeepFM and 1024-row batches for xDeepFM (the CPU plain path
      materialises the CIN pair) and AutoInt, give the same step-1
@@ -100,7 +100,8 @@ these phases, each printing one JSON line:
      ~lr).
 
 Then one ``kernels`` line (every ported kernel, its launches on the serving
-and training runs, error and times), the ``nvidia-smi`` line again, and
+and training runs, for the field-attention kernels also by type, error and
+times), the ``nvidia-smi`` line again, and
 last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
 nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
@@ -613,19 +614,29 @@ def fa_bound(kernel, B, F, H, dh, itemsize, out_itemsize):
                                                            'operations')
 
 
-def ab_ptxas(fa, name, dtype, dh, design):
-    """ptxas's report of the K6 kernel a launch runs: the tile kernel's
-    instantiation (type, padded head), or for the one-warp design the most
-    registers and spill bytes over its instantiations for the type."""
-    t = '13__nv_bfloat16' if str(dtype) == 'torch.bfloat16' else 'f'
+def fa_ptxas(fa, name, dtype, dh, design, out_dtype=None):
+    """ptxas's report of the K5 or K6 kernel a launch runs: the tile
+    kernel's instantiation (input type, for K5 also the output's or do's
+    type ``out_dtype``, padded head), or for the one-warp design the most
+    registers and spill bytes over its instantiations for the types. The
+    types are matched in the mangled name: a second bfloat16 is a
+    substitution (``S<n>_``)."""
+    def mangled(t):
+        return '13__nv_bfloat16' if t == 'bfloat16' else 'f'
+    t = mangled(dtype)
+    if out_dtype is not None:
+        t += r'S\d*_' if out_dtype == dtype == 'bfloat16' \
+            else mangled(out_dtype)
     if design == 'tile':
-        needle = f'{name}_tile_kernelI{t}Li{fa._tile_dhp(dh)}EE'
-        found = [v for k, v in PTXAS.items() if needle in k]
+        pattern = re.compile(f'{name}_tile_kernelI{t}Li{fa._tile_dhp(dh)}EE')
+        found = [(pattern.search(k).group(0), v) for k, v in PTXAS.items()
+                 if pattern.search(k)]
         check(len(found) == 1, f'ptxas reports {len(found)} kernels '
-                               f'{needle}')
-        return dict(found[0], kernel=needle)
-    found = [v for k, v in PTXAS.items() if f'{name}_kernelI{t}' in k]
-    check(len(found) > 0, f'ptxas reports no {name}_kernel for {dtype}')
+                               f'{pattern.pattern}')
+        return dict(found[0][1], kernel=found[0][0])
+    pattern = re.compile(f'{name}_kernelI{t}L')
+    found = [v for k, v in PTXAS.items() if pattern.search(k)]
+    check(len(found) > 0, f'ptxas reports no {pattern.pattern}')
     return {'registers': max(v.get('registers', 0) for v in found),
             'spill_bytes': max(v.get('spill_stores', 0)
                                + v.get('spill_loads', 0) for v in found),
@@ -656,7 +667,7 @@ def fa_kernel_phase(torch, fa):
         itemsize = torch.empty((), dtype=dtype).element_size()
         out_itemsize = torch.empty((), dtype=out_dtype).element_size()
         same = dtype_name == out_name
-        for B in FA_BATCHES if same else FA_BATCHES[:1]:
+        for B in FA_BATCHES:
             def make():
                 def randn(shape, t, std=1.0):
                     return (std * torch.randn(shape, generator=gen,
@@ -667,10 +678,13 @@ def fa_kernel_phase(torch, fa):
                         randn((U + 1, 4 * U), dtype, 0.35),
                         randn((B, F, U), dtype))
             q, k, v, do, x, w, dx = make()
-            design = fa.ab_design(dtype, B, F, H, dh)
-            check(design == 'tile', f'AutoInt\'s block ({dtype_name}, B={B}, '
-                                    f'F={F}, H={H}, dh={dh}) runs the '
-                                    f'{design} K6 design')
+            design = {'fa': fa.fa_design(dtype, out_dtype, B, F, H, dh)}
+            if same:
+                design['ab'] = fa.ab_design(dtype, B, F, H, dh)
+            for kernel, d in design.items():
+                check(d == 'tile', f'AutoInt\'s shape ({dtype_name}->'
+                                   f'{out_name}, B={B}, F={F}, H={H}, '
+                                   f'dh={dh}) runs the {d} {kernel} design')
             outs = {'fa_fwd': (fa.fa_fwd(q, k, v, H, out_dtype),),
                     'fa_bwd': fa.fa_bwd(q, k, v, do, H)}
             refs = {'fa_fwd': (fa.fa_fwd_reference(q, k, v, H, out_dtype),),
@@ -755,9 +769,10 @@ def fa_kernel_phase(torch, fa):
                        'buffers': len(bufs)}
                 if name == 'ab_bwd':
                     row['excluded_examples'] = excluded
-                if name in ('ab_fwd', 'ab_bwd'):
-                    row['design'] = design
-                    row['ptxas'] = ab_ptxas(fa, name, dtype, dh, design)
+                row['design'] = design[name[:2]]
+                row['ptxas'] = fa_ptxas(
+                    fa, name, dtype_name, dh, row['design'],
+                    out_name if name[:2] == 'fa' else None)
                 rows[name].append(row)
             del bufs, head_bufs, graphs, q, k, v, do, x, w, dx
             torch.cuda.empty_cache()
@@ -828,9 +843,11 @@ def fa_lifted_rows(torch, fa, gen, rows):
                'bound_by': bound_by}
         if keep is not None:
             row['excluded_examples'] = int((~keep).sum())
-        if name in ('ab_fwd', 'ab_bwd'):
-            row['design'] = fa.ab_design(dtype, B, F, H, dh)
-            row['ptxas'] = ab_ptxas(fa, name, dtype, dh, row['design'])
+        k5 = name[:2] == 'fa'
+        row['design'] = fa.fa_design(dtype, dtype, B, F, H, dh) if k5 \
+            else fa.ab_design(dtype, B, F, H, dh)
+        row['ptxas'] = fa_ptxas(fa, name, 'bfloat16', dh, row['design'],
+                                'bfloat16' if k5 else None)
         rows[name].append(row)
         del outs, refs, args, x, k, v, do, w
     torch.cuda.empty_cache()
@@ -856,10 +873,14 @@ def fa_entry(name, rows, launches):
     """The `kernels` entry of a field-attention kernel, at FA_HEADLINE."""
     head = next(r for r in rows if (r['dtype'], r['B']) == FA_HEADLINE
                 and r['out_dtype'] == r['dtype'])
+    by_type = LAUNCHES_BY_TYPE.get(name, {})
+    check(sum(by_type.values()) == launches,
+          f'{name}: launches by type {by_type} do not sum to {launches}')
     replaces, note = FA_KERNELS[name]
     return {'name': name, 'route': 'cuda',
             'source': 'deeptables_torch/csrc/field_attention.cu',
             'replaces': replaces, 'launches': launches,
+            'launches_by_type': by_type,
             'max_abs_err': head['max_abs_err'], 'ms': head['ms'],
             'plain_ms': head['plain_ms'], 'bound_ms': head['bound_ms'],
             'bound_by': head['bound_by'], 'library_ms': head['library_ms'],
@@ -1002,6 +1023,28 @@ def estimator(model):
                                  get_model=lambda selector: model)
 
 
+# the field-attention kernels' launches on the main paths by type (their
+# wrappers' launches_by_type), summed over the serving and training runs
+LAUNCHES_BY_TYPE = {}
+
+
+def reset_launches(kernel_fns):
+    for fn in kernel_fns.values():
+        fn.launches = 0
+        if hasattr(fn, 'launches_by_type'):
+            fn.launches_by_type.clear()
+
+
+def read_launches(kernel_fns):
+    """Each kernel's launches since reset_launches; the counts by type go
+    to LAUNCHES_BY_TYPE as well. Read once a run."""
+    for name, fn in kernel_fns.items():
+        by_type = LAUNCHES_BY_TYPE.setdefault(name, {})
+        for key, n in getattr(fn, 'launches_by_type', {}).items():
+            by_type[key] = by_type.get(key, 0) + n
+    return {name: fn.launches for name, fn in kernel_fns.items()}
+
+
 def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
                   model_name='DeepFM'):
     """Serve the requests on the card; the forward kernel's launch count
@@ -1016,8 +1059,7 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
     build_s = time.perf_counter() - t0
     check(model.device.type == 'cuda', f'model is on {model.device}')
 
-    for other in kernel_fns.values():
-        other.launches = 0
+    reset_launches(kernel_fns)
     t0 = time.perf_counter()
     predictor.warmup()
     warmup_s = time.perf_counter() - t0
@@ -1046,7 +1088,7 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
         served.append({'n': n, 'bucket': bucket, 'chunks': chunks,
                        'ms': times, 'ms_median': sorted(times)[REPEATS // 2],
                        'row_sum_err': row_sum_err})
-    launches = {k: f.launches for k, f in kernel_fns.items()}
+    launches = read_launches(kernel_fns)
     check(launches[name] > 0, f'the serving run never launched {name}')
     check(all(v == 0 for k, v in launches.items() if k != name),
           f'{model_name} serving launched {launches}')
@@ -1136,13 +1178,12 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
         return out
     model._train_step = timed_step
 
-    for fn in kernel_fns.values():
-        fn.launches = 0
+    reset_launches(kernel_fns)
     t0 = time.perf_counter()
     history = model.fit(train[0], train[1], batch_size=TRAIN_BATCH,
                         epochs=TRAIN_EPOCHS, validation_data=val, verbose=0)
     fit_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches = read_launches(kernel_fns)
     del model._train_step
     steps = len(step_s)
     logs = {k: list(v) for k, v in history.history.data.items()}
@@ -1205,19 +1246,21 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
                    'device_ms': e.self_device_time_total / 1e3}
                   for e in device
                   if re.search(r'(fa|ab)_(fwd|bwd)(_tile)?_kernel<', e.key)]
-    if model_name == 'AutoInt-fused':
-        # K6 by name: the tile kernels, in bfloat16 (block 0) and float32
-        # (blocks 1-2: BatchNorm returns float32) under 'bfloat16'
+    if model_name in AUTOINT_MODELS:
+        # K5 (K6 when fused) by name: the tile kernels, in bfloat16 (block
+        # 0) and float32 (blocks 1-2: BatchNorm returns float32) under
+        # 'bfloat16', and never the one-warp ones
+        k = 'ab' if model_name == 'AutoInt-fused' else 'fa'
         types = ('__nv_bfloat16', 'float') if dtype_policy == 'bfloat16' \
             else ('float',)
-        names = [f'ab_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
-                 for t in ('__nv_bfloat16', 'float')] + ['ab_fwd_kernel<',
-                                                         'ab_bwd_kernel<']
-        ran = {k for k in names if any(k in e.key for e in device)}
-        want = {f'ab_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
+        names = [f'{k}_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
+                 for t in ('__nv_bfloat16', 'float')] + [f'{k}_fwd_kernel<',
+                                                         f'{k}_bwd_kernel<']
+        ran = {n for n in names if any(n in e.key for e in device)}
+        want = {f'{k}_{p}_tile_kernel<{t}' for p in ('fwd', 'bwd')
                 for t in types}
-        check(ran == want, f'AutoInt-fused {dtype_policy} training ran the '
-                           f'K6 kernels {sorted(ran)}, expected '
+        check(ran == want, f'{model_name} {dtype_policy} training ran the '
+                           f'{k} kernels {sorted(ran)}, expected '
                            f'{sorted(want)}')
 
     # the same initial weights on the card and the CPU: the gradients of

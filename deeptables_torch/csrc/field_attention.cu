@@ -22,54 +22,60 @@
 // (tensor cores). The least time is the bytes: q, k, v read once and o
 // written once (K5-fwd); q, k, v, do read and dq, dk, dv written (K5-bwd);
 // x read and out written (K6-fwd); x, do read and dpre written (K6-bwd).
-// What holds the kernels back is instructions, not bytes: on an H100 the
-// one-warp K6-fwd (below) took 141 us at bf16 B=8192 for 11.5 MB that the
-// card moves in 3.4 us: a scalar projection of two shared-memory loads an
-// FMA, 10 of 32 lanes idle at F=22, scalar row copies with an integer
-// division an element, w_aug restaged for every 8 examples, and three
-// passes through an F x F row buffer even in the forward.
+// What holds the kernels back is the work inside the SM, not the bytes: the
+// first, one-warp design (below) took 141 us for K6-fwd and 61 us for
+// K5-fwd at bf16 B=8192 on an H100, for 11.5 MB that the card moves in 3.4
+// and 6.9 us: 10 of 32 lanes idle at F=22, scalar row copies with an
+// integer division an element, and three passes through an F x F row
+// buffer even in the forward.
 //
-// K6, the tile design (the main path: U <= 64 and tiles that fit in
-// shared memory; ops/kernels/field_attention.py's ab_design names it):
-// - A persistent grid walks tiles of E examples (E*F*U contiguous elements);
-//   thread r owns the (example, head, field) row r of the tile, so E*H*F
-//   rows fill the block to within a warp (AutoInt: 11 examples, 484 threads
-//   forward; 5 examples backward, its shared memory's limit for two blocks
-//   an SM). w_aug is staged once a block.
-// - The next tile's x (and do) comes into a second stage by 16-byte
-//   cp.async while the current one is computed; outputs (K6-bwd: the
-//   4U-wide dpre rows) are staged and written with 16-byte stores. A span
-//   is placed at its address mod 16, so any tile offset and a partial last
-//   tile work: the ragged ends are copied element by element.
-// - The projection runs on mma.sync: bfloat16 x and w_aug as m16n8k16 with
-//   float32 accumulators (exact products, float32 sums, as the TPU kernel's
-//   dot_general with preferred_element_type=float32); float32 as 3xTF32 on
-//   m16n8k8 (lo*hi + hi*lo + hi*hi, the float32 product to ~2^-22; plain
-//   TF32 would miss the 1e-5 tolerance). FMAs on the CUDA cores (8 rows by
-//   4 columns a thread) were timed against 3xTF32 and lost. The bias is
-//   added in float32 in the epilogue, and relu(pre) goes to the float32
-//   q/k/v/r tile through a table of each column's offset. Not wgmma: K = U
-//   is one or a few 16-deep steps and N = 4U = 64, 0.37 GFLOP a call at
-//   B=8192, under a microsecond at mma.sync's rate; a 64-row warpgroup tile
-//   with shared-memory descriptors buys nothing here.
-// - The attention is float32 on the CUDA cores, as in the TPU kernel: a
-//   thread keeps its q row and its context (or gradient) sums in registers
-//   and reads k and v rows as float4 broadcasts (the lanes of one (e, h)
-//   read the same row), two fields a step. The forward keeps no F x F
-//   buffer: the scores' max, then one pass of exp, sum and weighted sum,
-//   scaled by 1/z. The backward keeps w and ds (rows of an odd stride) for
-//   its sums over the query field, which a thread per key field takes in a
-//   fixed order: no atomics, the same bits on every run; it takes
-//   sum_g w dw as dctx . ctx, so dw, ds and dq share one pass over g.
-// - What bounds it now (measured on an H100, PERF.md): the attention, at
-//   ~1 instruction a cycle an SM. Its dependent chains of 16-byte shared
-//   loads and FMAs want more warps than the registers (~120 a thread) and
-//   the backward's shared memory (~20 KB an example: q/k/v/r, w and ds)
-//   leave: 15 warps an SM forward, 14 backward. Two rows a thread (half
-//   the loads) and a row split over two threads (twice the threads, no
-//   more warps for the registers) were both slower.
+// The tile design, K5's and K6's (the main path: tiles that fit in shared
+// memory; ops/kernels/field_attention.py's fa_design and ab_design name it):
+// - A persistent grid walks tiles of E examples (E*F*U contiguous elements
+//   of each operand); thread r owns the (example, head, field) row r of the
+//   tile, so E*H*F rows fill the block to within a warp. E is the most
+//   that fill the block's threads and leave two blocks an SM (113 KB).
+// - The next tile's inputs (K5: q, k, v and, backward, do; K6: x and, backward,
+//   do) come into a second stage by 16-byte cp.async while the current one
+//   is computed; outputs are staged and written with 16-byte stores (K5
+//   stages them over the inputs its tile has read). A span is placed at its
+//   address mod 16, so any tile offset and a partial last tile work: the
+//   ragged ends are copied element by element.
+// - K6 projects: w_aug staged once a block, the projection on mma.sync
+//   (bfloat16 x and w_aug as m16n8k16 with float32 accumulators, exact
+//   products and float32 sums as the TPU kernel's dot_general; float32 as
+//   3xTF32 on m16n8k8, lo*hi + hi*lo + hi*hi, the float32 product to
+//   ~2^-22, where plain TF32 would miss the 1e-5 tolerance; FMAs on the CUDA
+//   cores were timed and lost), bias and relu(pre) in float32 into the
+//   q/k/v/r tile. K5 widens its staged q, k and v into that tile, a thread
+//   its own head rows.
+// - The attention is one function body for both (attend_fwd,
+//   attend_bwd_rows, attend_bwd_cols), K6's residual, relu and masks behind
+//   a compile-time switch; float32 on the CUDA cores, as in the TPU kernel.
+//   A thread keeps its q row and its context (or gradient) sums in
+//   registers and reads k and v rows as float4 broadcasts (the lanes of one
+//   (e, h) read the same row), two fields a step. The forward takes the
+//   scores' max, then one pass of exp, sum and weighted sum, scaled by 1/z
+//   (K5 keeps the scores in a row of an odd stride between the two passes;
+//   K6 computes them twice and keeps no F x F buffer). The backward keeps w
+//   and ds (rows of an odd stride) for its sums over the query field, which
+//   a thread per key field takes in a fixed order: no atomics, the same bits
+//   on every run; it takes sum_g w dw as dctx . ctx, so dw, ds and dq share
+//   one pass over g.
+// - A thread's head rows of the staged spans (K5's q, k, v; do; the
+//   outputs) are read and written 16 bytes at a time where they are
+//   aligned: the lanes of a warp work on rows U apart, and element accesses
+//   at that stride meet the same banks (8 to 16 ways at U = 16).
+// - What bounds it now (read from the times on an H100 in PERF.md and the
+//   count of accesses; the card has no profiler of the SM's pipes): shared
+//   memory's delivery to registers, 128 bytes a cycle an SM, against which
+//   every float4 broadcast of a k or v row counts whole, and the latency of
+//   the dependent chains of those loads and FMAs at 14-30 warps an SM (K6's
+//   registers, ~120 a thread; the backward's shared memory, ~20 KB an
+//   example: q/k/v, w and ds). Two rows a thread (half the loads) and a row
+//   split over two threads were both slower for K6.
 //
-// K5, and K6 past the tile (the one-warp design): one warp owns one example
+// Past the tile (the one-warp design, K5 and K6): one warp owns one example
 // b; a block holds up to 8 warps. The warp copies the example's rows into
 // shared memory as float32 (coalesced: the example's F*U values are
 // contiguous), then works per head h with lane = query field f (looping for
@@ -643,10 +649,11 @@ __host__ __device__ __forceinline__ int64_t round_up(int64_t a, int64_t b) {
 }
 
 // Byte sizes and offsets of a tile launch. ops/kernels/field_attention.py
-// (ab_tile_smem) computes the same total.
+// (ab_tile_smem, fa_tile_smem) computes the same total.
 struct Tile {
   int RT, FP, NP, KS;
   int64_t span_in, cols_off, in_off, post_off, wgt_off, wgt, out_off, total;
+  int64_t stage = 0;  // K5: one stage of the input spans (q, k, v, do)
 };
 
 __host__ __device__ __forceinline__ Tile tile_of(bool bwd, int itemsize,
@@ -670,6 +677,30 @@ __host__ __device__ __forceinline__ Tile tile_of(bool bwd, int itemsize,
   t.out_off = round_up(t.wgt_off + 2 * t.wgt, 16);
   t.total = t.out_off +
             round_up(int64_t(t.RT) * (bwd ? 4 : 1) * U * itemsize + 16, 16);
+  return t;
+}
+
+// K5's tile: no w_aug; a stage holds the q, k and v spans (itemsize) and,
+// backward, do's (out_itemsize); post holds q, k, v and, backward, dctx.
+// The outputs are staged in the stage their tile's inputs came from, which
+// the attention no longer reads: o over q, k and v; dq, dk, dv over q, k, v.
+__host__ __device__ __forceinline__ Tile fa_tile_of(bool bwd, int itemsize,
+                                                    int out_itemsize, int E,
+                                                    int F, int H, int dh) {
+  Tile t;
+  const int U = H * dh;
+  t.RT = E * F;
+  t.FP = odd(F);
+  t.NP = t.KS = 0;
+  t.span_in = round_up(int64_t(t.RT) * U * itemsize + 16, 16);
+  t.stage = 3 * t.span_in +
+            (bwd ? round_up(int64_t(t.RT) * U * out_itemsize + 16, 16) : 0);
+  t.cols_off = t.in_off = 0;
+  t.post_off = 2 * t.stage;
+  t.wgt = int64_t(H) * t.RT * t.FP * 4;
+  t.wgt_off =
+      t.post_off + int64_t(bwd ? 4 : 3) * H * t.RT * tile_dhp(dh) * 4;
+  t.out_off = t.total = t.wgt_off + (bwd ? 2 : 1) * t.wgt;
   return t;
 }
 
@@ -904,6 +935,80 @@ __device__ __forceinline__ void axpy_regs(float (&acc)[DHP], float a,
   for (int d = 0; d < DHP; ++d) acc[d] = fmaf(a, v[d], acc[d]);
 }
 
+// A head row of a staged span: dh values of T at p, read as float32 (zeros
+// past dh) or written from float32 (rounded once). 16-byte accesses where
+// the row starts on a 16-byte boundary and dh fills whole 16-byte chunks,
+// else one element at a time: the lanes of a warp work on rows U apart,
+// and element accesses at that stride meet the same banks.
+__device__ __forceinline__ void unpack16(float* r, int4 x, float) {
+  r[0] = __int_as_float(x.x);
+  r[1] = __int_as_float(x.y);
+  r[2] = __int_as_float(x.z);
+  r[3] = __int_as_float(x.w);
+}
+__device__ __forceinline__ void unpack16(float* r, int4 x, __nv_bfloat16) {
+  const uint32_t w[4] = {static_cast<uint32_t>(x.x), static_cast<uint32_t>(x.y),
+                         static_cast<uint32_t>(x.z), static_cast<uint32_t>(x.w)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bfloat16 is a float32's top half
+    r[2 * i] = __uint_as_float(w[i] << 16);
+    r[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ int4 pack16(const float* r, float) {
+  return make_int4(__float_as_int(r[0]), __float_as_int(r[1]),
+                   __float_as_int(r[2]), __float_as_int(r[3]));
+}
+__device__ __forceinline__ int4 pack16(const float* r, __nv_bfloat16) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = bf16_bits(__float2bfloat16_rn(r[2 * i])) |
+           bf16_bits(__float2bfloat16_rn(r[2 * i + 1])) << 16;
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                   static_cast<int>(w[2]), static_cast<int>(w[3]));
+}
+template <typename T>
+__device__ __forceinline__ bool chunked(const T* p, int dh) {
+  return dh % (16 / static_cast<int>(sizeof(T))) == 0 &&
+         (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int DHP, typename T>
+__device__ __forceinline__ void load_row(float (&r)[DHP], const T* p,
+                                         int dh) {
+  constexpr int V = 16 / sizeof(T);
+  if (chunked(p, dh)) {
+#pragma unroll
+    for (int c = 0; c < DHP; c += V) {
+      if (c < dh) {
+        unpack16(r + c, *reinterpret_cast<const int4*>(p + c), T());
+      } else {
+#pragma unroll
+        for (int d = c; d < c + V; ++d) r[d] = 0.f;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < DHP; ++d) r[d] = d < dh ? to_f32(p[d]) : 0.f;
+  }
+}
+
+template <int DHP, typename T>
+__device__ __forceinline__ void store_row(T* p, const float (&r)[DHP],
+                                          int dh) {
+  constexpr int V = 16 / sizeof(T);
+  if (chunked(p, dh)) {
+#pragma unroll
+    for (int c = 0; c < DHP; c += V)
+      if (c < dh) *reinterpret_cast<int4*>(p + c) = pack16(r + c, T());
+  } else {
+#pragma unroll
+    for (int d = 0; d < DHP; ++d)
+      if (d < dh) store(p + d, r[d]);
+  }
+}
+
 // The thread's row of the tile: example e, head h, field f.
 struct Row {
   int e, h, f, row;  // row = e*F + f, the (example, field) row of the tile
@@ -926,66 +1031,98 @@ __device__ __forceinline__ float* post_row(float* post, int which, int h,
   return post + (int64_t(which * H + h) * t.RT + row) * DHP;
 }
 
-// Forward, thread (e, h, f): two passes over g, with no F x F buffer: the
-// scores' max, then e_g = exp(s_g - m), z = sum e_g and sum e_g v_g, which
-// 1/z turns into the context; out = relu(ctx + r) in the output's type.
-// A step past F repeats field F - 1 and counts for nothing.
-template <typename T, int DHP>
-__device__ __forceinline__ void attend_fwd(float* post, T* os, int ex, int F,
-                                           int H, int dh, int U, float scale,
+// The attention of both tile designs. BLOCK is K6's switch: the residual r,
+// the relu on the output, the 1[ctx + r > 0] mask on dctx (K5: dctx = do)
+// and the q, k, v > 0 masks on the gradients belong to the block only.
+//
+// Forward, thread (e, h, f): two passes over g: the scores' max, then
+// e_g = exp(s_g - m), z = sum e_g and sum e_g v_g, which 1/z turns into the
+// context; out = relu(ctx + r) (K5: ctx) in the output's type T. K6 keeps
+// no F x F buffer and computes each score twice; K5 keeps the scores in
+// its row of wgt (odd stride) between the passes, so the second reads v
+// alone (the same bits: the same score). A step past F repeats field F - 1
+// and counts for nothing.
+template <typename T, int DHP, bool BLOCK>
+__device__ __forceinline__ void attend_fwd(float* post, float* wgt, T* os,
+                                           int ex, int F, int H, int dh,
+                                           int U, float scale,
                                            const Tile& t) {
   constexpr int G = tile_chunk(DHP);
   if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
   const Row w = row_of(F, H);
   const float* kb = post_row<DHP>(post, 1, w.h, w.e * F, H, t);
   const float* vb = post_row<DHP>(post, 2, w.h, w.e * F, H, t);
+  float* srow = wgt + (int64_t(w.e * H + w.h) * F + w.f) * t.FP;
   float q[DHP];
   load_vec(q, post_row<DHP>(post, 0, w.h, w.row, H, t));
   float m = neg_inf();
   for (int g0 = 0; g0 < F; g0 += G) {
-    float k[G][DHP];
+    float k[G][DHP], s[G];
 #pragma unroll
     for (int u = 0; u < G; ++u)
       load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
 #pragma unroll
-    for (int u = 0; u < G; ++u) m = fmaxf(m, dot_regs(q, k[u]) * scale);
+    for (int u = 0; u < G; ++u) {
+      s[u] = dot_regs(q, k[u]) * scale;
+      m = fmaxf(m, s[u]);
+    }
+    if constexpr (!BLOCK) {
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        if (g0 + u < F) srow[g0 + u] = s[u];
+    }
   }
   float z = 0.f, acc[DHP] = {};
   for (int g0 = 0; g0 < F; g0 += G) {
-    float k[G][DHP], v[G][DHP];
+    float v[G][DHP], p[G];
+    if constexpr (BLOCK) {
+      float k[G][DHP];
 #pragma unroll
-    for (int u = 0; u < G; ++u) {
-      load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
-      load_vec(v[u], vb + min(g0 + u, F - 1) * DHP);
+      for (int u = 0; u < G; ++u) {
+        load_vec(k[u], kb + min(g0 + u, F - 1) * DHP);
+        load_vec(v[u], vb + min(g0 + u, F - 1) * DHP);
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        p[u] = g0 + u < F ? expf(dot_regs(q, k[u]) * scale - m) : 0.f;
+    } else {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        load_vec(v[u], vb + min(g0 + u, F - 1) * DHP);
+        p[u] = g0 + u < F ? expf(srow[g0 + u] - m) : 0.f;
+      }
     }
 #pragma unroll
     for (int u = 0; u < G; ++u) {
-      const float p =
-          g0 + u < F ? expf(dot_regs(q, k[u]) * scale - m) : 0.f;
-      z += p;
-      axpy_regs(acc, p, v[u]);
+      z += p[u];
+      axpy_regs(acc, p[u], v[u]);
     }
   }
   const float rz = 1.f / z;
   const float* rr = post_row<DHP>(post, 3, w.h, w.row, H, t);
-  T* o = os + w.row * U + w.h * dh;
 #pragma unroll
   for (int d = 0; d < DHP; ++d)
-    if (d < dh) store(o + d, fmaxf(acc[d] * rz + rr[d], 0.f));
+    acc[d] = BLOCK ? fmaxf(acc[d] * rz + rr[d], 0.f) : acc[d] * rz;
+  store_row(os + w.row * U + w.h * dh, acc, dh);
 }
 
+// The backward's staged gradients: row (e, f) of dq at os + row * ld, its
+// dk and dv dk_off and dv_off further on (K6: the 4U-wide dpre rows, dr at
+// 3U; K5: three spans).
+//
 // Backward pass A, thread (e, h, f): the weights w (kept for pass B), the
-// context as in the forward, dctx = dr = 1[ctx + r > 0] do (dctx replaces
-// r in post), ds = w (dw - t) scale with dw = dctx . v_g and
+// context as in the forward, dctx = dr = 1[ctx + r > 0] do (K5: dctx = do;
+// dctx replaces r in post), ds = w (dw - t) scale with dw = dctx . v_g and
 // t = sum_g w dw = dctx . ctx (ds kept for pass B), dq = sum_g ds k_g; dr
-// and dq masked by r > 0 and q > 0 into the staged dpre. Each step
-// computes G fields, then stores them.
-template <typename T, int DHP>
+// and dq masked by r > 0 and q > 0 into the staged dpre (K5: dq unmasked).
+// do is in TD, the gradients in T. Each step computes G fields, then
+// stores them.
+template <typename TD, typename T, int DHP, bool BLOCK>
 __device__ __forceinline__ void attend_bwd_rows(float* post, float* wgt,
-                                                float* dsb, const T* dos,
-                                                T* os, int ex, int F, int H,
-                                                int dh, int U, float scale,
-                                                const Tile& t) {
+                                                float* dsb, const TD* dos,
+                                                T* os, int ld, int ex, int F,
+                                                int H, int dh, int U,
+                                                float scale, const Tile& t) {
   constexpr int G = tile_chunk(DHP);
   if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
   const Row w = row_of(F, H);
@@ -1031,21 +1168,24 @@ __device__ __forceinline__ void attend_bwd_rows(float* post, float* wgt,
   }
   const float rz = 1.f / z;
   float* rr = post_row<DHP>(post, 3, w.h, w.row, H, t);
-  const T* dor = dos + w.row * U + w.h * dh;
-  T* o = os + int64_t(w.row) * 4 * U + w.h * dh;
+  T* o = os + int64_t(w.row) * ld + w.h * dh;
+  float dov[DHP];  // do, then (K6) dr
+  load_row(dov, dos + w.row * U + w.h * dh, dh);
   // t = sum_g w_g dw_g = dctx . ctx: one dot product, not a pass over g
   float tsum = 0.f;
 #pragma unroll
   for (int d = 0; d < DHP; ++d) {
-    if (d < dh) {
-      const float r = rr[d], ctx = dc[d] * rz;
-      dc[d] = ctx + r > 0.f ? to_f32(dor[d]) : 0.f;
-      store(o + 3 * U + d, r > 0.f ? dc[d] : 0.f);
-      tsum = fmaf(dc[d], ctx, tsum);
+    const float ctx = dc[d] * rz;
+    if constexpr (BLOCK) {
+      const float r = rr[d];
+      dc[d] = ctx + r > 0.f ? dov[d] : 0.f;
+      dov[d] = r > 0.f ? dc[d] : 0.f;
     } else {
-      dc[d] = 0.f;
+      dc[d] = dov[d];
     }
+    tsum = fmaf(dc[d], ctx, tsum);
   }
+  if constexpr (BLOCK) store_row(o + 3 * U, dov, dh);
 #pragma unroll
   for (int d = 0; d < DHP; d += 4)
     *reinterpret_cast<float4*>(rr + d) =
@@ -1078,19 +1218,18 @@ __device__ __forceinline__ void attend_bwd_rows(float* post, float* wgt,
   const float* qr = post_row<DHP>(post, 0, w.h, w.row, H, t);
 #pragma unroll
   for (int d = 0; d < DHP; ++d)
-    if (d < dh) store(o + d, qr[d] > 0.f ? dq[d] : 0.f);
+    if (BLOCK && !(qr[d] > 0.f)) dq[d] = 0.f;
+  store_row(o, dq, dh);
 }
 
 // Backward pass B, thread (e, h, g): dv = sum_f w[f, g] dctx_f and
-// dk = sum_f ds[f, g] q_f in the order of f, masked by v > 0 and k > 0 into
-// the staged dpre. The sums over f read columns of w and ds: no atomics,
-// and the same order on every run.
-template <typename T, int DHP>
-__device__ __forceinline__ void attend_bwd_cols(float* post,
-                                                const float* wgt,
-                                                const float* dsb, T* os,
-                                                int ex, int F, int H, int dh,
-                                                int U, const Tile& t) {
+// dk = sum_f ds[f, g] q_f in the order of f, masked by v > 0 and k > 0
+// (K5: unmasked) into the staged gradients. The sums over f read columns of
+// w and ds: no atomics, and the same order on every run.
+template <typename T, int DHP, bool BLOCK>
+__device__ __forceinline__ void attend_bwd_cols(
+    float* post, const float* wgt, const float* dsb, T* os, int ld,
+    int dk_off, int dv_off, int ex, int F, int H, int dh, const Tile& t) {
   constexpr int G = tile_chunk(DHP);
   if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
   const Row w = row_of(F, H);  // w.f is g here
@@ -1117,14 +1256,14 @@ __device__ __forceinline__ void attend_bwd_cols(float* post,
   }
   const float* kr = post_row<DHP>(post, 1, w.h, w.row, H, t);
   const float* vr = post_row<DHP>(post, 2, w.h, w.row, H, t);
-  T* o = os + int64_t(w.row) * 4 * U + w.h * dh;
+  T* o = os + int64_t(w.row) * ld + w.h * dh;
 #pragma unroll
   for (int d = 0; d < DHP; ++d) {
-    if (d < dh) {
-      store(o + U + d, kr[d] > 0.f ? dk[d] : 0.f);
-      store(o + 2 * U + d, vr[d] > 0.f ? dv[d] : 0.f);
-    }
+    if (BLOCK && !(kr[d] > 0.f)) dk[d] = 0.f;
+    if (BLOCK && !(vr[d] > 0.f)) dv[d] = 0.f;
   }
+  store_row(o + dk_off, dk, dh);
+  store_row(o + dv_off, dv, dh);
 }
 
 // Stages w_aug and zeroes post (its head padding is read as zeros).
@@ -1172,7 +1311,7 @@ __global__ void __launch_bounds__(tile_max_threads(DHP))
     project_tile<T, DHP>(post, xs, smem, ex * F, U, t);
     __syncthreads();
     T* os = placed(smem + t.out_off, out + tile * span);
-    attend_fwd<T, DHP>(post, os, ex, F, H, dh, U, scale, t);
+    attend_fwd<T, DHP, true>(post, nullptr, os, ex, F, H, dh, U, scale, t);
     __syncthreads();
     store_span(out + tile * span, os, ex * F * U);
   }
@@ -1216,12 +1355,151 @@ __global__ void __launch_bounds__(tile_max_threads(DHP))
     project_tile<T, DHP>(post, xs, smem, ex * F, U, t);
     __syncthreads();
     T* os = placed(smem + t.out_off, dpre + 4 * tile * span);
-    attend_bwd_rows<T, DHP>(post, wgt, dsb, dos, os, ex, F, H, dh, U, scale,
-                            t);
+    attend_bwd_rows<T, T, DHP, true>(post, wgt, dsb, dos, os, 4 * U, ex, F,
+                                     H, dh, U, scale, t);
     __syncthreads();
-    attend_bwd_cols<T, DHP>(post, wgt, dsb, os, ex, F, H, dh, U, t);
+    attend_bwd_cols<T, DHP, true>(post, wgt, dsb, os, 4 * U, U, 2 * U, ex, F,
+                                  H, dh, t);
     __syncthreads();
     store_span(dpre + 4 * tile * span, os, 4 * ex * F * U);
+  }
+}
+
+// ------------------------------------------------------ K5, the tile design
+//
+// K6's tile kernels without the projection: the staged q, k and v spans
+// are widened by thread (e, h, f) into its float32 rows of post (padded
+// with zeros to DHP), and the attention is K6's with BLOCK off. Shared
+// memory (fa_tile_of): two stages of the input spans, then post (q, k, v
+// and, backward, dctx), then the backward's w and ds.
+
+// Thread (e, h, f) copies its head rows of the staged q, k and v into post.
+template <typename T, int DHP>
+__device__ __forceinline__ void fill_tile(float* post, const T* qs,
+                                          const T* ks, const T* vs, int ex,
+                                          int F, int H, int dh, int U,
+                                          const Tile& t) {
+  if (static_cast<int>(threadIdx.x) >= ex * H * F) return;
+  const Row w = row_of(F, H);
+  const int64_t off = int64_t(w.row) * U + w.h * dh;
+  const T* src[3] = {qs + off, ks + off, vs + off};
+#pragma unroll
+  for (int which = 0; which < 3; ++which) {
+    float r[DHP];
+    load_row(r, src[which], dh);
+    float* p = post_row<DHP>(post, which, w.h, w.row, H, t);
+#pragma unroll
+    for (int d = 0; d < DHP; d += 4)
+      *reinterpret_cast<float4*>(p + d) =
+          make_float4(r[d], r[d + 1], r[d + 2], r[d + 3]);
+  }
+}
+
+template <typename T, typename TO, int DHP>
+__global__ void __launch_bounds__(tile_max_threads(DHP))
+    fa_fwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, TO* __restrict__ out,
+                       int64_t B, int F, int H, int dh, float scale, int E) {
+  extern __shared__ __align__(16) char tile_smem[];
+  char* smem = tile_smem;
+  const int U = H * dh;
+  const Tile t = fa_tile_of(false, sizeof(T), sizeof(TO), E, F, H, dh);
+  float* post = reinterpret_cast<float*>(smem + t.post_off);
+  float* wgt = reinterpret_cast<float*>(smem + t.wgt_off);
+  const int64_t tiles = (B + E - 1) / E, span = int64_t(E) * F * U;
+  auto examples = [&](int64_t tile) {
+    return static_cast<int>(B - tile * E < E ? B - tile * E : E);
+  };
+  auto stage = [&](int s) { return smem + s * t.stage; };
+  auto load = [&](int s, int64_t tile) {
+    const int n = examples(tile) * F * U;
+    load_span(stage(s), q + tile * span, n);
+    load_span(stage(s) + t.span_in, k + tile * span, n);
+    load_span(stage(s) + 2 * t.span_in, v + tile * span, n);
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) load(0, tile);
+  cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles) load((it + 1) & 1, next);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ex = examples(tile);
+    char* s = stage(it & 1);
+    fill_tile<T, DHP>(post, placed(s, q + tile * span),
+                      placed(s + t.span_in, k + tile * span),
+                      placed(s + 2 * t.span_in, v + tile * span), ex, F, H,
+                      dh, U, t);
+    __syncthreads();
+    TO* os = placed(s, out + tile * span);  // over q, k and v
+    attend_fwd<TO, DHP, false>(post, wgt, os, ex, F, H, dh, U, scale, t);
+    __syncthreads();
+    store_span(out + tile * span, os, ex * F * U);
+    __syncthreads();  // the next iteration loads this stage again
+  }
+}
+
+template <typename T, typename TO, int DHP>
+__global__ void __launch_bounds__(tile_max_threads(DHP))
+    fa_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const TO* __restrict__ dout,
+                       T* __restrict__ dq, T* __restrict__ dk,
+                       T* __restrict__ dv, int64_t B, int F, int H, int dh,
+                       float scale, int E) {
+  extern __shared__ __align__(16) char tile_smem[];
+  char* smem = tile_smem;
+  const int U = H * dh;
+  const Tile t = fa_tile_of(true, sizeof(T), sizeof(TO), E, F, H, dh);
+  float* post = reinterpret_cast<float*>(smem + t.post_off);
+  float* wgt = reinterpret_cast<float*>(smem + t.wgt_off);
+  float* dsb = reinterpret_cast<float*>(smem + t.wgt_off + t.wgt);
+  const int64_t tiles = (B + E - 1) / E, span = int64_t(E) * F * U;
+  auto examples = [&](int64_t tile) {
+    return static_cast<int>(B - tile * E < E ? B - tile * E : E);
+  };
+  auto stage = [&](int s) { return smem + s * t.stage; };
+  auto load = [&](int s, int64_t tile) {
+    const int n = examples(tile) * F * U;
+    load_span(stage(s), q + tile * span, n);
+    load_span(stage(s) + t.span_in, k + tile * span, n);
+    load_span(stage(s) + 2 * t.span_in, v + tile * span, n);
+    load_span(stage(s) + 3 * t.span_in, dout + tile * span, n);
+  };
+  int64_t tile = blockIdx.x;
+  if (tile < tiles) load(0, tile);
+  cp_async_commit();
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int64_t next = tile + gridDim.x;
+    if (next < tiles) load((it + 1) & 1, next);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int ex = examples(tile), n = ex * F * U;
+    char* s = stage(it & 1);
+    fill_tile<T, DHP>(post, placed(s, q + tile * span),
+                      placed(s + t.span_in, k + tile * span),
+                      placed(s + 2 * t.span_in, v + tile * span), ex, F, H,
+                      dh, U, t);
+    __syncthreads();
+    const TO* dos = placed(s + 3 * t.span_in, dout + tile * span);
+    // dq, dk and dv over q, k and v
+    T* dqs = placed(s, dq + tile * span);
+    T* dks = placed(s + t.span_in, dk + tile * span);
+    T* dvs = placed(s + 2 * t.span_in, dv + tile * span);
+    attend_bwd_rows<TO, T, DHP, false>(post, wgt, dsb, dos, dqs, U, ex, F, H,
+                                       dh, U, scale, t);
+    __syncthreads();
+    attend_bwd_cols<T, DHP, false>(post, wgt, dsb, dqs, U,
+                                   static_cast<int>(dks - dqs),
+                                   static_cast<int>(dvs - dqs), ex, F, H, dh,
+                                   t);
+    __syncthreads();
+    store_span(dq + tile * span, dqs, n);
+    store_span(dk + tile * span, dks, n);
+    store_span(dv + tile * span, dvs, n);
+    __syncthreads();  // the next iteration loads this stage again
   }
 }
 
@@ -1450,8 +1728,38 @@ cudaError_t ab_bwd(const void* x, const void* w_aug, const void* dout,
       static_cast<cudaStream_t>(stream))));
 }
 
-// K6's tile design: E examples a tile (the wrapper's choice, from the
-// shape), a persistent grid of as many blocks as fit on the card's SMs.
+// A tile launch of E examples a tile (the wrapper's choice, from the
+// shape) and E*H*F threads: checked against the block's limits, and a
+// persistent grid of as many blocks as fit on the card's SMs, no more than
+// the tiles. The kernel's shared-memory limit is raised to the block's
+// maximum the first time (`attr`, one for each kernel).
+template <typename Kernel>
+cudaError_t tile_grid(Kernel kernel, cudaError_t* attr, int64_t B, int E,
+                      int F, int H, int dhp, const Tile& t, unsigned* grid,
+                      unsigned* threads) {
+  const int64_t n = round_up(int64_t(E) * H * F, 32);
+  if (E < 1 || n > tile_max_threads(dhp) || t.total > kMaxSmemBytes)
+    return cudaErrorInvalidValue;
+  if (*attr == cudaErrorNotReady)
+    *attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  if (*attr != cudaSuccess) return *attr;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, static_cast<int>(n), t.total);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (B + E - 1) / E;
+  const int64_t most = int64_t(per_sm > 0 ? per_sm : 1) * sms;
+  *grid = static_cast<unsigned>(tiles < most ? tiles : most);
+  *threads = static_cast<unsigned>(n);
+  return cudaSuccess;
+}
+
+// K6's tile design.
 template <typename T, int DHP, bool BWD>
 cudaError_t ab_tile_launch(const T* x, const T* w_aug, const T* dout, T* y,
                            int64_t B, int F, int H, int dh, float scale,
@@ -1460,26 +1768,38 @@ cudaError_t ab_tile_launch(const T* x, const T* w_aug, const T* dout, T* y,
   auto kernel = BWD ? &ab_bwd_tile_kernel<T, DHP>
                     : &ab_fwd_tile_kernel<T, DHP>;
   const Tile t = tile_of(BWD, sizeof(T), E, F, H, dh);
-  const int64_t threads = round_up(int64_t(E) * H * F, 32);
-  if (E < 1 || threads > tile_max_threads(DHP) || t.total > kMaxSmemBytes)
-    return cudaErrorInvalidValue;
-  if (attr == cudaErrorNotReady)
-    attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
-  if (attr != cudaSuccess) return attr;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, static_cast<int>(threads), t.total);
+  unsigned grid = 0, threads = 0;
+  const cudaError_t err =
+      tile_grid(kernel, &attr, B, E, F, H, DHP, t, &grid, &threads);
   if (err != cudaSuccess) return err;
-  const int64_t tiles = (B + E - 1) / E;
-  const int64_t most = int64_t(per_sm > 0 ? per_sm : 1) * sms;
-  const int64_t grid = tiles < most ? tiles : most;
-  kernel<<<static_cast<unsigned>(grid), static_cast<unsigned>(threads),
-           t.total, stream>>>(x, w_aug, dout, y, B, F, H, dh, scale, E);
+  kernel<<<grid, threads, t.total, stream>>>(x, w_aug, dout, y, B, F, H, dh,
+                                             scale, E);
+  return cudaGetLastError();
+}
+
+// K5's tile design: out (forward), or dq, dk and dv (backward, do given).
+template <typename T, typename TO, int DHP, bool BWD>
+cudaError_t fa_tile_launch(const T* q, const T* k, const T* v, const TO* dout,
+                           void* o0, T* o1, T* o2, int64_t B, int F, int H,
+                           int dh, float scale, int E, cudaStream_t stream) {
+  static cudaError_t attr = cudaErrorNotReady;
+  const Tile t = fa_tile_of(BWD, sizeof(T), sizeof(TO), E, F, H, dh);
+  unsigned grid = 0, threads = 0;
+  cudaError_t err;
+  if constexpr (BWD) {
+    auto kernel = &fa_bwd_tile_kernel<T, TO, DHP>;
+    err = tile_grid(kernel, &attr, B, E, F, H, DHP, t, &grid, &threads);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, t.total, stream>>>(q, k, v, dout,
+                                               static_cast<T*>(o0), o1, o2, B,
+                                               F, H, dh, scale, E);
+  } else {
+    auto kernel = &fa_fwd_tile_kernel<T, TO, DHP>;
+    err = tile_grid(kernel, &attr, B, E, F, H, DHP, t, &grid, &threads);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, threads, t.total, stream>>>(q, k, v, static_cast<TO*>(o0),
+                                               B, F, H, dh, scale, E);
+  }
   return cudaGetLastError();
 }
 
@@ -1500,6 +1820,26 @@ cudaError_t ab_tile(const void* x, const void* w_aug, const void* dout,
     default: DT_AB_TILE(64);
   }
 #undef DT_AB_TILE
+}
+
+template <typename T, typename TO, bool BWD>
+cudaError_t fa_tile(const void* q, const void* k, const void* v,
+                    const void* dout, void* o0, void* o1, void* o2, int64_t B,
+                    int F, int H, int dh, float scale, int E, void* stream) {
+  if (!valid(B, F, H, dh) || dh > 64) return cudaErrorInvalidValue;
+#define DT_FA_TILE(DHP)                                                      \
+  return fa_tile_launch<T, TO, DHP, BWD>(                                    \
+      static_cast<const T*>(q), static_cast<const T*>(k),                    \
+      static_cast<const T*>(v), static_cast<const TO*>(dout), o0,            \
+      static_cast<T*>(o1), static_cast<T*>(o2), B, F, H, dh, scale, E,       \
+      static_cast<cudaStream_t>(stream))
+  switch (tile_dhp(dh)) {
+    case 8: DT_FA_TILE(8);
+    case 16: DT_FA_TILE(16);
+    case 32: DT_FA_TILE(32);
+    default: DT_FA_TILE(64);
+  }
+#undef DT_FA_TILE
 }
 
 using bf16 = __nv_bfloat16;
@@ -1587,6 +1927,34 @@ int dt_ab_bwd_bf16(const void* x, const void* w_aug, const void* dout,
                    void* scratch, const void* w_f32, void* stream) {
   return static_cast<int>(ab_bwd<bf16>(x, w_aug, dout, dpre, B, F, H, dh,
                                        scale, scratch, w_f32, stream));
+}
+
+// K5, the tile design: E examples a tile; the types as dt_fa_fwd_* and
+// dt_fa_bwd_* take them.
+#define DT_FA_TILE_ENTRIES(SUFFIX, T, TO)                                     \
+  int dt_fa_tile_fwd_##SUFFIX(const void* q, const void* k, const void* v,    \
+                              void* out, int64_t B, int F, int H, int dh,     \
+                              float scale, int E, void* stream) {             \
+    return static_cast<int>(fa_tile<T, TO, false>(                            \
+        q, k, v, nullptr, out, nullptr, nullptr, B, F, H, dh, scale, E,       \
+        stream));                                                             \
+  }                                                                           \
+  int dt_fa_tile_bwd_##SUFFIX(const void* q, const void* k, const void* v,    \
+                              const void* dout, void* dq, void* dk, void* dv, \
+                              int64_t B, int F, int H, int dh, float scale,   \
+                              int E, void* stream) {                          \
+    return static_cast<int>(fa_tile<T, TO, true>(                             \
+        q, k, v, dout, dq, dk, dv, B, F, H, dh, scale, E, stream));           \
+  }
+DT_FA_TILE_ENTRIES(f32_f32, float, float)
+DT_FA_TILE_ENTRIES(bf16_bf16, bf16, bf16)
+DT_FA_TILE_ENTRIES(bf16_f32, bf16, float)
+#undef DT_FA_TILE_ENTRIES
+
+// Bytes of shared memory a K5 tile launch takes.
+int64_t dt_fa_tile_smem(int bwd, int itemsize, int out_itemsize, int E, int F,
+                        int H, int dh) {
+  return fa_tile_of(bwd != 0, itemsize, out_itemsize, E, F, H, dh).total;
 }
 
 // K6, the tile design: E examples a tile.

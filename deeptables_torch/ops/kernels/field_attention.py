@@ -24,10 +24,12 @@ JAX package's batch-minor ``(H, F, dh, B)`` was a TPU layout); ``w_aug`` is
 The CUDA kernels are in ``deeptables_torch/csrc/field_attention.cu``; its
 header says what bounds them, how the scores stay out of device memory and
 how every shape runs (heads wider than 64 in slices, buffers past shared
-memory in a scratch this module allocates). K6 has two designs, named by
-:func:`ab_design` from the shape alone: ``'tile'`` (a block walks tiles of
-several examples, the projection on the tensor cores) wherever its tile
-fits, and ``'warp'`` (one warp an example) past that. On a CUDA tensor each
+memory in a scratch this module allocates). K5 and K6 each have two
+designs, named by :func:`fa_design` and :func:`ab_design` from the shape
+alone: ``'tile'`` (a block walks tiles of several examples, a thread a
+(example, head, field) row; K6's projection on the tensor cores) wherever
+the tile fits, and ``'warp'`` (one warp an example) past that. On a CUDA
+tensor each
 wrapper launches its kernel or raises; the ``*_reference`` functions run
 for CPU tensors only and are the oracles the kernels are held against. The
 autograd Functions are in ``ops/attention_grad.py``.
@@ -47,8 +49,10 @@ _AB = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 # csrc/field_attention.cu's kinds of launch, for dt_fa_scratch_floats
 _KIND = {'fa_fwd': 0, 'fa_bwd': 1, 'ab_fwd': 2, 'ab_bwd': 3}
 
-# K6's tile design (csrc/field_attention.cu, "K6, the tile design")
+# the tile designs (csrc/field_attention.cu, "K6, the tile design" and
+# "K5, the tile design")
 _TILE_MAX_U = 64
+_TILE_MAX_DH = 64  # K5's tile: the attention's register width
 _TILE_TARGET_SMEM = 113 * 1024  # two blocks an SM
 _TILE_MAX_SMEM = 232448  # 227 KB, a block's limit on Hopper
 
@@ -182,25 +186,80 @@ def ab_tile_smem(kind: str, dtype, examples: int, F: int, H: int,
                 + post + 2 * wgt, 16) + out)
 
 
-@functools.lru_cache(maxsize=None)
-def ab_tile_examples(kind: str, dtype, F: int, H: int, d_head: int):
-    """Examples a tile of K6's tile design for ``kind``, or None where the
-    design does not take the shape: U past 64, more (head, field) rows than
-    a block's threads, or one example's tile past shared memory. As many
-    examples as fill the block's threads (a thread a row), no more than
-    leave two blocks an SM (113 KB each), at least one."""
-    if H * d_head > _TILE_MAX_U:
-        return None
+def _fill_block(smem, F: int, H: int, d_head: int):
+    """Examples a tile of ``smem(examples)`` bytes, or None where more
+    (head, field) rows than a block's threads or one example's tile past
+    shared memory: as many examples as fill the block's threads (a thread
+    a row), no more than leave two blocks an SM (113 KB each), at least
+    one."""
     most = _tile_max_threads(d_head)
     if H * F > most:
         return None
     examples = most // (H * F)
-    while examples > 1 and ab_tile_smem(kind, dtype, examples, F, H,
-                                        d_head) > _TILE_TARGET_SMEM:
+    while examples > 1 and smem(examples) > _TILE_TARGET_SMEM:
         examples -= 1
-    if ab_tile_smem(kind, dtype, examples, F, H, d_head) > _TILE_MAX_SMEM:
+    return examples if smem(examples) <= _TILE_MAX_SMEM else None
+
+
+@functools.lru_cache(maxsize=None)
+def ab_tile_examples(kind: str, dtype, F: int, H: int, d_head: int):
+    """Examples a tile of K6's tile design for ``kind``, or None where the
+    design does not take the shape: U past 64, or as :func:`_fill_block`
+    finds."""
+    if H * d_head > _TILE_MAX_U:
         return None
-    return examples
+    return _fill_block(functools.partial(ab_tile_smem, kind, dtype, F=F, H=H,
+                                         d_head=d_head), F, H, d_head)
+
+
+def fa_tile_smem(kind: str, dtype, out_dtype, examples: int, F: int,
+                 H: int, d_head: int) -> int:
+    """Bytes of shared memory a block of K5's tile design takes for
+    ``kind`` (``'fa_fwd'`` or ``'fa_bwd'``) at ``examples`` a tile, q, k, v
+    in ``dtype`` and the output (forward) or do (backward) in
+    ``out_dtype``, as ``fa_tile_of`` in csrc/field_attention.cu lays it
+    out: two stages of the input spans (q, k, v and, backward, do; the
+    outputs are staged over q, k and v), q/k/v (and, backward, dctx) in
+    float32 with each head's row padded, and rows of an odd stride for the
+    scores (forward) or the weights and ds (backward)."""
+    bwd = kind == 'fa_bwd'
+    U, rows = H * d_head, examples * F
+    span = _up(rows * U * dtype.itemsize + 16, 16)
+    stage = 3 * span + (_up(rows * U * out_dtype.itemsize + 16, 16)
+                        if bwd else 0)
+    post = (4 if bwd else 3) * H * rows * _tile_dhp(d_head) * 4
+    wgt = H * rows * (F | 1) * 4
+    return 2 * stage + post + (2 if bwd else 1) * wgt
+
+
+@functools.lru_cache(maxsize=None)
+def fa_tile_examples(kind: str, dtype, out_dtype, F: int, H: int,
+                     d_head: int):
+    """Examples a tile of K5's tile design for ``kind``, or None where the
+    design does not take the shape: a head past the kernel's register width
+    (64), or as :func:`_fill_block` finds."""
+    if d_head > _TILE_MAX_DH:
+        return None
+    return _fill_block(functools.partial(fa_tile_smem, kind, dtype, out_dtype,
+                                         F=F, H=H, d_head=d_head),
+                       F, H, d_head)
+
+
+def fa_design(dtype, out_dtype, B: int, F: int, H: int, d_head: int) -> str:
+    """Which K5 kernels a CUDA call runs, by shape alone (every B runs
+    either), q, k, v in ``dtype`` and the output or do in ``out_dtype``:
+    ``'tile'`` (csrc/field_attention.cu's tile design: a block walks tiles
+    of several examples, their rows a thread each) where both the
+    forward's and the backward's tiles fit (dh ≤ 64, H·F rows within a
+    block, one example's buffers within shared memory), else ``'warp'``
+    (one warp an example; its buffers in shared memory or, past it, in a
+    device scratch)."""
+    del B
+    if (dtype, out_dtype) not in _FA:
+        return 'warp'
+    fits = all(fa_tile_examples(kind, dtype, out_dtype, F, H, d_head)
+               is not None for kind in ('fa_fwd', 'fa_bwd'))
+    return 'tile' if fits else 'warp'
 
 
 def ab_design(dtype, B: int, F: int, H: int, d_head: int) -> str:
@@ -244,8 +303,16 @@ def _library():
             fn.argtypes = [ctypes.c_void_p] * n_ptrs + shape + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+    for suffix in _FA.values():
+        for kind, n_ptrs in (('fwd', 4), ('bwd', 7)):
+            fn = getattr(lib, f'dt_fa_tile_{kind}_{suffix}')
+            fn.argtypes = [ctypes.c_void_p] * n_ptrs + shape + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     lib.dt_ab_tile_smem.argtypes = [ctypes.c_int] * 6
     lib.dt_ab_tile_smem.restype = ctypes.c_int64
+    lib.dt_fa_tile_smem.argtypes = [ctypes.c_int] * 7
+    lib.dt_fa_tile_smem.restype = ctypes.c_int64
     lib.dt_fa_scratch_floats.argtypes = [ctypes.c_int] + shape
     lib.dt_fa_scratch_floats.restype = ctypes.c_int64
     lib.dt_ab_w_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -253,6 +320,12 @@ def _library():
     lib.dt_fa_error_string.argtypes = [ctypes.c_int]
     lib.dt_fa_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _count(fn, key):
+    """One launch of ``fn``'s kernel, for the types ``key``."""
+    fn.launches += 1
+    fn.launches_by_type[key] = fn.launches_by_type.get(key, 0) + 1
 
 
 def _ptrs(*tensors):
@@ -314,12 +387,19 @@ def _launch(what, fn_name, ptrs, B, F, num_heads, d_head, device,
                            f'({lib.dt_fa_error_string(err).decode()})')
 
 
-def _launch_tile(what, ptrs, x, num_heads, d_head):
-    """Launch K6's tile design for x's type, E examples a tile."""
+def _launch_tile(what, ptrs, x, num_heads, d_head, out_dtype=None):
+    """Launch K6's tile design for x's type, or K5's (``out_dtype`` given)
+    for x's and the output's or do's type, E examples a tile."""
     lib = _library()
     B, F, _ = x.shape
-    examples = ab_tile_examples(what, x.dtype, F, num_heads, d_head)
-    fn = getattr(lib, f'dt_{what[:2]}_tile_{what[3:]}_{_AB[x.dtype]}')
+    if out_dtype is None:
+        examples = ab_tile_examples(what, x.dtype, F, num_heads, d_head)
+        suffix = _AB[x.dtype]
+    else:
+        examples = fa_tile_examples(what, x.dtype, out_dtype, F, num_heads,
+                                    d_head)
+        suffix = _FA[x.dtype, out_dtype]
+    fn = getattr(lib, f'dt_{what[:2]}_tile_{what[3:]}_{suffix}')
     err = fn(*ptrs, B, F, num_heads, d_head, scale_for(d_head), examples,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -335,7 +415,8 @@ def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (default q's type; float32 is taken beside bfloat16 inputs).
 
     On a CUDA tensor this launches the kernel or raises; it never falls back
-    to the plain version. ``fa_fwd.launches`` counts the launches."""
+    to the plain version. ``fa_fwd.launches`` counts the launches, and
+    ``fa_fwd.launches_by_type`` the same launches by type pair."""
     dh = _d_head('fa_fwd', q, num_heads)
     _check_like('fa_fwd', q, k, v)
     out_dtype = out_dtype or q.dtype
@@ -351,9 +432,13 @@ def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        _launch('fa_fwd', f'dt_fa_fwd_{_FA[key]}', _ptrs(q, k, v, out), B, F,
-                num_heads, dh, q.device)
-    fa_fwd.launches += 1
+        if fa_design(*key, B, F, num_heads, dh) == 'tile':
+            _launch_tile('fa_fwd', _ptrs(q, k, v, out), q, num_heads, dh,
+                         out_dtype)
+        else:
+            _launch('fa_fwd', f'dt_fa_fwd_{_FA[key]}', _ptrs(q, k, v, out),
+                    B, F, num_heads, dh, q.device)
+    _count(fa_fwd, _FA[key])
     return out
 
 
@@ -363,7 +448,8 @@ def fa_bwd(q, k, v, do, num_heads: int):
     from q, k, v.
 
     On a CUDA tensor this launches the kernel or raises;
-    ``fa_bwd.launches`` counts the launches."""
+    ``fa_bwd.launches`` counts the launches (``launches_by_type`` by type
+    pair)."""
     dh = _d_head('fa_bwd', q, num_heads)
     _check_like('fa_bwd', q, k, v, do)
     if q.device.type == 'cpu':
@@ -381,10 +467,13 @@ def fa_bwd(q, k, v, do, num_heads: int):
         return dq, dk, dv
     B, F, U = q.shape
     with torch.cuda.device(q.device):
-        _launch('fa_bwd', f'dt_fa_bwd_{_FA[key]}',
-                _ptrs(q, k, v, do, dq, dk, dv), B, F, num_heads, dh,
-                q.device)
-    fa_bwd.launches += 1
+        ptrs = _ptrs(q, k, v, do, dq, dk, dv)
+        if fa_design(*key, B, F, num_heads, dh) == 'tile':
+            _launch_tile('fa_bwd', ptrs, q, num_heads, dh, do.dtype)
+        else:
+            _launch('fa_bwd', f'dt_fa_bwd_{_FA[key]}', ptrs, B, F, num_heads,
+                    dh, q.device)
+    _count(fa_bwd, _FA[key])
     return dq, dk, dv
 
 
@@ -404,7 +493,8 @@ def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
     ``(B, F, U)`` in that type.
 
     On a CUDA tensor this launches the kernel or raises;
-    ``ab_fwd.launches`` counts the launches."""
+    ``ab_fwd.launches`` counts the launches (``launches_by_type`` by
+    type)."""
     dh = _check_block('ab_fwd', x, w_aug, num_heads)
     if x.device.type == 'cpu':
         return ab_fwd_reference(x, w_aug, num_heads)
@@ -423,7 +513,7 @@ def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
             _launch('ab_fwd', f'dt_ab_fwd_{_AB[x.dtype]}',
                     _ptrs(x, w_aug, out), B, F, num_heads, dh, x.device,
                     w_aug)
-    ab_fwd.launches += 1
+    _count(ab_fwd, _AB[x.dtype])
     return out
 
 
@@ -433,7 +523,8 @@ def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
     contiguous in one type (float32 or bfloat16).
 
     On a CUDA tensor this launches the kernel or raises;
-    ``ab_bwd.launches`` counts the launches."""
+    ``ab_bwd.launches`` counts the launches (``launches_by_type`` by
+    type)."""
     dh = _check_block('ab_bwd', x, w_aug, num_heads)
     _check_like('ab_bwd', x, do)
     if x.device.type == 'cpu':
@@ -454,11 +545,10 @@ def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
             _launch('ab_bwd', f'dt_ab_bwd_{_AB[x.dtype]}',
                     _ptrs(x, w_aug, do, dpre), B, F, num_heads, dh,
                     x.device, w_aug)
-    ab_bwd.launches += 1
+    _count(ab_bwd, _AB[x.dtype])
     return dpre
 
 
-fa_fwd.launches = 0
-fa_bwd.launches = 0
-ab_fwd.launches = 0
-ab_bwd.launches = 0
+for _fn in (fa_fwd, fa_bwd, ab_fwd, ab_bwd):
+    _fn.launches, _fn.launches_by_type = 0, {}
+del _fn

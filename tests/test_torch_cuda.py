@@ -552,6 +552,31 @@ FA_SHAPES = [(37, 7, 3, 5), (5, 40, 2, 8), (1, 22, 2, 8), (9, 3, 1, 64),
              (37, 22, 2, 64)]
 FA_TYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
             (torch.bfloat16, torch.float32)]
+FA_TYPE_IDS = ['f32', 'bf16', 'bf16-f32out']
+F32, BF16, BF16_F32 = FA_TYPES
+# ragged tiles of the tile designs: every B, F and (H, dh) of these
+RAGGED_TILES = [(B, F, H, dh) for B in (1, 7, 4093, 8192)
+                for F in (3, 7, 22, 39)
+                for H, dh in ((2, 8), (1, 16), (4, 16), (3, 5))]
+# K5's tile design at ragged tiles (the shapes of FA_SHAPES left out), then
+# the shapes on each side of where it hands over to the one-warp kernels:
+# dh = 64 and 65; F = 98 and 99 at (2, 8) in float32, 103 and 104 with a
+# float32 output or do, 105 and 106 in bfloat16, where the backward's tile
+# outgrows shared memory
+FA_TILE_SHAPES = [
+    shape for shape in RAGGED_TILES
+    + [(37, 7, 1, 64), (37, 7, 1, 65), (37, 98, 2, 8), (37, 99, 2, 8),
+       (37, 103, 2, 8), (37, 104, 2, 8), (37, 105, 2, 8), (37, 106, 2, 8)]
+    if shape not in FA_SHAPES]
+# (F, H, dh): the type pairs that run K5's one-warp kernels there (heads
+# past 64, and the tiles past shared memory); every other shape of
+# FA_SHAPES and FA_TILE_SHAPES runs the tile
+FA_WARP = {(7, 1, 96): set(FA_TYPES), (7, 2, 128): set(FA_TYPES),
+           (200, 2, 8): set(FA_TYPES), (160, 2, 8): set(FA_TYPES),
+           (22, 1, 128): set(FA_TYPES), (7, 1, 65): set(FA_TYPES),
+           (80, 1, 64): {F32, BF16_F32}, (99, 2, 8): {F32},
+           (103, 2, 8): {F32}, (104, 2, 8): {F32, BF16_F32},
+           (105, 2, 8): {F32, BF16_F32}, (106, 2, 8): set(FA_TYPES)}
 
 
 def _fa_inputs(B, F, H, dh, dtype, out_dtype, seed):
@@ -575,11 +600,13 @@ def _fa_close(actual, expected, keep=None):
     assert bool((err <= limit).all()), float((err - limit).max())
 
 
-@pytest.mark.parametrize('dtype,out_dtype', FA_TYPES,
-                         ids=['f32', 'bf16', 'bf16-f32out'])
-@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES)
+@pytest.mark.parametrize('dtype,out_dtype', FA_TYPES, ids=FA_TYPE_IDS)
+@pytest.mark.parametrize('B,F,H,dh', FA_SHAPES + FA_TILE_SHAPES)
 def test_field_attention_kernels_match_reference(cuda, B, F, H, dh, dtype,
                                                  out_dtype):
+    warp = (dtype, out_dtype) in FA_WARP.get((F, H, dh), ())
+    assert fa.fa_design(dtype, out_dtype, B, F, H, dh) == (
+        'warp' if warp else 'tile')
     q, k, v, do, _, _, _ = _fa_inputs(B, F, H, dh, dtype, out_dtype,
                                       B + F + H + dh)
     before = fa.fa_fwd.launches, fa.fa_bwd.launches
@@ -599,9 +626,7 @@ def test_field_attention_kernels_match_reference(cuda, B, F, H, dh, dtype,
 # 105 at (2, 8) in bfloat16, F = 38 and 39 at (4, 16) in float32, where
 # the backward's tile outgrows shared memory
 AB_TILE_SHAPES = [
-    shape for shape in
-    [(B, F, H, dh) for B in (1, 7, 4093, 8192) for F in (3, 7, 22, 39)
-     for H, dh in ((2, 8), (1, 16), (4, 16), (3, 5))]
+    shape for shape in RAGGED_TILES
     + [(37, 22, 1, 64), (37, 22, 1, 72), (37, 104, 2, 8), (37, 105, 2, 8),
        (37, 38, 4, 16)]
     if shape not in FA_SHAPES]
@@ -669,6 +694,37 @@ def test_attention_block_tile_plan_matches_the_kernel(cuda, kind, dtype, F,
     assert lib.dt_ab_tile_smem(int(kind == 'ab_bwd'), itemsize, examples, F,
                                H, dh) == fa.ab_tile_smem(kind, dtype,
                                                          examples, F, H, dh)
+
+
+@pytest.mark.parametrize('dtype,out_dtype', FA_TYPES, ids=FA_TYPE_IDS)
+@pytest.mark.parametrize('B,F,H,dh', [(8192, 22, 2, 8), (4093, 39, 3, 5)])
+def test_field_attention_tile_kernels_are_deterministic(cuda, B, F, H, dh,
+                                                        dtype, out_dtype):
+    """K5's tile design sums in a fixed order, without atomics: two runs
+    give the same bits."""
+    assert fa.fa_design(dtype, out_dtype, B, F, H, dh) == 'tile'
+    q, k, v, do, _, _, _ = _fa_inputs(B, F, H, dh, dtype, out_dtype, 6)
+    assert torch.equal(fa.fa_fwd(q, k, v, H, out_dtype),
+                       fa.fa_fwd(q, k, v, H, out_dtype))
+    for a, b in zip(fa.fa_bwd(q, k, v, do, H), fa.fa_bwd(q, k, v, do, H)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('kind', ['fa_fwd', 'fa_bwd'])
+@pytest.mark.parametrize('dtype,out_dtype', FA_TYPES, ids=FA_TYPE_IDS)
+@pytest.mark.parametrize('F,H,dh', [(22, 2, 8), (7, 3, 5), (39, 1, 16),
+                                    (22, 2, 64), (3, 4, 16)])
+def test_field_attention_tile_plan_matches_the_kernel(cuda, kind, dtype,
+                                                      out_dtype, F, H, dh):
+    """The wrapper's shared-memory sum is the kernel's layout."""
+    lib = fa._library()
+    examples = fa.fa_tile_examples(kind, dtype, out_dtype, F, H, dh)
+
+    def size(t):
+        return torch.empty((), dtype=t).element_size()
+    assert lib.dt_fa_tile_smem(int(kind == 'fa_bwd'), size(dtype),
+                               size(out_dtype), examples, F, H, dh) == \
+        fa.fa_tile_smem(kind, dtype, out_dtype, examples, F, H, dh)
 
 
 def test_field_attention_kernels_reject_what_they_do_not_take(cuda):
