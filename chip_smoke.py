@@ -14,17 +14,33 @@ these phases, each printing one JSON line:
    kernels that spill (``spills``).
 2. ``kernel``: the FM forward kernel against its plain PyTorch version
    (``fm_reference``) on the card, in float32 and bfloat16, at every batch
-   shape the serving path gives it (F=26, D=16) and a ragged B=4093, inputs
-   rotated over more than twice the 50 MB L2. ``ms`` is the device time of
-   one call (``torch.profiler``), ``call_ms`` the time between back-to-back
-   calls (CUDA events), beside the bound (bytes over 3.35 TB/s).
+   shape the serving path gives it (F=26, D=16), a ragged B=4093 and the
+   training forward's B=8192, inputs rotated over more than twice the 50 MB
+   L2. ``ms`` is the device time of one call (``torch.profiler``),
+   ``call_ms`` the time between back-to-back calls (CUDA events), beside
+   the bound (bytes over 3.35 TB/s). Each row names the design that ran
+   (``fm_design``: ``vec16`` at every one of these shapes, which the script
+   checks, also by the kernel's name in the profiler) and what ``ptxas``
+   reports for its kernel. Two more rows (float32 and bfloat16, B=4096)
+   take an x one element into its storage, which is not 16-byte aligned,
+   and so hold the ``scalar`` design against ``fm_reference`` the same way
+   (``x_offset`` 1; the main path's rows have 0).
 3. ``kernel`` for ``fm_bwd`` (the FM backward kernel against
-   ``fm_backward_reference``, float32 and bfloat16) and ``emb_grad`` (the
-   embedding-gradient kernel against ``emb_grad_reference``, on
+   ``fm_backward_reference``, float32 and bfloat16) at the training shapes
+   B = 64, 512, 4093, 8192 (F=26, D=16), and ``emb_grad`` (the
+   embedding-gradient kernel against ``emb_grad_reference``) on
    ``load_criteo_synthetic`` ids, which follow a Zipf law, and on uniform
-   ids), at the training shapes B = 64, 512, 4093, 8192 (F=26, D=16), with
-   the same timings; ``emb_grad`` rows also time ``index_add_`` into a zeroed
-   table, the one PyTorch call that computes the same function.
+   ids at the same shapes, on AutoInt's avazu-style ids
+   (``load_avazu_synthetic``, 22 columns, B=8192) and on a batch whose ids
+   are all one row (B=8192, no bar), with the same timings and each
+   kernel's time apart (``kernels_ms``: the fill and the scatter);
+   ``emb_grad`` rows also time ``index_add_`` into a zeroed table, the one
+   PyTorch call that computes the same function, and name the design that
+   ran (``emb_grad_design``: ``v4`` at every one of these shapes, which the
+   script checks, also by the kernel's name in the profiler). Three more
+   rows take the criteo, uniform and avazu ids at B=8192 again with g one
+   element into its storage (``g_offset`` 1), which runs the ``scalar``
+   design on the same ids.
 4. ``kernel`` for ``cin_fwd`` (K4, the CIN contraction) and ``cin_bwd`` (K3,
    its gradient) against ``cin_fwd_reference`` and ``cin_bwd_reference``
    at xDeepFM's two CIN layers, (F, G, L) = (26, 26, 128) and (26, 64, 128),
@@ -87,7 +103,10 @@ these phases, each printing one JSON line:
      the tile kernels, K5's (K6's when fused), in bfloat16 (block 0) and
      float32 (blocks 1-2, after BatchNorm's promotion) under
      ``'bfloat16'``, in float32 only under ``'float32'``, and never the
-     one-warp ones). Then the same initial weights on the card
+     one-warp ones; ``k1k2_kernels``: the embedding gradient's and the FM
+     forward's kernels by name, and a check that every model ran K1's
+     ``v4`` scatter and DeepFM K2-fwd's ``vec16`` kernel, never the scalar
+     ones). Then the same initial weights on the card
      and on ``device='cpu'`` (the plain path), at 8192-row batches for
      DeepFM and 1024-row batches for xDeepFM (the CPU plain path
      materialises the CIN pair) and AutoInt, give the same step-1
@@ -99,10 +118,12 @@ these phases, each printing one JSON line:
      elements (Adam turns rounding in a gradient near zero into steps of
      ~lr).
 
-Then one ``kernels`` line (every ported kernel, its launches on the serving
-and training runs, for the field-attention kernels also by type, error and
-times), the ``nvidia-smi`` line again, and
-last ``{"ok": true, "device": {...}}``. Any failed check raises and exits
+Then a ``profiler`` line (``incomplete_windows``: the timing windows that
+lost launches three times in a row, whose times are the means of the
+launches seen), one ``kernels`` line (every ported kernel, its launches on
+the serving and training runs, for the field-attention kernels also by
+type, error and times), the ``nvidia-smi`` line again, and last
+``{"ok": true, "device": {...}}``. Any failed check raises and exits
 nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
 """
@@ -159,7 +180,7 @@ FA_LIFTED = {'fa': (64, 200, 1, 128), 'ab': (64, 22, 1, 128)}
 CIN_LAYERS = {'layer1': (26, 26, 128), 'layer2': (26, 64, 128)}
 CIN_BATCHES = (4096, 8192, 4093)
 CIN_HEADLINE = ('bfloat16', 'layer2', 8192)
-KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 12288)
+KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 8192, 12288)
 TRAIN_KERNEL_BATCHES = (64, 512, 4093, 8192)
 REQUESTS = (1, 37, 4096, 10000)
 REPEATS = 5
@@ -242,9 +263,10 @@ def profile_window(torch, work, tries=3):
     raise AssertionError('the profiler saw no device time')
 
 
-def device_ms(torch, fn, inputs, iters):
+def device_ms(torch, fn, inputs, iters, by_kernel=False):
     """Mean device time of one call of ``fn`` in ms: the sum of the
-    kernels it launches, from ``torch.profiler``."""
+    kernels it launches, from ``torch.profiler``; with ``by_kernel`` also
+    {kernel name: ms a call}."""
     for x in inputs[:3]:
         fn(x)
     torch.cuda.synchronize()
@@ -252,7 +274,29 @@ def device_ms(torch, fn, inputs, iters):
     def work():
         for i in range(iters):
             fn(inputs[i % len(inputs)])
-    return profile_window(torch, work)[1] / 1e3 / iters
+    # the profiler now and then loses a few calls' kernels from a window (a
+    # kernel seen other than a whole number of times a call; three windows
+    # in a row have lost them): such a window is run again, up to twice.
+    # A kernel's time a call is its mean time a launch times its launches
+    # a call, so a window still short after that gives the mean of the
+    # launches it saw, not a sum short of some; it is listed in
+    # INCOMPLETE_WINDOWS.
+    for _ in range(3):
+        events, _, _ = profile_window(torch, work)
+        lost = [(e.key[:60], e.count) for e in events
+                if e.count < iters or e.count % iters]
+        if not lost:
+            break
+    if lost:
+        INCOMPLETE_WINDOWS.append({'iters': iters, 'kernels': lost})
+    split = {e.key: e.self_device_time_total / e.count / 1e3
+             * max(1, round(e.count / iters)) for e in events}
+    ms = sum(split.values())
+    return (ms, split) if by_kernel else ms
+
+
+# device_ms's windows that lost launches three times in a row
+INCOMPLETE_WINDOWS = []
 
 
 def fm_bound(B, F, D, itemsize):
@@ -285,6 +329,45 @@ def ptxas_by_kernel(lines):
             out[kernel]['registers'] = int(
                 re.search(r'Used (\d+) registers', line).group(1))
     return out
+
+
+def kernel_ptxas(pattern):
+    """ptxas's report (registers, spill bytes) of the one kernel whose
+    mangled name matches ``pattern``."""
+    found = [(re.search(pattern, k).group(0), v) for k, v in PTXAS.items()
+             if re.search(pattern, k)]
+    check(len(found) == 1, f'ptxas reports {len(found)} kernels {pattern}')
+    return dict(found[0][1], kernel=found[0][0])
+
+
+# the kernel that each design of K2-fwd and K1 launches: a part of its name
+# in the profiler
+DESIGN_KERNELS = {'fm_fwd': {'vec16': 'fm_fwd_vec16_kernel',
+                             'scalar': 'fm_fwd_kernel<'},
+                  'emb_grad': {'v4': 'scatter_v4_kernel',
+                               'scalar': 'scatter_kernel'}}
+
+
+def ran_design(kernel, design, split):
+    """Checks that the kernels that ran (``split``: the profiler's kernel
+    names) are the design's."""
+    want = DESIGN_KERNELS[kernel][design]
+    others = [v for d, v in DESIGN_KERNELS[kernel].items() if d != design]
+    names = list(split)
+    check(any(want in n for n in names)
+          and not any(o in n for o in others for n in names),
+          f'{kernel}: the {design} design should run {want}, ran {names}')
+
+
+def fm_ptxas(fm_module, design, dtype, F, D):
+    """ptxas's report of the K2-fwd kernel a call at (F, D) in ``dtype``
+    runs."""
+    t = '13__nv_bfloat16' if dtype.itemsize == 2 else 'f'
+    if design == 'vec16':
+        chunks, slices = fm_module.fm_vec16_plan(dtype, F, D)
+        return kernel_ptxas(f'fm_fwd_vec16_kernelI{t}Li{chunks}ELi{slices}EE')
+    group = 1 << max(0, min(D, 32) - 1).bit_length()
+    return kernel_ptxas(f'fm_fwd_kernelI{t}Li{group}EE')
 
 
 def card_phase(torch, _build):
@@ -325,48 +408,67 @@ def n_buffers(nbytes):
     return max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
 
 
+def fm_row(torch, fm_module, dtype, B, offset, gen):
+    """One ``fm_fwd`` row: the kernel against fm_reference on (B, 26, 16)
+    inputs ``offset`` elements into their storage, timed over rotated
+    inputs."""
+    fm, fm_reference = fm_module.fm, fm_module.fm_reference
+    shape = (B, F_CRITEO, D_CRITEO)
+    n = B * F_CRITEO * D_CRITEO
+
+    def make():
+        flat = torch.randn(n + offset, generator=gen, device='cuda').to(dtype)
+        return flat[offset:].view(shape)
+    x = make()
+    out = fm(x)
+    ref = fm_reference(x.float())
+    torch.cuda.synchronize()
+    check(out.shape == (B, 1) and out.dtype == dtype,
+          f'fm returned {tuple(out.shape)} {out.dtype}')
+    dtype_name = str(dtype).split('.')[1]
+    rtol = RTOL[dtype_name]
+    # FM is a difference of two sums of size Σ x²: the absolute term of the
+    # tolerance scales with it
+    scale = float(x.float().square().sum(dim=(1, 2)).max())
+    err = (out.float() - ref).abs()
+    max_abs_err = float(err.max())
+    check(bool((err <= rtol * scale + rtol * ref.abs()).all()),
+          f'fm kernel disagrees with fm_reference: {dtype_name} B={B} '
+          f'x_offset={offset} max_abs_err={max_abs_err}')
+    # rotate over enough distinct inputs to read them from HBM
+    n_buf = n_buffers(x.nbytes)
+    bufs = [x] + [make() for _ in range(n_buf - 1)]
+    iters = 200 if B <= 4096 else 100
+    bound_ms, bound_by = fm_bound(B, F_CRITEO, D_CRITEO, x.element_size())
+    design = fm_module.fm_design(dtype, B, F_CRITEO, D_CRITEO,
+                                 fm_module.pointer_alignment(x))
+    # F=26, D=16 is the main path's shape at every batch; x one element
+    # into its storage is not 16-byte aligned
+    want = 'scalar' if offset else 'vec16'
+    check(design == want, f'fm at {dtype_name} B={B} x_offset={offset} '
+                          f'runs the {design} design, not {want}')
+    ms, split = device_ms(torch, fm, bufs, iters, by_kernel=True)
+    ran_design('fm_fwd', design, split)
+    return {
+        'dtype': dtype_name, 'B': B, 'F': F_CRITEO, 'D': D_CRITEO,
+        'x_offset': offset, 'design': design, 'max_abs_err': max_abs_err,
+        'rtol': rtol, 'atol': rtol * scale, 'ms': ms,
+        'plain_ms': device_ms(torch, fm_reference, bufs, iters),
+        'call_ms': call_ms(torch, fm, bufs, iters),
+        'plain_call_ms': call_ms(torch, fm_reference, bufs, iters),
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'buffers': n_buf,
+        'ptxas': fm_ptxas(fm_module, design, dtype, F_CRITEO, D_CRITEO)}
+
+
 def kernel_phase(torch, fm_module):
     """FM kernel against fm_reference on the card; returns the rows."""
-    fm, fm_reference = fm_module.fm, fm_module.fm_reference
     gen = torch.Generator(device='cuda').manual_seed(0)
     rows = []
     for dtype_name in ('float32', 'bfloat16'):
         dtype = getattr(torch, dtype_name)
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        for B in KERNEL_BATCHES:
-            shape = (B, F_CRITEO, D_CRITEO)
-            x = torch.randn(shape, generator=gen, device='cuda').to(dtype)
-            out = fm(x)
-            ref = fm_reference(x.float())
-            torch.cuda.synchronize()
-            check(out.shape == (B, 1) and out.dtype == dtype,
-                  f'fm returned {tuple(out.shape)} {out.dtype}')
-            rtol = RTOL[dtype_name]
-            # FM is a difference of two sums of size Σ x²: the absolute
-            # term of the tolerance scales with it
-            scale = float(x.float().square().sum(dim=(1, 2)).max())
-            err = (out.float() - ref).abs()
-            ok = bool((err <= rtol * scale + rtol * ref.abs()).all())
-            max_abs_err = float(err.max())
-            check(ok, f'fm kernel disagrees with fm_reference: {dtype_name} '
-                      f'B={B} max_abs_err={max_abs_err}')
-            # rotate over enough distinct inputs to read them from HBM
-            n_buf = n_buffers(x.nbytes)
-            bufs = [x] + [torch.randn(shape, generator=gen, device='cuda')
-                          .to(dtype) for _ in range(n_buf - 1)]
-            iters = 200 if B <= 4096 else 100
-            bound_ms, bound_by = fm_bound(B, F_CRITEO, D_CRITEO, itemsize)
-            rows.append({
-                'dtype': dtype_name, 'B': B, 'F': F_CRITEO, 'D': D_CRITEO,
-                'max_abs_err': max_abs_err, 'rtol': rtol,
-                'atol': rtol * scale,
-                'ms': device_ms(torch, fm, bufs, iters),
-                'plain_ms': device_ms(torch, fm_reference, bufs, iters),
-                'call_ms': call_ms(torch, fm, bufs, iters),
-                'plain_call_ms': call_ms(torch, fm_reference, bufs, iters),
-                'bound_ms': bound_ms, 'bound_by': bound_by,
-                'buffers': n_buf})
-            del bufs, x
+        rows += [fm_row(torch, fm_module, dtype, B, 0, gen)
+                 for B in KERNEL_BATCHES]
+        rows.append(fm_row(torch, fm_module, dtype, HEADLINE[1], 1, gen))
     emit({'phase': 'kernel', 'kernel': 'fm_fwd', 'library_ms': None,
           'library_note': 'no single PyTorch call computes FM pooling',
           'rows': rows})
@@ -890,78 +992,122 @@ def fa_entry(name, rows, launches):
 
 
 def flat_ids(torch, cat, vocabs):
-    """(B, 26) column ids → the flat int32 ids of the fused table."""
+    """(B, columns) ids → the flat int32 ids of the fused table."""
     offsets = np.concatenate([[0], np.cumsum(np.asarray(vocabs) + 1)[:-1]])
     return torch.from_numpy((cat + offsets).astype(np.int32).reshape(-1))
 
 
-def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic):
-    """Embedding-gradient kernel against emb_grad_reference on the card,
-    on Zipf-distributed (criteo) and uniform ids."""
+def emb_grad_cases(torch, vocabs, load_criteo_synthetic, datasets):
+    """The K1 rows: (ids kind, B, the table's vocabularies, make(seed) → the
+    (B, columns) ids as the flat int32 ids of the fused table, g's offset
+    in elements into its storage). criteo (Zipf) and uniform ids at the
+    training shapes; AutoInt's avazu schema at its training batch
+    (8192-row slices of the bench's rows); every id on one row of the
+    criteo table; then criteo, uniform and avazu ids again at B=8192 with
+    g one element into its storage, which is not 16-byte aligned and so
+    runs the scalar design on the same ids."""
+    def criteo(B):
+        return lambda seed: flat_ids(torch, load_criteo_synthetic(
+            n_rows=B, seed=seed, return_arrays=True)[0], vocabs)
+
+    def uniform(B):
+        def make(seed):
+            rng = np.random.default_rng(seed)
+            return flat_ids(torch, np.stack(
+                [rng.integers(0, v + 1, B) for v in vocabs], axis=1), vocabs)
+        return make
+    avazu_arrays, _, avazu_vocabs = avazu_data(datasets)
+    avazu_cat = avazu_arrays['cat']
+
+    def avazu(seed):
+        start = seed % AVAZU_BATCHES * TRAIN_BATCH
+        return flat_ids(torch, avazu_cat[start:start + TRAIN_BATCH],
+                        avazu_vocabs)
+
+    def one_row(seed):
+        del seed
+        return torch.full((TRAIN_BATCH * len(vocabs),), 5, dtype=torch.int32)
+    cases = [('criteo', B, vocabs, criteo(B), 0) for B in TRAIN_KERNEL_BATCHES]
+    cases += [('uniform', B, vocabs, uniform(B), 0)
+              for B in TRAIN_KERNEL_BATCHES]
+    cases.append(('avazu', TRAIN_BATCH, avazu_vocabs, avazu, 0))
+    cases.append(('one_row', TRAIN_BATCH, vocabs, one_row, 0))
+    cases += [('criteo', TRAIN_BATCH, vocabs, criteo(TRAIN_BATCH), 1),
+              ('uniform', TRAIN_BATCH, vocabs, uniform(TRAIN_BATCH), 1),
+              ('avazu', TRAIN_BATCH, avazu_vocabs, avazu, 1)]
+    return cases
+
+
+def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
+                          datasets):
+    """Embedding-gradient kernel against emb_grad_reference on the card, on
+    the ids of emb_grad_cases."""
     emb_grad, reference = eg_module.emb_grad, eg_module.emb_grad_reference
-    V = int(np.sum(np.asarray(vocabs) + 1))
     gen = torch.Generator(device='cuda').manual_seed(2)
     rows = []
-    for ids_kind in ('criteo', 'uniform'):
-        for B in TRAIN_KERNEL_BATCHES:
-            N = B * F_CRITEO
+    for ids_kind, B, table_vocabs, make_ids, offset in emb_grad_cases(
+            torch, vocabs, load_criteo_synthetic, datasets):
+        V = int(np.sum(np.asarray(table_vocabs) + 1))
+        N = B * len(table_vocabs)
 
-            def make(seed):
-                if ids_kind == 'criteo':
-                    cat = load_criteo_synthetic(n_rows=B, seed=seed,
-                                                return_arrays=True)[0]
-                else:
-                    rng = np.random.default_rng(seed)
-                    cat = np.stack([rng.integers(0, v + 1, B)
-                                    for v in vocabs], axis=1)
-                return (flat_ids(torch, cat, vocabs).cuda(),
-                        torch.randn((N, D_CRITEO), generator=gen,
-                                    device='cuda'))
-            ids, g = make(300)
-            out = emb_grad(ids, g, V)
-            ref = reference(ids, g, V)
-            row_abs = reference(ids, g.abs(), V)
-            torch.cuda.synchronize()
-            check(out.shape == (V, D_CRITEO) and out.dtype == torch.float32,
-                  f'emb_grad returned {tuple(out.shape)} {out.dtype}')
-            err = (out - ref).abs()
-            max_abs_err = float(err.max())
-            atol = EMB_GRAD_RTOL * float(row_abs.max())
-            check(bool((err <= atol + EMB_GRAD_RTOL * ref.abs()).all()),
-                  f'emb_grad kernel disagrees with emb_grad_reference: '
-                  f'{ids_kind} B={B} max_abs_err={max_abs_err}')
-            # the share of its column's B rows that the most frequent id
-            # takes
-            top_share = float(torch.bincount(ids.long()).max()) / B
-            touched = int((torch.bincount(ids.long(), minlength=V) > 0).sum())
-            bufs = [(ids, g)] + [make(301 + i) for i in range(
-                n_buffers(ids.nbytes + g.nbytes) - 1)]
-            iters = 100
-            bound_ms, bound_by = emb_grad_bound(N, D_CRITEO, V)
+        def make(seed):
+            g = torch.randn(N * D_CRITEO + offset, generator=gen,
+                            device='cuda')
+            return make_ids(seed).cuda(), g[offset:].view(N, D_CRITEO)
+        ids, g = make(300)
+        out = emb_grad(ids, g, V)
+        ref = reference(ids, g, V)
+        row_abs = reference(ids, g.abs(), V)
+        torch.cuda.synchronize()
+        check(out.shape == (V, D_CRITEO) and out.dtype == torch.float32,
+              f'emb_grad returned {tuple(out.shape)} {out.dtype}')
+        err = (out - ref).abs()
+        max_abs_err = float(err.max())
+        atol = EMB_GRAD_RTOL * float(row_abs.max())
+        check(bool((err <= atol + EMB_GRAD_RTOL * ref.abs()).all()),
+              f'emb_grad kernel disagrees with emb_grad_reference: '
+              f'{ids_kind} B={B} g_offset={offset} max_abs_err={max_abs_err}')
+        # the share of its column's B rows that the most frequent id takes
+        top_share = float(torch.bincount(ids.long()).max()) / B
+        touched = int((torch.bincount(ids.long(), minlength=V) > 0).sum())
+        design = eg_module.emb_grad_design(N, D_CRITEO, V,
+                                           eg_module.pointer_alignment(g))
+        # D=16 on a fresh g is the main path's shape (criteo and avazu);
+        # g one element into its storage is not 16-byte aligned
+        want = 'scalar' if offset else 'v4'
+        check(design == want, f'emb_grad at {ids_kind} B={B} g_offset='
+                              f'{offset} runs the {design} design, not {want}')
+        bufs = [(ids, g)] + [make(301 + i) for i in range(
+            n_buffers(ids.nbytes + g.nbytes) - 1)]
+        iters = 100
+        bound_ms, bound_by = emb_grad_bound(N, D_CRITEO, V)
 
-            def kernel(a):
-                return emb_grad(a[0], a[1], V)
+        def kernel(a):
+            return emb_grad(a[0], a[1], V)
 
-            def plain(a):
-                return reference(a[0], a[1], V)
+        def plain(a):
+            return reference(a[0], a[1], V)
 
-            def library(a):
-                return torch.zeros((V, D_CRITEO), device='cuda').index_add_(
-                    0, a[0], a[1])
-            rows.append({
-                'ids': ids_kind, 'B': B, 'N': N, 'D': D_CRITEO, 'V': V,
-                'touched_rows': touched, 'top_id_column_share': top_share,
-                'max_abs_err': max_abs_err, 'rtol': EMB_GRAD_RTOL,
-                'atol': atol,
-                'ms': device_ms(torch, kernel, bufs, iters),
-                'plain_ms': device_ms(torch, plain, bufs, iters),
-                'library_ms': device_ms(torch, library, bufs, iters),
-                'call_ms': call_ms(torch, kernel, bufs, iters),
-                'plain_call_ms': call_ms(torch, plain, bufs, iters),
-                'library_call_ms': call_ms(torch, library, bufs, iters),
-                'bound_ms': bound_ms, 'bound_by': bound_by,
-                'buffers': len(bufs)})
-            del bufs, ids, g, out, ref, row_abs
+        def library(a):
+            return torch.zeros((V, D_CRITEO), device='cuda').index_add_(
+                0, a[0], a[1])
+        ms, split = device_ms(torch, kernel, bufs, iters, by_kernel=True)
+        ran_design('emb_grad', design, split)
+        rows.append({
+            'ids': ids_kind, 'B': B, 'N': N, 'D': D_CRITEO, 'V': V,
+            'g_offset': offset, 'design': design, 'touched_rows': touched,
+            'top_id_column_share': top_share,
+            'max_abs_err': max_abs_err, 'rtol': EMB_GRAD_RTOL,
+            'atol': atol, 'ms': ms, 'kernels_ms': split,
+            'plain_ms': device_ms(torch, plain, bufs, iters),
+            'library_ms': device_ms(torch, library, bufs, iters),
+            'call_ms': call_ms(torch, kernel, bufs, iters),
+            'plain_call_ms': call_ms(torch, plain, bufs, iters),
+            'library_call_ms': call_ms(torch, library, bufs, iters),
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'buffers': len(bufs),
+            'ptxas': kernel_ptxas(DESIGN_KERNELS['emb_grad'][design])})
+        del bufs, ids, g, out, ref, row_abs
     emit({'phase': 'kernel', 'kernel': 'emb_grad',
           'library_call': 'torch.zeros(V, D).index_add_(0, ids, g)',
           'rows': rows})
@@ -1262,6 +1408,20 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
         check(ran == want, f'{model_name} {dtype_policy} training ran the '
                            f'{k} kernels {sorted(ran)}, expected '
                            f'{sorted(want)}')
+    # K1 (every model) and K2-fwd (DeepFM) by name: the designs of the
+    # main path's shapes, v4 and vec16, and never the scalar ones
+    k1k2_kernels = [{'name': e.key[:90], 'count': e.count,
+                     'device_ms': e.self_device_time_total / 1e3}
+                    for e in device
+                    if re.search(r'(scatter(_v4)?|fm_fwd(_vec16)?)_kernel',
+                                 e.key)]
+    ran = {k for k in ('scatter_v4_kernel', 'scatter_kernel',
+                       'fm_fwd_vec16_kernel', 'fm_fwd_kernel<')
+           if any(k in e['name'] for e in k1k2_kernels)}
+    want = {'scatter_v4_kernel'} | (
+        {'fm_fwd_vec16_kernel'} if model_name == 'DeepFM' else set())
+    check(ran == want, f'{model_name} {dtype_policy} training ran the K1/K2 '
+                       f'kernels {sorted(ran)}, expected {sorted(want)}')
 
     # the same initial weights on the card and the CPU: the gradients of
     # one step, then the losses and parameters of a fit over three batches
@@ -1367,7 +1527,8 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
           'by_kernel': [{'name': e.key[:90], 'count': e.count,
                          'device_ms': e.self_device_time_total / 1e3}
                         for e in device[:16]],
-          'cin_kernels': cin_kernels, 'fa_kernels': fa_kernels})
+          'cin_kernels': cin_kernels, 'fa_kernels': fa_kernels,
+          'k1k2_kernels': k1k2_kernels})
     del model, fits
     return launches
 
@@ -1402,7 +1563,7 @@ def main():
     vocabs = load_criteo_synthetic(n_rows=1, return_arrays=True)[3]
     bwd_rows = fm_bwd_kernel_phase(torch, fm_module)
     grad_rows = emb_grad_kernel_phase(torch, eg_module, vocabs,
-                                      load_criteo_synthetic)
+                                      load_criteo_synthetic, datasets)
     cin_rows = cin_kernel_phase(torch, cin_module)
     fa_rows = fa_kernel_phase(torch, fa_module)
 
@@ -1450,10 +1611,13 @@ def main():
                 launches[name] += count
             torch.cuda.empty_cache()
 
-    head = next(r for r in rows if (r['dtype'], r['B']) == HEADLINE)
+    head = next(r for r in rows if (r['dtype'], r['B'], r['x_offset'])
+                == (*HEADLINE, 0))
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
-    grad = next(r for r in grad_rows
-                if (r['ids'], r['B']) == ('criteo', TRAIN_HEADLINE[1]))
+    grad, grad_avazu = (next(r for r in grad_rows
+                             if (r['ids'], r['B'], r['g_offset'])
+                             == (ids, TRAIN_HEADLINE[1], 0))
+                        for ids in ('criteo', 'avazu'))
     cin_head = {name: next(r for r in cin_rows[name]
                            if (r['dtype'], r['layer'], r['B']) == CIN_HEADLINE)
                 for name in cin_rows}
@@ -1461,6 +1625,7 @@ def main():
     cin_at = dict(zip(('dtype', 'layer', 'B'), CIN_HEADLINE))
     cin_at.update(zip(('F', 'G', 'L'), CIN_LAYERS[CIN_HEADLINE[1]]),
                   D=D_CRITEO)
+    emit({'phase': 'profiler', 'incomplete_windows': INCOMPLETE_WINDOWS})
     emit({'kernels': [{
         'name': 'fm_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/fm.cu',
@@ -1470,6 +1635,7 @@ def main():
         'bound_ms': head['bound_ms'], 'bound_by': head['bound_by'],
         'library_ms': None,
         'library_note': 'no single PyTorch call computes FM pooling',
+        'design': head['design'],
         'at': {'dtype': HEADLINE[0], 'B': HEADLINE[1], 'F': F_CRITEO,
                'D': D_CRITEO}}, {
         'name': 'fm_bwd', 'route': 'cuda',
@@ -1489,7 +1655,11 @@ def main():
         'bound_ms': grad['bound_ms'], 'bound_by': grad['bound_by'],
         'library_ms': grad['library_ms'],
         'library_note': 'torch.zeros(V, D).index_add_(0, ids, g)',
-        'at': dict(train_at, ids='criteo', dtype='float32')}, {
+        'design': grad['design'],
+        'at': dict(train_at, ids='criteo', dtype='float32'),
+        'avazu': {k: grad_avazu[k] for k in (
+            'B', 'N', 'V', 'design', 'max_abs_err', 'ms', 'plain_ms',
+            'library_ms', 'bound_ms', 'bound_by')}}, {
         'name': 'cin_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',

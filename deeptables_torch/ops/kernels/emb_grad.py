@@ -4,9 +4,10 @@
 
 Port of ``deeptables_tpu/ops/kernels/emb_grad.py::emb_grad_matmul``. The
 CUDA kernel is ``deeptables_torch/csrc/emb_grad.cu``; its header says what
-bounds it (memory, the zero fill of the dense gradient most of all) and why
-it adds with atomics. :func:`emb_grad` launches it for a CUDA tensor and
-runs :func:`emb_grad_reference` for a CPU tensor only.
+bounds it (memory, and L2's rate of float32 reductions) and why it adds with
+atomics. :func:`emb_grad` launches it for a CUDA tensor and runs
+:func:`emb_grad_reference` for a CPU tensor only. :func:`emb_grad_design`
+names the design a call runs, by shape and alignment.
 
 The result is the dense float32 ``(V, D)`` gradient of the group's logical
 table, which the optimizer updates whole (as the JAX package's dense optax
@@ -18,7 +19,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, pointer_alignment
 
 
 def emb_grad_reference(ids: torch.Tensor, g: torch.Tensor,
@@ -32,14 +33,30 @@ def emb_grad_reference(ids: torch.Tensor, g: torch.Tensor,
                           g.reshape(-1, g.shape[-1]).float())
 
 
+# the C entry point of each design
+_ENTRY = {'v4': 'dt_emb_grad_v4_f32', 'scalar': 'dt_emb_grad_f32'}
+
+
+def emb_grad_design(N: int, D: int, V: int, ptr_alignment: int) -> str:
+    """Which scatter a CUDA call with ``N`` rows of a contiguous float32
+    ``g`` of width ``D`` into a ``(V, D)`` table runs, by shape and the
+    alignment in bytes of g's data pointer (every N and V runs either):
+    ``'v4'`` (csrc/emb_grad.cu's 16-byte reductions, a thread a 16-byte
+    piece of a row of g) where D % 4 == 0 and g is 16-byte aligned, else
+    ``'scalar'`` (a 4-byte reduction an element)."""
+    del N, V
+    return 'v4' if D % 4 == 0 and ptr_alignment % 16 == 0 else 'scalar'
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('emb_grad')
-    lib.dt_emb_grad_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_void_p, ctypes.c_int64,
-                                    ctypes.c_int, ctypes.c_int64,
-                                    ctypes.c_void_p]
-    lib.dt_emb_grad_f32.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.dt_emb_grad_error_string.argtypes = [ctypes.c_int]
     lib.dt_emb_grad_error_string.restype = ctypes.c_char_p
     return lib
@@ -74,8 +91,9 @@ def emb_grad(ids: torch.Tensor, g: torch.Tensor,
     N, D = g.shape
     out = torch.empty((num_rows, D), dtype=torch.float32, device=g.device)
     lib = _library()
+    entry = _ENTRY[emb_grad_design(N, D, num_rows, pointer_alignment(g))]
     with torch.cuda.device(g.device):
-        err = lib.dt_emb_grad_f32(ids.data_ptr(), g.data_ptr(),
+        err = getattr(lib, entry)(ids.data_ptr(), g.data_ptr(),
                                   out.data_ptr(), N, D, num_rows,
                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -6,11 +6,12 @@
 Port of ``deeptables_tpu/ops/kernels/fm.py::fm_pallas`` and the backward of
 its custom VJP (``_fm_bwd``). The CUDA kernels are in
 ``deeptables_torch/csrc/fm.cu``; its header says what bounds them (memory)
-and how the design meets that. :func:`fm` and :func:`fm_backward` launch
+and how the designs meet that. :func:`fm` and :func:`fm_backward` launch
 them for a CUDA tensor and run :func:`fm_reference` and
-:func:`fm_backward_reference` for a CPU tensor only. :class:`FMFunction`
-pairs the two as a ``torch.autograd.Function``; :func:`fm` goes through it
-whenever its input needs a gradient.
+:func:`fm_backward_reference` for a CPU tensor only. :func:`fm_design`
+names the forward's design a call runs, by shape and alignment.
+:class:`FMFunction` pairs the two as a ``torch.autograd.Function``;
+:func:`fm` goes through it whenever its input needs a gradient.
 """
 
 import ctypes
@@ -18,9 +19,11 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, pointer_alignment
 
 _FWD = {torch.float32: 'dt_fm_fwd_f32', torch.bfloat16: 'dt_fm_fwd_bf16'}
+_FWD_VEC16 = {torch.float32: 'dt_fm_fwd_vec16_f32',
+              torch.bfloat16: 'dt_fm_fwd_vec16_bf16'}
 _BWD = {torch.float32: 'dt_fm_bwd_f32', torch.bfloat16: 'dt_fm_bwd_bf16'}
 
 
@@ -46,7 +49,7 @@ def fm_backward_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _build.library('fm')
-    for name in _FWD.values():
+    for name in (*_FWD.values(), *_FWD_VEC16.values()):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -60,6 +63,38 @@ def _library():
     lib.dt_fm_error_string.argtypes = [ctypes.c_int]
     lib.dt_fm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def fm_vec16_plan(dtype, F: int, D: int):
+    """``(chunks, slices)`` of the forward's vec16 design at ``(F, D)`` in
+    ``dtype``: a row of x is ``chunks`` 16-byte chunks (a power of two up
+    to 32) and an example takes ``chunks * slices`` threads (slices the
+    largest power of two within a warp and at most ``ceil(F / 3)``); None
+    where the row is no such number of chunks. Mirrors csrc/fm.cu's
+    ``vec16_chunks`` and ``vec16_slices``."""
+    row = D * torch.empty((), dtype=dtype).element_size()
+    chunks = row // 16
+    if row % 16 or not 1 <= chunks <= 32 or chunks & (chunks - 1):
+        return None
+    want = (F + 2) // 3 if F > 3 else 1
+    slices = 1
+    while slices * 2 <= want and chunks * slices * 2 <= 32:
+        slices *= 2
+    return chunks, slices
+
+
+def fm_design(dtype, B: int, F: int, D: int, ptr_alignment: int) -> str:
+    """Which forward kernel a CUDA call on a contiguous ``(B, F, D)`` x in
+    ``dtype`` runs, by shape and the alignment in bytes of x's data
+    pointer (every B runs either): ``'vec16'`` (csrc/fm.cu's 16-byte
+    loads, several threads an example) where a row of x is a power of two
+    of 16-byte chunks, at most 32, and x is 16-byte aligned, else
+    ``'scalar'`` (one thread a d)."""
+    del B
+    if (dtype in _FWD and fm_vec16_plan(dtype, F, D) is not None
+            and ptr_alignment % 16 == 0):
+        return 'vec16'
+    return 'scalar'
 
 
 def _check_cuda(x: torch.Tensor, what: str):
@@ -87,8 +122,10 @@ def _fm_forward(x: torch.Tensor) -> torch.Tensor:
     if B == 0:
         return out
     lib = _library()
+    design = fm_design(x.dtype, B, F, D, pointer_alignment(x))
+    entry = _FWD_VEC16 if design == 'vec16' else _FWD
     with torch.cuda.device(x.device):
-        err = getattr(lib, _FWD[x.dtype])(
+        err = getattr(lib, entry[x.dtype])(
             x.data_ptr(), out.data_ptr(), B, F, D,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, lib, 'fm')

@@ -46,10 +46,15 @@ from deeptables_torch.ops.kernels.cin import (bwd_design, cin_bwd,
                                               cin_bwd_reference, cin_fwd,
                                               cin_fwd_reference, fwd_design)
 from deeptables_torch.ops.kernels import field_attention as fa
-from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
+from deeptables_torch.ops.kernels import fm as fm_module
+from deeptables_torch.ops.kernels import emb_grad as eg_module
+from deeptables_torch.ops.kernels.emb_grad import (emb_grad, emb_grad_design,
+                                                   emb_grad_reference)
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
                                              fm_backward_reference,
-                                             fm_reference)
+                                             fm_design, fm_reference,
+                                             fm_vec16_plan,
+                                             pointer_alignment)
 
 RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -74,8 +79,10 @@ def _close(actual, expected, x, rtol):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('B,F,D', [(1, 26, 16), (4093, 26, 16),
-                                   (4096, 26, 16), (64, 3, 4), (33, 5, 256),
-                                   (7, 1, 12), (300, 26, 33)])
+                                   (4096, 26, 16), (8192, 26, 16),
+                                   (12288, 26, 16), (64, 3, 4), (33, 5, 256),
+                                   (7, 1, 12), (300, 26, 33), (5, 200, 8),
+                                   (9, 2, 64)])
 def test_fm_kernel_matches_reference(cuda, B, F, D, dtype):
     gen = torch.Generator().manual_seed(B * 1000 + F * 10 + D)
     x = torch.randn(B, F, D, generator=gen).to(dtype).to(cuda)
@@ -109,6 +116,71 @@ def test_fm_backward_kernel_matches_reference(cuda, B, F, D, dtype):
                                atol=rtol * scale)
 
 
+def _ran(fn, *args, calls=3):
+    """The names of the kernels (``*kernel*``) that calls of fn launched
+    (torch.profiler). The profiler may lose a window's first kernels (a
+    process's first window most of all), so each kernel must be seen once a
+    call; a window that lost some is run again, up to twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and 'kernel' in e.key]
+        if kernels and all(e.count == calls for e in kernels):
+            break
+    return {e.key for e in kernels}
+
+
+def _offset_view(shape, dtype, gen, cuda):
+    """A contiguous tensor of ``shape`` one element into its storage, so its
+    data pointer is not 16-byte aligned."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 1, generator=gen).to(dtype).to(cuda)
+    return flat[1:].view(shape)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B', [1, 4093, 4096, 8192, 12288])
+def test_fm_kernel_on_an_offset_view(cuda, B, dtype):
+    """x one element into its storage runs the scalar design, and is
+    right."""
+    gen = torch.Generator().manual_seed(B + 7)
+    x = _offset_view((B, 26, 16), dtype, gen, cuda)
+    assert fm_design(dtype, B, 26, 16, pointer_alignment(x)) == 'scalar'
+    before = fm.launches
+    out = fm(x)
+    torch.cuda.synchronize()
+    assert fm.launches == before + 1
+    _close(out, fm_reference(x.float()), x, RTOL[dtype])
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('B,F,D,offset', [
+    (4096, 26, 16, 0), (4096, 26, 16, 1), (37, 26, 16, 0), (64, 3, 4, 0),
+    (7, 1, 12, 0), (33, 5, 256, 0), (5, 200, 8, 0), (9, 2, 64, 0)])
+def test_fm_design_names_the_kernel_that_ran(cuda, B, F, D, offset, dtype):
+    gen = torch.Generator().manual_seed(B + F + D)
+    x = (_offset_view((B, F, D), dtype, gen, cuda) if offset else
+         torch.randn(B, F, D, generator=gen).to(dtype).to(cuda))
+    names = _ran(fm, x)
+    vec16 = {n for n in names if 'fm_fwd_vec16_kernel' in n}
+    scalar = {n for n in names if 'fm_fwd_kernel<' in n}
+    if fm_design(dtype, B, F, D, pointer_alignment(x)) == 'vec16':
+        chunks, slices = fm_vec16_plan(dtype, F, D)
+        t = 'float' if dtype == torch.float32 else '__nv_bfloat16'
+        assert len(vec16) == 1 and not scalar, names
+        assert f'fm_fwd_vec16_kernel<{t}, {chunks}, {slices}>' in \
+            vec16.pop(), names
+    else:
+        assert len(scalar) == 1 and not vec16, names
+
+
 def test_fm_autograd_runs_both_kernels(cuda):
     x = torch.randn(64, 26, 16, device=cuda, requires_grad=True)
     g = torch.randn(64, 1, device=cuda)
@@ -140,13 +212,90 @@ def _check_emb_grad(ids, g, num_rows):
 
 
 @pytest.mark.parametrize('B', [1, 37, 4093, 8192])
-@pytest.mark.parametrize('D', [4, 8, 16, 32, 33])
+@pytest.mark.parametrize('D', [4, 8, 12, 16, 32, 33, 36])
 def test_emb_grad_kernel_on_zipf_ids(cuda, B, D):
     rng = np.random.default_rng(B + D)
     vocabs = [7, 300, 2500, 100000]
     ids = torch.from_numpy(_zipf_ids(B, vocabs, rng)).to(cuda)
     g = torch.from_numpy(rng.normal(size=(len(ids), D)).astype(np.float32))
     _check_emb_grad(ids, g.to(cuda), sum(vocabs))
+
+
+def test_emb_grad_kernel_at_the_avazu_shape(cuda):
+    """AutoInt's schema: 22 avazu-style columns at its training batch."""
+    from deeptables_torch.data.datasets import _avazu_fields
+    fields, _ = _avazu_fields(n_rows=8192, seed=5)
+    cat = np.stack(list(fields.values()), axis=1)
+    vocabs = cat.max(axis=0) + 2
+    offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]])
+    ids = torch.from_numpy((cat + offsets).astype(np.int32).reshape(-1))
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(len(ids), 16)).astype(np.float32)).to(cuda)
+    assert emb_grad_design(len(ids), 16, int(vocabs.sum()),
+                           pointer_alignment(g)) == 'v4'
+    _check_emb_grad(ids.to(cuda), g, int(vocabs.sum()))
+
+
+@pytest.mark.parametrize('B', [1, 37, 4093, 8192])
+@pytest.mark.parametrize('D', [4, 16, 33])
+def test_emb_grad_kernel_on_an_offset_g(cuda, B, D):
+    """g one element into its storage (a view with an offset, as
+    ``EmbeddingLookup.backward`` may pass): right all the same."""
+    rng = np.random.default_rng(B * D)
+    vocabs = [7, 300, 2500, 100000]
+    ids = torch.from_numpy(_zipf_ids(B, vocabs, rng)).to(cuda)
+    gen = torch.Generator().manual_seed(B * D)
+    g = _offset_view((len(ids), D), torch.float32, gen, cuda)
+    assert pointer_alignment(g) == 4
+    assert emb_grad_design(len(ids), D, sum(vocabs), 4) == 'scalar'
+    _check_emb_grad(ids, g, sum(vocabs))
+
+
+@pytest.mark.parametrize('B,D,offset', [
+    (4093, 16, 0), (4093, 16, 1), (37, 4, 0), (37, 12, 0), (37, 33, 0),
+    (37, 36, 0), (37, 4, 1), (1, 8, 2)])
+def test_emb_grad_design_names_the_kernel_that_ran(cuda, B, D, offset):
+    rng = np.random.default_rng(B + D + offset)
+    vocabs = [7, 300, 2500, 100000]
+    ids = torch.from_numpy(_zipf_ids(B, vocabs, rng)).to(cuda)
+    gen = torch.Generator().manual_seed(B + D)
+    g = (_offset_view((len(ids), D), torch.float32, gen, cuda) if offset
+         else torch.randn(len(ids), D, generator=gen).to(cuda))
+    names = _ran(emb_grad, ids, g, sum(vocabs))
+    v4 = {n for n in names if 'scatter_v4_kernel' in n}
+    scalar = {n for n in names if 'scatter_kernel' in n}
+    assert any('zero_kernel' in n for n in names), names
+    if emb_grad_design(len(ids), D, sum(vocabs),
+                       pointer_alignment(g)) == 'v4':
+        assert len(v4) == 1 and not scalar, names
+    else:
+        assert len(scalar) == 1 and not v4, names
+
+
+def test_emb_grad_v4_refuses_what_it_does_not_take(cuda, monkeypatch):
+    """v4 given a misaligned g or a D not a multiple of 4: the C side
+    refuses the launch, the wrapper raises and counts no launch."""
+    gen = torch.Generator().manual_seed(4)
+    ids = torch.zeros(8, dtype=torch.int32, device=cuda)
+    monkeypatch.setattr(eg_module, 'emb_grad_design', lambda *args: 'v4')
+    before = emb_grad.launches
+    for g in (_offset_view((8, 16), torch.float32, gen, cuda),
+              torch.randn(8, 6, generator=gen).to(cuda)):
+        with pytest.raises(RuntimeError, match='emb_grad kernel launch'):
+            emb_grad(ids, g, 10)
+    assert emb_grad.launches == before
+
+
+def test_fm_vec16_refuses_what_it_does_not_take(cuda, monkeypatch):
+    """vec16 given a misaligned x: the C side refuses the launch, the
+    wrapper raises and counts no launch, and nothing else runs."""
+    gen = torch.Generator().manual_seed(3)
+    x = _offset_view((8, 26, 16), torch.bfloat16, gen, cuda)
+    monkeypatch.setattr(fm_module, 'fm_design', lambda *args: 'vec16')
+    before = fm.launches
+    with pytest.raises(RuntimeError, match='fm kernel launch failed'):
+        fm(x)
+    assert fm.launches == before
 
 
 def test_emb_grad_kernel_one_hot_row(cuda):
@@ -376,14 +525,8 @@ def test_cin_bwd_runs_the_kernels_its_design_names(cuda, B, F, G, L, D,
                                                    dtype):
     """The kernels that ran, by name (torch.profiler): a bfloat16 shape
     that fits runs the tensor-core passes and never the CUDA-core ones."""
-    from torch.profiler import ProfilerActivity, profile
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 5)
-    cin_bwd(x0, h, w, dz)  # built and warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        cin_bwd(x0, h, w, dz)
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages()}
+    names = _ran(cin_bwd, x0, h, w, dz)
     wgmma = {n for n in names if 'cin_bwd_' in n and 'wgmma' in n}
     simt = {n for n in names if 'cin_bwd_' in n and 'wgmma' not in n}
     if bwd_design(dtype, F, G, L) == 'wgmma':
