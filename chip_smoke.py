@@ -33,14 +33,20 @@ these phases, each printing one JSON line:
    ids at the same shapes, on AutoInt's avazu-style ids
    (``load_avazu_synthetic``, 22 columns, B=8192) and on a batch whose ids
    are all one row (B=8192, no bar), with the same timings and each
-   kernel's time apart (``kernels_ms``: the fill and the scatter);
-   ``emb_grad`` rows also time ``index_add_`` into a zeroed table, the one
-   PyTorch call that computes the same function, and name the design that
-   ran (``emb_grad_design``: ``v4`` at every one of these shapes, which the
-   script checks, also by the kernel's name in the profiler). Three more
-   rows take the criteo, uniform and avazu ids at B=8192 again with g one
-   element into its storage (``g_offset`` 1), which runs the ``scalar``
-   design on the same ids.
+   kernel's time apart (``kernels_ms``: the sort's kernels, the fill, the
+   segment sum and the merge; ``sort_ms``, ``fill_ms`` and ``segment_ms``
+   sum them, and ``sort_alone_ms`` times ``torch.sort`` by itself). Each
+   ``emb_grad`` row checks that two calls give the same bits and those of
+   ``emb_grad_sorted_reference`` (the plain twin of the kernel's order) on
+   the CPU, times ``index_add_`` into a zeroed table, the one PyTorch call
+   that computes the same function, and ``index_put_`` with
+   ``accumulate=True`` under ``torch.use_deterministic_algorithms(True)``,
+   the deterministic one, and names the design that ran
+   (``emb_grad_design``: ``segment_v4`` at every one of these shapes, which
+   the script checks, also by the kernel's name in the profiler). Three
+   more rows take the criteo, uniform and avazu ids at B=8192 again with g
+   one element into its storage (``g_offset`` 1), which runs the
+   ``segment_scalar`` design on the same ids.
 4. ``kernel`` for ``cin_fwd`` (K4, the CIN contraction) and ``cin_bwd`` (K3,
    its gradient) against ``cin_fwd_reference`` and ``cin_bwd_reference``
    at xDeepFM's two CIN layers, (F, G, L) = (26, 26, 128) and (26, 64, 128),
@@ -105,8 +111,8 @@ these phases, each printing one JSON line:
      ``'bfloat16'``, in float32 only under ``'float32'``, and never the
      one-warp ones; ``k1k2_kernels``: the embedding gradient's and the FM
      forward's kernels by name, and a check that every model ran K1's
-     ``v4`` scatter and DeepFM K2-fwd's ``vec16`` kernel, never the scalar
-     ones). Then the same initial weights on the card
+     ``segment_v4`` kernels and DeepFM K2-fwd's ``vec16`` kernel, never the
+     scalar ones). Then the same initial weights on the card
      and on ``device='cpu'`` (the plain path), at 8192-row batches for
      DeepFM and 1024-row batches for xDeepFM (the CPU plain path
      materialises the CIN pair) and AutoInt, give the same step-1
@@ -118,7 +124,10 @@ these phases, each printing one JSON line:
      elements (Adam turns rounding in a gradient near zero into steps of
      ~lr).
 
-Then a ``profiler`` line (``incomplete_windows``: the timing windows that
+Then a ``determinism`` line: two DeepFM fits of three 8192-row steps under
+``'bfloat16'`` from one seed, and the parameter tensors whose bits differ
+between them (a measurement, not a check). Then a ``profiler`` line
+(``incomplete_windows``: the timing windows that
 lost launches three times in a row, whose times are the means of the
 launches seen), one ``kernels`` line (every ported kernel, its launches on
 the serving and training runs, for the field-attention kernels also by
@@ -192,7 +201,8 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 8192, 8, 3
 # the card-against-CPU comparison's batch (three of them and one validation)
 COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024, 'AutoInt': 1024,
                  'AutoInt-fused': 1024}
-# float atomics add in a run-dependent order: only rounding may differ
+# against index_add_: a segment cut by the kernel's chunks is added as a
+# sum of pieces, another association, so only rounding may differ
 EMB_GRAD_RTOL = 1e-5
 # card against CPU after three float32 Adam steps (see train_phase)
 PARAM_ATOL, PARAM_OUTLIERS = 2e-4, 1e-2
@@ -344,8 +354,15 @@ def kernel_ptxas(pattern):
 # in the profiler
 DESIGN_KERNELS = {'fm_fwd': {'vec16': 'fm_fwd_vec16_kernel',
                              'scalar': 'fm_fwd_kernel<'},
-                  'emb_grad': {'v4': 'scatter_v4_kernel',
-                               'scalar': 'scatter_kernel'}}
+                  'emb_grad': {'segment_v4': 'segment_kernel<float4>',
+                               'segment_scalar': 'segment_kernel<float>'}}
+# K1's kernels as ptxas names them (mangled), by design
+EMB_GRAD_PTXAS = {'segment_v4': ('segment_kernelI6float4E',
+                                 'merge_kernelI6float4E'),
+                  'segment_scalar': ('segment_kernelIfE', 'merge_kernelIfE')}
+# the kernels of K1 itself; the rest of a call's kernels are the sort's
+EMB_GRAD_OWN = {'fill': ('zero_kernel',),
+                'segment': ('segment_kernel<', 'merge_kernel<')}
 
 
 def ran_design(kernel, design, split):
@@ -1056,11 +1073,19 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
             return make_ids(seed).cuda(), g[offset:].view(N, D_CRITEO)
         ids, g = make(300)
         out = emb_grad(ids, g, V)
+        again = emb_grad(ids, g, V)
         ref = reference(ids, g, V)
         row_abs = reference(ids, g.abs(), V)
         torch.cuda.synchronize()
         check(out.shape == (V, D_CRITEO) and out.dtype == torch.float32,
               f'emb_grad returned {tuple(out.shape)} {out.dtype}')
+        check(torch.equal(out, again),
+              f'emb_grad gave other bits on a second call: {ids_kind} B={B} '
+              f'g_offset={offset}')
+        check(torch.equal(out.cpu(), eg_module.emb_grad_sorted_reference(
+            ids.cpu(), g.cpu(), V)),
+            f'emb_grad differs from emb_grad_sorted_reference: {ids_kind} '
+            f'B={B} g_offset={offset}')
         err = (out - ref).abs()
         max_abs_err = float(err.max())
         atol = EMB_GRAD_RTOL * float(row_abs.max())
@@ -1074,11 +1099,13 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
                                            eg_module.pointer_alignment(g))
         # D=16 on a fresh g is the main path's shape (criteo and avazu);
         # g one element into its storage is not 16-byte aligned
-        want = 'scalar' if offset else 'v4'
+        want = 'segment_scalar' if offset else 'segment_v4'
         check(design == want, f'emb_grad at {ids_kind} B={B} g_offset='
                               f'{offset} runs the {design} design, not {want}')
         bufs = [(ids, g)] + [make(301 + i) for i in range(
             n_buffers(ids.nbytes + g.nbytes) - 1)]
+        # index_put_ takes int64 indices: made before the timing
+        long_bufs = [(a[0].long(), a[1]) for a in bufs]
         iters = 100
         bound_ms, bound_by = emb_grad_bound(N, D_CRITEO, V)
 
@@ -1088,28 +1115,52 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
         def plain(a):
             return reference(a[0], a[1], V)
 
+        def sort(a):
+            return torch.sort(a[0], stable=True)
+
         def library(a):
             return torch.zeros((V, D_CRITEO), device='cuda').index_add_(
                 0, a[0], a[1])
+
+        def library_deterministic(a):
+            return torch.zeros((V, D_CRITEO), device='cuda').index_put_(
+                (a[0],), a[1], accumulate=True)
         ms, split = device_ms(torch, kernel, bufs, iters, by_kernel=True)
         ran_design('emb_grad', design, split)
+        part_ms = {part: sum(v for k, v in split.items()
+                             if any(n in k for n in names))
+                   for part, names in EMB_GRAD_OWN.items()}
+        torch.use_deterministic_algorithms(True)
+        try:
+            deterministic_ms = device_ms(torch, library_deterministic,
+                                         long_bufs, iters)
+        finally:
+            torch.use_deterministic_algorithms(False)
         rows.append({
             'ids': ids_kind, 'B': B, 'N': N, 'D': D_CRITEO, 'V': V,
             'g_offset': offset, 'design': design, 'touched_rows': touched,
-            'top_id_column_share': top_share,
+            'top_id_column_share': top_share, 'deterministic': True,
             'max_abs_err': max_abs_err, 'rtol': EMB_GRAD_RTOL,
             'atol': atol, 'ms': ms, 'kernels_ms': split,
+            'sort_ms': ms - sum(part_ms.values()),
+            'fill_ms': part_ms['fill'], 'segment_ms': part_ms['segment'],
+            'sort_alone_ms': device_ms(torch, sort, bufs, iters),
             'plain_ms': device_ms(torch, plain, bufs, iters),
             'library_ms': device_ms(torch, library, bufs, iters),
+            'library_deterministic_ms': deterministic_ms,
             'call_ms': call_ms(torch, kernel, bufs, iters),
             'plain_call_ms': call_ms(torch, plain, bufs, iters),
             'library_call_ms': call_ms(torch, library, bufs, iters),
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'buffers': len(bufs),
-            'ptxas': kernel_ptxas(DESIGN_KERNELS['emb_grad'][design])})
-        del bufs, ids, g, out, ref, row_abs
+            'ptxas': [kernel_ptxas(name)
+                      for name in EMB_GRAD_PTXAS[design]]})
+        del bufs, long_bufs, ids, g, out, again, ref, row_abs
     emit({'phase': 'kernel', 'kernel': 'emb_grad',
           'library_call': 'torch.zeros(V, D).index_add_(0, ids, g)',
+          'library_deterministic_call':
+              'torch.zeros(V, D).index_put_((ids.long(),), g, '
+              'accumulate=True) under use_deterministic_algorithms(True)',
           'rows': rows})
     return rows
 
@@ -1409,16 +1460,17 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
                            f'{k} kernels {sorted(ran)}, expected '
                            f'{sorted(want)}')
     # K1 (every model) and K2-fwd (DeepFM) by name: the designs of the
-    # main path's shapes, v4 and vec16, and never the scalar ones
+    # main path's shapes, segment_v4 and vec16, and never the scalar ones
     k1k2_kernels = [{'name': e.key[:90], 'count': e.count,
                      'device_ms': e.self_device_time_total / 1e3}
                     for e in device
-                    if re.search(r'(scatter(_v4)?|fm_fwd(_vec16)?)_kernel',
+                    if re.search(r'(segment|merge|fm_fwd(_vec16)?)_kernel',
                                  e.key)]
-    ran = {k for k in ('scatter_v4_kernel', 'scatter_kernel',
-                       'fm_fwd_vec16_kernel', 'fm_fwd_kernel<')
+    k1 = ('segment_kernel<float4>', 'merge_kernel<float4>')
+    ran = {k for k in k1 + ('segment_kernel<float>', 'merge_kernel<float>',
+                            'fm_fwd_vec16_kernel', 'fm_fwd_kernel<')
            if any(k in e['name'] for e in k1k2_kernels)}
-    want = {'scatter_v4_kernel'} | (
+    want = set(k1) | (
         {'fm_fwd_vec16_kernel'} if model_name == 'DeepFM' else set())
     check(ran == want, f'{model_name} {dtype_policy} training ran the K1/K2 '
                        f'kernels {sorted(ran)}, expected {sorted(want)}')
@@ -1533,6 +1585,31 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     return launches
 
 
+def determinism_phase(torch, port, vocabs, data, steps=3):
+    """Two DeepFM fits of ``steps`` batches under 'bfloat16' from one seed
+    on the card: the parameter tensors whose bits differ between them. A
+    measurement, not a check."""
+    arrays, y = data
+    n = steps * TRAIN_BATCH
+    states = []
+    for _ in range(2):
+        model = make_model(port, 'DeepFM', 'bfloat16', None, vocabs)
+        module = model.build()
+        val = rows_of(arrays, n, n + TRAIN_BATCH), y[n:n + TRAIN_BATCH]
+        model.fit(rows_of(arrays, 0, n), y[:n], batch_size=TRAIN_BATCH,
+                  epochs=1, validation_data=val, verbose=0)
+        states.append({k: v.detach().cpu().clone()
+                       for k, v in module.state_dict().items()})
+        del model, module
+    first, second = states
+    differ = {k: float((first[k].double() - second[k].double()).abs().max())
+              for k in first if not torch.equal(first[k], second[k])}
+    emit({'phase': 'determinism', 'model': 'DeepFM',
+          'dtype_policy': 'bfloat16', 'steps': steps,
+          'batch_size': TRAIN_BATCH, 'tensors': len(first),
+          'differ': differ})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1611,6 +1688,9 @@ def main():
                 launches[name] += count
             torch.cuda.empty_cache()
 
+    determinism_phase(torch, port, vocabs, criteo[2])
+    torch.cuda.empty_cache()
+
     head = next(r for r in rows if (r['dtype'], r['B'], r['x_offset'])
                 == (*HEADLINE, 0))
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
@@ -1655,11 +1735,15 @@ def main():
         'bound_ms': grad['bound_ms'], 'bound_by': grad['bound_by'],
         'library_ms': grad['library_ms'],
         'library_note': 'torch.zeros(V, D).index_add_(0, ids, g)',
+        'library_deterministic_ms': grad['library_deterministic_ms'],
+        'sort_ms': grad['sort_ms'], 'segment_ms': grad['segment_ms'],
+        'fill_ms': grad['fill_ms'],
         'design': grad['design'],
         'at': dict(train_at, ids='criteo', dtype='float32'),
         'avazu': {k: grad_avazu[k] for k in (
             'B', 'N', 'V', 'design', 'max_abs_err', 'ms', 'plain_ms',
-            'library_ms', 'bound_ms', 'bound_by')}}, {
+            'library_ms', 'library_deterministic_ms', 'sort_ms',
+            'segment_ms', 'fill_ms', 'bound_ms', 'bound_by')}}, {
         'name': 'cin_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',

@@ -12,45 +12,59 @@
 //
 // The TPU kernel built a one-hot tile in VMEM and contracted it on the
 // MXU, over lane-packed, TILE_P-aligned table regions: a way around the
-// TPU's slow scatter, and nothing Hopper needs. Here the scheme is the
-// plain one, chosen for being right and simple first: atomics.
+// TPU's slow scatter, and nothing Hopper needs. What it does give is a
+// fixed order: its grid adds the batch chunks into each output tile one
+// after another, so the same inputs give the same bits on every run. This
+// kernel keeps that property. It adds no two values with atomics; every
+// sum is taken in an order fixed by the inputs alone.
 //
-// 1. A fill kernel zeroes dtable with 16-byte stores.
-// 2. A scatter kernel adds g into dtable with atomicAdd, which compiles to a
-//    fire-and-forget reduction in L2 since its result is unused. Two
-//    designs, which the wrapper picks by shape and alignment
-//    (ops/kernels/emb_grad.py emb_grad_design):
-//    - v4: one thread a 16-byte piece of a row of g, one float4 load and
-//      one 16-byte reduction (Hopper's atomicAdd on a float4, whose result
-//      is unused). It needs D % 4 == 0 and g 16-byte aligned; its entry
-//      point refuses anything else.
-//    - scalar: one thread an element (n, d) of g, one 4-byte reduction.
-//      It takes any D and any alignment.
-//    The threads of a warp read neighbouring pieces of g (coalesced).
+// The wrapper (ops/kernels/emb_grad.py) sorts the ids stably first, so
+// that each row's entries lie together in batch order: `sorted` holds the
+// sorted ids and `perm` the position in the batch of each (torch.sort,
+// stable). The sort is index preparation, as the TPU kernel's scalar-
+// prefetched column steps were; the fill, the segment sums and the writes
+// are the three kernels here:
 //
-// On an H100 a 16-byte reduction costs L2 about what four 4-byte ones do:
-// L2 adds float32 operands at its own rate (~3.4 M in 0.014-0.018 ms), so
-// v4 gains most where the rows it adds into are spread (uniform ids) and
-// little under Zipf-distributed ids, where a few hot rows set the pace
-// (PERF.md, the K1 finding).
+// 1. zero_kernel fills dtable with 16-byte stores.
+// 2. segment_kernel cuts the sorted entries into chunks of `chunk`
+//    consecutive entries and gives each chunk to a group of `width`
+//    threads, a T-wide piece of a row each (T = float4 or float). The group
+//    walks its chunk in order and sums each run of equal ids, from 0, in
+//    batch order, loading kUnroll rows of g at a time. A run that is a
+//    whole segment (all entries of its row) is written to its dtable row.
+//    A run that a chunk boundary cuts is a piece of a longer segment and
+//    goes to the chunk's two slots in `partial`: slot 0 for a run that
+//    goes on from the chunk before, else slot 1 for one that goes on into
+//    the chunk after.
+// 3. merge_kernel: the chunk in which a cut segment starts adds its slot 1
+//    and the slot 0 of each following chunk of the segment, in chunk
+//    order, and writes the row.
+//
+// So a row's value is ((p_0 + p_1) + ...) + p_k over the pieces of its
+// segment, each piece summed from 0 in batch order; a segment that lies in
+// one chunk is summed exactly as the CPU's index_add_ sums it. The plain
+// twin emb_grad_sorted_reference repeats this order and gives the same
+// bits on the CPU.
+//
+// Skew: under a Zipf law a column's top row takes ~24% of its B ids
+// (~2,000 entries at B = 8192). A segment of L entries costs one group
+// `chunk` sequential rows and the merge L / chunk pieces, each kUnroll at
+// a time, so no segment is summed in a single chain of its length.
+//
+// Variants, which the wrapper picks by shape and alignment
+// (emb_grad_design): T = float4 (v4: D % 4 == 0 and g, dtable, partial
+// 16-byte aligned, 16-byte loads and stores; its entry point refuses
+// anything else) and T = float (scalar: any D and alignment).
 //
 // What bounds it: memory. The function must read ids and g once and write
 // dtable once: (4 N + 4 N D + 4 V D) bytes, and the fill is most of that at
-// the criteo shapes (20.8 MB of 35 MB at B=8192). The touched rows are
-// read and written again by the reductions, in L2 where they fit.
+// the criteo shapes (20.8 MB of 35 MB at B=8192). The sort reads and writes
+// the ids and their positions a few times more, and the segment kernel
+// reads `perm` (8 bytes an entry) besides.
 //
-// Order: float atomics add in a different order on every run, so the
-// result is deterministic only up to rounding; tests allow for it. A sort
-// of the ids followed by a segment sum would be the deterministic scheme.
-//
-// Skew: under a Zipf law most of a column's rows hit a few ids, and their
-// reductions serialize on those addresses in L2. Combining a block's or a
-// warp's equal ids first was measured slower on the main path's ids, whose
-// neighbours are different columns (PERF.md); grouping the whole
-// batch's ids by row is later work.
-//
-// Bad ids: an id outside [0, V) is skipped so memory stays safe; the
-// caller checks every id on the host before it reaches the device
+// Bad ids: an id outside [0, V) is skipped so memory stays safe (they sort
+// to the ends and their runs are neither written nor merged); the caller
+// checks every id on the host before it reaches the device
 // (pipeline.check_categorical_ids), so none arrives here.
 //
 // Plain C interface for ctypes: the entry point launches on the given
@@ -63,6 +77,23 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUnroll = 8;  // rows (or pieces) a thread has in flight
+
+__device__ __forceinline__ float add(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 add(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() {
+  return 0.f;
+}
+template <>
+__device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.f, 0.f, 0.f, 0.f);
+}
 
 __global__ void __launch_bounds__(kThreads)
     zero_kernel(float* __restrict__ out, int64_t n) {
@@ -75,57 +106,151 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    scatter_kernel(const int32_t* __restrict__ ids, const float* __restrict__ g,
-                   float* __restrict__ out, int64_t total, int D, int64_t V) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int64_t n = i / D;
-  const int64_t d = i - n * D;
-  const int64_t row = __ldg(ids + n);
+// a run's sum: to its row, or to a slot of its chunk when a chunk boundary
+// cuts it
+template <typename T>
+__device__ __forceinline__ void flush(int32_t row, T acc, bool from_before,
+                                      bool into_after, int64_t c, int lane,
+                                      int width, int64_t V,
+                                      T* __restrict__ out,
+                                      T* __restrict__ partial) {
   if (row < 0 || row >= V) return;
-  atomicAdd(out + row * D + d, __ldg(g + i));
+  if (from_before)
+    partial[(2 * c) * width + lane] = acc;
+  else if (into_after)
+    partial[(2 * c + 1) * width + lane] = acc;
+  else
+    out[static_cast<int64_t>(row) * width + lane] = acc;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    scatter_v4_kernel(const int32_t* __restrict__ ids,
-                      const float4* __restrict__ g, float4* __restrict__ out,
-                      int64_t pieces, int d4, int64_t V) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= pieces) return;
-  const int64_t n = i / d4;
-  const int64_t row = __ldg(ids + n);
-  if (row < 0 || row >= V) return;
-  atomicAdd(out + row * d4 + (i - n * d4), __ldg(g + i));
+    segment_kernel(const int32_t* __restrict__ sorted,
+                   const int64_t* __restrict__ perm, const T* __restrict__ g,
+                   T* __restrict__ out, T* __restrict__ partial, int64_t N,
+                   int width, int64_t V, int chunk, int64_t n_chunks) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t c = t / width;
+  if (c >= n_chunks) return;
+  const int lane = static_cast<int>(t - c * width);
+  const int64_t begin = c * chunk;
+  const int64_t end = begin + chunk < N ? begin + chunk : N;
+  // whether the chunk's first run goes on from the chunk before, and its
+  // last run into the chunk after
+  const bool from_before =
+      begin > 0 && __ldg(sorted + begin - 1) == __ldg(sorted + begin);
+  const bool into_after =
+      end < N && __ldg(sorted + end) == __ldg(sorted + end - 1);
+  int32_t row = __ldg(sorted + begin);
+  bool first = true;
+  T acc = zero<T>();
+  for (int64_t base = begin; base < end; base += kUnroll) {
+    int32_t id[kUnroll];
+    T v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (base + k < end) {
+        id[k] = __ldg(sorted + base + k);
+        const int64_t n = __ldg(reinterpret_cast<const long long*>(perm) +
+                                base + k);
+        v[k] = __ldg(g + n * width + lane);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (base + k < end) {
+        if (id[k] != row) {
+          flush(row, acc, first && from_before, false, c, lane, width, V,
+                out, partial);
+          row = id[k];
+          acc = zero<T>();
+          first = false;
+        }
+        acc = add(acc, v[k]);
+      }
+    }
+  }
+  flush(row, acc, first && from_before, into_after, c, lane, width, V, out,
+        partial);
 }
 
-cudaError_t launch(const int32_t* ids, const float* g, float* out, int64_t N,
-                   int D, int64_t V, bool v4, cudaStream_t stream) {
-  if (N < 0 || D < 1 || V < 1) return cudaErrorInvalidValue;
-  if (v4 && (D % 4 != 0 || reinterpret_cast<uintptr_t>(g) % 16 != 0 ||
-             reinterpret_cast<uintptr_t>(out) % 16 != 0))
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    merge_kernel(const int32_t* __restrict__ sorted,
+                 const T* __restrict__ partial, T* __restrict__ out, int64_t N,
+                 int width, int64_t V, int chunk, int64_t n_chunks) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t c = t / width;
+  if (c >= n_chunks) return;
+  const int lane = static_cast<int>(t - c * width);
+  const int64_t begin = c * chunk;
+  const int64_t end = begin + chunk;
+  if (end >= N) return;
+  // the segment must go on into the next chunk and start in this one (the
+  // ids are sorted, so an equal id before the chunk means the whole chunk
+  // is the middle of a segment that started earlier)
+  const int32_t row = __ldg(sorted + end - 1);
+  if (__ldg(sorted + end) != row || row < 0 || row >= V) return;
+  if (begin > 0 && __ldg(sorted + begin - 1) == row) return;
+  T acc = partial[(2 * c + 1) * width + lane];
+  bool done = false;
+  for (int64_t k = c + 1; k < n_chunks && !done; k += kUnroll) {
+    int32_t head[kUnroll];
+    T v[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      if (k + j < n_chunks) {
+        head[j] = __ldg(sorted + (k + j) * chunk);
+        v[j] = partial[(2 * (k + j)) * width + lane];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      if (!done) {
+        if (k + j < n_chunks && head[j] == row)
+          acc = add(acc, v[j]);
+        else
+          done = true;
+      }
+    }
+  }
+  out[static_cast<int64_t>(row) * width + lane] = acc;
+}
+
+template <typename T>
+cudaError_t launch(const int32_t* sorted, const int64_t* perm, const float* g,
+                   float* out, float* partial, int64_t N, int D, int64_t V,
+                   int chunk, cudaStream_t stream) {
+  constexpr int kFloats = sizeof(T) / sizeof(float);
+  if (N < 0 || D < 1 || V < 1 || chunk < 1) return cudaErrorInvalidValue;
+  if (kFloats > 1 && (D % kFloats != 0 ||
+                      reinterpret_cast<uintptr_t>(g) % sizeof(T) != 0 ||
+                      reinterpret_cast<uintptr_t>(out) % sizeof(T) != 0 ||
+                      reinterpret_cast<uintptr_t>(partial) % sizeof(T) != 0))
     return cudaErrorInvalidValue;
   // out is 16-byte aligned (a fresh allocation); the fill's tail of
   // n % 4 floats takes the threads after the float4 ones
   const int64_t n = V * D;
   const int64_t fill_threads = n / 4 + n % 4;
   const int64_t fill_blocks = (fill_threads + kThreads - 1) / kThreads;
-  // the scatter's threads: a 16-byte piece (v4) or an element each
-  const int64_t total = v4 ? N * (D / 4) : N * D;
-  const int64_t scatter_blocks = (total + kThreads - 1) / kThreads;
-  if (fill_blocks > 0x7fffffff || scatter_blocks > 0x7fffffff)
+  const int width = D / kFloats;
+  const int64_t n_chunks = (N + chunk - 1) / chunk;
+  const int64_t blocks = (n_chunks * width + kThreads - 1) / kThreads;
+  if (fill_blocks > 0x7fffffff || blocks > 0x7fffffff)
     return cudaErrorInvalidValue;
-  zero_kernel<<<static_cast<unsigned>(fill_blocks), kThreads, 0, stream>>>(out, n);
+  zero_kernel<<<static_cast<unsigned>(fill_blocks), kThreads, 0, stream>>>(out,
+                                                                         n);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || total == 0) return err;
-  if (v4)
-    scatter_v4_kernel<<<static_cast<unsigned>(scatter_blocks), kThreads, 0,
-                        stream>>>(ids, reinterpret_cast<const float4*>(g),
-                                  reinterpret_cast<float4*>(out), total, D / 4,
-                                  V);
-  else
-    scatter_kernel<<<static_cast<unsigned>(scatter_blocks), kThreads, 0,
-                     stream>>>(ids, g, out, total, D, V);
+  if (err != cudaSuccess || N == 0) return err;
+  const T* gt = reinterpret_cast<const T*>(g);
+  T* outt = reinterpret_cast<T*>(out);
+  T* partialt = reinterpret_cast<T*>(partial);
+  segment_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      sorted, perm, gt, outt, partialt, N, width, V, chunk, n_chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      sorted, partialt, outt, N, width, V, chunk, n_chunks);
   return cudaGetLastError();
 }
 
@@ -133,23 +258,31 @@ cudaError_t launch(const int32_t* ids, const float* g, float* out, int64_t N,
 
 extern "C" {
 
+// sorted: (N,) int32 ids in ascending order; perm: (N,) int64, the position
+// in g of each; g: (N, D) float32; out: (V, D) float32; partial: scratch of
+// 2 * ceil(N / chunk) * D float32.
+
 // the scalar design
-int dt_emb_grad_f32(const void* ids, const void* g, void* out, int64_t N,
-                    int D, int64_t V, void* stream) {
-  return static_cast<int>(launch(static_cast<const int32_t*>(ids),
-                                 static_cast<const float*>(g),
-                                 static_cast<float*>(out), N, D, V, false,
-                                 static_cast<cudaStream_t>(stream)));
+int dt_emb_grad_f32(const void* sorted, const void* perm, const void* g,
+                    void* out, void* partial, int64_t N, int D, int64_t V,
+                    int chunk, void* stream) {
+  return static_cast<int>(launch<float>(
+      static_cast<const int32_t*>(sorted), static_cast<const int64_t*>(perm),
+      static_cast<const float*>(g), static_cast<float*>(out),
+      static_cast<float*>(partial), N, D, V, chunk,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// the v4 design: refuses (cudaErrorInvalidValue) D % 4 != 0 and a g or out
-// that is not 16-byte aligned
-int dt_emb_grad_v4_f32(const void* ids, const void* g, void* out, int64_t N,
-                       int D, int64_t V, void* stream) {
-  return static_cast<int>(launch(static_cast<const int32_t*>(ids),
-                                 static_cast<const float*>(g),
-                                 static_cast<float*>(out), N, D, V, true,
-                                 static_cast<cudaStream_t>(stream)));
+// the v4 design: refuses (cudaErrorInvalidValue) D % 4 != 0 and a g, out or
+// partial that is not 16-byte aligned
+int dt_emb_grad_v4_f32(const void* sorted, const void* perm, const void* g,
+                       void* out, void* partial, int64_t N, int D, int64_t V,
+                       int chunk, void* stream) {
+  return static_cast<int>(launch<float4>(
+      static_cast<const int32_t*>(sorted), static_cast<const int64_t*>(perm),
+      static_cast<const float*>(g), static_cast<float*>(out),
+      static_cast<float*>(partial), N, D, V, chunk,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* dt_emb_grad_error_string(int err) {

@@ -1,11 +1,237 @@
 # -*- coding:utf-8 -*-
-"""Synthetic dataset generators: the port's copies of the Criteo-style and
-Avazu-style loaders in ``deeptables_tpu/data/datasets.py`` (the same seed
-gives bit-identical arrays). pandas is imported only where a DataFrame is
-built; ``_avazu_fields`` gives the Avazu-style columns as numpy arrays
-without it."""
+"""Synthetic dataset generators: the port's copies of the loaders in
+``deeptables_tpu/data/datasets.py`` (the same seed gives bit-identical
+frames and arrays): the adult, bank, movielens, glass, boston and
+heart-disease schemas, the Criteo-style and Avazu-style CTR data and the
+multilabel task. Every frame is generated from its seed, nothing is
+downloaded. pandas is imported only where a DataFrame is built;
+``_avazu_fields`` gives the Avazu-style columns as numpy arrays without
+it."""
 
 import numpy as np
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _categorical(rng, n, values, p=None):
+    return rng.choice(values, size=n, p=p)
+
+
+def load_adult(n_rows=10000, seed=42):
+    """Census-income-style binary task.  Integer column labels 0..14 (the
+    preprocessor renames them to x_0..x_14 like the real adult dataframe
+    flows through the reference tests); label at column 14."""
+    import pandas as pd
+    rng = _rng(seed)
+    age = rng.integers(17, 90, n_rows)
+    workclass = _categorical(rng, n_rows, [
+        'Private', 'Self-emp', 'Federal-gov', 'Local-gov', 'State-gov',
+        'Without-pay', 'Never-worked'])
+    fnlwgt = rng.integers(10000, 500000, n_rows)
+    education = _categorical(rng, n_rows, [
+        'Bachelors', 'HS-grad', '11th', 'Masters', '9th', 'Some-college',
+        'Assoc-acdm', 'Assoc-voc', 'Doctorate', '7th-8th', '12th', '5th-6th',
+        '10th', '1st-4th', 'Preschool', 'Prof-school'])
+    education_num = rng.integers(1, 17, n_rows)
+    marital = _categorical(rng, n_rows, [
+        'Married-civ-spouse', 'Divorced', 'Never-married', 'Separated',
+        'Widowed', 'Married-spouse-absent', 'Married-AF-spouse'])
+    occupation = _categorical(rng, n_rows, [
+        'Tech-support', 'Craft-repair', 'Other-service', 'Sales',
+        'Exec-managerial', 'Prof-specialty', 'Handlers-cleaners',
+        'Machine-op-inspct', 'Adm-clerical', 'Farming-fishing',
+        'Transport-moving', 'Priv-house-serv', 'Protective-serv',
+        'Armed-Forces'])
+    relationship = _categorical(rng, n_rows, [
+        'Wife', 'Own-child', 'Husband', 'Not-in-family', 'Other-relative',
+        'Unmarried'])
+    race = _categorical(rng, n_rows, [
+        'White', 'Asian-Pac-Islander', 'Amer-Indian-Eskimo', 'Other', 'Black'])
+    sex = _categorical(rng, n_rows, ['Female', 'Male'])
+    capital_gain = np.where(rng.random(n_rows) < 0.1,
+                            rng.integers(1, 99999, n_rows), 0)
+    capital_loss = np.where(rng.random(n_rows) < 0.05,
+                            rng.integers(1, 4356, n_rows), 0)
+    hours = rng.integers(1, 99, n_rows)
+    country = _categorical(rng, n_rows, [
+        'United-States', 'Cambodia', 'England', 'Canada', 'Germany', 'India',
+        'Japan', 'China', 'Cuba', 'Mexico', 'Philippines'],
+        p=[0.8, 0.02, 0.02, 0.02, 0.02, 0.02, 0.02, 0.02, 0.02, 0.02, 0.02])
+
+    score = (0.03 * (age - 40)
+             + 0.25 * (education_num - 9)
+             + 0.9 * (marital == 'Married-civ-spouse')
+             + 0.4 * (sex == 'Male')
+             + 0.00003 * capital_gain
+             + 0.015 * (hours - 40)
+             + 0.5 * np.isin(occupation, ['Exec-managerial', 'Prof-specialty'])
+             + rng.normal(0, 1.0, n_rows))
+    label = np.where(score > 0.8, ' >50K', ' <=50K')
+
+    df = pd.DataFrame({
+        0: age, 1: workclass, 2: fnlwgt, 3: education, 4: education_num,
+        5: marital, 6: occupation, 7: relationship, 8: race, 9: sex,
+        10: capital_gain, 11: capital_loss, 12: hours, 13: country, 14: label,
+    })
+    return df
+
+
+def load_bank(n_rows=10000, seed=7):
+    """Bank-marketing-style binary task (named columns; label column 'y')."""
+    import pandas as pd
+    rng = _rng(seed)
+    age = rng.integers(18, 95, n_rows)
+    job = _categorical(rng, n_rows, [
+        'admin.', 'unknown', 'unemployed', 'management', 'housemaid',
+        'entrepreneur', 'student', 'blue-collar', 'self-employed',
+        'retired', 'technician', 'services'])
+    marital = _categorical(rng, n_rows, ['married', 'divorced', 'single'])
+    education = _categorical(rng, n_rows,
+                             ['unknown', 'secondary', 'primary', 'tertiary'])
+    default = _categorical(rng, n_rows, ['yes', 'no'], p=[0.02, 0.98])
+    balance = rng.normal(1400, 3000, n_rows).astype(int)
+    housing = _categorical(rng, n_rows, ['yes', 'no'])
+    loan = _categorical(rng, n_rows, ['yes', 'no'], p=[0.16, 0.84])
+    contact = _categorical(rng, n_rows, ['unknown', 'telephone', 'cellular'])
+    day = rng.integers(1, 32, n_rows)
+    month = _categorical(rng, n_rows, [
+        'jan', 'feb', 'mar', 'apr', 'may', 'jun', 'jul', 'aug', 'sep', 'oct',
+        'nov', 'dec'])
+    duration = rng.integers(0, 3000, n_rows)
+    campaign = rng.integers(1, 50, n_rows)
+    pdays = np.where(rng.random(n_rows) < 0.75, -1,
+                     rng.integers(1, 900, n_rows))
+    previous = rng.integers(0, 30, n_rows)
+    poutcome = _categorical(rng, n_rows,
+                            ['unknown', 'other', 'failure', 'success'],
+                            p=[0.75, 0.05, 0.12, 0.08])
+    score = (0.002 * (duration - 250)
+             + 1.6 * (poutcome == 'success')
+             + 0.4 * (housing == 'no')
+             + 0.25 * np.isin(month, ['mar', 'sep', 'oct', 'dec'])
+             + 0.0001 * balance
+             + 0.01 * (age - 40) * (age > 60)
+             + rng.normal(0, 1.0, n_rows))
+    y = np.where(score > 1.2, 'yes', 'no')
+    return pd.DataFrame({
+        'age': age, 'job': job, 'marital': marital, 'education': education,
+        'default': default, 'balance': balance, 'housing': housing,
+        'loan': loan, 'contact': contact, 'day': day, 'month': month,
+        'duration': duration, 'campaign': campaign, 'pdays': pdays,
+        'previous': previous, 'poutcome': poutcome, 'y': y})
+
+
+def load_movielens(n_rows=5000, seed=11):
+    """Movielens-style frame with a var-len 'genres' column ('a|b|c') and a
+    1-5 'rating' target — used for var-len categorical + regression tests."""
+    import pandas as pd
+    rng = _rng(seed)
+    genres_pool = ['Action', 'Adventure', 'Animation', 'Children', 'Comedy',
+                   'Crime', 'Documentary', 'Drama', 'Fantasy', 'Film-Noir',
+                   'Horror', 'Musical', 'Mystery', 'Romance', 'Sci-Fi',
+                   'Thriller', 'War', 'Western']
+    movie_id = rng.integers(1, 1500, n_rows)
+    user_id = rng.integers(1, 800, n_rows)
+    timestamp = rng.integers(8.5e8, 9.8e8, n_rows)
+    gender = _categorical(rng, n_rows, ['M', 'F'])
+    age = _categorical(rng, n_rows, [1, 18, 25, 35, 45, 50, 56])
+    occupation = rng.integers(0, 21, n_rows)
+    zipcode = rng.integers(10000, 99999, n_rows).astype(str)
+    genres = []
+    for _ in range(n_rows):
+        k = rng.integers(1, 4)
+        genres.append('|'.join(
+            sorted(rng.choice(genres_pool, size=k, replace=False))))
+    genres = np.array(genres)
+    rating = np.clip(np.round(
+        3.1 + 0.4 * (gender == 'F')
+        + 0.3 * np.char.count(genres.astype(str), 'Drama')
+        - 0.3 * np.char.count(genres.astype(str), 'Horror')
+        + rng.normal(0, 0.9, n_rows)), 1, 5).astype(int)
+    title = np.array([f'Movie {m}' for m in movie_id])
+    return pd.DataFrame({
+        'movie_id': movie_id, 'user_id': user_id, 'rating': rating,
+        'timestamp': timestamp, 'title': title, 'genres': genres,
+        'gender': gender, 'age': age, 'occupation': occupation,
+        'zip': zipcode})
+
+
+def load_glass_uci(n_rows=214, seed=3):
+    """Glass-identification-style multiclass task (integer column labels;
+    label at column 10 with classes 1..7)."""
+    import pandas as pd
+    rng = _rng(seed)
+    cls = rng.integers(1, 8, n_rows)
+    ri = 1.515 + 0.002 * cls + rng.normal(0, 0.002, n_rows)
+    na = 13 + 0.3 * cls + rng.normal(0, 0.6, n_rows)
+    mg = np.maximum(0, 3.5 - 0.5 * cls + rng.normal(0, 0.8, n_rows))
+    al = 1.2 + 0.15 * cls + rng.normal(0, 0.3, n_rows)
+    si = 72.5 + rng.normal(0, 0.6, n_rows)
+    k = np.maximum(0, 0.5 + rng.normal(0, 0.4, n_rows))
+    ca = 8.5 + 0.3 * cls + rng.normal(0, 1.0, n_rows)
+    ba = np.where(cls == 7, 1.0 + rng.normal(0, 0.4, n_rows), 0.0)
+    fe = np.maximum(0, rng.normal(0.05, 0.08, n_rows))
+    idx = np.arange(1, n_rows + 1)
+    return pd.DataFrame({0: idx, 1: ri, 2: na, 3: mg, 4: al, 5: si, 6: k,
+                         7: ca, 8: ba, 9: fe, 10: cls})
+
+
+def load_boston(n_rows=506, seed=5):
+    """Boston-housing-style regression task (named numeric columns,
+    target column 'target')."""
+    import pandas as pd
+    rng = _rng(seed)
+    crim = np.exp(rng.normal(-1.5, 2.0, n_rows))
+    zn = np.where(rng.random(n_rows) < 0.7, 0, rng.integers(1, 100, n_rows))
+    indus = rng.uniform(0.5, 27, n_rows)
+    chas = (rng.random(n_rows) < 0.07).astype(int)
+    nox = rng.uniform(0.38, 0.87, n_rows)
+    rm = rng.normal(6.28, 0.7, n_rows)
+    age = rng.uniform(2, 100, n_rows)
+    dis = rng.uniform(1.1, 12.1, n_rows)
+    rad = rng.integers(1, 25, n_rows)
+    tax = rng.integers(187, 711, n_rows)
+    ptratio = rng.uniform(12.6, 22, n_rows)
+    b = rng.uniform(0.3, 396.9, n_rows)
+    lstat = rng.uniform(1.7, 38, n_rows)
+    target = np.clip(
+        22.5 + 5.0 * (rm - 6.28) - 0.6 * lstat / 3 - 0.3 * crim
+        - 8 * (nox - 0.55) + 0.02 * (100 - age) / 10
+        + rng.normal(0, 2.5, n_rows), 5, 50)
+    return pd.DataFrame({
+        'CRIM': crim, 'ZN': zn, 'INDUS': indus, 'CHAS': chas, 'NOX': nox,
+        'RM': rm, 'AGE': age, 'DIS': dis, 'RAD': rad, 'TAX': tax,
+        'PTRATIO': ptratio, 'B': b, 'LSTAT': lstat, 'target': target})
+
+
+def load_heart_disease_uci(n_rows=303, seed=13):
+    """Heart-disease-style binary task (named columns, target 'target')."""
+    import pandas as pd
+    rng = _rng(seed)
+    age = rng.integers(29, 78, n_rows)
+    sex = rng.integers(0, 2, n_rows)
+    cp = rng.integers(0, 4, n_rows)
+    trestbps = rng.integers(94, 201, n_rows)
+    chol = rng.integers(126, 565, n_rows)
+    fbs = (rng.random(n_rows) < 0.15).astype(int)
+    restecg = rng.integers(0, 3, n_rows)
+    thalach = rng.integers(71, 203, n_rows)
+    exang = (rng.random(n_rows) < 0.33).astype(int)
+    oldpeak = np.round(rng.uniform(0, 6.2, n_rows), 1)
+    slope = rng.integers(0, 3, n_rows)
+    ca = rng.integers(0, 5, n_rows)
+    thal = rng.integers(0, 4, n_rows)
+    score = (0.04 * (age - 54) + 0.7 * sex - 0.5 * (cp == 0) + 0.8 * exang
+             + 0.5 * oldpeak - 0.02 * (thalach - 150) + 0.6 * (ca > 0)
+             + rng.normal(0, 1, n_rows))
+    target = (score > 0.8).astype(int)
+    return pd.DataFrame({
+        'age': age, 'sex': sex, 'cp': cp, 'trestbps': trestbps, 'chol': chol,
+        'fbs': fbs, 'restecg': restecg, 'thalach': thalach, 'exang': exang,
+        'oldpeak': oldpeak, 'slope': slope, 'ca': ca, 'thal': thal,
+        'target': target})
 
 
 def load_criteo_synthetic(n_rows=100_000, n_cat=26, n_dense=13,
@@ -96,4 +322,31 @@ def load_avazu_synthetic(n_rows=100_000, seed=31):
     fields, click = _avazu_fields(n_rows, seed)
     df = pd.DataFrame(fields)
     df.insert(0, 'click', click)
+    return df
+
+
+def load_multilabel_synthetic(n_rows=20000, n_labels=4, seed=17):
+    """Multilabel task with planted per-label signal: 4 categorical + 4
+    numeric features, ``n_labels`` binary target columns ``label_k``
+    (analog of the reference's random-data multilabel test,
+    deeptable_multilabel_test.py:31-47, but learnable so trained-quality
+    parity can be asserted)."""
+    import pandas as pd
+    rng = _rng(seed)
+    c = [rng.integers(0, v, n_rows) for v in (8, 16, 30, 50)]
+    x = [rng.normal(size=n_rows) for _ in range(4)]
+    df = pd.DataFrame({
+        'c1': np.array(list('abcdefgh'))[c[0]],
+        'c2': c[1], 'c3': c[2], 'c4': c[3],
+        'n1': x[0], 'n2': x[1], 'n3': x[2], 'n4': x[3]})
+    base = 0.5 * np.sin(c[2] * 0.41) + 0.4 * x[3]  # shared factor
+    scores = [
+        0.8 * (c[0] % 3 == 0) + 0.6 * x[0] + base,
+        0.7 * np.sin(c[1] * 0.9) - 0.5 * x[1] + base,
+        0.6 * x[0] * x[1] + 0.5 * np.cos(c[3] * 0.23) + base,
+        0.9 * x[2] - 0.4 * (c[1] % 2) + base,
+    ]
+    for k in range(n_labels):
+        s = scores[k % len(scores)] + rng.normal(0, 0.8, n_rows)
+        df[f'label_{k}'] = (s > np.quantile(s, 0.6)).astype(np.int8)
     return df

@@ -1,7 +1,21 @@
 # -*- coding:utf-8 -*-
+import importlib
+
 from .config import ModelConfig
 from .metainfo import (CategoricalColumn, ContinuousColumn,
                        VarLenCategoricalColumn)
 from .deepmodel import DeepModel, DeepTabularModel, IgnoreCaseDict, ModelDesc
 from . import deepnets
 from .deepnets import register_nets
+
+# the preprocessor imports pandas and scikit-learn, which the card's path
+# does without: it loads on first use
+_LAZY = {'AbstractPreprocessor': 'preprocessor',
+         'DefaultPreprocessor': 'preprocessor'}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        module = importlib.import_module(f'.{_LAZY[name]}', __name__)
+        return getattr(module, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -171,3 +171,19 @@ class ModelConfig:
         if callable(first_metric):
             return first_metric.__name__
         raise ValueError('`metric` must be string or callable object.')
+
+    def signature_fields(self):
+        """Fields that determine the preprocessing output: the key of the
+        preprocessor's fit cache."""
+        return (self.auto_imputation, self.auto_encode_label,
+                self.auto_discrete, self.apply_gbm_features, self.task,
+                self.cat_exponent,
+                tuple(self.exclude_columns)
+                if self.exclude_columns is not None else None,
+                tuple(self.categorical_columns)
+                if isinstance(self.categorical_columns, (list, tuple))
+                else self.categorical_columns,
+                self.auto_categorize, self.cat_remain_numeric,
+                self.auto_discard_unique, repr(sorted(self.gbm_params.items())),
+                self.gbm_feature_type, self.fixed_embedding_dim,
+                self.embeddings_output_dim)

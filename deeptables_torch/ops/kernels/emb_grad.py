@@ -4,10 +4,15 @@
 
 Port of ``deeptables_tpu/ops/kernels/emb_grad.py::emb_grad_matmul``. The
 CUDA kernel is ``deeptables_torch/csrc/emb_grad.cu``; its header says what
-bounds it (memory, and L2's rate of float32 reductions) and why it adds with
-atomics. :func:`emb_grad` launches it for a CUDA tensor and runs
-:func:`emb_grad_reference` for a CPU tensor only. :func:`emb_grad_design`
-names the design a call runs, by shape and alignment.
+bounds it (memory) and how it sums: the wrapper sorts the ids stably, and
+the kernel sums each row's segment of the sorted entries in batch order,
+in pieces of at most :data:`CHUNK` entries added in order, without atomics,
+so the same inputs give the same bits on every run (as the TPU kernel's
+ordered grid does). :func:`emb_grad` launches it for a CUDA tensor and runs
+:func:`emb_grad_reference` for a CPU tensor only.
+:func:`emb_grad_sorted_reference` is the plain twin of the kernel's order
+of summation. :func:`emb_grad_design` names the variant a call runs, by
+shape and alignment.
 
 The result is the dense float32 ``(V, D)`` gradient of the group's logical
 table, which the optimizer updates whole (as the JAX package's dense optax
@@ -33,19 +38,73 @@ def emb_grad_reference(ids: torch.Tensor, g: torch.Tensor,
                           g.reshape(-1, g.shape[-1]).float())
 
 
+# sorted entries a group of threads sums before it hands a cut segment's
+# pieces to the merge (csrc/emb_grad.cu)
+CHUNK = 32
+
+
+def emb_grad_sorted_reference(ids: torch.Tensor, g: torch.Tensor,
+                              num_rows: int,
+                              chunk: int = CHUNK) -> torch.Tensor:
+    """The plain twin of the kernel's order of summation, float32 add for
+    float32 add: a stable sort of the ids; each run of equal ids inside a
+    chunk of ``chunk`` sorted entries summed from 0 in batch order; each
+    row's runs added in order. Ids outside ``[0, num_rows)`` are skipped.
+    Same bits as the kernel on the same inputs, on any device."""
+    ids = ids.reshape(-1).long()
+    D = g.shape[-1]
+    g = g.reshape(-1, D).float()
+    out = torch.zeros((num_rows, D), dtype=torch.float32, device=g.device)
+    N = ids.shape[0]
+    if N == 0:
+        return out
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    rows_g = g[perm]
+    pos = torch.arange(N, device=g.device)
+    new_id = torch.ones(N, dtype=torch.bool, device=g.device)
+    new_id[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    # runs: equal ids inside one chunk; each summed from 0, entry by entry
+    run_start = new_id | (pos % chunk == 0)
+    run_of = torch.cumsum(run_start.long(), 0) - 1
+    starts = pos[run_start]
+    step = pos - starts[run_of]
+    run_sum = torch.zeros((len(starts), D), dtype=torch.float32,
+                          device=g.device)
+    for k in range(min(chunk, N)):
+        at = step == k
+        run_sum[run_of[at]] = run_sum[run_of[at]] + rows_g[at]
+    # a row's runs (the pieces of its segment), added in order
+    run_row = sorted_ids[starts]
+    seg_of = torch.cumsum(new_id[starts].long(), 0) - 1
+    seg_first = torch.nonzero(new_id[starts]).reshape(-1)
+    piece = torch.arange(len(starts), device=g.device) - seg_first[seg_of]
+    seg_sum = run_sum[seg_first].clone()
+    for k in range(1, int(piece.max()) + 1):
+        at = piece == k
+        seg_sum[seg_of[at]] = seg_sum[seg_of[at]] + run_sum[at]
+    seg_row = run_row[seg_first]
+    valid = (seg_row >= 0) & (seg_row < num_rows)
+    out[seg_row[valid]] = seg_sum[valid]
+    return out
+
+
 # the C entry point of each design
-_ENTRY = {'v4': 'dt_emb_grad_v4_f32', 'scalar': 'dt_emb_grad_f32'}
+_ENTRY = {'segment_v4': 'dt_emb_grad_v4_f32',
+          'segment_scalar': 'dt_emb_grad_f32'}
 
 
 def emb_grad_design(N: int, D: int, V: int, ptr_alignment: int) -> str:
-    """Which scatter a CUDA call with ``N`` rows of a contiguous float32
-    ``g`` of width ``D`` into a ``(V, D)`` table runs, by shape and the
-    alignment in bytes of g's data pointer (every N and V runs either):
-    ``'v4'`` (csrc/emb_grad.cu's 16-byte reductions, a thread a 16-byte
-    piece of a row of g) where D % 4 == 0 and g is 16-byte aligned, else
-    ``'scalar'`` (a 4-byte reduction an element)."""
+    """Which variant of the sorted segment sum a CUDA call with ``N`` rows
+    of a contiguous float32 ``g`` of width ``D`` into a ``(V, D)`` table
+    runs, by shape and the alignment in bytes of g's data pointer (every N
+    and V runs either): ``'segment_v4'`` (csrc/emb_grad.cu with float4
+    loads and stores, a thread a 16-byte piece of a row) where D % 4 == 0
+    and g is 16-byte aligned, else ``'segment_scalar'`` (a float each).
+    Both sum in the same order and give the same bits."""
     del N, V
-    return 'v4' if D % 4 == 0 and ptr_alignment % 16 == 0 else 'scalar'
+    if D % 4 == 0 and ptr_alignment % 16 == 0:
+        return 'segment_v4'
+    return 'segment_scalar'
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,9 +112,9 @@ def _library():
     lib = _build.library('emb_grad')
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.dt_emb_grad_error_string.argtypes = [ctypes.c_int]
     lib.dt_emb_grad_error_string.restype = ctypes.c_char_p
@@ -70,8 +129,9 @@ def emb_grad(ids: torch.Tensor, g: torch.Tensor,
 
     Every id must lie in ``[0, num_rows)``: the model checks them on the
     host. On a CUDA tensor this launches the kernel or raises; it never
-    falls back to the plain version. ``emb_grad.launches`` counts the
-    launches."""
+    falls back to the plain version, and it gives the same bits on every
+    run of the same inputs (those of :func:`emb_grad_sorted_reference`).
+    ``emb_grad.launches`` counts the launches."""
     if g.dim() != 2 or ids.dim() != 1 or ids.shape[0] != g.shape[0]:
         raise ValueError(f'emb_grad expects ids (N,) and g (N, D), got '
                          f'{tuple(ids.shape)} and {tuple(g.shape)}')
@@ -89,12 +149,17 @@ def emb_grad(ids: torch.Tensor, g: torch.Tensor,
     if not (ids.is_contiguous() and g.is_contiguous()):
         raise ValueError('emb_grad kernel needs contiguous ids and g')
     N, D = g.shape
+    # index preparation: the ids in order, stably, and where each came from
+    sorted_ids, perm = torch.sort(ids, stable=True)
     out = torch.empty((num_rows, D), dtype=torch.float32, device=g.device)
+    partial = torch.empty((-(-N // CHUNK), 2, D), dtype=torch.float32,
+                          device=g.device)
     lib = _library()
     entry = _ENTRY[emb_grad_design(N, D, num_rows, pointer_alignment(g))]
     with torch.cuda.device(g.device):
-        err = getattr(lib, entry)(ids.data_ptr(), g.data_ptr(),
-                                  out.data_ptr(), N, D, num_rows,
+        err = getattr(lib, entry)(sorted_ids.data_ptr(), perm.data_ptr(),
+                                  g.data_ptr(), out.data_ptr(),
+                                  partial.data_ptr(), N, D, num_rows, CHUNK,
                                   torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -10,11 +10,14 @@ TASK_REGRESSION = 'regression'
 TASK_MULTILABEL = 'multilabel'
 
 INPUT_PREFIX_CAT = 'cat_'
+INPUT_PREFIX_NUM = 'input_continuous_'
 LAYER_PREFIX_EMBEDDING = 'emb_'
 
 LAYER_NAME_BN_DENSE_ALL = 'bn_dense_all'
 
 MODEL_SELECTOR_CURRENT = 'current'
+
+EMBEDDING_OUT_DIM_DEFAULT = 4
 
 GBM_FEATURE_TYPE_EMB = 'embedding'
 

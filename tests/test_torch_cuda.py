@@ -17,9 +17,13 @@ Tolerances:
   largest ``|g|·Σ_f |x|`` (the size of the terms of ``g·(Σ_f x − x)``);
   bfloat16 the same with 1e-2 (one rounding of dx to bfloat16), against the
   plain version on the same bfloat16 inputs.
-- Embedding gradient: rtol 1e-5, atol 1e-5 times the largest row sum of
-  ``|g|`` that meets in one table row: float atomics add in another order on
-  every run, so only rounding may differ.
+- Embedding gradient: against ``emb_grad_reference`` (``index_add_``, with
+  atomics on the card) rtol 1e-5, atol 1e-5 times the largest row sum of
+  ``|g|`` that meets in one table row: the kernel adds a segment cut by its
+  chunks as a sum of pieces, another association, so only rounding may
+  differ. Against ``emb_grad_sorted_reference`` on the CPU, which adds the
+  same float32 values in the same order, and against a second call of the
+  kernel: bit for bit (``torch.equal``).
 - DeepFM fit on the card against the CPU: losses rtol 1e-4; parameters atol
   2e-4 (Adam moves each parameter by up to lr = 1e-3 a step whatever the
   gradient's size, so rounding in a gradient near zero shows at that scale).
@@ -49,7 +53,8 @@ from deeptables_torch.ops.kernels import field_attention as fa
 from deeptables_torch.ops.kernels import fm as fm_module
 from deeptables_torch.ops.kernels import emb_grad as eg_module
 from deeptables_torch.ops.kernels.emb_grad import (emb_grad, emb_grad_design,
-                                                   emb_grad_reference)
+                                                   emb_grad_reference,
+                                                   emb_grad_sorted_reference)
 from deeptables_torch.ops.kernels.fm import (fm, fm_backward,
                                              fm_backward_reference,
                                              fm_design, fm_reference,
@@ -209,6 +214,8 @@ def _check_emb_grad(ids, g, num_rows):
     np.testing.assert_allclose(out.cpu().numpy(), expected.cpu().numpy(),
                                rtol=1e-5,
                                atol=1e-5 * float(row_abs.max()) + 1e-30)
+    assert torch.equal(out.cpu(), emb_grad_sorted_reference(
+        ids.cpu(), g.cpu(), num_rows))
 
 
 @pytest.mark.parametrize('B', [1, 37, 4093, 8192])
@@ -232,7 +239,7 @@ def test_emb_grad_kernel_at_the_avazu_shape(cuda):
     g = torch.from_numpy(np.random.default_rng(5).normal(
         size=(len(ids), 16)).astype(np.float32)).to(cuda)
     assert emb_grad_design(len(ids), 16, int(vocabs.sum()),
-                           pointer_alignment(g)) == 'v4'
+                           pointer_alignment(g)) == 'segment_v4'
     _check_emb_grad(ids.to(cuda), g, int(vocabs.sum()))
 
 
@@ -247,7 +254,7 @@ def test_emb_grad_kernel_on_an_offset_g(cuda, B, D):
     gen = torch.Generator().manual_seed(B * D)
     g = _offset_view((len(ids), D), torch.float32, gen, cuda)
     assert pointer_alignment(g) == 4
-    assert emb_grad_design(len(ids), D, sum(vocabs), 4) == 'scalar'
+    assert emb_grad_design(len(ids), D, sum(vocabs), 4) == 'segment_scalar'
     _check_emb_grad(ids, g, sum(vocabs))
 
 
@@ -262,28 +269,84 @@ def test_emb_grad_design_names_the_kernel_that_ran(cuda, B, D, offset):
     g = (_offset_view((len(ids), D), torch.float32, gen, cuda) if offset
          else torch.randn(len(ids), D, generator=gen).to(cuda))
     names = _ran(emb_grad, ids, g, sum(vocabs))
-    v4 = {n for n in names if 'scatter_v4_kernel' in n}
-    scalar = {n for n in names if 'scatter_kernel' in n}
+    ran = {k for k in ('segment_kernel<float4>', 'merge_kernel<float4>',
+                       'segment_kernel<float>', 'merge_kernel<float>')
+           if any(k in n for n in names)}
     assert any('zero_kernel' in n for n in names), names
     if emb_grad_design(len(ids), D, sum(vocabs),
-                       pointer_alignment(g)) == 'v4':
-        assert len(v4) == 1 and not scalar, names
+                       pointer_alignment(g)) == 'segment_v4':
+        assert ran == {'segment_kernel<float4>', 'merge_kernel<float4>'}, names
     else:
-        assert len(scalar) == 1 and not v4, names
+        assert ran == {'segment_kernel<float>', 'merge_kernel<float>'}, names
 
 
 def test_emb_grad_v4_refuses_what_it_does_not_take(cuda, monkeypatch):
-    """v4 given a misaligned g or a D not a multiple of 4: the C side
-    refuses the launch, the wrapper raises and counts no launch."""
+    """The v4 variant given a misaligned g or a D not a multiple of 4: the
+    C side refuses the launch, the wrapper raises and counts no launch."""
     gen = torch.Generator().manual_seed(4)
     ids = torch.zeros(8, dtype=torch.int32, device=cuda)
-    monkeypatch.setattr(eg_module, 'emb_grad_design', lambda *args: 'v4')
+    monkeypatch.setattr(eg_module, 'emb_grad_design',
+                        lambda *args: 'segment_v4')
     before = emb_grad.launches
     for g in (_offset_view((8, 16), torch.float32, gen, cuda),
               torch.randn(8, 6, generator=gen).to(cuda)):
         with pytest.raises(RuntimeError, match='emb_grad kernel launch'):
             emb_grad(ids, g, 10)
     assert emb_grad.launches == before
+
+
+def _criteo_flat_ids(B, kind, seed):
+    """The criteo schema's flat ids (26 columns, offsets of vocab + 1, as
+    the model lays out the table): its Zipf ids, or uniform ones."""
+    from deeptables_torch.data.datasets import load_criteo_synthetic
+    cat, _, _, vocabs = load_criteo_synthetic(n_rows=B, seed=seed,
+                                              return_arrays=True)
+    if kind == 'uniform':
+        rng = np.random.default_rng(seed)
+        cat = np.stack([rng.integers(0, v + 1, B) for v in vocabs], axis=1)
+    offsets = np.concatenate([[0], np.cumsum(vocabs + 1)[:-1]])
+    flat = (cat + offsets).astype(np.int32).reshape(-1)
+    return torch.from_numpy(flat), int(np.sum(vocabs + 1))
+
+
+def _avazu_flat_ids(B, seed):
+    from deeptables_torch.data.datasets import _avazu_fields
+    fields, _ = _avazu_fields(n_rows=B, seed=seed)
+    cat = np.stack(list(fields.values()), axis=1)
+    vocabs = cat.max(axis=0) + 2
+    offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]])
+    return (torch.from_numpy((cat + offsets).astype(np.int32).reshape(-1)),
+            int(vocabs.sum()))
+
+
+@pytest.mark.parametrize('case', [
+    *(f'{kind}-{B}' for kind in ('zipf', 'uniform')
+      for B in (64, 512, 4093, 8192)),
+    'avazu-8192', 'one_row-8192', 'offset-8192'])
+def test_emb_grad_kernel_is_deterministic(cuda, case):
+    """The sorted segment sum adds without atomics, in an order fixed by
+    the inputs: two calls give the same bits, and those of the plain twin
+    of that order on the CPU."""
+    kind, B = case.rsplit('-', 1)
+    B = int(B)
+    if kind == 'avazu':
+        ids, V = _avazu_flat_ids(B, 5)
+    else:
+        ids, V = _criteo_flat_ids(B, 'uniform' if kind == 'uniform'
+                                  else 'zipf', B)
+    if kind == 'one_row':
+        ids = torch.full_like(ids, 5)
+    gen = torch.Generator().manual_seed(B)
+    g = (_offset_view((len(ids), 16), torch.float32, gen, cuda)
+         if kind == 'offset' else
+         torch.randn(len(ids), 16, generator=gen).to(cuda))
+    ids = ids.to(cuda)
+    first = emb_grad(ids, g, V)
+    second = emb_grad(ids, g, V)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), emb_grad_sorted_reference(
+        ids.cpu(), g.cpu(), V))
 
 
 def test_fm_vec16_refuses_what_it_does_not_take(cuda, monkeypatch):

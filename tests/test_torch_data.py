@@ -34,6 +34,16 @@ def test_model_config_fields_and_defaults_match():
         assert getattr(a, name) == getattr(b, name), name
 
 
+@pytest.mark.parametrize('fields', [
+    {}, {'exclude_columns': ['a']}, {'task': 'binary', 'cat_exponent': 0.3},
+    {'categorical_columns': ['x', 'y'], 'gbm_params': {'n_estimators': 3}},
+    {'fixed_embedding_dim': False, 'embeddings_output_dim': 8}])
+def test_model_config_signature_fields_match(fields):
+    """The preprocessor's fit-cache key."""
+    assert config.ModelConfig(**fields).signature_fields() == \
+        jax_config.ModelConfig(**fields).signature_fields()
+
+
 def test_model_config_normalizes_nets():
     cfg = config.ModelConfig(nets=deepnets.DeepFM + ['linear'])
     assert cfg.nets == ('linear', 'fm_nets', 'dnn_nets')

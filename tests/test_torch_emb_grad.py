@@ -1,11 +1,19 @@
 # -*- coding:utf-8 -*-
 """The port's embedding gradient (K1's plain version ``emb_grad_reference``,
-the wrapper on CPU tensors, and the ``EmbeddingLookup`` autograd Function
+the plain twin of the kernel's order ``emb_grad_sorted_reference``, the
+wrapper on CPU tensors, and the ``EmbeddingLookup`` autograd Function
 behind ``MultiColumnEmbedding``) against the JAX package, on the CPU.
 
 - Against the Pallas kernel ``emb_grad_matmul`` in interpret mode, on its
   lane-packed, TILE_P-aligned layout, unpacked: rtol/atol 2e-2, because the
   TPU kernel multiplies in bfloat16 (as its own test allows).
+- The twin against ``emb_grad_reference``: rtol 1e-5 and atol 1e-5 times
+  the largest sum of ``|g|`` that meets in one row, as the card tests hold
+  the kernel: a segment cut by the kernel's chunks is added as a sum of
+  pieces, in another association than ``index_add_``'s single chain. A
+  segment that lies in one chunk is summed as ``index_add_`` sums it, so
+  where no segment is cut the two agree bit for bit. The twin against
+  itself: bit for bit.
 - Against ``jax.grad`` of the JAX ``MultiColumnEmbedding`` (on the CPU its
   backward is the XLA scatter), with the JAX table mapped onto the port's
   by the weight bridge: atol 1e-5 (float32 sums in another order), for the
@@ -23,7 +31,9 @@ from deeptables_tpu.ops.embedding import plan_groups
 from deeptables_tpu.ops.kernels.emb_grad import TILE_P, emb_grad_matmul
 from deeptables_torch import bridge
 from deeptables_torch.ops.embedding import MultiColumnEmbedding
-from deeptables_torch.ops.kernels.emb_grad import emb_grad, emb_grad_reference
+from deeptables_torch.ops.kernels.emb_grad import (CHUNK, emb_grad,
+                                                   emb_grad_reference,
+                                                   emb_grad_sorted_reference)
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
 
@@ -66,6 +76,68 @@ def test_reference_matches_pallas_kernel(dim, vocabs, b):
     before = emb_grad.launches
     torch.testing.assert_close(emb_grad(flat_ids, flat_g, p * k), out)
     assert emb_grad.launches == before
+
+
+@pytest.mark.parametrize('dim,vocabs,b', [(16, (7, 300, 2500), 64),
+                                          (4, (11, 9000), 32),
+                                          (32, (5, 1200), 16)])
+def test_sorted_reference_matches_pallas_kernel(dim, vocabs, b):
+    ids, g, col_steps, p, k = _aligned_case(vocabs, dim, b)
+    packed = emb_grad_matmul(jnp.asarray(ids), jnp.asarray(g),
+                             tuple(col_steps), p, k, dim, interpret=True)
+    logical = np.asarray(packed).reshape(p * k, dim)
+    out = emb_grad_sorted_reference(torch.from_numpy(ids.reshape(-1)),
+                                    torch.from_numpy(g.reshape(-1, dim)),
+                                    p * k)
+    np.testing.assert_allclose(out.numpy(), logical, rtol=2e-2, atol=2e-2)
+
+
+def _zipf_case(B, vocabs, D, seed):
+    rng = np.random.default_rng(seed)
+    offsets = np.concatenate([[0], np.cumsum(vocabs)[:-1]])
+    ids = np.stack([(rng.zipf(1.2, B) - 1) % v for v in vocabs], axis=1)
+    flat = torch.from_numpy((ids + offsets).astype(np.int32).reshape(-1))
+    g = torch.from_numpy(rng.normal(size=(len(flat), D)).astype(np.float32))
+    return flat, g, int(sum(vocabs))
+
+
+@pytest.mark.parametrize('B,vocabs,D', [
+    (1, (7, 300), 16), (37, (7, 300, 2500), 16), (512, (7, 300, 2500), 16),
+    (4093, (7, 300, 2500, 100000), 16), (600, (3,), 33), (257, (1,), 4)])
+def test_sorted_reference_matches_reference(B, vocabs, D):
+    """Zipf ids, whose top rows take segments of hundreds of entries that
+    the chunks cut; one row of one column; a width of 33."""
+    ids, g, V = _zipf_case(B, vocabs, D, B + D)
+    out = emb_grad_sorted_reference(ids, g, V)
+    expected = emb_grad_reference(ids, g, V)
+    row_abs = emb_grad_reference(ids, g.abs(), V)
+    np.testing.assert_allclose(out.numpy(), expected.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(row_abs.max()))
+    # every segment that no chunk cuts is summed as index_add_ sums it
+    sorted_ids = torch.sort(ids.long(), stable=True).values
+    cut = {int(sorted_ids[i]) for i in range(CHUNK, len(ids), CHUNK)
+           if sorted_ids[i] == sorted_ids[i - 1]}
+    whole = torch.ones(V, dtype=torch.bool)
+    whole[sorted(cut)] = False
+    assert torch.equal(out[whole], expected[whole])
+
+
+@pytest.mark.parametrize('B,vocabs,D', [
+    (8192, (7, 300, 2500, 100000), 16), (64, (1,), 8)])
+def test_sorted_reference_is_bitwise_repeatable(B, vocabs, D):
+    ids, g, V = _zipf_case(B, vocabs, D, 5)
+    first = emb_grad_sorted_reference(ids, g, V)
+    assert torch.equal(first, emb_grad_sorted_reference(ids.clone(),
+                                                        g.clone(), V))
+
+
+def test_sorted_reference_skips_ids_out_of_range():
+    ids = torch.tensor([2, -1, 2, 5, 0, 9, 2], dtype=torch.int32)
+    g = torch.arange(14, dtype=torch.float32).reshape(7, 2)
+    keep = (ids >= 0) & (ids < 5)
+    expected = emb_grad_reference(ids[keep], g[keep], 5)
+    assert torch.equal(emb_grad_sorted_reference(ids, g, 5, chunk=2),
+                       expected)
 
 
 @pytest.mark.parametrize('plan', sorted(VOCABS))

@@ -1,10 +1,14 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them.
+JAX package, so that it runs on a machine that has none of them. The two
+exceptions are the host-only preprocessing modules ``models/preprocessor.py``
+and ``models/transformers.py``, which import pandas and scikit-learn and
+which nothing on the card's path imports.
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
-import of them fail), then imports every module of ``deeptables_torch`` and
-``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
+import of them fail), then imports every module of ``deeptables_torch``
+but those two, ``deeptables_torch.models`` (whose preprocessor exports are
+lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
 no scikit-learn, an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
 and ``ops/kernels/cin.py``) and an AutoInt ``fit`` on the avazu-style columns
@@ -22,6 +26,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
            'deeptables_tpu')
+# the port's only modules that import pandas and scikit-learn: the host's
+# preprocessing, off the card's path
+HOST_ONLY = ('deeptables_torch.models.preprocessor',
+             'deeptables_torch.models.transformers')
 
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -34,8 +42,20 @@ import deeptables_torch
 modules = ['deeptables_torch']
 for info in pkgutil.walk_packages(deeptables_torch.__path__,
                                   'deeptables_torch.'):
+    if info.name in HOST_ONLY:
+        continue
     importlib.import_module(info.name)
     modules.append(info.name)
+import deeptables_torch.models
+from deeptables_torch.models import DeepModel as _DeepModel
+for name in ('DefaultPreprocessor', 'AbstractPreprocessor'):
+    try:
+        getattr(deeptables_torch.models, name)
+    except ImportError:
+        pass
+    else:
+        raise AssertionError(f'{name} loaded with pandas blocked')
+assert not set(HOST_ONLY) & set(sys.modules), 'a host-only module loaded'
 
 spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -111,7 +131,8 @@ def test_port_runs_without_jax_pandas_or_the_jax_package():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
                PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, '-c', f'BLOCKED = {BLOCKED!r}\n' + SCRIPT],
+        [sys.executable, '-c',
+         f'BLOCKED = {BLOCKED!r}\nHOST_ONLY = {HOST_ONLY!r}\n' + SCRIPT],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
@@ -119,7 +140,9 @@ def test_port_runs_without_jax_pandas_or_the_jax_package():
 
 def test_sources_name_no_blocked_module():
     """No import statement of the port or chip_smoke.py names a blocked
-    module; pandas only inside a function."""
+    module; pandas only inside a function, or in the host-only modules,
+    which import pandas and scikit-learn and nothing else blocked."""
+    host_only = {REPO / (name.replace('.', '/') + '.py') for name in HOST_ONLY}
     files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
     for path in files:
@@ -130,4 +153,19 @@ def test_sources_name_no_blocked_module():
             top = words[1].split('.')[0]
             if top == 'pandas' and line[:1].isspace():
                 continue  # a lazy import inside a function
+            if top in ('pandas', 'sklearn') and path in host_only:
+                continue
             assert top not in BLOCKED, f'{path}:{number}: {line.strip()}'
+
+
+def test_host_only_modules_import_pandas():
+    """The two modules exempted above do need pandas at module level (so
+    the exemption names no module that could do without it);
+    transformers.py imports scikit-learn too."""
+    lines = {}
+    for name in HOST_ONLY:
+        lines[name] = (REPO / (name.replace('.', '/') + '.py')).read_text() \
+            .splitlines()
+        assert 'import pandas as pd' in lines[name], name
+    assert any(line.startswith('from sklearn') for line in
+               lines['deeptables_torch.models.transformers'])

@@ -1,10 +1,15 @@
 # -*- coding:utf-8 -*-
 """K1's and K2-fwd's designs (``csrc/emb_grad.cu``, ``csrc/fm.cu``) on the
-CPU: which design a shape and an alignment run, and the vec16 kernel's
-order of arithmetic, emulated in PyTorch and held against the JAX package.
-(K1's v4 design only widens each reduction: the float32 adds into a row
-are those of the scalar design, in an order that varies from run to run
-in both, so it has no order of its own to emulate.)
+CPU: which design a shape and an alignment run, and the kernels' order of
+arithmetic, emulated and held against the plain twin or the JAX package.
+
+K1 (the sorted segment sum): the kernel's control flow, thread group by
+thread group (runs inside a chunk of sorted entries, the two slots a chunk
+hands a cut segment's pieces to, the merge by the chunk where the segment
+starts), emulated in numpy float32 and held bit for bit against
+``emb_grad_sorted_reference``: both add the same float32 values in the
+same order. Its two variants (16-byte or 4-byte loads) add the same values
+in the same order, so one emulation stands for both.
 
 vec16: thread (slice, chunk) of an example sums its 16-byte chunk of the
 fields slice, slice + slices, ... (Σx for each d, one Σx² over the chunk's
@@ -24,7 +29,8 @@ import pytest
 import torch
 
 from deeptables_tpu.ops.kernels.fm import fm_pallas
-from deeptables_torch.ops.kernels.emb_grad import emb_grad_design
+from deeptables_torch.ops.kernels.emb_grad import (CHUNK, emb_grad_design,
+                                                   emb_grad_sorted_reference)
 from deeptables_torch.ops.kernels.fm import (fm, fm_design, fm_vec16_plan,
                                              pointer_alignment)
 
@@ -79,19 +85,92 @@ K1_MAIN = [(B * 26, 324489) for B in (1, 37, 64, 512, 4093, 8192)] + [
 @pytest.mark.parametrize('N,V', K1_MAIN)
 @pytest.mark.parametrize('alignment', [16, 256])
 def test_emb_grad_main_path_runs_v4(N, V, alignment):
-    assert emb_grad_design(N, 16, V, alignment) == 'v4'
+    assert emb_grad_design(N, 16, V, alignment) == 'segment_v4'
 
 
 @pytest.mark.parametrize('D', [4, 8, 12, 32, 36, 256])
 def test_emb_grad_v4_takes_every_width_of_whole_float4s(D):
-    assert emb_grad_design(8192 * 26, D, 324489, 256) == 'v4'
+    assert emb_grad_design(8192 * 26, D, 324489, 256) == 'segment_v4'
 
 
 @pytest.mark.parametrize('D,alignment', [
     (1, 256), (2, 256), (6, 256), (33, 256), (13, 16),  # D % 4 != 0
     (16, 4), (16, 8), (4, 4), (32, 8)])                 # g not 16-byte aligned
 def test_emb_grad_falls_to_scalar(D, alignment):
-    assert emb_grad_design(8192 * 26, D, 324489, alignment) == 'scalar'
+    assert emb_grad_design(8192 * 26, D, 324489, alignment) == \
+        'segment_scalar'
+
+
+def _emulate_segment_kernel(ids, g, V, chunk=CHUNK):
+    """csrc/emb_grad.cu's segment_kernel and merge_kernel, one thread group
+    (a chunk of the sorted entries) after another, in numpy float32."""
+    N, D = g.shape
+    out = np.zeros((V, D), np.float32)
+    if N == 0:
+        return out
+    s, p = (t.numpy() for t in torch.sort(torch.from_numpy(ids),
+                                          stable=True))
+    n_chunks = -(-N // chunk)
+    partial = np.full((n_chunks, 2, D), np.nan, np.float32)
+
+    def flush(row, acc, from_before, into_after, c):
+        if not 0 <= row < V:
+            return
+        if from_before:
+            partial[c, 0] = acc
+        elif into_after:
+            partial[c, 1] = acc
+        else:
+            out[row] = acc
+
+    for c in range(n_chunks):
+        begin, end = c * chunk, min(c * chunk + chunk, N)
+        from_before = begin > 0 and s[begin - 1] == s[begin]
+        into_after = end < N and s[end] == s[end - 1]
+        row, first, acc = s[begin], True, np.zeros(D, np.float32)
+        for i in range(begin, end):
+            if s[i] != row:
+                flush(row, acc, first and from_before, False, c)
+                row, first, acc = s[i], False, np.zeros(D, np.float32)
+            acc = acc + g[p[i]]
+        flush(row, acc, first and from_before, into_after, c)
+    for c in range(n_chunks):
+        begin, end = c * chunk, c * chunk + chunk
+        if end >= N:
+            continue
+        row = s[end - 1]
+        if s[end] != row or not 0 <= row < V or (begin > 0
+                                                 and s[begin - 1] == row):
+            continue
+        acc, k = partial[c, 1], c + 1
+        while k < n_chunks and s[k * chunk] == row:
+            acc, k = acc + partial[k, 0], k + 1
+        out[row] = acc
+    return out
+
+
+@pytest.mark.parametrize('N,V,D,ids', [
+    (1, 5, 4, 'uniform'), (31, 5, 3, 'uniform'), (32, 5, 3, 'uniform'),
+    (33, 5, 3, 'uniform'), (64, 1, 4, 'uniform'), (1000, 50, 4, 'zipf'),
+    (2000, 300, 16, 'zipf'), (4093, 3, 2, 'uniform'),
+    (4000, 1, 16, 'uniform'), (777, 40, 5, 'bad')])
+def test_emb_grad_segment_kernel_order_matches_the_twin(N, V, D, ids):
+    """Bit for bit: the kernel's runs, slots and merge add the twin's
+    float32 values in the twin's order (segments cut by chunks, one row
+    over many chunks, a ragged last chunk, ids outside [0, V) skipped)."""
+    rng = np.random.default_rng(N + V + D)
+    if ids == 'zipf':
+        flat = (rng.zipf(1.2, N) - 1) % V
+    else:
+        flat = rng.integers(0, V, N)
+    if ids == 'bad':
+        flat[::7], flat[::11] = -3, V + 2
+    flat = flat.astype(np.int32)
+    g = rng.normal(size=(N, D)).astype(np.float32)
+    expected = emb_grad_sorted_reference(torch.from_numpy(flat),
+                                         torch.from_numpy(g), V)
+    np.testing.assert_array_equal(_emulate_segment_kernel(flat, g, V),
+                                  expected.numpy())
 
 
 def test_pointer_alignment_of_views():
