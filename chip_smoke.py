@@ -124,6 +124,23 @@ these phases, each printing one JSON line:
      elements (Adam turns rounding in a gradient near zero into steps of
      ~lr).
 
+7. ``heads``: DeepFM at full criteo width under ``'bfloat16'`` for each
+   task head, loss and optimizer of ``HEADS_RUNS`` (multiclass with 7
+   classes, ``categorical_crossentropy`` and ``adamw``; regression with
+   ``mse`` and ``rmsprop``, and with ``huber`` and ``adagrad``; multilabel
+   with 4 labels, ``multilabel_binary_crossentropy`` and ``lamb``; binary
+   with ``binary_focal_loss`` and with GHMC (momentum 0.75, its state
+   carried), both with ``adam``; binary with an ``l2`` embedding weight
+   penalty and an ``l1`` activity penalty): labels from a seed, three
+   8192-row steps and a validation batch through ``DeepModel.fit`` on the
+   card, each line with the step times, K1's and K2's launches (checked:
+   once a step, K2-fwd also for the validation batch) and the card against
+   the same steps on the CPU's plain path: step-1 gradients and the
+   parameters after three steps by the train phase's rules, the losses,
+   and GHMC's state. Then ``heads_request``: a multiclass request of 4093
+   rows through ``Predictor.predict_proba_arrays``, whose rows must sum
+   to 1.
+
 Then a ``determinism`` line: two DeepFM fits of three 8192-row steps under
 ``'bfloat16'`` from one seed, and the parameter tensors whose bits differ
 between them (a measurement, not a check). Then a ``profiler`` line
@@ -204,8 +221,25 @@ COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024, 'AutoInt': 1024,
 # against index_add_: a segment cut by the kernel's chunks is added as a
 # sum of pieces, another association, so only rounding may differ
 EMB_GRAD_RTOL = 1e-5
-# card against CPU after three float32 Adam steps (see train_phase)
+# card against CPU after three float32 Adam steps (see check_params)
 PARAM_ATOL, PARAM_OUTLIERS = 2e-4, 1e-2
+# the heads phase: DeepFM at full criteo width under bfloat16, three steps
+# of each run (task, classes, loss, optimizer, extra config)
+HEADS_STEPS = 3
+HEADS_RUNS = (
+    ('multiclass', 7, 'categorical_crossentropy', 'adamw', {}),
+    ('regression', 1, 'mse', 'rmsprop', {}),
+    ('regression', 1, 'huber', 'adagrad', {}),
+    ('multilabel', 4, 'multilabel_binary_crossentropy', 'lamb', {}),
+    ('binary', 2, 'binary_focal_loss', 'adam', {}),
+    ('binary', 2, 'ghmc', 'adam', {}),  # GHMCLoss(momentum=0.75)
+    ('binary', 2, 'binary_crossentropy', 'adam',
+     {'embeddings_regularizer': 'l2',
+      'embeddings_activity_regularizer': 'l1'}),
+)
+HEADS_REQUEST = 4093  # rows of the multiclass Predictor request
+HEADS_METRICS = {'binary': ['AUC'], 'multiclass': ['accuracy'],
+                 'regression': ['mse'], 'multilabel': ['logloss']}
 
 
 def emit(obj):
@@ -1166,22 +1200,27 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
 
 
 def criteo_model(port, dtype_policy, device, vocabs, model='DeepFM',
-                 cin_params=None):
+                 cin_params=None, task='binary', num_classes=2, **config):
     """DeepFM or xDeepFM at full criteo width; ``cin_params`` updates
-    xDeepFM's CIN (128, 128) relu."""
-    config = port.ModelConfig(
+    xDeepFM's CIN (128, 128) relu; ``task``, ``num_classes`` and
+    ``config`` (loss, optimizer, regularizers, metrics) serve the heads
+    phase."""
+    settings = dict(
         nets=NETS[model], metrics=['AUC'],
-        task='binary', embedding_dropout=0,
+        task=task, embedding_dropout=0,
         embeddings_output_dim=D_CRITEO,
         dnn_params={'hidden_units': ((1024, 0, False), (512, 0, False)),
                     'activation': 'relu'},
         cin_params=dict(XDEEPFM_CIN, **(cin_params or {})),
         dtype_policy=dtype_policy)
+    settings.update(config)
+    config = port.ModelConfig(**settings)
     cats = tuple(port.CategoricalColumn(f'C{i + 1}', int(v) + 1, D_CRITEO)
                  for i, v in enumerate(vocabs))
     conts = (port.ContinuousColumn(
         'input_continuous_all', [f'I{i + 1}' for i in range(N_DENSE)]),)
-    return port.DeepModel('binary', 2, config, cats, conts, device=device)
+    return port.DeepModel(task, num_classes, config, cats, conts,
+                          device=device)
 
 
 def avazu_data(datasets):
@@ -1349,6 +1388,47 @@ def rows_of(arrays, start, stop):
     return {k: v[start:stop] for k, v in arrays.items()}
 
 
+def check_step1_grads(what, dtype_policy, grads):
+    """The card's step-1 gradients (``grads['card']``) against the CPU's,
+    each tensor's largest error over its largest gradient returned with
+    the tolerance: f32 sums in another order (rtol 1e-4), bf16 rounds at
+    other places (rtol 1e-2). Both with 1e-2 of the tensor's largest
+    gradient: a ReLU input within rounding of zero may take the other side
+    on the other device and change that one example's gradient, which is
+    all an embedding row of a rare id sees (measured on the card: one
+    example's embedding gradient moved by 7%, 8.9e-4 of the largest)."""
+    g_rtol, g_atol = (1e-4 if dtype_policy == 'float32' else 1e-2), 1e-2
+    check(set(grads['card']) == set(grads['cpu']),
+          f'{what}: the card and the CPU give gradients to other parameters')
+    grad_err = {}
+    for k, ref in grads['cpu'].items():
+        err = (grads['card'][k] - ref).abs()
+        scale = float(ref.abs().max())
+        grad_err[k] = float(err.max()) / max(scale, 1e-30)
+        check(bool((err <= g_rtol * ref.abs() + g_atol * scale).all()),
+              f'{what}: card and CPU step-1 gradients of {k} differ by '
+              f'{float(err.max())} (largest gradient {scale})')
+    return grad_err, g_rtol, g_atol
+
+
+def check_params(what, card_state, cpu_state):
+    """Parameters after three steps on the card and the CPU: atol 2e-4,
+    but an optimizer that normalises a step (Adam moves an element by ~lr
+    whatever its gradient's size) turns a gradient near zero, where the two
+    devices' sums differ in relative terms, into steps a few lr apart: at
+    most PARAM_OUTLIERS of a tensor's elements may exceed the atol."""
+    params = {}
+    for k, v in card_state.items():
+        d = (v.double() - cpu_state[k].double()).abs()
+        params[k] = {'max_abs_diff': float(d.max()),
+                     'over_atol': int((d > PARAM_ATOL).sum()),
+                     'elements': d.numel()}
+        check(params[k]['over_atol'] <= PARAM_OUTLIERS * d.numel(),
+              f'{what}: card and CPU parameters {k} differ after 3 steps: '
+              f'{params[k]}')
+    return params
+
+
 def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
                 model_name='DeepFM', train_steps=TRAIN_STEPS):
     """fit on the card, ``train_steps`` batches an epoch and one batch of
@@ -1509,44 +1589,16 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     cpu_state, cpu_logs = fits['cpu']
     loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
                  for k in ('loss', 'val_loss')}
-    # step-1 gradients: f32 sums in another order (rtol 1e-4), bf16 rounds
-    # at other places (rtol 1e-2). Both with 1e-2 of the tensor's largest
-    # gradient: a ReLU input within rounding of zero may take the other side
-    # on the other device and change that one example's gradient, which is
-    # all an embedding row of a rare id sees (measured on the card: one
-    # example's embedding gradient moved by 7%, 8.9e-4 of the largest)
-    g_rtol, g_atol = (1e-4 if dtype_policy == 'float32' else 1e-2), 1e-2
-    grad_err = {}
-    check(set(grads['card']) == set(grads['cpu']),
-          f'{model_name}: the card and the CPU give gradients to other '
-          f'parameters')
-    for k, ref in grads['cpu'].items():
-        err = (grads['card'][k] - ref).abs()
-        scale = float(ref.abs().max())
-        grad_err[k] = float(err.max()) / max(scale, 1e-30)
-        check(bool((err <= g_rtol * ref.abs() + g_atol * scale).all()),
-              f'{model_name} {dtype_policy}: card and CPU step-1 gradients of {k} differ '
-              f'by {float(err.max())} (largest gradient {scale})')
+    grad_err, g_rtol, g_atol = check_step1_grads(
+        f'{model_name} {dtype_policy}', dtype_policy, grads)
     params = None
     if dtype_policy == 'float32':
         for k, d in loss_diff.items():
             check(d <= 1e-4 * abs(cpu_logs[k]),
                   f'{model_name} {dtype_policy}: card {k} {card_logs[k]} vs CPU '
                   f'{cpu_logs[k]}')
-        # parameters atol 2e-4 after three Adam steps, but Adam moves an
-        # element by ~lr = 1e-3 a step whatever its gradient's size, so an
-        # element whose gradient is near zero, where the two devices' sums
-        # differ in relative terms, may move apart by a few lr: at most
-        # PARAM_OUTLIERS of a tensor's elements may exceed the atol
-        params = {}
-        for k, v in card_state.items():
-            d = (v - cpu_state[k]).abs()
-            params[k] = {'max_abs_diff': float(d.max()),
-                         'over_atol': int((d > PARAM_ATOL).sum()),
-                         'elements': d.numel()}
-            check(params[k]['over_atol'] <= PARAM_OUTLIERS * d.numel(),
-                  f'{model_name} {dtype_policy}: card and CPU parameters {k} differ after '
-                  f'3 steps: {params[k]}')
+        params = check_params(f'{model_name} {dtype_policy}', card_state,
+                              cpu_state)
         tolerance = {'loss_rtol': 1e-4, 'grad_rtol': g_rtol,
                      'grad_atol_of_max': g_atol, 'param_atol': PARAM_ATOL,
                      'param_outlier_share': PARAM_OUTLIERS}
@@ -1583,6 +1635,161 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
           'k1k2_kernels': k1k2_kernels})
     del model, fits
     return launches
+
+
+def heads_labels(task, num_classes, n, seed):
+    """Labels of a task from a seed: 0/1, class ids, reals or (n, C) 0/1."""
+    rng = np.random.default_rng(seed)
+    if task == 'multiclass':
+        return rng.integers(0, num_classes, n).astype(np.int32)
+    if task == 'multilabel':
+        return (rng.uniform(size=(n, num_classes)) < 0.3).astype(np.float32)
+    if task == 'regression':
+        return rng.normal(1.0, 2.0, n).astype(np.float32)
+    return (rng.uniform(size=n) < 0.25).astype(np.float32)
+
+
+def heads_phase(torch, port, kernel_fns, vocabs, data, smi):
+    """DeepFM at full criteo width under 'bfloat16' on each run of
+    HEADS_RUNS (a task head, a loss, an optimizer, regularizers), three
+    8192-row steps and one validation batch on the card, held against the
+    same steps on the CPU's plain path from the same initial weights: the
+    step-1 gradients and the parameters after three steps (the train
+    phase's rules), the losses (atol 1e-2 of max(1, |loss|): bfloat16
+    rounds at other places) and GHMC's state (its bin counts, within
+    PARAM_OUTLIERS of the batch: an example whose |sigmoid - y| lies
+    within rounding of a bin edge may fall in the other bin). K1 and K2
+    launch once a step (K2-fwd also once for the validation batch). Then
+    a multiclass Predictor request. Returns the launches of the runs and
+    the request."""
+    arrays, _ = data
+    n = HEADS_STEPS * TRAIN_BATCH
+    train = rows_of(arrays, 0, n)
+    val = rows_of(arrays, n, n + TRAIN_BATCH)
+    first = rows_of(arrays, 0, TRAIN_BATCH)
+    total = dict.fromkeys(kernel_fns, 0)
+    for i, (task, classes, loss, optimizer, extra) in enumerate(HEADS_RUNS):
+        y = heads_labels(task, classes, n + TRAIN_BATCH, seed=300 + i)
+        config = dict(task=task, num_classes=classes, loss=loss,
+                      optimizer=optimizer, metrics=HEADS_METRICS[task],
+                      **extra)
+        what = f'heads {task} {loss} {optimizer} {sorted(extra.items())}'
+        init_state, grads, fits, step_ms, launches = None, {}, {}, [], None
+        for run, device_name in (('card', None), ('cpu', 'cpu')):
+            model = criteo_model(port, 'bfloat16', device_name, vocabs,
+                                 **config)
+            module = model.build()
+            if init_state is None:
+                init_state = {k: v.detach().cpu().clone()
+                              for k, v in module.state_dict().items()}
+            module.load_state_dict(init_state)
+            loss_fn = model._loss_fn()
+            if getattr(loss_fn, 'stateful', False):
+                model.loss_state = loss_fn.init_state().to(model.device)
+            step1, _, _ = model.training_loss(
+                model.to_device(first),
+                torch.from_numpy(y[:TRAIN_BATCH]).to(model.device), None,
+                loss_fn)
+            step1.backward()
+            grads[run] = {k: p.grad.detach().cpu().clone()
+                          for k, p in module.named_parameters()
+                          if p.grad is not None}
+            module.zero_grad(set_to_none=True)
+            module.load_state_dict(init_state)  # undo the BN statistics
+            model.loss_state = None
+            if run == 'card':
+                train_step = model._train_step
+
+                def timed_step(*args, train_step=train_step):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = train_step(*args)
+                    torch.cuda.synchronize()
+                    step_ms.append(1e3 * (time.perf_counter() - t))
+                    return out
+                model._train_step = timed_step
+                reset_launches(kernel_fns)
+            h = model.fit(train, y[:n], batch_size=TRAIN_BATCH, epochs=1,
+                          validation_data=(val, y[n:]), shuffle=False,
+                          verbose=0)
+            if run == 'card':
+                launches = read_launches(kernel_fns)
+                del model._train_step
+                if task == 'multiclass':
+                    multiclass = model
+            fits[run] = ({k: v.detach().cpu() for k, v in
+                          module.state_dict().items()},
+                         {k: v[0] for k, v in h.history.data.items()},
+                         None if model.loss_state is None
+                         else model.loss_state.cpu())
+        card_state, card_logs, card_ls = fits['card']
+        cpu_state, cpu_logs, cpu_ls = fits['cpu']
+        check(all(math.isfinite(v) for v in card_logs.values()),
+              f'{what}: non-finite logs {card_logs}')
+        expected = dict.fromkeys(kernel_fns, 0)
+        expected.update(emb_grad=HEADS_STEPS, fm_bwd=HEADS_STEPS,
+                        fm_fwd=HEADS_STEPS + 1)
+        check(launches == expected,
+              f'{what}: launched {launches}, expected {expected}')
+        grad_err, g_rtol, g_atol = check_step1_grads(what, 'bfloat16', grads)
+        loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                     for k in ('loss', 'val_loss')}
+        for k, d in loss_diff.items():
+            check(d <= 1e-2 * max(1.0, abs(cpu_logs[k])),
+                  f'{what}: card {k} {card_logs[k]} vs CPU {cpu_logs[k]}')
+        params = check_params(what, card_state, cpu_state)
+        state = None
+        if cpu_ls is not None:
+            state = {'card': card_ls.tolist(), 'cpu': cpu_ls.tolist(),
+                     'max_abs_diff': float((card_ls - cpu_ls).abs().max()),
+                     'atol': PARAM_OUTLIERS * TRAIN_BATCH}
+            check(state['max_abs_diff'] <= state['atol'],
+                  f'{what}: card and CPU loss states differ: {state}')
+        for name, count in launches.items():
+            total[name] += count
+        emit({'phase': 'heads', 'task': task, 'num_classes': classes,
+              'loss': loss, 'optimizer': optimizer, 'extra': extra,
+              'dtype_policy': 'bfloat16', 'batch_size': TRAIN_BATCH,
+              'steps': HEADS_STEPS, 'step_ms': step_ms,
+              'median_step_ms': sorted(step_ms)[len(step_ms) // 2],
+              'launches': {k: launches[k] for k in
+                           ('emb_grad', 'fm_fwd', 'fm_bwd')},
+              'card': card_logs, 'cpu': cpu_logs, 'loss_diff': loss_diff,
+              'step1_grad_err_of_max_worst': max(grad_err.values()),
+              'params_max_abs_diff': max(p['max_abs_diff']
+                                         for p in params.values()),
+              'params_worst_over_atol_share': max(
+                  p['over_atol'] / p['elements'] for p in params.values()),
+              'loss_state': state,
+              'tolerance': {'grad_rtol': g_rtol, 'grad_atol_of_max': g_atol,
+                            'loss_atol_of_max_1': 1e-2,
+                            'param_atol': PARAM_ATOL,
+                            'param_outlier_share': PARAM_OUTLIERS},
+              'nvidia_smi': smi})
+        del fits, grads
+
+    # a multiclass request through Predictor on the fitted card model
+    predictor = port.Predictor(estimator(multiclass))
+    request = rows_of(val, 0, HEADS_REQUEST)
+    rows = len(request['cat'])
+    reset_launches(kernel_fns)
+    proba = predictor.predict_proba_arrays(request)
+    launches = read_launches(kernel_fns)
+    classes = HEADS_RUNS[0][1]
+    check(proba.shape == (rows, classes) and np.isfinite(proba).all(),
+          f'multiclass request: {proba.shape}')
+    row_sums = proba.sum(axis=1)
+    check(bool(np.abs(row_sums - 1).max() <= 1e-5),
+          f'multiclass rows do not sum to 1: {np.abs(row_sums - 1).max()}')
+    check(launches['fm_fwd'] == 1, f'multiclass request launched {launches}')
+    for name, count in launches.items():
+        total[name] += count
+    emit({'phase': 'heads_request', 'task': 'multiclass',
+          'num_classes': classes, 'rows': rows,
+          'max_abs_row_sum_err': float(np.abs(row_sums - 1).max()),
+          'launches': {'fm_fwd': launches['fm_fwd']}, 'nvidia_smi': smi})
+    del multiclass, predictor
+    return total
 
 
 def determinism_phase(torch, port, vocabs, data, steps=3):
@@ -1687,6 +1894,11 @@ def main():
                                            model_name, steps).items():
                 launches[name] += count
             torch.cuda.empty_cache()
+
+    for name, count in heads_phase(torch, port, kernel_fns, vocabs,
+                                   criteo[2], smi).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
 
     determinism_phase(torch, port, vocabs, criteo[2])
     torch.cuda.empty_cache()

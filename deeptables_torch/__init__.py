@@ -21,6 +21,8 @@ _EXPORTS = {
     'ModelConfig': 'models.config',
     'DeepModel': 'models.deepmodel',
     'DeepTabularModel': 'models.deepmodel',
+    'DeepTable': 'models.deeptable',
+    'ModelSet': 'models.modelset',
     'Predictor': 'serving',
 }
 

@@ -8,10 +8,14 @@ from .deepmodel import DeepModel, DeepTabularModel, IgnoreCaseDict, ModelDesc
 from . import deepnets
 from .deepnets import register_nets
 
-# the preprocessor imports pandas and scikit-learn, which the card's path
-# does without: it loads on first use
+# loaded on first use: the preprocessor imports pandas and scikit-learn,
+# which the card's path does without, and DeepTable and ModelSet sit above
+# that path
 _LAZY = {'AbstractPreprocessor': 'preprocessor',
-         'DefaultPreprocessor': 'preprocessor'}
+         'DefaultPreprocessor': 'preprocessor',
+         'DeepTable': 'deeptable',
+         'ModelInfo': 'modelset',
+         'ModelSet': 'modelset'}
 
 
 def __getattr__(name):

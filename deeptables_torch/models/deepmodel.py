@@ -14,7 +14,9 @@
   ``save``/``load`` and ``release``. Dropout masks come from a
   ``torch.Generator`` that the model owns on its device, seeded from
   ``config.seed + 13`` at the start of ``fit`` as the JAX package seeds its
-  dropout key.
+  dropout key. The training loss adds the embedding regularizers'
+  penalties, and a stateful loss (GHMC) carries its state from step to
+  step in ``DeepModel.loss_state``.
 
 ``dtype_policy='bfloat16'`` casts the embeddings and the dense inputs to
 bfloat16, as the JAX package does; every Dense and BatchNorm keeps float32
@@ -42,6 +44,8 @@ from .callbacks import Callback, History
 from ..data import pipeline, split
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
+from ..ops import optimizers as optimizers_lib
+from ..ops import regularizers as regularizers_lib
 from ..ops.embedding import EmbeddingList, MultiColumnEmbedding, \
     flatten_embeddings
 from ..ops.layers import BatchNorm, Dense, dropout
@@ -62,12 +66,6 @@ class DeepTabularModel(nn.Module):
         if var_len_categorical_columns:
             raise NotImplementedError(
                 'var-len categorical embeddings: remaining-towers slice')
-        for name in ('embeddings_regularizer',
-                     'embeddings_activity_regularizer'):
-            if getattr(config, name) is not None:
-                raise NotImplementedError(
-                    f'{name}: comes with the heads-and-losses slice '
-                    f'(ROADMAP Queue 1 item 11)')
         # parameters are drawn on the CPU from config.seed, then moved, so a
         # model has the same weights on every device
         generator = torch.Generator().manual_seed(config.seed)
@@ -78,6 +76,8 @@ class DeepTabularModel(nn.Module):
         self.continuous_columns = tuple(continuous_columns or ())
         self.compute_dtype = torch.bfloat16 \
             if config.dtype_policy == 'bfloat16' else torch.float32
+        self.activity_regularizer = regularizers_lib.get_regularizer(
+            config.embeddings_activity_regularizer)
         desc = ModelDesc()
 
         # ---- embeddings ----
@@ -189,7 +189,10 @@ class DeepTabularModel(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """``training=True`` applies dropout (masks from ``generator``, on
         the batch's device) and BatchNorm with batch statistics, which also
-        moves BatchNorm's running statistics."""
+        moves BatchNorm's running statistics, and taps the activity
+        regularizer's penalty over the float32 embedding outputs as
+        ``__embeddings_activity_reg__`` (only in training: nothing else
+        reads it)."""
         ctx = deepnets.TraceContext(training, generator)
 
         embeddings = EmbeddingList()
@@ -198,6 +201,10 @@ class DeepTabularModel(nn.Module):
                 self, consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all')
             embeddings = emb_layer(batch[pipeline.CAT_KEY], training=training,
                                    generator=generator)
+        if training and self.activity_regularizer is not None \
+                and len(embeddings) > 0:
+            ctx.tap('__embeddings_activity_reg__', sum(
+                self.activity_regularizer(e.float()) for e in embeddings))
         if self.compute_dtype != torch.float32 and len(embeddings) > 0:
             stacked = embeddings.stacked
             embeddings = EmbeddingList(
@@ -284,20 +291,37 @@ def _sanitize_config_for_pickle(config):
 
 
 def _resolve_optimizer(optimizer, learning_rate, params):
-    """``'auto'``/``'adam'`` → Adam (the update of ``optax.adam``: betas
-    0.9/0.999, eps 1e-8 outside the square root); ``'sgd'`` → SGD without
-    momentum (``optax.sgd``)."""
-    name = optimizer.lower() if isinstance(optimizer, str) else optimizer
-    if name in ('auto', 'adam'):
-        return torch.optim.Adam(params, lr=learning_rate, betas=(0.9, 0.999),
-                                eps=1e-8)
-    if name == 'sgd':
-        return torch.optim.SGD(params, lr=learning_rate)
-    if name in ('adamw', 'rmsprop', 'adagrad', 'lamb'):
-        raise NotImplementedError(
-            f'optimizer {optimizer!r} is not ported to deeptables_torch yet: '
-            f'it comes with the heads-and-losses slice (ROADMAP Queue 1 '
-            f'item 11).')
+    """The optimizer of a name, with the update rule of its ``optax``
+    namesake at optax's defaults: ``'auto'``/``'adam'`` → Adam (betas
+    0.9/0.999, eps 1e-8 outside the square root); ``'adamw'`` → AdamW
+    (decoupled weight decay 1e-4); ``'sgd'`` → SGD without momentum;
+    ``'rmsprop'``, ``'adagrad'``, ``'lamb'`` → the port's own
+    (``ops/optimizers.py``). In place of an optax transformation the port
+    takes a ``torch.optim.Optimizer`` subclass (built with
+    ``lr=learning_rate``) or a callable ``params → Optimizer``."""
+    if isinstance(optimizer, str):
+        name = optimizer.lower()
+        table = {
+            'auto': lambda p, lr: torch.optim.Adam(
+                p, lr=lr, betas=(0.9, 0.999), eps=1e-8),
+            'adamw': lambda p, lr: torch.optim.AdamW(
+                p, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4),
+            'sgd': lambda p, lr: torch.optim.SGD(p, lr=lr),
+            'rmsprop': optimizers_lib.RMSprop,
+            'adagrad': optimizers_lib.Adagrad,
+            'lamb': optimizers_lib.Lamb,
+        }
+        table['adam'] = table['auto']
+        if name not in table:
+            raise ValueError(f'Unknown optimizer: {optimizer!r}')
+        return table[name](params, lr=learning_rate)
+    if isinstance(optimizer, type) and \
+            issubclass(optimizer, torch.optim.Optimizer):
+        return optimizer(params, lr=learning_rate)
+    if callable(optimizer):
+        built = optimizer(params)
+        if isinstance(built, torch.optim.Optimizer):
+            return built
     raise ValueError(f'Cannot interpret optimizer: {optimizer!r}')
 
 
@@ -355,6 +379,9 @@ class DeepModel:
         self.stop_training = False
         self.module: Optional[DeepTabularModel] = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
+        # a stateful loss's state (GHMC's bin counts) on the model's device,
+        # made by the first fit
+        self.loss_state: Optional[torch.Tensor] = None
         # draws the dropout masks of training; made by fit
         self.generator: Optional[torch.Generator] = None
         if model_file is not None:
@@ -490,20 +517,51 @@ class DeepModel:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+    def embedding_weight_penalty(self) -> Optional[torch.Tensor]:
+        """``config.embeddings_regularizer`` over every parameter of the
+        embedding layers (``emb_*``), or None without one. The port's
+        tables hold the vocabularies' rows only, no padding rows."""
+        reg = regularizers_lib.get_regularizer(
+            self.config.embeddings_regularizer)
+        if reg is None:
+            return None
+        return sum(reg(p) for name, p in self.build().named_parameters()
+                   if name.startswith(consts.LAYER_PREFIX_EMBEDDING))
+
+    def training_loss(self, inputs: Dict[str, torch.Tensor], y, w, loss_fn):
+        """The training forward (it moves BatchNorm's running statistics)
+        and its loss: the task loss (a stateful one reads
+        ``self.loss_state``), plus the embedding activity penalty and the
+        embedding weight penalty. Returns (loss, logits, the loss's new
+        state or None)."""
+        logits, taps = self.module(inputs, training=True,
+                                   generator=self.generator)
+        new_state = None
+        if getattr(loss_fn, 'stateful', False):
+            loss, new_state = loss_fn(logits, y, w, state=self.loss_state)
+        else:
+            loss = loss_fn(logits, y, w)
+        if '__embeddings_activity_reg__' in taps:
+            loss = loss + taps['__embeddings_activity_reg__']
+        penalty = self.embedding_weight_penalty()
+        if penalty is not None:
+            loss = loss + penalty
+        return loss, logits, new_state
+
     def _train_step(self, batch: Dict[str, np.ndarray], yb: np.ndarray,
                     wb: Optional[np.ndarray], loss_fn):
-        """One step on a host batch: the training forward (which also moves
-        BatchNorm's running statistics), the weighted loss, backward and the
-        optimizer's update. Returns (loss, logits) on the device."""
+        """One step on a host batch: ``training_loss``, backward, the
+        optimizer's update and the loss's new state. Returns (loss, logits)
+        on the device."""
         inputs = self.to_device(batch)
         y = torch.from_numpy(np.ascontiguousarray(yb)).to(self.device)
         w = None if wb is None else torch.from_numpy(wb).to(self.device)
-        logits, _ = self.module(inputs, training=True,
-                                generator=self.generator)
-        loss = loss_fn(logits, y, w)
+        loss, logits, new_state = self.training_loss(inputs, y, w, loss_fn)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        if new_state is not None:
+            self.loss_state = new_state.detach()
         return loss.detach(), logits.detach()
 
     def _split_validation(self, X, y, validation_split, validation_data):
@@ -554,6 +612,8 @@ class DeepModel:
 
         module = self.build()
         loss_fn = self._loss_fn()
+        if getattr(loss_fn, 'stateful', False) and self.loss_state is None:
+            self.loss_state = loss_fn.init_state().to(self.device)
         if self.optimizer is None:
             self.optimizer = _resolve_optimizer(
                 self.config.optimizer, self.config.learning_rate,
@@ -716,10 +776,11 @@ class DeepModel:
         return dm
 
     def release(self):
-        """Drop the module, the optimizer state and the generator, and give
-        their device memory back."""
+        """Drop the module, the optimizer state, the loss's state and the
+        generator, and give their device memory back."""
         self.module = None
         self.optimizer = None
+        self.loss_state = None
         self.generator = None
         if self.device.type == 'cuda':
             torch.cuda.empty_cache()

@@ -7,7 +7,10 @@ probability output (the raw prediction for regression), and returns a
 Python float. AUC is the exact rank statistic. Names resolve
 case-insensitively; a user callable ``f(y_true, y_pred)`` is honoured.
 ``accuracy`` thresholds a single column and argmaxes several, as the
-original does, so it is no multilabel metric (ROADMAP Queue 3).
+original does, except for multilabel data (a 2-D ``y_true`` of the
+probabilities' shape): there it thresholds each label at 0.5 and averages
+over the labels. The original argmaxes such probabilities too and then
+fails on the shapes; the port does not copy that (ROADMAP Queue 3).
 """
 
 import numpy as np
@@ -19,8 +22,17 @@ def _to_numpy(a):
     return np.asarray(a)
 
 
+def _is_multilabel(y_true, proba):
+    """Several probability columns and labels of the same 2-D shape."""
+    proba = _to_numpy(proba)
+    return proba.ndim == 2 and proba.shape[1] > 1 \
+        and _to_numpy(y_true).shape == proba.shape
+
+
 def _binarize(y_true, proba, threshold=0.5):
     proba = _to_numpy(proba)
+    if _is_multilabel(y_true, proba):
+        return (proba > threshold).astype(np.int32)
     if proba.ndim == 2 and proba.shape[1] > 1:
         return proba.argmax(axis=1)
     return (proba.reshape(-1) > threshold).astype(np.int32)
@@ -76,6 +88,8 @@ def pr_auc(y_true, proba):
 
 
 def accuracy(y_true, proba):
+    if _is_multilabel(y_true, proba):
+        return float((_binarize(y_true, proba) == _to_numpy(y_true)).mean())
     y = _to_numpy(y_true).reshape(-1)
     pred = _binarize(y, proba)
     return float((pred == y).mean())
@@ -126,8 +140,9 @@ def r2(y_true, pred):
 
 
 def _prf(y_true, proba):
+    # multilabel: over every (example, label) element
     y = _to_numpy(y_true).reshape(-1)
-    pred = _binarize(y, proba)
+    pred = _binarize(y_true, proba).reshape(-1)
     tp = float(((pred == 1) & (y == 1)).sum())
     fp = float(((pred == 1) & (y != 1)).sum())
     fn = float(((pred != 1) & (y == 1)).sum())
@@ -205,4 +220,52 @@ def compute_metrics(metric_list, y_true, proba, task):
             pred = _binarize(y_true, proba) \
                 if task != consts.TASK_REGRESSION else proba
             result[name] = float(fn(y_true, pred))
+    return result
+
+
+def calc_score(y_true, y_pred, y_proba, metrics, task, pos_label=None,
+               classes=None):
+    """Score a prediction set: the probability metrics on ``y_proba`` (the
+    prediction for regression), the label metrics on ``y_pred``; used for
+    the out-of-fold scores of cross-validation."""
+    # probability metrics assume integer-encoded labels; raw (string, bool,
+    # object) labels are encoded as LabelEncoder would (sorted uniques),
+    # with pos_label the positive class of a binary task
+    y_true_enc = y_true
+    if task != consts.TASK_REGRESSION:
+        yt_arr = _to_numpy(y_true).reshape(-1)
+        if yt_arr.dtype.kind in ('U', 'S', 'O', 'b'):
+            uniq = np.unique(yt_arr)
+            if pos_label is not None and len(uniq) == 2:
+                y_true_enc = (yt_arr == pos_label).astype(np.int64)
+            else:
+                y_true_enc = np.searchsorted(uniq, yt_arr)
+
+    result = {}
+    for m in metrics:
+        name, fn = get_metric(m)
+        lname = str(name).lower()
+        if task == consts.TASK_REGRESSION or lname in (
+                'auc', 'roc_auc', 'pr_auc', 'logloss', 'log_loss', 'mse',
+                'rmse', 'mae', 'msle', 'r2'):
+            y_in = y_proba if task != consts.TASK_REGRESSION else y_pred
+            result[name] = float(fn(y_true_enc, y_in))
+            continue
+        # label metrics compare the decoded labels
+        yt = _to_numpy(y_true).reshape(-1)
+        yp = _to_numpy(y_pred).reshape(-1)
+        if lname in ('accuracy', 'acc'):
+            result[name] = float((yt == yp).mean())
+        elif lname in ('precision', 'recall', 'f1'):
+            pos = pos_label if pos_label is not None else 1
+            tp = float(((yp == pos) & (yt == pos)).sum())
+            fp = float(((yp == pos) & (yt != pos)).sum())
+            fn_ = float(((yp != pos) & (yt == pos)).sum())
+            prec = tp / (tp + fp) if (tp + fp) > 0 else 0.0
+            rec = tp / (tp + fn_) if (tp + fn_) > 0 else 0.0
+            result[name] = {'precision': prec, 'recall': rec,
+                            'f1': 2 * prec * rec / (prec + rec)
+                            if (prec + rec) > 0 else 0.0}[lname]
+        else:
+            result[name] = float(fn(yt, yp))
     return result

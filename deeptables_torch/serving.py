@@ -5,6 +5,11 @@ A :class:`Predictor` pads each request up to the smallest batch bucket that
 holds it (larger requests go in chunks of the next multiple of the largest
 bucket), runs the model's inference forward on its device, and returns
 numpy probabilities; binary tasks get the estimator's ``(n, 2)`` layout.
+
+``Predictor.load``, ``Predictor.predict`` and ``export_predictor`` go
+through ``DeepTable``, which this module imports inside them only: the
+packed-array path (``predict_proba_arrays``) needs neither ``DeepTable``
+nor the host preprocessor's pandas and scikit-learn.
 """
 
 import math
@@ -45,6 +50,13 @@ class Predictor:
         self.model.build()
         self.task = deeptable.task
         self.buckets = sorted(set(int(b) for b in batch_buckets))
+
+    @classmethod
+    def load(cls, filepath, device=None, **kwargs):
+        """A predictor over a ``DeepTable`` saved in ``filepath``, its
+        model on ``device`` (default: the current CUDA device)."""
+        from .models.deeptable import DeepTable
+        return cls(DeepTable.load(filepath, device=device), **kwargs)
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -102,3 +114,16 @@ class Predictor:
         if self.task == consts.TASK_BINARY:
             proba = fix_binary_predict_proba_result(proba)
         return proba
+
+    def predict(self, X, encode_to_label=True):
+        """DataFrame (raw feature space) → predicted labels (values for
+        regression), decoded by the estimator's preprocessor."""
+        proba = self.predict_proba(X)
+        return self.dt.proba2predict(proba, encode_to_label=encode_to_label)
+
+
+def export_predictor(deeptable, filepath: str):
+    """Persist an estimator for serving (``DeepTable.save``'s layout, which
+    :meth:`Predictor.load` reads)."""
+    deeptable.save(filepath)
+    return filepath

@@ -1,0 +1,227 @@
+# -*- coding:utf-8 -*-
+"""Trained quality of the port's ``DeepTable`` on the configurations of
+``benchmarks/parity_quality.py`` (the JAX package's side, "ours" there),
+with that script's protocol:
+
+- an 80/20 train/test split (seed 42, stratified for binary and multiclass
+  targets);
+- ``DeepTable.fit``: 8 epochs, batch 512, Adam 1e-3 (the default
+  optimizer), a 20% validation split, early stopping on the first metric
+  (patience 3, best weights restored);
+- the test metrics: binary AUC and logloss from ``DeepTable.evaluate``;
+  regression RMSE and MAE, multiclass logloss and accuracy, multilabel
+  macro AUC and mean per-label logloss, each from the test predictions
+  with scikit-learn's scorers.
+
+The first metric drives early stopping: AUC (binary), RMSE (regression),
+accuracy (multiclass); multilabel monitors logloss (the JAX script's
+multilabel ``accuracy`` argmaxes the labels).
+
+Run on the CPU, three seeds of every row it runs:
+
+    python -m deeptables_torch.tools.parity_quality --device cpu
+    python -m deeptables_torch.tools.parity_quality --device cpu \\
+        --rows bank_deepfm,glass_multiclass --seeds 0,1,2
+    python -m deeptables_torch.tools.parity_quality --report
+
+``--patience 0`` runs without early stopping: the JAX package's multilabel
+row runs so in effect (its multilabel ``accuracy`` fails, so the early
+stopping it monitors never fires).
+
+Each finished (row, seed) is written at once to the results file
+(``--out``, default ``parity_results.json`` beside this script), which
+only this process writes; ``--report`` prints each row's mean ± σ
+(population σ, as the JAX script reports). Needs pandas and scikit-learn;
+imports nothing of JAX.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+SEEDS = (0, 1, 2)
+EPOCHS = 8
+BATCH = 512
+OUT = Path(__file__).resolve().parent / 'parity_results.json'
+ROWS = ('bank_deepfm', 'criteo_xdeepfm', 'avazu_autoint',
+        'boston_regression', 'glass_multiclass', 'multilabel_dnn')
+MULTILABEL_TARGET = [f'label_{k}' for k in range(4)]
+# the first metric drives early stopping
+TASK_METRICS = {'binary': ['AUC', 'logloss'], 'regression': ['rmse'],
+                'multiclass': ['accuracy'], 'multilabel': ['logloss']}
+
+
+def configs():
+    """The rows of ``benchmarks/parity_quality.py:_configs`` that the port
+    runs: loader, target, task, nets and the extra config."""
+    from ..data import datasets as ds
+    avazu_columns = [c for c in ds.load_avazu_synthetic(10).columns
+                     if c != 'click']
+    return {
+        'bank_deepfm': dict(
+            loader=lambda: ds.load_bank(20000), target='y',
+            nets=['linear', 'fm_nets', 'dnn_nets'], conf={}),
+        'criteo_xdeepfm': dict(
+            loader=lambda: ds.load_criteo_synthetic(60000), target='label',
+            nets=['linear', 'cin_nets', 'dnn_nets'],
+            conf=dict(cin_params={'cross_layer_size': (64, 64),
+                                  'activation': 'relu'},
+                      embeddings_output_dim=8,
+                      categorical_columns=[f'C{i}' for i in range(1, 27)])),
+        'avazu_autoint': dict(
+            loader=lambda: ds.load_avazu_synthetic(60000), target='click',
+            nets=['autoint_nets'],
+            conf=dict(autoint_params={'num_attention': 3, 'num_heads': 2,
+                                      'dropout_rate': 0,
+                                      'use_residual': True},
+                      categorical_columns=avazu_columns)),
+        'boston_regression': dict(
+            loader=lambda: ds.load_boston(20000), target='target',
+            task='regression', nets=['dnn_nets'],
+            conf=dict(task='regression')),
+        'glass_multiclass': dict(
+            loader=lambda: ds.load_glass_uci(20000), target=10,
+            task='multiclass', nets=['dnn_nets'], conf={}),
+        'multilabel_dnn': dict(
+            loader=lambda: ds.load_multilabel_synthetic(20000),
+            target=MULTILABEL_TARGET, task='multilabel', nets=['dnn_nets'],
+            conf=dict(task='multilabel')),
+    }
+
+
+def split(df, target, task):
+    from sklearn.model_selection import train_test_split
+    if isinstance(target, list):
+        y = df[target].to_numpy(np.float32)
+        df = df.drop(columns=target)
+    else:
+        y = np.asarray(df.pop(target))
+    strat = y if task in ('binary', 'multiclass') else None
+    return train_test_split(df, y, test_size=0.2, random_state=42,
+                            stratify=strat)
+
+
+def score(task, y_true, pred):
+    """The JAX script's ``_score`` for the regression, multiclass and
+    multilabel rows."""
+    from sklearn.metrics import (accuracy_score, log_loss,
+                                 mean_absolute_error, mean_squared_error,
+                                 roc_auc_score)
+    if task == 'regression':
+        return {'rmse': float(np.sqrt(mean_squared_error(y_true, pred))),
+                'mae': float(mean_absolute_error(y_true, pred))}
+    if task == 'multiclass':
+        classes = list(np.unique(y_true))
+        yi = np.asarray([classes.index(v) for v in y_true])
+        return {'logloss': float(log_loss(yi, pred,
+                                          labels=list(range(len(classes))))),
+                'accuracy': float(accuracy_score(yi, pred.argmax(1)))}
+    p = np.clip(pred, 1e-7, 1 - 1e-7)
+    return {'auc': float(roc_auc_score(y_true, pred, average='macro')),
+            'logloss': float(np.mean([
+                log_loss(y_true[:, k], p[:, k], labels=[0, 1])
+                for k in range(y_true.shape[1])]))}
+
+
+def run(name, spec, seed, device, home_dir, patience=3):
+    from ..models import DeepTable, ModelConfig
+    task = spec.get('task', 'binary')
+    X_train, X_test, y_train, y_test = split(spec['loader'](),
+                                             spec['target'], task)
+    conf = ModelConfig(nets=spec['nets'], metrics=TASK_METRICS[task],
+                       earlystopping_patience=patience, seed=seed,
+                       home_dir=home_dir, **spec['conf'])
+    dt = DeepTable(config=conf, device=device)
+    t0 = time.time()
+    _, history = dt.fit(X_train, y_train, epochs=EPOCHS, batch_size=BATCH,
+                        verbose=0)
+    out = {'fit_seconds': round(time.time() - t0, 1),
+           'epochs_run': len(history.history['loss'])}
+    if task == 'binary':
+        result = dt.evaluate(X_test, y_test, verbose=0)
+        out.update(auc=float(result['AUC']), logloss=float(result['logloss']))
+    elif task == 'regression':
+        out.update(score(task, y_test,
+                         np.asarray(dt.predict(X_test)).reshape(-1)))
+    else:
+        out.update(score(task, y_test, np.asarray(dt.predict_proba(X_test))))
+    return out
+
+
+def load(path):
+    if Path(path).exists():
+        with open(path) as f:
+            return json.load(f)
+    return {}
+
+
+def report(results):
+    lines = []
+    for name in ROWS:
+        runs = results.get(name, {})
+        if not runs:
+            continue
+        keys = [k for k in next(iter(runs.values()))
+                if k not in ('fit_seconds', 'epochs_run', 'device')]
+        cells = []
+        for key in keys:
+            xs = [r[key] for r in runs.values()]
+            cells.append(f'{key} {np.mean(xs):.4f}±{np.std(xs):.4f}')
+        lines.append(f'{name:20s} seeds {sorted(runs)}: ' + ', '.join(cells))
+    return '\n'.join(lines)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--device', default=None,
+                        help="'cpu' or 'cuda' (default: the CUDA device)")
+    parser.add_argument('--rows', default=','.join(ROWS))
+    parser.add_argument('--seeds', default=','.join(map(str, SEEDS)))
+    parser.add_argument('--out', default=str(OUT))
+    parser.add_argument('--threads', type=int, default=None,
+                        help='torch CPU threads')
+    parser.add_argument('--patience', type=int, default=3,
+                        help='early-stopping patience; 0 trains every '
+                             'epoch and keeps the last weights (the '
+                             "JAX multilabel row's effective protocol)")
+    parser.add_argument('--report', action='store_true',
+                        help='print the results file and run nothing')
+    args = parser.parse_args(argv)
+    results = load(args.out)
+    if args.report:
+        print(report(results))
+        return 0
+    import torch
+    if args.threads:
+        torch.set_num_threads(args.threads)
+    specs = configs()
+    rows = [r for r in args.rows.split(',') if r]
+    unknown = set(rows) - set(specs)
+    if unknown:
+        parser.error(f'unknown rows {sorted(unknown)}; rows: {list(ROWS)}')
+    home_dir = tempfile.mkdtemp(prefix='dt_parity_')
+    try:
+        for name in rows:
+            for seed in (int(s) for s in args.seeds.split(',')):
+                out = run(name, specs[name], seed, args.device, home_dir,
+                          args.patience)
+                out['device'] = args.device or 'cuda'
+                results.setdefault(name, {})[str(seed)] = out
+                with open(args.out, 'w') as f:
+                    json.dump(results, f, indent=1, sort_keys=True)
+                print(json.dumps({'row': name, 'seed': seed, **out}),
+                      flush=True)
+    finally:
+        shutil.rmtree(home_dir, ignore_errors=True)
+    print(report(results))
+    return 0
+
+
+if __name__ == '__main__':
+    raise SystemExit(main())

@@ -15,7 +15,17 @@ LAYER_PREFIX_EMBEDDING = 'emb_'
 
 LAYER_NAME_BN_DENSE_ALL = 'bn_dense_all'
 
+DATATYPE_PREDICT_CLASS = 'int32'
+
+MODEL_SELECT_MODE_MIN = 'min'
+MODEL_SELECT_MODE_MAX = 'max'
+MODEL_SELECT_MODE_AUTO = 'auto'
+
+METRIC_NAME_AUC = 'AUC'
+
 MODEL_SELECTOR_CURRENT = 'current'
+MODEL_SELECTOR_BEST = 'best'
+MODEL_SELECTOR_ALL = 'all'
 
 EMBEDDING_OUT_DIM_DEFAULT = 4
 

@@ -24,9 +24,11 @@ Tolerances:
   differ. Against ``emb_grad_sorted_reference`` on the CPU, which adds the
   same float32 values in the same order, and against a second call of the
   kernel: bit for bit (``torch.equal``).
-- DeepFM fit on the card against the CPU: losses rtol 1e-4; parameters atol
-  2e-4 (Adam moves each parameter by up to lr = 1e-3 a step whatever the
-  gradient's size, so rounding in a gradient near zero shows at that scale).
+- DeepFM fit on the card against the CPU (also with each head, loss,
+  optimizer and regularizer): losses rtol 1e-4; parameters atol 2e-4 (Adam
+  moves each parameter by up to lr = 1e-3 a step whatever the gradient's
+  size, so rounding in a gradient near zero shows at that scale); GHMC's
+  bin counts atol 1 (one example within rounding of a bin edge).
 - CIN forward and backward: the kernels and the plain versions both take
   float32 products and sums of the same inputs (bfloat16 inputs are exact in
   float32), so every output is held to 1e-5 times the sum of the magnitudes
@@ -478,6 +480,74 @@ def test_deepfm_fit_on_cuda_matches_cpu(cuda):
         np.testing.assert_allclose(value.cpu().numpy(),
                                    cpu_state[key].numpy(), atol=2e-4,
                                    err_msg=key)
+
+
+HEADS = [('multiclass', 5, 'categorical_crossentropy', 'adamw', {}),
+         ('regression', 1, 'mse', 'rmsprop', {}),
+         ('regression', 1, 'huber', 'adagrad', {}),
+         ('multilabel', 3, 'multilabel_binary_crossentropy', 'lamb', {}),
+         ('binary', 2, 'binary_focal_loss', 'adam', {}),
+         ('binary', 2, 'ghmc', 'adam', {}),
+         ('binary', 2, 'binary_crossentropy', 'adam',
+          {'embeddings_regularizer': 'l2',
+           'embeddings_activity_regularizer': 'l1'})]
+
+
+@pytest.mark.parametrize('task,classes,loss,optimizer,extra', HEADS,
+                         ids=[f'{h[0]}-{h[2]}-{h[3]}' for h in HEADS])
+def test_deepfm_heads_fit_on_cuda_matches_cpu(cuda, task, classes, loss,
+                                              optimizer, extra):
+    """Each head, loss, optimizer and regularizer of the port through
+    ``fit`` on the card and the CPU from the same weights: the sibling
+    test's tolerances; GHMC's state (bin counts) within one example, which
+    may sit within rounding of a bin edge."""
+    from deeptables_torch.models import (CategoricalColumn, ContinuousColumn,
+                                         DeepModel, ModelConfig)
+    from deeptables_torch.ops.kernels import emb_grad as emb_grad_module
+    vocabs = [50, 7, 300, 20]
+    cats = tuple(CategoricalColumn(f'C{i}', v, 16)
+                 for i, v in enumerate(vocabs))
+    conts = (ContinuousColumn('input_continuous_all', ['I1', 'I2', 'I3']),)
+    config = ModelConfig(nets=['linear', 'fm_nets', 'dnn_nets'], task=task,
+                         embedding_dropout=0, metrics=['mse'], loss=loss,
+                         optimizer=optimizer,
+                         dnn_params={'hidden_units': ((64, 0, False),
+                                                      (32, 0, False))},
+                         **extra)
+    gpu = DeepModel(task, classes, config, cats, conts, device=cuda)
+    cpu = DeepModel(task, classes, config, cats, conts, device='cpu')
+    cpu.build().load_state_dict(gpu.build().state_dict())
+    rng = np.random.default_rng(3)
+    n = 96
+    X = {'cat': np.stack([rng.integers(0, v, n) for v in vocabs],
+                         axis=1).astype(np.int32),
+         'input_continuous_all': rng.normal(size=(n, 3)).astype(np.float32)}
+    y = {'multiclass': rng.integers(0, classes, n).astype(np.int32),
+         'multilabel': (rng.uniform(size=(n, classes)) < 0.4).astype(
+             np.float32),
+         'regression': rng.normal(1, 2, n).astype(np.float32)}.get(
+        task, rng.integers(0, 2, n).astype(np.float32))
+    val = ({k: v[:32] for k, v in X.items()}, y[:32])
+    grads = emb_grad_module.emb_grad.launches
+    h_gpu = gpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    assert emb_grad_module.emb_grad.launches == grads + 2
+    h_cpu = cpu.fit(X, y, batch_size=48, epochs=1, validation_data=val,
+                    shuffle=False, verbose=0)
+    for key in ('loss', 'val_loss'):
+        np.testing.assert_allclose(h_gpu.history[key], h_cpu.history[key],
+                                   rtol=1e-4, err_msg=key)
+    cpu_state = cpu.module.state_dict()
+    for key, value in gpu.module.state_dict().items():
+        np.testing.assert_allclose(value.cpu().numpy(),
+                                   cpu_state[key].numpy(), atol=2e-4,
+                                   err_msg=key)
+    if loss == 'ghmc':
+        assert gpu.loss_state.device.type == 'cuda'
+        np.testing.assert_allclose(gpu.loss_state.cpu().numpy(),
+                                   cpu.loss_state.numpy(), atol=1.0)
+    else:
+        assert gpu.loss_state is None
 
 
 def test_model_file_moves_between_card_and_cpu(cuda, tmp_path):

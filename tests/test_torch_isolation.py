@@ -14,13 +14,21 @@ no scikit-learn, an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
 and ``ops/kernels/cin.py``) and an AutoInt ``fit`` on the avazu-style columns
 (``ops/attention_grad.py``, ``ops/kernels/field_attention.py``, the fused
 block too). It hides any CUDA device, so that ``DeepModel`` without a
-device must raise.
+device must raise. ``DeepTable`` and ``ModelSet`` (``models/deeptable.py``,
+``models/modelset.py``) import there too, and load through
+``deeptables_torch.models``'s lazy exports: they import pandas and
+scikit-learn inside the functions that use them. ``serving``,
+``models.deeptable`` and ``models.modelset`` also import each on its own
+with those blocked, and ``serving`` then loads neither ``DeepTable`` nor the
+preprocessor.
 """
 
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -55,6 +63,15 @@ for name in ('DefaultPreprocessor', 'AbstractPreprocessor'):
         pass
     else:
         raise AssertionError(f'{name} loaded with pandas blocked')
+assert {'deeptables_torch.models.deeptable',
+        'deeptables_torch.models.modelset'} <= set(modules)
+from deeptables_torch.models import DeepTable, ModelInfo, ModelSet
+from deeptables_torch import DeepTable as _DeepTable, ModelSet as _ModelSet
+assert DeepTable is _DeepTable and ModelSet is _ModelSet
+ms = ModelSet(metric='AUC', best_mode='auto')
+ms.push(ModelInfo('val', 'a', None, {'AUC': 0.7}))
+ms.push(ModelInfo('val', 'b', None, {'AUC': 0.9}))
+assert ms.best_model().name == 'b'
 assert not set(HOST_ONLY) & set(sys.modules), 'a host-only module loaded'
 
 spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
@@ -138,10 +155,40 @@ def test_port_runs_without_jax_pandas_or_the_jax_package():
     assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
 
 
+ALONE = r'''
+import importlib, sys
+for name in BLOCKED:
+    sys.modules[name] = None
+importlib.import_module(MODULE)
+loaded = set(sys.modules)
+assert not set(HOST_ONLY) & loaded, 'a host-only module loaded'
+if MODULE == 'deeptables_torch.serving':
+    assert 'deeptables_torch.models.deeptable' not in loaded
+print('ok')
+'''
+
+
+@pytest.mark.parametrize('module', ['deeptables_torch.serving',
+                                    'deeptables_torch.models.deeptable',
+                                    'deeptables_torch.models.modelset'])
+def test_module_imports_alone_without_host_libraries(module):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
+               PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, '-c',
+         f'BLOCKED = {BLOCKED!r}\nHOST_ONLY = {HOST_ONLY!r}\n'
+         f'MODULE = {module!r}\n' + ALONE],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.split()[-1] == 'ok'
+
+
 def test_sources_name_no_blocked_module():
     """No import statement of the port or chip_smoke.py names a blocked
-    module; pandas only inside a function, or in the host-only modules,
-    which import pandas and scikit-learn and nothing else blocked."""
+    module; pandas and scikit-learn only inside a function (as
+    ``DeepTable``'s cross-validation and probe, and ``ModelSet``'s
+    leaderboard, import them), or in the host-only modules, which import
+    pandas and scikit-learn and nothing else blocked."""
     host_only = {REPO / (name.replace('.', '/') + '.py') for name in HOST_ONLY}
     files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
@@ -151,7 +198,7 @@ def test_sources_name_no_blocked_module():
             if not words or words[0] not in ('import', 'from'):
                 continue
             top = words[1].split('.')[0]
-            if top == 'pandas' and line[:1].isspace():
+            if top in ('pandas', 'sklearn') and line[:1].isspace():
                 continue  # a lazy import inside a function
             if top in ('pandas', 'sklearn') and path in host_only:
                 continue

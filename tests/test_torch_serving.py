@@ -6,11 +6,14 @@ Both predictors are built over a plain holder of what ``Predictor`` reads
 from a fitted estimator (``task``, ``preprocessor``, ``get_model``). Requests
 of 1, 37 and 70 rows with buckets ``(1, 8, 64)`` cover an exact bucket, a
 padded one and a request past the largest bucket. Tolerance: float32
-atol 1e-5, the summation order of the two frameworks.
+atol 1e-5, the summation order of the two frameworks. Then the estimator
+entry points, ``export_predictor``, ``Predictor.load`` and
+``Predictor.predict``, over a saved ``DeepTable`` of each package.
 """
 
 import types
 
+import jax
 import numpy as np
 import pytest
 
@@ -68,3 +71,41 @@ def test_fix_binary_predict_proba_result(proba):
         fix_binary_predict_proba_result as jax_fix
     np.testing.assert_array_equal(
         serving.fix_binary_predict_proba_result(proba), jax_fix(proba))
+
+
+def test_predictor_load_and_predict_match_jax(tmp_path):
+    """``export_predictor``, ``Predictor.load`` and ``Predictor.predict``
+    over a saved ``DeepTable`` in each package, the port's holding the JAX
+    model's weights (bridged): the same probabilities (atol 1e-5) and the
+    same decoded labels."""
+    from deeptables_tpu.data.datasets import load_bank
+    from deeptables_tpu.models import DeepTable as JaxDeepTable
+    from deeptables_tpu.models import ModelConfig as JaxModelConfig
+    from deeptables_torch import bridge
+    from deeptables_torch.models import DeepTable, ModelConfig
+    df = load_bank(300)
+    y = df.pop('y')
+    kwargs = dict(nets=['linear', 'dnn_nets'], metrics=['AUC'],
+                  embedding_dropout=0, home_dir=str(tmp_path))
+    jax_dt = JaxDeepTable(JaxModelConfig(**kwargs))
+    jax_dt.fit(df, y, epochs=1, verbose=0)
+    port_dt = DeepTable(ModelConfig(**kwargs), device='cpu')
+    port_dt.fit(df, y, epochs=1, verbose=0)
+    pre = port_dt.preprocessor
+    port_dt.get_model().module.load_state_dict(bridge.state_dict_from_flax(
+        jax.device_get(jax_dt.get_model().variables),
+        pre.categorical_columns, pre.continuous_columns, port_dt.config))
+    jax_predictor = jax_serving.Predictor.load(
+        jax_serving.export_predictor(jax_dt, str(tmp_path / 'jax')),
+        batch_buckets=BUCKETS)
+    predictor = serving.Predictor.load(
+        serving.export_predictor(port_dt, str(tmp_path / 'port')),
+        device='cpu', batch_buckets=BUCKETS)
+    X = df.head(70)
+    np.testing.assert_allclose(predictor.predict_proba(X),
+                               jax_predictor.predict_proba(X), atol=1e-5)
+    np.testing.assert_array_equal(predictor.predict(X),
+                                  jax_predictor.predict(X))
+    np.testing.assert_array_equal(
+        predictor.predict(X, encode_to_label=False),
+        jax_predictor.predict(X, encode_to_label=False))

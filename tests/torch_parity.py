@@ -60,17 +60,22 @@ SCHEMAS = {
 
 
 class Case:
-    """One schema and dtype policy, built in both packages."""
+    """One schema and dtype policy, built in both packages. ``task`` and
+    ``num_classes`` pick the head; ``config`` updates both packages'
+    ``ModelConfig`` (a loss, an optimizer, regularizers, metrics)."""
 
     def __init__(self, schema, dtype_policy='float32', seed=0,
-                 cin_params=None, autoint_params=None):
+                 cin_params=None, autoint_params=None, task='binary',
+                 num_classes=2, **config):
         vocabs, dims, n_dense, nets = SCHEMAS[schema]
         self.vocabs, self.dims, self.nets = vocabs, dims, nets
-        kwargs = dict(nets=nets, metrics=['AUC'], task='binary',
+        self.task, self.num_classes = task, num_classes
+        kwargs = dict(nets=nets, metrics=['AUC'], task=task,
                       embedding_dropout=0,
                       dnn_params={'hidden_units': HIDDEN,
                                   'activation': 'relu'},
                       dtype_policy=dtype_policy)
+        kwargs.update(config)
         if 'cin_nets' in nets:
             kwargs['cin_params'] = dict(CIN_PARAMS, **(cin_params or {}))
         if 'autoint_nets' in nets:
@@ -88,18 +93,19 @@ class Case:
         self.jax_config = ModelConfig(**kwargs)
         self.port_config = TModelConfig(**kwargs)
 
-        self.jax_model = DeepModel('binary', 2, self.jax_config,
+        self.jax_model = DeepModel(task, num_classes, self.jax_config,
                                    self.jax_cats, self.jax_conts)
         self.jax_model.build()
         randomize_batch_norm(self.jax_model.variables, seed)
+        zero_padding_rows(self.jax_model.variables, vocabs, dims)
         self.variables = jax.device_get(self.jax_model.variables)
         self.state_dict = bridge.state_dict_from_flax(
             self.variables, self.port_cats, self.port_conts, self.port_config)
 
     def port_model(self):
         """A port DeepModel on the CPU holding the bridged weights."""
-        model = TDeepModel('binary', 2, self.port_config, self.port_cats,
-                           self.port_conts, device='cpu')
+        model = TDeepModel(self.task, self.num_classes, self.port_config,
+                           self.port_cats, self.port_conts, device='cpu')
         model.build().load_state_dict(self.state_dict, strict=True)
         return model
 
@@ -111,6 +117,31 @@ class Case:
             dense = rng.normal(0.5, 1.5, (n, self.jax_conts[0].input_dim))
             batch['input_continuous_all'] = dense.astype(np.float32)
         return batch
+
+    def labels(self, n, seed=2):
+        """Labels of the case's task: 0/1, class ids, reals or (n, C)
+        0/1."""
+        rng = np.random.default_rng(seed)
+        if self.task == 'multiclass':
+            return rng.integers(0, self.num_classes, n).astype(np.int32)
+        if self.task == 'multilabel':
+            return (rng.uniform(size=(n, self.num_classes)) < 0.4).astype(
+                np.float32)
+        if self.task == 'regression':
+            return rng.normal(1.0, 2.0, n).astype(np.float32)
+        return rng.integers(0, 2, n).astype(np.float32)
+
+    def dataframe(self, n, seed=1):
+        """``batch(n, seed)`` as a preprocessed DataFrame, one column per
+        categorical and dense input."""
+        import pandas as pd
+        batch = self.batch(n, seed)
+        columns = {c.name: batch['cat'][:, i]
+                   for i, c in enumerate(self.port_cats)}
+        for group in self.port_conts:
+            columns.update({name: batch[group.name][:, i]
+                            for i, name in enumerate(group.column_names)})
+        return pd.DataFrame(columns)
 
     def field_order(self):
         """JAX stacked field position → column, from the JAX package's own
@@ -139,6 +170,26 @@ def randomize_batch_norm(variables, seed):
             params['scale'] = rng.uniform(0.5, 1.5, n).astype(np.float32)
             params['bias'] = rng.normal(0., 0.2, n).astype(np.float32)
     visit(variables.get('batch_stats', {}), variables['params'])
+
+
+def zero_padding_rows(variables, vocabs, dims):
+    """Zero the rows of the JAX package's lane-packed embedding tables that
+    no column reads (alignment padding, which its initializer fills). The
+    port keeps the vocabularies' rows only, so a weight penalty or a
+    per-tensor norm (LAMB) agrees between the two only without them; those
+    rows get no gradient and no decay, so they stay zero."""
+    tables = variables['params'].get('emb_categorical_vars_all')
+    if tables is None:
+        return
+    for dim, cols, offsets in bridge.flax_plan(vocabs, dims):
+        name = f'embeddings_d{dim}'
+        table = np.array(tables[name], np.float32)
+        logical = table.reshape(-1, dim)
+        keep = np.zeros(len(logical), bool)
+        for col, offset in zip(cols, offsets):
+            keep[offset:offset + vocabs[col]] = True
+        logical[~keep] = 0
+        tables[name] = jax.numpy.asarray(table)
 
 
 def to_column_order(a, order, block):
