@@ -24,15 +24,17 @@ these phases, each printing one JSON line:
    reports for its kernel. Two more rows (float32 and bfloat16, B=4096)
    take an x one element into its storage, which is not 16-byte aligned,
    and so hold the ``scalar`` design against ``fm_reference`` the same way
-   (``x_offset`` 1; the main path's rows have 0).
+   (``x_offset`` 1; the main path's rows have 0). Two more (float32 and
+   bfloat16, B=8192) take F=104, fgcnn_fm_nets' FM over the FGCNN output.
 3. ``kernel`` for ``fm_bwd`` (the FM backward kernel against
    ``fm_backward_reference``, float32 and bfloat16) at the training shapes
    B = 64, 512, 4093, 8192 (F=26, D=16), and ``emb_grad`` (the
    embedding-gradient kernel against ``emb_grad_reference``) on
    ``load_criteo_synthetic`` ids, which follow a Zipf law, and on uniform
    ids at the same shapes, on AutoInt's avazu-style ids
-   (``load_avazu_synthetic``, 22 columns, B=8192) and on a batch whose ids
-   are all one row (B=8192, no bar), with the same timings and each
+   (``load_avazu_synthetic``, 22 columns, B=8192), on Wide&Deep+DCN's adult
+   ids (8 columns, 102 rows, B=8192) and on a batch whose ids are all one
+   row (B=8192, no bar), with the same timings and each
    kernel's time apart (``kernels_ms``: the sort's kernels, the fill, the
    segment sum and the merge; ``sort_ms``, ``fill_ms`` and ``segment_ms``
    sum them, and ``sort_alone_ms`` times ``torch.sort`` by itself). Each
@@ -50,7 +52,8 @@ these phases, each printing one JSON line:
 4. ``kernel`` for ``cin_fwd`` (K4, the CIN contraction) and ``cin_bwd`` (K3,
    its gradient) against ``cin_fwd_reference`` and ``cin_bwd_reference``
    at xDeepFM's two CIN layers, (F, G, L) = (26, 26, 128) and (26, 64, 128),
-   B = 4096, 8192 and 4093, D=16, float32 and bfloat16, every output within
+   B = 4096, 8192 and 4093, and at fgcnn_cin_nets' over the FGCNN output,
+   (104, 104, 128) and (104, 64, 128) at B=8192, D=16, float32 and bfloat16, every output within
    1e-5 of the sum of its terms' magnitudes (dx0 and dh in bfloat16 also
    rtol 1e-2, their one rounding). Beside each: the yardstick
    ``torch.einsum('bfd,bgd,lfg->bld')`` (K4) and ``torch.autograd.grad`` of
@@ -74,17 +77,22 @@ these phases, each printing one JSON line:
    the script checks; ``warp`` at the lifted shapes) and what ``ptxas``
    reports for its kernel (registers, spill bytes).
 6. For DeepFM, xDeepFM (26 categorical columns at D=16, 13 dense, DNN
-   1024/512 relu; xDeepFM's CIN (128, 128) relu) and then AutoInt and
-   AutoInt with ``fuse_projections`` (the 22 avazu-style columns of
+   1024/512 relu; xDeepFM's CIN (128, 128) relu), AutoInt and AutoInt with
+   ``fuse_projections`` (the 22 avazu-style columns of
    ``load_avazu_synthetic`` at D=16, 3 attention blocks of 2 heads; the
-   bench's 8 batches of 8192 rows, 7 to train on and 1 to validate), random
-   weights from ``config.seed``:
+   bench's 8 batches of 8192 rows, 7 to train on and 1 to validate) and
+   Wide&Deep+DCN (``linear``, ``dnn_nets``, ``dcn_nets``: adult's 8
+   categorical columns of 102 rows in all at D=16, 6 dense, DNN 1024/512
+   relu, 4 cross layers; ids and dense inputs drawn as
+   ``benchmarks/bench_models.py`` draws them, labels from a fixed logistic
+   model of both), random weights from ``config.seed``:
    - ``serving`` under ``dtype_policy='bfloat16'`` and then ``'float32'``,
      through ``Predictor`` with the default buckets, requests of 1, 37, 4096
      and 10000 rows from ``load_criteo_synthetic``. It checks the
      probabilities (finite, ``(n, 2)``, rows sum to 1), that the forward
      kernel ran once (FM), twice (the CIN layers) or three times (the
-     attention blocks, K5 or K6) per padded chunk, and that the same
+     attention blocks, K5 or K6) per padded chunk (Wide&Deep+DCN: that no
+     kernel ran), and that the same
      weights on ``device='cpu'`` (the plain path) and, for xDeepFM, the
      batch-minor CIN tower, for AutoInt the batch-major layout, give the
      same probabilities: float32 atol 1e-5, bfloat16 atol 1e-2. ``profile``
@@ -99,7 +107,7 @@ these phases, each printing one JSON line:
      once a step and FM forward once a step and validation batch; xDeepFM's
      K3 twice a step and K4 twice a step and validation batch; AutoInt's
      K5-bwd (K6-bwd when fused) three times a step and K5-fwd (K6-fwd)
-     three times a step and validation batch. It prints the median step
+     three times a step and validation batch; Wide&Deep+DCN K1 alone. It prints the median step
      time and examples/s over epochs 2-3 and ``val_auc``. Then
      ``train_profile``: two train steps under ``torch.profiler`` (device
      time by kernel, busy share; ``cin_kernels``: every CIN kernel by name,
@@ -141,6 +149,14 @@ these phases, each printing one JSON line:
    rows through ``Predictor.predict_proba_arrays``, whose rows must sum
    to 1.
 
+8. ``zoo``: each of the 14 other builders of the zoo alone at criteo
+   width (``ZOO``), then DeepFM with a var-len column (20 tokens, max
+   pooling: K2 at F=27, K1 twice a step), under ``'bfloat16'``: three
+   8192-row steps and a validation batch through ``DeepModel.fit``, a
+   4093-row request through ``Predictor``, each one's kernel launches
+   checked, and the card against the CPU's plain path at the batch each
+   states (``zoo_phase`` says the rules).
+
 Then a ``determinism`` line: two DeepFM fits of three 8192-row steps under
 ``'bfloat16'`` from one seed, and the parameter tensors whose bits differ
 between them (a measurement, not a check). Then a ``profiler`` line
@@ -176,9 +192,18 @@ L2_BYTES = 50 * 2 ** 20
 BF16_OPS_PER_S = 989e12  # dense bfloat16 tensor cores
 
 F_CRITEO, D_CRITEO, N_DENSE = 26, 16, 13
+WDCN = 'Wide&Deep+DCN'
 NETS = {'DeepFM': ['linear', 'fm_nets', 'dnn_nets'],
         'xDeepFM': ['linear', 'cin_nets', 'dnn_nets'],
-        'AutoInt': ['autoint_nets'], 'AutoInt-fused': ['autoint_nets']}
+        'AutoInt': ['autoint_nets'], 'AutoInt-fused': ['autoint_nets'],
+        WDCN: ['linear', 'dnn_nets', 'dcn_nets']}
+# Wide&Deep+DCN on the adult schema (benchmarks/bench_models.py:165-172):
+# 8 categorical columns of these vocabularies (102 rows at D=16), 6 dense
+# columns, DNN 1024/512 relu, 4 cross layers
+ADULT_VOCABS = (9, 16, 7, 15, 6, 5, 2, 42)
+N_DENSE_ADULT = 6
+# the FGCNN output at criteo width: 26·2 + 13·2 new fields and the 26
+F_FGCNN = 104
 XDEEPFM_CIN = {'cross_layer_size': (128, 128), 'activation': 'relu'}
 # AutoInt on the avazu-style schema (benchmarks/bench_models.py:176-184):
 # 22 categorical columns, no dense ones, D=16, 3 blocks of 2 heads (dh=8);
@@ -190,7 +215,8 @@ AUTOINT_MODELS = {'AutoInt': {}, 'AutoInt-fused': {'fuse_projections': True}}
 AVAZU_BATCHES = 8
 # the forward kernel a request runs, and its launches per padded chunk
 SERVING_KERNEL = {'DeepFM': ('fm_fwd', 1), 'xDeepFM': ('cin_fwd', 2),
-                  'AutoInt': ('fa_fwd', 3), 'AutoInt-fused': ('ab_fwd', 3)}
+                  'AutoInt': ('fa_fwd', 3), 'AutoInt-fused': ('ab_fwd', 3),
+                  WDCN: (None, 0)}
 # the field-attention kernels' shapes: F=22, 2 heads of dh=8, the AutoInt
 # training batch and half of it
 FA_BATCHES = (8192, 4096)
@@ -204,6 +230,10 @@ AB_MASK_MARGIN = 1e-5
 FA_LIFTED = {'fa': (64, 200, 1, 128), 'ab': (64, 22, 1, 128)}
 # xDeepFM's CIN layers, (F, G, L): G = 26 input fields, then 64 = 128 / 2
 CIN_LAYERS = {'layer1': (26, 26, 128), 'layer2': (26, 64, 128)}
+# ... and fgcnn_cin_nets' over the FGCNN output at criteo width, at the
+# training batch only
+CIN_FGCNN_LAYERS = {'fgcnn_layer1': (F_FGCNN, F_FGCNN, 128),
+                    'fgcnn_layer2': (F_FGCNN, 64, 128)}
 CIN_BATCHES = (4096, 8192, 4093)
 CIN_HEADLINE = ('bfloat16', 'layer2', 8192)
 KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 8192, 12288)
@@ -217,7 +247,7 @@ SERVING_ATOL = {'float32': 1e-5, 'bfloat16': 1e-2}
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_EPOCHS = 8192, 8, 3
 # the card-against-CPU comparison's batch (three of them and one validation)
 COMPARE_BATCH = {'DeepFM': TRAIN_BATCH, 'xDeepFM': 1024, 'AutoInt': 1024,
-                 'AutoInt-fused': 1024}
+                 'AutoInt-fused': 1024, WDCN: TRAIN_BATCH}
 # against index_add_: a segment cut by the kernel's chunks is added as a
 # sum of pieces, another association, so only rounding may differ
 EMB_GRAD_RTOL = 1e-5
@@ -238,6 +268,32 @@ HEADS_RUNS = (
       'embeddings_activity_regularizer': 'l1'}),
 )
 HEADS_REQUEST = 4093  # rows of the multiclass Predictor request
+# the zoo phase: every other builder alone at criteo width under bfloat16,
+# then DeepFM with a var-len column; three steps, a request, and the card
+# against the CPU at the batch each states (the CPU plain path
+# materialises fgcnn_cin's pair and fgcnn_afm's pair products)
+ZOO = ('afm_nets', 'opnn_nets', 'ipnn_nets', 'pnn_nets', 'cross_nets',
+       'cross_dnn_nets', 'fg_nets', 'fgcnn_cin_nets', 'fgcnn_fm_nets',
+       'fgcnn_afm_nets', 'fgcnn_ipnn_nets', 'fgcnn_dnn_nets', 'fibi_nets',
+       'fibi_dnn_nets')
+ZOO_VARLEN = 'DeepFM+var_len'
+ZOO_STEPS = 3
+ZOO_REQUEST = 4093
+ZOO_COMPARE_BATCH = {'fgcnn_cin_nets': 256, 'fgcnn_afm_nets': 512,
+                     'fgcnn_ipnn_nets': 512}
+ZOO_COMPARE_DEFAULT = 1024
+# the nets that read the dense inputs only through bn_concat_emb_dense, so
+# that the dense BatchNorm's bias gets a gradient that is zero in exact
+# arithmetic: held within this share of the model's largest gradient, and
+# its parameters within 2·steps·lr (Adam moves an element by at most ~lr a
+# step whatever the gradient)
+ZOO_DENSE_VIA_BN = ('opnn_nets', 'ipnn_nets', 'pnn_nets', 'cross_nets',
+                    'cross_dnn_nets')
+ZOO_ROUNDING = 1e-6
+ZOO_ROUNDING_PARAM_ATOL = 2 * 3 * 1e-3
+# the var-len column: 20 tokens (padded with 0) of a 1000-token vocabulary,
+# max pooling; its field stacks onto the 26 (K2 at F=27)
+VARLEN_TOKENS, VARLEN_VOCAB = 20, 1000
 HEADS_METRICS = {'binary': ['AUC'], 'multiclass': ['accuracy'],
                  'regression': ['mse'], 'multilabel': ['logloss']}
 
@@ -459,13 +515,13 @@ def n_buffers(nbytes):
     return max(1, min(64, math.ceil(2 * L2_BYTES / nbytes)))
 
 
-def fm_row(torch, fm_module, dtype, B, offset, gen):
-    """One ``fm_fwd`` row: the kernel against fm_reference on (B, 26, 16)
+def fm_row(torch, fm_module, dtype, B, offset, gen, F=F_CRITEO):
+    """One ``fm_fwd`` row: the kernel against fm_reference on (B, F, 16)
     inputs ``offset`` elements into their storage, timed over rotated
     inputs."""
     fm, fm_reference = fm_module.fm, fm_module.fm_reference
-    shape = (B, F_CRITEO, D_CRITEO)
-    n = B * F_CRITEO * D_CRITEO
+    shape = (B, F, D_CRITEO)
+    n = B * F * D_CRITEO
 
     def make():
         flat = torch.randn(n + offset, generator=gen, device='cuda').to(dtype)
@@ -490,25 +546,25 @@ def fm_row(torch, fm_module, dtype, B, offset, gen):
     n_buf = n_buffers(x.nbytes)
     bufs = [x] + [make() for _ in range(n_buf - 1)]
     iters = 200 if B <= 4096 else 100
-    bound_ms, bound_by = fm_bound(B, F_CRITEO, D_CRITEO, x.element_size())
-    design = fm_module.fm_design(dtype, B, F_CRITEO, D_CRITEO,
+    bound_ms, bound_by = fm_bound(B, F, D_CRITEO, x.element_size())
+    design = fm_module.fm_design(dtype, B, F, D_CRITEO,
                                  fm_module.pointer_alignment(x))
-    # F=26, D=16 is the main path's shape at every batch; x one element
-    # into its storage is not 16-byte aligned
+    # F=26 and F=104 at D=16 are the main path's shapes at every batch; x
+    # one element into its storage is not 16-byte aligned
     want = 'scalar' if offset else 'vec16'
-    check(design == want, f'fm at {dtype_name} B={B} x_offset={offset} '
-                          f'runs the {design} design, not {want}')
+    check(design == want, f'fm at {dtype_name} B={B} F={F} x_offset='
+                          f'{offset} runs the {design} design, not {want}')
     ms, split = device_ms(torch, fm, bufs, iters, by_kernel=True)
     ran_design('fm_fwd', design, split)
     return {
-        'dtype': dtype_name, 'B': B, 'F': F_CRITEO, 'D': D_CRITEO,
+        'dtype': dtype_name, 'B': B, 'F': F, 'D': D_CRITEO,
         'x_offset': offset, 'design': design, 'max_abs_err': max_abs_err,
         'rtol': rtol, 'atol': rtol * scale, 'ms': ms,
         'plain_ms': device_ms(torch, fm_reference, bufs, iters),
         'call_ms': call_ms(torch, fm, bufs, iters),
         'plain_call_ms': call_ms(torch, fm_reference, bufs, iters),
         'bound_ms': bound_ms, 'bound_by': bound_by, 'buffers': n_buf,
-        'ptxas': fm_ptxas(fm_module, design, dtype, F_CRITEO, D_CRITEO)}
+        'ptxas': fm_ptxas(fm_module, design, dtype, F, D_CRITEO)}
 
 
 def kernel_phase(torch, fm_module):
@@ -520,6 +576,9 @@ def kernel_phase(torch, fm_module):
         rows += [fm_row(torch, fm_module, dtype, B, 0, gen)
                  for B in KERNEL_BATCHES]
         rows.append(fm_row(torch, fm_module, dtype, HEADLINE[1], 1, gen))
+        # fgcnn_fm_nets: FM over the FGCNN output, at the training batch
+        rows.append(fm_row(torch, fm_module, dtype, TRAIN_BATCH, 0, gen,
+                           F=F_FGCNN))
     emit({'phase': 'kernel', 'kernel': 'fm_fwd', 'library_ms': None,
           'library_note': 'no single PyTorch call computes FM pooling',
           'rows': rows})
@@ -629,8 +688,8 @@ def cin_bound(kernel, B, F, G, L, D, itemsize):
 
 def cin_kernel_phase(torch, cin_module):
     """K4 (``cin_fwd``) and K3 (``cin_bwd``) against their plain versions
-    on the card, at the xDeepFM layers' shapes; returns the rows by
-    kernel. Every output is held to 1e-5 times the sum of the magnitudes
+    on the card, at the xDeepFM layers' shapes and fgcnn_cin_nets' (F=104)
+    at the training batch; returns the rows by kernel. Every output is held to 1e-5 times the sum of the magnitudes
     of its terms (both sum float32 products of the same inputs, in another
     order); dx0 and dh in bfloat16 add rtol 1e-2 for their one rounding."""
     fwd, bwd = cin_module.cin_fwd, cin_module.cin_bwd
@@ -642,90 +701,94 @@ def cin_kernel_phase(torch, cin_module):
         dtype = getattr(torch, dtype_name)
         itemsize = torch.empty((), dtype=dtype).element_size()
         rtol_out = 0. if dtype_name == 'float32' else 1e-2
-        for layer, (F, G, L) in CIN_LAYERS.items():
-            for B in CIN_BATCHES:
-                def make():
-                    return tuple(
-                        torch.randn(shape, generator=gen, device='cuda')
-                        .to(dtype) for shape in
-                        ((B, F, D), (B, G, D), (L, F, G), (B, L, D)))
-                x0, h, w, dz = make()
-                outs = {'cin_fwd': (fwd(x0, h, w),),
-                        'cin_bwd': bwd(x0, h, w, dz)}
-                refs = {'cin_fwd': (fwd_ref(x0, h, w),),
-                        'cin_bwd': bwd_ref(x0, h, w, dz)}
-                scales = {'cin_fwd': (fwd_ref(x0.abs(), h.abs(), w.abs()),),
-                          'cin_bwd': bwd_ref(x0.abs(), h.abs(), w.abs(),
-                                             dz.abs())}
-                torch.cuda.synchronize()
-                errs, shares = {}, {}
-                for name in rows:
-                    errs[name], shares[name] = 0., 0.
-                    for i, (out, ref, scale) in enumerate(zip(
-                            outs[name], refs[name], scales[name])):
-                        check(out.shape == ref.shape and out.dtype == ref.dtype,
-                              f'{name} output {i}: {tuple(out.shape)} '
-                              f'{out.dtype}')
-                        err = (out.float() - ref.float()).abs()
-                        r = rtol_out if ref.dtype != torch.float32 else 0.
-                        limit = 1e-5 * scale.float() + r * ref.float().abs()
-                        errs[name] = max(errs[name], float(err.max()))
-                        shares[name] = max(shares[name], float(
-                            (err / limit.clamp_min(1e-30)).max()))
-                        check(bool((err <= limit).all()),
-                              f'{name} kernel disagrees with its plain '
-                              f'version: {dtype_name} {layer} B={B} output '
-                              f'{i} max_abs_err={float(err.max())}')
-                del outs, refs, scales
-                bufs = [(x0, h, w, dz)] + [make() for _ in range(
-                    n_buffers(x0.nbytes + h.nbytes + dz.nbytes) - 1)]
-                iters = 10
-                einsum = 'bfd,bgd,lfg->bld'
+        shapes = [(layer, F, G, L, B)
+                  for layer, (F, G, L) in CIN_LAYERS.items()
+                  for B in CIN_BATCHES]
+        shapes += [(layer, F, G, L, TRAIN_BATCH)
+                   for layer, (F, G, L) in CIN_FGCNN_LAYERS.items()]
+        for layer, F, G, L, B in shapes:
+            def make():
+                return tuple(
+                    torch.randn(shape, generator=gen, device='cuda')
+                    .to(dtype) for shape in
+                    ((B, F, D), (B, G, D), (L, F, G), (B, L, D)))
+            x0, h, w, dz = make()
+            outs = {'cin_fwd': (fwd(x0, h, w),),
+                    'cin_bwd': bwd(x0, h, w, dz)}
+            refs = {'cin_fwd': (fwd_ref(x0, h, w),),
+                    'cin_bwd': bwd_ref(x0, h, w, dz)}
+            scales = {'cin_fwd': (fwd_ref(x0.abs(), h.abs(), w.abs()),),
+                      'cin_bwd': bwd_ref(x0.abs(), h.abs(), w.abs(),
+                                         dz.abs())}
+            torch.cuda.synchronize()
+            errs, shares = {}, {}
+            for name in rows:
+                errs[name], shares[name] = 0., 0.
+                for i, (out, ref, scale) in enumerate(zip(
+                        outs[name], refs[name], scales[name])):
+                    check(out.shape == ref.shape and out.dtype == ref.dtype,
+                          f'{name} output {i}: {tuple(out.shape)} '
+                          f'{out.dtype}')
+                    err = (out.float() - ref.float()).abs()
+                    r = rtol_out if ref.dtype != torch.float32 else 0.
+                    limit = 1e-5 * scale.float() + r * ref.float().abs()
+                    errs[name] = max(errs[name], float(err.max()))
+                    shares[name] = max(shares[name], float(
+                        (err / limit.clamp_min(1e-30)).max()))
+                    check(bool((err <= limit).all()),
+                          f'{name} kernel disagrees with its plain '
+                          f'version: {dtype_name} {layer} B={B} output '
+                          f'{i} max_abs_err={float(err.max())}')
+            del outs, refs, scales
+            bufs = [(x0, h, w, dz)] + [make() for _ in range(
+                n_buffers(x0.nbytes + h.nbytes + dz.nbytes) - 1)]
+            iters = 10
+            einsum = 'bfd,bgd,lfg->bld'
 
-                def graph(a):
-                    leaves = [t.detach().requires_grad_(True) for t in a[:3]]
-                    return leaves, torch.einsum(einsum, *leaves), a[3]
-                graphs = [graph(a) for a in bufs]
-                fns = {'cin_fwd': (lambda a: fwd(*a[:3]),
-                                   lambda a: fwd_ref(*a[:3]),
-                                   lambda a: torch.einsum(einsum, *a[:3]),
-                                   bufs),
-                       'cin_bwd': (lambda a: bwd(*a), lambda a: bwd_ref(*a),
-                                   lambda g: torch.autograd.grad(
-                                       g[1], g[0], g[2], retain_graph=True),
-                                   graphs)}
-                for name, (kernel, plain, library, lib_inputs) in fns.items():
-                    bound_ms, bound_by, ops = cin_bound(name, B, F, G, L, D,
-                                                        itemsize)
-                    row = {'dtype': dtype_name, 'layer': layer, 'B': B,
-                           'F': F, 'G': G, 'L': L, 'D': D,
-                           'max_abs_err': errs[name],
-                           'max_err_share_of_tolerance': shares[name],
-                           'rtol_terms': 1e-5,
-                           'rtol_out': rtol_out,
-                           'ms': device_ms(torch, kernel, bufs, iters),
-                           'plain_ms': device_ms(torch, plain, bufs, iters),
-                           'library_ms': device_ms(torch, library,
-                                                   lib_inputs, iters),
-                           'call_ms': call_ms(torch, kernel, bufs, iters),
-                           'plain_call_ms': call_ms(torch, plain, bufs,
-                                                    iters),
-                           'library_call_ms': call_ms(
-                               torch, library, lib_inputs, iters),
-                           'bound_ms': bound_ms, 'bound_by': bound_by,
-                           'gflop': ops / 1e9, 'buffers': len(bufs)}
-                    row['tflop_per_s'] = ops / row['ms'] / 1e9
-                    row['design'] = (
-                        cin_module.fwd_design(dtype, F, G)
-                        if name == 'cin_fwd'
-                        else cin_module.bwd_design(dtype, F, G, L))
-                    check(row['design'] == ('wgmma' if itemsize == 2
-                                            else 'simt'),
-                          f"{name} ran the {row['design']} kernels on "
-                          f'{dtype_name}')
-                    rows[name].append(row)
-                del bufs, graphs, x0, h, w, dz
-                torch.cuda.empty_cache()
+            def graph(a):
+                leaves = [t.detach().requires_grad_(True) for t in a[:3]]
+                return leaves, torch.einsum(einsum, *leaves), a[3]
+            graphs = [graph(a) for a in bufs]
+            fns = {'cin_fwd': (lambda a: fwd(*a[:3]),
+                               lambda a: fwd_ref(*a[:3]),
+                               lambda a: torch.einsum(einsum, *a[:3]),
+                               bufs),
+                   'cin_bwd': (lambda a: bwd(*a), lambda a: bwd_ref(*a),
+                               lambda g: torch.autograd.grad(
+                                   g[1], g[0], g[2], retain_graph=True),
+                               graphs)}
+            for name, (kernel, plain, library, lib_inputs) in fns.items():
+                bound_ms, bound_by, ops = cin_bound(name, B, F, G, L, D,
+                                                    itemsize)
+                row = {'dtype': dtype_name, 'layer': layer, 'B': B,
+                       'F': F, 'G': G, 'L': L, 'D': D,
+                       'max_abs_err': errs[name],
+                       'max_err_share_of_tolerance': shares[name],
+                       'rtol_terms': 1e-5,
+                       'rtol_out': rtol_out,
+                       'ms': device_ms(torch, kernel, bufs, iters),
+                       'plain_ms': device_ms(torch, plain, bufs, iters),
+                       'library_ms': device_ms(torch, library,
+                                               lib_inputs, iters),
+                       'call_ms': call_ms(torch, kernel, bufs, iters),
+                       'plain_call_ms': call_ms(torch, plain, bufs,
+                                                iters),
+                       'library_call_ms': call_ms(
+                           torch, library, lib_inputs, iters),
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       'gflop': ops / 1e9, 'buffers': len(bufs)}
+                row['tflop_per_s'] = ops / row['ms'] / 1e9
+                row['design'] = (
+                    cin_module.fwd_design(dtype, F, G)
+                    if name == 'cin_fwd'
+                    else cin_module.bwd_design(dtype, F, G, L))
+                check(row['design'] == ('wgmma' if itemsize == 2
+                                        else 'simt'),
+                      f"{name} ran the {row['design']} kernels on "
+                      f'{dtype_name}')
+                rows[name].append(row)
+            del bufs, graphs, x0, h, w, dz
+            torch.cuda.empty_cache()
     emit({'phase': 'kernel', 'kernel': 'cin_fwd',
           'library_call': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
           'rows': rows['cin_fwd']})
@@ -1054,9 +1117,9 @@ def emb_grad_cases(torch, vocabs, load_criteo_synthetic, datasets):
     in elements into its storage). criteo (Zipf) and uniform ids at the
     training shapes; AutoInt's avazu schema at its training batch
     (8192-row slices of the bench's rows); every id on one row of the
-    criteo table; then criteo, uniform and avazu ids again at B=8192 with
-    g one element into its storage, which is not 16-byte aligned and so
-    runs the scalar design on the same ids."""
+    criteo table; Wide&Deep+DCN's adult ids; then criteo, uniform and avazu
+    ids again at B=8192 with g one element into its storage, which is not
+    16-byte aligned and so runs the scalar design on the same ids."""
     def criteo(B):
         return lambda seed: flat_ids(torch, load_criteo_synthetic(
             n_rows=B, seed=seed, return_arrays=True)[0], vocabs)
@@ -1082,6 +1145,14 @@ def emb_grad_cases(torch, vocabs, load_criteo_synthetic, datasets):
     cases += [('uniform', B, vocabs, uniform(B), 0)
               for B in TRAIN_KERNEL_BATCHES]
     cases.append(('avazu', TRAIN_BATCH, avazu_vocabs, avazu, 0))
+    # Wide&Deep+DCN's 8 columns of 102 rows in all: the longest runs of one
+    # id of any model's path (its vocabulary-2 column, 4096 ids a row)
+    adult_table = np.asarray(ADULT_VOCABS) - 1
+
+    def adult(seed):
+        return flat_ids(torch, adult_data(TRAIN_BATCH, seed)[0]['cat'],
+                        adult_table)
+    cases.append(('adult', TRAIN_BATCH, adult_table, adult, 0))
     cases.append(('one_row', TRAIN_BATCH, vocabs, one_row, 0))
     cases += [('criteo', TRAIN_BATCH, vocabs, criteo(TRAIN_BATCH), 1),
               ('uniform', TRAIN_BATCH, vocabs, uniform(TRAIN_BATCH), 1),
@@ -1200,11 +1271,13 @@ def emb_grad_kernel_phase(torch, eg_module, vocabs, load_criteo_synthetic,
 
 
 def criteo_model(port, dtype_policy, device, vocabs, model='DeepFM',
-                 cin_params=None, task='binary', num_classes=2, **config):
+                 cin_params=None, task='binary', num_classes=2, var_len=False,
+                 **config):
     """DeepFM or xDeepFM at full criteo width; ``cin_params`` updates
     xDeepFM's CIN (128, 128) relu; ``task``, ``num_classes`` and
-    ``config`` (loss, optimizer, regularizers, metrics) serve the heads
-    phase."""
+    ``config`` (loss, optimizer, regularizers, metrics, or other ``nets``)
+    serve the heads and zoo phases; ``var_len`` adds the var-len column
+    ``genres`` (VARLEN_TOKENS tokens, max pooling, D=16)."""
     settings = dict(
         nets=NETS[model], metrics=['AUC'],
         task=task, embedding_dropout=0,
@@ -1219,8 +1292,56 @@ def criteo_model(port, dtype_policy, device, vocabs, model='DeepFM',
                  for i, v in enumerate(vocabs))
     conts = (port.ContinuousColumn(
         'input_continuous_all', [f'I{i + 1}' for i in range(N_DENSE)]),)
+    var_cols = []
+    if var_len:
+        genres = port.VarLenCategoricalColumn(
+            'genres', VARLEN_VOCAB, D_CRITEO, pooling_strategy='max')
+        genres.max_elements_length = VARLEN_TOKENS
+        var_cols.append(genres)
     return port.DeepModel(task, num_classes, config, cats, conts,
+                          var_categorical_len_columns=var_cols,
                           device=device)
+
+
+def varlen_ids(n, seed):
+    """(n, VARLEN_TOKENS) token ids: each row 0 to VARLEN_TOKENS tokens of
+    1 .. VARLEN_VOCAB - 1, then padding 0."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, VARLEN_TOKENS + 1, n)
+    ids = rng.integers(1, VARLEN_VOCAB, (n, VARLEN_TOKENS))
+    ids[np.arange(VARLEN_TOKENS)[None] >= lengths[:, None]] = 0
+    return ids.astype(np.int32)
+
+
+def adult_data(n_rows, seed):
+    """Wide&Deep+DCN's rows: ids uniform over adult's vocabularies and
+    normal dense inputs, as benchmarks/bench_models.py draws them, and
+    labels drawn from a fixed logistic model of both (learnable, so that
+    the train phase's loss falls)."""
+    rng = np.random.default_rng(seed)
+    cat = np.stack([rng.integers(0, v, n_rows) for v in ADULT_VOCABS],
+                   axis=1).astype(np.int32)
+    dense = rng.normal(size=(n_rows, N_DENSE_ADULT)).astype(np.float32)
+    truth = np.random.default_rng(1234)
+    score = dense @ truth.normal(size=N_DENSE_ADULT) + sum(
+        truth.normal(size=v)[cat[:, i]] for i, v in enumerate(ADULT_VOCABS))
+    y = (rng.uniform(size=n_rows) < 1 / (1 + np.exp(-score)))
+    return {'cat': cat, 'input_continuous_all': dense}, y.astype(np.float32)
+
+
+def adult_model(port, dtype_policy, device):
+    """Wide&Deep+DCN at full adult width."""
+    config = port.ModelConfig(
+        nets=NETS[WDCN], metrics=['AUC'], task='binary', embedding_dropout=0,
+        embeddings_output_dim=D_CRITEO,
+        dnn_params={'hidden_units': ((1024, 0, False), (512, 0, False)),
+                    'activation': 'relu'},
+        cross_params={'num_cross_layer': 4}, dtype_policy=dtype_policy)
+    cats = tuple(port.CategoricalColumn(f'C{i + 1}', v, D_CRITEO)
+                 for i, v in enumerate(ADULT_VOCABS))
+    conts = (port.ContinuousColumn(
+        'input_continuous_all', [f'I{i + 1}' for i in range(N_DENSE_ADULT)]),)
+    return port.DeepModel('binary', 2, config, cats, conts, device=device)
 
 
 def avazu_data(datasets):
@@ -1250,6 +1371,8 @@ def autoint_model(port, dtype_policy, device, vocabs, model='AutoInt',
 def make_model(port, model, dtype_policy, device, vocabs, extra=None):
     if model in AUTOINT_MODELS:
         return autoint_model(port, dtype_policy, device, vocabs, model, extra)
+    if model == WDCN:
+        return adult_model(port, dtype_policy, device)
     return criteo_model(port, dtype_policy, device, vocabs, model, extra)
 
 
@@ -1285,9 +1408,10 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
                   model_name='DeepFM'):
     """Serve the requests on the card; the forward kernel's launch count
     (FM for DeepFM, once a padded chunk; the CIN contraction for xDeepFM,
-    once a layer and chunk) is read around exactly this run."""
+    once a layer and chunk; none for Wide&Deep+DCN, which runs no forward
+    kernel) is read around exactly this run."""
     name, per_chunk = SERVING_KERNEL[model_name]
-    fn = kernel_fns[name]
+    fn = kernel_fns[name] if name else types.SimpleNamespace(launches=0)
     t0 = time.perf_counter()
     model = make_model(port, model_name, dtype_policy, None, vocabs)
     predictor = port.Predictor(estimator(model))
@@ -1325,7 +1449,8 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
                        'ms': times, 'ms_median': sorted(times)[REPEATS // 2],
                        'row_sum_err': row_sum_err})
     launches = read_launches(kernel_fns)
-    check(launches[name] > 0, f'the serving run never launched {name}')
+    check(name is None or launches[name] > 0,
+          f'the serving run never launched {name}')
     check(all(v == 0 for k, v in launches.items() if k != name),
           f'{model_name} serving launched {launches}')
 
@@ -1355,9 +1480,10 @@ def serving_phase(torch, port, kernel_fns, dtype_policy, vocabs, requests,
           'dtype_policy': dtype_policy,
           'build_s': build_s, 'warmup_s': warmup_s,
           'buckets': predictor.buckets, 'kernel': name,
-          'launches': launches[name], 'launches_per_chunk': per_chunk,
+          'launches': launches.get(name, 0),
+          'launches_per_chunk': per_chunk,
           'atol_vs_twins': atol, 'requests': served})
-    return predictor, launches[name]
+    return predictor, launches.get(name, 0)
 
 
 def profile_phase(torch, predictor, arrays, n, model_name='DeepFM'):
@@ -1388,7 +1514,8 @@ def rows_of(arrays, start, stop):
     return {k: v[start:stop] for k, v in arrays.items()}
 
 
-def check_step1_grads(what, dtype_policy, grads):
+def check_step1_grads(what, dtype_policy, grads, exact_zero=(), outliers=0.,
+                      zoo_flips=None):
     """The card's step-1 gradients (``grads['card']``) against the CPU's,
     each tensor's largest error over its largest gradient returned with
     the tolerance: f32 sums in another order (rtol 1e-4), bf16 rounds at
@@ -1396,32 +1523,65 @@ def check_step1_grads(what, dtype_policy, grads):
     gradient: a ReLU input within rounding of zero may take the other side
     on the other device and change that one example's gradient, which is
     all an embedding row of a rare id sees (measured on the card: one
-    example's embedding gradient moved by 7%, 8.9e-4 of the largest)."""
+    example's embedding gradient moved by 7%, 8.9e-4 of the largest).
+
+    The zoo phase adds two terms. ``exact_zero``: tensors whose gradient is
+    zero in exact arithmetic, so rounding on both devices: they are held
+    within ZOO_ROUNDING of the model's largest gradient instead (and that
+    they are, on the CPU). ``outliers``: the share of a tensor's elements that may lie
+    past that tolerance, the tensor then held within 1e-2 of the CPU's in
+    relative L2 norm (a wide net, such as the CIN over FGCNN's 104 fields,
+    has more ReLU inputs within rounding of zero, and each one that takes
+    the other side moves a few rows of the table); ``zoo_flips`` collects
+    {tensor: share past the elementwise tolerance}."""
     g_rtol, g_atol = (1e-4 if dtype_policy == 'float32' else 1e-2), 1e-2
     check(set(grads['card']) == set(grads['cpu']),
           f'{what}: the card and the CPU give gradients to other parameters')
     grad_err = {}
+    floor = ZOO_ROUNDING * max(float(g.abs().max())
+                               for g in grads['cpu'].values())
     for k, ref in grads['cpu'].items():
         err = (grads['card'][k] - ref).abs()
         scale = float(ref.abs().max())
         grad_err[k] = float(err.max()) / max(scale, 1e-30)
-        check(bool((err <= g_rtol * ref.abs() + g_atol * scale).all()),
+        if k in exact_zero:
+            check(scale <= floor and float(err.max()) <= floor,
+                  f'{what}: the step-1 gradient of {k}, zero in exact '
+                  f'arithmetic, reads {scale} on the CPU and differs by '
+                  f'{float(err.max())} on the card (limit {floor})')
+            continue
+        past = err > g_rtol * ref.abs() + g_atol * scale
+        if not outliers:
+            check(not bool(past.any()),
+                  f'{what}: card and CPU step-1 gradients of {k} differ by '
+                  f'{float(err.max())} (largest gradient {scale})')
+            continue
+        share = float(past.double().mean())
+        rel_l2 = float(err.double().norm()
+                       / max(float(ref.double().norm()), 1e-30))
+        if share:
+            zoo_flips[k] = {'share': share, 'rel_l2': rel_l2}
+        check(share <= outliers and (not share or rel_l2 <= 1e-2),
               f'{what}: card and CPU step-1 gradients of {k} differ by '
-              f'{float(err.max())} (largest gradient {scale})')
+              f'{float(err.max())} (largest gradient {scale}) at a share '
+              f'{share} of the elements, relative L2 {rel_l2}')
     return grad_err, g_rtol, g_atol
 
 
-def check_params(what, card_state, cpu_state):
+def check_params(what, card_state, cpu_state, loose=(), loose_atol=None):
     """Parameters after three steps on the card and the CPU: atol 2e-4,
     but an optimizer that normalises a step (Adam moves an element by ~lr
     whatever its gradient's size) turns a gradient near zero, where the two
     devices' sums differ in relative terms, into steps a few lr apart: at
-    most PARAM_OUTLIERS of a tensor's elements may exceed the atol."""
+    most PARAM_OUTLIERS of a tensor's elements may exceed the atol. The
+    tensors ``loose`` (the zoo phase: those whose gradient is rounding) are
+    held to ``loose_atol`` instead."""
     params = {}
     for k, v in card_state.items():
         d = (v.double() - cpu_state[k].double()).abs()
+        atol = loose_atol if k in loose else PARAM_ATOL
         params[k] = {'max_abs_diff': float(d.max()),
-                     'over_atol': int((d > PARAM_ATOL).sum()),
+                     'over_atol': int((d > atol).sum()),
                      'elements': d.numel()}
         check(params[k]['over_atol'] <= PARAM_OUTLIERS * d.numel(),
               f'{what}: card and CPU parameters {k} differ after 3 steps: '
@@ -1474,7 +1634,8 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
     # once a step and once a validation batch. xDeepFM: K3 once a CIN layer
     # and step, K4 once a layer and step or validation batch. AutoInt: K5-bwd
     # once a block and step, K5-fwd once a block and step or validation
-    # batch; with fuse_projections K6 in their place
+    # batch; with fuse_projections K6 in their place. Wide&Deep+DCN: K1
+    # alone
     expected = dict.fromkeys(kernel_fns, 0)
     expected['emb_grad'] = steps
     if model_name == 'DeepFM':
@@ -1483,7 +1644,7 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
         layers = len(XDEEPFM_CIN['cross_layer_size'])
         expected.update(cin_bwd=layers * steps,
                         cin_fwd=layers * (steps + TRAIN_EPOCHS))
-    else:
+    elif model_name in AUTOINT_MODELS:
         fwd, blocks = SERVING_KERNEL[model_name][0], \
             AUTOINT_PARAMS['num_attention']
         expected.update({fwd: blocks * (steps + TRAIN_EPOCHS),
@@ -1792,6 +1953,183 @@ def heads_phase(torch, port, kernel_fns, vocabs, data, smi):
     return total
 
 
+def zoo_phase(torch, port, kernel_fns, vocabs, data, smi):
+    """Every builder of ZOO alone at criteo width (DNN 1024/512 relu,
+    xDeepFM's CIN for fgcnn_cin_nets, the config's defaults else), then
+    DeepFM with a var-len column, under 'bfloat16': three 8192-row steps
+    and a validation batch through ``DeepModel.fit`` on the card, then a
+    4093-row request through ``Predictor``, each with its kernels' launches
+    checked: K1 once a step (twice beside the var-len column, whose table
+    has its own); fgcnn_fm_nets and DeepFM K2-fwd once a step, validation
+    batch and request, K2-bwd once a step; fgcnn_cin_nets K4 and K3 twice
+    as often. Then the card against the CPU's plain path from the same
+    initial weights, at the batch ZOO_COMPARE_BATCH states, by the heads
+    phase's rules (the train phase's for the step-1 gradients and the
+    parameters after three steps; the losses atol 1e-2 of max(1, |loss|)),
+    with two more terms: the dense BatchNorm's bias has a gradient that is
+    zero in exact arithmetic where only the next BatchNorm reads the dense
+    inputs (ZOO_DENSE_VIA_BN), so its step-1 gradient is held within
+    ZOO_ROUNDING of the model's largest on both devices, and its
+    parameters, which Adam moves by up to lr a step on rounding, to
+    ZOO_ROUNDING_PARAM_ATOL (both devices' three steps apart); and, as for
+    the parameters, at most PARAM_OUTLIERS of a tensor's step-1 gradients
+    may lie past the elementwise tolerance (ReLU inputs within rounding of
+    zero), the tensor then within 1e-2 in relative L2 norm.
+    Returns the launches of the fits and requests."""
+    arrays, y = data
+    n = ZOO_STEPS * TRAIN_BATCH
+    total = dict.fromkeys(kernel_fns, 0)
+    for i, run in enumerate(ZOO + (ZOO_VARLEN,)):
+        var_len = run == ZOO_VARLEN
+        nets = NETS['DeepFM'] if var_len else [run]
+        rows = dict(arrays)
+        if var_len:
+            rows['genres'] = varlen_ids(len(y), seed=500)
+        train, val = rows_of(rows, 0, n), rows_of(rows, n, n + TRAIN_BATCH)
+        request = rows_of(val, 0, ZOO_REQUEST)
+        cb = ZOO_COMPARE_BATCH.get(run, ZOO_COMPARE_DEFAULT)
+        # the compare: three batches of cb rows and one of validation
+        compare = rows_of(train, 0, 3 * cb), y[:3 * cb]
+        compare_val = rows_of(val, 0, cb), y[n:n + cb]
+        first = rows_of(train, 0, cb)
+
+        def build(device):
+            return criteo_model(port, 'bfloat16', device, vocabs, nets=nets,
+                                var_len=var_len)
+        model = build(None)
+        init_state = {k: v.detach().cpu().clone()
+                      for k, v in model.build().state_dict().items()}
+        step_ms = []
+        train_step = model._train_step
+
+        def timed_step(*args, train_step=train_step):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = train_step(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+        model._train_step = timed_step
+        reset_launches(kernel_fns)
+        h = model.fit(train, y[:n], batch_size=TRAIN_BATCH, epochs=1,
+                      validation_data=(val, y[n:n + TRAIN_BATCH]),
+                      shuffle=False, verbose=0)
+        fit_launches = read_launches(kernel_fns)
+        del model._train_step
+        logs = {k: v[0] for k, v in h.history.data.items()}
+        check(len(step_ms) == ZOO_STEPS and all(
+            math.isfinite(v) for v in logs.values()),
+            f'zoo {run}: {len(step_ms)} steps, logs {logs}')
+        predictor = port.Predictor(estimator(model))
+        reset_launches(kernel_fns)
+        t = time.perf_counter()
+        proba = predictor.predict_proba_arrays(request)
+        request_ms = 1e3 * (time.perf_counter() - t)
+        request_launches = read_launches(kernel_fns)
+        check(proba.shape == (ZOO_REQUEST, 2) and np.isfinite(proba).all()
+              and float(np.abs(proba.sum(axis=1) - 1).max()) <= 1e-6,
+              f'zoo {run}: request gave {proba.shape}')
+        steps = ZOO_STEPS
+        want_fit = dict.fromkeys(kernel_fns, 0)
+        want_fit['emb_grad'] = steps * (2 if var_len else 1)
+        want_request = dict.fromkeys(kernel_fns, 0)
+        if var_len or run == 'fgcnn_fm_nets':
+            want_fit.update(fm_fwd=steps + 1, fm_bwd=steps)
+            want_request['fm_fwd'] = 1
+        elif run == 'fgcnn_cin_nets':
+            layers = len(XDEEPFM_CIN['cross_layer_size'])
+            want_fit.update(cin_fwd=layers * (steps + 1),
+                            cin_bwd=layers * steps)
+            want_request['cin_fwd'] = layers
+        check(fit_launches == want_fit,
+              f'zoo {run}: the fit launched {fit_launches}, expected '
+              f'{want_fit}')
+        check(request_launches == want_request,
+              f'zoo {run}: the request launched {request_launches}, '
+              f'expected {want_request}')
+        for name in kernel_fns:
+            total[name] += fit_launches[name] + request_launches[name]
+        del model, predictor
+
+        # the card against the CPU from the same initial weights
+        grads, fits = {}, {}
+        for where, device_name in (('card', None), ('cpu', 'cpu')):
+            twin = build(device_name)
+            module = twin.build()
+            module.load_state_dict(init_state)
+            loss_fn = twin._loss_fn()
+            step1, _, _ = twin.training_loss(
+                twin.to_device(first),
+                torch.from_numpy(y[:cb]).to(twin.device), None, loss_fn)
+            step1.backward()
+            grads[where] = {k: p.grad.detach().cpu().clone()
+                            for k, p in module.named_parameters()
+                            if p.grad is not None}
+            module.zero_grad(set_to_none=True)
+            module.load_state_dict(init_state)  # undo the BN statistics
+            th = twin.fit(compare[0], compare[1], batch_size=cb, epochs=1,
+                          validation_data=compare_val, shuffle=False,
+                          verbose=0)
+            fits[where] = ({k: v.detach().cpu() for k, v in
+                            module.state_dict().items()},
+                           {k: v[0] for k, v in th.history.data.items()})
+            del twin, module
+        what = f'zoo {run}'
+        # a net that reads the dense inputs only through the next BatchNorm
+        # (the product and cross nets) leaves the dense BatchNorm's bias a
+        # gradient that is zero in exact arithmetic (the next BatchNorm
+        # takes the mean out): rounding on both devices, which Adam turns
+        # into steps of up to lr a step
+        rounding = ['bn_dense_all.bias'] if run in ZOO_DENSE_VIA_BN else []
+        flips = {}
+        grad_err, g_rtol, g_atol = check_step1_grads(
+            what, 'bfloat16', grads, rounding, PARAM_OUTLIERS, flips)
+        loss_diff = {k: abs(fits['card'][1][k] - fits['cpu'][1][k])
+                     for k in ('loss', 'val_loss')}
+        for k, d in loss_diff.items():
+            check(d <= 1e-2 * max(1.0, abs(fits['cpu'][1][k])),
+                  f'{what}: card {k} {fits["card"][1][k]} vs CPU '
+                  f'{fits["cpu"][1][k]}')
+        params = check_params(what, fits['card'][0], fits['cpu'][0],
+                              rounding, ZOO_ROUNDING_PARAM_ATOL)
+        emit({'phase': 'zoo', 'run': run, 'nets': nets,
+              'var_len': {'tokens': VARLEN_TOKENS, 'vocab': VARLEN_VOCAB,
+                          'pooling': 'max'} if var_len else None,
+              'dtype_policy': 'bfloat16', 'batch_size': TRAIN_BATCH,
+              'steps': steps, 'step_ms': step_ms,
+              'median_step_ms': sorted(step_ms)[len(step_ms) // 2],
+              'logs': logs,
+              'launches': {k: v for k, v in fit_launches.items() if v},
+              'request': {'rows': ZOO_REQUEST, 'ms': request_ms,
+                          'launches': {k: v for k, v in
+                                       request_launches.items() if v}},
+              'card_vs_cpu': {
+                  'batch_size': cb, 'card': fits['card'][1],
+                  'cpu': fits['cpu'][1], 'loss_diff': loss_diff,
+                  'step1_grad_err_of_max_worst': max(grad_err.values()),
+                  'params_max_abs_diff': max(p['max_abs_diff']
+                                             for p in params.values()),
+                  'params_worst_over_atol_share': max(
+                      p['over_atol'] / p['elements']
+                      for p in params.values()),
+                  'rounding_gradients': rounding,
+                  'grads_past_tolerance': flips,
+                  'tolerance': {'grad_rtol': g_rtol,
+                                'grad_atol_of_max': g_atol,
+                                'grad_atol_of_model_max': ZOO_ROUNDING,
+                                'grad_outlier_share': PARAM_OUTLIERS,
+                                'grad_outlier_rel_l2': 1e-2,
+                                'loss_atol_of_max_1': 1e-2,
+                                'param_atol': PARAM_ATOL,
+                                'param_outlier_share': PARAM_OUTLIERS,
+                                'rounding_param_atol':
+                                    ZOO_ROUNDING_PARAM_ATOL}},
+              'nvidia_smi': smi})
+        del grads, fits
+        torch.cuda.empty_cache()
+    return total
+
+
 def determinism_phase(torch, port, vocabs, data, steps=3):
     """Two DeepFM fits of ``steps`` batches under 'bfloat16' from one seed
     on the card: the parameter tensors whose bits differ between them. A
@@ -1875,14 +2213,23 @@ def main():
         for i, n in enumerate(REQUESTS)]
     avazu = (avazu_vocabs, avazu_requests, (avazu_arrays, avazu_y),
              AVAZU_BATCHES - 1)
-    for model_name in ('DeepFM', 'xDeepFM', 'AutoInt', 'AutoInt-fused'):
+    # Wide&Deep+DCN: its own rows, 8 batches to train on and 1 to validate
+    adult = (ADULT_VOCABS,
+             [(n, adult_data(n, seed=100 + i)[0])
+              for i, n in enumerate(REQUESTS)],
+             adult_data((TRAIN_STEPS + 1) * TRAIN_BATCH, seed=7),
+             TRAIN_STEPS)
+    for model_name in ('DeepFM', 'xDeepFM', 'AutoInt', 'AutoInt-fused',
+                       WDCN):
         model_vocabs, model_requests, data, steps = \
-            avazu if model_name in AUTOINT_MODELS else criteo
+            avazu if model_name in AUTOINT_MODELS else \
+            adult if model_name == WDCN else criteo
         for dtype_policy in ('bfloat16', 'float32'):
             predictor, count = serving_phase(torch, port, kernel_fns,
                                              dtype_policy, model_vocabs,
                                              model_requests, model_name)
-            launches[SERVING_KERNEL[model_name][0]] += count
+            if SERVING_KERNEL[model_name][0]:
+                launches[SERVING_KERNEL[model_name][0]] += count
             if dtype_policy == HEADLINE[0]:
                 profile_phase(torch, predictor, dict(model_requests)[4096],
                               4096, model_name)
@@ -1900,16 +2247,29 @@ def main():
         launches[name] += count
     torch.cuda.empty_cache()
 
+    for name, count in zoo_phase(torch, port, kernel_fns, vocabs,
+                                 criteo[2], smi).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+
     determinism_phase(torch, port, vocabs, criteo[2])
     torch.cuda.empty_cache()
 
-    head = next(r for r in rows if (r['dtype'], r['B'], r['x_offset'])
-                == (*HEADLINE, 0))
+    head = next(r for r in rows if (r['dtype'], r['B'], r['F'],
+                                    r['x_offset']) == (*HEADLINE, F_CRITEO, 0))
+    fm_fgcnn = {r['dtype']: {k: r[k] for k in (
+        'B', 'F', 'design', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+        'bound_by')} for r in rows if r['F'] == F_FGCNN}
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
-    grad, grad_avazu = (next(r for r in grad_rows
-                             if (r['ids'], r['B'], r['g_offset'])
-                             == (ids, TRAIN_HEADLINE[1], 0))
-                        for ids in ('criteo', 'avazu'))
+    grad, grad_avazu, grad_adult = (
+        next(r for r in grad_rows if (r['ids'], r['B'], r['g_offset'])
+             == (ids, TRAIN_HEADLINE[1], 0))
+        for ids in ('criteo', 'avazu', 'adult'))
+    cin_fgcnn = {name: [{k: r[k] for k in (
+        'dtype', 'layer', 'B', 'F', 'G', 'L', 'design', 'max_abs_err', 'ms',
+        'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
+        for r in cin_rows[name] if r['layer'] in CIN_FGCNN_LAYERS]
+        for name in cin_rows}
     cin_head = {name: next(r for r in cin_rows[name]
                            if (r['dtype'], r['layer'], r['B']) == CIN_HEADLINE)
                 for name in cin_rows}
@@ -1929,7 +2289,8 @@ def main():
         'library_note': 'no single PyTorch call computes FM pooling',
         'design': head['design'],
         'at': {'dtype': HEADLINE[0], 'B': HEADLINE[1], 'F': F_CRITEO,
-               'D': D_CRITEO}}, {
+               'D': D_CRITEO},
+        'fgcnn': fm_fgcnn}, {
         'name': 'fm_bwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/fm.cu',
         'replaces': 'deeptables_tpu/ops/kernels/fm.py:29',
@@ -1952,10 +2313,11 @@ def main():
         'fill_ms': grad['fill_ms'],
         'design': grad['design'],
         'at': dict(train_at, ids='criteo', dtype='float32'),
-        'avazu': {k: grad_avazu[k] for k in (
+        **{ids: {k: r[k] for k in (
             'B', 'N', 'V', 'design', 'max_abs_err', 'ms', 'plain_ms',
             'library_ms', 'library_deterministic_ms', 'sort_ms',
-            'segment_ms', 'fill_ms', 'bound_ms', 'bound_by')}}, {
+            'segment_ms', 'fill_ms', 'bound_ms', 'bound_by')}
+           for ids, r in (('avazu', grad_avazu), ('adult', grad_adult))}}, {
         'name': 'cin_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',
@@ -1968,7 +2330,7 @@ def main():
         'library_ms': cin_head['cin_fwd']['library_ms'],
         'library_note': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
         'design': cin_head['cin_fwd']['design'],
-        'at': cin_at}, {
+        'at': cin_at, 'fgcnn': cin_fgcnn['cin_fwd']}, {
         'name': 'cin_bwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:42',
@@ -1982,7 +2344,7 @@ def main():
         'library_note': 'autograd: torch.autograd.grad of that einsum '
                         '(several kernels, not one call)',
         'design': cin_head['cin_bwd']['design'],
-        'at': cin_at}] + [fa_entry(name, fa_rows[name], launches[name])
+        'at': cin_at, 'fgcnn': cin_fgcnn['cin_bwd']}] + [fa_entry(name, fa_rows[name], launches[name])
                           for name in FA_KERNELS]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

@@ -39,76 +39,58 @@ What it maps:
   (``task_output`` when AutoInt is the only net, else
   ``dense_logit_autoint_nets``) has its rows permuted in blocks of U, like
   ``dnn_dense_1``.
+- The nets that read the fields in the JAX package's order in the port too
+  (the pair products, AFM, FGCNN, FiBiNet; ``models/deepnets.py``) map one
+  to one: ``*outer_product_layer/kernel``, ``bilinear_weight`` and AFM's
+  ``projection_h`` as they are; the nested Dense layers of AFM, SENET and
+  each FGCNN stage as Dense; each stage's ``conv2d`` kernel ``(kh, kw, in,
+  out)`` → ``weight (out, in, kh, kw)``; ``fgcnn_cin_layer`` as CIN without
+  a permutation. The Denses after them read their outputs as the JAX
+  package lays them out, and the dense inputs, so they map one to one too,
+  except for the part of ``pnn_dense_1``, ``ipnn_dense_1`` and
+  ``opnn_dense_1`` that reads ``concat_emb_dense`` (rows from the
+  products' width on, permuted in blocks of D). The first layer of
+  ``custom_dnn_D_A_D_B`` (``{cell}_custom_dense_1``) is permuted as the
+  MLP's it replaces; a custom DNN of other names is mapped as it is.
+- Cross (``cross_layer``, ``cross_dnn_layer``, ``dcn_cross_layer``) acts
+  element by element on ``concat_emb_dense``, which the port keeps in
+  column order: the first F·D entries of each ``kernels_{i}`` and
+  ``bias_{i}`` are permuted in blocks of D, and so are the first F·D rows
+  of each Dense that reads a tensor laid out like it: ``cross_dnn_dense_1``,
+  ``dcn_dense_1``, ``dense_logit_cross_nets``, ``dense_logit_dcn_nets``,
+  and ``task_output`` when ``cross_nets`` or ``dcn_nets`` is the only net.
+- Var-len columns (``emb_{name}``): the lane-packed ``embeddings`` table
+  unpacked to its ``vocabulary_size`` logical rows. Their pooled fields
+  follow the categorical fields in both packages.
 """
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
 
+from .ops.embedding import flax_field_order, flax_plan, var_len_width
 from .utils import consts
 
-# The JAX package's TPU layout constants (ops/embedding.py, ops/kernels/
-# emb_grad.py), copied: the bridge has to reproduce that layout to read it.
-_LANES = 128
-_TILE_P = 256
-
 _EMBEDDING = consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all'
-_BRIDGED_NETS = ('linear', 'fm_nets', 'cin_nets', 'autoint_nets',
-                 'dnn_nets')
-_CIN = 'cin_layer'
-_AUTOINT = 'autoint_attention_'
+_CINS = ('cin_layer', 'fgcnn_cin_layer')
+_CROSSES = ('cross_layer', 'cross_dnn_layer', 'dcn_cross_layer')
+# the MLPs whose input starts with concat_emb_dense's layout, by cell name,
+# after as many (B, P) product layers
+_MLP_CELLS = {'dnn': 0, 'cross_dnn': 0, 'dcn': 0, 'ipnn': 1, 'opnn': 1,
+              'pnn': 2}
 
 
-def _pack_factor(dim: int) -> int:
-    if dim < _LANES and _LANES % dim == 0:
-        return _LANES // dim
-    return 1
-
-
-def flax_plan(input_dims: Sequence[int], output_dims: Sequence[int]):
-    """The JAX package's ``plan_groups`` layout:
-    ``[(dim, col_indices in plan order, logical row offsets)]``."""
-    groups = {}
-    for idx, (voc, dim) in enumerate(zip(input_dims, output_dims)):
-        groups.setdefault(int(dim), []).append((idx, int(voc)))
-    plan = []
-    for dim in sorted(groups):
-        cols = groups[dim]
-        k = _pack_factor(dim)
-        logical = sum(v for _, v in cols)
-        align = k * _TILE_P
-        aligned_total = sum(-(-v // align) * align for _, v in cols)
-        if k > 1 and aligned_total <= max(4 * logical, logical + 8 * align):
-            cols = sorted(cols, key=lambda cv: (cv[1], cv[0]))
-            offsets, cur = [], 0
-            for _, v in cols:
-                offsets.append(cur)
-                cur += -(-v // align) * align
-        else:
-            offsets = np.concatenate(
-                [[0], np.cumsum([v for _, v in cols])[:-1]]).tolist()
-        plan.append((dim, [c for c, _ in cols], [int(o) for o in offsets]))
-    return plan
-
-
-def flax_field_order(input_dims, output_dims) -> List[int]:
-    """``order[p]`` = the column at field position p of the JAX stacked
-    tensor (identity unless every column has one width)."""
-    plan = flax_plan(input_dims, output_dims)
-    if len(plan) == 1:
-        return list(plan[0][1])
-    return list(range(len(input_dims)))
-
-
-def _to_column_order(a: np.ndarray, order: List[int], block: int):
-    """Reorder the leading ``len(order)·block`` entries of axis 0 from JAX
-    field order to column order."""
+def _to_column_order(a: np.ndarray, order: List[int], block: int,
+                     offset: int = 0):
+    """Reorder ``len(order)·block`` entries of axis 0, from ``offset`` on,
+    from JAX field order to column order."""
     n = len(order) * block
-    head = a[:n].reshape((len(order), block) + a.shape[1:])
+    head = a[offset:offset + n].reshape((len(order), block) + a.shape[1:])
     out = np.empty_like(head)
     out[np.asarray(order)] = head
-    return np.concatenate([out.reshape((n,) + a.shape[1:]), a[n:]])
+    return np.concatenate([a[:offset], out.reshape((n,) + a.shape[1:]),
+                           a[offset + n:]])
 
 
 def _f32(a) -> np.ndarray:
@@ -116,100 +98,136 @@ def _f32(a) -> np.ndarray:
 
 
 def state_dict_from_flax(variables, categorical_columns, continuous_columns,
-                         config) -> Dict[str, torch.Tensor]:
+                         config, var_len_categorical_columns=()
+                         ) -> Dict[str, torch.Tensor]:
     """flax variables of a JAX ``DeepTabularModel`` → the port's
     ``state_dict`` (CPU float32 tensors) for the same schema and config."""
-    unknown = [n for n in config.nets if n not in _BRIDGED_NETS]
-    if unknown:
-        raise NotImplementedError(
-            f'no weight bridge yet for nets {unknown}; bridged: '
-            f'{list(_BRIDGED_NETS)}')
+    del continuous_columns  # their width is the same in both layouts
     params = variables['params']
     stats = variables.get('batch_stats', {})
+    var_cols = {consts.LAYER_PREFIX_EMBEDDING + c.name: c
+                for c in var_len_categorical_columns or ()}
     input_dims = [int(c.vocabulary_size) for c in categorical_columns]
     output_dims = [int(c.embeddings_output_dim) for c in categorical_columns]
-    order = flax_field_order(input_dims, output_dims)
-    # flax layers whose leading axis follows the fields → entries per field:
-    # the per-field sums of `linear`, the flattened (F, D) embeddings
+    order = flax_field_order(input_dims, output_dims,
+                             [var_len_width(c) for c in var_cols.values()])
+    if order == sorted(order):
+        order = None
+    # flax layers whose leading axis follows the fields → (offset, entries
+    # per field): the per-field sums of `linear`, the flattened (F, D)
+    # embeddings of concat_emb_dense and what keeps its layout
     dim = output_dims[0] if output_dims else 0
-    blocks = {'linear_logit': 1, 'bn_concat_emb_dense': dim,
-              'dnn_dense_1': dim}
-    # the layer that reads AutoInt's flattened (F·U) output
-    if tuple(config.nets) == ('autoint_nets',):
-        blocks['task_output'] = dim
-    else:
-        blocks['dense_logit_autoint_nets'] = dim
+    blocks = {'linear_logit': (0, 1), 'bn_concat_emb_dense': (0, dim)}
+    n_fields = len(input_dims) + len(var_cols)
+    n_pairs = n_fields * (n_fields - 1) // 2
+    # the first layer of each MLP over concat_emb_dense (or Cross's output),
+    # custom_dnn_D_A_D_B's too; after the pair products in PNN's
+    for cell, products in _MLP_CELLS.items():
+        for layer in ('_dense_1', '_custom_dense_1'):
+            blocks[cell + layer] = (products * n_pairs, dim)
+    # the layer that reads AutoInt's flattened (F·U) output, or Cross's
+    for net in ('autoint_nets', 'cross_nets', 'dcn_nets'):
+        if tuple(config.nets) == (net,):
+            blocks['task_output'] = (0, dim)
+        else:
+            blocks[f'dense_logit_{net}'] = (0, dim)
 
     out = {}
     for name, node in params.items():
         if name == _EMBEDDING:
             out.update(_embedding_tables(node, input_dims, output_dims))
+        elif name in var_cols:
+            col = var_cols[name]
+            out[f'{name}.embeddings'] = _f32(node['embeddings']).reshape(
+                -1, int(col.embeddings_output_dim))[:int(col.vocabulary_size)]
         elif name.startswith(consts.LAYER_PREFIX_EMBEDDING):
-            raise NotImplementedError(f'no weight bridge yet for {name!r}')
-        elif name == _CIN:
-            out.update(_cin_weights(node, order))
-        elif name.startswith(_AUTOINT):
-            for key, layer in node.items():
-                out.update(_layer(f'{name}.{key}', layer,
-                                  stats.get(name, {}).get(key)))
+            raise ValueError(f'flax module {name!r} is no embedding of this '
+                             f'schema')
+        elif name in _CINS:
+            out.update(_cin_weights(name, node,
+                                    order if name == 'cin_layer' else None))
+        elif name in _CROSSES:
+            out.update({f'{name}.{key}': _permute_axis(
+                _f32(value), order, 0, dim) for key, value in node.items()})
+        elif name.endswith('outer_product_layer'):
+            out[f'{name}.kernel'] = _f32(node['kernel'])
         elif 'kernel' in node or 'scale' in node:
             out.update(_layer(name, node, stats.get(name),
                               blocks.get(name) if order else None, order))
         else:
-            raise NotImplementedError(
-                f'no weight bridge yet for flax module {name!r}')
+            out.update(_scope(name, node, stats.get(name, {})))
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in out.items()}
 
 
+def _scope(name, node: Mapping, stats: Mapping):
+    """A flax module with sublayers and parameters of its own (AutoInt's
+    blocks, AFM, SENET, the bilinear layers, FGCNN stages): each Dense or
+    BatchNorm sublayer (its ``batch_stats`` nested the same way) as such, a
+    ``conv2d`` as a convolution, a parameter as it is."""
+    out = {}
+    for key, value in node.items():
+        path = f'{name}.{key}'
+        if not isinstance(value, Mapping):
+            out[path] = _f32(value)
+        elif key == 'conv2d':  # kernel (kh, kw, in, out) → (out, in, kh, kw)
+            out[f'{path}.weight'] = _f32(value['kernel']).transpose(3, 2, 0, 1)
+            out[f'{path}.bias'] = _f32(value['bias'])
+        else:
+            out.update(_layer(path, value, stats.get(key)))
+    return out
+
+
 def _layer(name, node, stats=None, block=None, order=None):
     """A Dense (``kernel``, ``bias``) or BatchNorm (``scale``, ``bias``,
-    ``stats`` ``mean``/``var``) node → the port's entries; with ``block``,
-    the entries along the field axis (a kernel's rows, every BatchNorm
-    vector) go from JAX field order to column order in blocks of that
-    size."""
+    ``stats`` ``mean``/``var``) node → the port's entries; with ``block``
+    ``(offset, size)``, the entries along the field axis (a kernel's rows,
+    every BatchNorm vector) from ``offset`` on go from JAX field order to
+    column order in blocks of that size."""
     def fields(value):
         value = _f32(value)
-        return _to_column_order(value, order, block) if block else value
+        if not block or not block[1]:
+            return value
+        return _to_column_order(value, order, block[1], block[0])
     if 'kernel' in node:  # kernel (in, out) → weight (out, in)
         out = {f'{name}.weight': fields(node['kernel']).T}
         if 'bias' in node:
             out[f'{name}.bias'] = _f32(node['bias'])
         return out
     if 'scale' not in node:
-        raise NotImplementedError(f'no weight bridge yet for {name!r}')
+        raise ValueError(f'flax module {name!r} is no Dense or BatchNorm')
     entries = {'weight': node['scale'], 'bias': node['bias']}
     if stats is not None:
         entries.update(running_mean=stats['mean'], running_var=stats['var'])
     return {f'{name}.{key}': fields(value) for key, value in entries.items()}
 
 
-def _permute_axis(a: np.ndarray, order: List[int], axis: int):
-    """Axis ``axis`` of ``a`` (one entry per field) from JAX field order to
-    column order."""
-    return np.moveaxis(_to_column_order(np.moveaxis(a, axis, 0), order, 1),
-                       0, axis)
+def _permute_axis(a: np.ndarray, order, axis: int, block: int = 1):
+    """Axis ``axis`` of ``a`` (``block`` entries per field, then any others)
+    from JAX field order to column order; as it is without an order."""
+    if not order:
+        return a
+    return np.moveaxis(_to_column_order(np.moveaxis(a, axis, 0), order,
+                                        block), 0, axis)
 
 
-def _cin_weights(node, order):
+def _cin_weights(scope, node, order):
+    """A CIN's weights; ``order`` permutes every axis over its input
+    fields (``cin_layer``, which reads the fields in column order)."""
     out = {}
     for key, value in node.items():
-        if 'kernel' in value:  # exFM_out0, exFM_out
-            out[f'{_CIN}.{key}.weight'] = _f32(value['kernel']).T
-            if 'bias' in value:
-                out[f'{_CIN}.{key}.bias'] = _f32(value['bias'])
+        if isinstance(value, Mapping):  # exFM_out0, exFM_out
+            out.update(_layer(f'{scope}.{key}', value))
             continue
         value = _f32(value)
         kind, layer = key.rsplit('_', 1)
         axes = {'f': (1, 2) if layer == '0' else (1,), 'f0': (1,),
                 'f_': (2,) if layer == '0' else (), 'bias': ()}
         if kind not in axes:
-            raise NotImplementedError(
-                f'no weight bridge yet for {_CIN}/{key}')
-        if order:
-            for axis in axes[kind]:
-                value = _permute_axis(value, order, axis)
-        out[f'{_CIN}.{key}'] = value
+            raise ValueError(f'unknown CIN parameter {scope}/{key}')
+        for axis in axes[kind]:
+            value = _permute_axis(value, order, axis)
+        out[f'{scope}.{key}'] = value
     return out
 
 

@@ -75,6 +75,20 @@ def check_categorical_ids(cat: np.ndarray,
             f'(vocabulary_size={vocab[col]}).')
 
 
+def check_var_len_ids(ids: np.ndarray, column: VarLenCategoricalColumn):
+    """Raise unless every token id of a var-len column lies in
+    [0, vocabulary_size) (0 pads), for the reason ``check_categorical_ids``
+    gives."""
+    ids = np.asarray(ids)
+    bad = (ids < 0) | (ids >= column.vocabulary_size)
+    if bad.any():
+        row, pos = np.argwhere(bad)[0]
+        raise ValueError(
+            f'token id {ids[row, pos]} at row {row} is out of range for '
+            f'var-len column {column.name!r} '
+            f'(vocabulary_size={column.vocabulary_size}).')
+
+
 def prepare_labels(y, task: str, num_classes: int) -> np.ndarray:
     """Encode labels into the dense array the loss expects."""
     y = np.asarray(y)

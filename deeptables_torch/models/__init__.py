@@ -6,7 +6,7 @@ from .metainfo import (CategoricalColumn, ContinuousColumn,
                        VarLenCategoricalColumn)
 from .deepmodel import DeepModel, DeepTabularModel, IgnoreCaseDict, ModelDesc
 from . import deepnets
-from .deepnets import register_nets
+from .deepnets import register_custom_objects, register_nets
 
 # loaded on first use: the preprocessor imports pandas and scikit-learn,
 # which the card's path does without, and DeepTable and ModelSet sit above

@@ -47,7 +47,8 @@ from ..ops import metrics as metrics_lib
 from ..ops import optimizers as optimizers_lib
 from ..ops import regularizers as regularizers_lib
 from ..ops.embedding import EmbeddingList, MultiColumnEmbedding, \
-    flatten_embeddings
+    VarLenColumnEmbedding, flatten_embeddings, flax_field_order, \
+    var_len_width
 from ..ops.layers import BatchNorm, Dense, dropout
 from ..utils import consts, dt_logging
 from ..utils.device import resolve_device
@@ -63,9 +64,6 @@ class DeepTabularModel(nn.Module):
                  categorical_columns: Tuple, continuous_columns: Tuple,
                  var_len_categorical_columns: Any = None):
         super().__init__()
-        if var_len_categorical_columns:
-            raise NotImplementedError(
-                'var-len categorical embeddings: remaining-towers slice')
         # parameters are drawn on the CPU from config.seed, then moved, so a
         # model has the same weights on every device
         generator = torch.Generator().manual_seed(config.seed)
@@ -74,6 +72,8 @@ class DeepTabularModel(nn.Module):
         self.num_classes = num_classes
         self.categorical_columns = tuple(categorical_columns or ())
         self.continuous_columns = tuple(continuous_columns or ())
+        self.var_len_categorical_columns = tuple(
+            var_len_categorical_columns or ())
         self.compute_dtype = torch.bfloat16 \
             if config.dtype_policy == 'bfloat16' else torch.float32
         self.activity_regularizer = regularizers_lib.get_regularizer(
@@ -81,11 +81,11 @@ class DeepTabularModel(nn.Module):
         desc = ModelDesc()
 
         # ---- embeddings ----
+        input_dims = tuple(int(c.vocabulary_size)
+                           for c in self.categorical_columns)
         output_dims = tuple(int(c.embeddings_output_dim)
                             for c in self.categorical_columns)
         if self.categorical_columns:
-            input_dims = tuple(int(c.vocabulary_size)
-                               for c in self.categorical_columns)
             self.add_module(
                 consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all',
                 MultiColumnEmbedding(
@@ -95,6 +95,26 @@ class DeepTabularModel(nn.Module):
                     generator=generator))
             desc.set_embeddings(list(input_dims), list(output_dims),
                                 config.embedding_dropout)
+        var_widths = []
+        for col in self.var_len_categorical_columns:
+            self.add_module(
+                consts.LAYER_PREFIX_EMBEDDING + col.name,
+                VarLenColumnEmbedding(
+                    col.vocabulary_size, col.embeddings_output_dim,
+                    dropout_rate=config.embedding_dropout,
+                    pooling_strategy=col.pooling_strategy,
+                    embeddings_initializer=config.embeddings_initializer,
+                    generator=generator))
+            var_widths.append(var_len_width(col))
+            desc.add_input(col.name, col.max_elements_length)
+        widths = list(output_dims) + var_widths
+        # the nets that read the fields in the JAX package's order get them
+        # permuted by this (None where it is column order)
+        order = flax_field_order(input_dims, output_dims, var_widths)
+        self._field_order = None if order == sorted(order) else order
+        self.register_buffer(
+            'field_order', None if self._field_order is None
+            else torch.tensor(order), persistent=False)
 
         # ---- dense (continuous) inputs ----
         dense_dim = sum(int(g.input_dim) for g in self.continuous_columns)
@@ -106,7 +126,7 @@ class DeepTabularModel(nn.Module):
         desc.set_dense(config.dense_dropout, config.dense_batch_norm)
 
         # ---- flatten/concat + BN ----
-        flatten_dim = sum(output_dims)
+        flatten_dim = sum(widths)
         concat_dim = flatten_dim + dense_dim
         if concat_dim == 0:
             raise ValueError('No input layer exists.')
@@ -115,8 +135,8 @@ class DeepTabularModel(nn.Module):
 
         # ---- nets; their layers join this module's flat scope ----
         inputs = deepnets.NetInputs(
-            n_fields=len(output_dims),
-            emb_dim=output_dims[0] if len(set(output_dims)) == 1 else None,
+            n_fields=len(widths),
+            emb_dim=widths[0] if len(set(widths)) == 1 else None,
             flatten_dim=flatten_dim, dense_dim=dense_dim,
             concat_dim=concat_dim)
         desc.nets = list(config.nets)
@@ -185,6 +205,31 @@ class DeepTabularModel(nn.Module):
                 raise ValueError(f'Duplicate layer name {name!r} among nets.')
             self.add_module(name, layer)
 
+    def _with_var_len(self, embeddings, batch, training, generator):
+        """The categorical fields and then each var-len column's pooled
+        field; stacked as the JAX package stacks them: onto the categorical
+        fields when every width agrees."""
+        var_embs = [getattr(self, consts.LAYER_PREFIX_EMBEDDING + c.name)(
+            batch[c.name], training=training, generator=generator)
+            for c in self.var_len_categorical_columns]
+        items = list(embeddings) + var_embs
+        stacked = embeddings.stacked
+        if stacked is not None and all(
+                e.shape[-1] == stacked.shape[-1] for e in var_embs):
+            stacked = torch.cat([stacked] + var_embs, dim=1)
+        else:
+            stacked = torch.cat(items, dim=1) \
+                if len({e.shape[-1] for e in items}) == 1 else None
+        return EmbeddingList(items, stacked=stacked)
+
+    def _in_flax_order(self, embeddings):
+        """The fields in the JAX package's stacking order."""
+        if self._field_order is None:
+            return embeddings
+        return EmbeddingList(
+            [embeddings[i] for i in self._field_order],
+            stacked=embeddings.stacked.index_select(1, self.field_order))
+
     def forward(self, batch: Dict[str, torch.Tensor], training: bool = False,
                 generator: Optional[torch.Generator] = None):
         """``training=True`` applies dropout (masks from ``generator``, on
@@ -201,6 +246,9 @@ class DeepTabularModel(nn.Module):
                 self, consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all')
             embeddings = emb_layer(batch[pipeline.CAT_KEY], training=training,
                                    generator=generator)
+        if self.var_len_categorical_columns:
+            embeddings = self._with_var_len(embeddings, batch, training,
+                                            generator)
         if training and self.activity_regularizer is not None \
                 and len(embeddings) > 0:
             ctx.tap('__embeddings_activity_reg__', sum(
@@ -236,8 +284,14 @@ class DeepTabularModel(nn.Module):
         ctx.tap('concat_embedding_dense', concat_emb_dense)
 
         outs = collections.OrderedDict()
+        flax_ordered = None
         for name, net in self._nets:
-            out = net(embeddings, flatten_emb_layer, dense_layer,
+            net_embeddings = embeddings
+            if getattr(net, 'fields_in_flax_order', False):
+                if flax_ordered is None:
+                    flax_ordered = self._in_flax_order(embeddings)
+                net_embeddings = flax_ordered
+            out = net(net_embeddings, flatten_emb_layer, dense_layer,
                       concat_emb_dense, ctx)
             outs[name] = out
             ctx.tap(f'{name}_out', out)
@@ -273,9 +327,17 @@ def probas_from_logits(logits: torch.Tensor, task: str) -> torch.Tensor:
 
 def _sanitize_config_for_pickle(config):
     """The config without what cannot be pickled: no distribution strategy,
-    and metrics, loss and optimizer by name when they are callables that do
-    not pickle."""
+    ``dnn_params['custom_dnn_fn']`` by its name (registered in the
+    custom-object registry, which a loading process must fill again), and
+    metrics, loss and optimizer by name when they are callables that do not
+    pickle. Custom nets are in ``config.nets`` by name already."""
     cfg = config._replace(distribute_strategy=None)
+    params = dict(cfg.dnn_params)
+    fn = params.get('custom_dnn_fn')
+    if callable(fn):
+        deepnets.register_custom_objects(fn)
+        params['custom_dnn_fn'] = fn.__name__
+        cfg = cfg._replace(dnn_params=params)
     try:
         pickle.dumps(cfg)
         return cfg
@@ -365,8 +427,9 @@ class DeepModel:
                  continuous_columns, model_file=None,
                  var_categorical_len_columns=None, custom_objects=None,
                  device=None):
-        if custom_objects:
-            raise NotImplementedError('custom objects: remaining-towers slice')
+        # before any build: a loaded model resolves its custom nets and
+        # custom_dnn_fn by name through the registry
+        deepnets.register_custom_objects(custom_objects)
         self.device = resolve_device(device)
         self.task = task
         self.num_classes = num_classes
@@ -423,6 +486,9 @@ class DeepModel:
         if pipeline.CAT_KEY in batch:
             pipeline.check_categorical_ids(batch[pipeline.CAT_KEY],
                                            self.categorical_columns)
+        for col in self.var_len_categorical_columns:
+            if col.name in batch:
+                pipeline.check_var_len_ids(batch[col.name], col)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
@@ -801,6 +867,14 @@ class ModelDesc:
         self.output = None
         self.loss = None
         self.optimizer = None
+        self._counters = {}
+
+    def next_num(self, name):
+        """0, 1, 2, … on successive calls for one ``name``: the numbers of
+        the FGCNN (``'fgcnn'``) and FiBiNet (``'senet'``) layers of this
+        model, in build order, as the JAX package numbers them per trace."""
+        self._counters[name] = self._counters.get(name, -1) + 1
+        return self._counters[name]
 
     def add_input(self, name, num_columns):
         self.inputs.append(f'{name}: ({num_columns})')

@@ -10,14 +10,19 @@ is read with one gather per group. The TPU layout (lane-packed rows,
 
 ``EmbeddingList`` keeps the "list of per-column (B, 1, d) tensors" contract
 and exposes ``.stacked``, the (B, F, D) tensor in column order when every
-width agrees.
+width agrees. :func:`flax_field_order` gives the order in which the JAX
+package stacks the same fields, which the nets whose function depends on
+the field order read (``models/deepnets.py``).
+
+``VarLenColumnEmbedding`` embeds a padded multi-valued column and pools its
+tokens to one field.
 
 The gather of a group is the forward half of :class:`EmbeddingLookup`, whose
 backward is the embedding-gradient kernel (``kernels/emb_grad.py``, K1): a
 dense float32 gradient of the whole logical table.
 """
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +31,12 @@ from torch import nn
 from .initializers import get_initializer
 from .kernels.emb_grad import emb_grad
 from .layers import dropout
+
+# The JAX package's TPU layout constants (its ops/embedding.py and
+# ops/kernels/emb_grad.py), copied: its field order and its tables' layout
+# follow from them.
+_LANES = 128
+_TILE_P = 256
 
 
 class EmbeddingLookup(torch.autograd.Function):
@@ -108,6 +119,57 @@ def plan_groups(input_dims: Sequence[int], output_dims: Sequence[int]):
     return plan
 
 
+def _pack_factor(dim: int) -> int:
+    if dim < _LANES and _LANES % dim == 0:
+        return _LANES // dim
+    return 1
+
+
+def flax_plan(input_dims: Sequence[int], output_dims: Sequence[int]):
+    """The JAX package's ``plan_groups`` layout:
+    ``[(dim, col_indices in plan order, logical row offsets)]``. Where the
+    lane-packed alignment is cheap, a group's columns go in ascending
+    vocabulary, each region padded to a multiple of ``k·TILE_P`` rows."""
+    groups = {}
+    for idx, (voc, dim) in enumerate(zip(input_dims, output_dims)):
+        groups.setdefault(int(dim), []).append((idx, int(voc)))
+    plan = []
+    for dim in sorted(groups):
+        cols = groups[dim]
+        k = _pack_factor(dim)
+        logical = sum(v for _, v in cols)
+        align = k * _TILE_P
+        aligned_total = sum(-(-v // align) * align for _, v in cols)
+        if k > 1 and aligned_total <= max(4 * logical, logical + 8 * align):
+            cols = sorted(cols, key=lambda cv: (cv[1], cv[0]))
+            offsets, cur = [], 0
+            for _, v in cols:
+                offsets.append(cur)
+                cur += -(-v // align) * align
+        else:
+            offsets = np.concatenate(
+                [[0], np.cumsum([v for _, v in cols])[:-1]]).tolist()
+        plan.append((dim, [c for c, _ in cols], [int(o) for o in offsets]))
+    return plan
+
+
+def flax_field_order(input_dims: Sequence[int], output_dims: Sequence[int],
+                     var_len_widths: Sequence[int] = ()) -> List[int]:
+    """``order[p]``: the field at position p of the JAX package's stacked
+    field tensor, numbering the categorical columns first and the var-len
+    columns after them. The JAX package stacks the categorical columns in
+    its plan's order when they share one width (vocabulary-ascending where
+    the plan aligns them) and every var-len column pools to that width too,
+    then the var-len columns; otherwise it concatenates every field in
+    column order."""
+    n = len(input_dims)
+    var = list(range(n, n + len(var_len_widths)))
+    plan = flax_plan(input_dims, output_dims)
+    if len(plan) == 1 and all(int(w) == plan[0][0] for w in var_len_widths):
+        return list(plan[0][1]) + var
+    return list(range(n)) + var
+
+
 class MultiColumnEmbedding(nn.Module):
     """Fused per-column embedding over a single (B, n_cat) int tensor."""
 
@@ -165,3 +227,68 @@ class MultiColumnEmbedding(nn.Module):
             for k, col in enumerate(cols):
                 per_col[col] = emb[:, k:k + 1, :]
         return EmbeddingList(per_col, stacked=stacked)
+
+
+def var_len_width(col) -> int:
+    """The width of a var-len column's pooled field: D, or L·D when its
+    tokens are kept flat (``pooling_strategy='flat'``)."""
+    dim = int(col.embeddings_output_dim)
+    if col.pooling_strategy == 'flat':
+        return int(col.max_elements_length) * dim
+    return dim
+
+
+class VarLenColumnEmbedding(nn.Module):
+    """Embedding of a padded multi-valued categorical column, ``(B, L)`` ids
+    with 0 the padding id, pooled to one field: the port of
+    ``deeptables_tpu/ops/embedding.py::VarLenColumnEmbedding``.
+
+    ``pooling_strategy`` ``'max'`` and ``'avg'`` pool the tokens' rows to
+    ``(B, 1, D)`` (a row with no tokens gives zeros), ``'flat'`` keeps them
+    as ``(B, 1, L·D)`` with the padding's rows zeroed. The table is the
+    parameter ``embeddings``, ``(vocabulary_size, D)`` float32, read through
+    :func:`lookup`, so its gradient is the embedding-gradient kernel (K1).
+    Dropout in training drops elements of the pooled field, its mask shared
+    along the field axis, as the JAX package's ``broadcast_dims=(1,)``."""
+
+    def __init__(self, vocabulary_size: int, output_dim: int,
+                 dropout_rate: float = 0., pooling_strategy: str = 'max',
+                 embeddings_initializer='uniform', generator=None):
+        super().__init__()
+        if pooling_strategy not in ('max', 'avg', 'flat'):
+            raise ValueError(
+                f'Unknown var-len pooling strategy: {pooling_strategy!r}')
+        init = get_initializer(embeddings_initializer, default='uniform')
+        self.embeddings = nn.Parameter(
+            init(generator, (int(vocabulary_size), int(output_dim))))
+        self.output_dim = int(output_dim)
+        self.dropout_rate = dropout_rate
+        self.pooling_strategy = pooling_strategy
+
+    def forward(self, ids: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        ids = ids.to(torch.int32)
+        B, L = ids.shape
+        emb = lookup(self.embeddings, ids.reshape(-1)).reshape(
+            B, L, self.output_dim)
+        mask = (ids > 0).to(emb.dtype)[..., None]  # (B, L, 1)
+        if self.pooling_strategy == 'avg':
+            denom = torch.clamp_min(mask.sum(dim=1), 1.0)
+            out = ((emb * mask).sum(dim=1) / denom)[:, None, :]
+        elif self.pooling_strategy == 'max':
+            neg = torch.finfo(emb.dtype).min
+            masked = torch.where(mask > 0, emb, torch.full((), neg,
+                                                           dtype=emb.dtype,
+                                                           device=emb.device))
+            # amax shares the gradient among ties, as JAX's max does
+            out = masked.amax(dim=1)
+            any_tok = mask.sum(dim=1) > 0
+            out = torch.where(any_tok, out, torch.zeros((), dtype=out.dtype,
+                                                        device=out.device))
+            out = out[:, None, :]
+        else:
+            out = (emb * mask).reshape(B, 1, L * self.output_dim)
+        if training:
+            out = dropout(out, self.dropout_rate, generator,
+                          broadcast_dims=(1,))
+        return out

@@ -2,13 +2,23 @@
 """Feature-interaction blocks (counterpart of
 ``deeptables_tpu/ops/interactions.py``).
 
-Ported: ``FM``, ``CIN`` and ``MultiheadAttention``; the other blocks come
-with the slices that carry their nets (see ``models/deepnets.py``).
+Every block of the JAX package: ``FM``, ``CIN`` and ``MultiheadAttention``
+run the port's CUDA kernels on a CUDA input; ``Cross``, ``InnerProduct``,
+``OuterProduct``, ``AFM``, ``SENET``, ``BilinearInteraction`` and
+``FGCNN`` are stock torch operations, as their JAX counterparts are plain
+XLA. Each block's parameters and sublayers carry the flax names. The
+blocks over field pairs enumerate the pairs as ``_pair_indices`` does, so
+they take the fields in the order the JAX package stacks them (the model
+reorders them for these blocks, ``models/deepnets.py``).
 """
 
-from typing import Any, Dict
+import itertools
+import math
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..utils import dt_logging
@@ -19,7 +29,32 @@ from .initializers import get_activation, get_initializer
 from .kernels.field_attention import (attention_weights, merge_heads,
                                       scale_for, split_heads)
 from .kernels.fm import fm
-from .layers import BatchNorm, Dense, dropout
+from .layers import BatchNorm, Conv2d, Dense, dropout, same_pads
+
+
+def _pair_indices(num_fields: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Row/col index vectors enumerating all unordered field pairs (i<j),
+    in ``itertools.combinations`` order."""
+    if num_fields < 2:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    row, col = zip(*itertools.combinations(range(num_fields), 2))
+    return np.asarray(row, np.int64), np.asarray(col, np.int64)
+
+
+class _Pairs(nn.Module):
+    """Holds the pair indices of ``n_fields`` fields as buffers (they move
+    with the module to its device; not saved)."""
+
+    def __init__(self, n_fields: int):
+        super().__init__()
+        row, col = _pair_indices(n_fields)
+        self.register_buffer('row', torch.from_numpy(row), persistent=False)
+        self.register_buffer('col', torch.from_numpy(col), persistent=False)
+        self.n_pairs = len(row)
+
+    def pair(self, x):
+        """``(x[:, row], x[:, col])`` of a (B, F, D) tensor."""
+        return x.index_select(1, self.row), x.index_select(1, self.col)
 
 
 class FM(nn.Module):
@@ -268,3 +303,210 @@ class MultiheadAttention(nn.Module):
             out = out + torch.relu(self.dense_residual(x, dtype=cd))
         out = torch.relu(out)
         return self.batch_normalize(out, training=training)
+
+
+class Cross(nn.Module):
+    """DCN cross network, (B, N) → (B, N) float32:
+    ``x_{l+1} = x_0 ⊙ (x_l·w_l) + x_l + b_l`` with ``kernels_{l}`` (N, 1)
+    glorot_uniform and ``bias_{l}`` (N,) zeros, ``cross_params``
+    ``num_cross_layer`` of them (2 when unset)."""
+
+    def __init__(self, n: int, params: Dict[str, Any], generator=None):
+        super().__init__()
+        self.num_cross_layer = int(params.get('num_cross_layer', 2))
+        glorot = get_initializer('glorot_uniform')
+        for i in range(self.num_cross_layer):
+            self.register_parameter(f'kernels_{i}',
+                                    nn.Parameter(glorot(generator, (n, 1))))
+            self.register_parameter(f'bias_{i}',
+                                    nn.Parameter(torch.zeros(n)))
+
+    def forward(self, x, training: bool = False) -> torch.Tensor:
+        if x.dim() != 2:
+            raise ValueError(
+                f'Wrong dimensions of x, expected 2 but input {x.dim()}.')
+        # the first layer promotes x to float32, as flax does
+        x0 = xl = x.float()
+        for i in range(self.num_cross_layer):
+            w = getattr(self, f'kernels_{i}')
+            xl = x0 * torch.matmul(xl, w) + xl + getattr(self, f'bias_{i}')
+        return xl
+
+
+class InnerProduct(_Pairs):
+    """PNN inner product over field pairs, (B, F, D) → (B, P) in x's type.
+    No parameters."""
+
+    def forward(self, x, training: bool = False) -> torch.Tensor:
+        p, q = self.pair(concat_embeddings(x))
+        return (p * q).sum(dim=-1)
+
+
+class OuterProduct(_Pairs):
+    """PNN kernel outer product over field pairs, (B, F, D) → (B, P)
+    float32. ``pnn_params['outer_product_kernel_type']``: ``'mat'``
+    (``kernel`` (D, P, D): ``p·K_p·q`` per pair, in float32), ``'vec'``
+    (``kernel`` (P, D)) or ``'num'`` (``kernel`` (P, 1)); glorot_uniform."""
+
+    def __init__(self, n_fields: int, dim: int, params: Dict[str, Any],
+                 generator=None):
+        super().__init__(n_fields)
+        self.kernel_type = params.get('outer_product_kernel_type', 'mat')
+        if self.kernel_type not in ('mat', 'vec', 'num'):
+            raise ValueError('kernel_type must be mat,vec or num')
+        n_pairs = max(self.n_pairs, 1)
+        shape = {'mat': (dim, n_pairs, dim), 'vec': (n_pairs, dim),
+                 'num': (n_pairs, 1)}[self.kernel_type]
+        self.kernel = nn.Parameter(
+            get_initializer('glorot_uniform')(generator, shape))
+
+    def forward(self, x, training: bool = False) -> torch.Tensor:
+        p, q = self.pair(concat_embeddings(x))
+        if self.kernel_type == 'mat':
+            pk = torch.einsum('bpe,epf->bpf', p.float(), self.kernel)
+            return (pk * q.float()).sum(dim=-1)
+        # the pair product in x's type, then promoted by the kernel
+        return (p * q * self.kernel[None]).sum(dim=-1)
+
+
+class AFM(_Pairs):
+    """Attentional FM, (B, F, D) → (B, 1). The pair products (in x's type)
+    go through ``dense_afm_attention`` (glorot_normal, ``hidden_factor``
+    units, else ``attention_factor``, else 16) and the activation, then
+    ``projection_h`` (hidden, 1) glorot_uniform and a softmax over the
+    pairs weight them; the pooled (B, D) float32 is dropped in training
+    (``dropout_rate``) and ``dense_out`` (no bias) gives the logit."""
+
+    flax_scope = True
+
+    def __init__(self, n_fields: int, dim: int, params: Dict[str, Any],
+                 generator=None):
+        super().__init__(n_fields)
+        hidden = int(params.get('hidden_factor',
+                                params.get('attention_factor', 16)))
+        self.dropout_rate = float(params.get('dropout_rate', 0))
+        self.activation = get_activation(params.get('activation', 'relu'))
+        self.dense_afm_attention = Dense(dim, hidden,
+                                         kernel_init='glorot_normal',
+                                         generator=generator)
+        self.projection_h = nn.Parameter(
+            get_initializer('glorot_uniform')(generator, (hidden, 1)))
+        self.dense_out = Dense(dim, 1, use_bias=False, generator=generator)
+
+    def forward(self, x, training: bool = False,
+                generator=None) -> torch.Tensor:
+        p, q = self.pair(concat_embeddings(x))
+        bi = p * q  # (B, P, D)
+        att = self.activation(self.dense_afm_attention(bi))
+        score = torch.softmax(torch.matmul(att, self.projection_h), dim=1)
+        out = (score * bi).sum(dim=1)  # (B, D) float32
+        if training:
+            out = dropout(out, self.dropout_rate, generator)
+        return self.dense_out(out)
+
+
+class SENET(nn.Module):
+    """Squeeze-and-excitation over fields, (B, F, D) → (B, F, D) float32:
+    each field's ``mean`` (or ``max``) over D, ``dense_att1`` (F //
+    reduction_ratio units, at least 1) and ``dense_att2`` (F units), both
+    he_uniform with relu, weight the fields."""
+
+    flax_scope = True
+
+    def __init__(self, n_fields: int, pooling_op: str = 'mean',
+                 reduction_ratio: int = 3, generator=None):
+        super().__init__()
+        self.pooling_op = pooling_op
+        reduction_num = max(n_fields // reduction_ratio, 1)
+        self.dense_att1 = Dense(n_fields, reduction_num,
+                                kernel_init='he_uniform', generator=generator)
+        self.dense_att2 = Dense(reduction_num, n_fields,
+                                kernel_init='he_uniform', generator=generator)
+
+    def forward(self, x, training: bool = False) -> torch.Tensor:
+        if x.dim() != 3:
+            raise ValueError(
+                f'Wrong dimensions of inputs, expected 3 but input {x.dim()}.')
+        # amax shares the gradient among ties, as JAX's max does
+        z = x.amax(dim=-1) if self.pooling_op == 'max' else x.mean(dim=-1)
+        a1 = torch.relu(self.dense_att1(z))
+        a2 = torch.relu(self.dense_att2(a1))
+        return x * a2[:, :, None]
+
+
+class BilinearInteraction(_Pairs):
+    """FiBiNet bilinear interaction, (B, F, D) → (B, P, D) float32:
+    ``(x_i·W) ⊙ x_j`` for every pair i < j, ``bilinear_weight`` glorot_uniform
+    of shape (D, D) (``'field_all'``), (F − 1, D, D), one for each first
+    field (``'field_each'``), or (P, D, D), one for each pair
+    (``'field_interaction'``, the default)."""
+
+    def __init__(self, n_fields: int, dim: int,
+                 bilinear_type: str = 'field_interaction', generator=None):
+        super().__init__(n_fields)
+        self.bilinear_type = bilinear_type
+        if bilinear_type == 'field_all':
+            shape = (dim, dim)
+        elif bilinear_type == 'field_each':
+            shape = (max(n_fields - 1, 1), dim, dim)
+        else:
+            shape = (max(self.n_pairs, 1), dim, dim)
+        self.bilinear_weight = nn.Parameter(
+            get_initializer('glorot_uniform')(generator, shape))
+
+    def forward(self, x, training: bool = False) -> torch.Tensor:
+        if x.dim() != 3:
+            raise ValueError(
+                f'Wrong dimensions of inputs, expected 3 but input {x.dim()}.')
+        w = self.bilinear_weight
+        if self.bilinear_type == 'field_all':
+            xw = torch.matmul(x.float(), w)
+            return xw.index_select(1, self.row) * x.index_select(1, self.col)
+        if self.bilinear_type == 'field_each':
+            xw = torch.einsum('bfe,feh->bfh', x[:, :w.shape[0]].float(), w)
+            return xw.index_select(1, self.row) * x.index_select(1, self.col)
+        p, q = self.pair(x)
+        return torch.einsum('bpe,peh->bph', p.float(), w) * q
+
+
+class FGCNN(nn.Module):
+    """One Feature-Generation CNN stage, in flax's layouts: input
+    ``(B, F, E, C)``, output ``(pooled (B, ceil(F / pool_height), E,
+    filters), new features (B, F·new_filters, E))``, float32.
+
+    ``conv2d`` convolves along the field axis (kernel ``(kernel_height,
+    1)``, ``SAME`` padding, glorot_uniform, bias) and the activation
+    (tanh) follows; a max pool of ``pool_height`` fields (``SAME``: the
+    odd pad at the end) gives the next stage's input; ``dense_output``
+    (glorot_uniform) reads it flattened in flax's ``(F', E, filters)``
+    order and gives the new features. Torch convolves NCHW, so the stage
+    moves the channels to axis 1 and back."""
+
+    flax_scope = True
+
+    def __init__(self, in_fields: int, emb: int, in_channels: int,
+                 filters: int, kernel_height: int, new_filters: int,
+                 pool_height: int, activation: str = 'tanh', generator=None):
+        super().__init__()
+        self.pool_height = pool_height
+        self.new_filters = new_filters
+        self.activation = get_activation(activation)
+        self.conv2d = Conv2d(in_channels, filters, (kernel_height, 1),
+                             kernel_init='glorot_uniform',
+                             generator=generator)
+        pooled_fields = math.ceil(in_fields / pool_height)
+        self.dense_output = Dense(pooled_fields * emb * filters,
+                                  in_fields * emb * new_filters,
+                                  kernel_init='glorot_uniform',
+                                  generator=generator)
+
+    def forward(self, x, training: bool = False):
+        B, n_fields, emb = x.shape[:3]
+        conv = self.activation(self.conv2d(x.permute(0, 3, 1, 2)))
+        low, high = same_pads(n_fields, self.pool_height, self.pool_height)
+        pooled = F.max_pool2d(
+            F.pad(conv, (0, 0, low, high), value=float('-inf')),
+            (self.pool_height, 1), (self.pool_height, 1))
+        pooled = pooled.permute(0, 2, 3, 1)  # (B, F', E, filters)
+        new = self.activation(self.dense_output(pooled.reshape(B, -1)))
+        return pooled, new.reshape(B, n_fields * self.new_filters, emb)

@@ -18,6 +18,9 @@ semantics in torch:
   axis (a ``(B, F, U)`` input as ``B·F`` rows), with ``epsilon=1e-3``, and
   keeps ``weight``/``bias`` (flax ``scale``/``bias``) and
   ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``);
+- a convolution (flax ``nn.Conv`` with ``padding='SAME'``) keeps its kernel
+  drawn in flax's ``(kh, kw, in, out)`` layout and stored as ``weight (out,
+  in, kh, kw)``, and pads as XLA's ``SAME`` does (the odd pad at the end);
 - dropout (flax ``nn.Dropout``) keeps an element with probability ``1 − rate``
   and scales it by ``1 / (1 − rate)``; its mask comes from an explicit
   ``torch.Generator``, as flax's comes from an explicit key.
@@ -106,3 +109,35 @@ class BatchNorm(nn.Module):
                 var.detach(), alpha=1 - self.momentum)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         return ((x - mean) * mul + self.bias).reshape(shape)
+
+
+def same_pads(size: int, window: int, stride: int = 1):
+    """XLA's ``SAME`` padding of one axis: ``(low, high)``, the odd one at
+    the end, so that the output has ``ceil(size / stride)`` entries."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv(features, kernel_size, padding='SAME')`` over an NCHW
+    input (the layout torch convolves in), stride 1, with a bias. The
+    kernel is drawn in flax's ``(kh, kw, in, out)`` layout, so its fans are
+    flax's."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size,
+                 kernel_init='lecun_normal', generator=None):
+        super().__init__()
+        kh, kw = kernel_size
+        kernel = get_initializer(kernel_init)(
+            generator, (kh, kw, in_channels, features))
+        self.weight = nn.Parameter(kernel.permute(3, 2, 0, 1).contiguous())
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        """``x`` (B, C, H, W), promoted to the float32 parameters."""
+        kh, kw = self.weight.shape[2:]
+        top, bottom = same_pads(x.shape[2], kh)
+        left, right = same_pads(x.shape[3], kw)
+        x = F.pad(x.to(self.weight.dtype), (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias)

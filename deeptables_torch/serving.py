@@ -79,6 +79,9 @@ class Predictor:
                 batch[pipeline.CAT_KEY] = np.zeros((b, len(cats)), np.int32)
             for g in conts:
                 batch[g.name] = np.zeros((b, g.input_dim), np.float32)
+            for c in self.model.var_len_categorical_columns:
+                batch[c.name] = np.zeros((b, c.max_elements_length or 1),
+                                         np.int32)
             self._forward(batch)
         logger.info(f'warmed up buckets {self.buckets}')
         return self

@@ -50,7 +50,9 @@ EPOCHS = 8
 BATCH = 512
 OUT = Path(__file__).resolve().parent / 'parity_results.json'
 ROWS = ('bank_deepfm', 'criteo_xdeepfm', 'avazu_autoint',
-        'boston_regression', 'glass_multiclass', 'multilabel_dnn')
+        'boston_regression', 'glass_multiclass', 'multilabel_dnn',
+        'adult_widedeep_dcn', 'bank_pnn', 'bank_fgcnn', 'bank_fibinet',
+        'bank_afm')
 MULTILABEL_TARGET = [f'label_{k}' for k in range(4)]
 # the first metric drives early stopping
 TASK_METRICS = {'binary': ['AUC', 'logloss'], 'regression': ['rmse'],
@@ -92,6 +94,21 @@ def configs():
             loader=lambda: ds.load_multilabel_synthetic(20000),
             target=MULTILABEL_TARGET, task='multilabel', nets=['dnn_nets'],
             conf=dict(task='multilabel')),
+        'adult_widedeep_dcn': dict(
+            loader=lambda: ds.load_adult(20000), target=14,
+            nets=['linear', 'dnn_nets', 'dcn_nets'], conf={}),
+        'bank_pnn': dict(
+            loader=lambda: ds.load_bank(20000), target='y',
+            nets=['pnn_nets'], conf={}),
+        'bank_fgcnn': dict(
+            loader=lambda: ds.load_bank(20000), target='y',
+            nets=['fgcnn_dnn_nets'], conf={}),
+        'bank_fibinet': dict(
+            loader=lambda: ds.load_bank(20000), target='y',
+            nets=['fibi_dnn_nets'], conf={}),
+        'bank_afm': dict(
+            loader=lambda: ds.load_bank(20000), target='y',
+            nets=['afm_nets'], conf={}),
     }
 
 

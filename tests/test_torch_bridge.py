@@ -4,7 +4,11 @@ own layout code: every table row is checked against ``unpack_table`` at the
 JAX ``plan_groups`` offsets, and every Dense and BatchNorm entry that
 follows the field axis against the JAX plan's field order. The CIN weights
 of xDeepFM on a non-ascending schema: every axis over the input fields in
-column order, the hidden-unit axes as they are. Copies are exact.
+column order, the hidden-unit axes as they are. Wide&Deep+DCN on the adult
+schema: Cross's kernels and biases and every Dense that reads a tensor laid
+out like ``concat_emb_dense`` in column order; the nets that read the
+fields in the JAX package's order (FGCNN, FiBiNet, AFM, the products) one
+to one. Copies are exact.
 """
 
 import numpy as np
@@ -201,3 +205,104 @@ def test_autoint_output_layer_rows_follow_the_column_order(autoint_case):
         np.testing.assert_array_equal(
             autoint_case.state_dict['task_output.weight'].numpy(),
             np.asarray(params['task_output']['kernel']).T)
+
+
+# ------------------------------------------------ Wide&Deep+DCN, the zoo
+
+@pytest.fixture(scope='module')
+def wdcn_case():
+    return Case('adult_widedeep_dcn', jit_init=True)
+
+
+def test_wide_deep_dcn_on_adult_permutes_what_reads_concat_emb_dense(
+        wdcn_case):
+    """Cross acts position by position on concat_emb_dense, which the port
+    keeps in column order: its kernels and biases, and the rows of
+    dcn_dense_1 and dense_logit_dcn_nets, go to column order in blocks of
+    D over the first F·D entries; the dense inputs' entries stay."""
+    params = wdcn_case.variables['params']
+    order = wdcn_case.field_order()
+    assert order == [6, 5, 4, 2, 0, 3, 1, 7]  # adult's vocabularies ascend
+    dim = wdcn_case.dims[0]
+    state = wdcn_case.state_dict
+    assert set(state) == set(wdcn_case.port_model().module.state_dict())
+    cross = params['dcn_cross_layer']
+    assert sorted(cross) == sorted(f'{k}_{i}' for k in ('kernels', 'bias')
+                                   for i in range(4))
+    for key, value in cross.items():
+        value = np.asarray(value)
+        np.testing.assert_array_equal(
+            state[f'dcn_cross_layer.{key}'].numpy(),
+            to_column_order(value.T, order, dim).T)
+    for name in ('dcn_dense_1', 'dense_logit_dcn_nets', 'dnn_dense_1'):
+        kernel = np.asarray(params[name]['kernel'])
+        np.testing.assert_array_equal(state[f'{name}.weight'].numpy(),
+                                      to_column_order(kernel.T, order, dim))
+    np.testing.assert_array_equal(state['dcn_dense_2.weight'].numpy(),
+                                  np.asarray(params['dcn_dense_2']['kernel']).T)
+
+
+@pytest.mark.parametrize('nets,reader,offset', [
+    (['cross_nets'], 'task_output', 0),
+    (['cross_nets', 'dnn_nets'], 'dense_logit_cross_nets', 0),
+    (['cross_dnn_nets'], 'cross_dnn_dense_1', 0),
+    (['pnn_nets'], 'pnn_dense_1', 2 * 28),
+    (['ipnn_nets'], 'ipnn_dense_1', 28),
+    (['opnn_nets'], 'opnn_dense_1', 28)])
+def test_readers_of_concat_emb_dense_follow_the_column_order(nets, reader,
+                                                             offset):
+    """Each Dense that reads a tensor laid out like concat_emb_dense has its
+    rows from ``offset`` (past the pair products, 28 pairs of 8 fields)
+    permuted; a net alone is read by task_output."""
+    case = Case('adult_widedeep_dcn', nets=nets, jit_init=True)
+    order = case.field_order()
+    kernel = np.asarray(case.variables['params'][reader]['kernel'])
+    expected = np.concatenate([kernel[:offset], to_column_order(
+        kernel[offset:].T, order, case.dims[0]).T]).T
+    np.testing.assert_array_equal(case.state_dict[f'{reader}.weight'].numpy(),
+                                  expected)
+
+
+def test_nets_in_flax_order_map_one_to_one():
+    """The nets that read the fields in the JAX package's order (FGCNN,
+    FiBiNet, AFM, the outer product) map without a permutation: a conv2d
+    kernel (kh, kw, in, out) → (out, in, kh, kw), every other leaf as it is
+    or as a Dense."""
+    case = Case('adult_widedeep_dcn', nets=['fgcnn_dnn_nets', 'fibi_nets',
+                                            'afm_nets', 'opnn_nets'],
+                jit_init=True, fgcnn_params={'fg_filters': (3, 4), 'fg_heights': (3, 2),
+                              'fg_pool_heights': (2, 2),
+                              'fg_new_feat_filters': (2, 1)})
+    params = case.variables['params']
+    state = case.state_dict
+    assert set(state) == set(case.port_model().module.state_dict())
+    stage = params['fgcnn_0_stage_0']
+    np.testing.assert_array_equal(
+        state['fgcnn_0_stage_0.conv2d.weight'].numpy(),
+        np.asarray(stage['conv2d']['kernel']).transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        state['fgcnn_0_stage_0.dense_output.weight'].numpy(),
+        np.asarray(stage['dense_output']['kernel']).T)
+    for key in ('fgcnn_dnn_dense_1', 'dense_logit_fibi_nets'):
+        np.testing.assert_array_equal(
+            state[f'{key}.weight'].numpy(),
+            np.asarray(params[key]['kernel']).T)
+    for key, leaf in (('senet_bilinear_layer_0.bilinear_weight',
+                       params['senet_bilinear_layer_0']['bilinear_weight']),
+                      ('afm_layer.projection_h',
+                       params['afm_layer']['projection_h']),
+                      ('outer_product_layer.kernel',
+                       params['outer_product_layer']['kernel'])):
+        np.testing.assert_array_equal(state[key].numpy(), np.asarray(leaf))
+
+
+def test_flax_field_order_is_shared_with_the_model():
+    from deeptables_torch.ops import embedding
+    assert bridge.flax_field_order is embedding.flax_field_order
+    vocabs, dims = [9, 16, 7, 15, 6, 5, 2, 42], [16] * 8
+    assert embedding.flax_field_order(vocabs, dims) == [6, 5, 4, 2, 0, 3, 1, 7]
+    # var-len fields follow; a var-len width apart stacks nothing
+    assert embedding.flax_field_order(vocabs, dims, [16]) == \
+        [6, 5, 4, 2, 0, 3, 1, 7, 8]
+    assert embedding.flax_field_order(vocabs, dims, [48]) == list(range(9))
+    assert embedding.flax_field_order([50, 7], [8, 16]) == [0, 1]

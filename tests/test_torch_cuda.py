@@ -1116,3 +1116,110 @@ def test_autoint_fit_on_cuda_matches_cpu(cuda, extra):
     for key in ('loss', 'val_loss', 'val_auc'):
         np.testing.assert_allclose(h_gpu.history[key], h_cpu.history[key],
                                    rtol=1e-4, err_msg=key)
+
+
+# ---------------------------------------------------------------- the zoo
+
+ADULT_VOCABS = [9, 16, 7, 15, 6, 5, 2, 42]
+
+
+def test_emb_grad_kernel_at_the_adult_ids(cuda):
+    """Wide&Deep+DCN's table: 8 columns, 102 rows, B=8192: runs of up to
+    4096 equal ids (the vocabulary-2 column) through the segment sum and
+    the merge; the same bits as the sorted twin."""
+    rng = np.random.default_rng(8)
+    cat = np.stack([rng.integers(0, v, 8192) for v in ADULT_VOCABS], axis=1)
+    offsets = np.concatenate([[0], np.cumsum(ADULT_VOCABS)[:-1]])
+    ids = torch.from_numpy((cat + offsets).astype(np.int32).reshape(-1))
+    g = torch.from_numpy(rng.normal(size=(len(ids), 16)).astype(np.float32))
+    assert emb_grad_design(len(ids), 16, 102, pointer_alignment(g)) == \
+        'segment_v4'
+    _check_emb_grad(ids.to(cuda), g.to(cuda), sum(ADULT_VOCABS))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fm_kernels_at_the_fgcnn_width(cuda, dtype):
+    """fgcnn_fm_nets: FM over the 104 fields of the FGCNN output."""
+    gen = torch.Generator().manual_seed(104)
+    x = torch.randn(8192, 104, 16, generator=gen).to(dtype).to(cuda)
+    g = torch.randn(8192, 1, generator=gen).to(dtype).to(cuda)
+    assert fm_design(dtype, 8192, 104, 16, pointer_alignment(x)) == 'vec16'
+    out = fm(x)
+    dx = fm_backward(x, g)
+    torch.cuda.synchronize()
+    _close(out, fm_reference(x.float()), x, RTOL[dtype])
+    scale = float((g.float().abs().reshape(-1, 1, 1)
+                   * x.float().abs().sum(dim=1, keepdim=True)).max())
+    np.testing.assert_allclose(
+        dx.float().cpu().numpy(),
+        fm_backward_reference(x, g).float().cpu().numpy(),
+        rtol=RTOL[dtype], atol=RTOL[dtype] * scale)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('G', [104, 64])
+def test_cin_kernels_at_the_fgcnn_width(cuda, G, dtype):
+    """fgcnn_cin_nets' CIN over the FGCNN output: F=104, G=104 then 64, L=128
+    at B=8192 (pair widths 10816 and 6656); bfloat16 on the tensor cores."""
+    B, F, L, D = 8192, 104, 128, 16
+    x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, G)
+    design = 'wgmma' if dtype == torch.bfloat16 else 'simt'
+    assert fwd_design(dtype, F, G) == bwd_design(dtype, F, G, L) == design
+    z = cin_fwd(x0, h, w)
+    dx0, dh, dw = cin_bwd(x0, h, w, dz)
+    torch.cuda.synchronize()
+    _cin_close(z, cin_fwd_reference(x0, h, w),
+               cin_fwd_reference(x0.abs(), h.abs(), w.abs()))
+    del z
+    expected = cin_bwd_reference(x0, h, w, dz)
+    scale = cin_bwd_reference(x0.abs(), h.abs(), w.abs(), dz.abs())
+    rtol_out = 0. if dtype == torch.float32 else 1e-2
+    _cin_close(dx0, expected[0], scale[0].float(), rtol_out)
+    _cin_close(dh, expected[1], scale[1].float(), rtol_out)
+    _cin_close(dw, expected[2], scale[2])
+
+
+@pytest.mark.parametrize('nets', [['linear', 'dnn_nets', 'dcn_nets'],
+                                  ['fgcnn_cin_nets'], ['fgcnn_fm_nets'],
+                                  ['pnn_nets'], ['fibi_dnn_nets'],
+                                  ['afm_nets']], ids=lambda n: '+'.join(n))
+def test_zoo_nets_on_cuda_match_cpu(cuda, nets):
+    """A step's gradients and the inference probabilities of a zoo net on
+    the card and on the CPU from the same weights, float32 (rtol 1e-4 with
+    1e-4 of each tensor's largest gradient and 1e-6 of the model's)."""
+    from deeptables_torch.models import (CategoricalColumn, ContinuousColumn,
+                                         DeepModel, ModelConfig)
+    from deeptables_torch.ops import losses
+    cats = tuple(CategoricalColumn(f'C{i}', v, 16)
+                 for i, v in enumerate(ADULT_VOCABS))
+    conts = (ContinuousColumn('input_continuous_all', ['I1', 'I2', 'I3']),)
+    config = ModelConfig(nets=nets, task='binary', embedding_dropout=0,
+                         cin_params={'cross_layer_size': (16, 8)},
+                         dnn_params={'hidden_units': ((64, 0, False),
+                                                      (32, 0, False))})
+    rng = np.random.default_rng(1)
+    X = {'cat': np.stack([rng.integers(0, v, 64) for v in ADULT_VOCABS],
+                         axis=1).astype(np.int32),
+         'input_continuous_all': rng.normal(size=(64, 3)).astype(np.float32)}
+    y = torch.from_numpy(rng.integers(0, 2, 64).astype(np.float32))
+    models = [DeepModel('binary', 2, config, cats, conts, device=d)
+              for d in (cuda, 'cpu')]
+    models[1].build().load_state_dict(models[0].build().state_dict())
+    grads = []
+    for model in models:
+        logits, _ = model.module(model.to_device(X), training=True)
+        losses.binary_crossentropy(logits, y.to(model.device)).backward()
+        grads.append({k: p.grad.cpu() for k, p in
+                      model.module.named_parameters() if p.grad is not None})
+    assert set(grads[0]) == set(grads[1])
+    # plus 1e-6 of the model's largest gradient: the dense BatchNorm's
+    # gradient is zero in exact arithmetic where only the next BatchNorm
+    # reads the dense inputs (the product nets), rounding on both devices
+    floor = 1e-6 * max(float(g.abs().max()) for g in grads[1].values())
+    for k, ref in grads[1].items():
+        np.testing.assert_allclose(grads[0][k].numpy(), ref.numpy(),
+                                   rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()) + floor,
+                                   err_msg=k)
+    np.testing.assert_allclose(models[0].predict(X), models[1].predict(X),
+                               atol=1e-5)

@@ -138,6 +138,25 @@ for extra in ({}, {'fuse_projections': True}):
     history = amodel.fit({'cat': acat}, click.astype(np.float32),
                          batch_size=4, epochs=1, verbose=0)
     assert np.isfinite(history.history['loss']).all()
+# every other net of the zoo at once, beside a var-len column (its pooled
+# field stacks onto the categorical ones), and custom_dnn_D_A_D_B
+from deeptables_torch.models import VarLenCategoricalColumn, deepnets
+zoo = [n for n in deepnets._BUILTIN if n not in
+       ('linear', 'fm_nets', 'cin_nets', 'autoint_nets', 'dnn_nets')]
+genres = VarLenCategoricalColumn('genres', 6, 8, pooling_strategy='max')
+genres.max_elements_length = 3
+zconfig = ModelConfig(
+    nets=zoo, embedding_dropout=0, cin_params={'cross_layer_size': (4, 2)},
+    fgcnn_params={'fg_filters': (2, 2), 'fg_heights': (3, 3),
+                  'fg_pool_heights': (2, 2), 'fg_new_feat_filters': (1, 1)},
+    dnn_params={'hidden_units': ((8, 0, True),),
+                'custom_dnn_fn': deepnets.custom_dnn_D_A_D_B})
+zmodel = DeepModel('binary', 2, zconfig, cats, conts,
+                   var_categorical_len_columns=[genres], device='cpu')
+zdata = {'cat': cat, 'input_continuous_all': dense,
+         'genres': (np.arange(27).reshape(9, 3) % 6).astype(np.int32)}
+history = zmodel.fit(zdata, y, batch_size=4, epochs=1, verbose=0)
+assert np.isfinite(history.history['loss']).all()
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))

@@ -10,13 +10,16 @@ import torch
 
 from deeptables_tpu.data.datasets import load_criteo_synthetic
 from deeptables_tpu.models import (CategoricalColumn, ContinuousColumn,
-                                   DeepModel, ModelConfig)
+                                   DeepModel, ModelConfig,
+                                   VarLenCategoricalColumn)
 from deeptables_tpu.ops.embedding import plan_groups
 from deeptables_torch import bridge
 from deeptables_torch.models import CategoricalColumn as TCategoricalColumn
 from deeptables_torch.models import ContinuousColumn as TContinuousColumn
 from deeptables_torch.models import DeepModel as TDeepModel
 from deeptables_torch.models import ModelConfig as TModelConfig
+from deeptables_torch.models import \
+    VarLenCategoricalColumn as TVarLenCategoricalColumn
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
 
@@ -56,6 +59,10 @@ SCHEMAS = {
     'autoint_nonascending_d16': ([24, 7, 300, 9], [16] * 4, 0, AUTOINT),
     'autoint_dnn_d8': ([24, 7, 7, 400, 30], [8] * 5, 2,
                        ['autoint_nets', 'dnn_nets']),
+    # Wide&Deep+DCN on the adult schema of benchmarks/bench_models.py:
+    # 8 columns, JAX field order [6, 5, 4, 2, 0, 3, 1, 7], 6 dense
+    'adult_widedeep_dcn': ([9, 16, 7, 15, 6, 5, 2, 42], [16] * 8, 6,
+                           ['linear', 'dnn_nets', 'dcn_nets']),
 }
 
 
@@ -66,8 +73,14 @@ class Case:
 
     def __init__(self, schema, dtype_policy='float32', seed=0,
                  cin_params=None, autoint_params=None, task='binary',
-                 num_classes=2, **config):
-        vocabs, dims, n_dense, nets = SCHEMAS[schema]
+                 num_classes=2, nets=None, var_len=(), jit_init=False,
+                 **config):
+        """``nets`` replaces the schema's nets; ``var_len`` adds var-len
+        columns, ``(name, vocabulary_size, dim, pooling, max_len)`` each;
+        ``jit_init`` draws the JAX weights under ``jax.jit`` (the same
+        initializers, compiled once instead of op by op)."""
+        vocabs, dims, n_dense, schema_nets = SCHEMAS[schema]
+        nets = schema_nets if nets is None else list(nets)
         self.vocabs, self.dims, self.nets = vocabs, dims, nets
         self.task, self.num_classes = task, num_classes
         kwargs = dict(nets=nets, metrics=['AUC'], task=task,
@@ -76,7 +89,7 @@ class Case:
                                   'activation': 'relu'},
                       dtype_policy=dtype_policy)
         kwargs.update(config)
-        if 'cin_nets' in nets:
+        if any('cin_nets' in n for n in nets if isinstance(n, str)):
             kwargs['cin_params'] = dict(CIN_PARAMS, **(cin_params or {}))
         if 'autoint_nets' in nets:
             kwargs['autoint_params'] = dict(AUTOINT_PARAMS,
@@ -90,22 +103,37 @@ class Case:
                                for i, (v, d) in enumerate(zip(vocabs, dims)))
         self.port_conts = (TContinuousColumn('input_continuous_all',
                                              dense_names),) if n_dense else ()
+        self.var_len = tuple(var_len)
+        self.jax_vars, self.port_vars = [], []
+        for name, voc, dim, pooling, max_len in self.var_len:
+            for cls, cols in ((VarLenCategoricalColumn, self.jax_vars),
+                              (TVarLenCategoricalColumn, self.port_vars)):
+                col = cls(name, voc, dim, pooling_strategy=pooling)
+                col.max_elements_length = max_len
+                cols.append(col)
         self.jax_config = ModelConfig(**kwargs)
         self.port_config = TModelConfig(**kwargs)
 
         self.jax_model = DeepModel(task, num_classes, self.jax_config,
-                                   self.jax_cats, self.jax_conts)
+                                   self.jax_cats, self.jax_conts,
+                                   var_categorical_len_columns=self.jax_vars)
+        if jit_init:
+            self.jax_model.variables = jit_init_variables(self.jax_model)
         self.jax_model.build()
         randomize_batch_norm(self.jax_model.variables, seed)
-        zero_padding_rows(self.jax_model.variables, vocabs, dims)
+        zero_padding_rows(self.jax_model.variables, vocabs, dims,
+                          self.var_len)
         self.variables = jax.device_get(self.jax_model.variables)
         self.state_dict = bridge.state_dict_from_flax(
-            self.variables, self.port_cats, self.port_conts, self.port_config)
+            self.variables, self.port_cats, self.port_conts, self.port_config,
+            self.port_vars)
 
     def port_model(self):
         """A port DeepModel on the CPU holding the bridged weights."""
         model = TDeepModel(self.task, self.num_classes, self.port_config,
-                           self.port_cats, self.port_conts, device='cpu')
+                           self.port_cats, self.port_conts,
+                           var_categorical_len_columns=self.port_vars,
+                           device='cpu')
         model.build().load_state_dict(self.state_dict, strict=True)
         return model
 
@@ -116,6 +144,13 @@ class Case:
         if self.jax_conts:
             dense = rng.normal(0.5, 1.5, (n, self.jax_conts[0].input_dim))
             batch['input_continuous_all'] = dense.astype(np.float32)
+        for name, voc, _, _, max_len in self.var_len:
+            # tokens 1.. then padding 0; the first row has no token
+            lengths = rng.integers(0, max_len + 1, n)
+            lengths[0] = 0
+            ids = rng.integers(1, voc, (n, max_len))
+            ids[np.arange(max_len)[None] >= lengths[:, None]] = 0
+            batch[name] = ids.astype(np.int32)
         return batch
 
     def labels(self, n, seed=2):
@@ -152,6 +187,20 @@ class Case:
         return list(range(len(self.vocabs)))
 
 
+def jit_init_variables(model):
+    """``DeepModel.build``'s variables, its ``module.init`` under
+    ``jax.jit``."""
+    from flax.core import unfreeze
+    module = model._build_module()
+    rng = jax.random.PRNGKey(model.config.seed)
+    init = jax.jit(lambda batch: module.init(
+        {'params': rng, 'dropout': jax.random.fold_in(rng, 1)}, batch,
+        training=True))
+    variables = unfreeze(init(model._dummy_batch()))
+    variables.setdefault('batch_stats', {})
+    return variables
+
+
 def randomize_batch_norm(variables, seed):
     """Random scale/bias/mean/var for every BatchNorm (nested ones too,
     such as ``autoint_attention_0/batch_normalize``), so that eval-mode
@@ -172,12 +221,18 @@ def randomize_batch_norm(variables, seed):
     visit(variables.get('batch_stats', {}), variables['params'])
 
 
-def zero_padding_rows(variables, vocabs, dims):
+def zero_padding_rows(variables, vocabs, dims, var_len=()):
     """Zero the rows of the JAX package's lane-packed embedding tables that
-    no column reads (alignment padding, which its initializer fills). The
-    port keeps the vocabularies' rows only, so a weight penalty or a
-    per-tensor norm (LAMB) agrees between the two only without them; those
-    rows get no gradient and no decay, so they stay zero."""
+    no column reads (alignment padding, which its initializer fills), the
+    var-len tables' too. The port keeps the vocabularies' rows only, so a
+    weight penalty or a per-tensor norm (LAMB) agrees between the two only
+    without them; those rows get no gradient and no decay, so they stay
+    zero."""
+    for name, voc, dim, _, _ in var_len:
+        node = variables['params'][f'emb_{name}']
+        table = np.array(node['embeddings'], np.float32)
+        table.reshape(-1, dim)[voc:] = 0
+        node['embeddings'] = jax.numpy.asarray(table)
     tables = variables['params'].get('emb_categorical_vars_all')
     if tables is None:
         return
