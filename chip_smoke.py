@@ -33,8 +33,9 @@ these phases, each printing one JSON line:
    ``load_criteo_synthetic`` ids, which follow a Zipf law, and on uniform
    ids at the same shapes, on AutoInt's avazu-style ids
    (``load_avazu_synthetic``, 22 columns, B=8192), on Wide&Deep+DCN's adult
-   ids (8 columns, 102 rows, B=8192) and on a batch whose ids are all one
-   row (B=8192, no bar), with the same timings and each
+   ids (8 columns, 102 rows, B=8192), on the stream phase's hashed ids
+   (uniform over 26 columns' buckets, 855,648 rows, B=8192) and on a batch
+   whose ids are all one row (B=8192, no bar), with the same timings and each
    kernel's time apart (``kernels_ms``: the sort's kernels, the fill, the
    segment sum and the merge; ``sort_ms``, ``fill_ms`` and ``segment_ms``
    sum them, and ``sort_alone_ms`` times ``torch.sort`` by itself). Each
@@ -159,7 +160,28 @@ these phases, each printing one JSON line:
 
 Then a ``determinism`` line: two DeepFM fits of three 8192-row steps under
 ``'bfloat16'`` from one seed, and the parameter tensors whose bits differ
-between them (a measurement, not a check). Then a ``profiler`` line
+between them (a measurement, not a check).
+
+9. Streaming from files, on TSV shards the script writes to a temporary
+   directory (Criteo format, ``write_stream_tsv``: two training shards of
+   165,000 rows, a validation shard of 41,000), at the JAX package's
+   ingest configuration (``STREAM_BUCKETS``, 855,648 table rows):
+   - ``ingest``: the host parser (``csrc/fast_ingest.cpp``) built, and
+     equal to its Python twin on the first 2000 rows; its rows/s and MB/s
+     over the training shards alone, beside ``os.cpu_count()``.
+   - ``stream``: ``CriteoTsvSource`` (16 MB reads) → ``CriteoStreamLoader``
+     → ``DeepModel.fit`` on the card, DeepFM under ``'bfloat16'``, B=8192,
+     two epochs with a validation loader: examples/s a epoch and the step
+     times (host clock, synchronised), the launches (K1 and K2-bwd once a
+     step, K2-fwd once a step and a validation batch, checked), the peak
+     allocation (``utils/device.memory_stats``), that the loss fell,
+     streaming ``evaluate`` and ``predict`` within 1e-5 of the in-memory
+     ones on the same rows, and the card against the CPU's plain path over
+     the same shards (three steps, both policies, the train phase's rules).
+   - ``stream_determinism``: two fits from one seed end with equal
+     parameters, bit for bit (checked).
+
+Then a ``profiler`` line
 (``incomplete_windows``: the timing windows that
 lost launches three times in a row, whose times are the means of the
 launches seen), one ``kernels`` line (every ported kernel, its launches on
@@ -170,11 +192,14 @@ nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
 """
 
+import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -296,6 +321,25 @@ ZOO_ROUNDING_PARAM_ATOL = 2 * 3 * 1e-3
 VARLEN_TOKENS, VARLEN_VOCAB = 20, 1000
 HEADS_METRICS = {'binary': ['AUC'], 'multiclass': ['accuracy'],
                  'regression': ['mse'], 'multilabel': ['logloss']}
+# the stream phase: DeepFM trained from Criteo TSV shards through the native
+# parser and CriteoStreamLoader, at the JAX package's ingest configuration
+# (benchmarks/bench_ingest_e2e.py:65, 91-109): these hash buckets (855,648
+# table rows), D=16, 13 dense inputs, DNN 1024/512 relu, bfloat16, B=8192;
+# two training shards and a validation one, read 16 MB at a time
+STREAM_BUCKETS = (100_000,) * 7 + (8192,) * 19
+STREAM_ROWS = {'train': (165_000, 165_000), 'val': (41_000,)}
+STREAM_CHUNK_BYTES = 16 << 20
+STREAM_EPOCHS = 2
+# the label's columns: the first three draw their tokens from pools of these
+# sizes (the rest uniformly from 2^32, as the bench draws them all), so that
+# a logistic model of them and of the first three dense values can be learnt
+STREAM_POOLS = (50, 500, 5000)
+STREAM_PARSE_CHECK_ROWS = 2000  # native parser against its Python twin
+STREAM_COMPARE_STEPS = 3  # card against CPU: steps_per_epoch
+STREAM_DETERMINISM_STEPS = 6
+STREAM_SEED = 21
+# streaming evaluate/predict against the in-memory ones on the same rows
+STREAM_EVAL_ATOL = 1e-5
 
 
 def emit(obj):
@@ -1153,6 +1197,16 @@ def emb_grad_cases(torch, vocabs, load_criteo_synthetic, datasets):
         return flat_ids(torch, adult_data(TRAIN_BATCH, seed)[0]['cat'],
                         adult_table)
     cases.append(('adult', TRAIN_BATCH, adult_table, adult, 0))
+    # the stream phase's table of 855,648 rows: uniform 32-bit tokens
+    # hashed into each column's buckets are uniform over them
+    stream_table = np.asarray(STREAM_BUCKETS) - 1
+
+    def stream(seed):
+        rng = np.random.default_rng(seed)
+        return flat_ids(torch, np.stack(
+            [rng.integers(0, b, TRAIN_BATCH) for b in STREAM_BUCKETS],
+            axis=1), stream_table)
+    cases.append(('stream', TRAIN_BATCH, stream_table, stream, 0))
     cases.append(('one_row', TRAIN_BATCH, vocabs, one_row, 0))
     cases += [('criteo', TRAIN_BATCH, vocabs, criteo(TRAIN_BATCH), 1),
               ('uniform', TRAIN_BATCH, vocabs, uniform(TRAIN_BATCH), 1),
@@ -2155,6 +2209,322 @@ def determinism_phase(torch, port, vocabs, data, steps=3):
           'differ': differ})
 
 
+def write_stream_tsv(path, n_rows, seed):
+    """Criteo-format TSV as benchmarks/bench_ingest_e2e.py:32-53 writes it: a
+    label, 13 integers of 0-4999 (10% blank) and 26 tokens of 8 hex digits,
+    tab-separated. The first three columns draw their tokens from pools of
+    STREAM_POOLS tokens, the rest uniformly from 2^32; the label comes from
+    a fixed logistic model of the pooled tokens and of log1p of the first
+    three integers (the bench's labels are random), so the loss can fall."""
+    rng = np.random.default_rng(seed)
+    truth = np.random.default_rng(1234)
+    dense = rng.integers(0, 5000, (n_rows, N_DENSE))
+    blank = rng.random((n_rows, N_DENSE)) < 0.1
+    tokens = rng.integers(0, 1 << 32, (n_rows, F_CRITEO), dtype=np.uint64)
+    score = np.zeros(n_rows)
+    for j, size in enumerate(STREAM_POOLS):
+        pool = truth.integers(0, 1 << 32, size, dtype=np.uint64)
+        pick = rng.integers(0, size, n_rows)
+        tokens[:, j] = pool[pick]
+        score += truth.normal(size=size)[pick]
+    logd = np.where(blank, 0., np.log1p(dense))
+    for j in range(3):
+        score += truth.normal() * (logd[:, j] - 7.5)
+    label = rng.uniform(size=n_rows) < 1 / (1 + np.exp(-score))
+    digits = np.frombuffer(b'0123456789abcdef', np.uint8)
+    shifts = np.arange(28, -1, -4, dtype=np.uint64)
+    numbers = np.array([str(v).encode() for v in range(5000)] + [b''],
+                       dtype=object)
+    with open(path, 'wb') as f:
+        for lo in range(0, n_rows, 1 << 15):
+            hi = min(lo + (1 << 15), n_rows)
+            # the tokens' hex digits, a tab after each token, a newline last
+            nibbles = (tokens[lo:hi, :, None] >> shifts) & np.uint64(15)
+            text = np.empty((hi - lo, F_CRITEO, 9), np.uint8)
+            text[..., :8] = digits[nibbles.astype(np.intp)]
+            text[..., 8] = ord('\t')
+            text[:, -1, 8] = ord('\n')
+            text = text.reshape(hi - lo, -1)
+            dense_text = numbers[np.where(blank[lo:hi], 5000,
+                                          dense[lo:hi])].tolist()
+            f.write(b''.join(
+                b'%d\t%s\t%s' % (label[lo + i], b'\t'.join(dense_text[i]),
+                                 text[i].tobytes())
+                for i in range(hi - lo)))
+
+
+def stream_shards(tmp):
+    """The stream phase's shards in ``tmp``: {'train': [paths], 'val':
+    [paths]}, and the seconds it took to write them."""
+    t0 = time.perf_counter()
+    paths, seed = {}, STREAM_SEED
+    for split, sizes in STREAM_ROWS.items():
+        paths[split] = []
+        for i, n in enumerate(sizes):
+            path = str(Path(tmp) / f'{split}_{i}.tsv')
+            write_stream_tsv(path, n, seed)
+            seed += 1
+            paths[split].append(path)
+    return paths, time.perf_counter() - t0
+
+
+def ingest_phase(fast_ingest, paths, write_s):
+    """The native parser: that it built, that it equals its Python twin on
+    the first shard's first STREAM_PARSE_CHECK_ROWS rows, and its rate over
+    the training shards alone (no device)."""
+    check(fast_ingest.have_native(), 'the native TSV parser did not build: '
+                                     'the stream phase would time Python')
+    with open(paths['train'][0], 'rb') as f:
+        head = b''.join(itertools.islice(f, STREAM_PARSE_CHECK_ROWS))
+    native = fast_ingest.parse_criteo_tsv(head, hash_buckets=STREAM_BUCKETS)
+    plain = fast_ingest._parse_criteo_py(
+        head, N_DENSE, F_CRITEO, np.asarray(STREAM_BUCKETS, np.int64))
+    for a, b, name in zip(native, plain, ('labels', 'dense', 'cats')):
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and np.array_equal(a, b),
+              f'the native parser differs from _parse_criteo_py: {name}')
+    check(len(native[0]) == STREAM_PARSE_CHECK_ROWS, 'parse check rows')
+    source = fast_ingest.CriteoTsvSource(paths['train'],
+                                         hash_buckets=STREAM_BUCKETS,
+                                         chunk_bytes=STREAM_CHUNK_BYTES)
+    rows = chunks = 0
+    t0 = time.perf_counter()
+    for labels, _, _ in source.iter_chunks():
+        rows += len(labels)
+        chunks += 1
+    parse_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(p) for p in paths['train'])
+    check(rows == sum(STREAM_ROWS['train']), f'parsed {rows} rows')
+    emit({'phase': 'ingest', 'native': True,
+          'parse_equal_to_python_rows': STREAM_PARSE_CHECK_ROWS,
+          'rows': rows, 'bytes': nbytes, 'files': len(paths['train']),
+          'chunks': chunks, 'chunk_bytes': STREAM_CHUNK_BYTES,
+          'parse_s': parse_s, 'rows_per_s': rows / parse_s,
+          'mb_per_s': nbytes / 1e6 / parse_s, 'cpu_count': os.cpu_count(),
+          'parse_threads': min(os.cpu_count() or 1, 16),
+          'write_s': write_s})
+
+
+def stream_model(port, criteo, dtype_policy, device):
+    """DeepFM on the hashed Criteo schema of STREAM_BUCKETS."""
+    cats, conts = criteo.criteo_columns(STREAM_BUCKETS, emb_dim=D_CRITEO,
+                                        n_dense=N_DENSE)
+    config = port.ModelConfig(
+        nets=NETS['DeepFM'], metrics=['AUC'], task='binary',
+        embedding_dropout=0, embeddings_output_dim=D_CRITEO,
+        dnn_params={'hidden_units': ((1024, 0, False), (512, 0, False)),
+                    'activation': 'relu'},
+        dtype_policy=dtype_policy, earlystopping_patience=0)
+    return port.DeepModel('binary', 2, config, cats, conts, device=device)
+
+
+def stream_loaders(criteo, fast_ingest, paths):
+    """(training loader, validation loader) over the shards: shuffled
+    batches of 8192 from STREAM_SEED, the remainder of each chunk dropped;
+    the validation rows in order, all of them."""
+    def source(split):
+        return fast_ingest.CriteoTsvSource(paths[split],
+                                           hash_buckets=STREAM_BUCKETS,
+                                           chunk_bytes=STREAM_CHUNK_BYTES)
+    return (criteo.CriteoStreamLoader(source('train'), batch_size=TRAIN_BATCH,
+                                      seed=STREAM_SEED),
+            criteo.CriteoStreamLoader(source('val'), batch_size=TRAIN_BATCH,
+                                      shuffle=False, drop_remainder=False))
+
+
+def stream_card_vs_cpu(torch, port, criteo, fast_ingest, paths,
+                       dtype_policy):
+    """The same shards, STREAM_COMPARE_STEPS steps and the validation loader
+    on the card and on the CPU's plain path from the same initial weights,
+    by the train phase's rules: losses float32 rtol 1e-4, bfloat16 atol
+    1e-2; float32 parameters by check_params."""
+    fits, init_state = {}, None
+    for run, device in (('card', None), ('cpu', 'cpu')):
+        model = stream_model(port, criteo, dtype_policy, device)
+        module = model.build()
+        if init_state is None:
+            init_state = {k: v.detach().cpu().clone()
+                          for k, v in module.state_dict().items()}
+        else:
+            module.load_state_dict(init_state)
+        train_loader, val_loader = stream_loaders(criteo, fast_ingest, paths)
+        t0 = time.perf_counter()
+        h = model.fit(train_loader, epochs=1,
+                      steps_per_epoch=STREAM_COMPARE_STEPS,
+                      validation_data=val_loader, verbose=0)
+        fits[run] = ({k: v.detach().cpu() for k, v in
+                      module.state_dict().items()},
+                     {k: v[0] for k, v in h.history.data.items()},
+                     time.perf_counter() - t0)
+        del model, module
+    (card_state, card_logs, card_s), (cpu_state, cpu_logs, cpu_s) = \
+        fits['card'], fits['cpu']
+    what = f'stream {dtype_policy}'
+    loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                 for k in ('loss', 'val_loss')}
+    params = None
+    if dtype_policy == 'float32':
+        for k, d in loss_diff.items():
+            check(d <= 1e-4 * abs(cpu_logs[k]),
+                  f'{what}: card {k} {card_logs[k]} vs CPU {cpu_logs[k]}')
+        params = check_params(what, card_state, cpu_state)
+        tolerance = {'loss_rtol': 1e-4, 'param_atol': PARAM_ATOL,
+                     'param_outlier_share': PARAM_OUTLIERS}
+    else:
+        check(all(d <= 1e-2 for d in loss_diff.values()),
+              f'{what}: card and CPU losses differ by {loss_diff}')
+        tolerance = {'loss_atol': 1e-2}
+    return {'dtype_policy': dtype_policy, 'steps': STREAM_COMPARE_STEPS,
+            'card': card_logs, 'cpu': cpu_logs, 'loss_diff': loss_diff,
+            'params_vs_cpu': params, 'tolerance': tolerance,
+            'card_fit_s': card_s, 'cpu_fit_s': cpu_s}
+
+
+def stream_phase(torch, port, kernel_fns, paths):
+    """DeepFM trained from the TSV shards through the native parser,
+    CriteoStreamLoader and ``DeepModel.fit`` on the card (STREAM_EPOCHS
+    epochs, a validation loader), at the bench's ingest configuration. It
+    checks the launches (K1, K2-bwd once a step, K2-fwd once a step and a
+    validation batch; no other kernel), that the loss fell, streaming
+    ``evaluate`` and ``predict`` against the in-memory ones on the same
+    rows (STREAM_EVAL_ATOL), and the card against the CPU
+    (stream_card_vs_cpu, both policies). Returns the fit's launches."""
+    from deeptables_torch.data import criteo, fast_ingest
+    from deeptables_torch.models.callbacks import LambdaCallback
+    from deeptables_torch.utils import device as device_utils
+
+    model = stream_model(port, criteo, 'bfloat16', None)
+    train_loader, val_loader = stream_loaders(criteo, fast_ingest, paths)
+    val_chunks = list(val_loader.source.iter_chunks())
+    val_batches = sum(-(-len(c[0]) // TRAIN_BATCH) for c in val_chunks)
+    step_s, val_s, epochs = [], [], []
+    train_step, loader_logits = model._train_step, model._loader_logits
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_validation(loader):
+        t = time.perf_counter()
+        out = loader_logits(loader)
+        val_s.append(time.perf_counter() - t)
+        return out
+
+    def epoch_begin(epoch, logs=None):
+        torch.cuda.synchronize()
+        epochs.append({'t': time.perf_counter(), 'first_step': len(step_s)})
+
+    def epoch_end(epoch, logs=None):
+        torch.cuda.synchronize()
+        epochs[-1].update(s=time.perf_counter() - epochs[-1].pop('t'),
+                          steps=len(step_s) - epochs[-1]['first_step'])
+    model._train_step, model._loader_logits = timed_step, timed_validation
+    reset_launches(kernel_fns)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = model.fit(train_loader, epochs=STREAM_EPOCHS, verbose=0,
+                        validation_data=val_loader,
+                        callbacks=[LambdaCallback(on_epoch_begin=epoch_begin,
+                                                  on_epoch_end=epoch_end)])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches(kernel_fns)
+    peak = device_utils.memory_stats()['allocated_bytes.all.peak']
+    del model._train_step, model._loader_logits
+    logs = {k: list(v) for k, v in history.history.data.items()}
+    steps = len(step_s)
+    per_epoch = [e['steps'] for e in epochs]
+    check(len(per_epoch) == STREAM_EPOCHS and min(per_epoch) > 0
+          and len(set(per_epoch)) == 1, f'stream steps by epoch {per_epoch}')
+    check(all(math.isfinite(v) for vs in logs.values() for v in vs),
+          f'stream: non-finite logs {logs}')
+    check(logs['loss'][-1] < logs['loss'][0],
+          f'stream: the loss did not fall: {logs["loss"]}')
+    expected = dict.fromkeys(kernel_fns, 0)
+    expected.update(emb_grad=steps, fm_bwd=steps,
+                    fm_fwd=steps + STREAM_EPOCHS * val_batches)
+    check(launches == expected, f'stream: {steps} steps and {STREAM_EPOCHS} '
+                                f'validations of {val_batches} batches '
+                                f'launched {launches}, expected {expected}')
+
+    # streaming evaluate and predict against the in-memory ones
+    labels, dense, cats = (np.concatenate(a) for a in zip(*val_chunks))
+    arrays = {criteo.CAT_KEY: cats, criteo.DENSE_KEY: dense}
+    scores = {'stream': dict(model.evaluate(val_loader)),
+              'in_memory': dict(model.evaluate(arrays, labels,
+                                               batch_size=TRAIN_BATCH))}
+    proba = {'stream': model.predict(val_loader),
+             'in_memory': model.predict(arrays, batch_size=TRAIN_BATCH)}
+    check(proba['stream'].shape == (len(labels), 1)
+          and np.isfinite(proba['stream']).all(),
+          f'stream predict gave {proba["stream"].shape}')
+    predict_diff = float(np.abs(proba['stream'] - proba['in_memory']).max())
+    score_diff = {k: abs(v - scores['in_memory'][k])
+                  for k, v in scores['stream'].items()}
+    check(predict_diff <= STREAM_EVAL_ATOL
+          and max(score_diff.values()) <= STREAM_EVAL_ATOL,
+          f'stream evaluate/predict differ from the in-memory ones: '
+          f'{score_diff}, predict {predict_diff}')
+    del model
+    torch.cuda.empty_cache()
+    card_vs_cpu = [stream_card_vs_cpu(torch, port, criteo, fast_ingest, paths,
+                                      policy)
+                   for policy in ('bfloat16', 'float32')]
+    later = sorted(step_s[per_epoch[0]:])
+    emit({'phase': 'stream', 'model': 'DeepFM', 'dtype_policy': 'bfloat16',
+          'hash_buckets': list(STREAM_BUCKETS),
+          'table_rows': int(sum(STREAM_BUCKETS)), 'batch_size': TRAIN_BATCH,
+          'rows': {k: list(v) for k, v in STREAM_ROWS.items()},
+          'chunk_bytes': STREAM_CHUNK_BYTES, 'epochs': STREAM_EPOCHS,
+          'steps_per_epoch': per_epoch, 'val_batches': val_batches,
+          'fit_s': fit_s, 'epoch_s': [e['s'] for e in epochs],
+          'validation_s': val_s,
+          'examples_per_s': [TRAIN_BATCH * e['steps'] / (e['s'] - v)
+                             for e, v in zip(epochs, val_s)],
+          'median_step_ms': 1e3 * sorted(step_s)[steps // 2],
+          'median_step_ms_after_epoch_1': 1e3 * later[len(later) // 2],
+          'step_ms': [1e3 * t for t in step_s],
+          'launches': launches,
+          'launches_per_step': {k: (launches[k] - (
+              STREAM_EPOCHS * val_batches if k == 'fm_fwd' else 0)) / steps
+              for k in ('fm_fwd', 'fm_bwd', 'emb_grad')},
+          'peak_allocated_bytes': peak, 'logs': logs,
+          'val_auc': logs['val_auc'][-1],
+          'evaluate': scores, 'evaluate_diff': score_diff,
+          'predict_max_abs_diff': predict_diff,
+          'eval_atol': STREAM_EVAL_ATOL, 'card_vs_cpu': card_vs_cpu})
+    return launches
+
+
+def stream_determinism_phase(torch, port, paths):
+    """Two card fits of STREAM_DETERMINISM_STEPS shuffled steps from one
+    seed: their parameters must be equal bit for bit (the loader's order is
+    drawn on the iterating thread, K1 sums without atomics)."""
+    from deeptables_torch.data import criteo, fast_ingest
+    states = []
+    for _ in range(2):
+        model = stream_model(port, criteo, 'bfloat16', None)
+        train_loader, _ = stream_loaders(criteo, fast_ingest, paths)
+        model.fit(train_loader, epochs=1,
+                  steps_per_epoch=STREAM_DETERMINISM_STEPS, verbose=0)
+        states.append({k: v.detach().cpu().clone()
+                       for k, v in model.module.state_dict().items()})
+        del model
+    first, second = states
+    differ = {k: float((first[k].double() - second[k].double()).abs().max())
+              for k in first if not torch.equal(first[k], second[k])}
+    emit({'phase': 'stream_determinism', 'model': 'DeepFM',
+          'dtype_policy': 'bfloat16', 'steps': STREAM_DETERMINISM_STEPS,
+          'batch_size': TRAIN_BATCH, 'tensors': len(first),
+          'differ': differ})
+    check(not differ, f'two stream fits from one seed differ: {differ}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2255,16 +2625,27 @@ def main():
     determinism_phase(torch, port, vocabs, criteo[2])
     torch.cuda.empty_cache()
 
+    from deeptables_torch.data import fast_ingest
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_stream_') as tmp:
+        paths, write_s = stream_shards(tmp)
+        ingest_phase(fast_ingest, paths, write_s)
+        for name, count in stream_phase(torch, port, kernel_fns,
+                                        paths).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+        stream_determinism_phase(torch, port, paths)
+        torch.cuda.empty_cache()
+
     head = next(r for r in rows if (r['dtype'], r['B'], r['F'],
                                     r['x_offset']) == (*HEADLINE, F_CRITEO, 0))
     fm_fgcnn = {r['dtype']: {k: r[k] for k in (
         'B', 'F', 'design', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
         'bound_by')} for r in rows if r['F'] == F_FGCNN}
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
-    grad, grad_avazu, grad_adult = (
+    grad, grad_avazu, grad_adult, grad_stream = (
         next(r for r in grad_rows if (r['ids'], r['B'], r['g_offset'])
              == (ids, TRAIN_HEADLINE[1], 0))
-        for ids in ('criteo', 'avazu', 'adult'))
+        for ids in ('criteo', 'avazu', 'adult', 'stream'))
     cin_fgcnn = {name: [{k: r[k] for k in (
         'dtype', 'layer', 'B', 'F', 'G', 'L', 'design', 'max_abs_err', 'ms',
         'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
@@ -2317,7 +2698,8 @@ def main():
             'B', 'N', 'V', 'design', 'max_abs_err', 'ms', 'plain_ms',
             'library_ms', 'library_deterministic_ms', 'sort_ms',
             'segment_ms', 'fill_ms', 'bound_ms', 'bound_by')}
-           for ids, r in (('avazu', grad_avazu), ('adult', grad_adult))}}, {
+           for ids, r in (('avazu', grad_avazu), ('adult', grad_adult),
+                          ('stream', grad_stream))}}, {
         'name': 'cin_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',

@@ -1,1 +1,3 @@
 # -*- coding:utf-8 -*-
+from . import datasets, pipeline
+from .datasets import dsutils

@@ -325,6 +325,18 @@ def load_avazu_synthetic(n_rows=100_000, seed=31):
     return df
 
 
+class dsutils:
+    """Namespace parity with ``from deeptables.datasets import dsutils``."""
+    load_adult = staticmethod(load_adult)
+    load_bank = staticmethod(load_bank)
+    load_movielens = staticmethod(load_movielens)
+    load_glass_uci = staticmethod(load_glass_uci)
+    load_boston = staticmethod(load_boston)
+    load_heart_disease_uci = staticmethod(load_heart_disease_uci)
+    load_criteo_synthetic = staticmethod(load_criteo_synthetic)
+    load_avazu_synthetic = staticmethod(load_avazu_synthetic)
+
+
 def load_multilabel_synthetic(n_rows=20000, n_labels=4, seed=17):
     """Multilabel task with planted per-label signal: 4 categorical + 4
     numeric features, ``n_labels`` binary target columns ``label_k``

@@ -31,6 +31,7 @@ float32.
 """
 
 import collections
+import inspect
 import pickle
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
@@ -521,9 +522,16 @@ class DeepModel:
     @staticmethod
     def _is_batch_loader(X):
         """A loader of ``(batch, y, weight, valid)`` tuples with ``steps``
-        (``pipeline.BatchIterator``, a streaming loader)."""
-        return hasattr(X, 'steps') and hasattr(X, '__iter__') \
-            and not hasattr(X, 'iloc')
+        (``pipeline.BatchIterator``, a streaming loader). The attributes are
+        looked up without being evaluated: a streaming loader's ``steps``
+        reads every shard."""
+        def has(name):
+            try:
+                inspect.getattr_static(X, name)
+            except AttributeError:
+                return False
+            return True
+        return has('steps') and has('__iter__') and not has('iloc')
 
     def _loader_logits(self, loader):
         """One pass over a batch loader → (logits, y) host arrays."""
@@ -656,13 +664,16 @@ class DeepModel:
         the JAX ``DeepModel.fit``: the same validation split (numpy, the rows
         scikit-learn would pick), batches, callbacks and ``logs`` keys
         (``loss``, the training metrics, ``val_loss``, ``val_<metric>``).
-        Returns the ``History`` callback, its ``history`` an
-        ``IgnoreCaseDict``."""
+        A batch loader as ``X`` (``y`` None; ``validation_data`` a loader
+        or None) trains out of core (``_fit_from_loader``). Returns the
+        ``History`` callback, its ``history`` an ``IgnoreCaseDict``."""
         if batch_size is None:
             batch_size = 128
         if y is None and self._is_batch_loader(X):
-            raise NotImplementedError(
-                'fit over a streaming batch loader: ROADMAP Queue 1 item 12')
+            return self._fit_from_loader(
+                X, validation_data, epochs=epochs, verbose=verbose,
+                callbacks=callbacks, initial_epoch=initial_epoch,
+                steps_per_epoch=steps_per_epoch)
         X, X_val, y, y_val = self._split_validation(
             X, y, validation_split, validation_data)
         arrays, _ = self._arrays(X)
@@ -676,29 +687,7 @@ class DeepModel:
             weights = pipeline.class_weight_to_sample_weight(y_arr,
                                                              class_weight)
 
-        module = self.build()
-        loss_fn = self._loss_fn()
-        if getattr(loss_fn, 'stateful', False) and self.loss_state is None:
-            self.loss_state = loss_fn.init_state().to(self.device)
-        if self.optimizer is None:
-            self.optimizer = _resolve_optimizer(
-                self.config.optimizer, self.config.learning_rate,
-                module.parameters())
-            self.model_desc.optimizer = type(self.optimizer).__name__
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            self.config.seed + 13)
-        metric_specs = [metrics_lib.get_metric(m) for m in self.config.metrics]
-
-        history = History()
-        history.set_model(self)
-        cbs: List[Callback] = [history]
-        for cb in (callbacks or []):
-            cb.set_model(self)
-            cbs.append(cb)
-        self.stop_training = False
-        for cb in cbs:
-            cb.on_train_begin()
-
+        loss_fn, metric_specs, history, cbs = self._begin_fit(callbacks)
         it = pipeline.BatchIterator(arrays, y_arr, weights,
                                     batch_size=batch_size, shuffle=shuffle,
                                     drop_remainder=True, seed=self.config.seed)
@@ -742,6 +731,100 @@ class DeepModel:
                 for name, fn in metric_specs:
                     try:
                         logs[f'val_{name}'] = float(fn(y_val_arr, val_probas))
+                    except Exception as e:  # a user metric must not end fit
+                        logger.warning(f'val metric {name} failed: {e}')
+
+            if verbose:
+                msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())
+                logger.info(f'Epoch {epoch + 1}/{epochs} - {msg}')
+            for cb in cbs:
+                cb.on_epoch_end(epoch, logs)
+            if self.stop_training:
+                break
+
+        for cb in cbs:
+            cb.on_train_end()
+        logger.info(f'Training finished in {time.time() - t_start:.2f}s.')
+        history.history = IgnoreCaseDict(history.history)
+        return history
+
+    def _begin_fit(self, callbacks):
+        """What every ``fit`` starts with: the module, the loss (and its
+        state, kept across fits), the optimizer (kept across fits), the
+        dropout generator from ``config.seed + 13``, the metrics and the
+        callbacks, told that training begins. Returns (loss_fn,
+        metric_specs, history, callbacks)."""
+        module = self.build()
+        loss_fn = self._loss_fn()
+        if getattr(loss_fn, 'stateful', False) and self.loss_state is None:
+            self.loss_state = loss_fn.init_state().to(self.device)
+        if self.optimizer is None:
+            self.optimizer = _resolve_optimizer(
+                self.config.optimizer, self.config.learning_rate,
+                module.parameters())
+            self.model_desc.optimizer = type(self.optimizer).__name__
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.config.seed + 13)
+        metric_specs = [metrics_lib.get_metric(m) for m in self.config.metrics]
+
+        history = History()
+        history.set_model(self)
+        cbs: List[Callback] = [history]
+        for cb in (callbacks or []):
+            cb.set_model(self)
+            cbs.append(cb)
+        self.stop_training = False
+        for cb in cbs:
+            cb.on_train_begin()
+        return loss_fn, metric_specs, history, cbs
+
+    def _fit_from_loader(self, train_loader, val_loader=None, epochs=1,
+                         verbose=1, callbacks=None, initial_epoch=0,
+                         steps_per_epoch=None):
+        """The epoch loop over a batch loader (out-of-core training: a
+        ``CriteoStreamLoader``, a ``StreamingDataLoader`` or any loader of
+        ``(batch, y, weight, valid)`` tuples), as the JAX package's
+        ``_fit_from_loader``: every batch one step, padded rows by their
+        zero weights; an epoch's ``loss`` the mean of its step losses and
+        no training metrics; ``val_loss`` and ``val_<metric>`` over
+        ``val_loader`` after every epoch; at most ``steps_per_epoch`` steps
+        an epoch.
+
+        The JAX package takes its first batch to trace the model, which
+        starts one iteration of the loader (and so advances a streaming
+        loader's epoch: its epoch ``e`` trains on the shuffle of
+        ``seed + e + 1``); the port starts and closes one iteration in the
+        same way, so that its batches are the JAX package's. The JAX
+        package's ``train_steps_per_dispatch`` stacks steps into one
+        ``lax.scan``, the same math as one step a batch (its own tests hold
+        the two within rtol 1e-6); eager PyTorch runs one step a batch."""
+        it = iter(train_loader)
+        next(it)
+        if hasattr(it, 'close'):
+            it.close()
+        loss_fn, metric_specs, history, cbs = self._begin_fit(callbacks)
+        logger.info('training...')
+        t_start = time.time()
+        for epoch in range(initial_epoch, epochs):
+            for cb in cbs:
+                cb.on_epoch_begin(epoch)
+            losses = []
+            for batch, yb, wb, _valid in train_loader:
+                loss, _ = self._train_step(batch, yb, wb, loss_fn)
+                losses.append(loss)
+                if steps_per_epoch and len(losses) >= steps_per_epoch:
+                    break
+            logs = {'loss': float(torch.stack(losses).mean())}
+
+            if val_loader is not None:
+                val_logits, val_y = self._loader_logits(val_loader)
+                val_logits = torch.from_numpy(val_logits)
+                val_probas = probas_from_logits(val_logits, self.task).numpy()
+                logs['val_loss'] = float(loss_fn(val_logits,
+                                                 torch.from_numpy(val_y)))
+                for name, fn in metric_specs:
+                    try:
+                        logs[f'val_{name}'] = float(fn(val_y, val_probas))
                     except Exception as e:  # a user metric must not end fit
                         logger.warning(f'val metric {name} failed: {e}')
 

@@ -15,8 +15,9 @@ on ``device``: ``None`` is the current CUDA device (an error without one),
 scikit-learn, so ``DeepTable`` runs where they are installed; this module
 imports them (and the preprocessor) inside the functions that use them, so
 that it imports without them. Cross-validation folds run one after another;
-``n_jobs`` is accepted and ignored. Streaming loaders are not ported yet
-(ROADMAP Queue 1 item 12).
+``n_jobs`` is accepted and ignored. ``fit``, ``evaluate`` and
+``predict`` take a streaming loader (``data/streaming.py``), and
+``fit_cross_validation_streaming`` folds a stream by position.
 """
 
 import copy
@@ -37,10 +38,6 @@ from ..serving import fix_binary_predict_proba_result
 from ..utils import consts, dt_logging
 
 logger = dt_logging.get_logger(__name__)
-
-_STREAMING = ('streaming loaders: ROADMAP Queue 1 item 12 (the port has no '
-              'StreamingDataLoader yet)')
-
 
 class DeepTable:
     """Easy-to-use estimator for classification and regression on tabular
@@ -115,7 +112,25 @@ class DeepTable:
             validation_freq=1, max_queue_size=10, workers=1,
             use_multiprocessing=False):
         if DeepModel._is_batch_loader(X):
-            raise NotImplementedError(f'DeepTable.fit over {_STREAMING}')
+            # out of core: X is a StreamingDataLoader, preprocessed by its
+            # own fitted preprocessor; y must be None
+            if self.preprocessor is None:
+                self.preprocessor = getattr(X, 'preprocessor', None)
+            if self.preprocessor is None:
+                raise ValueError('streaming fit needs a fitted preprocessor '
+                                 '(see data.streaming.'
+                                 'fit_preprocessor_streaming).')
+            self.__modelset.clear()
+            callbacks = self.__inject_callbacks(callbacks)
+            model = self._deep_model()
+            history = model.fit(X, validation_data=validation_data,
+                                epochs=epochs, verbose=verbose,
+                                callbacks=callbacks,
+                                initial_epoch=initial_epoch,
+                                steps_per_epoch=steps_per_epoch)
+            self.__set_model('val', f'{"+".join(self.nets)}', model,
+                             history.history)
+            return model, history
         logger.info(f'X.Shape={np.shape(X)}, y.Shape={np.shape(y)}, '
                     f'batch_size={batch_size}')
         if np.ndim(X) != 2:
@@ -284,8 +299,56 @@ class DeepTable:
     def fit_cross_validation_streaming(self, source, target, num_folds=5,
                                        batch_size=512, epochs=1, verbose=0,
                                        callbacks=None, oof_metrics=None):
-        raise NotImplementedError(
-            f'fit_cross_validation_streaming: {_STREAMING}')
+        """K-fold CV over an out-of-core stream (the analog of upstream's
+        Dask CV, ``deeptable.py:416-426``, which splits on index ranges).
+
+        Folds are defined by global stream position modulo ``num_folds``
+        (``StreamingDataLoader(fold_spec=...)``); each fold trains on the
+        complement and is scored on its own rows in one streaming pass,
+        and its model is saved as ``…-stream-kfold-{k}.dt`` and released.
+        Returns the folds' score dicts (no out-of-fold predictions: the
+        rows of an out-of-core stream do not fit in memory)."""
+        from ..data.streaming import (StreamingDataLoader,
+                                      fit_preprocessor_streaming)
+        from .preprocessor import DefaultPreprocessor
+        start = time.time()
+        self.__modelset.clear()
+        if self.preprocessor is None:
+            self.preprocessor = DefaultPreprocessor(self.config,
+                                                    use_cache=False)
+            fit_preprocessor_streaming(self.preprocessor, source, target)
+        pre = self.preprocessor
+        callbacks = self.__inject_callbacks(callbacks)
+        fold_scores = []
+        for fold in range(num_folds):
+            logger.info(f'\nStreaming fold {fold + 1}/{num_folds}\n')
+            train_loader = StreamingDataLoader(
+                source, pre, target, batch_size=batch_size,
+                fold_spec=(num_folds, fold, 'train'))
+            valid_loader = StreamingDataLoader(
+                source, pre, target, batch_size=batch_size,
+                shuffle_in_chunk=False, drop_remainder=False,
+                fold_spec=(num_folds, fold, 'valid'))
+            model = self._deep_model()
+            history = model.fit(train_loader, validation_data=valid_loader,
+                                epochs=epochs, verbose=verbose,
+                                callbacks=callbacks)
+            score = model.evaluate(valid_loader)
+            if oof_metrics:
+                score = {m: score[m] for m in oof_metrics if m in score} \
+                    or dict(score)
+            fold_scores.append(dict(score))
+            name = f'{"+".join(self.nets)}-stream-kfold-{fold + 1}'
+            model_file = os.path.join(
+                self.output_path,
+                f'{"_".join(self.nets)}-stream-kfold-{fold + 1}.dt')
+            model.save(model_file)
+            model.release()
+            self.__push_model('val', name, model_file, history.history,
+                              save_model=False)
+        logger.info(f'fit_cross_validation_streaming taken '
+                    f'{time.time() - start}s')
+        return fold_scores
 
     # ------------------------------------------------------------------
     def evaluate(self, X_test, y_test=None, batch_size=256, verbose=0,

@@ -1223,3 +1223,75 @@ def test_zoo_nets_on_cuda_match_cpu(cuda, nets):
                                    err_msg=k)
     np.testing.assert_allclose(models[0].predict(X), models[1].predict(X),
                                atol=1e-5)
+
+
+def _stream_shards(tmp_path, buckets, n_dense, rows=(1500, 1300)):
+    """Criteo-format TSV shards: a label, ``n_dense`` integers (10% blank),
+    tokens of 8 hex digits."""
+    rng = np.random.default_rng(5)
+    paths = []
+    for i, n in enumerate(rows):
+        lines = []
+        for _ in range(n):
+            dense = ['' if rng.random() < 0.1 else str(rng.integers(0, 5000))
+                     for _ in range(n_dense)]
+            tokens = [format(int(v), '08x')
+                      for v in rng.integers(0, 2 ** 32, len(buckets))]
+            lines.append('\t'.join([str(rng.integers(0, 2))] + dense
+                                   + tokens))
+        path = tmp_path / f'day_{i}.tsv'
+        path.write_text('\n'.join(lines) + '\n')
+        paths.append(str(path))
+    return paths
+
+
+def test_native_ingest_builds_and_matches_its_twin(cuda, tmp_path):
+    """The host parser builds with the card machine's compiler, and parses as
+    its Python twin does."""
+    from deeptables_torch.data import fast_ingest
+    assert fast_ingest.have_native()
+    buckets = [100_000, 8192, 97]
+    path, = _stream_shards(tmp_path, buckets, 4, rows=(300,))
+    data = open(path, 'rb').read()
+    native = fast_ingest.parse_criteo_tsv(data, 4, 3, buckets)
+    plain = fast_ingest._parse_criteo_py(data, 4, 3,
+                                         np.asarray(buckets, np.int64))
+    for a, b in zip(native, plain):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stream_fit_on_cuda_is_deterministic(cuda, tmp_path):
+    """Two fits from one seed over a shuffled CriteoStreamLoader give the
+    same parameters bit for bit: the loader draws its order on the
+    iterating thread and K1 sums without atomics. Each step launches K1 and
+    K2-bwd once."""
+    from deeptables_torch.data import criteo, fast_ingest
+    from deeptables_torch.models import DeepModel, ModelConfig
+    from deeptables_torch.ops.kernels import emb_grad as emb_grad_module
+    from deeptables_torch.ops.kernels import fm as fm_module
+    buckets = [100_000, 8192, 8192, 97, 31]
+    paths = _stream_shards(tmp_path, buckets, 4)
+    cats, conts = criteo.criteo_columns(buckets, emb_dim=16, n_dense=4)
+    config = ModelConfig(nets=['linear', 'fm_nets', 'dnn_nets'],
+                         task='binary', embedding_dropout=0, metrics=['AUC'],
+                         dtype_policy='bfloat16',
+                         dnn_params={'hidden_units': ((64, 0, False),
+                                                      (32, 0, False))})
+    states = []
+    for _ in range(2):
+        source = fast_ingest.CriteoTsvSource(paths, n_dense=4, n_cat=5,
+                                             hash_buckets=buckets,
+                                             chunk_bytes=40_000)
+        loader = criteo.CriteoStreamLoader(source, batch_size=256, seed=3)
+        model = DeepModel('binary', 2, config, cats, conts, device=cuda)
+        bwd = fm_module.fm_backward.launches
+        grads = emb_grad_module.emb_grad.launches
+        history = model.fit(loader, epochs=2, verbose=0)
+        steps = fm_module.fm_backward.launches - bwd
+        assert steps > 0 and emb_grad_module.emb_grad.launches - grads \
+            == steps
+        assert np.isfinite(history.history['loss']).all()
+        states.append({k: v.detach().cpu().clone()
+                       for k, v in model.module.state_dict().items()})
+    for key, value in states[0].items():
+        assert torch.equal(value, states[1][key]), key

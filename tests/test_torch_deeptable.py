@@ -228,13 +228,24 @@ class TestBinary:
             dt.concat_emb_dense(None, None)
 
     def test_streaming_is_not_ported(self, bank):
-        dt, X, *_ = bank
-        loader = type('Loader', (), {'steps': 1,
-                                     '__iter__': lambda self: iter(())})()
-        with pytest.raises(NotImplementedError, match='item 12'):
-            dt.fit(loader)
-        with pytest.raises(NotImplementedError, match='item 12'):
-            dt.fit_cross_validation_streaming(X, 'y')
+        """The two streaming entry points that used to raise here run:
+        ``fit`` over a loader (taking the loader's preprocessor) and
+        ``fit_cross_validation_streaming`` over a stream. Their parity with
+        the JAX package: ``tests/test_torch_streaming.py``."""
+        from deeptables_torch.data.streaming import (ChunkedSource,
+                                                     StreamingDataLoader)
+        dt, X, y, *_ = bank
+        source = ChunkedSource(X.assign(y=y.to_numpy()), chunk_size=400)
+        loader = StreamingDataLoader(source, dt.preprocessor, 'y',
+                                     batch_size=128)
+        stream_dt = DeepTable(config=dt.config, device='cpu')
+        _, history = stream_dt.fit(loader, epochs=1, verbose=0)
+        assert stream_dt.preprocessor is dt.preprocessor
+        assert np.isfinite(history.history['loss']).all()
+        scores = stream_dt.fit_cross_validation_streaming(
+            source, 'y', num_folds=2, batch_size=128)
+        assert len(scores) == 2
+        assert all(np.isfinite(s['loss']) for s in scores)
 
 
 def test_duplicate_columns_rejected(tmp_path):

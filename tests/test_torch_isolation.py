@@ -1,16 +1,20 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them. The two
-exceptions are the host-only preprocessing modules ``models/preprocessor.py``
-and ``models/transformers.py``, which import pandas and scikit-learn and
-which nothing on the card's path imports.
+JAX package, so that it runs on a machine that has none of them. The three
+exceptions are the host-only modules ``models/preprocessor.py`` and
+``models/transformers.py``, which import pandas and scikit-learn, and
+``data/streaming.py``, which imports pandas; nothing on the card's path
+imports them. The host utilities (``eda``, ``preprocessing``,
+``utils/feature_importance.py``, ``utils/quicktest.py``) import pandas and
+scikit-learn only inside the functions that use them.
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch``
 but those two, ``deeptables_torch.models`` (whose preprocessor exports are
 lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
-no scikit-learn, an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
+no scikit-learn, a ``fit`` over a ``CriteoStreamLoader`` on TSV shards (the
+native parser, the card's streaming path), an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
 and ``ops/kernels/cin.py``) and an AutoInt ``fit`` on the avazu-style columns
 (``ops/attention_grad.py``, ``ops/kernels/field_attention.py``, the fused
 block too). It hides any CUDA device, so that ``DeepModel`` without a
@@ -18,9 +22,9 @@ device must raise. ``DeepTable`` and ``ModelSet`` (``models/deeptable.py``,
 ``models/modelset.py``) import there too, and load through
 ``deeptables_torch.models``'s lazy exports: they import pandas and
 scikit-learn inside the functions that use them. ``serving``,
-``models.deeptable`` and ``models.modelset`` also import each on its own
-with those blocked, and ``serving`` then loads neither ``DeepTable`` nor the
-preprocessor.
+``models.deeptable``, ``models.modelset``, ``data``, ``data.fast_ingest`` and
+``data.criteo`` also import each on its own with those blocked, and
+``serving`` then loads neither ``DeepTable`` nor the preprocessor.
 """
 
 import os
@@ -34,10 +38,11 @@ REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
            'deeptables_tpu')
-# the port's only modules that import pandas and scikit-learn: the host's
-# preprocessing, off the card's path
+# the port's only modules that import pandas (and scikit-learn) at module
+# level: the host's preprocessing and streaming, off the card's path
 HOST_ONLY = ('deeptables_torch.models.preprocessor',
-             'deeptables_torch.models.transformers')
+             'deeptables_torch.models.transformers',
+             'deeptables_torch.data.streaming')
 
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -110,6 +115,31 @@ history = model.fit({'cat': cat, 'input_continuous_all': dense}, y,
 assert np.isfinite(history.history['val_loss']).all()
 assert set(model.evaluate({'cat': cat, 'input_continuous_all': dense}, y)) \
     == {'loss', 'accuracy'}
+# streaming from Criteo TSV shards: the native parser, the loader and fit
+import os, tempfile
+from deeptables_torch.data import criteo, fast_ingest
+assert fast_ingest.have_native()
+shard_dir = tempfile.mkdtemp()
+rng = np.random.default_rng(0)
+for i in range(2):
+    with open(os.path.join(shard_dir, f'day_{i}.tsv'), 'w') as f:
+        for _ in range(40):
+            f.write('\t'.join([str(rng.integers(0, 2))]
+                              + [str(v) for v in rng.integers(0, 9, 3)]
+                              + [format(int(v), '08x') for v in
+                                 rng.integers(0, 2 ** 32, 4)]) + '\n')
+source = fast_ingest.CriteoTsvSource(os.path.join(shard_dir, '*.tsv'),
+                                     n_dense=3, n_cat=4,
+                                     hash_buckets=[50, 9, 30, 7],
+                                     chunk_bytes=1000)
+scats, sconts = criteo.criteo_columns([50, 9, 30, 7], emb_dim=8, n_dense=3)
+smodel = DeepModel('binary', 2, config, scats, sconts, device='cpu')
+history = smodel.fit(criteo.CriteoStreamLoader(source, batch_size=16),
+                     epochs=2, verbose=0,
+                     validation_data=criteo.CriteoStreamLoader(
+                         source, batch_size=16, shuffle=False,
+                         drop_remainder=False))
+assert np.isfinite(history.history['val_loss']).all()
 # xDeepFM: the CIN contraction and its gradient take the plain path on the
 # CPU
 assert {'deeptables_torch.ops.cin_grad',
@@ -189,7 +219,10 @@ print('ok')
 
 @pytest.mark.parametrize('module', ['deeptables_torch.serving',
                                     'deeptables_torch.models.deeptable',
-                                    'deeptables_torch.models.modelset'])
+                                    'deeptables_torch.models.modelset',
+                                    'deeptables_torch.data',
+                                    'deeptables_torch.data.fast_ingest',
+                                    'deeptables_torch.data.criteo'])
 def test_module_imports_alone_without_host_libraries(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
                PYTHONPATH=str(REPO))
@@ -225,7 +258,7 @@ def test_sources_name_no_blocked_module():
 
 
 def test_host_only_modules_import_pandas():
-    """The two modules exempted above do need pandas at module level (so
+    """The three modules exempted above do need pandas at module level (so
     the exemption names no module that could do without it);
     transformers.py imports scikit-learn too."""
     lines = {}

@@ -63,6 +63,10 @@ SCHEMAS = {
     # 8 columns, JAX field order [6, 5, 4, 2, 0, 3, 1, 7], 6 dense
     'adult_widedeep_dcn': ([9, 16, 7, 15, 6, 5, 2, 42], [16] * 8, 6,
                            ['linear', 'dnn_nets', 'dcn_nets']),
+    # DeepFM on a hashed Criteo TSV schema (data.criteo.criteo_columns):
+    # the buckets are the vocabularies, cut from [100_000] * 7 + [8192] * 19
+    # to 5 columns
+    'criteo_tsv': ([97, 64, 256, 31, 128], [8] * 5, 4, DEEPFM),
 }
 
 
@@ -257,3 +261,20 @@ def to_column_order(a, order, block):
     out[..., np.asarray(order), :] = head
     return np.concatenate([out.reshape(a.shape[:-1] + (n,)), a[..., n:]],
                           axis=-1)
+
+
+def assert_batches_equal(port, ref):
+    """Two loaders' ``(batch, y, weight, valid)`` tuples, one epoch each,
+    exactly equal (a streaming loader of the port against the JAX
+    package's)."""
+    port, ref = list(port), list(ref)
+    assert len(port) == len(ref) > 0
+    for (b, y, w, v), (rb, ry, rw, rv) in zip(port, ref):
+        assert v == rv and sorted(b) == sorted(rb)
+        for k in rb:
+            assert b[k].dtype == rb[k].dtype
+            np.testing.assert_array_equal(b[k], rb[k], err_msg=k)
+        np.testing.assert_array_equal(y, ry)
+        assert (w is None) == (rw is None)
+        if rw is not None:
+            np.testing.assert_array_equal(w, rw)
