@@ -60,10 +60,17 @@ these phases, each printing one JSON line:
    ``torch.einsum('bfd,bgd,lfg->bld')`` (K4) and ``torch.autograd.grad`` of
    it (K3, several kernels), which the port never calls, and the bound (the
    larger of bytes over 3.35 TB/s and operations over the card's rate for
-   the input type: 989 TFLOP/s bfloat16, 67 float32). ``cin_fwd`` and
+   the input type: 989 TFLOP/s bfloat16, 495 float32, TF32's rate, the
+   card's peak for 32-bit operands; beside it ``split_floor_ms``, the
+   floor of a float32-accurate product on the tensor cores, three TF32
+   passes of the GEMM, and ``simt_bound_ms``, every operation at 67 TFLOP/s
+   off the tensor cores). ``cin_fwd`` and
    ``cin_bwd`` rows name the kernels that ran: ``design`` ``wgmma``
-   (bfloat16, tensor cores) or ``simt`` (float32, CUDA cores); the script
-   checks that bfloat16 takes the tensor cores and float32 does not.
+   (bfloat16 on the tensor cores), ``wgmma_f32`` (float32 on the tensor
+   cores, three exact bfloat16 planes) at every one of these shapes, which
+   the script checks; one more float32 row, B=1024 at (26, 227, 193), past
+   those kernels' shared memory, holds the CUDA-core ``simt`` kernels
+   against the plain versions the same way.
 5. ``kernel`` for ``fa_fwd`` and ``fa_bwd`` (K5, field attention and its
    gradient) and ``ab_fwd`` and ``ab_bwd`` (K6, the fused attention block)
    against their plain versions at AutoInt's shapes (F=22, 2 heads of
@@ -112,8 +119,9 @@ these phases, each printing one JSON line:
      time and examples/s over epochs 2-3 and ``val_auc``. Then
      ``train_profile``: two train steps under ``torch.profiler`` (device
      time by kernel, busy share; ``cin_kernels``: every CIN kernel by name,
-     and for xDeepFM a check that bfloat16 ran K3's tensor-core passes and
-     float32 its CUDA-core ones; ``fa_kernels``: every field-attention
+     and for xDeepFM a check that each policy ran its type's tensor-core K4
+     and K3 passes (float32 the ``_f32`` ones) and no CUDA-core CIN kernel;
+     ``fa_kernels``: every field-attention
      kernel by name, and for both AutoInt models a check that they ran
      the tile kernels, K5's (K6's when fused), in bfloat16 (block 0) and
      float32 (blocks 1-2, after BatchNorm's promotion) under
@@ -215,6 +223,7 @@ FP32_OPS_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 BF16_OPS_PER_S = 989e12  # dense bfloat16 tensor cores
+TF32_OPS_PER_S = 495e12  # dense TF32 tensor cores
 
 F_CRITEO, D_CRITEO, N_DENSE = 26, 16, 13
 WDCN = 'Wide&Deep+DCN'
@@ -261,6 +270,25 @@ CIN_FGCNN_LAYERS = {'fgcnn_layer1': (F_FGCNN, F_FGCNN, 128),
                     'fgcnn_layer2': (F_FGCNN, 64, 128)}
 CIN_BATCHES = (4096, 8192, 4093)
 CIN_HEADLINE = ('bfloat16', 'layer2', 8192)
+# a float32 (layer, F, G, L, B) past the tensor-core kernels' shared memory
+# (F + G > 252 for K4, L > 192 for K3): the CUDA-core kernels
+CIN_SIMT_EDGE = ('simt_edge', 26, 227, 193, 1024)
+# the tensor-core K4 and K3 kernels as ptxas names them (mangled: one
+# template a pass, instantiated for each type), by design and G tile: the
+# card line reports each one's registers and spills
+CIN_PTXAS = {
+    design: {'fwd': f'cin_fwd_wgmma_kernelI{t}E',
+             'dx_n32': f'cin_bwd_dx_wgmma_kernelI{t}Li32E',
+             'dx_n64': f'cin_bwd_dx_wgmma_kernelI{t}Li64E',
+             'dw': f'cin_bwd_dw_wgmma_kernelI{t}E'}
+    for design, t in (('wgmma', '13__nv_bfloat16'), ('wgmma_f32', 'f'))}
+# the K4 and K3 kernels of each design, as the profiler names them
+CIN_DESIGN_KERNELS = {
+    design: (f'cin_fwd_wgmma_kernel<{t}>', f'cin_bwd_dx_wgmma_kernel<{t},',
+             f'cin_bwd_dw_wgmma_kernel<{t}>')
+    for design, t in (('wgmma', '__nv_bfloat16'), ('wgmma_f32', 'float'))}
+CIN_DESIGN_KERNELS['simt'] = ('cin_fwd_kernel<', 'cin_bwd_dx_kernel<',
+                              'cin_bwd_dw_kernel<')
 KERNEL_BATCHES = (1, 8, 64, 512, 4096, 4093, 8192, 12288)
 TRAIN_KERNEL_BATCHES = (64, 512, 4093, 8192)
 REQUESTS = (1, 37, 4096, 10000)
@@ -549,6 +577,9 @@ def card_phase(torch, _build):
           'cuda': torch.version.cuda, 'build_s': build_s,
           'sources': [p.name for p in _build.sources()], 'ptxas': ptxas,
           'spills': spills,
+          'cin_ptxas': {design: {k: kernel_ptxas(pattern)
+                                 for k, pattern in kernels.items()}
+                        for design, kernels in CIN_PTXAS.items()},
           'tf32': {'matmul': torch.backends.cuda.matmul.allow_tf32,
                    'cudnn': torch.backends.cudnn.allow_tf32}})
     return smi
@@ -709,25 +740,39 @@ def fm_bwd_kernel_phase(torch, fm_module):
 
 def cin_bound(kernel, B, F, G, L, D, itemsize):
     """Least time of the CIN contraction (``cin_fwd``) or its gradient
-    (``cin_bwd``) in ms, and what bounds it. Bytes: each input read once,
-    each output written once (z and dW float32, dx0 and dh in the input
-    type). Operations: the GEMM (2·L·F·G per column) and the pair products
-    (F·G per column); the gradient twice the GEMM (dpair and dW) and 5·F·G
-    per column (pair, dx0 and dh products and sums). Peak: the card's rate
-    for the input type (bfloat16 on the tensor cores, float32 off them)."""
+    (``cin_bwd``) in ms, what bounds it and its operations; then, for
+    float32, the floor of a float32-accurate product on the tensor cores
+    (None for bfloat16), and the least time off the tensor cores (ms).
+    Bytes: each input read once, each output written once (z and dW
+    float32, dx0 and dh in the input type). Operations: the GEMM (2·L·F·G
+    per column) and the pair products (F·G per column); the gradient twice
+    the GEMM (dpair and dW) and 5·F·G per column (pair, dx0 and dh products
+    and sums). The bound takes all of them at the card's peak for the input
+    type: bfloat16's 989 TFLOP/s, float32's 495, TF32's rate, the most the
+    card does on 32-bit operands. ``split_floor_ms``: the least time of an
+    exact float32 product on the tensor cores, three TF32 passes of the
+    GEMM (the rest on the CUDA cores alongside), a choice of design that
+    the function does not need. ``simt_bound_ms``: every operation at the
+    CUDA cores' 67 TFLOP/s."""
     N = B * D
     if kernel == 'cin_fwd':
         nbytes = itemsize * (N * F + N * G + L * F * G) + 4 * L * N
-        ops = 2 * L * F * G * N + F * G * N
+        gemm, rest = 2 * L * F * G * N, F * G * N
     else:
         nbytes = itemsize * (2 * N * F + 2 * N * G + L * F * G + L * N) \
             + 4 * L * F * G
-        ops = 4 * L * F * G * N + 5 * F * G * N
-    peak = BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S
-    bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / peak
+        gemm, rest = 4 * L * F * G * N, 5 * F * G * N
+    ops = gemm + rest
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / (BF16_OPS_PER_S if itemsize == 2
+                          else TF32_OPS_PER_S)
     bound = (bytes_ms, 'bytes') if bytes_ms >= ops_ms else (ops_ms,
                                                             'operations')
-    return bound + (ops,)
+    split_floor_ms = None if itemsize == 2 else max(
+        bytes_ms, 1e3 * 3 * gemm / TF32_OPS_PER_S,
+        1e3 * rest / FP32_OPS_PER_S)
+    return bound + (ops, split_floor_ms,
+                    max(bytes_ms, 1e3 * ops / FP32_OPS_PER_S))
 
 
 def cin_kernel_phase(torch, cin_module):
@@ -750,6 +795,8 @@ def cin_kernel_phase(torch, cin_module):
                   for B in CIN_BATCHES]
         shapes += [(layer, F, G, L, TRAIN_BATCH)
                    for layer, (F, G, L) in CIN_FGCNN_LAYERS.items()]
+        if dtype_name == 'float32':
+            shapes.append(CIN_SIMT_EDGE)
         for layer, F, G, L, B in shapes:
             def make():
                 return tuple(
@@ -802,8 +849,8 @@ def cin_kernel_phase(torch, cin_module):
                                    g[1], g[0], g[2], retain_graph=True),
                                graphs)}
             for name, (kernel, plain, library, lib_inputs) in fns.items():
-                bound_ms, bound_by, ops = cin_bound(name, B, F, G, L, D,
-                                                    itemsize)
+                bound_ms, bound_by, ops, split_floor_ms, simt_bound_ms = \
+                    cin_bound(name, B, F, G, L, D, itemsize)
                 row = {'dtype': dtype_name, 'layer': layer, 'B': B,
                        'F': F, 'G': G, 'L': L, 'D': D,
                        'max_abs_err': errs[name],
@@ -820,16 +867,19 @@ def cin_kernel_phase(torch, cin_module):
                        'library_call_ms': call_ms(
                            torch, library, lib_inputs, iters),
                        'bound_ms': bound_ms, 'bound_by': bound_by,
+                       'split_floor_ms': split_floor_ms,
+                       'simt_bound_ms': simt_bound_ms,
                        'gflop': ops / 1e9, 'buffers': len(bufs)}
                 row['tflop_per_s'] = ops / row['ms'] / 1e9
                 row['design'] = (
                     cin_module.fwd_design(dtype, F, G)
                     if name == 'cin_fwd'
                     else cin_module.bwd_design(dtype, F, G, L))
-                check(row['design'] == ('wgmma' if itemsize == 2
-                                        else 'simt'),
+                want = ('simt' if layer == CIN_SIMT_EDGE[0]
+                        else 'wgmma' if itemsize == 2 else 'wgmma_f32')
+                check(row['design'] == want,
                       f"{name} ran the {row['design']} kernels on "
-                      f'{dtype_name}')
+                      f'{dtype_name} {layer}, expected {want}')
                 rows[name].append(row)
             del bufs, graphs, x0, h, w, dz
             torch.cuda.empty_cache()
@@ -1724,15 +1774,13 @@ def train_phase(torch, port, kernel_fns, dtype_policy, vocabs, data,
                     'device_ms': e.self_device_time_total / 1e3}
                    for e in device if 'cin_' in e.key]
     if model_name == 'xDeepFM':
-        # K3's passes by name: the tensor-core ones in bfloat16, the
-        # CUDA-core ones in float32, and never the other design's
-        ran = {k for k in ('cin_bwd_dx_wgmma_kernel', 'cin_bwd_dw_wgmma_kernel',
-                           'cin_bwd_dx_kernel<', 'cin_bwd_dw_kernel<')
+        # K4 and K3's passes by name: the policy type's tensor-core
+        # kernels, and never another design's (no CUDA-core CIN kernel)
+        ran = {k for names in CIN_DESIGN_KERNELS.values() for k in names
                if any(k in e['name'] for e in cin_kernels)}
-        want = ({'cin_bwd_dx_wgmma_kernel', 'cin_bwd_dw_wgmma_kernel'}
-                if dtype_policy == 'bfloat16'
-                else {'cin_bwd_dx_kernel<', 'cin_bwd_dw_kernel<'})
-        check(ran == want, f'xDeepFM {dtype_policy} training ran the K3 '
+        want = set(CIN_DESIGN_KERNELS['wgmma' if dtype_policy == 'bfloat16'
+                                      else 'wgmma_f32'])
+        check(ran == want, f'xDeepFM {dtype_policy} training ran the CIN '
                            f'kernels {sorted(ran)}, expected {sorted(want)}')
     fa_kernels = [{'name': e.key[:90], 'count': e.count,
                    'device_ms': e.self_device_time_total / 1e3}
@@ -2646,11 +2694,18 @@ def main():
         next(r for r in grad_rows if (r['ids'], r['B'], r['g_offset'])
              == (ids, TRAIN_HEADLINE[1], 0))
         for ids in ('criteo', 'avazu', 'adult', 'stream'))
-    cin_fgcnn = {name: [{k: r[k] for k in (
-        'dtype', 'layer', 'B', 'F', 'G', 'L', 'design', 'max_abs_err', 'ms',
-        'plain_ms', 'library_ms', 'bound_ms', 'bound_by')}
-        for r in cin_rows[name] if r['layer'] in CIN_FGCNN_LAYERS]
-        for name in cin_rows}
+    cin_keys = ('dtype', 'layer', 'B', 'F', 'G', 'L', 'design', 'max_abs_err',
+                'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+                'split_floor_ms', 'simt_bound_ms')
+    cin_fgcnn = {name: [{k: r[k] for k in cin_keys}
+                        for r in cin_rows[name]
+                        if r['layer'] in CIN_FGCNN_LAYERS]
+                 for name in cin_rows}
+    # float32 at the training batch, every layer, and the CUDA-core row
+    cin_f32 = {name: [{k: r[k] for k in cin_keys} for r in cin_rows[name]
+                      if r['dtype'] == 'float32'
+                      and r['B'] in (TRAIN_BATCH, CIN_SIMT_EDGE[4])]
+               for name in cin_rows}
     cin_head = {name: next(r for r in cin_rows[name]
                            if (r['dtype'], r['layer'], r['B']) == CIN_HEADLINE)
                 for name in cin_rows}
@@ -2712,7 +2767,9 @@ def main():
         'library_ms': cin_head['cin_fwd']['library_ms'],
         'library_note': "torch.einsum('bfd,bgd,lfg->bld', x0, h, w)",
         'design': cin_head['cin_fwd']['design'],
-        'at': cin_at, 'fgcnn': cin_fgcnn['cin_fwd']}, {
+        'simt_bound_ms': cin_head['cin_fwd']['simt_bound_ms'],
+        'at': cin_at, 'fgcnn': cin_fgcnn['cin_fwd'],
+        'float32': cin_f32['cin_fwd']}, {
         'name': 'cin_bwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:42',
@@ -2726,7 +2783,9 @@ def main():
         'library_note': 'autograd: torch.autograd.grad of that einsum '
                         '(several kernels, not one call)',
         'design': cin_head['cin_bwd']['design'],
-        'at': cin_at, 'fgcnn': cin_fgcnn['cin_bwd']}] + [fa_entry(name, fa_rows[name], launches[name])
+        'simt_bound_ms': cin_head['cin_bwd']['simt_bound_ms'],
+        'at': cin_at, 'fgcnn': cin_fgcnn['cin_bwd'],
+        'float32': cin_f32['cin_bwd']}] + [fa_entry(name, fa_rows[name], launches[name])
                           for name in FA_KERNELS]})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',

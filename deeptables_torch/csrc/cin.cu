@@ -28,14 +28,25 @@
 // would make the kernels memory-bound. So the pair (forward, dW) and dpair
 // (dx0, dh) live only in shared memory and registers.
 //
-// Arithmetic: every product and sum is float32, and each output is rounded
-// once. For bfloat16 inputs the pair product is exact in float32 (two 8-bit
-// significands), so the kernels round nothing before the output.
+// Arithmetic: every product is float32 and every sum is float32, and each
+// output is rounded once. For bfloat16 inputs the pair product is exact in
+// float32 (two 8-bit significands). On the tensor cores the sums round in
+// wgmma's float32 accumulator, which aligns a k step's products to the
+// largest and drops the bits below it: not IEEE float32 summation, so the
+// tensor-core designs differ from the plain version (and the CUDA-core
+// kernels, which sum in IEEE float32 FMAs, do not) by up to about half of
+// the tests' 1e-5 * sum|terms| limit at F*G ~ 1e4 (float32, measured on
+// an H100), the larger the longer the sum.
 //
 // K4 takes 56.05 GFLOP at layer 2, B = 8192 (2*L*F*G*N): 0.0567 ms at the
 // card's 989 TFLOP/s bfloat16 rate, which only the tensor cores reach.
 //
-// K4, bfloat16 (cin_fwd_wgmma_kernel): the GEMM
+// The tensor-core kernels are one template a pass (cin_fwd_wgmma_kernel<T>,
+// cin_bwd_dx_wgmma_kernel<T, GT>, cin_bwd_dw_wgmma_kernel<T>) and one
+// launcher a direction; wg::Split<T> holds what differs between the types:
+// the planes of each operand, blocks an SM, ring stages, tile strides.
+//
+// K4, bfloat16 (cin_fwd_wgmma_kernel<__nv_bfloat16>): the GEMM
 // Z^T (N, L) = P^T (N, K) . W^T (K, L), K = F*G, on wgmma m64n128k16
 // (bfloat16 in, float32 accumulators). A block owns 128 columns n (one m64
 // tile for each of its two warpgroups) and 128 l (L past 128: more
@@ -66,20 +77,41 @@
 //   (scale-d 0): zeroing them with moves also serialised the wgmmas.
 // - Epilogue: the accumulators go through shared memory (the ring, free
 //   after the k loop) and out as runs of D consecutive z values.
-// - 256 threads, 119 registers, two blocks an SM. Every block re-reads W
+// - 256 threads, 117 registers, two blocks an SM. Every block re-reads W
 //   from L2 (0.44 GB at layer 2); the x0/h tile load is not overlapped
 //   within a block (the SM's other block runs meanwhile).
 // - Shared memory: 68.6 KB + (F + G) * 272 bytes; F + G > 602 does not fit
-//   and takes the float32 kernel (the wrapper's fwd_design).
+//   and takes the CUDA-core kernel (the wrapper's fwd_design).
 //
-// K4, float32 (cin_fwd_kernel): float32 on the tensor cores would be TF32,
-// which is not what the JAX package computes in float32, so float32 runs on
-// the CUDA cores. Z(L, N) = W(L, F*G) @ P(F*G, N): each block of
-// 256 threads owns a 128 x 128 tile of Z, each thread an 8 x 8 register
-// tile (rows l = ty + 16i, columns n = tx + 16j). The block walks K = F*G
-// in chunks of 8: it stages the W chunk in shared memory and builds the P
-// chunk there from x0 and h (two loads and one product per element; the
-// block's x0 and h columns stay in L1), then each thread does 64 FMAs per k.
+// float32 on the tensor cores: an exact three-plane bfloat16 split. Each
+// float32 operand v is split as v1 = bf16(v), v2 = bf16(v - v1), v3 =
+// bf16(v - v1 - v2), every plane rounded to nearest and every residual exact
+// in float32: three planes of 8 significant bits hold float32's 24, so
+// v1 + v2 + v3 == v (below bfloat16's normal range, ~1e-38, the low planes
+// lose bits; v1 is rounded from v clamped to bfloat16's largest finite value,
+// so no plane overflows). A product a.b is the sum over the plane pairs
+// (i, j) with i + j <= 4: six wgmmas a k step into one float32 accumulator.
+// The three pairs left out are at most ~2 * 2^-24 of |a.b|, the size of
+// float32's own rounding of the product. So the float32 kernels take the
+// float32 products of the plain version, as the JAX _fwd_kernel and
+// _bwd_kernel do in float32 (not TF32), and sum them in the tensor cores'
+// float32 accumulator (see Arithmetic above). One pass of
+// the split costs 6 bfloat16 wgmmas where the bfloat16 kernels need 2: the
+// float32 floor is 3x the bfloat16 one (K4 0.170 ms at layer 2).
+// (3xTF32 would run at the same rate, 3 passes at 495 TFLOP/s, but TF32
+// wgmma takes only K-major shared-memory operands: K3's layouts would need
+// new transposes.)
+//
+// K4, float32 (fwd_design 'wgmma_f32', cin_fwd_wgmma_kernel<float>): the
+// bfloat16 kernel's GEMM and tiles. The pair p = x0 * h is formed in
+// float32 from float32 x0 and h tiles in shared memory (132 floats a row)
+// and split in registers into three A fragments; W comes split by the
+// wrapper into three planes, (3, L_pad, K_pad) bfloat16 (L_pad a multiple
+// of 128, zeros past L and K), each stage of the ring holding one 64 k x
+// 128 l tile of every plane (48 KB, three TMA loads on one barrier). Two
+// stages (96 KB) and the float32 tiles ((F + G) * 528 bytes) leave one
+// block an SM: 256 threads and up to 255 registers, fragments for the next
+// step built while this step's six wgmmas run. F + G <= 252 fits.
 //
 // K3 takes 112.8 GFLOP at layer 2, B = 8192 (4*L*F*G*N for dpair and dW,
 // plus 5*F*G*N for the pair, dx0 and dh): 0.1140 ms at 989 TFLOP/s, so
@@ -87,12 +119,12 @@
 //
 // K3, bfloat16 (bwd_design 'wgmma'): two passes on wgmma and two
 // fixed-order sums, four launches a call.
-// 1. cin_bwd_dx_wgmma_kernel: for each f, the GEMM dpair^T (N, G) =
-//    dz^T (N, L) . W[:, f, :] (L, G) in bfloat16 (dz and W already are:
-//    no split), folded in registers. A block owns 128 columns n (an m64
-//    tile a warpgroup) and one G tile: m64n64k16 (G > 32; G past 64 in
-//    more tiles along y) or m64n32k16 (G <= 32, padded with zero W
-//    columns). Its dz columns sit in shared memory for every f, [n][l]
+// 1. cin_bwd_dx_wgmma_kernel<__nv_bfloat16, GT>: for each f, the GEMM
+//    dpair^T (N, G) = dz^T (N, L) . W[:, f, :] (L, G) in bfloat16 (dz and
+//    W already are: no split), folded in registers. A block owns 128
+//    columns n (an m64 tile a warpgroup) and one G tile: m64n64k16 (G > 32;
+//    G past 64 in more tiles along y) or m64n32k16 (G <= 32, padded with
+//    zero W columns). Its dz columns sit in shared memory for every f, [n][l]
 //    K-major in 64-wide 128-byte-swizzled panels (L padded to 64 with
 //    zeros): 256 * L_pad bytes, gathered once, eight columns a 16-byte load
 //    where D is a multiple of 8 (any D and the batch-minor B = 1
@@ -109,8 +141,8 @@
 //    x0 in a shared tile. With more than one G tile each writes a float32
 //    dx0 partial and
 // 2. cin_sum_kernel sums them in order and rounds once.
-// 3. cin_bwd_dw_wgmma_kernel: dW^T (K, L) = P (K, N) . dz^T (N, L) on
-//    m64n128k16, K = F*G: K4's GEMM with the roles turned. A block owns
+// 3. cin_bwd_dw_wgmma_kernel<__nv_bfloat16>: dW^T (K, L) = P (K, N) .
+//    dz^T (N, L) on m64n128k16, K = F*G: K4's GEMM with the roles turned. A block owns
 //    128 pair rows k, 128 l and a range of columns; A, the pair, is built
 //    in registers from x0 and h rows in shared memory and split exactly
 //    into hi and lo bfloat16 halves, as in K4, so dW stays the float32 sum
@@ -126,17 +158,46 @@
 // 4. cin_sum_kernel sums the partials in a fixed order into dW. No atomics:
 //    dW does not depend on the order blocks run in.
 // Both passes run 256 threads (two warpgroups), two blocks an SM: 128
-// registers for the n64 dx0/dh pass, which spills 28 bytes (ptxas), 96 for
-// n32, 118 for dW, neither spilling. The fold after each f runs with no
+// registers for the n64 dx0/dh pass, which spills 16 bytes (ptxas), 105
+// for n32, 116 for dW, neither spilling. The fold after each f runs with no
 // wgmma in flight in its warpgroup (the SM's other block fills in), and
 // each dW chunk ends in a barrier. Shared memory: dx0/dh 256 * L_pad +
 // 272 * F + the ring (16 or 32 KB) + 1 KB; dW two buffers of 16 KB +
 // 144 * (G + x0 rows + 1). Shapes past a block's
-// 227 KB (L past 704 at F = 26, G past 686 at F = 3) take the float32
+// 227 KB (L past 704 at F = 26, G past 686 at F = 3) take the CUDA-core
 // kernels (bwd_design).
 //
-// K3, float32 (and bfloat16 past shared memory): the CUDA cores, up to four
-// launches:
+// K3, float32 (bwd_design 'wgmma_f32'): the bfloat16 kernels' two passes
+// and sums on the three-plane split, one block an SM.
+// 1. cin_bwd_dx_wgmma_kernel<float, GT>: dpair^T = dz^T . W[:, f, :], dz
+//    split into three planes as it is gathered into the swizzled panels (768 *
+//    L_pad bytes) and W in three planes from the wrapper ((3, F, G_pad,
+//    L_pad) bfloat16, each stage one f's tile of every plane), six
+//    shared-memory wgmmas a 16-wide l step; the fold into dx0 and dh is the
+//    bfloat16 kernel's, with float32 h in registers and x0[f, n] read from
+//    global memory before each f's wgmmas (no x0 tile: shared memory goes
+//    to the planes). The ring has 4, 3 or 2 stages, the most that fit
+//    (wg::dx_stages): L <= 192 fits, L <= 256 for G <= 32.
+// 2. cin_sum_kernel sums the dx0 partials of more than one G tile.
+// 3. cin_bwd_dw_wgmma_kernel<float>: dW^T = P . dz^T, the pair built in
+//    registers from float32 x0 and h rows (cp.async, 72 floats a row) and
+//    split into three A fragments; dz split into three [l][64 n] planes
+//    (48 KB a chunk) as it is stored: the next chunk's dz is loaded into
+//    registers before this chunk's wgmmas and split into the other buffer
+//    after them. The N ranges fill whole waves of one block an SM
+//    (wgmma_bwd_plan). G <= 228 fits.
+// 4. cin_sum_kernel sums the dW partials in a fixed order: no atomics, the
+//    same bits on every call.
+//
+// K4 and K3 on the CUDA cores (design 'simt': shapes past the tensor-core
+// kernels' shared memory, float32 and bfloat16), up to four launches:
+// K4 (cin_fwd_kernel): Z(L, N) = W(L, F*G) @ P(F*G, N): each block of
+// 256 threads owns a 128 x 128 tile of Z, each thread an 8 x 8 register
+// tile (rows l = ty + 16i, columns n = tx + 16j). The block walks K = F*G
+// in chunks of 8: it stages the W chunk in shared memory and builds the P
+// chunk there from x0 and h (two loads and one product per element; the
+// block's x0 and h columns stay in L1), then each thread does 64 FMAs per k.
+// K3:
 // 1. cin_bwd_dx_kernel: a block owns TN = 128 columns and TG (32 or 64) of
 //    the g's, and walks f = 0..F-1. For each f it forms its dpair tile
 //    (TG x TN) = W[:, f, g-tile]^T @ dz[:, n-tile] in registers, over L in
@@ -147,7 +208,7 @@
 //    otherwise it writes a float32 partial per g-tile and
 // 2. cin_sum_kernel sums them in a fixed order and rounds to T.
 // 3. cin_bwd_dw_kernel: dW(L, F*G) = dz(L, N) @ P(F*G, N)^T, the pair built
-//    in shared memory as in K4's float32 kernel. The reduction over N,
+//    in shared memory as in the CUDA-core K4. The reduction over N,
 //    which the TPU carried across its sequential grid, is split: a block owns a 128 x 128 tile of
 //    dW and one of `splits` column ranges, and writes a float32 partial.
 // 4. cin_sum_kernel sums the partials in a fixed order into dW. No atomics:
@@ -269,34 +330,143 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- K4, bf16
-// Z^T (N, L) = P^T (N, K) . W^T (K, L) on the tensor cores (wgmma), K = F*G.
-// See the header for the design; the constants below fix the tiles.
+// ------------------------------------------------------ K4 and K3, wgmma
+// K4's GEMM Z^T (N, L) = P^T (N, K) . W^T (K, L), K = F*G, and K3's two
+// passes on the tensor cores (wgmma): one template for both types over the
+// split of the header, Split<T> saying what differs. See the header for the
+// design; the constants below fix the tiles.
 namespace wg {
 
-constexpr int kCols = 128;   // columns n a block owns: two m64 tiles
+constexpr int kCols = 128;   // columns n a K4 block owns: two m64 tiles
 constexpr int kLTile = 128;  // l a block owns: wgmma's n128
 constexpr int kChunk = 64;   // k per W stage: one 128-byte swizzle row
-constexpr int kStages = 4;
-constexpr int kStageBytes = kChunk * kLTile * 2;  // 16 KB of bfloat16
+constexpr int kStageBytes = kChunk * kLTile * 2;  // a W plane's chunk: 16 KB
 constexpr int kBlockThreads = 256;                // two warpgroups
 constexpr int kWarps = kBlockThreads / 32;
-constexpr int kTileLd = kCols + 8;   // x0/h tile row stride (bf16): 4 banks apart
 constexpr int kStageLd = kCols + 4;  // z staging row stride (float)
-constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kStagingBytes = kLTile * kStageLd * 4;
-// the W ring, reused after the k loop to stage z
-constexpr int kRegionBytes =
-    ((kStagingBytes > kRingBytes ? kStagingBytes : kRingBytes) + 1023) / 1024 *
-    1024;
 constexpr int kMaxSmemBytes = 232448;  // 227 KB, a block's limit on Hopper
+// K3's dx0/dh pass: a block owns kDpCols columns n and one G tile (n32/n64)
+constexpr int kDpCols = 128;  // two m64 tiles, one a warpgroup
+constexpr int kLChunk = 64;   // l per dz panel and per W stage: 128 bytes
+constexpr int kDxPanelBytes = kDpCols * kLChunk * 2;  // a dz plane's: 16 KB
+// K3's dW pass: a block owns kDwRows pair rows k, kLTile l, a column range
+constexpr int kDwRows = 128;        // two m64 tiles, one a warpgroup
+constexpr int kDwCols = 64;         // columns n per chunk: one 128-byte row
+constexpr int kDwLd = kDwCols + 8;  // x0/h chunk row stride (elements)
+constexpr int kDwDzBytes = kLTile * kDwCols * 2;  // a dz plane's chunk: 16 KB
 
-__host__ __device__ __forceinline__ int tile_bytes(int F, int G) {
-  return ((F + G) * kTileLd * 2 + 7) / 8 * 8;
+// What each type's kernels take: the bfloat16 planes of the pair (built in
+// registers) and of w and dz, blocks an SM, K4's ring stages, the x0/h tile
+// row stride in elements (4 banks apart), the fewest stages of the dx0/dh
+// pass's ring, whether that pass keeps x0 in a shared tile (else it reads
+// x0 from global memory), and a pair of T values in one register or two.
+template <typename T>
+struct Split;
+template <>
+struct Split<__nv_bfloat16> {
+  static constexpr int kPair = 2;  // hi and lo of the exact pair
+  static constexpr int kOp = 1;    // w and dz as stored
+  static constexpr int kBlocks = 2;
+  static constexpr int kFwdStages = 4;
+  static constexpr int kTileLd = kCols + 8;
+  static constexpr int kMinDxStages = 4;
+  static constexpr bool kX0Tile = true;
+  using Pair = __nv_bfloat162;
+};
+template <>
+struct Split<float> {
+  static constexpr int kPair = 3;
+  static constexpr int kOp = 3;
+  static constexpr int kBlocks = 1;
+  static constexpr int kFwdStages = 2;
+  static constexpr int kTileLd = kCols + 4;
+  static constexpr int kMinDxStages = 2;
+  static constexpr bool kX0Tile = false;
+  using Pair = float2;
+};
+
+// K4: the W ring, reused after the k loop to stage z
+template <typename T>
+__host__ __device__ constexpr int fwd_region_bytes() {
+  return ((Split<T>::kFwdStages * Split<T>::kOp * kStageBytes > kStagingBytes
+               ? Split<T>::kFwdStages * Split<T>::kOp * kStageBytes
+               : kStagingBytes) +
+          1023) / 1024 * 1024;
+}
+// `rows` rows of an x0/h tile
+template <typename T>
+__host__ __device__ __forceinline__ int tile_bytes(int rows) {
+  return (rows * Split<T>::kTileLd * static_cast<int>(sizeof(T)) + 7) / 8 *
+         8;
 }
 // 1024 bytes of slack to align the ring for the 128-byte swizzle
+template <typename T>
 __host__ __device__ __forceinline__ int smem_bytes(int F, int G) {
-  return 1024 + kRegionBytes + tile_bytes(F, G) + 2 * kStages * 8;
+  return 1024 + fwd_region_bytes<T>() + tile_bytes<T>(F + G) +
+         2 * Split<T>::kFwdStages * 8;
+}
+
+__host__ __device__ __forceinline__ int bwd_g_tile(int G) {
+  return G <= 32 ? 32 : 64;
+}
+// K3's dx0/dh pass: dz's planes, a ring of `stages` stages of one f's 64 l x
+// G tile of every W plane and, where the type keeps one, the x0 tile
+template <typename T>
+__host__ __device__ __forceinline__ int64_t dx_smem_bytes(int F, int G,
+                                                          int l_pad,
+                                                          int stages) {
+  return 1024 + Split<T>::kOp * static_cast<int64_t>(kDpCols) * l_pad * 2 +
+         static_cast<int64_t>(stages) * Split<T>::kOp * bwd_g_tile(G) *
+             kLChunk * 2 +
+         (Split<T>::kX0Tile ? tile_bytes<T>(F) : 0) + 2 * stages * 8;
+}
+// the most ring stages, 4 down to the type's fewest, that fit a block; 0 if
+// none does
+template <typename T>
+__host__ __device__ __forceinline__ int dx_stages(int F, int G, int l_pad) {
+  for (int stages = 4; stages >= Split<T>::kMinDxStages; --stages)
+    if (dx_smem_bytes<T>(F, G, l_pad, stages) <= kMaxSmemBytes) return stages;
+  return 0;
+}
+// x0 rows a dW block reads: the f of 128 consecutive pair rows k = f*G + g
+__host__ __device__ __forceinline__ int dw_x0_rows(int F, int G) {
+  const int rows = 127 / G + 2;
+  return rows < F ? rows : F;
+}
+// one chunk's buffer: dz's planes, the x0 rows and a zero row, the h rows
+template <typename T>
+__host__ __device__ __forceinline__ int64_t dw_buffer_bytes(int F, int G) {
+  return (Split<T>::kOp * kDwDzBytes +
+          (static_cast<int64_t>(dw_x0_rows(F, G)) + 1 + G) * kDwLd *
+              static_cast<int64_t>(sizeof(T)) +
+          1023) / 1024 * 1024;
+}
+template <typename T>
+__host__ __device__ __forceinline__ int64_t dw_smem_bytes(int F, int G) {
+  return 1024 + 2 * dw_buffer_bytes<T>(F, G);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float2 pack2(float a, float b) {
+  return make_float2(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 pack2(__nv_bfloat16 a,
+                                                __nv_bfloat16 b) {
+  return __halves2bfloat162(a, b);
+}
+__device__ __forceinline__ float2 unpack2(float2 v) { return v; }
+__device__ __forceinline__ float2 unpack2(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -385,86 +555,6 @@ __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
-// Two products p, q of bfloat16 values (exact in float32) as the bfloat16
-// pairs hi = bf16(p, q) and lo = bf16(p - hi, q - hi): hi + lo is exact.
-__device__ __forceinline__ void split_pair(float p, float q, uint32_t* hi,
-                                           uint32_t* lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(p, q);  // .x: low half
-  const float2 hf = __bfloat1622float2(h2);
-  const __nv_bfloat162 l2 = __floats2bfloat162_rn(p - hf.x, q - hf.y);
-  *hi = *reinterpret_cast<const uint32_t*>(&h2);
-  *lo = *reinterpret_cast<const uint32_t*>(&l2);
-}
-
-// This thread's hi and lo A fragments of one 16-wide k step (the
-// mma.m16n8k16 A layout in each warp's 16 rows: rows r0 and r0 + 8, k
-// columns c0 + {0, 1, 8, 9}, (f, g) = (kf, kg)[j]), from the x0 and h
-// tiles; the pair is zero past K (f >= F). Advances (kf, kg) by 16.
-__device__ __forceinline__ void pair_fragment(uint32_t* hi, uint32_t* lo,
-                                              const __nv_bfloat16* xs,
-                                              const __nv_bfloat16* hs,
-                                              int* kf, int* kg, int F, int G,
-                                              int r0) {
-  float p[2][4];  // [row][j], exact in float32
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool valid = kf[j] < F;
-    const __nv_bfloat16* xr = xs + (valid ? kf[j] : 0) * kTileLd;
-    const __nv_bfloat16* hr = hs + kg[j] * kTileLd;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int nl = r0 + 8 * r;
-      p[r][j] = valid ? __bfloat162float(xr[nl]) * __bfloat162float(hr[nl])
-                      : 0.f;
-    }
-    kg[j] += 16;
-    while (kg[j] >= G) {
-      kg[j] -= G;
-      ++kf[j];
-    }
-  }
-  split_pair(p[0][0], p[0][1], &hi[0], &lo[0]);
-  split_pair(p[1][0], p[1][1], &hi[1], &lo[1]);
-  split_pair(p[0][2], p[0][3], &hi[2], &lo[2]);
-  split_pair(p[1][2], p[1][3], &hi[3], &lo[3]);
-}
-
-// ---- K3, bfloat16: the tiles of its two passes (see the header)
-// dx0/dh pass: a block owns kDpCols columns n and one G tile (n32 or n64)
-constexpr int kDpCols = 128;   // two m64 tiles, one a warpgroup
-constexpr int kLChunk = 64;    // l per dz panel and per W stage: 128 bytes
-constexpr int kDxStages = 4;
-constexpr int kDxPanelBytes = kDpCols * kLChunk * 2;  // 16 KB
-// dW pass: a block owns kDwRows pair rows k, kLTile l and a column range
-constexpr int kDwRows = 128;   // two m64 tiles, one a warpgroup
-constexpr int kDwCols = 64;    // columns n per chunk: one 128-byte row
-constexpr int kDwLd = kDwCols + 8;  // x0/h chunk row stride (bf16)
-constexpr int kDwDzBytes = kLTile * kDwCols * 2;  // 16 KB
-
-__host__ __device__ __forceinline__ int bwd_g_tile(int G) {
-  return G <= 32 ? 32 : 64;
-}
-__host__ __device__ __forceinline__ int64_t dx_smem_bytes(int F, int G,
-                                                          int l_pad) {
-  return 1024 + static_cast<int64_t>(kDpCols) * l_pad * 2 +
-         kDxStages * bwd_g_tile(G) * kLChunk * 2 + tile_bytes(F, 0) +
-         2 * kDxStages * 8;
-}
-// x0 rows a dW block reads: the f of 128 consecutive pair rows k = f*G + g
-__host__ __device__ __forceinline__ int dw_x0_rows(int F, int G) {
-  const int rows = 127 / G + 2;
-  return rows < F ? rows : F;
-}
-// one chunk's buffer: the dz tile, the x0 rows and a zero row, the h rows
-__host__ __device__ __forceinline__ int64_t dw_buffer_bytes(int F, int G) {
-  return (kDwDzBytes +
-          (static_cast<int64_t>(dw_x0_rows(F, G)) + 1 + G) * kDwLd * 2 +
-          1023) / 1024 * 1024;
-}
-__host__ __device__ __forceinline__ int64_t dw_smem_bytes(int F, int G) {
-  return 1024 + 2 * dw_buffer_bytes(F, G);
-}
-
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -525,110 +615,248 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
     wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
 }
 
-// The eight columns n .. n+7 of row `row` of a (B, R, D) tensor as one
-// 16-byte vector, zeros at columns >= end; any D.
-__device__ __forceinline__ uint4 gather_columns(const __nv_bfloat16* a, int R,
-                                                int row, int64_t n,
-                                                int64_t end, int D) {
-  uint32_t v[4] = {0u, 0u, 0u, 0u};
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two float32 values p, q as P bfloat16 pairs a[0 .. P-1][reg] (.x: p),
+// each plane rounded to nearest from the exact float32 residual the planes
+// before it leave: the split of the header, whose planes sum to (p, q)
+// exactly (P = 3 for any float32; P = 2 for a product of two bfloat16
+// values, 16 significant bits; P = 1 for a bfloat16 value). For float32
+// (P = 3) plane 0 is rounded from the values clamped to bfloat16's largest
+// finite value, so that it never rounds to infinity.
+template <int P>
+__device__ __forceinline__ void split(float p, float q, uint32_t (*a)[4],
+                                      int reg) {
+  const float m = __uint_as_float(0x7F7F0000u);
+  __nv_bfloat162 b =
+      P == 3 ? __floats2bfloat162_rn(fminf(fmaxf(p, -m), m),
+                                     fminf(fmaxf(q, -m), m))
+             : __floats2bfloat162_rn(p, q);
+  a[0][reg] = bf162_bits(b);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t c = n + i;
-    const uint32_t bits =
-        c < end ? __bfloat16_as_ushort(
-                      a[column(c, R, D) + static_cast<int64_t>(row) * D])
-                : 0u;
-    v[i / 2] |= bits << (16 * (i % 2));
+  for (int i = 1; i < P; ++i) {
+    const float2 f = __bfloat1622float2(b);
+    p -= f.x;
+    q -= f.y;
+    b = __floats2bfloat162_rn(p, q);
+    a[i][reg] = bf162_bits(b);
   }
-  return make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-// Columns n .. n+7 of row `row` into 16 bytes of shared memory: cp.async
-// where `vec` (D a multiple of 8, 16-byte aligned operands: the eight are
-// one run in memory), else loaded one by one; zeros past `end` or where the
-// row is out of range.
-__device__ __forceinline__ void load_columns(void* dst,
-                                             const __nv_bfloat16* a, int R,
-                                             int row, bool row_ok, int64_t n,
-                                             int64_t end, int D, bool vec) {
-  if (!row_ok || n >= end)
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-  else if (vec)
-    cp_async16(dst, a + column(n, R, D) + static_cast<int64_t>(row) * D);
-  else
-    *reinterpret_cast<uint4*>(dst) = gather_columns(a, R, row, n, end, D);
+// d (64 x 128) += the split product of A's PA planes (registers, a[plane])
+// and B's PB planes (descriptors b[plane]): the plane pairs (i, j) with
+// i + j < max(PA, PB), largest first (bfloat16: the pair's hi and lo
+// against W or dz as stored; float32: the six pairs of the header); the
+// first writes d unless `accumulate`.
+template <int PA, int PB>
+__device__ __forceinline__ void split_wgmma(float* d, const uint32_t (*a)[4],
+                                            const uint64_t* b,
+                                            int accumulate) {
+  static_assert(PB == 1 || PA == PB, "the splits of the header");
+  wgmma_m64n128k16(d, a[0], b[0], accumulate);
+  if constexpr (PB > 1) wgmma_m64n128k16(d, a[0], b[1], 1);
+  if constexpr (PA > 1) wgmma_m64n128k16(d, a[1], b[0], 1);
+  if constexpr (PB > 2) wgmma_m64n128k16(d, a[0], b[2], 1);
+  if constexpr (PA > 2) wgmma_m64n128k16(d, a[2], b[0], 1);
+  if constexpr (PA > 2 && PB > 2) wgmma_m64n128k16(d, a[1], b[1], 1);
 }
 
-// This thread's hi and lo A fragments of one 16-wide k step of the dW
-// pass: rows are pair rows (its two, at x0 row offset xoff[r] and h row
-// offset hoff[r] of the chunk tiles, c0 included), k is the column n =
-// col + {0, 1, 8, 9}. Products of bfloat16 pairs, exact in float32.
-__device__ __forceinline__ void dw_pair_fragment(uint32_t* hi, uint32_t* lo,
-                                                 const __nv_bfloat16* xt,
-                                                 const __nv_bfloat16* ht,
+// The same with A from shared memory too, both operands in P planes, n = N
+template <int N, int P>
+__device__ __forceinline__ void split_wgmma_ss(float* d, const uint64_t* a,
+                                               const uint64_t* b,
+                                               int accumulate) {
+  wgmma_ss<N>(d, a[0], b[0], accumulate);
+  if constexpr (P > 1) {
+    wgmma_ss<N>(d, a[0], b[1], 1);
+    wgmma_ss<N>(d, a[1], b[0], 1);
+  }
+  if constexpr (P > 2) {
+    wgmma_ss<N>(d, a[0], b[2], 1);
+    wgmma_ss<N>(d, a[2], b[0], 1);
+    wgmma_ss<N>(d, a[1], b[1], 1);
+  }
+}
+
+// This thread's A fragments of one 16-wide k step in the pair's planes
+// ([plane][register], the mma.m16n8k16 A layout in each warp's 16 rows:
+// rows r0 and r0 + 8, k columns c0 + {0, 1, 8, 9}, (f, g) = (kf, kg)[j]),
+// from the x0 and h tiles: p = x0 * h in float32 (exact for bfloat16),
+// split. The pair is zero past K (f >= F). Advances (kf, kg) by 16.
+template <typename T>
+__device__ __forceinline__ void pair_fragment(uint32_t (*a)[4], const T* xs,
+                                              const T* hs, int* kf, int* kg,
+                                              int F, int G, int r0) {
+  constexpr int ld = Split<T>::kTileLd;
+  float p[2][4];  // [row][j]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool valid = kf[j] < F;
+    const T* xr = xs + (valid ? kf[j] : 0) * ld;
+    const T* hr = hs + kg[j] * ld;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int nl = r0 + 8 * r;
+      p[r][j] = valid ? to_f32(xr[nl]) * to_f32(hr[nl]) : 0.f;
+    }
+    kg[j] += 16;
+    while (kg[j] >= G) {
+      kg[j] -= G;
+      ++kf[j];
+    }
+  }
+  constexpr int P = Split<T>::kPair;
+  split<P>(p[0][0], p[0][1], a, 0);
+  split<P>(p[1][0], p[1][1], a, 1);
+  split<P>(p[0][2], p[0][3], a, 2);
+  split<P>(p[1][2], p[1][3], a, 3);
+}
+
+// This thread's A fragments of one 16-wide k step of the dW pass, in the
+// pair's planes: rows are pair rows (its two, at x0 row offset xoff[r] and
+// h row offset hoff[r] of the chunk tiles, c0 included), k is the column
+// n = col + {0, 1, 8, 9}.
+template <typename T>
+__device__ __forceinline__ void dw_pair_fragment(uint32_t (*a)[4],
+                                                 const T* xt, const T* ht,
                                                  const int* xoff,
                                                  const int* hoff, int col) {
+  using Pair = typename Split<T>::Pair;
 #pragma unroll
   for (int j = 0; j < 2; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(xt + xoff[r] + col + 8 * j));
-      const float2 y = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(ht + hoff[r] + col + 8 * j));
-      split_pair(x.x * y.x, x.y * y.y, &hi[r + 2 * j], &lo[r + 2 * j]);
+      const float2 x =
+          unpack2(*reinterpret_cast<const Pair*>(xt + xoff[r] + col + 8 * j));
+      const float2 y =
+          unpack2(*reinterpret_cast<const Pair*>(ht + hoff[r] + col + 8 * j));
+      split<Split<T>::kPair>(x.x * y.x, x.y * y.y, a, r + 2 * j);
     }
+}
+
+// Eight consecutive values from 16-byte-aligned memory, as float32.
+__device__ __forceinline__ void load8(float* v, const float* src) {
+  const float4 lo = reinterpret_cast<const float4*>(src)[0];
+  const float4 hi = reinterpret_cast<const float4*>(src)[1];
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+__device__ __forceinline__ void load8(float* v, const __nv_bfloat16* src) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // a bfloat16 is a float32's top 16 bits
+    v[2 * i] = __uint_as_float(words[i] << 16);
+    v[2 * i + 1] = __uint_as_float(words[i] & 0xFFFF0000u);
+  }
+}
+
+// The eight columns n .. n+7 of row `row` of a (B, R, D) tensor as float32,
+// zeros at columns >= end or where the row is out of range; 16-byte loads
+// where `vec` (D a multiple of 8, 16-byte aligned: the eight are one run).
+template <typename T>
+__device__ __forceinline__ void fetch8(float* v, const T* a, int R, int row,
+                                       bool row_ok, int64_t n, int64_t end,
+                                       int D, bool vec) {
+  if (!row_ok || n >= end) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = 0.f;
+  } else if (vec) {
+    load8(v, a + column(n, R, D) + static_cast<int64_t>(row) * D);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t c = n + i;
+      v[i] = c < end
+                 ? to_f32(a[column(c, R, D) + static_cast<int64_t>(row) * D])
+                 : 0.f;
+    }
+  }
+}
+
+// The 16 bytes of columns n, n+1, .. of row `row` into shared memory:
+// cp.async where `vec`, else loaded one by one; zeros past `end` or where
+// the row is out of range.
+template <typename T>
+__device__ __forceinline__ void load_columns(void* dst, const T* a, int R,
+                                             int row, bool row_ok, int64_t n,
+                                             int64_t end, int D, bool vec) {
+  if (!row_ok || n >= end) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+  } else if (vec) {
+    cp_async16(dst, a + column(n, R, D) + static_cast<int64_t>(row) * D);
+  } else {
+    T* out = reinterpret_cast<T*>(dst);
+#pragma unroll
+    for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) {
+      const int64_t c = n + i;
+      out[i] = c < end ? a[column(c, R, D) + static_cast<int64_t>(row) * D]
+                       : from_f32<T>(0.f);
+    }
+  }
 }
 
 }  // namespace wg
 
-__global__ void __launch_bounds__(wg::kBlockThreads, 2)
+// K4 on the tensor cores: Z^T = P^T . W^T on wgmma over the type's split.
+// W comes as (planes, l_pad, k_pad) bfloat16 (the TMA map's rows: plane p,
+// l at p * l_pad + l).
+template <typename T>
+__global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
     cin_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
-                         const __nv_bfloat16* __restrict__ x0,
-                         const __nv_bfloat16* __restrict__ h,
+                         const T* __restrict__ x0, const T* __restrict__ h,
                          float* __restrict__ z, int64_t N, int F, int G,
-                         int L, int D, int chunks) {
+                         int L, int D, int l_pad, int chunks) {
   using namespace wg;
+  using S = Split<T>;
+  constexpr int kStages = S::kFwdStages;
+  constexpr int kStage = S::kOp * kStageBytes;  // a chunk of every W plane
+  constexpr int kRegion = fwd_region_bytes<T>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + kRegionBytes);
-  __nv_bfloat16* hs = xs + F * kTileLd;
+  T* xs = reinterpret_cast<T*>(smem + kRegion);
+  T* hs = xs + F * S::kTileLd;
   // full[s]: stage s holds its chunk; released[s]: warps done with it
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRegionBytes +
-                                               tile_bytes(F, G));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRegion +
+                                               tile_bytes<T>(F + G));
   int* released = reinterpret_cast<int*>(full + kStages);
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kCols;
   const int l0 = blockIdx.y * kLTile;
 
+  // chunk c into stage s: one TMA load a W plane, one barrier
+  auto load_stage = [&](int c, int s) {
+    mbar_expect_tx(full + s, kStage);
+#pragma unroll
+    for (int p = 0; p < S::kOp; ++p)
+      tma_load_2d(smem + s * kStage + p * kStageBytes, &w_map, full + s,
+                  c * kChunk, p * l_pad + l0);
+  };
   if (t == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
       released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < kStages && c < chunks; ++c) {
-      mbar_expect_tx(full + c, kStageBytes);
-      tma_load_2d(smem + c * kStageBytes, &w_map, full + c, c * kChunk, l0);
-    }
+    for (int c = 0; c < kStages && c < chunks; ++c) load_stage(c, c);
   }
 
-  // the block's x0 and h columns, [row][column], bfloat16 as stored
+  // the block's x0 and h columns, [row][column], as stored
   {
     const int nl = t % kCols;
     const int64_t n = n0 + nl;
     const bool valid = n < N;
-    const int64_t b = valid ? n / D : 0;
-    const int d = valid ? static_cast<int>(n % D) : 0;
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    const __nv_bfloat16* xc = x0 + b * F * D + d;
-    const __nv_bfloat16* hc = h + b * G * D + d;
+    const T zero = from_f32<T>(0.f);
+    const T* xc = x0 + (valid ? column(n, F, D) : 0);
+    const T* hc = h + (valid ? column(n, G, D) : 0);
     for (int f = t / kCols; f < F; f += kBlockThreads / kCols)
-      xs[f * kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
+      xs[f * S::kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
     for (int g = t / kCols; g < G; g += kBlockThreads / kCols)
-      hs[g * kTileLd + nl] = valid ? hc[static_cast<int64_t>(g) * D] : zero;
+      hs[g * S::kTileLd + nl] = valid ? hc[static_cast<int64_t>(g) * D] : zero;
   }
   __syncthreads();
 
@@ -650,19 +878,24 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
 
   // Two fragment sets: the next step's is built while the wgmmas of this
   // one run.
-  uint32_t frag[2][2][4];  // [set][hi, lo][register]
-  pair_fragment(frag[0][0], frag[0][1], xs, hs, kf, kg, F, G, r0);
+  uint32_t frag[2][S::kPair][4];  // [set][plane][register]
+  pair_fragment<T>(frag[0], xs, hs, kf, kg, F, G, r0);
   for (int c = 0; c < chunks; ++c) {
     const int s = c % kStages;
     mbar_wait(full + s, (c / kStages) & 1);
-    const uint64_t desc = smem_desc(smem + s * kStageBytes);
+    uint64_t desc[S::kOp];
+#pragma unroll
+    for (int p = 0; p < S::kOp; ++p)
+      desc[p] = smem_desc(smem + s * kStage + p * kStageBytes);
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk) {
       const int cur = kk & 1;
-      // +2 in the descriptor's address field: 16 bf16 = 32 bytes along k
+      // +2 in the descriptors' address fields: 16 bf16 = 32 bytes along k
+      uint64_t b[S::kOp];
+#pragma unroll
+      for (int p = 0; p < S::kOp; ++p) b[p] = desc[p] + 2 * kk;
       wgmma_fence();
-      wgmma_m64n128k16(acc, frag[cur][0], desc + 2 * kk, c > 0 || kk > 0);
-      wgmma_m64n128k16(acc, frag[cur][1], desc + 2 * kk, 1);
+      split_wgmma<S::kPair, S::kOp>(acc, frag[cur], b, c > 0 || kk > 0);
       wgmma_commit();
       // the step before is done: its fragment set is free and, at the
       // first step of a chunk, so is the previous chunk's stage; the last
@@ -675,17 +908,11 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
           __threadfence_block();
           if (atomicAdd(released + ps, 1) == kWarps - 1) {
             released[ps] = 0;
-            const int next = c - 1 + kStages;
-            if (next < chunks) {
-              mbar_expect_tx(full + ps, kStageBytes);
-              tma_load_2d(smem + ps * kStageBytes, &w_map, full + ps,
-                          next * kChunk, l0);
-            }
+            if (c - 1 + kStages < chunks) load_stage(c - 1 + kStages, ps);
           }
         }
       }
-      pair_fragment(frag[cur ^ 1][0], frag[cur ^ 1][1], xs, hs, kf, kg, F, G,
-                    r0);
+      pair_fragment<T>(frag[cur ^ 1], xs, hs, kf, kg, F, G, r0);
     }
   }
   wgmma_wait<0>();
@@ -926,36 +1153,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---------------------------------------------------------------- K3, bf16
+// ---------------------------------------------------------------- K3, wgmma
 // dx0/dh on the tensor cores: for each f, dpair^T (n, g) = dz^T (n, l) .
 // W[:, f, g-tile] (l, g) on wgmma m64nGTk16 (GT = 32 or 64), A (dz) and B
-// (W) from shared memory, folded into dx0 and dh in registers. See the
-// header for the design.
-template <int GT>
-__global__ void __launch_bounds__(wg::kBlockThreads, 2)
+// (W) from shared memory in the type's planes, folded into dx0 and dh in
+// registers. W comes as (planes, F, g_pad, l_pad) bfloat16 (the map's rows:
+// plane p, f, g at (p * F + f) * g_pad + g). See the header for the design.
+template <typename T, int GT>
+__global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
     cin_bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
-                            const __nv_bfloat16* __restrict__ x0,
-                            const __nv_bfloat16* __restrict__ h,
-                            const __nv_bfloat16* __restrict__ dz,
-                            __nv_bfloat16* __restrict__ dx0,
-                            float* __restrict__ dx0_part,
-                            __nv_bfloat16* __restrict__ dh, int64_t N, int F,
-                            int G, int L, int D, int g_pad, int l_pad,
-                            bool vec) {
+                            const T* __restrict__ x0, const T* __restrict__ h,
+                            const T* __restrict__ dz, T* __restrict__ dx0,
+                            float* __restrict__ dx0_part, T* __restrict__ dh,
+                            int64_t N, int F, int G, int L, int D, int g_pad,
+                            int l_pad, int stages, bool vec) {
   using namespace wg;
+  using S = Split<T>;
   constexpr int kAcc = GT / 2;  // a thread's share of the 64 x GT tile
-  constexpr int kStage = GT * kLChunk * 2;
+  constexpr int kPlane = GT * kLChunk * 2;  // a W plane's tile
+  constexpr int kStage = S::kOp * kPlane;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // dz^T: panels of 128 n x 64 l, K-major, 128-byte swizzle
+  // dz^T in its planes, each panels of 128 n x 64 l, K-major, 128-byte
+  // swizzle; the ring; the x0 tile where the type keeps one
+  const int64_t dz_plane = static_cast<int64_t>(kDpCols) * l_pad * 2;
   unsigned char* dzs = smem;
-  unsigned char* ring = smem + static_cast<int64_t>(kDpCols) * l_pad * 2;
-  __nv_bfloat16* xs =
-      reinterpret_cast<__nv_bfloat16*>(ring + kDxStages * kStage);
+  unsigned char* ring = smem + S::kOp * dz_plane;
+  T* xs = reinterpret_cast<T*>(ring + stages * kStage);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      reinterpret_cast<unsigned char*>(xs) + tile_bytes(F, 0));
-  int* released = reinterpret_cast<int*>(full + kDxStages);
+      reinterpret_cast<unsigned char*>(xs) +
+      (S::kX0Tile ? tile_bytes<T>(F) : 0));
+  int* released = reinterpret_cast<int*>(full + stages);
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kDpCols;
@@ -963,70 +1192,79 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
   const int panels = l_pad / kLChunk;
   const int chunks = F * panels;  // chunk c: f = c / panels, l panel c % panels
 
+  // chunk c into stage s: one TMA load a W plane, one barrier
+  auto load_stage = [&](int c, int s) {
+    mbar_expect_tx(full + s, kStage);
+#pragma unroll
+    for (int p = 0; p < S::kOp; ++p)
+      tma_load_2d(ring + s * kStage + p * kPlane, &w_map, full + s,
+                  (c % panels) * kLChunk, (p * F + c / panels) * g_pad + g0);
+  };
   if (t == 0) {
-    for (int s = 0; s < kDxStages; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(full + s, 1);
       released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int c = 0; c < kDxStages && c < chunks; ++c) {
-      mbar_expect_tx(full + c, kStage);
-      tma_load_2d(ring + c * kStage, &w_map, full + c, (c % panels) * kLChunk,
-                  (c / panels) * g_pad + g0);
-    }
+    for (int c = 0; c < stages && c < chunks; ++c) load_stage(c, c);
   }
 
-  // the block's dz columns, [n][l] in the swizzled panels: each item is
-  // eight columns of one l, scattered into eight rows; zeros past N and L
+  // the block's dz columns, [n][l] in the planes' swizzled panels: each item
+  // is eight columns of one l, split and scattered into eight rows; zeros
+  // past N and L
   for (int e = t; e < (kDpCols / 8) * l_pad; e += kBlockThreads) {
     const int l = e % l_pad, grp = e / l_pad;
-    const int64_t n = n0 + 8 * grp;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (l < L && n < N)
-      v = vec ? *reinterpret_cast<const uint4*>(
-                    dz + column(n, L, D) + static_cast<int64_t>(l) * D)
-              : gather_columns(dz, L, l, n, N, D);
-    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    float v[8];
+    fetch8(v, dz, L, l, l < L, n0 + 8 * grp, N, D, vec);
     unsigned char* panel = dzs + (l / kLChunk) * kDxPanelBytes;
     const int lc = l % kLChunk;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int nl = 8 * grp + i;  // nl % 8 == i: the swizzle row
-      *reinterpret_cast<unsigned short*>(
-          panel + nl * 128 + (((lc / 8) ^ i) * 16) + (lc % 8) * 2) =
-          static_cast<unsigned short>(words[i / 2] >> (16 * (i % 2)));
+    for (int i = 0; i < 8; i += 2) {
+      uint32_t a[S::kOp][4];
+      split<S::kOp>(v[i], v[i + 1], a, 0);
+#pragma unroll
+      for (int p = 0; p < S::kOp; ++p)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int nl = 8 * grp + i + e2;  // nl % 8 == i + e2: the swizzle row
+          *reinterpret_cast<unsigned short*>(
+              panel + p * dz_plane + nl * 128 + (((lc / 8) ^ (i + e2)) * 16) +
+              (lc % 8) * 2) = static_cast<unsigned short>(a[p][0] >> (16 * e2));
+        }
     }
-  }
-  // the block's x0 columns, [f][n], as K4 stages them
-  {
-    const int nl = t % kDpCols;
-    const int64_t n = n0 + nl;
-    const bool valid = n < N;
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-    const __nv_bfloat16* xc = x0 + (valid ? column(n, F, D) : 0);
-    for (int f = t / kDpCols; f < F; f += kBlockThreads / kDpCols)
-      xs[f * kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
   }
   // This thread's accumulator elements (the wgmma D layout): rows
   // n = n0 + r0 + 8r, columns g = g0 + 8j + c0 + {0, 1}; acc[4j + 2r + e].
+  // x0's offsets of its rows (-1 past N) and h there.
   const int r0 = 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
-  __nv_bfloat162 hv[GT / 8][2];  // h at those elements, [j][r]
+  const T zero = from_f32<T>(0.f);
+  int64_t xcol[2];
+  typename S::Pair hv[GT / 8][2];  // [j][r]
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int64_t n = n0 + r0 + 8 * r;
     const bool valid = n < N;
-    const __nv_bfloat16* hc = h + (valid ? column(n, G, D) : 0);
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+    xcol[r] = valid ? column(n, F, D) : -1;
+    const T* hc = h + (valid ? column(n, G, D) : 0);
 #pragma unroll
     for (int j = 0; j < GT / 8; ++j) {
       const int g = g0 + 8 * j + c0;
-      hv[j][r] = __halves2bfloat162(
-          valid && g < G ? hc[static_cast<int64_t>(g) * D] : zero,
-          valid && g + 1 < G ? hc[static_cast<int64_t>(g + 1) * D] : zero);
+      hv[j][r] =
+          pack2(valid && g < G ? hc[static_cast<int64_t>(g) * D] : zero,
+                valid && g + 1 < G ? hc[static_cast<int64_t>(g + 1) * D]
+                                   : zero);
     }
   }
-  fence_proxy_async();  // the dz tile is read by wgmma (the async proxy)
+  if constexpr (S::kX0Tile) {  // the block's x0 columns, [f][n], as K4's
+    const int nl = t % kDpCols;
+    const int64_t n = n0 + nl;
+    const bool valid = n < N;
+    const T* xc = x0 + (valid ? column(n, F, D) : 0);
+    for (int f = t / kDpCols; f < F; f += kBlockThreads / kDpCols)
+      xs[f * S::kTileLd + nl] = valid ? xc[static_cast<int64_t>(f) * D] : zero;
+  }
+  fence_proxy_async();  // the dz planes are read by wgmma (the async proxy)
   __syncthreads();
 
   float dhacc[kAcc];
@@ -1037,36 +1275,52 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
   unsigned char* a_base = dzs + (warp / 4) * 64 * 128;
 
   // a warp is done with chunk c's stage: the last of the 8 warps to say so
-  // loads the chunk kDxStages ahead into it
+  // loads the chunk `stages` ahead into it
   auto release = [&](int c) {
     __syncwarp();
     if (lane == 0) {
       __threadfence_block();
-      const int s = c % kDxStages;
+      const int s = c % stages;
       if (atomicAdd(released + s, 1) == kWarps - 1) {
         released[s] = 0;
-        const int next = c + kDxStages;
-        if (next < chunks) {
-          mbar_expect_tx(full + s, kStage);
-          tma_load_2d(ring + s * kStage, &w_map, full + s,
-                      (next % panels) * kLChunk, (next / panels) * g_pad + g0);
-        }
+        if (c + stages < chunks) load_stage(c + stages, s);
       }
     }
   };
 
   for (int f = 0; f < F; ++f) {
+    // x0[f, n] of this thread's rows: without a tile, loaded from global
+    // memory while the wgmmas run
+    float xv[2];
+    if constexpr (!S::kX0Tile) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        xv[r] = xcol[r] >= 0
+                    ? to_f32(x0[xcol[r] + static_cast<int64_t>(f) * D])
+                    : 0.f;
+    }
     for (int p = 0; p < panels; ++p) {
       const int c = f * panels + p;
-      const int s = c % kDxStages;
-      mbar_wait(full + s, (c / kDxStages) & 1);
-      const uint64_t a_desc = smem_desc(a_base + p * kDxPanelBytes);
-      const uint64_t b_desc = smem_desc(ring + s * kStage);
+      const int s = c % stages;
+      mbar_wait(full + s, (c / stages) & 1);
+      uint64_t a_desc[S::kOp], b_desc[S::kOp];
+#pragma unroll
+      for (int q = 0; q < S::kOp; ++q) {
+        a_desc[q] = smem_desc(a_base + q * dz_plane + p * kDxPanelBytes);
+        b_desc[q] = smem_desc(ring + s * kStage + q * kPlane);
+      }
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kLChunk / 16; ++kk)
+      for (int kk = 0; kk < kLChunk / 16; ++kk) {
         // +2 in the address fields: 16 bf16 = 32 bytes along l
-        wgmma_ss<GT>(acc, a_desc + 2 * kk, b_desc + 2 * kk, p > 0 || kk > 0);
+        uint64_t a[S::kOp], b[S::kOp];
+#pragma unroll
+        for (int q = 0; q < S::kOp; ++q) {
+          a[q] = a_desc[q] + 2 * kk;
+          b[q] = b_desc[q] + 2 * kk;
+        }
+        split_wgmma_ss<GT, S::kOp>(acc, a, b, p > 0 || kk > 0);
+      }
       wgmma_commit();
       // the panel before is done: its stage is free at once (waiting for
       // the end of f would stall a ring shorter than one f's panels)
@@ -1079,17 +1333,19 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
     release(f * panels + panels - 1);
+    if constexpr (S::kX0Tile) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        xv[r] = to_f32(xs[f * S::kTileLd + r0 + 8 * r]);
+    }
 
     // acc = dpair[f, g, n]: dh += acc * x0[f, n]; dx0[f, n] = sum_g acc * h
-    float xv[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      xv[r] = __bfloat162float(xs[f * kTileLd + r0 + 8 * r]);
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < GT / 8; ++j)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float2 hf = __bfloat1622float2(hv[j][r]);
+        const float2 hf = unpack2(hv[j][r]);
         const int i = 4 * j + 2 * r;
         sum[r] = fmaf(acc[i], hf.x, sum[r]);
         sum[r] = fmaf(acc[i + 1], hf.y, sum[r]);
@@ -1105,9 +1361,8 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
     if (lane % 4 == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int64_t n = n0 + r0 + 8 * r;
-        if (n >= N) continue;
-        const int64_t at = column(n, F, D) + static_cast<int64_t>(f) * D;
+        if (xcol[r] < 0) continue;
+        const int64_t at = xcol[r] + static_cast<int64_t>(f) * D;
         if (dx0_part != nullptr)
           dx0_part[blockIdx.y * N * static_cast<int64_t>(F) + at] = sum[r];
         else
@@ -1120,7 +1375,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
   for (int r = 0; r < 2; ++r) {
     const int64_t n = n0 + r0 + 8 * r;
     if (n >= N) continue;
-    __nv_bfloat16* hc = dh + column(n, G, D);
+    T* hc = dh + column(n, G, D);
 #pragma unroll
     for (int j = 0; j < GT / 8; ++j)
 #pragma unroll
@@ -1134,20 +1389,25 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
 
 // dW on the tensor cores: dW^T (k, l) = P (k, n) . dz^T (n, l) over one
 // column range, wgmma m64n128k16, A (the pair) built in registers and split
-// into exact hi/lo bfloat16 halves, B (dz) from shared memory. Writes a
+// into its planes, B (dz) from shared memory in its planes. Writes a
 // float32 partial; see the header.
-__global__ void __launch_bounds__(wg::kBlockThreads, 2)
-    cin_bwd_dw_wgmma_kernel(const __nv_bfloat16* __restrict__ x0,
-                            const __nv_bfloat16* __restrict__ h,
-                            const __nv_bfloat16* __restrict__ dz,
+template <typename T>
+__global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
+    cin_bwd_dw_wgmma_kernel(const T* __restrict__ x0, const T* __restrict__ h,
+                            const T* __restrict__ dz,
                             float* __restrict__ dw_part, int64_t N,
                             int64_t cols_per_split, int F, int G, int L, int D,
                             bool vec) {
   using namespace wg;
+  using S = Split<T>;
+  constexpr int kE = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  // a thread's share of one chunk's dz where it is split in registers:
+  // kDwItems items of eight columns
+  constexpr int kDwItems = kLTile * (kDwCols / 8) / kBlockThreads;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int64_t buf_bytes = dw_buffer_bytes(F, G);
+  const int64_t buf_bytes = dw_buffer_bytes<T>(F, G);
   const int xr = dw_x0_rows(F, G);
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
@@ -1168,36 +1428,68 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
   const int f_lo = k0 / G;
   const int chunks = static_cast<int>((end - begin + kDwCols - 1) / kDwCols);
 
-  // a buffer: dz^T [l][n] (128-byte swizzle), x0 rows f_lo .. f_lo + xr - 1
-  // and a zero row, h rows 0 .. G - 1, [row][n]
+  // a buffer: dz^T [l][n] in its planes (128-byte swizzle), x0 rows
+  // f_lo .. f_lo + xr - 1 and a zero row, h rows 0 .. G - 1, [row][n]
   auto dz_tile = [&](int b) { return smem + b * buf_bytes; };
   auto x_tile = [&](int b) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + b * buf_bytes +
-                                            kDwDzBytes);
+    return reinterpret_cast<T*>(smem + b * buf_bytes + S::kOp * kDwDzBytes);
   };
   auto h_tile = [&](int b) { return x_tile(b) + (xr + 1) * kDwLd; };
   for (int b = 0; b < 2; ++b)
     for (int e = t; e < kDwLd; e += kBlockThreads)
-      x_tile(b)[xr * kDwLd + e] = __float2bfloat16_rn(0.f);
+      x_tile(b)[xr * kDwLd + e] = from_f32<T>(0.f);
 
+  // chunk c's x0 and h rows into buffer b by cp.async, and its dz where dz
+  // takes one plane (as stored)
   auto load = [&](int c, int b) {
     const int64_t cb = begin + static_cast<int64_t>(c) * kDwCols;
-    unsigned char* dzt = dz_tile(b);
-    for (int e = t; e < kLTile * (kDwCols / 8); e += kBlockThreads) {
-      const int grp = e % 8, l = e / 8;
-      load_columns(dzt + l * 128 + ((grp ^ (l % 8)) * 16), dz, L, l0 + l,
-                   l0 + l < L, cb + 8 * grp, end, D, vec);
+    if constexpr (S::kOp == 1) {
+      unsigned char* dzt = dz_tile(b);
+      for (int e = t; e < kLTile * (kDwCols / 8); e += kBlockThreads) {
+        const int grp = e % 8, l = e / 8;
+        load_columns(dzt + l * 128 + ((grp ^ (l % 8)) * 16), dz, L, l0 + l,
+                     l0 + l < L, cb + 8 * grp, end, D, vec);
+      }
     }
-    __nv_bfloat16* xt = x_tile(b);
-    __nv_bfloat16* ht = h_tile(b);
-    for (int e = t; e < (xr + G) * (kDwCols / 8); e += kBlockThreads) {
-      const int grp = e % 8, row = e / 8;
+    T* xt = x_tile(b);
+    T* ht = h_tile(b);
+    for (int e = t; e < (xr + G) * (kDwCols / kE); e += kBlockThreads) {
+      const int grp = e % (kDwCols / kE), row = e / (kDwCols / kE);
       if (row < xr)
-        load_columns(xt + row * kDwLd + 8 * grp, x0, F, f_lo + row,
-                     f_lo + row < F, cb + 8 * grp, end, D, vec);
+        load_columns(xt + row * kDwLd + kE * grp, x0, F, f_lo + row,
+                     f_lo + row < F, cb + kE * grp, end, D, vec);
       else
-        load_columns(ht + (row - xr) * kDwLd + 8 * grp, h, G, row - xr, true,
-                     cb + 8 * grp, end, D, vec);
+        load_columns(ht + (row - xr) * kDwLd + kE * grp, h, G, row - xr,
+                     true, cb + kE * grp, end, D, vec);
+    }
+  };
+  // dz in more than one plane: item i of this thread is l = e / 8, columns
+  // 8 (e % 8) .. + 7 of chunk c, loaded into registers, then split into
+  // buffer b's planes
+  auto fetch_dz = [&](int c, float (*v)[8]) {
+    const int64_t cb = begin + static_cast<int64_t>(c) * kDwCols;
+#pragma unroll
+    for (int i = 0; i < kDwItems; ++i) {
+      const int e = t + i * kBlockThreads;
+      const int grp = e % 8, l = e / 8;
+      fetch8(v[i], dz, L, l0 + l, l0 + l < L, cb + 8 * grp, end, D, vec);
+    }
+  };
+  auto store_dz = [&](float (*v)[8], int b) {
+    unsigned char* dzt = dz_tile(b);
+#pragma unroll
+    for (int i = 0; i < kDwItems; ++i) {
+      const int e = t + i * kBlockThreads;
+      const int grp = e % 8, l = e / 8;
+      uint32_t a[S::kOp][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split<S::kOp>(v[i][2 * q], v[i][2 * q + 1], a, q);
+#pragma unroll
+      for (int p = 0; p < S::kOp; ++p)
+        *reinterpret_cast<uint4*>(dzt + p * kDwDzBytes + l * 128 +
+                                  ((grp ^ (l % 8)) * 16)) =
+            make_uint4(a[p][0], a[p][1], a[p][2], a[p][3]);
     }
   };
 
@@ -1214,33 +1506,51 @@ __global__ void __launch_bounds__(wg::kBlockThreads, 2)
     hoff[r] = (valid ? k % G : 0) * kDwLd + c0;
   }
 
+  float v[kDwItems][8];
   load(0, 0);
   cp_async_commit();
+  if constexpr (S::kOp > 1) {
+    fetch_dz(0, v);
+    store_dz(v, 0);
+  }
   cp_async_wait_all();
   fence_proxy_async();
   __syncthreads();
 
   float acc[64];  // defined by the first wgmma (scale-d 0), as in K4
-  uint32_t frag[2][2][4];  // [set][hi, lo][register]
+  uint32_t frag[2][S::kPair][4];  // [set][plane][register]
   for (int c = 0; c < chunks; ++c) {
     const int cur = c & 1;
-    // the next chunk streams in while this one's wgmmas run; its buffer's
-    // last readers finished before the barrier that ended the chunk before
-    if (c + 1 < chunks) load(c + 1, cur ^ 1);
+    const bool next = c + 1 < chunks;
+    // the next chunk streams in while this one's wgmmas run (dz in more
+    // than one plane into registers, split into its buffer after the
+    // wgmmas are issued); its buffer's last readers finished before the
+    // barrier that ended the chunk before
+    if (next) {
+      load(c + 1, cur ^ 1);
+      if constexpr (S::kOp > 1) fetch_dz(c + 1, v);
+    }
     cp_async_commit();
-    const uint64_t desc = smem_desc(dz_tile(cur));
-    const __nv_bfloat16* xt = x_tile(cur);
-    const __nv_bfloat16* ht = h_tile(cur);
+    uint64_t desc[S::kOp];
+#pragma unroll
+    for (int p = 0; p < S::kOp; ++p)
+      desc[p] = smem_desc(dz_tile(cur) + p * kDwDzBytes);
+    const T* xt = x_tile(cur);
+    const T* ht = h_tile(cur);
 #pragma unroll
     for (int kk = 0; kk < kDwCols / 16; ++kk) {
       const int set = kk & 1;
-      dw_pair_fragment(frag[set][0], frag[set][1], xt, ht, xoff, hoff,
-                       16 * kk);
+      dw_pair_fragment<T>(frag[set], xt, ht, xoff, hoff, 16 * kk);
+      uint64_t b[S::kOp];
+#pragma unroll
+      for (int p = 0; p < S::kOp; ++p) b[p] = desc[p] + 2 * kk;
       wgmma_fence();
-      wgmma_m64n128k16(acc, frag[set][0], desc + 2 * kk, c > 0 || kk > 0);
-      wgmma_m64n128k16(acc, frag[set][1], desc + 2 * kk, 1);
+      split_wgmma<S::kPair, S::kOp>(acc, frag[set], b, c > 0 || kk > 0);
       wgmma_commit();
       wgmma_wait<1>();  // the step before is done: its fragment set is free
+    }
+    if constexpr (S::kOp > 1) {
+      if (next) store_dz(v, cur ^ 1);
     }
     wgmma_wait<0>();
     cp_async_wait_all();
@@ -1331,41 +1641,49 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// w_pad: (L, k_pad) bfloat16, k_pad a multiple of 64 and >= F*G, zeros past
-// F*G (TMA wants row strides in multiples of 16 bytes).
-cudaError_t launch_fwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
-                             const __nv_bfloat16* w_pad, float* z, int64_t B,
-                             int F, int G, int L, int D, int k_pad,
-                             cudaStream_t stream) {
+// K4 on the tensor cores. w_planes: (planes, l_pad, k_pad) bfloat16, the
+// type's planes of w (the wrapper's padded_w): k_pad a multiple of 64 and
+// >= F*G (TMA wants row strides in multiples of 16 bytes), zeros past F*G;
+// l_pad >= L, a multiple of 128 where w takes more than one plane (each
+// 128-row tile of one plane), zeros past L.
+template <typename T>
+cudaError_t launch_fwd_wgmma(const T* x0, const T* h,
+                             const __nv_bfloat16* w_planes, float* z,
+                             int64_t B, int F, int G, int L, int D, int l_pad,
+                             int k_pad, cudaStream_t stream) {
+  constexpr int planes = wg::Split<T>::kOp;
   const int64_t N = B * D;
   if (B < 1 || bad_shape(N, F, G, L, D) || k_pad % wg::kChunk != 0 ||
-      k_pad < F * G || wg::smem_bytes(F, G) > wg::kMaxSmemBytes)
+      k_pad < F * G || l_pad < L ||
+      (planes > 1 && l_pad % wg::kLTile != 0) ||
+      planes * static_cast<int64_t>(l_pad) > 0x7fffffff ||
+      wg::smem_bytes<T>(F, G) > wg::kMaxSmemBytes)
     return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k_pad),
-                              static_cast<cuuint64_t>(L)};
+                              static_cast<cuuint64_t>(planes) * l_pad};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k_pad) * 2};
   const cuuint32_t box[2] = {wg::kChunk, wg::kLTile};
   const cuuint32_t steps[2] = {1, 1};
-  // rows l >= L of the last tile read as zeros
+  // rows past the last plane's read as zeros
   if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<__nv_bfloat16*>(w_pad), dims, strides, box, steps,
+             const_cast<__nv_bfloat16*>(w_planes), dims, strides, box, steps,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   // once: the limit a launch may ask for, not what it allocates
   static const cudaError_t attr = cudaFuncSetAttribute(
-      cin_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cin_fwd_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       wg::kMaxSmemBytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(static_cast<unsigned>(ceil_div(N, wg::kCols)),
                   static_cast<unsigned>(ceil_div(L, wg::kLTile)));
-  cin_fwd_wgmma_kernel<<<grid, wg::kBlockThreads, wg::smem_bytes(F, G),
-                         stream>>>(
-      map, x0, h, z, N, F, G, L, D, k_pad / wg::kChunk);
+  cin_fwd_wgmma_kernel<T><<<grid, wg::kBlockThreads, wg::smem_bytes<T>(F, G),
+                            stream>>>(map, x0, h, z, N, F, G, L, D, l_pad,
+                                      k_pad / wg::kChunk);
   return cudaGetLastError();
 }
 
@@ -1415,29 +1733,30 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// K3 on the tensor cores. w_t: (F, g_pad, l_pad) bfloat16, w_t[f, g, l] =
-// w[l, f, g], zeros past G and L; g_pad a multiple of the G tile (32 for
-// G <= 32, else 64), l_pad of 64. dx0_part: (g_pad / tile * B*F*D) float32
-// when G > 64, else unused. dw_part: (splits * L*F*G) float32; the dW
-// reduction over N is cut into ranges of cols_per_split columns (a
-// multiple of 64).
-cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
-                             const __nv_bfloat16* w_t,
-                             const __nv_bfloat16* dz, __nv_bfloat16* dx0,
-                             __nv_bfloat16* dh, float* dw, float* dx0_part,
+// K3 on the tensor cores. w_t: (planes, F, g_pad, l_pad) bfloat16, the
+// type's planes of w in the wrapper's dpair_w layout (w_t[p, f, g, l] =
+// plane p of w[l, f, g]), zeros past G and L; g_pad a multiple of the G
+// tile (32 for G <= 32, else 64), l_pad of 64. dx0_part: (g_pad / tile *
+// B*F*D) float32 when G > 64, else unused. dw_part: (splits * L*F*G)
+// float32; the dW reduction over N is cut into ranges of cols_per_split
+// columns (a multiple of 64).
+template <typename T>
+cudaError_t launch_bwd_wgmma(const T* x0, const T* h,
+                             const __nv_bfloat16* w_t, const T* dz, T* dx0,
+                             T* dh, float* dw, float* dx0_part,
                              float* dw_part, int64_t B, int F, int G, int L,
                              int D, int g_pad, int l_pad, int splits,
                              int64_t cols_per_split, cudaStream_t stream) {
+  constexpr int planes = wg::Split<T>::kOp;
   const int64_t N = B * D;
   const int gt = wg::bwd_g_tile(G);
+  const int stages = wg::dx_stages<T>(F, G, l_pad);
   if (B < 1 || bad_shape(N, F, G, L, D) || l_pad % wg::kLChunk != 0 ||
       l_pad < L || g_pad % gt != 0 || g_pad < G || g_pad - G >= gt ||
-      static_cast<int64_t>(F) * g_pad > 0x7fffffff || splits < 1 ||
+      planes * static_cast<int64_t>(F) * g_pad > 0x7fffffff || splits < 1 ||
       splits > 65535 || cols_per_split < 1 ||
-      cols_per_split % wg::kDwCols != 0 ||
-      cols_per_split * splits < N ||
-      wg::dx_smem_bytes(F, G, l_pad) > wg::kMaxSmemBytes ||
-      wg::dw_smem_bytes(F, G) > wg::kMaxSmemBytes)
+      cols_per_split % wg::kDwCols != 0 || cols_per_split * splits < N ||
+      stages == 0 || wg::dw_smem_bytes<T>(F, G) > wg::kMaxSmemBytes)
     return cudaErrorInvalidValue;
   const int gtiles = g_pad / gt;
   if (gtiles > 1 && dx0_part == nullptr) return cudaErrorInvalidValue;
@@ -1445,7 +1764,7 @@ cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap map;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(l_pad),
-                              static_cast<cuuint64_t>(F) * g_pad};
+                              static_cast<cuuint64_t>(planes) * F * g_pad};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(l_pad) * 2};
   const cuuint32_t box[2] = {wg::kLChunk, static_cast<cuuint32_t>(gt)};
   const cuuint32_t steps[2] = {1, 1};
@@ -1457,13 +1776,13 @@ cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
     return cudaErrorInvalidValue;
   // once per kernel: the limit a launch may ask for
   static const cudaError_t attr_dx32 = cudaFuncSetAttribute(
-      cin_bwd_dx_wgmma_kernel<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      wg::kMaxSmemBytes);
+      cin_bwd_dx_wgmma_kernel<T, 32>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmemBytes);
   static const cudaError_t attr_dx64 = cudaFuncSetAttribute(
-      cin_bwd_dx_wgmma_kernel<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      wg::kMaxSmemBytes);
+      cin_bwd_dx_wgmma_kernel<T, 64>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmemBytes);
   static const cudaError_t attr_dw = cudaFuncSetAttribute(
-      cin_bwd_dw_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cin_bwd_dw_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       wg::kMaxSmemBytes);
   if (attr_dx32 != cudaSuccess) return attr_dx32;
   if (attr_dx64 != cudaSuccess) return attr_dx64;
@@ -1471,22 +1790,24 @@ cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
 
   const dim3 dx_grid(static_cast<unsigned>(ceil_div(N, wg::kDpCols)),
                      static_cast<unsigned>(gtiles));
-  const int dx_smem = static_cast<int>(wg::dx_smem_bytes(F, G, l_pad));
+  const int dx_smem =
+      static_cast<int>(wg::dx_smem_bytes<T>(F, G, l_pad, stages));
+  const bool dz_vec = D % 8 == 0 && aligned16(dz);
   float* part = gtiles > 1 ? dx0_part : nullptr;
   if (gt == 32)
-    cin_bwd_dx_wgmma_kernel<32><<<dx_grid, wg::kBlockThreads, dx_smem,
-                                  stream>>>(map, x0, h, dz, dx0, part, dh, N,
-                                            F, G, L, D, g_pad, l_pad,
-                                            D % 8 == 0 && aligned16(dz));
+    cin_bwd_dx_wgmma_kernel<T, 32><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                     stream>>>(
+        map, x0, h, dz, dx0, part, dh, N, F, G, L, D, g_pad, l_pad, stages,
+        dz_vec);
   else
-    cin_bwd_dx_wgmma_kernel<64><<<dx_grid, wg::kBlockThreads, dx_smem,
-                                  stream>>>(map, x0, h, dz, dx0, part, dh, N,
-                                            F, G, L, D, g_pad, l_pad,
-                                            D % 8 == 0 && aligned16(dz));
+    cin_bwd_dx_wgmma_kernel<T, 64><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                     stream>>>(
+        map, x0, h, dz, dx0, part, dh, N, F, G, L, D, g_pad, l_pad, stages,
+        dz_vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (gtiles > 1) {
-    err = launch_sum<__nv_bfloat16>(dx0_part, dx0, N * F, gtiles, stream);
+    err = launch_sum<T>(dx0_part, dx0, N * F, gtiles, stream);
     if (err != cudaSuccess) return err;
   }
 
@@ -1494,16 +1815,15 @@ cudaError_t launch_bwd_wgmma(const __nv_bfloat16* x0, const __nv_bfloat16* h,
   const dim3 dw_grid(static_cast<unsigned>(ceil_div(K, wg::kDwRows)),
                      static_cast<unsigned>(ceil_div(L, wg::kLTile)),
                      static_cast<unsigned>(splits));
-  cin_bwd_dw_wgmma_kernel<<<dw_grid, wg::kBlockThreads,
-                            static_cast<int>(wg::dw_smem_bytes(F, G)),
-                            stream>>>(
+  cin_bwd_dw_wgmma_kernel<T><<<dw_grid, wg::kBlockThreads,
+                               static_cast<int>(wg::dw_smem_bytes<T>(F, G)),
+                               stream>>>(
       x0, h, dz, dw_part, N, cols_per_split, F, G, L, D,
       D % 8 == 0 && aligned16(x0) && aligned16(h) && aligned16(dz));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_sum<float>(dw_part, dw, L * K, splits, stream);
 }
-
 }  // namespace
 
 extern "C" {
@@ -1525,7 +1845,8 @@ int dt_cin_fwd_bf16(const void* x0, const void* h, const void* w, void* z,
       L, D, static_cast<cudaStream_t>(stream)));
 }
 
-// K4 on the tensor cores: w_pad (L, k_pad) as launch_fwd_wgmma takes it.
+// K4 on the tensor cores: w_pad (L, k_pad), bfloat16 w's one plane, as
+// launch_fwd_wgmma takes it.
 int dt_cin_fwd_bf16_wgmma(const void* x0, const void* h, const void* w_pad,
                           void* z, int64_t B, int F, int G, int L, int D,
                           int k_pad, void* stream) {
@@ -1533,7 +1854,7 @@ int dt_cin_fwd_bf16_wgmma(const void* x0, const void* h, const void* w_pad,
       static_cast<const __nv_bfloat16*>(x0),
       static_cast<const __nv_bfloat16*>(h),
       static_cast<const __nv_bfloat16*>(w_pad), static_cast<float*>(z), B, F,
-      G, L, D, k_pad, static_cast<cudaStream_t>(stream)));
+      G, L, D, L, k_pad, static_cast<cudaStream_t>(stream)));
 }
 
 int dt_cin_bwd_f32(const void* x0, const void* h, const void* w,
@@ -1564,8 +1885,8 @@ int dt_cin_bwd_bf16(const void* x0, const void* h, const void* w,
       static_cast<cudaStream_t>(stream)));
 }
 
-// K3 on the tensor cores: w_t, dx0_part and dw_part as launch_bwd_wgmma
-// takes them.
+// K3 on the tensor cores: w_t (F, g_pad, l_pad), dx0_part and dw_part as
+// launch_bwd_wgmma takes them.
 int dt_cin_bwd_bf16_wgmma(const void* x0, const void* h, const void* w_t,
                           const void* dz, void* dx0, void* dh, void* dw,
                           void* dx0_part, void* dw_part, int64_t B, int F,
@@ -1577,6 +1898,33 @@ int dt_cin_bwd_bf16_wgmma(const void* x0, const void* h, const void* w_t,
       static_cast<const __nv_bfloat16*>(w_t),
       static_cast<const __nv_bfloat16*>(dz),
       static_cast<__nv_bfloat16*>(dx0), static_cast<__nv_bfloat16*>(dh),
+      static_cast<float*>(dw), static_cast<float*>(dx0_part),
+      static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
+      cols_per_split, static_cast<cudaStream_t>(stream)));
+}
+
+// K4 in float32 on the tensor cores: w_planes (3, l_pad, k_pad) as
+// launch_fwd_wgmma takes it.
+int dt_cin_fwd_f32_wgmma(const void* x0, const void* h, const void* w_planes,
+                         void* z, int64_t B, int F, int G, int L, int D,
+                         int l_pad, int k_pad, void* stream) {
+  return static_cast<int>(launch_fwd_wgmma(
+      static_cast<const float*>(x0), static_cast<const float*>(h),
+      static_cast<const __nv_bfloat16*>(w_planes), static_cast<float*>(z), B,
+      F, G, L, D, l_pad, k_pad, static_cast<cudaStream_t>(stream)));
+}
+
+// K3 in float32 on the tensor cores: w_t (3, F, g_pad, l_pad), dx0_part
+// and dw_part as launch_bwd_wgmma takes them.
+int dt_cin_bwd_f32_wgmma(const void* x0, const void* h, const void* w_t,
+                         const void* dz, void* dx0, void* dh, void* dw,
+                         void* dx0_part, void* dw_part, int64_t B, int F,
+                         int G, int L, int D, int g_pad, int l_pad,
+                         int splits, int64_t cols_per_split, void* stream) {
+  return static_cast<int>(launch_bwd_wgmma(
+      static_cast<const float*>(x0), static_cast<const float*>(h),
+      static_cast<const __nv_bfloat16*>(w_t), static_cast<const float*>(dz),
+      static_cast<float*>(dx0), static_cast<float*>(dh),
       static_cast<float*>(dw), static_cast<float*>(dx0_part),
       static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
       cols_per_split, static_cast<cudaStream_t>(stream)));

@@ -46,7 +46,7 @@ from deeptables_torch.ops.kernels.cin import (bwd_design, bwd_g_tile,
                                               cin_bwd_reference, cin_fwd,
                                               cin_fwd_reference, dpair_w,
                                               fwd_design, padded_w,
-                                              wgmma_bwd_plan)
+                                              split_bf16x3, wgmma_bwd_plan)
 from torch_parity import Case
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
@@ -160,6 +160,112 @@ def test_pair_splits_exactly_into_two_bfloat16_halves(seed):
     assert torch.equal(hi.double() + lo.double(), p.double())
 
 
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_split_bf16x3_reconstructs_every_float32_exactly(seed):
+    """The premise of the float32 kernels: three bfloat16 planes, each
+    rounded to nearest, sum to the float32 exactly, in float64 and in
+    float32. Magnitudes over the normal range whose
+    low planes stay normal (2⁻¹¹⁰ to the largest finite value), both signs,
+    zero, and the float32 values within half a bfloat16 step of the largest
+    finite one, where a plain first rounding would give infinity."""
+    rng = np.random.default_rng(seed)
+    mags = np.ldexp(rng.uniform(1, 2, 200_000),
+                    rng.integers(-110, 128, 200_000))
+    top = np.nextafter(np.float32(3.4028235e38), np.float32(0),
+                       dtype=np.float32)
+    edges = np.array([0.0, -0.0, 3.4028235e38, -3.4028235e38, top,
+                      3.3961e38, 3.3895314e38, 2.0 ** -110, 1.0, -1.0],
+                     np.float64)
+    v = torch.from_numpy(np.concatenate([
+        mags * rng.choice([-1.0, 1.0], mags.size), edges]).astype(np.float32))
+    assert bool(v.isfinite().all())
+    planes = split_bf16x3(v)
+    assert planes.dtype == torch.bfloat16 and planes.shape == (3, v.numel())
+    assert bool(planes.isfinite().all())
+    assert torch.equal(planes.double().sum(dim=0), v.double())
+    # in float32 from the low planes up (the residuals are exact float32)
+    assert torch.equal(planes[0].float() + (planes[1].float()
+                                            + planes[2].float()), v)
+    # each plane is the nearest bfloat16 to what the planes before it leave
+    rest = v - planes[0].float()
+    assert torch.equal(planes[1], rest.bfloat16())
+    assert torch.equal(planes[2], (rest - planes[1].float()).bfloat16())
+    # the six plane products the kernels take miss a float32 product by at
+    # most ~2·2⁻²⁴ of it, float32's own rounding of the product
+    a, b = v[:1000].double(), v.flip(0)[:1000].double()
+    pa, pb = split_bf16x3(v[:1000]).double(), \
+        split_bf16x3(v.flip(0)[:1000]).double()
+    six = sum(pa[i] * pb[j] for i in range(3) for j in range(3) if i + j <= 2)
+    keep = (a * b).abs() < 1e300
+    assert bool(((six - a * b).abs()[keep]
+                 <= 2.0 ** -22 * (a * b).abs()[keep]).all())
+
+
+def _six(a, b, contract):
+    """The float32 kernels' product of float32 operands a and b: the
+    contraction of their planes (split_bf16x3) over the six pairs i + j ≤ 2,
+    summed in float64 (the tensor cores sum float32 products of bfloat16
+    planes, exact, into float32)."""
+    pa, pb = split_bf16x3(a).double(), split_bf16x3(b).double()
+    return sum(contract(pa[i], pb[j]) for i in range(3) for j in range(3)
+               if i + j <= 2)
+
+
+def _limit(scale, tol=1e-5):
+    return tol * np.asarray(scale, np.float64)
+
+
+@pytest.mark.parametrize('B,F,G,L,D', KERNEL_SHAPES)
+def test_three_plane_forward_matches_float64_and_pallas(B, F, G, L, D):
+    """K4 in float32 as the tensor-core kernel computes it: the float32
+    pair p = x0·h split into three planes against W's three, six products
+    summed; within 1e-5 of the sum of its terms' magnitudes of the float64
+    contraction and of the Pallas forward in float32 (interpret mode)."""
+    x0, h, w, _ = _operands(B, F, G, L, D, seed=4)
+    tx0, th, tw = _torch(x0, h, w)
+    pair = (tx0[:, :, None, :] * th[:, None, :, :]).reshape(B, F * G, D)
+    z = _six(pair, tw.reshape(L, F * G),
+             lambda p, q: torch.einsum('bkd,lk->bld', p, q)).numpy()
+    exact = np.einsum('bfd,bgd,lfg->bld', x0.astype(np.float64),
+                      h.astype(np.float64), w.astype(np.float64))
+    scale = np.einsum('bfd,bgd,lfg->bld', np.abs(x0).astype(np.float64),
+                      np.abs(h).astype(np.float64),
+                      np.abs(w).astype(np.float64))
+    pallas = _from_bm(cin_fwd_pallas(_bm(x0), _bm(h),
+                                     jnp.asarray(w.reshape(L, F * G)),
+                                     interpret=True, block_lanes=128), B, D)
+    for expected in (exact, pallas):
+        assert (np.abs(z - expected) <= _limit(scale)).all()
+
+
+@pytest.mark.parametrize('B,F,G,L,D', KERNEL_SHAPES)
+def test_three_plane_backward_matches_float64_and_oracle(B, F, G, L, D):
+    """K3 in float32 as the tensor-core passes compute it: dpair from the
+    planes of dz and W, folded into dx0 and dh with float32 h and x0; dW
+    from the planes of the float32 pair and dz. Within 1e-5 of the sum of
+    each output's terms' magnitudes of the float64 gradient and of
+    ``cin_bwd_oracle`` in float32."""
+    x0, h, w, dz = _operands(B, F, G, L, D, seed=5)
+    tx0, th, tw, tdz = _torch(x0, h, w, dz)
+    dpair = _six(tw, tdz, lambda p, q: torch.einsum('lfg,bld->bfgd', p, q))
+    dx0 = torch.einsum('bfgd,bgd->bfd', dpair, th.double()).numpy()
+    dh = torch.einsum('bfgd,bfd->bgd', dpair, tx0.double()).numpy()
+    pair = tx0[:, :, None, :] * th[:, None, :, :]
+    dw = _six(pair, tdz,
+              lambda p, q: torch.einsum('bfgd,bld->lfg', p, q)).numpy()
+    exact = [t.numpy() for t in cin_bwd_reference(
+        *_torch(*(a.astype(np.float64) for a in (x0, h, w, dz))))]
+    scales = [t.numpy() for t in cin_bwd_reference(
+        *_torch(*(np.abs(a).astype(np.float64) for a in (x0, h, w, dz))))]
+    oracle = cin_bwd_oracle(_bm(x0), _bm(h), jnp.asarray(w.reshape(L, F * G)),
+                            _bm(dz))
+    oracle = [_from_bm(oracle[0], B, D), _from_bm(oracle[1], B, D),
+              np.asarray(oracle[2]).reshape(L, F, G)]
+    for got, ref, orc, scale in zip((dx0, dh, dw), exact, oracle, scales):
+        for expected in (ref, orc):
+            assert (np.abs(got - expected) <= _limit(scale)).all()
+
+
 @pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128), (5, 7, 3)])
 def test_padded_w_is_k_major_with_zeros_past_k(F, G, L):
     w = torch.randn(L, F, G, generator=torch.Generator().manual_seed(F + G))
@@ -173,25 +279,46 @@ def test_padded_w_is_k_major_with_zeros_past_k(F, G, L):
 
 
 def test_fwd_design_takes_the_tensor_cores_for_bfloat16_only():
+    """Each type's tensor-core K4 where its tiles fit a block's shared
+    memory, the CUDA cores just past: bfloat16 F + G ≤ 602; float32 (the
+    three-plane split, not TF32) F + G ≤ 252, xDeepFM's and fgcnn_cin's
+    layers included."""
     assert fwd_design(torch.bfloat16, 26, 64) == 'wgmma'
     assert fwd_design(torch.bfloat16, 26, 576) == 'wgmma'  # F + G = 602
     assert fwd_design(torch.bfloat16, 26, 577) == 'simt'   # past the tiles
-    assert fwd_design(torch.float32, 26, 64) == 'simt'     # not TF32
+    for F, G in ((26, 26), (26, 64), (104, 104), (104, 64), (1, 1)):
+        assert fwd_design(torch.float32, F, G) == 'wgmma_f32'
+    assert fwd_design(torch.float32, 26, 226) == 'wgmma_f32'  # F + G = 252
+    assert fwd_design(torch.float32, 26, 227) == 'simt'
+    assert fwd_design(torch.float32, 126, 127) == 'simt'
 
 
 def test_bwd_design_takes_the_tensor_cores_for_bfloat16_only():
+    """Each type's tensor-core K3 where both passes' tiles fit, the CUDA
+    cores just past, at the exact boundaries: bfloat16 L ≤ 704 (the dx0/dh
+    pass's dz tile) and G ≤ 686 at F = 3 (the dW pass's h rows); float32
+    (three planes of dz in the dx0/dh pass, a ring of at least two stages)
+    L ≤ 192, or L ≤ 256 for G ≤ 32, and G ≤ 228 at F = 3."""
     for F, G, L in ((26, 26, 128), (26, 64, 128), (26, 128, 128),
-                    (5, 7, 300), (1, 1, 1)):
+                    (104, 104, 128), (104, 64, 128), (1, 1, 1)):
         assert bwd_design(torch.bfloat16, F, G, L) == 'wgmma'
-        assert bwd_design(torch.float32, F, G, L) == 'simt'  # not TF32
+        assert bwd_design(torch.float32, F, G, L) == 'wgmma_f32'
+    assert bwd_design(torch.bfloat16, 5, 7, 300) == 'wgmma'
+    assert bwd_design(torch.float32, 5, 7, 300) == 'simt'
     # the dx0/dh pass's dz tile: 128 columns of L padded to 64
     assert bwd_design(torch.bfloat16, 26, 64, 704) == 'wgmma'
     assert bwd_design(torch.bfloat16, 26, 64, 705) == 'simt'
     assert bwd_design(torch.bfloat16, 5, 4, 900) == 'simt'
+    assert bwd_design(torch.float32, 26, 64, 192) == 'wgmma_f32'
+    assert bwd_design(torch.float32, 26, 64, 193) == 'simt'
+    assert bwd_design(torch.float32, 26, 32, 256) == 'wgmma_f32'
+    assert bwd_design(torch.float32, 26, 32, 257) == 'simt'
     # the dW pass's two buffers of h rows
     assert bwd_design(torch.bfloat16, 3, 686, 5) == 'wgmma'
     assert bwd_design(torch.bfloat16, 3, 687, 5) == 'simt'
     assert bwd_design(torch.bfloat16, 3, 700, 5) == 'simt'
+    assert bwd_design(torch.float32, 3, 228, 5) == 'wgmma_f32'
+    assert bwd_design(torch.float32, 3, 229, 5) == 'simt'
 
 
 @pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
@@ -240,6 +367,62 @@ def test_wgmma_bwd_plan_covers_every_column_once(N, F, G, L):
     # one wave of two blocks an SM at most: 128 pair rows x 128 l a block
     tiles = -(-F * G // 128) * -(-L // 128)
     assert splits == 1 or tiles * splits <= 2 * 132
+
+
+@pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
+                                   (104, 104, 128), (5, 7, 130), (1, 1, 1)])
+def test_float32_w_comes_in_three_planes(F, G, L):
+    """The float32 kernels' W: :func:`padded_w` the three planes in K4's
+    (L, K_pad) layout with L padded to 128-row tiles, (3, L_pad, K_pad);
+    :func:`dpair_w` in K3's (F, G_pad, L_pad) layout, (3, F, G_pad, L_pad);
+    zeros in every pad, planes that sum to w exactly."""
+    w = torch.randn(L, F, G, generator=torch.Generator().manual_seed(L + G))
+    planes = split_bf16x3(w)
+    K = F * G
+    fwd = padded_w(w)
+    assert fwd.dtype == torch.bfloat16 and fwd.shape[0] == 3
+    assert fwd.shape[1] % 128 == 0 and L <= fwd.shape[1] < L + 128
+    assert fwd.shape[2] % 64 == 0 and K <= fwd.shape[2] < K + 64
+    assert torch.equal(fwd[:, :L, :K], planes.reshape(3, L, K))
+    assert not fwd[:, L:].any() and not fwd[:, :, K:].any()
+    assert torch.equal(fwd[:, :L, :K].double().sum(0),
+                       w.reshape(L, K).double())
+    bwd = dpair_w(w)
+    g_tile = bwd_g_tile(G)
+    assert bwd.dtype == torch.bfloat16 and bwd.is_contiguous()
+    _, _, g_pad, l_pad = bwd.shape
+    assert bwd.shape[:2] == (3, F)
+    assert g_pad % g_tile == 0 and G <= g_pad < G + g_tile
+    assert l_pad % 64 == 0 and L <= l_pad < L + 64
+    assert torch.equal(bwd[:, :, :G, :L], planes.permute(0, 2, 3, 1))
+    assert not bwd[:, :, G:].any() and not bwd[:, :, :, L:].any()
+
+
+@pytest.mark.parametrize('N,F,G,L', [(131072, 26, 26, 128),
+                                     (131072, 26, 64, 128),
+                                     (131072, 104, 104, 128),
+                                     (131072, 104, 64, 128),
+                                     (65488, 26, 26, 128), (16, 5, 7, 12),
+                                     (65536, 3, 228, 5), (1, 1, 1, 1)])
+def test_wgmma_f32_bwd_plan_fills_whole_waves(N, F, G, L):
+    """The float32 dW pass (one block an SM): every column in one range,
+    and the fewest ranges whose blocks fill their last wave of 132 SMs to
+    90% where 512-column ranges allow it."""
+    splits, cols, g_tiles = wgmma_bwd_plan(N, F, G, L, 'wgmma_f32')
+    assert cols % 64 == 0 and 1 <= splits <= 64
+    assert (splits - 1) * cols < N <= splits * cols
+    assert g_tiles == -(-G // bwd_g_tile(G))
+    tiles = -(-F * G // 128) * -(-L // 128)
+
+    def fill(s):
+        return tiles * s / (-(-tiles * s // 132) * 132)
+    if fill(splits) < 0.9:  # no count of ranges fills 90%
+        assert all(fill(s) <= fill(splits)
+                   for s in range(1, min(64, -(-N // 512)) + 1))
+    # xDeepFM's and fgcnn_cin's layers at B = 8192
+    expected = {(131072, 26, 26, 128): 20, (131072, 26, 64, 128): 10,
+                (131072, 104, 104, 128): 3, (131072, 104, 64, 128): 5}
+    assert splits == expected.get((N, F, G, L), splits)
 
 
 def test_wrappers_reject_bad_shapes():

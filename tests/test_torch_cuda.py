@@ -31,9 +31,11 @@ Tolerances:
   bin counts atol 1 (one example within rounding of a bin edge).
 - CIN forward and backward: the kernels and the plain versions both take
   float32 products and sums of the same inputs (bfloat16 inputs are exact in
-  float32), so every output is held to 1e-5 times the sum of the magnitudes
-  of its terms (the plain version run on |x0|, |h|, |w|, |dz|): only the
-  order of the sums differs. dx0 and dh in bfloat16 add rtol 1e-2 for their
+  float32; float32 operands go to the tensor cores as three exact bfloat16
+  planes, whose six plane products miss a float32 product by ~2·2⁻²⁴ of
+  it), so every output is held to 1e-5 times the sum of the magnitudes of
+  its terms (the plain version run on |x0|, |h|, |w|, |dz|): only the order
+  and rounding of the sums differ. dx0 and dh in bfloat16 add rtol 1e-2 for their
   one rounding to bfloat16 (the two may round neighbouring values apart).
 - Field attention (K5) and the fused block (K6), forward and backward:
   both sides compute in float32 from the same inputs, so every output is
@@ -50,7 +52,8 @@ import torch
 from deeptables_torch.ops.kernels import cin as cin_module
 from deeptables_torch.ops.kernels.cin import (bwd_design, cin_bwd,
                                               cin_bwd_reference, cin_fwd,
-                                              cin_fwd_reference, fwd_design)
+                                              cin_fwd_reference, fwd_design,
+                                              split_bf16x3)
 from deeptables_torch.ops.kernels import field_attention as fa
 from deeptables_torch.ops.kernels import fm as fm_module
 from deeptables_torch.ops.kernels import emb_grad as eg_module
@@ -581,26 +584,49 @@ def test_model_file_moves_between_card_and_cpu(cuda, tmp_path):
 CIN_SHAPES = [(4096, 26, 26, 128, 16), (8192, 26, 64, 128, 16),
               (4093, 26, 26, 128, 16), (37, 5, 7, 12, 16), (3, 4, 130, 9, 5),
               (1, 26, 64, 128, 4096), (2, 1, 1, 1, 1)]
-# the forward's tensor-core kernel at its edges: L not a multiple of 8, L
-# past one 128-wide tile, D that does not divide its 128 columns, B = 1, and
-# F + G past its shared memory (the float32 kernel then runs)
+# the forward's tensor-core kernels at their edges: L not a multiple of 8,
+# L past one 128-wide tile, D that does not divide its 128 columns, B = 1,
+# F + G = 252, the float32 kernels' top (K = 15876: their longest sums),
+# and F + G past their shared memory (the CUDA-core kernel then runs:
+# F + G = 253 in float32, 703 in both types)
 CIN_FWD_SHAPES = CIN_SHAPES + [
     (37, 26, 26, 100, 16), (64, 26, 64, 256, 16), (5, 7, 9, 300, 16),
     (41, 26, 26, 128, 12), (17, 5, 13, 128, 33), (1, 26, 64, 128, 16),
-    (3, 3, 700, 5, 4)]
+    (64, 126, 126, 128, 16), (3, 3, 700, 5, 4), (19, 26, 227, 8, 16)]
+
+
+def _fwd_expected(dtype, F, G):
+    if dtype == torch.bfloat16:
+        return 'wgmma' if F + G <= 602 else 'simt'
+    return 'wgmma_f32' if F + G <= 252 else 'simt'
 
 # the backward's tensor-core kernels at their edges: L not a multiple of 16
 # and past one 128-wide tile, G of one n32 tile, one n64 tile and two (dx0
 # partials), D that does not divide the 64- and 128-column tiles, B = 1 and
-# the batch-minor (1, F, D·B) call; and bfloat16 shapes past shared memory
+# the batch-minor (1, F, D·B) call, F + G = 252 (K = 15876: the longest dW
+# and dx0 sums); and bfloat16 shapes past shared memory
 # (G = 700: the dW pass's h rows; L = 900: the dx0/dh pass's dz tile),
 # which take the CUDA-core kernels
 CIN_BWD_SIMT = [(3, 3, 700, 5, 4), (5, 4, 6, 900, 16)]
+# ... and float32 shapes past the three-plane kernels' shared memory: L =
+# 300 and 257 (G ≤ 32), 193 (G > 32), the dz planes; G = 229, the h rows
+CIN_BWD_SIMT_F32 = [(5, 7, 9, 300, 16), (64, 26, 64, 256, 16),
+                    (7, 5, 20, 257, 16), (9, 26, 64, 193, 16),
+                    (6, 3, 229, 5, 16)]
 CIN_BWD_SHAPES = CIN_SHAPES + [
     (37, 26, 26, 100, 16), (64, 26, 64, 256, 16), (5, 7, 9, 300, 16),
     (300, 26, 128, 128, 16), (19, 5, 26, 40, 16), (41, 26, 26, 128, 12),
     (17, 5, 13, 128, 33), (1, 26, 64, 128, 16), (1, 26, 26, 128, 592),
-    ] + CIN_BWD_SIMT
+    (64, 126, 126, 128, 16)] + CIN_BWD_SIMT + [(7, 5, 20, 257, 16), (9, 26, 64, 193, 16),
+                        (6, 3, 229, 5, 16), (11, 26, 64, 192, 16),
+                        (6, 3, 228, 5, 16)]
+
+
+def _bwd_expected(dtype, shape):
+    if dtype == torch.bfloat16:
+        return 'simt' if shape in CIN_BWD_SIMT else 'wgmma'
+    return 'simt' if shape in CIN_BWD_SIMT + CIN_BWD_SIMT_F32 \
+        else 'wgmma_f32'
 
 
 def _cin_inputs(B, F, G, L, D, dtype, seed):
@@ -620,8 +646,7 @@ def _cin_close(actual, expected, scale, rtol_out=0.):
 @pytest.mark.parametrize('B,F,G,L,D', CIN_FWD_SHAPES)
 def test_cin_fwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     x0, h, w, _ = _cin_inputs(B, F, G, L, D, dtype, B + F + G + L + D)
-    expected = 'wgmma' if dtype == torch.bfloat16 and F + G <= 602 else 'simt'
-    assert fwd_design(dtype, F, G) == expected
+    assert fwd_design(dtype, F, G) == _fwd_expected(dtype, F, G)
     before = cin_fwd.launches
     z = cin_fwd(x0, h, w)
     torch.cuda.synchronize()
@@ -635,8 +660,8 @@ def test_cin_fwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
 @pytest.mark.parametrize('B,F,G,L,D', CIN_BWD_SHAPES)
 def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 7 * B + F + G + L)
-    simt = dtype == torch.float32 or (B, F, G, L, D) in CIN_BWD_SIMT
-    assert bwd_design(dtype, F, G, L) == ('simt' if simt else 'wgmma')
+    assert bwd_design(dtype, F, G, L) == _bwd_expected(dtype,
+                                                       (B, F, G, L, D))
     before = cin_bwd.launches
     dx0, dh, dw = cin_bwd(x0, h, w, dz)
     torch.cuda.synchronize()
@@ -656,16 +681,22 @@ def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
                                        (3, 4, 130, 9, 5), (3, 3, 700, 5, 4)])
 def test_cin_bwd_runs_the_kernels_its_design_names(cuda, B, F, G, L, D,
                                                    dtype):
-    """The kernels that ran, by name (torch.profiler): a bfloat16 shape
-    that fits runs the tensor-core passes and never the CUDA-core ones."""
+    """The kernels that ran, by name (torch.profiler): a shape that fits
+    runs its type's tensor-core passes (the ``<float>`` instantiations in
+    float32) and never the CUDA-core ones."""
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 5)
     names = _ran(cin_bwd, x0, h, w, dz)
     wgmma = {n for n in names if 'cin_bwd_' in n and 'wgmma' in n}
     simt = {n for n in names if 'cin_bwd_' in n and 'wgmma' not in n}
-    if bwd_design(dtype, F, G, L) == 'wgmma':
-        assert dtype == torch.bfloat16 and len(wgmma) == 2 and not simt, names
-    else:
+    design = bwd_design(dtype, F, G, L)
+    if design == 'simt':
         assert len(simt) == 2 and not wgmma, names
+    else:
+        f32 = {n for n in wgmma if 'wgmma_kernel<float' in n}
+        assert len(wgmma) == 2 and not simt, names
+        assert f32 == (wgmma if design == 'wgmma_f32' else set()), names
+        assert design == ('wgmma_f32' if dtype == torch.float32
+                          else 'wgmma')
 
 
 def test_cin_bwd_launch_failure_raises(cuda, monkeypatch):
@@ -678,6 +709,133 @@ def test_cin_bwd_launch_failure_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match='cin_bwd kernel launch failed'):
         cin_bwd(x0, h, w, dz)
     assert cin_bwd.launches == before
+
+
+def test_cin_f32_launch_failure_raises(cuda, monkeypatch):
+    """The float32 tensor-core launches the C side refuses (W planes whose
+    L is not padded to a whole tile) raise and count no launch: no other
+    design runs in their place."""
+    x0, h, w, dz = _cin_inputs(64, 5, 7, 12, 16, torch.float32, 2)
+    monkeypatch.setattr(cin_module, 'padded_w', lambda w: torch.zeros(
+        (3, 12, 64), dtype=torch.bfloat16, device=w.device))
+    monkeypatch.setattr(cin_module, 'dpair_w', lambda w: torch.zeros(
+        (3, 5, 32, 12 + 1), dtype=torch.bfloat16, device=w.device))
+    before = cin_fwd.launches, cin_bwd.launches
+    with pytest.raises(RuntimeError, match='cin_fwd kernel launch failed'):
+        cin_fwd(x0, h, w)
+    with pytest.raises(RuntimeError, match='cin_bwd kernel launch failed'):
+        cin_bwd(x0, h, w, dz)
+    assert (cin_fwd.launches, cin_bwd.launches) == before
+
+
+@pytest.mark.parametrize('B', [8192, 4093])
+@pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
+                                   (104, 104, 128), (104, 64, 128)])
+def test_cin_f32_kernels_at_the_main_path_shapes(cuda, F, G, L, B):
+    """Float32 K4 and K3 on the tensor cores at xDeepFM's layers and
+    fgcnn_cin's, against the plain versions at 1e-5 of the sum of the
+    terms' magnitudes; K3 gives the same bits on a second call (fixed-order
+    sums, no atomics)."""
+    D = 16
+    x0, h, w, dz = _cin_inputs(B, F, G, L, D, torch.float32, B + G)
+    assert fwd_design(torch.float32, F, G) == 'wgmma_f32'
+    assert bwd_design(torch.float32, F, G, L) == 'wgmma_f32'
+    z = cin_fwd(x0, h, w)
+    grads = cin_bwd(x0, h, w, dz)
+    again = cin_bwd(x0, h, w, dz)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    _cin_close(z, cin_fwd_reference(x0, h, w),
+               cin_fwd_reference(x0.abs(), h.abs(), w.abs()))
+    del z
+    expected = cin_bwd_reference(x0, h, w, dz)
+    scale = cin_bwd_reference(x0.abs(), h.abs(), w.abs(), dz.abs())
+    for got, ref, s in zip(grads, expected, scale):
+        _cin_close(got, ref, s)
+
+
+def _exact_operands(full, seed, B=1, F=2, G=2, L=2, D=2):
+    """Float32 x0, h, w, dz on the card whose contraction and gradient the
+    float32 kernels must give bit for bit: the operand ``full`` holds
+    values of 20 significant bits, ±[1, 2), the others ±1. Every term, plane
+    product and partial sum is then a multiple of 2⁻¹⁹ under 2⁴ (at most
+    four terms a sum), 23 bits: exact in float32 and in the tensor cores'
+    accumulator. Two bfloat16 planes hold at most ~18 bits: the third plane
+    of ``full`` (of the pair where ``full`` is x0 or h) decides the bits."""
+    rng = np.random.RandomState(seed)
+    shapes = {'x0': (B, F, D), 'h': (B, G, D), 'w': (L, F, G),
+              'dz': (B, L, D)}
+    out = {}
+    for name, shape in shapes.items():
+        signs = rng.choice([-1.0, 1.0], shape)
+        if name == full:
+            mantissas = rng.randint(2 ** 19, 2 ** 20, shape) | 1
+            out[name] = signs * mantissas * 2.0 ** -19
+        else:
+            out[name] = signs
+    return [torch.from_numpy(out[k]).float() for k in ('x0', 'h', 'w', 'dz')]
+
+
+def _exact_contraction(x0, h, w, dz):
+    """z, dx0, dh, dW in float64 (exact here) and rounded to float32, which
+    must not change them."""
+    x0, h, w, dz = (t.double().cpu() for t in (x0, h, w, dz))
+    got = (torch.einsum('bfd,bgd,lfg->bld', x0, h, w),
+           torch.einsum('bld,lfg,bgd->bfd', dz, w, h),
+           torch.einsum('bld,lfg,bfd->bgd', dz, w, x0),
+           torch.einsum('bld,bfd,bgd->lfg', dz, x0, h))
+    assert all(torch.equal(t.float().double(), t) for t in got)
+    return [t.float() for t in got]
+
+
+def _two_planes(v):
+    return split_bf16x3(v)[:2].double().sum(0).float()
+
+
+@pytest.mark.parametrize('full', ['x0', 'h', 'w', 'dz'])
+def test_cin_f32_kernels_keep_every_plane_bit_for_bit(cuda, full):
+    """Float32 K4 and K3 on operands whose third bfloat16 plane decides the
+    result, while every sum stays exact (``_exact_operands``): z, dx0, dh
+    and dW equal the float64 contraction bit for bit. Each operand takes
+    the third plane by another route: the pair's in K4's and the dW pass's
+    registers (x0, h), W's from the wrapper (w), dz's in both K3 passes'
+    stores (dz). Without that plane the exact answer moves (checked here
+    on the CPU), so a kernel that lost it would fail."""
+    ops = _exact_operands(full, seed=len(full))
+    exact = _exact_contraction(*ops)
+    cut = [_two_planes(t) if name == full else t
+           for name, t in zip(('x0', 'h', 'w', 'dz'), ops)]
+    assert any(not torch.equal(a, b)
+               for a, b in zip(_exact_contraction(*cut), exact))
+    x0, h, w, dz = (t.cuda() for t in ops)
+    assert fwd_design(torch.float32, 2, 2) == 'wgmma_f32'
+    assert bwd_design(torch.float32, 2, 2, 2) == 'wgmma_f32'
+    got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
+    for a, b in zip(got, exact):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_cin_f32_kernels_without_w_plane3_fail_the_exact_check(
+        cuda, monkeypatch):
+    """The check above has teeth on the card: with W's third plane zeroed
+    where the wrapper lays it out (``padded_w``, ``dpair_w``), z, dx0 and
+    dh no longer equal the exact contraction."""
+    ops = _exact_operands('w', seed=1)
+    exact = _exact_contraction(*ops)
+    x0, h, w, dz = (t.cuda() for t in ops)
+    for name in ('padded_w', 'dpair_w'):
+        layout = getattr(cin_module, name)
+
+        def cut(w, layout=layout):
+            out = layout(w)
+            out[2] = 0
+            return out
+        monkeypatch.setattr(cin_module, name, cut)
+    got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
+    for a, b in zip(got[:3], exact[:3]):
+        assert not torch.equal(a.cpu(), b)
+    assert torch.equal(got[3].cpu(), exact[3])  # dW does not read W
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
@@ -1160,10 +1318,11 @@ def test_fm_kernels_at_the_fgcnn_width(cuda, dtype):
 @pytest.mark.parametrize('G', [104, 64])
 def test_cin_kernels_at_the_fgcnn_width(cuda, G, dtype):
     """fgcnn_cin_nets' CIN over the FGCNN output: F=104, G=104 then 64, L=128
-    at B=8192 (pair widths 10816 and 6656); bfloat16 on the tensor cores."""
+    at B=8192 (pair widths 10816 and 6656); both types on the tensor
+    cores."""
     B, F, L, D = 8192, 104, 128, 16
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, G)
-    design = 'wgmma' if dtype == torch.bfloat16 else 'simt'
+    design = 'wgmma' if dtype == torch.bfloat16 else 'wgmma_f32'
     assert fwd_design(dtype, F, G) == bwd_design(dtype, F, G, L) == design
     z = cin_fwd(x0, h, w)
     dx0, dh, dw = cin_bwd(x0, h, w, dz)
