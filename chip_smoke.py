@@ -166,9 +166,19 @@ these phases, each printing one JSON line:
    checked, and the card against the CPU's plain path at the batch each
    states (``zoo_phase`` says the rules).
 
-Then a ``determinism`` line: two DeepFM fits of three 8192-row steps under
-``'bfloat16'`` from one seed, and the parameter tensors whose bits differ
-between them (a measurement, not a check).
+Then ``determinism`` lines: two fits from one seed of every model the
+script trains (DeepFM, xDeepFM under both policies, AutoInt plain and
+fused, Wide&Deep+DCN at three 8192-row steps; each ZOO net and the var-len
+DeepFM at two), each line with the parameter tensors whose bits differ
+between the two fits; all printed, then checked: every tensor bit-equal.
+Then ``dae`` (``fe.DAE()`` at its defaults on the 13 dense criteo columns:
+the mse falls, one epoch against the CPU's plain path, ``transform`` on the
+card), ``distributed`` (an NCCL process group of one process over a
+``file://`` store: DeepFM under ``DataParallel(num_devices=1)`` bit-equal
+to the plain fit, with the same launches) and ``checkpoint`` (DeepFM
+resumed from ``save_checkpoint``/``restore_checkpoint`` after two steps:
+its third step bit-equal to three uninterrupted steps; the checkpoint's
+bytes and its save and restore times).
 
 9. Streaming from files, on TSV shards the script writes to a temporary
    directory (Criteo format, ``write_stream_tsv``: two training shards of
@@ -200,6 +210,7 @@ nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
 """
 
+import functools
 import itertools
 import json
 import math
@@ -330,6 +341,13 @@ ZOO = ('afm_nets', 'opnn_nets', 'ipnn_nets', 'pnn_nets', 'cross_nets',
        'fgcnn_afm_nets', 'fgcnn_ipnn_nets', 'fgcnn_dnn_nets', 'fibi_nets',
        'fibi_dnn_nets')
 ZOO_VARLEN = 'DeepFM+var_len'
+# the determinism phase fits the zoo at this depth (8192-row steps)
+DETERMINISM_ZOO_STEPS = 2
+# the dae phase: rows of the 13 dense criteo columns, epochs, and the rows
+# of the card-against-CPU epoch
+DAE_ROWS, DAE_EPOCHS, DAE_COMPARE_ROWS = 65_536, 3, 8192
+# the distributed phase's steps
+DIST_STEPS = 3
 ZOO_STEPS = 3
 ZOO_REQUEST = 4093
 ZOO_COMPARE_BATCH = {'fgcnn_cin_nets': 256, 'fgcnn_afm_nets': 512,
@@ -2232,29 +2250,261 @@ def zoo_phase(torch, port, kernel_fns, vocabs, data, smi):
     return total
 
 
-def determinism_phase(torch, port, vocabs, data, steps=3):
-    """Two DeepFM fits of ``steps`` batches under 'bfloat16' from one seed
-    on the card: the parameter tensors whose bits differ between them. A
-    measurement, not a check."""
-    arrays, y = data
-    n = steps * TRAIN_BATCH
-    states = []
-    for _ in range(2):
-        model = make_model(port, 'DeepFM', 'bfloat16', None, vocabs)
-        module = model.build()
+def determinism_runs(criteo, avazu, adult):
+    """What the determinism phase fits: (name, dtype policy, steps, build,
+    (train rows, labels), validation rows). Every model the script trains:
+    DeepFM, xDeepFM (in both policies: bf16 and float32 K4/K3 designs),
+    AutoInt plain and fused, Wide&Deep+DCN, at the train phase's three
+    steps; then each ZOO net and the var-len DeepFM at DETERMINISM_ZOO_STEPS
+    (an earlier path at a smaller depth). Each argument is (vocabularies,
+    (rows, labels))."""
+    runs = []
+    for model, dtype_policy in (('DeepFM', 'bfloat16'),
+                                ('xDeepFM', 'bfloat16'),
+                                ('xDeepFM', 'float32'),
+                                ('AutoInt', 'bfloat16'),
+                                ('AutoInt-fused', 'bfloat16'),
+                                (WDCN, 'bfloat16')):
+        model_vocabs, (arrays, y) = (
+            avazu if model in AUTOINT_MODELS else
+            adult if model == WDCN else criteo)
+        runs.append((model, dtype_policy, 3, functools.partial(
+            make_model, model=model, dtype_policy=dtype_policy, device=None,
+            vocabs=model_vocabs), (arrays, y)))
+    vocabs, (arrays, y) = criteo
+    for run in ZOO + (ZOO_VARLEN,):
+        var_len = run == ZOO_VARLEN
+        rows = dict(arrays)
+        if var_len:
+            rows['genres'] = varlen_ids(len(y), seed=500)
+        runs.append((run, 'bfloat16', DETERMINISM_ZOO_STEPS, functools.partial(
+            criteo_model, dtype_policy='bfloat16', device=None,
+            vocabs=vocabs, nets=NETS['DeepFM'] if var_len else [run],
+            var_len=var_len), (rows, y)))
+    return runs
+
+
+def determinism_phase(torch, port, kernel_fns, runs):
+    """Two fits of each run from one seed on the card (``steps`` batches of
+    8192 rows and a validation batch through ``DeepModel.fit``): a line a
+    run with the parameter and BatchNorm tensors whose bits differ between
+    the two fits (their largest difference) and the kernels' launches of
+    both fits. Every line is printed before the check: every tensor of
+    every run must be bit-equal. Returns the launches."""
+    total = dict.fromkeys(kernel_fns, 0)
+    failed = []
+    for name, dtype_policy, steps, build, (arrays, y) in runs:
+        n = steps * TRAIN_BATCH
         val = rows_of(arrays, n, n + TRAIN_BATCH), y[n:n + TRAIN_BATCH]
-        model.fit(rows_of(arrays, 0, n), y[:n], batch_size=TRAIN_BATCH,
-                  epochs=1, validation_data=val, verbose=0)
-        states.append({k: v.detach().cpu().clone()
-                       for k, v in module.state_dict().items()})
-        del model, module
-    first, second = states
-    differ = {k: float((first[k].double() - second[k].double()).abs().max())
-              for k in first if not torch.equal(first[k], second[k])}
-    emit({'phase': 'determinism', 'model': 'DeepFM',
-          'dtype_policy': 'bfloat16', 'steps': steps,
-          'batch_size': TRAIN_BATCH, 'tensors': len(first),
-          'differ': differ})
+        states = []
+        reset_launches(kernel_fns)
+        t = time.perf_counter()
+        for _ in range(2):
+            model = build(port)
+            module = model.build()
+            model.fit(rows_of(arrays, 0, n), y[:n], batch_size=TRAIN_BATCH,
+                      epochs=1, validation_data=val, verbose=0)
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in module.state_dict().items()})
+            del model, module
+        fit_s = time.perf_counter() - t
+        launches = read_launches(kernel_fns)
+        for k, v in launches.items():
+            total[k] += v
+        first, second = states
+        differ = {k: float((first[k].double() - second[k].double())
+                           .abs().max())
+                  for k in first if not torch.equal(first[k], second[k])}
+        if differ:
+            failed.append(name)
+        emit({'phase': 'determinism', 'model': name,
+              'dtype_policy': dtype_policy, 'steps': steps,
+              'batch_size': TRAIN_BATCH, 'tensors': len(first),
+              'differ': differ, 'two_fits_s': fit_s,
+              'launches': {k: v for k, v in launches.items() if v}})
+        torch.cuda.empty_cache()
+    check(not failed, f'determinism: two fits from one seed differ for '
+                      f'{failed}')
+    return total
+
+
+def dae_phase(torch, port, load_criteo_synthetic):
+    """``fe.DAE()`` at its defaults (encoder 500/500, 20 features, relu,
+    glorot_uniform, Adam at 1e-3) with ``noise_rate=0.1`` on the card, over
+    DAE_ROWS rows of load_criteo_synthetic's 13 dense columns (log1p-scaled
+    there), DAE_EPOCHS epochs of 128-row batches: the reconstruction mse of
+    the clean rows before and after must fall; ``transform`` of a CUDA
+    tensor must give (DAE_ROWS, 20) finite features on the card. Then one
+    epoch over the first DAE_COMPARE_ROWS rows on the card and on the CPU's
+    plain path from the same initial weights (both drawn from the seed) and
+    the same noisy batches: the parameters by the train phase's rules."""
+    from deeptables_torch.fe import DAE
+    dense = load_criteo_synthetic(n_rows=DAE_ROWS, seed=41,
+                                  return_arrays=True)[1]
+    X = torch.from_numpy(dense).cuda()
+
+    def mse(dae):
+        with torch.no_grad():
+            recon, _ = dae.module(X)
+            return float(torch.mean((recon - X) ** 2))
+    dae = DAE(noise_rate=0.1)
+    dae.build(dense.shape[1], None)
+    before = mse(dae)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dae.fit(dense, epochs=DAE_EPOCHS, verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    after = mse(dae)
+    check(after < before, f'dae: the mse went {before} -> {after}')
+    feats = dae.transform(X)
+    check(feats.is_cuda and tuple(feats.shape) == (DAE_ROWS, 20)
+          and bool(torch.isfinite(feats).all()),
+          f'dae: transform gave {feats.device} {tuple(feats.shape)}')
+    states = {}
+    for where, device in (('card', None), ('cpu', 'cpu')):
+        twin = DAE(noise_rate=0.1).fit(dense[:DAE_COMPARE_ROWS], epochs=1,
+                                       verbose=0, device=device)
+        states[where] = {k: v.detach().cpu()
+                         for k, v in twin.module.state_dict().items()}
+    params = check_params('dae', states['card'], states['cpu'])
+    emit({'phase': 'dae', 'rows': DAE_ROWS, 'columns': dense.shape[1],
+          'encoder_units': list(dae.encoder_units),
+          'feature_units': dae.feature_units, 'noise_rate': 0.1,
+          'epochs': DAE_EPOCHS, 'batch_size': 128, 'fit_s': fit_s,
+          'mse_before': before, 'mse_after': after,
+          'transform': {'shape': list(feats.shape),
+                        'device': str(feats.device)},
+          'card_vs_cpu': {
+              'rows': DAE_COMPARE_ROWS, 'epochs': 1,
+              'params_max_abs_diff': max(p['max_abs_diff']
+                                         for p in params.values()),
+              'params_worst_over_atol_share': max(
+                  p['over_atol'] / p['elements'] for p in params.values()),
+              'tolerance': {'param_atol': PARAM_ATOL,
+                            'param_outlier_share': PARAM_OUTLIERS}}})
+
+
+def deepfm_steps(port, vocabs, data, lo, hi, model=None, strategy=None):
+    """DeepFM under 'bfloat16' at full criteo width (a new one from the
+    seed, or ``model``) fitted on rows [lo, hi) in order, 8192 a step, with
+    a validation batch."""
+    arrays, y = data
+    if model is None:
+        model = criteo_model(port, 'bfloat16', None, vocabs,
+                             distribute_strategy=strategy)
+    val = rows_of(arrays, hi, hi + TRAIN_BATCH), y[hi:hi + TRAIN_BATCH]
+    model.fit(rows_of(arrays, lo, hi), y[lo:hi], batch_size=TRAIN_BATCH,
+              epochs=1, shuffle=False, validation_data=val, verbose=0)
+    return model
+
+
+def state_of(model):
+    return {k: v.detach().cpu().clone()
+            for k, v in model.module.state_dict().items()}
+
+
+def bits_differ(torch, first, second):
+    """The tensors of two state dicts whose bits differ."""
+    return sorted(k for k in first if not torch.equal(first[k], second[k]))
+
+
+def distributed_phase(torch, port, kernel_fns, vocabs, data, tmp):
+    """An NCCL process group of one process over a ``file://`` store in
+    ``tmp`` (no network), joined through ``parallel.initialize_distributed``;
+    DeepFM (bf16, full criteo width) fitted DIST_STEPS steps of 8192 rows
+    under ``DataParallel(num_devices=1)`` and plainly, from one seed: the
+    parameters must be bit-equal and K1's and K2's launches the same.
+    Returns the launches of both fits."""
+    from deeptables_torch import parallel
+    from datetime import timedelta
+    info = parallel.initialize_distributed(
+        init_method=f'file://{tmp}/nccl_store', num_processes=1,
+        process_id=0, backend='nccl', timeout=timedelta(seconds=120))
+    try:
+        check(torch.distributed.get_backend() == 'nccl'
+              and info['num_hosts'] == 1,
+              f'distributed: backend {torch.distributed.get_backend()}, '
+              f'{info}')
+        n = DIST_STEPS * TRAIN_BATCH
+        runs = {}
+        total = dict.fromkeys(kernel_fns, 0)
+        for name, strategy in (('plain', None),
+                               ('data_parallel',
+                                parallel.DataParallel(num_devices=1))):
+            reset_launches(kernel_fns)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model = deepfm_steps(port, vocabs, data, 0, n, strategy=strategy)
+            torch.cuda.synchronize()
+            runs[name] = {'fit_s': time.perf_counter() - t,
+                          'launches': read_launches(kernel_fns),
+                          'state': state_of(model)}
+            for k, v in runs[name]['launches'].items():
+                total[k] += v
+            del model
+        bad = bits_differ(torch, runs['plain']['state'],
+                          runs['data_parallel']['state'])
+        check(not bad, f'distributed: DataParallel(1) and the plain fit '
+                       f'differ in {bad}')
+        check(runs['plain']['launches'] == runs['data_parallel']['launches']
+              and runs['plain']['launches']['emb_grad'] == DIST_STEPS,
+              f'distributed: launches {runs["plain"]["launches"]} vs '
+              f'{runs["data_parallel"]["launches"]}')
+        emit({'phase': 'distributed', 'backend': 'nccl',
+              'init_method': 'file://', 'host_info': parallel.host_info(),
+              'world_size': torch.distributed.get_world_size(),
+              'strategy': 'DataParallel(num_devices=1)', 'model': 'DeepFM',
+              'dtype_policy': 'bfloat16', 'steps': DIST_STEPS,
+              'batch_size': TRAIN_BATCH, 'bit_equal': True,
+              'fit_s': {k: v['fit_s'] for k, v in runs.items()},
+              'launches': {k: v for k, v in
+                           runs['data_parallel']['launches'].items() if v}})
+    finally:
+        torch.distributed.destroy_process_group()
+    return total
+
+
+def checkpoint_phase(torch, port, kernel_fns, vocabs, data, tmp):
+    """DeepFM (bf16, full criteo width: the 324,489 × 16 table and Adam's
+    moments): two 8192-row steps, ``save_checkpoint``, a new model and
+    optimizer restored by ``restore_checkpoint``, a third step; its
+    parameters and BatchNorm statistics must equal an uninterrupted
+    three-step fit's bit for bit. The checkpoint's bytes and the save and
+    restore times (host clock, synchronised). Returns the launches."""
+    from deeptables_torch.utils.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    B = TRAIN_BATCH
+    reset_launches(kernel_fns)
+    whole = state_of(deepfm_steps(port, vocabs, data, 0, 3 * B))
+    first = deepfm_steps(port, vocabs, data, 0, 2 * B)
+    path = os.path.join(tmp, 'deepfm_checkpoint')
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save_checkpoint(path, first)
+    save_ms = 1e3 * (time.perf_counter() - t)
+    nbytes = sum(f.stat().st_size for f in Path(path).rglob('*')
+                 if f.is_file())
+    fresh = criteo_model(port, 'bfloat16', None, vocabs)
+    t = time.perf_counter()
+    restore_checkpoint(path, fresh)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t)
+    bad = bits_differ(torch, state_of(first), state_of(fresh))
+    check(not bad, f'checkpoint: restored tensors differ: {bad}')
+    deepfm_steps(port, vocabs, data, 2 * B, 3 * B, model=fresh)
+    launches = read_launches(kernel_fns)
+    bad = bits_differ(torch, whole, state_of(fresh))
+    check(not bad, f'checkpoint: the resumed fit differs from the '
+                   f'uninterrupted one in {bad}')
+    table = first.module.emb_categorical_vars_all.embeddings_d16
+    emit({'phase': 'checkpoint', 'model': 'DeepFM',
+          'dtype_policy': 'bfloat16', 'table_rows': int(table.shape[0]),
+          'optimizer': type(first.optimizer).__name__, 'bytes': nbytes,
+          'save_ms': save_ms, 'restore_ms': restore_ms,
+          'steps': {'before': 2, 'after': 1}, 'bit_equal': True,
+          'launches': {k: v for k, v in launches.items() if v}})
+    return launches
 
 
 def write_stream_tsv(path, n_rows, seed):
@@ -2670,8 +2920,20 @@ def main():
         launches[name] += count
     torch.cuda.empty_cache()
 
-    determinism_phase(torch, port, vocabs, criteo[2])
+    for name, count in determinism_phase(torch, port, kernel_fns, determinism_runs(
+            (vocabs, criteo[2]), (avazu_vocabs, avazu[2]),
+            (ADULT_VOCABS, adult[2]))).items():
+        launches[name] += count
     torch.cuda.empty_cache()
+
+    dae_phase(torch, port, load_criteo_synthetic)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_dist_') as tmp:
+        for phase in (distributed_phase, checkpoint_phase):
+            for name, count in phase(torch, port, kernel_fns, vocabs,
+                                     criteo[2], tmp).items():
+                launches[name] += count
+            torch.cuda.empty_cache()
 
     from deeptables_torch.data import fast_ingest
     with tempfile.TemporaryDirectory(prefix='chip_smoke_stream_') as tmp:

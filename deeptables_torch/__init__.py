@@ -23,6 +23,7 @@ _EXPORTS = {
     'DeepTabularModel': 'models.deepmodel',
     'DeepTable': 'models.deeptable',
     'ModelSet': 'models.modelset',
+    'make_experiment': 'models',
     'Predictor': 'serving',
 }
 

@@ -239,3 +239,16 @@ def _embedding_tables(node, input_dims, output_dims):
         tables[f'{_EMBEDDING}.embeddings_d{dim}'] = np.concatenate(
             [rows[c] for c in sorted(cols)])
     return tables
+
+
+def dae_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``fe.dae.DAEModule`` from a JAX
+    DAE's variables (``{'params': ...}`` or the params alone, nested dicts
+    of numpy arrays; a gradient tree maps the same way): each Dense's
+    ``kernel (in, out)`` → ``weight (out, in)``, ``bias`` as it is."""
+    params = variables.get('params', variables)
+    out = {}
+    for name, node in params.items():
+        out.update(_layer(name, node))
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}

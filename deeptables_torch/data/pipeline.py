@@ -163,7 +163,8 @@ class BatchIterator:
             if self.sample_weight is not None:
                 wb = self.sample_weight[sel].astype(np.float32)
             if pad > 0:
-                wb = np.ones(bs, dtype=np.float32) if wb is None else wb.copy()
+                wb = np.ones(len(sel), dtype=np.float32) if wb is None \
+                    else wb.copy()
                 wb[valid:] = 0.0
             yield batch, yb, wb, valid
 

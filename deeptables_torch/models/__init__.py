@@ -18,6 +18,13 @@ _LAZY = {'AbstractPreprocessor': 'preprocessor',
          'ModelSet': 'modelset'}
 
 
+def make_experiment(*args, **kwargs):
+    """The AutoML experiment (``models/hyper_dt.py``, host only: pandas and
+    scikit-learn), imported on first use."""
+    from .hyper_dt import make_experiment as _make_experiment
+    return _make_experiment(*args, **kwargs)
+
+
 def __getattr__(name):
     if name in _LAZY:
         module = importlib.import_module(f'.{_LAZY[name]}', __name__)

@@ -51,6 +51,7 @@ from ..ops.embedding import EmbeddingList, MultiColumnEmbedding, \
     VarLenColumnEmbedding, flatten_embeddings, flax_field_order, \
     var_len_width
 from ..ops.layers import BatchNorm, Dense, dropout
+from ..parallel import mesh as mesh_lib
 from ..utils import consts, dt_logging
 from ..utils.device import resolve_device
 
@@ -448,8 +449,17 @@ class DeepModel:
         self.loss_state: Optional[torch.Tensor] = None
         # draws the dropout masks of training; made by fit
         self.generator: Optional[torch.Generator] = None
+        self._strategy = None
         if model_file is not None:
             self._load_weights(model_file)
+
+    @property
+    def strategy(self) -> mesh_lib.DistributionStrategy:
+        """``config.distribute_strategy`` resolved (``parallel.mesh``)."""
+        if self._strategy is None:
+            self._strategy = mesh_lib.get_strategy(
+                self.config.distribute_strategy)
+        return self._strategy
 
     def build(self) -> DeepTabularModel:
         """Initialize the parameters from ``config.seed`` (idempotent)."""
@@ -602,12 +612,21 @@ class DeepModel:
         return sum(reg(p) for name, p in self.build().named_parameters()
                    if name.startswith(consts.LAYER_PREFIX_EMBEDDING))
 
-    def training_loss(self, inputs: Dict[str, torch.Tensor], y, w, loss_fn):
+    def training_loss(self, inputs: Dict[str, torch.Tensor], y, w, loss_fn,
+                      weight_share: Optional[float] = None):
         """The training forward (it moves BatchNorm's running statistics)
         and its loss: the task loss (a stateful one reads
         ``self.loss_state``), plus the embedding activity penalty and the
         embedding weight penalty. Returns (loss, logits, the loss's new
-        state or None)."""
+        state or None).
+
+        ``weight_share``: this rank's share of the global batch's weight (Σw
+        of its rows over the batch's, or its rows over the batch's without
+        weights) in a data-parallel step, whose ranks' losses add up to the
+        global batch's: the task loss, a weighted mean over the rank's rows,
+        is scaled by it (a loss that returns its rank's share already, GHMC,
+        ``rank_share``, is not); the activity penalty, a sum over the rows,
+        is the rank's part; the weight penalty counts on rank 0 only."""
         logits, taps = self.module(inputs, training=True,
                                    generator=self.generator)
         new_state = None
@@ -615,10 +634,14 @@ class DeepModel:
             loss, new_state = loss_fn(logits, y, w, state=self.loss_state)
         else:
             loss = loss_fn(logits, y, w)
+        if weight_share is not None \
+                and not getattr(loss_fn, 'rank_share', False):
+            loss = loss * weight_share
         if '__embeddings_activity_reg__' in taps:
             loss = loss + taps['__embeddings_activity_reg__']
         penalty = self.embedding_weight_penalty()
-        if penalty is not None:
+        if penalty is not None and (weight_share is None
+                                    or self.strategy.is_chief):
             loss = loss + penalty
         return loss, logits, new_state
 
@@ -626,17 +649,45 @@ class DeepModel:
                     wb: Optional[np.ndarray], loss_fn):
         """One step on a host batch: ``training_loss``, backward, the
         optimizer's update and the loss's new state. Returns (loss, logits)
-        on the device."""
+        on the device.
+
+        Under a data-parallel strategy the host batch is the global one:
+        this rank takes its rows, runs the step as its shard
+        (``parallel.mesh.row_shard``: BatchNorm, dropout and GHMC see the
+        global batch), sums the gradients over the ranks (one
+        ``all_reduce`` a tensor, in parameter order) before the update, and
+        returns the global batch's loss and logits."""
+        shard = self.strategy.shard
+        share = None
+        if shard is not None:
+            rows = shard.rows(len(yb))
+            if wb is None:
+                share = (rows.stop - rows.start) / len(yb)
+            else:
+                total = float(np.sum(wb, dtype=np.float64))
+                share = float(np.sum(wb[rows], dtype=np.float64)) / total \
+                    if total > 0 else 0.
+                wb = wb[rows]
+            batch = {k: v[rows] for k, v in batch.items()}
+            yb = yb[rows]
         inputs = self.to_device(batch)
         y = torch.from_numpy(np.ascontiguousarray(yb)).to(self.device)
         w = None if wb is None else torch.from_numpy(wb).to(self.device)
-        loss, logits, new_state = self.training_loss(inputs, y, w, loss_fn)
+        with mesh_lib.row_shard(shard):
+            loss, logits, new_state = self.training_loss(
+                inputs, y, w, loss_fn, weight_share=share)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if shard is not None:
+            mesh_lib.all_reduce_gradients(self.module.parameters(), shard)
         self.optimizer.step()
         if new_state is not None:
             self.loss_state = new_state.detach()
-        return loss.detach(), logits.detach()
+        loss, logits = loss.detach(), logits.detach()
+        if shard is not None:
+            torch.distributed.all_reduce(loss, group=shard.group)
+            logits = mesh_lib.all_gather_rows(logits, shard)
+        return loss, logits
 
     def _split_validation(self, X, y, validation_split, validation_data):
         if validation_data is not None:
@@ -688,9 +739,19 @@ class DeepModel:
                                                              class_weight)
 
         loss_fn, metric_specs, history, cbs = self._begin_fit(callbacks)
+        # data-parallel batches divide the data shards; a batch of the whole
+        # (smaller) data is padded to a multiple of them with zero weights,
+        # which leave the loss but count in BatchNorm's statistics, as the
+        # JAX package's padded batch does
+        shards = self.strategy.num_data_shards
+        if batch_size % shards != 0:
+            batch_size = max(shards, (batch_size // shards) * shards)
+            logger.warning(f'batch_size adjusted to {batch_size} to divide '
+                           f'{shards} data shards.')
         it = pipeline.BatchIterator(arrays, y_arr, weights,
                                     batch_size=batch_size, shuffle=shuffle,
-                                    drop_remainder=True, seed=self.config.seed)
+                                    drop_remainder=True, seed=self.config.seed,
+                                    pad_multiple=shards)
         steps = steps_per_epoch or it.steps
         metric_cap = self.config.train_metrics_sample_limit
         logger.info('training...')
@@ -734,7 +795,7 @@ class DeepModel:
                     except Exception as e:  # a user metric must not end fit
                         logger.warning(f'val metric {name} failed: {e}')
 
-            if verbose:
+            if verbose and self.strategy.is_chief:
                 msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())
                 logger.info(f'Epoch {epoch + 1}/{epochs} - {msg}')
             for cb in cbs:
@@ -748,6 +809,25 @@ class DeepModel:
         history.history = IgnoreCaseDict(history.history)
         return history
 
+    def make_optimizer(self) -> torch.optim.Optimizer:
+        """The optimizer of ``config.optimizer`` over the module's
+        parameters: made once, then kept across fits (and checkpointed with
+        the model, ``utils/checkpoint.py``)."""
+        if self.optimizer is None:
+            self.optimizer = _resolve_optimizer(
+                self.config.optimizer, self.config.learning_rate,
+                self.build().parameters())
+            self.model_desc.optimizer = type(self.optimizer).__name__
+        return self.optimizer
+
+    def initial_loss_state(self) -> Optional[torch.Tensor]:
+        """A stateful loss's state (made at its initial value on the
+        model's device, then kept across fits), or None."""
+        loss_fn = self._loss_fn()
+        if getattr(loss_fn, 'stateful', False) and self.loss_state is None:
+            self.loss_state = loss_fn.init_state().to(self.device)
+        return self.loss_state
+
     def _begin_fit(self, callbacks):
         """What every ``fit`` starts with: the module, the loss (and its
         state, kept across fits), the optimizer (kept across fits), the
@@ -755,14 +835,12 @@ class DeepModel:
         callbacks, told that training begins. Returns (loss_fn,
         metric_specs, history, callbacks)."""
         module = self.build()
+        # the process group matches the strategy, and the tables are
+        # replicated (row-sharded ones raise: ROADMAP Queue 1 item 13b)
+        self.strategy.validate(self.config.embedding_device_strategy)
         loss_fn = self._loss_fn()
-        if getattr(loss_fn, 'stateful', False) and self.loss_state is None:
-            self.loss_state = loss_fn.init_state().to(self.device)
-        if self.optimizer is None:
-            self.optimizer = _resolve_optimizer(
-                self.config.optimizer, self.config.learning_rate,
-                module.parameters())
-            self.model_desc.optimizer = type(self.optimizer).__name__
+        self.initial_loss_state()
+        self.make_optimizer()
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.config.seed + 13)
         metric_specs = [metrics_lib.get_metric(m) for m in self.config.metrics]
@@ -828,7 +906,7 @@ class DeepModel:
                     except Exception as e:  # a user metric must not end fit
                         logger.warning(f'val metric {name} failed: {e}')
 
-            if verbose:
+            if verbose and self.strategy.is_chief:
                 msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())
                 logger.info(f'Epoch {epoch + 1}/{epochs} - {msg}')
             for cb in cbs:
@@ -873,8 +951,12 @@ class DeepModel:
     # ------------------------------------------------------------------
     def save(self, filepath):
         """A pickle (protocol 4) of the schema, the config and the
-        ``state_dict`` as numpy arrays; it loads on any device."""
+        ``state_dict`` as numpy arrays; it loads on any device. Under a
+        data-parallel strategy rank 0 writes it (the ranks hold the same
+        parameters) and the others write nothing."""
         module = self.build()
+        if not self.strategy.is_chief:
+            return
         payload = {
             'format': SAVE_FORMAT,
             'meta': {

@@ -18,6 +18,9 @@ that it imports without them. Cross-validation folds run one after another;
 ``n_jobs`` is accepted and ignored. ``fit``, ``evaluate`` and
 ``predict`` take a streaming loader (``data/streaming.py``), and
 ``fit_cross_validation_streaming`` folds a stream by position.
+``config.distribute_strategy`` (a ``parallel.DataParallel``) reaches every
+``DeepModel`` with the config: each rank of the process group fits its
+rows of each batch, and rank 0 alone writes ``save``'s files.
 """
 
 import copy
@@ -34,6 +37,7 @@ from .config import ModelConfig
 from .deepmodel import DeepModel, _ModelFileUnpickler, \
     _sanitize_config_for_pickle
 from ..ops import metrics as metrics_lib
+from ..parallel.mesh import get_strategy
 from ..serving import fix_binary_predict_proba_result
 from ..utils import consts, dt_logging
 
@@ -550,7 +554,10 @@ class DeepTable:
 
     def save(self, filepath, deepmodel_basename=None):
         """``dt.pkl`` (this estimator, its models by file name) and one
-        ``.dt`` model file per model in the directory ``filepath``."""
+        ``.dt`` model file per model in the directory ``filepath``; under a
+        data-parallel ``config.distribute_strategy``, by rank 0 only."""
+        if not get_strategy(self.config.distribute_strategy).is_chief:
+            return
         os.makedirs(filepath, exist_ok=True)
         num_model = len(self.__modelset.get_modelinfos())
         for mi in self.__modelset.get_modelinfos():

@@ -41,20 +41,61 @@ def _pair_indices(num_fields: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.asarray(row, np.int64), np.asarray(col, np.int64)
 
 
+def _incidence(index: np.ndarray, n_fields: int) -> np.ndarray:
+    """(n_fields, P) float32: 1 where ``index[p]`` is the field."""
+    out = np.zeros((n_fields, len(index)), np.float32)
+    out[index, np.arange(len(index))] = 1
+    return out
+
+
+class GatherFields(torch.autograd.Function):
+    """``x.index_select(1, index)`` of a (B, F, D) tensor, with a backward
+    that sums the gradients of each field's slots in a fixed order: one
+    matrix product with the (F, P) 0/1 ``incidence`` of the index (a
+    field's row holds a 1 at each slot that reads it), ``dx = incidence ·
+    dP`` per example. ``index_select``'s own backward scatters with float
+    atomic adds on a CUDA tensor, so a field read by many slots (F − 1 pairs
+    each) would get its sum in another order every run; a matrix product's
+    order is fixed. ``incidence`` may have more rows than x has fields
+    (FiBiNet's ``field_each`` reads F − 1 of them): its first ones serve."""
+
+    @staticmethod
+    def forward(ctx, x, index, incidence):
+        ctx.save_for_backward(incidence)
+        ctx.n_fields = x.shape[1]
+        return x.index_select(1, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (incidence,) = ctx.saved_tensors
+        dx = torch.matmul(incidence[:ctx.n_fields].to(g.dtype), g)
+        return dx, None, None
+
+
 class _Pairs(nn.Module):
-    """Holds the pair indices of ``n_fields`` fields as buffers (they move
-    with the module to its device; not saved)."""
+    """Holds the pair indices of ``n_fields`` fields and their incidence
+    matrices (``GatherFields``) as buffers (they move with the module to its
+    device; not saved)."""
 
     def __init__(self, n_fields: int):
         super().__init__()
         row, col = _pair_indices(n_fields)
-        self.register_buffer('row', torch.from_numpy(row), persistent=False)
-        self.register_buffer('col', torch.from_numpy(col), persistent=False)
+        for name, index in (('row', row), ('col', col)):
+            self.register_buffer(name, torch.from_numpy(index),
+                                 persistent=False)
+            self.register_buffer(f'{name}_incidence', torch.from_numpy(
+                _incidence(index, n_fields)), persistent=False)
         self.n_pairs = len(row)
+
+    def gather(self, x, which: str):
+        """The fields of a (B, F, D) tensor at ``which`` (``'row'`` or
+        ``'col'``) of every pair."""
+        return GatherFields.apply(x, getattr(self, which),
+                                  getattr(self, f'{which}_incidence'))
 
     def pair(self, x):
         """``(x[:, row], x[:, col])`` of a (B, F, D) tensor."""
-        return x.index_select(1, self.row), x.index_select(1, self.col)
+        return self.gather(x, 'row'), self.gather(x, 'col')
 
 
 class FM(nn.Module):
@@ -461,10 +502,10 @@ class BilinearInteraction(_Pairs):
         w = self.bilinear_weight
         if self.bilinear_type == 'field_all':
             xw = torch.matmul(x.float(), w)
-            return xw.index_select(1, self.row) * x.index_select(1, self.col)
+            return self.gather(xw, 'row') * self.gather(x, 'col')
         if self.bilinear_type == 'field_each':
             xw = torch.einsum('bfe,feh->bfh', x[:, :w.shape[0]].float(), w)
-            return xw.index_select(1, self.row) * x.index_select(1, self.col)
+            return self.gather(xw, 'row') * self.gather(x, 'col')
         p, q = self.pair(x)
         return torch.einsum('bpe,peh->bph', p.float(), w) * q
 
@@ -479,8 +520,8 @@ class FGCNN(nn.Module):
     (tanh) follows; a max pool of ``pool_height`` fields (``SAME``: the
     odd pad at the end) gives the next stage's input; ``dense_output``
     (glorot_uniform) reads it flattened in flax's ``(F', E, filters)``
-    order and gives the new features. Torch convolves NCHW, so the stage
-    moves the channels to axis 1 and back."""
+    order and gives the new features. The convolution is ``layers.Conv2d``'s
+    im2col product (its backward has no atomic adds)."""
 
     flax_scope = True
 
@@ -502,10 +543,13 @@ class FGCNN(nn.Module):
 
     def forward(self, x, training: bool = False):
         B, n_fields, emb = x.shape[:3]
-        conv = self.activation(self.conv2d(x.permute(0, 3, 1, 2)))
+        conv = self.activation(self.conv2d(x))  # (B, F, E, filters)
         low, high = same_pads(n_fields, self.pool_height, self.pool_height)
+        # max_pool2d on an NCHW view of the NHWC tensor; the windows do not
+        # overlap, so its backward gathers one gradient an input element
         pooled = F.max_pool2d(
-            F.pad(conv, (0, 0, low, high), value=float('-inf')),
+            F.pad(conv, (0, 0, 0, 0, low, high),
+                  value=float('-inf')).permute(0, 3, 1, 2),
             (self.pool_height, 1), (self.pool_height, 1))
         pooled = pooled.permute(0, 2, 3, 1)  # (B, F', E, filters)
         new = self.activation(self.dense_output(pooled.reshape(B, -1)))

@@ -18,9 +18,10 @@ semantics in torch:
   axis (a ``(B, F, U)`` input as ``B·F`` rows), with ``epsilon=1e-3``, and
   keeps ``weight``/``bias`` (flax ``scale``/``bias``) and
   ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``);
-- a convolution (flax ``nn.Conv`` with ``padding='SAME'``) keeps its kernel
-  drawn in flax's ``(kh, kw, in, out)`` layout and stored as ``weight (out,
-  in, kh, kw)``, and pads as XLA's ``SAME`` does (the odd pad at the end);
+- a convolution (flax ``nn.Conv`` with ``padding='SAME'``) takes flax's
+  NHWC input, keeps its kernel drawn in flax's ``(kh, kw, in, out)`` layout
+  and stored as ``weight (out, in, kh, kw)``, pads as XLA's ``SAME`` does
+  (the odd pad at the end) and runs as an im2col matrix product;
 - dropout (flax ``nn.Dropout``) keeps an element with probability ``1 − rate``
   and scales it by ``1 / (1 − rate)``; its mask comes from an explicit
   ``torch.Generator``, as flax's comes from an explicit key.
@@ -31,7 +32,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce
 
+from ..parallel.mesh import active_shard
 from .initializers import get_initializer
 
 
@@ -39,7 +42,10 @@ def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
             broadcast_dims: Sequence[int] = ()) -> torch.Tensor:
     """Training-mode dropout of ``x`` with a mask drawn from ``generator``
-    (on x's device); the mask is shared along ``broadcast_dims``."""
+    (on x's device); the mask is shared along ``broadcast_dims``. In a
+    data-parallel step (``parallel.mesh.active_shard``) the mask is drawn
+    for the global batch, as one process would draw it, and this rank keeps
+    its rows (axis 0)."""
     if rate <= 0:
         return x
     if generator is None:
@@ -50,7 +56,15 @@ def dropout(x: torch.Tensor, rate: float,
         return torch.zeros_like(x)
     keep = 1.0 - rate
     shape = [1 if i in broadcast_dims else s for i, s in enumerate(x.shape)]
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    shard = active_shard()
+    if shard is not None and 0 not in broadcast_dims:
+        # a data-parallel step: the global batch's mask, this rank's rows
+        shape[0] *= shard.size
+        mask = torch.rand(shape, generator=generator, device=x.device)[
+            shard.rows(shape[0])] < keep
+    else:
+        mask = torch.rand(shape, generator=generator,
+                          device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -81,7 +95,14 @@ class BatchNorm(nn.Module):
     variance ``var = max(E[x²] − E[x]², 0)``; the output is normalized with
     them, the gradient flows through them, and the running statistics move
     to ``0.9·running + 0.1·batch``. (``F.batch_norm(training=True)`` would
-    update ``running_var`` with the unbiased variance.)"""
+    update ``running_var`` with the unbiased variance.)
+
+    In a data-parallel step (``parallel.mesh.active_shard``) the statistics
+    are the global batch's, as the JAX package's ``jit`` over a
+    data-sharded batch computes them: the ranks' sums and sums of squares
+    are summed (``torch.distributed.nn.functional.all_reduce``, through
+    which the gradient flows), so every rank normalises alike and keeps the
+    same running statistics. (``nn.SyncBatchNorm`` refuses CPU tensors.)"""
 
     momentum = 0.9
 
@@ -100,8 +121,18 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.epsilon).reshape(shape)
-        mean = x.mean(dim=0)
-        var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.)
+        shard = active_shard()
+        if shard is None:
+            mean = x.mean(dim=0)
+            var = torch.clamp_min((x * x).mean(dim=0) - mean * mean, 0.)
+        else:
+            # the global batch's statistics: the ranks' sums, summed by a
+            # differentiable all_reduce (its backward sums the gradients)
+            sums = all_reduce(torch.stack([x.sum(dim=0), (x * x).sum(dim=0)]),
+                              group=shard.group)
+            n = x.shape[0] * shard.size
+            mean = sums[0] / n
+            var = torch.clamp_min(sums[1] / n - mean * mean, 0.)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_(
                 mean.detach(), alpha=1 - self.momentum)
@@ -120,10 +151,18 @@ def same_pads(size: int, window: int, stride: int = 1):
 
 
 class Conv2d(nn.Module):
-    """flax ``nn.Conv(features, kernel_size, padding='SAME')`` over an NCHW
-    input (the layout torch convolves in), stride 1, with a bias. The
-    kernel is drawn in flax's ``(kh, kw, in, out)`` layout, so its fans are
-    flax's."""
+    """flax ``nn.Conv(features, kernel_size, padding='SAME')`` over an NHWC
+    input (flax's layout), stride 1, with a bias. The kernel is drawn in
+    flax's ``(kh, kw, in, out)`` layout, so its fans are flax's, and stored
+    as ``weight (out, in, kh, kw)``.
+
+    The convolution is an im2col product: the input's ``kh·kw`` shifted
+    windows side by side, times the kernel as one matrix. Its backward is
+    the matrix products' and the slices', with no atomic adds, so a CUDA
+    step gives the same bits every run (cuDNN may take a weight-gradient
+    algorithm that adds with atomics, unless the process sets
+    ``torch.backends.cudnn.deterministic``, which is not a library's to
+    set)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size,
                  kernel_init='lecun_normal', generator=None):
@@ -135,9 +174,16 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        """``x`` (B, C, H, W), promoted to the float32 parameters."""
-        kh, kw = self.weight.shape[2:]
-        top, bottom = same_pads(x.shape[2], kh)
-        left, right = same_pads(x.shape[3], kw)
-        x = F.pad(x.to(self.weight.dtype), (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias)
+        """``x`` (B, H, W, C), promoted to the float32 parameters → (B, H,
+        W, features)."""
+        features, channels, kh, kw = self.weight.shape
+        B, H, W = x.shape[:3]
+        top, bottom = same_pads(H, kh)
+        left, right = same_pads(W, kw)
+        x = F.pad(x.to(self.weight.dtype), (0, 0, left, right, top, bottom))
+        cols = torch.stack([x[:, i:i + H, j:j + W] for i in range(kh)
+                            for j in range(kw)], dim=3)  # (B, H, W, K, C)
+        kernel = self.weight.permute(2, 3, 1, 0).reshape(-1, features)
+        out = torch.matmul(cols.reshape(B * H * W, kh * kw * channels),
+                           kernel) + self.bias
+        return out.reshape(B, H, W, features)

@@ -11,7 +11,9 @@ loss, whose momentum histogram is explicit state (:class:`GHMCLoss`).
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import active_shard
 from ..utils import consts
 
 _EPS = 1e-7
@@ -135,7 +137,15 @@ class GHMCLoss:
     The bins, the weights and the new state are indicator functions of the
     logits: they are computed without gradient, as the JAX package's
     ``stop_gradient`` does. ``sample_weight`` is not used.
+
+    The loss is ``Σ_i bce_i / (count(bin_i) · valid bins)``, a sum over the
+    batch's elements: in a data-parallel step (``parallel.mesh.
+    active_shard``) the bin counts are summed over the ranks, and each rank
+    returns its elements' share of the global loss (the shares add up to
+    it), so ``rank_share`` is True.
     """
+
+    rank_share = True
 
     def __init__(self, bins: int = 10, momentum: float = 0.75):
         self.bins = bins
@@ -163,6 +173,9 @@ class GHMCLoss:
             right = self._edges_right.to(g.device)[:, None, None]
             inds = ((g[None] >= left) & (g[None] < right)).to(logits2.dtype)
             num_in_bin = inds.sum(dim=(1, 2))  # (bins,)
+            shard = active_shard()
+            if shard is not None:  # the global batch's histogram
+                dist.all_reduce(num_in_bin, group=shard.group)
             num_valid_bin = (num_in_bin > 0).to(logits2.dtype).sum()
             if state is not None and self.momentum > 0:
                 mmt = self.momentum

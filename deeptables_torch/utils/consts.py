@@ -30,6 +30,7 @@ MODEL_SELECTOR_ALL = 'all'
 EMBEDDING_OUT_DIM_DEFAULT = 4
 
 GBM_FEATURE_TYPE_EMB = 'embedding'
+GBM_FEATURE_TYPE_DENSE = 'dense'
 
 STACKING_OP_CONCAT = 'concat'
 STACKING_OP_ADD = 'add'

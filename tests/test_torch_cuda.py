@@ -1384,6 +1384,72 @@ def test_zoo_nets_on_cuda_match_cpu(cuda, nets):
                                atol=1e-5)
 
 
+def _zoo_model(cuda, nets, seed=0):
+    """A zoo net on the adult vocabularies, D=16, three dense inputs, and
+    4096 rows of ids, inputs and labels from ``seed``."""
+    from deeptables_torch.models import (CategoricalColumn, ContinuousColumn,
+                                         DeepModel, ModelConfig)
+    cats = tuple(CategoricalColumn(f'C{i}', v, 16)
+                 for i, v in enumerate(ADULT_VOCABS))
+    conts = (ContinuousColumn('input_continuous_all', ['I1', 'I2', 'I3']),)
+    config = ModelConfig(nets=nets, task='binary', embedding_dropout=0,
+                         metrics=['AUC'], dtype_policy='bfloat16',
+                         dnn_params={'hidden_units': ((64, 0, False),
+                                                      (32, 0, False))})
+    rng = np.random.default_rng(seed)
+    n = 4096
+    X = {'cat': np.stack([rng.integers(0, v, n) for v in ADULT_VOCABS],
+                         axis=1).astype(np.int32),
+         'input_continuous_all': rng.normal(size=(n, 3)).astype(np.float32)}
+    y = rng.integers(0, 2, n).astype(np.float32)
+    return DeepModel('binary', 2, config, cats, conts, device=cuda), X, y
+
+
+ZOO_PAIR_NETS = ['ipnn_nets', 'afm_nets', 'fibi_nets', 'fgcnn_ipnn_nets']
+
+
+@pytest.mark.parametrize('net', ZOO_PAIR_NETS)
+def test_pair_and_fgcnn_nets_fit_deterministically(cuda, net):
+    """Two 2-step fits of a net over field pairs (the pair gather's
+    backward) or of FGCNN (its convolution's backward) from one seed end
+    with the same parameters bit for bit."""
+    states = []
+    for _ in range(2):
+        model, X, y = _zoo_model(cuda, [net])
+        model.fit(X, y, batch_size=1024, epochs=1, steps_per_epoch=2,
+                  validation_data=(X, y), verbose=0)
+        states.append({k: v.detach().cpu().clone()
+                       for k, v in model.module.state_dict().items()})
+    differ = [k for k, v in states[0].items()
+              if not torch.equal(v, states[1][k])]
+    assert not differ, differ
+
+
+ZOO_ALL = ['afm_nets', 'opnn_nets', 'ipnn_nets', 'pnn_nets', 'cross_nets',
+           'cross_dnn_nets', 'fg_nets', 'fgcnn_cin_nets', 'fgcnn_fm_nets',
+           'fgcnn_afm_nets', 'fgcnn_ipnn_nets', 'fgcnn_dnn_nets', 'fibi_nets',
+           'fibi_dnn_nets', 'dcn_nets', 'autoint_nets', 'cin_nets', 'fm_nets']
+
+
+@pytest.mark.parametrize('net', ZOO_ALL)
+def test_zoo_step_has_deterministic_cuda_ops(cuda, net, monkeypatch):
+    """One training step of each net under
+    ``torch.use_deterministic_algorithms(True)``: PyTorch raises on an op
+    whose CUDA backward has no deterministic implementation. (The setting
+    is process-wide, so it is set here, in a test, and restored; cuBLAS's
+    workspace setting keeps its GEMMs from raising.)"""
+    monkeypatch.setenv('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    model, X, y = _zoo_model(cuda, [net])
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        model.fit(X, y, batch_size=1024, epochs=1, steps_per_epoch=1,
+                  validation_data=(X, y), verbose=0)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
 def _stream_shards(tmp_path, buckets, n_dense, rows=(1500, 1300)):
     """Criteo-format TSV shards: a label, ``n_dense`` integers (10% blank),
     tokens of 8 hex digits."""
@@ -1454,3 +1520,17 @@ def test_stream_fit_on_cuda_is_deterministic(cuda, tmp_path):
                        for k, v in model.module.state_dict().items()})
     for key, value in states[0].items():
         assert torch.equal(value, states[1][key]), key
+
+
+def test_dae_transform_of_a_cuda_tensor_stays_on_the_card(cuda):
+    """``DAE.transform`` of a CUDA tensor gives a CUDA tensor (no copy to
+    the host), equal to the numpy path's features on the card."""
+    from deeptables_torch.fe import DAE
+    X = np.random.default_rng(0).normal(size=(300, 13)).astype(np.float32)
+    dae = DAE(encoder_units=(64, 64), feature_units=5, noise_rate=0.1)
+    dae.fit(X, batch_size=64, epochs=2, verbose=0, device=cuda)
+    assert next(dae.module.parameters()).is_cuda
+    out = dae.transform(torch.from_numpy(X).to(cuda), batch_size=64)
+    assert out.is_cuda and out.shape == (300, 5)
+    np.testing.assert_array_equal(out.cpu().numpy(),
+                                  dae.transform(X, batch_size=64))

@@ -1,10 +1,11 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them. The three
+JAX package, so that it runs on a machine that has none of them. The four
 exceptions are the host-only modules ``models/preprocessor.py`` and
-``models/transformers.py``, which import pandas and scikit-learn, and
-``data/streaming.py``, which imports pandas; nothing on the card's path
-imports them. The host utilities (``eda``, ``preprocessing``,
+``models/transformers.py``, which import pandas and scikit-learn,
+``data/streaming.py``, which imports pandas, and ``models/hyper_dt.py``
+(AutoML over ``DeepTable``), which imports pandas; nothing on the card's
+path imports them (``make_experiment`` loads the last on first use). The host utilities (``eda``, ``preprocessing``,
 ``utils/feature_importance.py``, ``utils/quicktest.py``) import pandas and
 scikit-learn only inside the functions that use them.
 
@@ -42,7 +43,8 @@ BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
 # level: the host's preprocessing and streaming, off the card's path
 HOST_ONLY = ('deeptables_torch.models.preprocessor',
              'deeptables_torch.models.transformers',
-             'deeptables_torch.data.streaming')
+             'deeptables_torch.data.streaming',
+             'deeptables_torch.models.hyper_dt')
 
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -77,6 +79,8 @@ ms = ModelSet(metric='AUC', best_mode='auto')
 ms.push(ModelInfo('val', 'a', None, {'AUC': 0.7}))
 ms.push(ModelInfo('val', 'b', None, {'AUC': 0.9}))
 assert ms.best_model().name == 'b'
+assert callable(deeptables_torch.models.make_experiment)
+assert deeptables_torch.make_experiment is deeptables_torch.models.make_experiment
 assert not set(HOST_ONLY) & set(sys.modules), 'a host-only module loaded'
 
 spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
@@ -187,6 +191,15 @@ zdata = {'cat': cat, 'input_continuous_all': dense,
          'genres': (np.arange(27).reshape(9, 3) % 6).astype(np.int32)}
 history = zmodel.fit(zdata, y, batch_size=4, epochs=1, verbose=0)
 assert np.isfinite(history.history['loss']).all()
+# the denoising auto-encoder, and the checkpoint and data-parallel modules
+assert {'deeptables_torch.fe.dae', 'deeptables_torch.parallel.mesh',
+        'deeptables_torch.parallel.multihost',
+        'deeptables_torch.utils.checkpoint'} <= set(modules)
+from deeptables_torch.fe import DAE
+feats = DAE(encoder_units=(8, 8), feature_units=2).fit_transform(
+    dense.astype(np.float32), batch_size=4, epochs=2, verbose=0,
+    device='cpu')
+assert feats.shape == (9, 2)
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))
