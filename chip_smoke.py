@@ -178,7 +178,21 @@ card), ``distributed`` (an NCCL process group of one process over a
 to the plain fit, with the same launches) and ``checkpoint`` (DeepFM
 resumed from ``save_checkpoint``/``restore_checkpoint`` after two steps:
 its third step bit-equal to three uninterrupted steps; the checkpoint's
-bytes and its save and restore times).
+bytes and its save and restore times), then ``sharded``: DeepFM (bf16,
+criteo width) with its 324,489-row table row-sharded over a model axis of
+2, ``DataAndModelParallel(1, 2)``, two ranks of a gloo process group on
+the one card (the script run again as ``--sharded-rank``; NCCL refuses
+two ranks on one device, and gloo moves the CUDA tensors through the
+host), three 8192-row steps each of ``'sharded'``, exact ``'sharded_a2a'``
+and ``'sharded_a2a'`` at ``capacity_factor=1.5``: the first batch's rows
+against the whole table's gather bit for bit, the exact runs' parameters
+and the table put back from its shards against a one-process replicated
+fit by the train phase's rules, the bounded run's drops, K1 once a rank
+a step on R = 162,245 rows. One line a run: backend, mesh, R, capacity,
+drops, largest difference and each rank's step times (two ranks on one
+card: no throughput). The ``emb_grad`` kernel rows add ``shard``: K1 on
+the local ids the exact all-to-all hands a rank at B=8192 (unused slots
+included), into R rows, with its bound and ``index_add_``'s time.
 
 9. Streaming from files, on TSV shards the script writes to a temporary
    directory (Criteo format, ``write_stream_tsv``: two training shards of
@@ -1275,6 +1289,24 @@ def emb_grad_cases(torch, vocabs, load_criteo_synthetic, datasets):
             [rng.integers(0, b, TRAIN_BATCH) for b in STREAM_BUCKETS],
             axis=1), stream_table)
     cases.append(('stream', TRAIN_BATCH, stream_table, stream, 0))
+    # a shard of the sharded phase's table: the local ids that the exact
+    # all-to-all hands model rank 0 of 2 at a batch of criteo ids (both
+    # ranks' stripes' requests, unused slots at id 0 included), into its
+    # R = 162,245 rows; the columns only give N = B·26 and V = R
+    n_model = SHARDED_MESH[1]
+    shard_R = -(-int(np.sum(np.asarray(vocabs) + 1)) // n_model)
+    shard_table = np.full(F_CRITEO, shard_R // F_CRITEO) - 1
+    shard_table[-1] += shard_R % F_CRITEO
+
+    def shard(seed):
+        from deeptables_torch.parallel import sharded_embedding
+        ids = criteo(TRAIN_BATCH)(seed)
+        stripe = -(-len(ids) // n_model)
+        recv = torch.stack([sharded_embedding._dispatch_plan(
+            ids[s * stripe:(s + 1) * stripe], n_model, stripe, shard_R)[0][0]
+            for s in range(n_model)])
+        return recv.reshape(-1).clamp(0, shard_R - 1).to(torch.int32)
+    cases.append(('shard', TRAIN_BATCH, shard_table, shard, 0))
     cases.append(('one_row', TRAIN_BATCH, vocabs, one_row, 0))
     cases += [('criteo', TRAIN_BATCH, vocabs, criteo(TRAIN_BATCH), 1),
               ('uniform', TRAIN_BATCH, vocabs, uniform(TRAIN_BATCH), 1),
@@ -2507,6 +2539,228 @@ def checkpoint_phase(torch, port, kernel_fns, vocabs, data, tmp):
     return launches
 
 
+# the sharded phase: DeepFM bf16 at criteo width, its table row-sharded
+# over a model axis of 2 (two ranks of a gloo group on the one card), three
+# steps of each run
+SHARDED_MESH = (1, 2)
+SHARDED_STEPS = 3
+SHARDED_RUNS = (('sharded', None), ('sharded_a2a', None),
+                ('sharded_a2a', 1.5))
+SHARDED_RANK_TIMEOUT_S = 400
+SHARDED_BACKEND = 'gloo'
+
+
+def sharded_data_file(tmp, data):
+    """The phase's rows (SHARDED_STEPS training batches and a validation
+    batch) in an .npz for the ranks."""
+    arrays, y = data
+    n = (SHARDED_STEPS + 1) * TRAIN_BATCH
+    path = os.path.join(tmp, 'sharded_rows.npz')
+    np.savez(path, y=y[:n], **{k: v[:n] for k, v in arrays.items()})
+    return path
+
+
+def sharded_rank(rank, world, tmp):
+    """One rank of the sharded phase (``chip_smoke.py --sharded-rank``):
+    joins a gloo group of ``world`` over a ``file://`` store in ``tmp``, and
+    for each of SHARDED_RUNS builds DeepFM (bf16, full criteo width) under
+    ``DataAndModelParallel(*SHARDED_MESH)``, holds its first batch's rows
+    against the whole table's gather, then fits SHARDED_STEPS steps of
+    8192 rows, each step timed (host clock, synchronised). Writes what it
+    saw, and rank 0 the whole state after each exact run, to tmp."""
+    import pickle
+    from datetime import timedelta
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import deeptables_torch as port
+    from deeptables_torch import parallel
+    from deeptables_torch.ops.kernels import emb_grad as eg_module
+    from deeptables_torch.ops.kernels import fm as fm_module
+    from deeptables_torch.parallel import sharded_embedding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize_distributed(
+        init_method=f'file://{tmp}/sharded_store', num_processes=world,
+        process_id=rank, backend=SHARDED_BACKEND,
+        timeout=timedelta(seconds=120))
+    kernel_fns = {'fm_fwd': fm_module.fm, 'fm_bwd': fm_module.fm_backward,
+                  'emb_grad': eg_module.emb_grad}
+    with np.load(os.path.join(tmp, 'sharded_rows.npz')) as f:
+        y = f['y']
+        arrays = {k: f[k] for k in f.files if k != 'y'}
+    with open(os.path.join(tmp, 'sharded_vocabs.json')) as f:
+        vocabs = json.load(f)
+    out = {'rank': rank, 'backend': torch.distributed.get_backend(),
+           'runs': {}}
+    try:
+        for how, factor in SHARDED_RUNS:
+            strategy = parallel.DataAndModelParallel(*SHARDED_MESH)
+            model = criteo_model(
+                port, 'bfloat16', None, vocabs,
+                distribute_strategy=strategy, embedding_device_strategy=how,
+                embedding_a2a_capacity_factor=factor)
+            layer = model.build().emb_categorical_vars_all
+            table = layer.embeddings_d16
+            key = 'emb_categorical_vars_all.embeddings_d16'
+            whole = model.full_state_dict()[key]
+            ids = torch.from_numpy(arrays['cat'][:TRAIN_BATCH]).cuda()
+            drops = sharded_embedding.sharded_lookup_a2a.drops
+            with torch.no_grad():
+                rows = layer(ids).stacked
+                ref = whole[ids + layer.offsets_d16]
+            zero = (rows == 0).all(dim=-1)
+            forward_drops = sharded_embedding.sharded_lookup_a2a.drops - drops
+            run = {'R': int(table.shape[0]),
+                   'rows_equal': bool(torch.equal(rows[~zero], ref[~zero])),
+                   'zero_rows': int(zero.sum()),
+                   'forward_drops': forward_drops,
+                   'row_sharding': hasattr(table, 'row_sharding')}
+            step_s = []
+            train_step = model._train_step
+
+            def timed_step(*args, train_step=train_step):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                result = train_step(*args)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                return result
+            model._train_step = timed_step
+            drops = sharded_embedding.sharded_lookup_a2a.drops
+            reset_launches(kernel_fns)
+            deepfm_steps(port, vocabs, (arrays, y), 0,
+                         SHARDED_STEPS * TRAIN_BATCH, model=model)
+            torch.cuda.synchronize()
+            run['launches'] = read_launches(kernel_fns)
+            run['step_ms'] = [1e3 * t for t in step_s]
+            run['drops'] = sharded_embedding.sharded_lookup_a2a.drops - drops
+            run['loss'] = model.evaluate(
+                rows_of(arrays, 0, TRAIN_BATCH), y[:TRAIN_BATCH],
+                batch_size=TRAIN_BATCH)['loss']
+            state = {k: v.detach().cpu().clone()
+                     for k, v in model.full_state_dict().items()}
+            if rank == 0 and factor is None:
+                run['state'] = state
+            out['runs'][f'{how}@{factor}'] = run
+            del model, layer, table, whole
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(tmp, f'sharded_rank{rank}.pkl'), 'wb') as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def sharded_phase(torch, port, kernel_fns, vocabs, data, tmp):
+    """DeepFM (bf16, full criteo width, 324,489 table rows) with its table
+    row-sharded over a model axis of 2: two ranks of a gloo process group
+    on the one card (``sharded_rank``, subprocesses with a time limit and
+    a ``file://`` store; gloo takes the CUDA tensors of ``all_reduce``,
+    ``all_gather`` and ``all_to_all_single`` through the host), three steps
+    of each of SHARDED_RUNS. Checks: the first batch's rows equal the whole
+    table's gather bit for bit (but for the dropped ids of the bounded
+    run, which it counts); after three steps of each exact run every dense
+    parameter and the table put back from its shards match a one-process
+    replicated fit from the same seed by the train phase's rules; the
+    bounded run drops ids and its loss is finite; K1 runs once a rank a
+    step on the rank's R = 162,245 rows. Two ranks share one card, so the
+    step times are no throughput; NCCL across cards is not exercised.
+    Returns the launches, the ranks' and the reference fit's."""
+    import pickle
+    sharded_data_file(tmp, data)
+    with open(os.path.join(tmp, 'sharded_vocabs.json'), 'w') as f:
+        json.dump([int(v) for v in vocabs], f)
+    world = SHARDED_MESH[0] * SHARDED_MESH[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / 'chip_smoke.py'), '--sharded-rank',
+         str(rank), str(world), tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for rank in range(world)]
+    logs, failed = [], False
+    deadline = time.monotonic() + SHARDED_RANK_TIMEOUT_S
+    try:
+        for proc in procs:
+            try:
+                log, _ = proc.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                log, _ = proc.communicate()
+                failed = True
+            logs.append(log.decode(errors='replace')[-4000:])
+            failed = failed or proc.returncode != 0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(not failed, 'sharded: a rank failed:\n' + '\n----\n'.join(logs))
+    ranks = []
+    for rank in range(world):
+        with open(os.path.join(tmp, f'sharded_rank{rank}.pkl'), 'rb') as f:
+            ranks.append(pickle.load(f))
+
+    reset_launches(kernel_fns)
+    reference = state_of(deepfm_steps(port, vocabs, data, 0,
+                                      SHARDED_STEPS * TRAIN_BATCH))
+    launches = read_launches(kernel_fns)
+    R = -(-int(np.sum(np.asarray(vocabs) + 1)) // SHARDED_MESH[1])
+    runs = []
+    for how, factor in SHARDED_RUNS:
+        name = f'{how}@{factor}'
+        per_rank = [r['runs'][name] for r in ranks]
+        for rank, run in enumerate(per_rank):
+            check(run['R'] == R and run['row_sharding'],
+                  f'sharded {name}: rank {rank} holds {run["R"]} rows, not '
+                  f'{R}')
+            check(run['rows_equal'], f'sharded {name}: rank {rank}\'s rows '
+                                     f'differ from the whole table\'s gather')
+            check(run['launches']['emb_grad'] == SHARDED_STEPS,
+                  f'sharded {name}: rank {rank} launched K1 '
+                  f'{run["launches"]["emb_grad"]} times in '
+                  f'{SHARDED_STEPS} steps')
+            check(math.isfinite(run['loss']),
+                  f'sharded {name}: loss {run["loss"]}')
+            for k, v in run['launches'].items():
+                launches[k] += v
+        line = {'phase': 'sharded', 'backend': ranks[0]['backend'],
+                'ranks_on_one_card': world, 'mesh': list(SHARDED_MESH),
+                'strategy': how, 'capacity_factor': factor, 'R': R,
+                'model': 'DeepFM', 'dtype_policy': 'bfloat16',
+                'batch_size': TRAIN_BATCH, 'steps': SHARDED_STEPS,
+                'forward_zero_rows': per_rank[0]['zero_rows'],
+                'forward_drops': per_rank[0]['forward_drops'],
+                'drops': per_rank[0]['drops'],
+                'loss': per_rank[0]['loss'],
+                'step_ms': {f'rank{i}': r['step_ms']
+                            for i, r in enumerate(per_rank)},
+                'launches': {f'rank{i}': {k: v for k, v in
+                                          r['launches'].items() if v}
+                             for i, r in enumerate(per_rank)}}
+        if factor is None:
+            check(per_rank[0]['zero_rows'] == 0 and per_rank[0]['drops'] == 0,
+                  f'sharded {name}: an exact lookup dropped ids')
+            state = per_rank[0]['state']
+            check(set(state) == set(reference),
+                  f'sharded {name}: state keys differ')
+            params = check_params(f'sharded {name}', state, reference)
+            line['largest_difference'] = max(
+                p['max_abs_diff'] for p in params.values())
+            line['table_vs_replicated'] = params[
+                'emb_categorical_vars_all.embeddings_d16']
+        else:
+            check(per_rank[0]['drops'] > 0
+                  and per_rank[0]['forward_drops']
+                  == per_rank[0]['zero_rows'] > 0,
+                  f'sharded {name}: capacity {factor} dropped '
+                  f'{per_rank[0]["drops"]} ids in training and '
+                  f'{per_rank[0]["forward_drops"]} in the forward check')
+            line['largest_difference'] = None
+        emit(line)
+        runs.append(line)
+    return launches
+
+
 def write_stream_tsv(path, n_rows, seed):
     """Criteo-format TSV as benchmarks/bench_ingest_e2e.py:32-53 writes it: a
     label, 13 integers of 0-4999 (10% blank) and 26 tokens of 8 hex digits,
@@ -2825,6 +3079,8 @@ def stream_determinism_phase(torch, port, paths):
 
 def main():
     import torch
+    if sys.argv[1:2] == ['--sharded-rank']:
+        return sharded_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device is available; this script runs '
               'the port on a GPU only.', file=sys.stderr)
@@ -2929,7 +3185,7 @@ def main():
     dae_phase(torch, port, load_criteo_synthetic)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_dist_') as tmp:
-        for phase in (distributed_phase, checkpoint_phase):
+        for phase in (distributed_phase, checkpoint_phase, sharded_phase):
             for name, count in phase(torch, port, kernel_fns, vocabs,
                                      criteo[2], tmp).items():
                 launches[name] += count
@@ -2952,10 +3208,10 @@ def main():
         'B', 'F', 'design', 'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
         'bound_by')} for r in rows if r['F'] == F_FGCNN}
     bwd = next(r for r in bwd_rows if (r['dtype'], r['B']) == TRAIN_HEADLINE)
-    grad, grad_avazu, grad_adult, grad_stream = (
+    grad, grad_avazu, grad_adult, grad_stream, grad_shard = (
         next(r for r in grad_rows if (r['ids'], r['B'], r['g_offset'])
              == (ids, TRAIN_HEADLINE[1], 0))
-        for ids in ('criteo', 'avazu', 'adult', 'stream'))
+        for ids in ('criteo', 'avazu', 'adult', 'stream', 'shard'))
     cin_keys = ('dtype', 'layer', 'B', 'F', 'G', 'L', 'design', 'max_abs_err',
                 'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
                 'split_floor_ms', 'simt_bound_ms')
@@ -3016,7 +3272,8 @@ def main():
             'library_ms', 'library_deterministic_ms', 'sort_ms',
             'segment_ms', 'fill_ms', 'bound_ms', 'bound_by')}
            for ids, r in (('avazu', grad_avazu), ('adult', grad_adult),
-                          ('stream', grad_stream))}}, {
+                          ('stream', grad_stream), ('shard', grad_shard))}},
+        {
         'name': 'cin_fwd', 'route': 'cuda',
         'source': 'deeptables_torch/csrc/cin.cu',
         'replaces': 'deeptables_tpu/ops/kernels/cin_bwd.py:148',

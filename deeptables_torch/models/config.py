@@ -3,15 +3,16 @@
 
 The port's copy of ``deeptables_tpu/models/config.py``: the same field names
 and defaults, so a config written for the JAX package carries over unchanged.
-``distribute_strategy`` (a ``parallel.DataParallel`` or another strategy
-of ``parallel/mesh.py``, a name, or None) and ``embedding_device_strategy``
-are read by ``DeepModel.fit``: data parallelism runs over the
-``torch.distributed`` process group, and what the port cannot do yet
-raises (a model axis larger than 1, the row-sharded tables of
-``'sharded'``/``'sharded_a2a'`` on it: ROADMAP Queue 1 item 13b).
-``embedding_a2a_capacity_factor`` belongs to those sharded tables and is
-not read; ``train_steps_per_dispatch`` (steps a TPU dispatch) is accepted
-and not read.
+``distribute_strategy`` (a ``parallel.DataParallel``,
+``parallel.DataAndModelParallel`` or another strategy of
+``parallel/mesh.py``, a name, or None) and ``embedding_device_strategy``
+are read by ``DeepModel``: data parallelism runs over the
+``torch.distributed`` process group, and under a model axis larger than 1
+``'sharded'`` and ``'sharded_a2a'`` row-shard the categorical tables over
+it (``parallel/sharded_embedding.py``). ``embedding_a2a_capacity_factor``
+is the capacity of ``'sharded_a2a'``'s exchange (None: exact).
+``train_steps_per_dispatch`` (steps a TPU dispatch) is accepted and not
+read.
 ``nets`` is normalized through the port's own ``deepnets.get_nets``.
 """
 

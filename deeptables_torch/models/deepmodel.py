@@ -52,6 +52,7 @@ from ..ops.embedding import EmbeddingList, MultiColumnEmbedding, \
     var_len_width
 from ..ops.layers import BatchNorm, Dense, dropout
 from ..parallel import mesh as mesh_lib
+from ..parallel import sharded_embedding
 from ..utils import consts, dt_logging
 from ..utils.device import resolve_device
 
@@ -64,7 +65,9 @@ class DeepTabularModel(nn.Module):
 
     def __init__(self, config, task: str, num_classes: int,
                  categorical_columns: Tuple, continuous_columns: Tuple,
-                 var_len_categorical_columns: Any = None):
+                 var_len_categorical_columns: Any = None, sharding=None):
+        """``sharding``: a ``parallel.sharded_embedding.TableSharding`` that
+        row-shards the categorical tables over a model axis, or None."""
         super().__init__()
         # parameters are drawn on the CPU from config.seed, then moved, so a
         # model has the same weights on every device
@@ -94,7 +97,7 @@ class DeepTabularModel(nn.Module):
                     input_dims, output_dims,
                     dropout_rate=config.embedding_dropout,
                     embeddings_initializer=config.embeddings_initializer,
-                    generator=generator))
+                    generator=generator, sharding=sharding))
             desc.set_embeddings(list(input_dims), list(output_dims),
                                 config.embedding_dropout)
         var_widths = []
@@ -467,7 +470,9 @@ class DeepModel:
             module = DeepTabularModel(
                 self.config, self.task, self.num_classes,
                 self.categorical_columns, self.continuous_columns,
-                self.var_len_categorical_columns)
+                self.var_len_categorical_columns,
+                sharding=sharded_embedding.table_sharding(self.config,
+                                                          self.strategy))
             self.module = module.to(self.device).eval()
             self.model_desc = module.model_desc
             logger.info(str(self.model_desc))
@@ -503,12 +508,38 @@ class DeepModel:
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
+    def _sharded_embedding(self):
+        """The categorical embedding layer when it holds row-sharded
+        tables, else None."""
+        layer = getattr(self.build(), consts.LAYER_PREFIX_EMBEDDING +
+                        'categorical_vars_all', None)
+        return layer if layer is not None and layer.sharded_rows else None
+
     def forward_batch(self, batch: Dict[str, np.ndarray]):
         """One inference forward over a host batch → (logits, taps) on the
-        device."""
+        device.
+
+        With row-sharded tables it is a collective: every rank passes the
+        same batch and gets the same result. Each data shard takes its rows
+        of the batch, a remainder padded to the data shards with zeros as
+        the JAX package pads it, and the logits and taps are gathered over
+        the data axis."""
         module = self.build()
+        shard = self.strategy.shard \
+            if self._sharded_embedding() is not None else None
         with torch.inference_mode():
-            return module(self.to_device(batch), training=False)
+            if shard is None:
+                return module(self.to_device(batch), training=False)
+            n = len(next(iter(batch.values())))
+            pad = -n % shard.size
+            rows = shard.rows(n + pad)
+            local = {k: np.concatenate(
+                [v, np.zeros((pad,) + v.shape[1:], v.dtype)])[rows]
+                for k, v in batch.items()}
+            logits, taps = module(self.to_device(local), training=False)
+            return (mesh_lib.all_gather_rows(logits, shard)[:n],
+                    {k: mesh_lib.all_gather_rows(v, shard)[:n]
+                     for k, v in taps.items()})
 
     def _predict_logits(self, arrays, n, batch_size, want_taps=None):
         it = pipeline.BatchIterator(arrays, None, None, batch_size=batch_size,
@@ -601,16 +632,23 @@ class DeepModel:
     # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
-    def embedding_weight_penalty(self) -> Optional[torch.Tensor]:
+    def embedding_weight_penalty(self, sharded: Optional[bool] = None
+                                 ) -> Optional[torch.Tensor]:
         """``config.embeddings_regularizer`` over every parameter of the
-        embedding layers (``emb_*``), or None without one. The port's
-        tables hold the vocabularies' rows only, no padding rows."""
+        embedding layers (``emb_*``), or None without one (or without such
+        a parameter). The port's tables hold the vocabularies' rows only;
+        a row-sharded table's zero padding rows add nothing. ``sharded``
+        True takes this rank's row-sharded tables only, False the others,
+        None all."""
         reg = regularizers_lib.get_regularizer(
             self.config.embeddings_regularizer)
         if reg is None:
             return None
-        return sum(reg(p) for name, p in self.build().named_parameters()
-                   if name.startswith(consts.LAYER_PREFIX_EMBEDDING))
+        terms = [reg(p) for name, p in self.build().named_parameters()
+                 if name.startswith(consts.LAYER_PREFIX_EMBEDDING)
+                 and (sharded is None or sharded == hasattr(
+                     p, 'row_sharding'))]
+        return sum(terms) if terms else None
 
     def training_loss(self, inputs: Dict[str, torch.Tensor], y, w, loss_fn,
                       weight_share: Optional[float] = None):
@@ -626,7 +664,22 @@ class DeepModel:
         global batch's: the task loss, a weighted mean over the rank's rows,
         is scaled by it (a loss that returns its rank's share already, GHMC,
         ``rank_share``, is not); the activity penalty, a sum over the rows,
-        is the rank's part; the weight penalty counts on rank 0 only."""
+        is the rank's part; the weight penalty counts on the ranks of data
+        shard 0 only (a row-sharded table's penalty is its shard's)."""
+        loss, shard_penalty, logits, new_state = self._training_loss_parts(
+            inputs, y, w, loss_fn, weight_share)
+        if shard_penalty is not None and self._penalty_on_rank(weight_share):
+            loss = loss + shard_penalty
+        return loss, logits, new_state
+
+    def _penalty_on_rank(self, weight_share) -> bool:
+        return weight_share is None or self.strategy.mesh.data_index == 0
+
+    def _training_loss_parts(self, inputs, y, w, loss_fn, weight_share):
+        """``training_loss`` in parts: (the loss without the row-sharded
+        tables' weight penalty, that penalty of this rank's shards or None,
+        logits, the loss's new state or None). Without row-sharded tables
+        the first part is the whole loss."""
         logits, taps = self.module(inputs, training=True,
                                    generator=self.generator)
         new_state = None
@@ -639,11 +692,14 @@ class DeepModel:
             loss = loss * weight_share
         if '__embeddings_activity_reg__' in taps:
             loss = loss + taps['__embeddings_activity_reg__']
-        penalty = self.embedding_weight_penalty()
-        if penalty is not None and (weight_share is None
-                                    or self.strategy.is_chief):
+        sharded = self._sharded_embedding() is not None
+        penalty = self.embedding_weight_penalty(
+            sharded=False if sharded else None)
+        if penalty is not None and self._penalty_on_rank(weight_share):
             loss = loss + penalty
-        return loss, logits, new_state
+        shard_penalty = self.embedding_weight_penalty(sharded=True) \
+            if sharded else None
+        return loss, shard_penalty, logits, new_state
 
     def _train_step(self, batch: Dict[str, np.ndarray], yb: np.ndarray,
                     wb: Optional[np.ndarray], loss_fn):
@@ -656,7 +712,10 @@ class DeepModel:
         (``parallel.mesh.row_shard``: BatchNorm, dropout and GHMC see the
         global batch), sums the gradients over the ranks (one
         ``all_reduce`` a tensor, in parameter order) before the update, and
-        returns the global batch's loss and logits."""
+        returns the global batch's loss and logits. With a model axis, rank
+        (d, m) takes data shard d's rows, the sums run over the data axis,
+        and the row-sharded tables' weight penalty is summed over the model
+        axis into the loss returned."""
         shard = self.strategy.shard
         share = None
         if shard is not None:
@@ -674,10 +733,13 @@ class DeepModel:
         y = torch.from_numpy(np.ascontiguousarray(yb)).to(self.device)
         w = None if wb is None else torch.from_numpy(wb).to(self.device)
         with mesh_lib.row_shard(shard):
-            loss, logits, new_state = self.training_loss(
-                inputs, y, w, loss_fn, weight_share=share)
+            loss, shard_penalty, logits, new_state = \
+                self._training_loss_parts(inputs, y, w, loss_fn, share)
         self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if shard_penalty is not None and self._penalty_on_rank(share):
+            (loss + shard_penalty).backward()
+        else:
+            loss.backward()
         if shard is not None:
             mesh_lib.all_reduce_gradients(self.module.parameters(), shard)
         self.optimizer.step()
@@ -687,6 +749,11 @@ class DeepModel:
         if shard is not None:
             torch.distributed.all_reduce(loss, group=shard.group)
             logits = mesh_lib.all_gather_rows(logits, shard)
+        if shard_penalty is not None:
+            shard_penalty = shard_penalty.detach()
+            torch.distributed.all_reduce(
+                shard_penalty, group=self.strategy.model_axis.group)
+            loss = loss + shard_penalty
         return loss, logits
 
     def _split_validation(self, X, y, validation_split, validation_data):
@@ -835,8 +902,8 @@ class DeepModel:
         callbacks, told that training begins. Returns (loss_fn,
         metric_specs, history, callbacks)."""
         module = self.build()
-        # the process group matches the strategy, and the tables are
-        # replicated (row-sharded ones raise: ROADMAP Queue 1 item 13b)
+        # the process group matches the strategy, and the embedding
+        # strategy is known
         self.strategy.validate(self.config.embedding_device_strategy)
         loss_fn = self._loss_fn()
         self.initial_loss_state()
@@ -949,12 +1016,27 @@ class DeepModel:
     # ------------------------------------------------------------------
     # persistence
     # ------------------------------------------------------------------
+    def full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The module's ``state_dict`` with every row-sharded table whole
+        (gathered over the model axis, without its padding rows: a
+        collective then); the ``state_dict`` of the replicated model."""
+        state = self.build().state_dict()
+        layer = self._sharded_embedding()
+        if layer is not None:
+            prefix = consts.LAYER_PREFIX_EMBEDDING + 'categorical_vars_all.'
+            state.update({prefix + k: v
+                          for k, v in layer.full_tables().items()})
+        return state
+
     def save(self, filepath):
         """A pickle (protocol 4) of the schema, the config and the
         ``state_dict`` as numpy arrays; it loads on any device. Under a
         data-parallel strategy rank 0 writes it (the ranks hold the same
-        parameters) and the others write nothing."""
-        module = self.build()
+        parameters) and the others write nothing. Row-sharded tables are
+        gathered over the model axis first, whole and without their
+        padding rows, so every rank calls it and the file loads in one
+        process unchanged."""
+        state = self.full_state_dict()
         if not self.strategy.is_chief:
             return
         payload = {
@@ -969,7 +1051,7 @@ class DeepModel:
                     self.var_len_categorical_columns,
             },
             'state_dict': {k: v.detach().cpu().numpy()
-                           for k, v in module.state_dict().items()},
+                           for k, v in state.items()},
         }
         with open(filepath, 'wb') as f:
             pickle.dump(payload, f, protocol=4)

@@ -555,8 +555,12 @@ class DeepTable:
     def save(self, filepath, deepmodel_basename=None):
         """``dt.pkl`` (this estimator, its models by file name) and one
         ``.dt`` model file per model in the directory ``filepath``; under a
-        data-parallel ``config.distribute_strategy``, by rank 0 only."""
+        data-parallel ``config.distribute_strategy``, by rank 0 only (the
+        other ranks take part in gathering row-sharded tables)."""
         if not get_strategy(self.config.distribute_strategy).is_chief:
+            for mi in self.__modelset.get_modelinfos():
+                if isinstance(mi.model, DeepModel):
+                    mi.model.save(None)  # writes nothing off rank 0
             return
         os.makedirs(filepath, exist_ok=True)
         num_model = len(self.__modelset.get_modelinfos())

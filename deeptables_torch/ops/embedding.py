@@ -20,6 +20,12 @@ tokens to one field.
 The gather of a group is the forward half of :class:`EmbeddingLookup`, whose
 backward is the embedding-gradient kernel (``kernels/emb_grad.py``, K1): a
 dense float32 gradient of the whole logical table.
+
+Under a ``TableSharding`` (``parallel/sharded_embedding.py``: a model axis
+larger than 1 and ``embedding_device_strategy`` ``'sharded'`` or
+``'sharded_a2a'``) a group's table of enough rows is this rank's
+``(R, dim)`` row shard of it, looked up by ``sharded_lookup`` or
+``sharded_lookup_a2a``; its backward is K1 over the shard's rows.
 """
 
 from typing import List, Optional, Sequence
@@ -31,6 +37,8 @@ from torch import nn
 from .initializers import get_initializer
 from .kernels.emb_grad import emb_grad
 from .layers import dropout
+from ..parallel.sharded_embedding import (TABLE_PREFIX, gather_table,
+                                          shard_rows)
 
 # The JAX package's TPU layout constants (its ops/embedding.py and
 # ops/kernels/emb_grad.py), copied: its field order and its tables' layout
@@ -171,29 +179,66 @@ def flax_field_order(input_dims: Sequence[int], output_dims: Sequence[int],
 
 
 class MultiColumnEmbedding(nn.Module):
-    """Fused per-column embedding over a single (B, n_cat) int tensor."""
+    """Fused per-column embedding over a single (B, n_cat) int tensor.
+
+    ``sharding`` (a ``parallel.sharded_embedding.TableSharding``, or None)
+    row-shards the tables it takes: each is drawn whole from ``generator``,
+    as a replicated table is, and this rank keeps its rows. Such a module
+    loads a ``state_dict`` that holds either its shards or the whole
+    logical tables, and :meth:`full_tables` puts the tables back together
+    (a collective over the model axis). A row-sharded parameter carries
+    the sharding as ``row_sharding`` and its table's rows as
+    ``logical_rows``."""
 
     def __init__(self, input_dims: Sequence[int], output_dims: Sequence[int],
                  dropout_rate: float = 0.,
-                 embeddings_initializer='uniform', generator=None):
+                 embeddings_initializer='uniform', generator=None,
+                 sharding=None):
         super().__init__()
         if len(input_dims) != len(output_dims):
             raise ValueError(
                 'The length of [input_dims] and [output_dims] must be the same.')
         self.n_cols = len(input_dims)
         self.dropout_rate = dropout_rate
+        self.sharding = sharding
+        # dim → the logical rows of each row-sharded table
+        self.sharded_rows = {}
         init = get_initializer(embeddings_initializer, default='uniform')
         self._groups = []
         for dim, cols, offsets, total_vocab in plan_groups(input_dims,
                                                            output_dims):
-            self.register_parameter(
-                f'embeddings_d{dim}',
-                nn.Parameter(init(generator, (total_vocab, dim))))
+            table = nn.Parameter(init(generator, (total_vocab, dim)))
+            if sharding is not None and sharding.shards(total_vocab):
+                axis = sharding.axis
+                table = nn.Parameter(shard_rows(table.detach(), axis.size,
+                                                axis.rank))
+                table.row_sharding = sharding
+                table.logical_rows = total_vocab
+                self.sharded_rows[dim] = total_vocab
+            self.register_parameter(f'{TABLE_PREFIX}{dim}', table)
             self.register_buffer(f'offsets_d{dim}', torch.from_numpy(offsets),
                                  persistent=False)
             self.register_buffer(f'cols_d{dim}', torch.tensor(cols),
                                  persistent=False)
             self._groups.append((dim, cols))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a whole logical table loads as this rank's rows of it
+        for dim, num_rows in self.sharded_rows.items():
+            key = f'{prefix}{TABLE_PREFIX}{dim}'
+            value = state_dict.get(key)
+            if value is not None and value.shape[0] == num_rows:
+                axis = self.sharding.axis
+                state_dict[key] = shard_rows(value, axis.size, axis.rank)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def full_tables(self) -> dict:
+        """``{parameter name: the logical table}`` of every row-sharded
+        table, gathered over the model axis (every model rank calls it)."""
+        return {f'{TABLE_PREFIX}{dim}': gather_table(
+            getattr(self, f'{TABLE_PREFIX}{dim}'), num_rows,
+            self.sharding.axis)
+            for dim, num_rows in self.sharded_rows.items()}
 
     def forward(self, ids: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -215,8 +260,11 @@ class MultiColumnEmbedding(nn.Module):
             group_ids = ids if one_group \
                 else ids[:, getattr(self, f'cols_d{dim}')]
             group_ids = group_ids + getattr(self, f'offsets_d{dim}')
-            emb = lookup(table, group_ids.reshape(-1)).reshape(
-                batch, len(cols), dim)
+            if dim in self.sharded_rows:
+                emb = self.sharding(table, group_ids)
+            else:
+                emb = lookup(table, group_ids.reshape(-1)).reshape(
+                    batch, len(cols), dim)
             if training:
                 # SpatialDropout1D: drop whole embedding channels per
                 # (example, channel), the same channels in every field

@@ -10,7 +10,10 @@ package trains with, where ``torch.optim`` has no equal.
 - :class:`Lamb`: ``optax.lamb`` — Adam's moments (b1 0.9, b2 0.999,
   eps 1e-6 outside the root), decoupled weight decay, then the update of
   each parameter tensor scaled by the trust ratio ``‖p‖ / ‖u‖`` (1 where
-  either norm is 0); torch has no LAMB.
+  either norm is 0); torch has no LAMB. A row-sharded embedding table
+  (one with ``row_sharding``, ``parallel/sharded_embedding.py``) takes
+  ``‖p‖`` and ``‖u‖`` of the whole table: the squared norms of the shards
+  summed over the model axis, so its trust ratio is the replicated table's.
 
 Adam, AdamW (decay 1e-4, decoupled: the same update as ``optax.adamw``)
 and SGD are ``torch.optim``'s own; ``DeepModel`` picks them by name. They
@@ -21,6 +24,7 @@ A parameter without a gradient is skipped, as ``torch.optim`` does.
 """
 
 import torch
+import torch.distributed as dist
 
 
 def _f32(x):
@@ -111,6 +115,11 @@ class Lamb(torch.optim.Optimizer):
                     update = update + weight_decay * p
                 param_norm = torch.linalg.vector_norm(p)
                 update_norm = torch.linalg.vector_norm(update)
+                sharding = getattr(p, 'row_sharding', None)
+                if sharding is not None:
+                    sq = torch.stack([param_norm, update_norm]).square()
+                    dist.all_reduce(sq, group=sharding.axis.group)
+                    param_norm, update_norm = sq.sqrt().unbind()
                 trust_ratio = torch.where(
                     (param_norm == 0) | (update_norm == 0),
                     torch.ones_like(param_norm), param_norm / update_norm)

@@ -16,10 +16,21 @@ does there.
   and the dropout masks are those of the global batch, and the gradients
   are summed over the ranks, one ``all_reduce`` a tensor in parameter order
   (``models/deepmodel.py``). ``num_devices`` must equal the group's size.
-- :class:`DataAndModelParallel` with a model axis of 1 is ``DataParallel``
-  (its tables replicated, as in the JAX package); a model axis larger than
-  1 row-shards the embedding tables, which the port does not do yet
-  (ROADMAP Queue 1 item 13b): it raises.
+- :class:`DataAndModelParallel` adds a model axis: rank ``r = d·S + m`` of
+  a group of ``D·S`` processes is data shard ``d`` and model rank ``m``, the
+  JAX mesh's row-major ``reshape(data, model)``. Under
+  ``embedding_device_strategy='sharded'`` or ``'sharded_a2a'`` every
+  ``embeddings_d{dim}`` table is row-sharded over the model axis
+  (``parallel/sharded_embedding.py``); the model ranks of a data shard run
+  the same dense forward on the same rows. BatchNorm, dropout, GHMC, the
+  loss and the gradients' sum run over the data axis (the ranks with the
+  same m); the lookups exchange rows over the model axis (the ranks with
+  the same d). With a model axis of 1 it is ``DataParallel``.
+
+Start ``D·S`` processes (``torchrun --nproc-per-node``), initialise the
+default group (``parallel.initialize_distributed``), and pass
+``DataAndModelParallel(data_parallel=D, model_parallel=S)``; every rank calls
+``fit``, ``predict``, ``evaluate`` and ``save`` with the same arguments.
 
 A strategy holds a process-group handle, which does not pickle: it is
 dropped with the mesh when a strategy is pickled, as the JAX package drops
@@ -36,14 +47,7 @@ import torch.distributed as dist
 DATA_AXIS = 'data'
 MODEL_AXIS = 'model'
 
-_SHARDED_TABLES = ('sharded', 'sharded_a2a')
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f'{what}: row-sharded embedding tables over a model axis are not '
-        'ported to deeptables_torch yet (ROADMAP Queue 1 item 13b); use '
-        'DataParallel, or a model axis of 1.')
+SHARDED_TABLES = ('sharded', 'sharded_a2a')
 
 
 def _world(group) -> tuple:
@@ -56,9 +60,35 @@ def _world(group) -> tuple:
 
 class Mesh(NamedTuple):
     """A ``(data, model)`` grid of the ranks of ``group``; ``shape`` maps
-    each axis to its size, as a JAX mesh's does."""
+    each axis to its size, as a JAX mesh's does. ``rank`` is this process's
+    rank in ``group``, ``d·S + m``; ``data_group`` holds the ranks with this
+    rank's m (None with one data shard), ``model_group`` those with its d
+    (None with a model axis of 1)."""
     shape: dict
     rank: int
+    group: Optional[object]
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.shape[MODEL_AXIS]
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.shape[MODEL_AXIS]
+
+    @property
+    def model_axis(self) -> 'ModelAxis':
+        return ModelAxis(self.model_index, self.shape[MODEL_AXIS],
+                         self.model_group)
+
+
+class ModelAxis(NamedTuple):
+    """This rank's place on the model axis: index m of ``size`` ranks in
+    ``group``, the ranks of its data shard."""
+    rank: int
+    size: int
     group: Optional[object]
 
 
@@ -67,12 +97,14 @@ def build_mesh(data_parallel: Optional[int] = None, model_parallel: int = 1,
     """A ``(data, model)`` mesh over the processes of ``group`` (the
     default process group; one process without one). ``data_parallel``
     defaults to the group's size over ``model_parallel``; the product must
-    equal the group's size."""
+    equal the group's size. Rank ``r = d·S + m`` is data shard ``d`` and
+    model rank ``m``. With both axes larger than 1 it makes the process
+    groups of each axis (``dist.new_group``, every group on every rank in
+    one order: the data-axis groups by m, then the model-axis groups by d),
+    so every rank of the default group calls it."""
     rank, size = _world(group)
     if model_parallel is None or model_parallel <= 0:
         model_parallel = 1
-    if model_parallel > 1:
-        raise _not_ported(f'a model axis of {model_parallel}')
     if data_parallel is None:
         data_parallel = size // model_parallel
     if data_parallel * model_parallel != size:
@@ -81,13 +113,27 @@ def build_mesh(data_parallel: Optional[int] = None, model_parallel: int = 1,
             f'{data_parallel * model_parallel} processes, but the process '
             f'group has {size}: start one process a device (torchrun) and '
             f'initialise the group (parallel.initialize_distributed) first.')
-    return Mesh({DATA_AXIS: data_parallel, MODEL_AXIS: model_parallel},
-                rank, group)
+    shape = {DATA_AXIS: data_parallel, MODEL_AXIS: model_parallel}
+    if model_parallel == 1:
+        return Mesh(shape, rank, group, group if data_parallel > 1 else None)
+    if data_parallel == 1:
+        return Mesh(shape, rank, group, None, group)
+    ranks = list(range(size)) if group is None \
+        else dist.get_process_group_ranks(group)
+    S = model_parallel
+    data_groups = [dist.new_group([ranks[d * S + m]
+                                   for d in range(data_parallel)])
+                   for m in range(S)]
+    model_groups = [dist.new_group(ranks[d * S:(d + 1) * S])
+                    for d in range(data_parallel)]
+    return Mesh(shape, rank, group, data_groups[rank % S],
+                model_groups[rank // S])
 
 
 class RowShard(NamedTuple):
     """This rank's share of a global batch: rows ``[rank·n/size, (rank +
-    1)·n/size)`` of each batch of n rows."""
+    1)·n/size)`` of each batch of n rows; ``rank`` is the data index d,
+    ``group`` the data-axis group (the ranks that hold the other rows)."""
     rank: int
     size: int
     group: Optional[object]
@@ -150,8 +196,16 @@ class DistributionStrategy:
         shard."""
         if self.num_data_shards == 1:
             return None
-        return RowShard(self.mesh.rank, self.num_data_shards,
-                        self.mesh.group)
+        return RowShard(self.mesh.data_index, self.num_data_shards,
+                        self.mesh.data_group)
+
+    @property
+    def model_axis(self) -> Optional[ModelAxis]:
+        """This rank's place on the model axis, or None with a model axis
+        of 1."""
+        if self.mesh.shape[MODEL_AXIS] == 1:
+            return None
+        return self.mesh.model_axis
 
     @property
     def is_chief(self) -> bool:
@@ -161,17 +215,15 @@ class DistributionStrategy:
 
     def validate(self, embedding_device_strategy: str = 'replicated'):
         """Raise unless the process group matches the strategy (its mesh
-        builds) and the embedding tables are ``'replicated'``, or sharded
-        over a model axis of 1 (then replicated, as in the JAX package)."""
-        mesh = self.mesh
+        builds) and ``embedding_device_strategy`` is ``'replicated'``,
+        ``'sharded'`` or ``'sharded_a2a'`` (the sharded ones row-shard the
+        tables over a model axis larger than 1; over a model axis of 1 the
+        tables are replicated, as in the JAX package)."""
+        self.mesh
         if embedding_device_strategy not in ('replicated',) + \
-                _SHARDED_TABLES:
+                SHARDED_TABLES:
             raise ValueError(f'Unknown embedding_device_strategy: '
                              f'{embedding_device_strategy!r}')
-        if embedding_device_strategy in _SHARDED_TABLES \
-                and mesh.shape[MODEL_AXIS] > 1:
-            raise _not_ported(
-                f'embedding_device_strategy={embedding_device_strategy!r}')
 
     # a process group handle does not pickle (the JAX package drops its
     # mesh the same way)
@@ -200,18 +252,19 @@ class DataParallel(DistributionStrategy):
 
 class DataAndModelParallel(DistributionStrategy):
     """Data parallelism and a model axis for row-sharded embedding tables.
-    The port runs the model axis of 1 only (``DataParallel`` with the
-    tables replicated); a larger one raises (ROADMAP Queue 1 item 13b)."""
+
+    Use with ``ModelConfig.embedding_device_strategy='sharded'`` (a masked
+    local gather and a sum over the model axis) or ``'sharded_a2a'`` (an
+    all-to-all exchange): tables of at least ``max(shard_threshold,
+    model_parallel)`` rows are row-sharded over the model axis
+    (``parallel/sharded_embedding.py``), the others replicated."""
 
     def __init__(self, data_parallel: Optional[int] = None,
                  model_parallel: int = 1, mesh=None, shard_threshold: int = 0,
                  group=None):
-        if model_parallel is not None and model_parallel > 1:
-            raise _not_ported(
-                f'DataAndModelParallel(model_parallel={model_parallel})')
         super().__init__(mesh, group)
         self.data_parallel = data_parallel
-        self.model_parallel = 1
+        self.model_parallel = model_parallel
         self.shard_threshold = shard_threshold
 
     def build_default_mesh(self):
@@ -238,8 +291,10 @@ def get_strategy(config_strategy) -> DistributionStrategy:
 
 
 def all_reduce_gradients(parameters, shard: RowShard):
-    """Sum every gradient over the shard's ranks in place, one
-    ``all_reduce`` a tensor in the order of ``parameters``."""
+    """Sum every gradient over the shard's ranks (the data axis) in place,
+    one ``all_reduce`` a tensor in the order of ``parameters``: the dense
+    parameters' and a row-sharded table's alike (the ranks of one data-axis
+    group hold the same rows of it)."""
     for p in parameters:
         if p.grad is not None:
             dist.all_reduce(p.grad, group=shard.group)
@@ -247,7 +302,8 @@ def all_reduce_gradients(parameters, shard: RowShard):
 
 def all_gather_rows(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
     """The ranks' row shards of x put back together in global-batch order
-    (no gradient)."""
-    parts = [torch.empty_like(x) for _ in range(shard.size)]
-    dist.all_gather(parts, x.contiguous(), group=shard.group)
-    return torch.cat(parts)
+    (no gradient); bfloat16 travels as float32, exactly."""
+    wire = (x.float() if x.dtype == torch.bfloat16 else x).contiguous()
+    parts = [torch.empty_like(wire) for _ in range(shard.size)]
+    dist.all_gather(parts, wire, group=shard.group)
+    return torch.cat(parts).to(x.dtype)

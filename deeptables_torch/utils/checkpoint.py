@@ -10,8 +10,14 @@ statistics, its optimizer's state (Adam's moments and step, or any
 histogram); or a module's and an optimizer's; or a nested dict of tensors.
 They work in one process with no process group; under a data-parallel
 group every rank calls them, the replicated tensors are written once, and
-every rank restores them. ``save_orbax`` and ``restore_orbax`` are the same
-functions under the JAX package's names.
+every rank restores them. A table row-sharded over a model axis
+(``parallel/sharded_embedding.py``), and its optimizer state, is written as
+a ``DTensor`` sharded over the model-axis group, with the logical table's
+global shape (a plain tensor under one key on every rank would be taken as
+replicated, and only rank 0's rows kept): it restores on the same mesh bit
+for bit, and :func:`restore_checkpoint` without a template reads it whole.
+``save_orbax`` and ``restore_orbax`` are the same functions under the JAX
+package's names.
 """
 
 import os
@@ -42,20 +48,74 @@ def _parts(state, optimizer):
     return state, optimizer, None
 
 
-def _state(state, optimizer) -> dict:
-    """The flat-keyed dict that is written or restored in place."""
+def _as_dtensor(local: torch.Tensor, num_rows: int, axis):
+    """This rank's ``(R, ...)`` rows of a row-sharded table (or of a tensor
+    of its shape) as a DTensor sharded on dim 0 over the model-axis group,
+    of global shape ``(num_rows, ...)``: DTensor's ``Shard(0)`` puts rows
+    ``[m·R, (m+1)·R)`` on rank m, as the sharded table does (its zero
+    padding rows left out)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = DeviceMesh.from_group(
+        axis.group if axis.group is not None else dist.group.WORLD,
+        local.device.type)
+    R = local.shape[0]
+    rows = max(0, min(R, num_rows - axis.rank * R))
+    shape = torch.Size((num_rows,) + tuple(local.shape[1:]))
+    return DTensor.from_local(local[:rows], mesh, [Shard(0)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device='meta')
+                              .stride())
+
+
+def _shard_tensors(module, model_sd, optim_sd) -> dict:
+    """Put the row-sharded tables of ``module`` in ``model_sd`` and their
+    optimizer state (the tensors of the table's shape) in ``optim_sd`` as
+    DTensors, in place. Returns ``{(dict, key): the plain tensor}`` of what
+    was replaced."""
+    replaced = {}
+    for name, p in module.named_parameters():
+        sharding = getattr(p, 'row_sharding', None)
+        if sharding is None:
+            continue
+        axis = sharding.axis
+        places = [(model_sd, name)]
+        if optim_sd is not None:
+            per = optim_sd['state'].get(name, {})
+            places += [(per, k) for k, v in per.items()
+                       if torch.is_tensor(v) and v.shape == p.shape]
+        for where, key in places:
+            replaced[(id(where), key)] = (where, key, where[key])
+            where[key] = _as_dtensor(where[key], p.logical_rows, axis)
+    return replaced
+
+
+def _unshard_tensors(replaced):
+    """Undo :func:`_shard_tensors`, the DTensors' rows copied back into the
+    plain tensors."""
+    for where, key, plain in replaced.values():
+        local = where[key].to_local()
+        plain[:local.shape[0]].copy_(local)
+        where[key] = plain
+
+
+def _state(state, optimizer) -> tuple:
+    """The flat-keyed dict that is written or restored in place, and what
+    :func:`_shard_tensors` replaced in it."""
     if isinstance(state, dict):
-        return state
+        return state, {}
     module, optimizer, deep_model = _parts(state, optimizer)
     if optimizer is None:
-        return {'model': module.state_dict()}
+        model_sd = module.state_dict()
+        return {'model': model_sd}, _shard_tensors(module, model_sd, None)
     model_sd, optim_sd = get_state_dict(module, optimizer)
+    replaced = _shard_tensors(module, model_sd, optim_sd)
     out = {'model': model_sd, 'optimizer': optim_sd}
     if deep_model is not None:
         loss_state = deep_model.initial_loss_state()
         if loss_state is not None:
             out['loss_state'] = loss_state
-    return out
+    return out, replaced
 
 
 def save_checkpoint(path, state, optimizer: Optional[torch.optim.Optimizer]
@@ -73,8 +133,11 @@ def save_checkpoint(path, state, optimizer: Optional[torch.optim.Optimizer]
             shutil.rmtree(path)
     if in_group:
         dist.barrier()
-    dcp.save(_state(state, optimizer), checkpoint_id=path,
-             no_dist=not in_group)
+    out, replaced = _state(state, optimizer)
+    try:
+        dcp.save(out, checkpoint_id=path, no_dist=not in_group)
+    finally:
+        _unshard_tensors(replaced)
     return path
 
 
@@ -109,8 +172,9 @@ def restore_checkpoint(path, template=None,
     path = os.path.abspath(path)
     if template is None:
         return _saved_tensors(path)
-    state = _state(template, optimizer)
+    state, replaced = _state(template, optimizer)
     dcp.load(state, checkpoint_id=path, no_dist=not _in_group())
+    _unshard_tensors(replaced)
     if isinstance(template, dict):
         return template
     module, optimizer, deep_model = _parts(template, optimizer)

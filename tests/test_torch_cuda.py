@@ -43,6 +43,9 @@ Tolerances:
   1e-2 for their one rounding. K6's backward leaves out the examples with a
   projection within 1e-5 of 0 (``ab_mask_margin``): there the two sums,
   taken in another order, may take the two sides of its relu mask.
+- Row-sharded lookups' pieces (one process, S row blocks of one table):
+  the dispatch plan and the masked local gather bit for bit against the
+  CPU; each block's K1 gradient by the embedding gradient's rules above.
 """
 
 import numpy as np
@@ -1534,3 +1537,67 @@ def test_dae_transform_of_a_cuda_tensor_stays_on_the_card(cuda):
     assert out.is_cuda and out.shape == (300, 5)
     np.testing.assert_array_equal(out.cpu().numpy(),
                                   dae.transform(X, batch_size=64))
+
+
+def _shard_pieces(device, S=2, V=1001, D=16, n=4096, capacity=None):
+    """One process's run of the pieces of a row-sharded lookup over S row
+    blocks of one (V, D) table, with the exchange done by indexing: each
+    block's dispatch of a stripe of the ids, its masked local gather and
+    K1 over its rows at the local ids. Returns the blocks' rows and
+    gradients and the plans."""
+    from deeptables_torch.parallel import sharded_embedding as se
+    rng = np.random.default_rng(S + V)
+    table = torch.from_numpy(rng.normal(size=(V, D)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, V, n).astype(np.int32))
+    g = torch.from_numpy(rng.normal(size=(n, D)).astype(np.float32))
+    R = se.rows_per_shard(V, S)
+    stripe = -(-n // S)
+    cap = se.a2a_capacity(stripe, S, capacity)
+    out = {'plans': [], 'rows': [], 'grads': []}
+    for m in range(S):
+        shard = se.shard_rows(table, S, m).to(device).requires_grad_()
+        mine = ids[m * stripe:(m + 1) * stripe].to(device)
+        out['plans'].append([t.cpu() for t in se._dispatch_plan(
+            mine, S, cap, R)])
+        rows = se._local_gather(shard, ids.to(device), m)
+        (rows * g.to(device)).sum().backward()
+        out['rows'].append(rows.detach().cpu())
+        out['grads'].append(shard.grad.cpu())
+    return out, table, ids, g
+
+
+@pytest.mark.parametrize('S,capacity', [(2, None), (2, 1.5), (4, None)])
+def test_sharded_pieces_on_the_card_equal_the_cpu(cuda, S, capacity):
+    """The dispatch plan and the masked local gather give the CPU's bits
+    on the card; each block's gradient is K1 on its local ids (one launch a
+    block), within the K1 tolerance of emb_grad_reference, and the blocks
+    put back together are the whole table's gradient."""
+    from deeptables_torch.parallel import sharded_embedding as se
+    before = emb_grad.launches
+    card, table, ids, g = _shard_pieces(cuda, S=S, capacity=capacity)
+    torch.cuda.synchronize()
+    assert emb_grad.launches == before + S
+    cpu, _, _, _ = _shard_pieces(torch.device('cpu'), S=S, capacity=capacity)
+    for a, b in zip(card['plans'], cpu['plans']):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    for a, b in zip(card['rows'], cpu['rows']):
+        assert torch.equal(a, b)
+    whole = sum(card['rows'])  # every id owned by exactly one block
+    assert torch.equal(whole, table[ids.long()])
+    R = se.rows_per_shard(len(table), S)
+    for m, grad in enumerate(card['grads']):
+        rel = (ids.long() - m * R)
+        owned = (rel >= 0) & (rel < R)
+        local = rel.clamp(0, R - 1).to(torch.int32)
+        g_local = torch.where(owned[:, None], g, torch.zeros(()))
+        expected = emb_grad_reference(local, g_local, R)
+        row_abs = emb_grad_reference(local, g_local.abs(), R)
+        np.testing.assert_allclose(grad.numpy(), expected.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(row_abs.max()) + 1e-30)
+        assert torch.equal(grad, emb_grad_sorted_reference(local, g_local,
+                                                           R))
+    full = se.unshard_rows(card['grads'], len(table))
+    np.testing.assert_allclose(
+        full.numpy(), emb_grad_reference(ids, g, len(table)).numpy(),
+        rtol=1e-5, atol=1e-5)

@@ -14,7 +14,7 @@ The four cases: BatchNorm (every case has it), sample weights (the loss
 divides by the global Σw; a seventh of them 0), the GHMC loss (its
 histogram counts the global batch), dropout on (embedding, dense input and
 DNN: the masks of the global batch, each rank its rows).
-The strategies the port cannot run raise.
+A strategy whose mesh the process group cannot hold raises.
 """
 
 import pickle
@@ -80,10 +80,19 @@ def test_single_process_strategies():
 
 
 def test_model_axis_raises_naming_item_13b():
-    with pytest.raises(NotImplementedError, match='13b'):
-        DataAndModelParallel(data_parallel=4, model_parallel=2)
-    with pytest.raises(NotImplementedError, match='13b'):
+    """A model axis is ported (it no longer raises): the strategy keeps
+    its axis and threshold, and its mesh needs data × model processes;
+    ``tests/test_torch_sharded_embedding.py`` builds the 2×2, 1×4 and 1×2
+    meshes on the ranks of a process group and trains on them."""
+    strategy = DataAndModelParallel(data_parallel=4, model_parallel=2,
+                                    shard_threshold=100)
+    assert strategy.model_parallel == 2 and strategy.shard_threshold == 100
+    with pytest.raises(ValueError, match='needs 8 processes'):
+        strategy.validate('sharded_a2a')
+    with pytest.raises(ValueError, match='needs 2 processes'):
         build_mesh(1, 2)
+    clone = pickle.loads(pickle.dumps(strategy))
+    assert clone.model_parallel == 2 and clone._mesh is None
 
 
 def test_unknown_embedding_strategy_raises():
