@@ -213,6 +213,36 @@ included), into R rows, with its bound and ``index_add_``'s time.
    - ``stream_determinism``: two fits from one seed end with equal
      parameters, bit for bit (checked).
 
+10. ``estimator`` (four lines): the estimator layer on the card with
+    ``pandas`` and ``sklearn`` blocked in ``sys.modules``, so that nothing
+    on it leans on them. The ``bank_deepfm`` row of
+    ``deeptables_torch/tools/parity_quality.py`` (``load_bank(20000)``'s
+    numpy columns, its 80/20 split, DeepFM, batch 512, seed 0):
+    - ``card_vs_cpu``: ``DeepTable.fit`` on the card and with
+      ``device='cpu'`` from the same seed, embedding dropout off (the
+      devices draw other masks) and cut to three steps, held to the train
+      phase's rules (losses rtol 1e-4, parameters ``check_params``;
+      BatchNorm's running statistics of bank's raw columns also rtol
+      1e-5) and the
+      test rows' ``predict_proba`` within ``ESTIMATOR_PROBA_ATOL``; both
+      ``evaluate``s printed.
+    - ``cv``: ``fit_cross_validation``, 3 folds of one epoch on the card:
+      the out-of-fold shape, and K1, K2-fwd and K2-bwd launched in every
+      fold's fit (checked).
+    - ``serving``: ``save`` → ``serving.Predictor.load(..., device=None)``
+      → ``predict_proba`` of 512 test rows (a full bucket), bit-equal to a
+      ``Predictor`` over the estimator before it was saved, and within
+      1e-5 of its ``predict_proba`` (which takes the sigmoid on the host)
+      (checked).
+    - ``quality``: ``parity_quality.run`` at seed 0 on the card, its three
+      kernel rows (``bank_deepfm`` K2/K1, ``criteo_xdeepfm`` K4/K3,
+      ``avazu_autoint`` K5), each beside its ``BASELINE.md`` row and σ;
+      every metric finite, every AUC above the row's mean less 5 σ where
+      the table is the one ``BASELINE.md`` trained on (its digest,
+      ``ESTIMATOR_TABLES``), else above half way from chance to that mean
+      (checked): numpy's Zipf stream differs between releases, and with
+      it the criteo- and avazu-style tables.
+
 Then a ``profiler`` line
 (``incomplete_windows``: the timing windows that
 lost launches three times in a row, whose times are the means of the
@@ -400,6 +430,29 @@ STREAM_DETERMINISM_STEPS = 6
 STREAM_SEED = 21
 # streaming evaluate/predict against the in-memory ones on the same rows
 STREAM_EVAL_ATOL = 1e-5
+# the estimator phase: the card against the CPU after three steps (the
+# train phase's rules hold the parameters within 2e-4; a probability moves
+# by at most a quarter of its logit's change), the CV folds, the serving
+# request's rows, and BASELINE.md's rows (JAX package, TPU v5e) of the
+# three kernel rows of the parity tool: (metric, mean, sigma)
+ESTIMATOR_STEPS, ESTIMATOR_PROBA_ATOL = 3, 1e-3
+ESTIMATOR_RUNNING_RTOL = 1e-5
+ESTIMATOR_FOLDS, ESTIMATOR_REQUEST = 3, 512
+ESTIMATOR_BASELINE = {
+    'bank_deepfm': {'auc': (0.9344, 0.0014), 'logloss': (0.2645, 0.0077)},
+    'criteo_xdeepfm': {'auc': (0.8740, 0.0032),
+                       'logloss': (0.3718, 0.0032)},
+    'avazu_autoint': {'auc': (0.7299, 0.0178), 'logloss': (0.4393, 0.0302)},
+}
+ESTIMATOR_BLOCKED = ('pandas', 'sklearn')
+# the digests (parity_quality.table_digest) of those rows' tables as numpy
+# 2.0 draws them: the tables of BASELINE.md's rows and of the port's CPU
+# parity runs. Another numpy's Zipf stream draws other criteo- and
+# avazu-style tables (numpy 2.3's do): a row on another table is held to
+# half way from chance to its BASELINE.md mean instead
+ESTIMATOR_TABLES = {'bank_deepfm': '5d67b946b3437391',
+                    'criteo_xdeepfm': 'ff1371b6dfcecb53',
+                    'avazu_autoint': '766566b60adf6216'}
 
 
 def emit(obj):
@@ -1722,18 +1775,22 @@ def check_step1_grads(what, dtype_policy, grads, exact_zero=(), outliers=0.,
     return grad_err, g_rtol, g_atol
 
 
-def check_params(what, card_state, cpu_state, loose=(), loose_atol=None):
+def check_params(what, card_state, cpu_state, loose=(), loose_atol=None,
+                 loose_rtol=0.):
     """Parameters after three steps on the card and the CPU: atol 2e-4,
     but an optimizer that normalises a step (Adam moves an element by ~lr
     whatever its gradient's size) turns a gradient near zero, where the two
     devices' sums differ in relative terms, into steps a few lr apart: at
     most PARAM_OUTLIERS of a tensor's elements may exceed the atol. The
-    tensors ``loose`` (the zoo phase: those whose gradient is rounding) are
-    held to ``loose_atol`` instead."""
+    tensors ``loose`` (the zoo phase: those whose gradient is rounding; the
+    estimator phase: BatchNorm's running statistics of raw columns) are
+    held to ``loose_atol`` plus ``loose_rtol`` of each element instead."""
     params = {}
     for k, v in card_state.items():
-        d = (v.double() - cpu_state[k].double()).abs()
-        atol = loose_atol if k in loose else PARAM_ATOL
+        ref = cpu_state[k].double()
+        d = (v.double() - ref).abs()
+        atol = loose_atol + loose_rtol * ref.abs() if k in loose \
+            else PARAM_ATOL
         params[k] = {'max_abs_diff': float(d.max()),
                      'over_atol': int((d > atol).sum()),
                      'elements': d.numel()}
@@ -3077,6 +3134,206 @@ def stream_determinism_phase(torch, port, paths):
     check(not differ, f'two stream fits from one seed differ: {differ}')
 
 
+def fold_launches(kernel_fns):
+    """A fit callback that records each fit's kernel launches (the counts'
+    growth from ``on_train_begin`` to ``on_train_end``) in ``folds``."""
+    from deeptables_torch.models.callbacks import Callback
+
+    class FoldLaunches(Callback):
+        def __init__(self):
+            super().__init__()
+            self.folds = []
+            self._start = None
+
+        def on_train_begin(self, logs=None):
+            self._start = {k: fn.launches for k, fn in kernel_fns.items()}
+
+        def on_train_end(self, logs=None):
+            self.folds.append({k: fn.launches - self._start[k]
+                               for k, fn in kernel_fns.items()})
+
+    return FoldLaunches()
+
+
+def estimator_phase(torch, port, kernel_fns, tmp):
+    """``DeepTable`` on the card with pandas and scikit-learn blocked (see
+    the module's docstring, 10). Returns the launches of the runs on the
+    card."""
+    saved = {name: sys.modules.get(name) for name in ESTIMATOR_BLOCKED}
+    for name in ESTIMATOR_BLOCKED:
+        sys.modules[name] = None
+    try:
+        return _estimator_runs(torch, port, kernel_fns, tmp)
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def _estimator_runs(torch, port, kernel_fns, tmp):
+    from deeptables_torch.data.columns import Columns
+    from deeptables_torch.models import DeepTable, ModelConfig
+    from deeptables_torch.serving import Predictor
+    from deeptables_torch.tools import parity_quality as pq
+    spec = pq.configs()['bank_deepfm']
+    table = spec['loader']()
+    check(isinstance(table, Columns), f'load_bank gave {type(table)} with '
+                                      f'pandas blocked, not Columns')
+    X_train, X_test, y_train, y_test = pq.split(table, spec['target'],
+                                                'binary')
+    launches = dict.fromkeys(kernel_fns, 0)
+
+    def config(**extra):
+        return ModelConfig(nets=spec['nets'], metrics=pq.TASK_METRICS['binary'],
+                           earlystopping_patience=3, seed=0,
+                           home_dir=os.path.join(tmp, 'dt'),
+                           **dict(spec['conf'], **extra))
+
+    # (a) the card against the CPU, three steps from one seed
+    fits = {}
+    for run, device in (('card', None), ('cpu', 'cpu')):
+        reset_launches(kernel_fns)
+        dt = DeepTable(config(embedding_dropout=0), device=device)
+        t0 = time.time()
+        _, history = dt.fit(X_train, y_train, epochs=1,
+                            batch_size=pq.BATCH, verbose=0,
+                            steps_per_epoch=ESTIMATOR_STEPS)
+        fit_s = time.time() - t0
+        proba = dt.predict_proba(X_test)
+        evaluation = {k: float(v) for k, v in
+                      dt.evaluate(X_test, y_test, verbose=0).items()}
+        if run == 'card':
+            counts = read_launches(kernel_fns)
+            for name, count in counts.items():
+                launches[name] += count
+            check(all(counts[k] > 0 for k in ('emb_grad', 'fm_fwd', 'fm_bwd')),
+                  f'DeepTable.fit on the card launched {counts}')
+        fits[run] = (dt, {k: v.detach().cpu() for k, v in
+                          dt.get_model().module.state_dict().items()},
+                     {k: v[0] for k, v in history.history.data.items()},
+                     proba, evaluation, fit_s)
+    card_dt, card_state, card_logs, card_proba, card_eval, card_s = fits['card']
+    _, cpu_state, cpu_logs, cpu_proba, cpu_eval, cpu_s = fits['cpu']
+    loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                 for k in ('loss', 'val_loss')}
+    for k, d in loss_diff.items():
+        check(d <= 1e-4 * abs(cpu_logs[k]),
+              f'estimator: card {k} {card_logs[k]} vs CPU {cpu_logs[k]}')
+    # bank's raw dense columns (balance, duration: variances ~1e6) reach
+    # the dense BatchNorm unscaled: its running statistics, sums of 512
+    # rows in another order, are held to float32's relative rounding
+    running = [k for k in cpu_state if '.running_' in k]
+    params = check_params('estimator', card_state, cpu_state, loose=running,
+                          loose_atol=PARAM_ATOL,
+                          loose_rtol=ESTIMATOR_RUNNING_RTOL)
+    proba_diff = float(np.abs(card_proba - cpu_proba).max())
+    check(card_proba.shape == (len(y_test), 2)
+          and np.isfinite(card_proba).all()
+          and proba_diff <= ESTIMATOR_PROBA_ATOL,
+          f'estimator: card and CPU predict_proba differ by {proba_diff}')
+    emit({'phase': 'estimator', 'part': 'card_vs_cpu', 'row': 'bank_deepfm',
+          'train_rows': len(y_train), 'test_rows': len(y_test),
+          'steps': ESTIMATOR_STEPS, 'fit_s': {'card': card_s, 'cpu': cpu_s},
+          'card': card_logs, 'cpu': cpu_logs, 'loss_diff': loss_diff,
+          'params_over_atol': {k: v['over_atol'] for k, v in params.items()
+                               if v['over_atol']},
+          'params_max_abs_diff': max(v['max_abs_diff']
+                                     for v in params.values()),
+          'proba_max_abs_diff': proba_diff,
+          'evaluate': {'card': card_eval, 'cpu': cpu_eval},
+          'tolerance': {'loss_rtol': 1e-4, 'param_atol': PARAM_ATOL,
+                        'param_outlier_share': PARAM_OUTLIERS,
+                        'running_stats_rtol': ESTIMATOR_RUNNING_RTOL,
+                        'proba_atol': ESTIMATOR_PROBA_ATOL},
+          'blocked': list(ESTIMATOR_BLOCKED)})
+
+    # (b) cross-validation on the card, K1 and K2 in every fold
+    reset_launches(kernel_fns)
+    folds = fold_launches(kernel_fns)
+    dt = DeepTable(config(), device=None)
+    t0 = time.time()
+    oof, _, _ = dt.fit_cross_validation(
+        X_train, y_train, num_folds=ESTIMATOR_FOLDS, epochs=1,
+        batch_size=pq.BATCH, verbose=0, callbacks=[folds])
+    cv_s = time.time() - t0
+    for name, count in read_launches(kernel_fns).items():
+        launches[name] += count
+    check(oof.shape == (len(y_train), 2) and np.isfinite(oof).all(),
+          f'estimator: out-of-fold probabilities of shape {oof.shape}')
+    check(len(folds.folds) == ESTIMATOR_FOLDS and all(
+        fold[k] > 0 for fold in folds.folds
+        for k in ('emb_grad', 'fm_fwd', 'fm_bwd')),
+        f'estimator: the folds launched {folds.folds}')
+    emit({'phase': 'estimator', 'part': 'cv', 'folds': ESTIMATOR_FOLDS,
+          'cv_s': cv_s, 'oof_shape': list(oof.shape),
+          'fold_launches': [{k: v for k, v in fold.items() if v}
+                            for fold in folds.folds]})
+
+    # (c) save, Predictor.load on the card, bit-equal predictions
+    reset_launches(kernel_fns)
+    request = X_test.take(np.arange(ESTIMATOR_REQUEST))
+    own = Predictor(card_dt).predict_proba(request)
+    own_predict = card_dt.predict_proba(request, batch_size=ESTIMATOR_REQUEST)
+    path = os.path.join(tmp, 'estimator_saved')
+    card_dt.save(path)
+    predictor = Predictor.load(path, device=None)
+    t0 = time.perf_counter()
+    served = predictor.predict_proba(request)
+    torch.cuda.synchronize()
+    request_ms = 1e3 * (time.perf_counter() - t0)
+    for name, count in read_launches(kernel_fns).items():
+        launches[name] += count
+    check(served.shape == own.shape and np.array_equal(served, own),
+          f'estimator: Predictor.load gives other predictions, largest '
+          f'difference {float(np.abs(served - own).max())}')
+    # DeepTable.predict_proba takes the sigmoid on the host
+    predict_diff = float(np.abs(served - own_predict).max())
+    check(predict_diff <= RTOL['float32'],
+          f'estimator: the served and predict_proba probabilities differ '
+          f'by {predict_diff}')
+    check(str(predictor.model.device).startswith('cuda'),
+          f'Predictor.load put the model on {predictor.model.device}')
+    emit({'phase': 'estimator', 'part': 'serving', 'rows': ESTIMATOR_REQUEST,
+          'bit_equal': True, 'vs_predict_proba_max_abs_diff': predict_diff,
+          'request_ms': request_ms, 'files': sorted(os.listdir(path))})
+    del predictor, card_dt, dt, fits
+    torch.cuda.empty_cache()
+
+    # (d) trained quality, seed 0, the kernel rows of the parity tool
+    quality = {}
+    specs = pq.configs()
+    for name in ESTIMATOR_BASELINE:
+        reset_launches(kernel_fns)
+        out = pq.run(name, specs[name], 0, None, os.path.join(tmp, 'pq'))
+        counts = read_launches(kernel_fns)
+        for kernel, count in counts.items():
+            launches[kernel] += count
+        rows = {}
+        for metric, (mean, sigma) in ESTIMATOR_BASELINE[name].items():
+            check(math.isfinite(out[metric]),
+                  f'quality: {name} {metric} is {out[metric]}')
+            rows[metric] = {'card': out[metric], 'baseline': mean,
+                            'sigma': sigma,
+                            'within_sigma': abs(out[metric] - mean) <= sigma}
+        same_table = out['table'] == ESTIMATOR_TABLES[name]
+        mean, sigma = ESTIMATOR_BASELINE[name]['auc']
+        floor = mean - 5 * sigma if same_table else (0.5 + mean) / 2
+        check(out['auc'] > floor,
+              f'quality: {name} AUC {out["auc"]} on the card, floor {floor}')
+        quality[name] = dict(rows, fit_seconds=out['fit_seconds'],
+                             epochs_run=out['epochs_run'],
+                             table=out['table'], baseline_table=same_table,
+                             auc_floor=floor,
+                             launches={k: v for k, v in counts.items() if v})
+        torch.cuda.empty_cache()
+    emit({'phase': 'estimator', 'part': 'quality', 'seed': 0,
+          'baseline': 'BASELINE.md (JAX package, TPU v5e, 3 seeds)',
+          'rows': quality})
+    return launches
+
+
 def main():
     import torch
     if sys.argv[1:2] == ['--sharded-rank']:
@@ -3200,6 +3457,12 @@ def main():
             launches[name] += count
         torch.cuda.empty_cache()
         stream_determinism_phase(torch, port, paths)
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_estimator_') as tmp:
+        for name, count in estimator_phase(torch, port, kernel_fns,
+                                           tmp).items():
+            launches[name] += count
         torch.cuda.empty_cache()
 
     head = next(r for r in rows if (r['dtype'], r['B'], r['F'],

@@ -3,12 +3,25 @@
 ``deeptables_tpu/data/datasets.py`` (the same seed gives bit-identical
 frames and arrays): the adult, bank, movielens, glass, boston and
 heart-disease schemas, the Criteo-style and Avazu-style CTR data and the
-multilabel task. Every frame is generated from its seed, nothing is
-downloaded. pandas is imported only where a DataFrame is built;
-``_avazu_fields`` gives the Avazu-style columns as numpy arrays without
-it."""
+multilabel task. Every table is generated from its seed, nothing is
+downloaded. Each loader builds numpy columns and returns them as a pandas
+DataFrame where pandas is installed (as the JAX loaders do), else as
+``data.columns.Columns`` with the same values column for column.
+"""
 
 import numpy as np
+
+from .columns import Columns
+
+
+def _table(data):
+    """The columns as a DataFrame where pandas imports, else as
+    ``Columns``."""
+    try:
+        import pandas as pd
+    except ImportError:
+        return Columns(data)
+    return pd.DataFrame(data)
 
 
 def _rng(seed):
@@ -23,7 +36,6 @@ def load_adult(n_rows=10000, seed=42):
     """Census-income-style binary task.  Integer column labels 0..14 (the
     preprocessor renames them to x_0..x_14 like the real adult dataframe
     flows through the reference tests); label at column 14."""
-    import pandas as pd
     rng = _rng(seed)
     age = rng.integers(17, 90, n_rows)
     workclass = _categorical(rng, n_rows, [
@@ -70,17 +82,15 @@ def load_adult(n_rows=10000, seed=42):
              + rng.normal(0, 1.0, n_rows))
     label = np.where(score > 0.8, ' >50K', ' <=50K')
 
-    df = pd.DataFrame({
+    return _table({
         0: age, 1: workclass, 2: fnlwgt, 3: education, 4: education_num,
         5: marital, 6: occupation, 7: relationship, 8: race, 9: sex,
         10: capital_gain, 11: capital_loss, 12: hours, 13: country, 14: label,
     })
-    return df
 
 
 def load_bank(n_rows=10000, seed=7):
     """Bank-marketing-style binary task (named columns; label column 'y')."""
-    import pandas as pd
     rng = _rng(seed)
     age = rng.integers(18, 95, n_rows)
     job = _categorical(rng, n_rows, [
@@ -115,7 +125,7 @@ def load_bank(n_rows=10000, seed=7):
              + 0.01 * (age - 40) * (age > 60)
              + rng.normal(0, 1.0, n_rows))
     y = np.where(score > 1.2, 'yes', 'no')
-    return pd.DataFrame({
+    return _table({
         'age': age, 'job': job, 'marital': marital, 'education': education,
         'default': default, 'balance': balance, 'housing': housing,
         'loan': loan, 'contact': contact, 'day': day, 'month': month,
@@ -126,7 +136,6 @@ def load_bank(n_rows=10000, seed=7):
 def load_movielens(n_rows=5000, seed=11):
     """Movielens-style frame with a var-len 'genres' column ('a|b|c') and a
     1-5 'rating' target — used for var-len categorical + regression tests."""
-    import pandas as pd
     rng = _rng(seed)
     genres_pool = ['Action', 'Adventure', 'Animation', 'Children', 'Comedy',
                    'Crime', 'Documentary', 'Drama', 'Fantasy', 'Film-Noir',
@@ -151,7 +160,7 @@ def load_movielens(n_rows=5000, seed=11):
         - 0.3 * np.char.count(genres.astype(str), 'Horror')
         + rng.normal(0, 0.9, n_rows)), 1, 5).astype(int)
     title = np.array([f'Movie {m}' for m in movie_id])
-    return pd.DataFrame({
+    return _table({
         'movie_id': movie_id, 'user_id': user_id, 'rating': rating,
         'timestamp': timestamp, 'title': title, 'genres': genres,
         'gender': gender, 'age': age, 'occupation': occupation,
@@ -161,7 +170,6 @@ def load_movielens(n_rows=5000, seed=11):
 def load_glass_uci(n_rows=214, seed=3):
     """Glass-identification-style multiclass task (integer column labels;
     label at column 10 with classes 1..7)."""
-    import pandas as pd
     rng = _rng(seed)
     cls = rng.integers(1, 8, n_rows)
     ri = 1.515 + 0.002 * cls + rng.normal(0, 0.002, n_rows)
@@ -174,14 +182,13 @@ def load_glass_uci(n_rows=214, seed=3):
     ba = np.where(cls == 7, 1.0 + rng.normal(0, 0.4, n_rows), 0.0)
     fe = np.maximum(0, rng.normal(0.05, 0.08, n_rows))
     idx = np.arange(1, n_rows + 1)
-    return pd.DataFrame({0: idx, 1: ri, 2: na, 3: mg, 4: al, 5: si, 6: k,
-                         7: ca, 8: ba, 9: fe, 10: cls})
+    return _table({0: idx, 1: ri, 2: na, 3: mg, 4: al, 5: si, 6: k,
+                   7: ca, 8: ba, 9: fe, 10: cls})
 
 
 def load_boston(n_rows=506, seed=5):
     """Boston-housing-style regression task (named numeric columns,
     target column 'target')."""
-    import pandas as pd
     rng = _rng(seed)
     crim = np.exp(rng.normal(-1.5, 2.0, n_rows))
     zn = np.where(rng.random(n_rows) < 0.7, 0, rng.integers(1, 100, n_rows))
@@ -200,7 +207,7 @@ def load_boston(n_rows=506, seed=5):
         22.5 + 5.0 * (rm - 6.28) - 0.6 * lstat / 3 - 0.3 * crim
         - 8 * (nox - 0.55) + 0.02 * (100 - age) / 10
         + rng.normal(0, 2.5, n_rows), 5, 50)
-    return pd.DataFrame({
+    return _table({
         'CRIM': crim, 'ZN': zn, 'INDUS': indus, 'CHAS': chas, 'NOX': nox,
         'RM': rm, 'AGE': age, 'DIS': dis, 'RAD': rad, 'TAX': tax,
         'PTRATIO': ptratio, 'B': b, 'LSTAT': lstat, 'target': target})
@@ -208,7 +215,6 @@ def load_boston(n_rows=506, seed=5):
 
 def load_heart_disease_uci(n_rows=303, seed=13):
     """Heart-disease-style binary task (named columns, target 'target')."""
-    import pandas as pd
     rng = _rng(seed)
     age = rng.integers(29, 78, n_rows)
     sex = rng.integers(0, 2, n_rows)
@@ -227,7 +233,7 @@ def load_heart_disease_uci(n_rows=303, seed=13):
              + 0.5 * oldpeak - 0.02 * (thalach - 150) + 0.6 * (ca > 0)
              + rng.normal(0, 1, n_rows))
     target = (score > 0.8).astype(int)
-    return pd.DataFrame({
+    return _table({
         'age': age, 'sex': sex, 'cp': cp, 'trestbps': trestbps, 'chol': chol,
         'fbs': fbs, 'restecg': restecg, 'thalach': thalach, 'exang': exang,
         'oldpeak': oldpeak, 'slope': slope, 'ca': ca, 'thal': thal,
@@ -240,9 +246,9 @@ def load_criteo_synthetic(n_rows=100_000, n_cat=26, n_dense=13,
     I1..I13 and ``n_cat`` hashed categorical columns C1..C26 with a
     long-tailed (Zipf) vocabulary, binary 'label'.
 
-    ``return_arrays=True`` skips the DataFrame and returns
+    ``return_arrays=True`` skips the table and returns
     ``(cat int32 (n, n_cat), dense float32 (n, n_dense), y float32,
-    vocab_sizes)``; only the DataFrame branch imports pandas.
+    vocab_sizes)``.
     """
     rng = np.random.default_rng(seed)
     vocab_sizes = np.minimum(
@@ -263,13 +269,12 @@ def load_criteo_synthetic(n_rows=100_000, n_cat=26, n_dense=13,
     if return_arrays:
         return (cat.astype(np.int32), dense, y.astype(np.float32),
                 vocab_sizes.astype(np.int64))
-    import pandas as pd
-    df = pd.DataFrame({'label': y})
+    data = {'label': y}
     for j in range(n_dense):
-        df[f'I{j + 1}'] = dense[:, j]
+        data[f'I{j + 1}'] = dense[:, j]
     for j in range(n_cat):
-        df[f'C{j + 1}'] = cat[:, j]
-    return df
+        data[f'C{j + 1}'] = cat[:, j]
+    return _table(data)
 
 
 def _avazu_fields(n_rows=100_000, seed=31):
@@ -318,11 +323,8 @@ def _avazu_fields(n_rows=100_000, seed=31):
 def load_avazu_synthetic(n_rows=100_000, seed=31):
     """Avazu-style CTR data: 21 categorical fields + hour, binary 'click'
     (the first column of the DataFrame)."""
-    import pandas as pd
     fields, click = _avazu_fields(n_rows, seed)
-    df = pd.DataFrame(fields)
-    df.insert(0, 'click', click)
-    return df
+    return _table({'click': click, **fields})
 
 
 class dsutils:
@@ -343,14 +345,13 @@ def load_multilabel_synthetic(n_rows=20000, n_labels=4, seed=17):
     (analog of the reference's random-data multilabel test,
     deeptable_multilabel_test.py:31-47, but learnable so trained-quality
     parity can be asserted)."""
-    import pandas as pd
     rng = _rng(seed)
     c = [rng.integers(0, v, n_rows) for v in (8, 16, 30, 50)]
     x = [rng.normal(size=n_rows) for _ in range(4)]
-    df = pd.DataFrame({
+    data = {
         'c1': np.array(list('abcdefgh'))[c[0]],
         'c2': c[1], 'c3': c[2], 'c4': c[3],
-        'n1': x[0], 'n2': x[1], 'n3': x[2], 'n4': x[3]})
+        'n1': x[0], 'n2': x[1], 'n3': x[2], 'n4': x[3]}
     base = 0.5 * np.sin(c[2] * 0.41) + 0.4 * x[3]  # shared factor
     scores = [
         0.8 * (c[0] % 3 == 0) + 0.6 * x[0] + base,
@@ -360,5 +361,5 @@ def load_multilabel_synthetic(n_rows=20000, n_labels=4, seed=17):
     ]
     for k in range(n_labels):
         s = scores[k % len(scores)] + rng.normal(0, 0.8, n_rows)
-        df[f'label_{k}'] = (s > np.quantile(s, 0.6)).astype(np.int8)
-    return df
+        data[f'label_{k}'] = (s > np.quantile(s, 0.6)).astype(np.int8)
+    return _table(data)

@@ -1,5 +1,5 @@
 # -*- coding:utf-8 -*-
-"""Host-side input pipeline: DataFrame → dict of dense numpy arrays → batches.
+"""Host-side input pipeline: columns → dict of dense numpy arrays → batches.
 
 The port's copy of ``deeptables_tpu/data/pipeline.py``. The packing
 convention is the same: all categorical columns in one int32 array under
@@ -12,6 +12,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .columns import isna
 from ..models.metainfo import CategoricalColumn, ContinuousColumn, \
     VarLenCategoricalColumn
 from ..utils import consts
@@ -19,32 +20,43 @@ from ..utils import consts
 CAT_KEY = 'cat'
 
 
-def extract_arrays(X: 'pandas.DataFrame',
+def extract_arrays(X,
                    categorical_columns: Optional[List[CategoricalColumn]],
                    continuous_columns: Optional[List[ContinuousColumn]],
                    var_len_columns: Optional[List[VarLenCategoricalColumn]] = None
                    ) -> Dict[str, np.ndarray]:
-    """Pack a preprocessed DataFrame into the model's input dict.
+    """Pack preprocessed columns (``data.columns.Columns`` or a DataFrame;
+    a column is read as ``np.asarray(X[name])``, so pandas is not
+    imported) into the model's input dict; missing values become 0."""
+    def stacked(names, dtype):
+        values = np.empty((len(X), len(names)), dtype=dtype)
+        for j, name in enumerate(names):
+            col = np.asarray(X[name])
+            if col.dtype.kind in 'fO':
+                col = np.where(isna(col), 0, col)
+            values[:, j] = col
+        return values
 
-    Only this branch touches pandas, through the DataFrame's own methods, so
-    the packed-array path needs no pandas installed."""
     arrays = {}
     if categorical_columns:
-        names = [c.name for c in categorical_columns]
-        arrays[CAT_KEY] = np.ascontiguousarray(
-            X[names].to_numpy(dtype=np.int32, na_value=0))
+        arrays[CAT_KEY] = stacked([c.name for c in categorical_columns],
+                                  np.int32)
     if continuous_columns:
         for group in continuous_columns:
-            arrays[group.name] = np.ascontiguousarray(
-                X[group.column_names].to_numpy(dtype=np.float32, na_value=0.0))
+            arrays[group.name] = stacked(group.column_names, np.float32)
     if var_len_columns:
         for col in var_len_columns:
-            seqs = X[col.name].tolist()
+            seqs = np.asarray(X[col.name])
             max_len = col.max_elements_length
-            out = np.zeros((len(seqs), max_len), dtype=np.int32)
-            for i, s in enumerate(seqs):
-                s = np.asarray(s, dtype=np.int32).reshape(-1)[:max_len]
-                out[i, :len(s)] = s
+            if seqs.ndim == 2:
+                out = np.zeros((len(seqs), max_len), dtype=np.int32)
+                width = min(max_len, seqs.shape[1])
+                out[:, :width] = seqs[:, :width]
+            else:
+                out = np.zeros((len(seqs), max_len), dtype=np.int32)
+                for i, s in enumerate(seqs):
+                    s = np.asarray(s, dtype=np.int32).reshape(-1)[:max_len]
+                    out[i, :len(s)] = s
             arrays[col.name] = out
     if not arrays:
         raise ValueError('No input columns; X produced an empty feature set.')

@@ -8,9 +8,8 @@ from .deepmodel import DeepModel, DeepTabularModel, IgnoreCaseDict, ModelDesc
 from . import deepnets
 from .deepnets import register_custom_objects, register_nets
 
-# loaded on first use: the preprocessor imports pandas and scikit-learn,
-# which the card's path does without, and DeepTable and ModelSet sit above
-# that path
+# loaded on first use: the estimator layer (the preprocessor, DeepTable,
+# ModelSet) sits above the model's path, which imports none of it
 _LAZY = {'AbstractPreprocessor': 'preprocessor',
          'DefaultPreprocessor': 'preprocessor',
          'DeepTable': 'deeptable',
@@ -19,8 +18,8 @@ _LAZY = {'AbstractPreprocessor': 'preprocessor',
 
 
 def make_experiment(*args, **kwargs):
-    """The AutoML experiment (``models/hyper_dt.py``, host only: pandas and
-    scikit-learn), imported on first use."""
+    """The AutoML experiment (``models/hyper_dt.py``), imported on first
+    use."""
     from .hyper_dt import make_experiment as _make_experiment
     return _make_experiment(*args, **kwargs)
 

@@ -587,7 +587,8 @@ class DeepModel:
         return logits, y
 
     def _arrays(self, X):
-        """Packed arrays from a dict of arrays or a preprocessed DataFrame."""
+        """Packed arrays from a dict of arrays or preprocessed columns
+        (``data.columns.Columns`` or a DataFrame)."""
         if isinstance(X, dict):
             return X, len(next(iter(X.values())))
         arrays = pipeline.extract_arrays(
@@ -596,8 +597,8 @@ class DeepModel:
         return arrays, len(X)
 
     def predict(self, X, batch_size=128, verbose=0):
-        """Probabilities (or regression values) for packed arrays, a
-        preprocessed DataFrame or a batch loader."""
+        """Probabilities (or regression values) for packed arrays,
+        preprocessed columns or a batch loader."""
         logger.info('Performing predictions...')
         if self._is_batch_loader(X):
             logits, _ = self._loader_logits(X)
@@ -778,7 +779,7 @@ class DeepModel:
             initial_epoch=0, steps_per_epoch=None, validation_steps=None,
             validation_freq=1, max_queue_size=10, workers=1,
             use_multiprocessing=False):
-        """Train on packed arrays (a dict) or a preprocessed DataFrame, as
+        """Train on packed arrays (a dict) or preprocessed columns, as
         the JAX ``DeepModel.fit``: the same validation split (numpy, the rows
         scikit-learn would pick), batches, callbacks and ``logs`` keys
         (``loss``, the training metrics, ``val_loss``, ``val_<metric>``).
@@ -989,7 +990,7 @@ class DeepModel:
 
     def evaluate(self, X_test, y_test=None, batch_size=256, verbose=0,
                  return_dict=True):
-        """Loss and ``config.metrics`` over packed arrays, a DataFrame, or a
+        """Loss and ``config.metrics`` over packed arrays, columns, or a
         batch loader that yields labels (``y_test`` None)."""
         logger.info('Performing evaluation...')
         loss_fn = self._loss_fn()

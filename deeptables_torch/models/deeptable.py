@@ -11,12 +11,14 @@ selectors (current, best, all, a name; ``all`` averages), ``proba2predict``,
 
 ``DeepTable(config, preprocessor, device=None)`` builds every ``DeepModel``
 on ``device``: ``None`` is the current CUDA device (an error without one),
-``'cpu'`` the plain PyTorch path. The preprocessor needs pandas and
-scikit-learn, so ``DeepTable`` runs where they are installed; this module
-imports them (and the preprocessor) inside the functions that use them, so
-that it imports without them. Cross-validation folds run one after another;
-``n_jobs`` is accepted and ignored. ``fit``, ``evaluate`` and
-``predict`` take a streaming loader (``data/streaming.py``), and
+``'cpu'`` the plain PyTorch path. It takes a DataFrame, a dict of 1-D
+arrays or a 2-D array, converted once at the entry to named numpy columns
+(``data.columns``), and needs neither pandas nor scikit-learn: the folds
+come from ``data.split``, the test-proba CSV files are written with numpy;
+only ``probe_evaluate`` imports scikit-learn. Cross-validation folds run
+one after another; ``n_jobs`` is accepted and ignored. ``fit``,
+``evaluate`` and ``predict`` take a streaming loader
+(``data/streaming.py``), and
 ``fit_cross_validation_streaming`` folds a stream by position.
 ``config.distribute_strategy`` (a ``parallel.DataParallel``) reaches every
 ``DeepModel`` with the config: each rank of the process group fits its
@@ -33,6 +35,8 @@ import torch
 
 from . import modelset
 from .callbacks import EarlyStopping, resolve_mode
+from ..data import columns as cl
+from ..data.split import KFold, StratifiedKFold, take_rows
 from .config import ModelConfig
 from .deepmodel import DeepModel, _ModelFileUnpickler, \
     _sanitize_config_for_pickle
@@ -135,6 +139,7 @@ class DeepTable:
             self.__set_model('val', f'{"+".join(self.nets)}', model,
                              history.history)
             return model, history
+        X = cl.as_columns(X)
         logger.info(f'X.Shape={np.shape(X)}, y.Shape={np.shape(y)}, '
                     f'batch_size={batch_size}')
         if np.ndim(X) != 2:
@@ -179,10 +184,10 @@ class DeepTable:
                              steps_per_epoch=None, validation_steps=None,
                              validation_freq=1, max_queue_size=10, workers=1,
                              use_multiprocessing=False, oof_metrics=None):
-        from sklearn.model_selection import KFold, StratifiedKFold
         start = time.time()
         logger.info('Start cross validation')
         self.__modelset.clear()
+        X = cl.as_columns(X)
 
         if self.preprocessor is None:
             self.preprocessor = _get_default_preprocessor(self.config, X, y)
@@ -239,8 +244,8 @@ class DeepTable:
                 self.preprocessor.continuous_columns,
                 self.preprocessor.var_len_categorical_columns,
                 n_fold, valid_idx,
-                X.iloc[train_idx], y[train_idx],
-                X.iloc[valid_idx], y[valid_idx],
+                take_rows(X, train_idx), y[train_idx],
+                take_rows(X, valid_idx), y[valid_idx],
                 X_eval, X_test, model_file, device=self.device, **fit_kwargs)
             n_fold, idx, history, fold_oof, fold_eval, fold_test = out
             oof_proba[idx] = fold_oof
@@ -287,12 +292,10 @@ class DeepTable:
         if eval_proba_mean is not None and self.task == consts.TASK_BINARY:
             eval_proba_mean = fix_binary_predict_proba_result(eval_proba_mean)
         if test_proba_mean is not None and self.task == consts.TASK_BINARY:
-            import pandas as pd
             test_proba_mean = fix_binary_predict_proba_result(test_proba_mean)
             file = os.path.join(self.output_path,
                                 f'{"_".join(self.nets)}-cv-{num_folds}.csv')
-            pd.DataFrame(test_proba_mean[:, 1].reshape(-1)).to_csv(
-                file, index=False)
+            write_csv(file, test_proba_mean[:, 1].reshape(-1, 1))
 
         logger.info(f'fit_cross_validation taken {time.time() - start}s')
         if oof_metrics is not None:
@@ -638,12 +641,24 @@ def _fit_and_score(task, num_classes, config, categorical_columns,
     if model_file is not None:
         model.save(model_file)
         if X_test is not None:
-            import pandas as pd
-            pd.DataFrame(test_proba.reshape(len(test_proba), -1)).to_csv(
-                f'{model_file}.test_proba.csv', index=False)
+            write_csv(f'{model_file}.test_proba.csv',
+                      test_proba.reshape(len(test_proba), -1))
     model.release()
     return (n_fold, valid_idx, history.history, oof_proba, eval_proba,
             test_proba)
+
+
+def write_csv(path, values):
+    """A 2-D array as the text ``pd.DataFrame(values).to_csv(path,
+    index=False)`` writes: a header of the column numbers, each number as
+    numpy prints it, NaN as an empty field."""
+    values = np.asarray(values)
+    text = values.astype(str)
+    text[np.isnan(values)] = ''
+    with open(path, 'w') as f:
+        f.write(','.join(str(j) for j in range(values.shape[1])) + '\n')
+        for row in text:
+            f.write(','.join(row) + '\n')
 
 
 def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):

@@ -8,8 +8,9 @@ The same search spaces (``default_dt_space``, ``mini_dt_space``,
 ``mini_dt_space_validator``), random and evolution searchers drawing from
 numpy in the JAX package's order (one seed gives the same samples in both
 packages), a trial store with best-trial reload, and ``make_experiment``,
-over the port's ``DeepTable``. Host only, like ``DeepTable``: it imports
-pandas, and scikit-learn where it splits the data. Every ``DeepTable`` a
+over the port's ``DeepTable``, on numpy alone like ``DeepTable`` (the
+split from ``data.split``); pandas is imported only to read a csv/parquet
+path and to build the ``leaderboard`` frame. Every ``DeepTable`` a
 search builds runs on ``device`` (default: the current CUDA device;
 ``'cpu'`` runs the plain path).
 """
@@ -22,11 +23,12 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
-import pandas as pd
 
 from .config import ModelConfig
 from .deeptable import DeepTable
 from .preprocessor import DefaultPreprocessor
+from ..data import columns as cl
+from ..data.split import train_test_split
 from ..utils import consts, dt_logging
 
 logger = dt_logging.get_logger(__name__)
@@ -345,8 +347,7 @@ class DTEstimator:
         fit_kwargs.update(kwargs)
         oof_proba, _, _, oof_scores = self.model.fit_cross_validation(
             X, y, oof_metrics=metrics, **fit_kwargs)
-        scores = pd.concat([pd.Series(s) for s in oof_scores], axis=1) \
-            .mean(axis=1).to_dict()
+        scores = _mean_scores(oof_scores)
         self.classes_ = getattr(self.model, 'classes_', None)
         return scores, oof_proba, oof_scores
 
@@ -423,7 +424,6 @@ class HyperDT:
     def search(self, X, y, X_eval=None, y_eval=None, max_trials=10, cv=False,
                num_folds=3, trial_store_dir=None, **fit_kwargs):
         if X_eval is None and not cv:
-            from sklearn.model_selection import train_test_split
             stratify = None
             try:
                 vals, counts = np.unique(np.asarray(y), return_counts=True)
@@ -519,6 +519,7 @@ class HyperDT:
                  'succeeded': t.succeeded, 'elapsed': t.elapsed,
                  'nets': t.sample['config'].get('nets')}
                 for t in self.history]
+        import pandas as pd
         df = pd.DataFrame(rows)
         if len(df):
             df = df.sort_values('reward',
@@ -555,6 +556,30 @@ class Experiment:
         return best
 
 
+def _mean_scores(fold_scores):
+    """Each metric's mean over the folds that report it, NaN skipped (the
+    mean of ``pd.concat`` of the folds' score Series)."""
+    keys = list(dict.fromkeys(k for score in fold_scores for k in score))
+    out = {}
+    for k in keys:
+        values = np.array([float(score[k]) for score in fold_scores
+                           if k in score], dtype=np.float64)
+        values = values[~np.isnan(values)]
+        out[k] = float(values.mean()) if len(values) else float('nan')
+    return out
+
+
+def _read_table(data):
+    """The columns of a csv/parquet path (read with pandas), of a
+    DataFrame, a dict of 1-D arrays or ``Columns`` (a copy: the target is
+    popped from it)."""
+    if isinstance(data, str):
+        import pandas as pd
+        data = pd.read_parquet(data) if data.endswith('.parquet') \
+            else pd.read_csv(data)
+    return cl.as_columns(data, rename=False).copy()
+
+
 def make_experiment(train_data, target=None, eval_data=None, test_data=None,
                     searcher=None, search_space=None,
                     space_sample_validation_fn=None, reward_metric=None,
@@ -563,24 +588,19 @@ def make_experiment(train_data, target=None, eval_data=None, test_data=None,
                     **kwargs):
     """Create a runnable experiment (parity: reference hyper_dt.py:452).
 
-    ``train_data`` is a DataFrame (or a csv/parquet path) containing the
-    ``target`` column.  ModelConfig fields passed as kwargs are forwarded to
-    every trial's config; every trial's ``DeepTable`` runs on ``device``.
+    ``train_data`` is a DataFrame, a dict of 1-D arrays, ``Columns`` (or a
+    csv/parquet path, read with pandas) containing the ``target`` column.
+    ModelConfig fields passed as kwargs are forwarded to every trial's
+    config; every trial's ``DeepTable`` runs on ``device``.
     """
-    if isinstance(train_data, str):
-        train_data = pd.read_parquet(train_data) \
-            if train_data.endswith('.parquet') else pd.read_csv(train_data)
+    X = _read_table(train_data)
     if target is None:
-        target = train_data.columns[-1]
-    X = train_data.copy()
+        target = X.columns[-1]
     y = X.pop(target)
 
     X_eval = y_eval = None
     if eval_data is not None:
-        if isinstance(eval_data, str):
-            eval_data = pd.read_parquet(eval_data) \
-                if eval_data.endswith('.parquet') else pd.read_csv(eval_data)
-        X_eval = eval_data.copy()
+        X_eval = _read_table(eval_data)
         y_eval = X_eval.pop(target)
 
     searcher_options = searcher_options or {}

@@ -14,8 +14,11 @@ as an ordered transformer pipeline replayed at inference by ``transform_X``.
 Fit results are memoized by a (data, config) signature like the upstream
 ``@cache`` decorator (preprocessor.py:157-161).
 
-pandas + numpy + sklearn only, on the host's CPU: no module on the card's
-path imports this one (``models/__init__.py`` exposes it lazily).
+numpy alone: the data is taken as ``data.columns.Columns`` (named numpy
+columns, each with the dtype pandas would give it), converted once at the
+entry from a DataFrame, a dict of 1-D arrays or a 2-D array. Given a
+DataFrame, ``fit_transform``, ``transform`` and ``transform_X`` return a
+DataFrame (the same one the JAX package returns), else ``Columns``.
 """
 
 import collections
@@ -24,9 +27,9 @@ import hashlib
 import time
 
 import numpy as np
-import pandas as pd
 
 from . import transformers as tx
+from ..data import columns as cl
 from .config import ModelConfig
 from .metainfo import CategoricalColumn, ContinuousColumn, \
     VarLenCategoricalColumn
@@ -47,31 +50,32 @@ def _imputer_wants_string_fill(dtype) -> bool:
     or ``0`` (everything else).  The reference splits on the obj/str dtype
     prefix only (reference preprocessor.py:350-356), so bool and
     numeric-coded ``category`` columns take the numeric fill — a ``''``
-    fill on int-coded categories crashes sklearn.  pandas Categorical
-    dtypes are resolved by their categories' dtype."""
-    cats = getattr(dtype, 'categories', None)
-    if cats is not None:
-        return _imputer_wants_string_fill(cats.dtype)
+    fill on int-coded categories crashes sklearn.  Categorical columns
+    (``category[<dtype>]``, ``data.columns``) are resolved by their
+    categories' dtype."""
     d = str(dtype).lower()
+    if d.startswith('category['):
+        return _imputer_wants_string_fill(d[len('category['):-1])
     return d.startswith(('object', 'str'))
 
 
 def infer_task_type(y):
     """Infer (task, labels) from y (parity: hypernets infer_task_type used
-    at reference preprocessor.py:204)."""
-    y_ser = pd.Series(np.asarray(y).reshape(-1)) \
-        if np.ndim(y) <= 1 else None
-    if y_ser is None:
+    at reference preprocessor.py:204). The distinct values are counted as
+    ``pd.unique`` finds them, missing ones dropped; text is of kind 'O'."""
+    if np.ndim(y) > 1:
         return consts.TASK_MULTILABEL, list(range(np.shape(y)[-1]))
-    uniques = pd.unique(y_ser.dropna())
+    y = np.asarray(y).reshape(-1)
+    uniques = cl.unique(y)
     n_unique = len(uniques)
+    kind = 'O' if y.dtype.kind in 'US' else y.dtype.kind
     if n_unique <= 1:
         raise ValueError('y must contain at least 2 distinct values.')
     if n_unique == 2:
         return consts.TASK_BINARY, sorted(uniques)
-    if y_ser.dtype.kind in 'fc':
+    if kind in 'fc':
         return consts.TASK_REGRESSION, []
-    if y_ser.dtype.kind in 'iu' and n_unique > max(50, len(y_ser) * 0.5):
+    if kind in 'iu' and n_unique > max(50, len(y) * 0.5):
         return consts.TASK_REGRESSION, []
     return consts.TASK_MULTICLASS, sorted(uniques)
 
@@ -105,16 +109,12 @@ class AbstractPreprocessor:
         return sign
 
     def get_X_y_signature(self, X, y):
-        parts = []
-        for obj in (X, y):
-            if isinstance(obj, (pd.DataFrame, pd.Series)):
-                parts.append(
-                    pd.util.hash_pandas_object(obj, index=True).values)
-            else:
-                parts.append(np.asarray(obj))
-        h = hashlib.md5()
-        for p in parts:
-            h.update(np.ascontiguousarray(p).tobytes())
+        """A digest of the columns (``Columns.signature``) and of y."""
+        h = hashlib.md5(cl.as_columns(X).signature().encode())
+        y = np.asarray(y)
+        h.update(repr((y.dtype.str, y.shape)).encode())
+        h.update(repr(y.tolist()).encode() if y.dtype.kind == 'O'
+                 else np.ascontiguousarray(y).tobytes())
         return h.hexdigest()
 
     def fit_transform(self, X, y, copy_data=True):
@@ -173,24 +173,25 @@ class DefaultPreprocessor(AbstractPreprocessor):
             raise ValueError(
                 f'The number of samples of X and y must be the same. '
                 f'X.shape:{X_shape}, y.shape:{y_shape}')
-        if pd.DataFrame(y).isnull().values.any():
+        if cl.isna(np.asarray(y)).any():
             raise ValueError('Missing values in y.')
 
     def _prepare_X(self, X):
-        if not isinstance(X, pd.DataFrame):
-            X = pd.DataFrame(X)
-        if len(set(X.columns)) != len(list(X.columns)):
-            cols = [item for item, count in
-                    collections.Counter(X.columns).items() if count > 1]
-            raise ValueError(f'Columns with duplicate names in X: {cols}')
-        if not all(isinstance(c, str) for c in X.columns):
-            X.columns = ['x_' + str(c) for c in X.columns]
-            logger.warning(f'Column index of X has been converted: '
-                           f'{list(X.columns)}')
-        return X
+        """``Columns`` of X (a new mapping): non-string names renamed
+        ``x_<name>``, duplicate names refused."""
+        return cl.as_columns(X).copy()
 
     # -- main API ----------------------------------------------------------
     def fit_transform(self, X, y, copy_data=True):
+        """(X, y) transformed; X a DataFrame if one was given, else
+        ``Columns``. The columns are never written in place, so
+        ``copy_data`` copies nothing."""
+        frame = cl.is_frame(X)
+        X = self._prepare_X(X)
+        X, y = self._fit_transform(X, y)
+        return (cl.to_frame(X) if frame else X), y
+
+    def _fit_transform(self, X, y):
         start = time.time()
         cache_key = None
         if self.use_cache:
@@ -208,12 +209,7 @@ class DefaultPreprocessor(AbstractPreprocessor):
 
         self.reset()
         self._validate_fit_transform(X, y)
-        if copy_data:
-            X = copy.deepcopy(X)
-            y = copy.deepcopy(y)
-
-        y = self.fit_transform_y(y)
-        X = self._prepare_X(X)
+        y = self.fit_transform_y(np.copy(y))
         X = self._prepare_features(X)
 
         if self.config.auto_imputation:
@@ -232,13 +228,7 @@ class DefaultPreprocessor(AbstractPreprocessor):
 
         self.X_transformers['last'] = tx.PassThroughEstimator()
 
-        cat_cols = self.get_categorical_columns()
-        cont_cols = self.get_continuous_columns()
-        if len(cat_cols) > 0:
-            X[cat_cols] = X[cat_cols].astype(np.int32)
-        if len(cont_cols) > 0:
-            X[cont_cols] = X[cont_cols].astype('float')
-
+        self._cast(X)
         logger.info(f'fit_transform taken {time.time() - start}s')
 
         if cache_key is not None:
@@ -492,16 +482,19 @@ class DefaultPreprocessor(AbstractPreprocessor):
             self.labels_ = []
         return np.asarray(y)
 
+    def _cast(self, X):
+        """Categorical columns to int32, continuous ones to float64."""
+        for c in self.get_categorical_columns():
+            X[c] = np.asarray(X[c]).astype(np.int32)
+        for c in self.get_continuous_columns():
+            X[c] = np.asarray(X[c]).astype(np.float64)
+
     def transform(self, X, y, copy_data=True):
-        X_t = self.transform_X(X, copy_data)
+        frame = cl.is_frame(X)
+        X_t = self._transform_X(X)
         y_t = self.transform_y(y, copy_data)
-        cat_cols = self.get_categorical_columns()
-        cont_cols = self.get_continuous_columns()
-        if len(cat_cols) > 0:
-            X_t[cat_cols] = X_t[cat_cols].astype(np.int32)
-        if len(cont_cols) > 0:
-            X_t[cont_cols] = X_t[cont_cols].astype('float')
-        return X_t, y_t
+        self._cast(X_t)
+        return (cl.to_frame(X_t) if frame else X_t), y_t
 
     def transform_y(self, y, copy_data=True):
         logger.info('Transform [y]...')
@@ -514,10 +507,13 @@ class DefaultPreprocessor(AbstractPreprocessor):
         return np.asarray(y)
 
     def transform_X(self, X, copy_data=True):
+        frame = cl.is_frame(X)
+        X = self._transform_X(X)
+        return cl.to_frame(X) if frame else X
+
+    def _transform_X(self, X):
         start = time.time()
         logger.info('Transform [X]...')
-        if copy_data:
-            X = copy.deepcopy(X)
         X = self._prepare_X(X)
         for step in self.X_transformers.values():
             X = step.transform(X)
@@ -558,8 +554,8 @@ class DefaultPreprocessor(AbstractPreprocessor):
         X_shape = np.shape(X)
         unique_upper_limit = round(X_shape[0] ** self.config.cat_exponent)
         for c in X.columns:
-            nunique = X[c].nunique()
-            dtype = str(X[c].dtype)
+            nunique = cl.nunique(X[c])
+            dtype = X.kinds[c]
 
             if nunique <= 1 and self.config.auto_discard_unique:
                 continue
@@ -621,7 +617,7 @@ class DefaultPreprocessor(AbstractPreprocessor):
 
         obj_cats, num_cats = [], []
         for c in categorical_vars + var_len_vars:
-            if _imputer_wants_string_fill(X[c].dtype):
+            if _imputer_wants_string_fill(X.kinds[c]):
                 obj_cats.append(c)
             else:
                 num_cats.append(c)

@@ -1,32 +1,41 @@
 # -*- coding:utf-8 -*-
-"""Self-contained DataFrame transformers: the port's copy of
-``deeptables_tpu/models/transformers.py`` (the same classes, fits and
-outputs), importing the port's own logging and constants.
+"""Self-contained column transformers: the port's copy of
+``deeptables_tpu/models/transformers.py`` (the same classes, fits, state
+and outputs) on numpy alone.
 
 The upstream deeptables delegates these to hypernets' ``sklearn_ex`` module
 (``deeptables/models/preprocessor.py:14,107``: CategorizeEncoder,
 MultiLabelEncoder, MultiKBinsDiscretizer, LgbmLeavesEncoder,
 MultiVarLenFeatureEncoder, DataFrameWrapper, SimpleImputer,
-PassThroughEstimator).  This module implements that transformer surface on
-pandas/numpy/sklearn.  All transformers are picklable and follow the
-``fit_transform`` / ``transform`` replay contract used by
-``DefaultPreprocessor.transform_X``.
+PassThroughEstimator). The JAX package runs them on pandas and
+scikit-learn; here they run on ``data.columns.Columns`` (named numpy
+columns) and give the same values: ``ColumnTransformer`` and
+``SimpleImputer`` follow scikit-learn's (the blocks' dtypes as
+``np.asarray`` of a DataFrame gives them, the means of ``numpy.ma``, the
+blocks stacked by ``np.hstack``) and keep the fitted attributes under
+scikit-learn's names, so that a fitted pipeline reads the same in both
+packages. All transformers are picklable and follow the ``fit_transform``
+/ ``transform`` replay contract used by ``DefaultPreprocessor.transform_X``.
 
-With ``preprocessor.py``, the one module of the port that imports pandas
-and scikit-learn at module level: it runs on the host's CPU only, and no
-module on the card's path imports it.
+Only ``GbmLeavesEncoder`` (``apply_gbm_features=True``, off by default)
+needs a library: LightGBM or scikit-learn, imported when it fits.
 """
 
+import inspect
+from collections import Counter
 from typing import Dict, List, Optional
 
 import numpy as np
-import pandas as pd
-from sklearn.compose import ColumnTransformer
-from sklearn.impute import SimpleImputer as SkSimpleImputer
 
+from ..data import columns as cl
 from ..utils import dt_logging
 
 logger = dt_logging.get_logger(__name__)
+
+# the scikit-learn release whose ColumnTransformer and SimpleImputer
+# behaviour and fitted state the two classes below reproduce (scikit-learn
+# records its version in the state of every estimator it pickles)
+SKLEARN_VERSION = '1.9.0'
 
 
 class PassThroughEstimator:
@@ -43,10 +52,30 @@ class PassThroughEstimator:
         return X
 
 
+def _codes(classes, values, unseen):
+    """Each value's position in the sorted ``classes``; ``unseen`` where a
+    value is not among them."""
+    values = np.asarray(values)
+    if len(classes) == 0:
+        return np.full(len(values), unseen, dtype=np.int64), \
+            np.zeros(len(values), bool)
+    try:
+        idx = np.searchsorted(classes, values)
+        idx = np.clip(idx, 0, len(classes) - 1)
+        hit = np.asarray(classes[idx] == values, dtype=bool)
+    except TypeError:
+        mapping = {v: i for i, v in enumerate(classes.tolist())}
+        idx = np.array([mapping.get(v, -1) for v in values.tolist()],
+                       dtype=np.int64)
+        hit = idx >= 0
+    return np.where(hit, idx, unseen), hit
+
+
 class SafeLabelEncoder:
     """Label encoder mapping unseen values at transform time to a dedicated
     code (``len(classes_)``) instead of raising.
 
+    Values are compared as text (``Series.astype(str)``, ``columns.as_str``).
     The preprocessor reserves vocabulary headroom of +2 per column
     (reference preprocessor.py:333) which covers this unseen bucket.
     """
@@ -56,15 +85,13 @@ class SafeLabelEncoder:
         self._mapping: Optional[Dict] = None
 
     def fit(self, y):
-        arr = pd.Series(y).astype('str')
-        self.classes_ = np.array(sorted(arr.unique()))
+        self.classes_ = np.unique(cl.as_str(y))
         self._mapping = {v: i for i, v in enumerate(self.classes_)}
         return self
 
     def transform(self, y):
-        arr = pd.Series(y).astype('str')
-        unseen = len(self.classes_)
-        return arr.map(self._mapping).fillna(unseen).astype(np.int32).values
+        codes, _ = _codes(self.classes_, cl.as_str(y), len(self.classes_))
+        return codes.astype(np.int32)
 
     def fit_transform(self, y):
         return self.fit(y).transform(y)
@@ -93,17 +120,15 @@ class LabelEncoder(SafeLabelEncoder):
     """y-label encoder preserving original dtypes for inverse_transform."""
 
     def fit(self, y):
-        arr = pd.Series(y)
-        self.classes_ = np.array(sorted(pd.unique(arr.dropna())))
+        self.classes_ = np.array(sorted(cl.unique(np.asarray(y).reshape(-1))))
         self._mapping = {v: i for i, v in enumerate(self.classes_)}
         return self
 
     def transform(self, y):
-        arr = pd.Series(y)
-        out = arr.map(self._mapping)
-        if out.isnull().any():
+        codes, hit = _codes(self.classes_, np.asarray(y).reshape(-1), -1)
+        if not hit.all():
             raise ValueError('y contains previously unseen labels.')
-        return out.astype(np.int32).values
+        return codes.astype(np.int32)
 
 
 class MultiLabelEncoder:
@@ -163,9 +188,9 @@ class CategorizeEncoder:
 
 
 class DataFrameWrapper:
-    """Run an (sklearn) transformer and re-wrap the result as a DataFrame
-    with the given columns (parity: hypernets DataFrameWrapper at reference
-    preprocessor.py:379)."""
+    """Run a transformer that returns a 2-D array and re-wrap the result as
+    columns with the given names, keeping the index (parity: hypernets
+    DataFrameWrapper at reference preprocessor.py:379)."""
 
     def __init__(self, transformer, columns: List[str]):
         self.transformer = transformer
@@ -173,11 +198,238 @@ class DataFrameWrapper:
 
     def fit_transform(self, X, y=None):
         values = self.transformer.fit_transform(X)
-        return pd.DataFrame(values, columns=self.columns, index=X.index)
+        return cl.Columns.from_2d(values, self.columns, index=X.index)
 
     def transform(self, X):
         values = self.transformer.transform(X)
-        return pd.DataFrame(values, columns=self.columns, index=X.index)
+        return cl.Columns.from_2d(values, self.columns, index=X.index)
+
+
+class _SklearnState:
+    """scikit-learn's estimator conventions that the fitted state shows:
+    the version record last in the pickled state, and ``clone``, a new
+    unfitted estimator of the same parameters."""
+
+    def __getstate__(self):
+        state = {k: v for k, v in self.__dict__.items()
+                 if k != '_sklearn_version'}
+        state['_sklearn_version'] = SKLEARN_VERSION
+        return state
+
+    def clone(self):
+        params = inspect.signature(type(self).__init__).parameters
+        return type(self)(**{name: getattr(self, name)
+                             for name in list(params)[1:]})
+
+
+def _check_array(X, dtype):
+    """scikit-learn's ``check_array`` of the DataFrame of the columns ``X``:
+    ``dtype`` None (as the data is), a tuple of accepted dtypes (the first
+    unless the data's is among them) or one dtype. A bool column (pandas
+    converts it first) gives the whole block the columns' common numpy type
+    (float64 beside a categorical; object beside strings or objects)."""
+    kinds = [X.kinds[c] for c in X.columns]
+    keys = [cl.numpy_dtype(X, c) for c in X.columns]
+    needs_early = any(k == 'bool' or k == 'category[bool]' for k in kinds)
+    if all(k is not None for k in keys):
+        orig = np.result_type(*keys)
+    elif 'str' in kinds:
+        orig = np.dtype(object)
+    elif needs_early and 'object' in kinds:
+        orig = np.dtype(object)
+    else:
+        orig = None
+    if isinstance(dtype, tuple):
+        dtype = None if orig is not None and orig in dtype else dtype[0]
+    if needs_early:
+        # DataFrame.astype(None) is float64
+        return cl.to_2d(X, np.dtype(orig if dtype is None else dtype))
+    return cl.to_2d(X, dtype)
+
+
+class SimpleImputer(_SklearnState):
+    """scikit-learn's ``SimpleImputer`` over named columns: ``mean``
+    (float block, NaN skipped, ``numpy.ma``'s mean), ``most_frequent`` (the
+    smallest of the most frequent values) and ``constant``; missing values
+    are NaN (``None`` in an object block is not, as in scikit-learn). The
+    block is ``np.asarray`` of the DataFrame of the columns, its dtype as
+    pandas and scikit-learn choose it (``columns.to_2d``)."""
+
+    def __init__(self, missing_values=np.nan, strategy='mean',
+                 fill_value=None, copy=True, add_indicator=False,
+                 keep_empty_features=False):
+        self.missing_values = missing_values
+        self.add_indicator = add_indicator
+        self.keep_empty_features = keep_empty_features
+        self.strategy = strategy
+        self.fill_value = fill_value
+        self.copy = copy
+
+    def _validate_input(self, X, in_fit):
+        if self.strategy in ('most_frequent', 'constant'):
+            dtype = None
+            if not in_fit and self._fit_dtype.kind == 'O':
+                dtype = self._fit_dtype
+        else:
+            dtype = cl.FLOAT_DTYPES
+        if in_fit:
+            self.feature_names_in_ = np.asarray(X.columns, dtype=object)
+            self.n_features_in_ = len(X.columns)
+        else:
+            missing = set(self.feature_names_in_) - set(X.columns)
+            if missing:
+                raise ValueError(f'columns are missing: {missing}')
+        arr = _check_array(X, dtype)
+        if in_fit:
+            self._fit_dtype = arr.dtype
+        if arr.dtype.kind not in ('i', 'u', 'f', 'O'):
+            raise ValueError(
+                f'SimpleImputer does not support data with dtype '
+                f'{arr.dtype}. Please provide either a numeric array (with a '
+                f'floating point or integer dtype) or categorical data '
+                f'represented either as an array with integer dtype or an '
+                f'array of string values with an object dtype.')
+        if in_fit and self.strategy == 'constant' \
+                and self.fill_value is not None \
+                and arr.dtype.kind in 'iuf' \
+                and isinstance(self.fill_value, str):
+            raise ValueError(f"fill_value={self.fill_value!r} is invalid. "
+                             f"Expected a numerical value when imputing "
+                             f"numerical data")
+        return arr
+
+    @staticmethod
+    def _mask(arr):
+        if arr.dtype.kind == 'f':
+            return np.isnan(arr)
+        if arr.dtype.kind in 'iu':
+            return np.zeros(arr.shape, bool)
+        return cl.isna(arr) & np.frompyfunc(
+            lambda v: v is not None, 1, 1)(arr).astype(bool)
+
+    def fit(self, X, y=None):
+        arr = self._validate_input(X, in_fit=True)
+        if self.fill_value is None:
+            fill_value = 0 if arr.dtype.kind in 'iuf' else 'missing_value'
+        else:
+            fill_value = self.fill_value
+        self._fill_dtype = arr.dtype
+        mask = self._mask(arr)
+        self.indicator_ = None
+        if self.strategy == 'mean':
+            mean = np.ma.mean(np.ma.masked_array(arr, mask=mask), axis=0)
+            stats = np.ma.getdata(mean)
+            stats[np.ma.getmask(mean)] = \
+                0 if self.keep_empty_features else np.nan
+        elif self.strategy == 'most_frequent':
+            stats = np.empty(arr.shape[1],
+                             dtype=object if arr.dtype.kind == 'O' else None)
+            for j in range(arr.shape[1]):
+                stats[j] = self._most_frequent(arr[~mask[:, j], j])
+        elif self.strategy == 'constant':
+            stats = np.full(arr.shape[1], fill_value, dtype=arr.dtype)
+        else:
+            raise ValueError(f'strategy {self.strategy!r} is not supported.')
+        self.statistics_ = stats
+        return self
+
+    @staticmethod
+    def _most_frequent(values):
+        if len(values) == 0:
+            return 0
+        if values.dtype.kind == 'O':
+            counter = Counter(values.tolist())
+            most = max(counter.values())
+            return min(v for v, c in counter.items() if c == most)
+        uniques, counts = np.unique(values, return_counts=True)
+        return uniques[np.argmax(counts)]
+
+    def transform(self, X):
+        arr = self._validate_input(X, in_fit=False)
+        stats = self.statistics_
+        mask = self._mask(arr)
+        valid = ~self._mask(stats)
+        if not self.keep_empty_features and not valid.all():
+            logger.warning(f'Skipping features without any observed values: '
+                           f'{self.feature_names_in_[~valid]}.')
+            arr, mask, stats = arr[:, valid], mask[:, valid], stats[valid]
+        stats = stats.astype(self._fill_dtype, copy=False)
+        for j in range(arr.shape[1]):
+            if mask[:, j].any():
+                arr[mask[:, j], j] = stats[j]
+        return arr
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X).transform(X)
+
+
+class ColumnTransformer(_SklearnState):
+    """scikit-learn's ``ColumnTransformer`` over named columns with
+    ``remainder='drop'``: each transformer (a copy, fitted) takes its
+    columns, and the blocks it returns are stacked with ``np.hstack``."""
+
+    def __init__(self, transformers, remainder='drop', sparse_threshold=0.3,
+                 n_jobs=None, transformer_weights=None, verbose=False,
+                 verbose_feature_names_out=True):
+        if remainder != 'drop':
+            raise ValueError("only remainder='drop' is supported.")
+        self.transformers = transformers
+        self.remainder = remainder
+        self.sparse_threshold = sparse_threshold
+        self.n_jobs = n_jobs
+        self.transformer_weights = transformer_weights
+        self.verbose = verbose
+        self.verbose_feature_names_out = verbose_feature_names_out
+
+    def fit_transform(self, X, y=None):
+        names = X.columns
+        self.feature_names_in_ = np.asarray(names, dtype=object)
+        self.n_features_in_ = len(names)
+        self._columns = [list(cols) for _, _, cols in self.transformers]
+        position = {name: i for i, name in enumerate(names)}
+        for cols in self._columns:
+            for c in cols:
+                if c not in position:
+                    raise ValueError(f'A given column is not a column of the '
+                                     f'dataframe: {c!r}')
+        self._transformer_to_input_indices = {
+            name: [position[c] for c in cols]
+            for (name, _, _), cols in zip(self.transformers, self._columns)}
+        used = {i for idx in self._transformer_to_input_indices.values()
+                for i in idx}
+        remaining = sorted(set(range(len(names))) - used)
+        self._transformer_to_input_indices['remainder'] = remaining
+        self._remainder = ('remainder', self.remainder,
+                           [names[i] for i in remaining])
+        blocks, fitted = [], []
+        for (name, est, _), cols in zip(self.transformers, self._columns):
+            est = est.clone()
+            blocks.append(est.fit_transform(X.select(cols)))
+            fitted.append((name, est, cols))
+        self.sparse_output_ = False
+        self.transformers_ = fitted + \
+            ([self._remainder] if remaining else [])
+        self.output_indices_ = {}
+        start = 0
+        for (name, _, _), block in zip(fitted, blocks):
+            self.output_indices_[name] = slice(start, start + block.shape[1])
+            start += block.shape[1]
+        for name in [t[0] for t in self.transformers] + ['remainder']:
+            self.output_indices_.setdefault(name, slice(0, 0))
+        return self._hstack(blocks, X.n_rows)
+
+    def transform(self, X):
+        missing = set(self.feature_names_in_) - set(X.columns)
+        if missing:
+            raise ValueError(f'columns are missing: {missing}')
+        blocks = [est.transform(X.select(cols))
+                  for _, est, cols in self.transformers_
+                  if not isinstance(est, str)]
+        return self._hstack(blocks, X.n_rows)
+
+    @staticmethod
+    def _hstack(blocks, n_rows):
+        return np.hstack(blocks) if blocks else np.zeros((n_rows, 0))
 
 
 def build_imputation_transformer(continuous_vars, obj_cats, num_cats):
@@ -188,19 +440,19 @@ def build_imputation_transformer(continuous_vars, obj_cats, num_cats):
     if continuous_vars:
         transformers.append(
             ('continuous',
-             SkSimpleImputer(missing_values=np.nan, strategy='mean'),
+             SimpleImputer(missing_values=np.nan, strategy='mean'),
              continuous_vars))
     if obj_cats:
         transformers.append(
             ('categorical_obj',
-             SkSimpleImputer(missing_values=np.nan, strategy='constant',
-                             fill_value=''),
+             SimpleImputer(missing_values=np.nan, strategy='constant',
+                           fill_value=''),
              obj_cats))
     if num_cats:
         transformers.append(
             ('categorical_num',
-             SkSimpleImputer(missing_values=np.nan, strategy='constant',
-                             fill_value=0),
+             SimpleImputer(missing_values=np.nan, strategy='constant',
+                           fill_value=0),
              num_cats))
     return ColumnTransformer(transformers)
 
@@ -208,8 +460,8 @@ def build_imputation_transformer(continuous_vars, obj_cats, num_cats):
 class FixedImputer:
     """Imputation step fitted from streaming statistics.
 
-    Produces the same output frame as ``DataFrameWrapper(ColumnTransformer)``
-    built by :func:`build_imputation_transformer` — a DataFrame containing
+    Produces the same output columns as ``DataFrameWrapper(
+    ColumnTransformer)`` built by :func:`build_imputation_transformer` —
     exactly ``continuous + obj_cats + num_cats`` (other columns dropped),
     with continuous NaNs replaced by the (streaming-exact) means, object
     categoricals by ``''`` and numeric categoricals by ``0``.
@@ -223,14 +475,24 @@ class FixedImputer:
         self.columns = list(means) + self.obj_cats + self.num_cats
 
     def transform(self, X):
-        out = {}
+        out = cl.Columns(index=X.index)
         for c, m in self.means.items():
-            out[c] = pd.to_numeric(X[c], errors='coerce').fillna(m)
+            values = X[c]
+            if values.dtype.kind not in 'iub':  # integers hold no NaN
+                values = cl.to_float(values)
+                values = np.where(np.isnan(values), m, values)
+            out[c] = values
         for c in self.obj_cats:
-            out[c] = X[c].astype(object).where(X[c].notna(), '')
+            values = np.asarray(X[c], dtype=object).copy()
+            values[cl.isna(values)] = ''
+            out.set(c, values, 'object')
         for c in self.num_cats:
-            out[c] = X[c].fillna(0)
-        return pd.DataFrame(out, index=X.index)[self.columns]
+            values = X[c]
+            missing = cl.isna(values)
+            if missing.any():
+                values = np.where(missing, 0, values)
+            out.set(c, values, X.kinds[c], X.categories.get(c))
+        return out
 
     def fit_transform(self, X, y=None):
         return self.transform(X)
@@ -297,8 +559,10 @@ class MinMaxScalerTransformer:
 
     def fit(self, X, y=None):
         for c in self.columns:
-            col = pd.to_numeric(X[c], errors='coerce')
-            mn, mx = float(col.min()), float(col.max())
+            col = cl.to_float(X[c])
+            present = col[~np.isnan(col)]
+            mn = float(present.min()) if len(present) else float('nan')
+            mx = float(present.max()) if len(present) else float('nan')
             self.min_[c] = mn
             rng = mx - mn
             self.scale_[c] = 1.0 / rng if rng > 0 else 0.0
@@ -306,8 +570,7 @@ class MinMaxScalerTransformer:
 
     def transform(self, X):
         for c in self.columns:
-            col = pd.to_numeric(X[c], errors='coerce')
-            X[c] = (col - self.min_[c]) * self.scale_[c]
+            X[c] = (cl.to_float(X[c]) - self.min_[c]) * self.scale_[c]
         return X
 
     def fit_transform(self, X, y=None):
@@ -335,12 +598,16 @@ class MultiKBinsDiscretizer:
         self.discretizers: Dict[str, FixedBinsDiscretizer] = {}
         self.new_columns = []  # (name, new_name, n_bins)
 
+    @staticmethod
+    def _values(X, c):
+        values = cl.to_float(X[c])
+        return np.where(np.isnan(values), 0.0, values)
+
     def fit_transform(self, X, y=None):
         self.new_columns = []
         for c in self.columns:
             new_name = f'{c}_discrete'
-            values = pd.to_numeric(X[c], errors='coerce') \
-                .fillna(0).values.astype(np.float64)
+            values = self._values(X, c)
             uq, counts = np.unique(values, return_counts=True)
             n_bins = min(self.bins, max(len(uq), 2))
             kbd = FixedBinsDiscretizer(quantile_bin_edges(uq, counts, n_bins))
@@ -351,11 +618,16 @@ class MultiKBinsDiscretizer:
 
     def transform(self, X):
         for c, new_name, _bins in self.new_columns:
-            values = pd.to_numeric(X[c], errors='coerce') \
-                .fillna(0).values.reshape(-1, 1)
-            X[new_name] = self.discretizers[c].transform(values) \
+            X[new_name] = self.discretizers[c].transform(self._values(X, c)) \
                 .astype(np.int32).reshape(-1)
         return X
+
+
+def _var_len_parts(v, sep):
+    """A var-len cell's tokens (a missing cell has none)."""
+    if v is None or (isinstance(v, (float, np.floating)) and v != v):
+        return []
+    return [p for p in str(v).split(sep) if p != '']
 
 
 class VarLenFeatureEncoder:
@@ -371,11 +643,11 @@ class VarLenFeatureEncoder:
     def n_classes(self):
         return len(self._mapping)
 
-    def fit(self, series: pd.Series):
+    def fit(self, values):
         tokens = set()
         max_len = 0
-        for v in series.fillna(''):
-            parts = [p for p in str(v).split(self.sep) if p != '']
+        for v in np.asarray(values, dtype=object):
+            parts = _var_len_parts(v, self.sep)
             tokens.update(parts)
             max_len = max(max_len, len(parts))
         # token ids start at 1; 0 is padding
@@ -391,14 +663,17 @@ class VarLenFeatureEncoder:
         enc.max_element_length = max(int(max_element_length), 1)
         return enc
 
-    def transform(self, series: pd.Series):
+    def transform(self, values):
+        """The token ids, one row a sample: an int32 array
+        ``(n, max_element_length)``."""
+        values = np.asarray(values, dtype=object)
         unseen = len(self._mapping) + 1
-        out = np.zeros((len(series), self.max_element_length), dtype=np.int32)
-        for i, v in enumerate(series.fillna('')):
-            parts = [p for p in str(v).split(self.sep) if p != '']
+        out = np.zeros((len(values), self.max_element_length), dtype=np.int32)
+        for i, v in enumerate(values):
+            parts = _var_len_parts(v, self.sep)
             for j, p in enumerate(parts[:self.max_element_length]):
                 out[i, j] = self._mapping.get(p, unseen)
-        return list(out)
+        return out
 
 
 class MultiVarLenFeatureEncoder:
@@ -437,6 +712,14 @@ def _have_lightgbm() -> bool:
         return False
 
 
+def _have_sklearn() -> bool:
+    try:
+        import sklearn  # noqa: F401
+        return True
+    except Exception:
+        return False
+
+
 class GbmLeavesEncoder:
     """Append per-tree leaf indices as new features
     (parity: hypernets LgbmLeavesEncoder at reference preprocessor.py:436).
@@ -470,14 +753,29 @@ class GbmLeavesEncoder:
         self._leaf_encoders: list = []
 
     def _feature_frame(self, X):
+        """The features as one 2-D array: each column numeric, NaN as 0,
+        their common numpy type (``np.asarray`` of the DataFrame)."""
         cols = [c for c in (self.cat_vars + self.cont_vars) if c in X.columns]
-        return X[cols].apply(pd.to_numeric, errors='coerce').fillna(0)
+        parts = []
+        for c in cols:
+            values = np.asarray(X[c])
+            if values.dtype.kind not in 'iub':
+                values = cl.to_float(values)
+                values = np.where(np.isnan(values), 0.0, values)
+            parts.append(values)
+        if not parts:
+            return np.zeros((X.n_rows, 0))
+        return np.column_stack(parts)
 
     def _fit_model(self, feats, y):
         from ..utils import consts
         regression = self.task == consts.TASK_REGRESSION
         if self.backend is None:
             self.backend = 'lightgbm' if _have_lightgbm() else 'sklearn'
+        if self.backend == 'sklearn' and not _have_sklearn():
+            raise ImportError('apply_gbm_features needs LightGBM (lightgbm) '
+                              'or scikit-learn (sklearn); neither imports '
+                              'here.')
         if self.backend == 'lightgbm':
             import lightgbm
             p = dict(self.gbm_params)
@@ -493,13 +791,13 @@ class GbmLeavesEncoder:
             cls = GradientBoostingRegressor if regression \
                 else GradientBoostingClassifier
             self.model = cls(**self.gbm_params)
-        self.model.fit(feats.values, np.asarray(y).reshape(-1))
+        self.model.fit(feats, np.asarray(y).reshape(-1))
 
     def _apply_model(self, feats):
         if self.backend == 'lightgbm':
-            leaves = self.model.predict(feats.values, pred_leaf=True)
+            leaves = self.model.predict(feats, pred_leaf=True)
         else:
-            leaves = self.model.apply(feats.values)
+            leaves = self.model.apply(feats)
         return np.asarray(leaves).reshape(len(feats), -1)
 
     @staticmethod

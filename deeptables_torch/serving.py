@@ -7,9 +7,9 @@ bucket), runs the model's inference forward on its device, and returns
 numpy probabilities; binary tasks get the estimator's ``(n, 2)`` layout.
 
 ``Predictor.load``, ``Predictor.predict`` and ``export_predictor`` go
-through ``DeepTable``, which this module imports inside them only: the
-packed-array path (``predict_proba_arrays``) needs neither ``DeepTable``
-nor the host preprocessor's pandas and scikit-learn.
+through ``DeepTable`` and its preprocessor (numpy alone), which this module
+imports inside them only: the packed-array path (``predict_proba_arrays``)
+needs neither.
 """
 
 import math
@@ -87,13 +87,14 @@ class Predictor:
         return self
 
     def predict_proba(self, X) -> np.ndarray:
-        """DataFrame (raw feature space) → probability matrix."""
+        """Raw features (a DataFrame, a dict of 1-D arrays, ``Columns``) →
+        probability matrix."""
         X_t = self.preprocessor.transform_X(X)
         arrays = pipeline.extract_arrays(
             X_t, self.model.categorical_columns,
             self.model.continuous_columns,
             self.model.var_len_categorical_columns)
-        return self.predict_proba_arrays(arrays, len(X))
+        return self.predict_proba_arrays(arrays, len(X_t))
 
     def predict_proba_arrays(self, arrays: Dict[str, np.ndarray],
                              n: Optional[int] = None) -> np.ndarray:
@@ -119,8 +120,8 @@ class Predictor:
         return proba
 
     def predict(self, X, encode_to_label=True):
-        """DataFrame (raw feature space) → predicted labels (values for
-        regression), decoded by the estimator's preprocessor."""
+        """Raw features → predicted labels (values for regression), decoded
+        by the estimator's preprocessor."""
         proba = self.predict_proba(X)
         return self.dt.proba2predict(proba, encode_to_label=encode_to_label)
 

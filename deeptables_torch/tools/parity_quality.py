@@ -11,7 +11,8 @@ with that script's protocol:
 - the test metrics: binary AUC and logloss from ``DeepTable.evaluate``;
   regression RMSE and MAE, multiclass logloss and accuracy, multilabel
   macro AUC and mean per-label logloss, each from the test predictions
-  with scikit-learn's scorers.
+  with scikit-learn's scorers' arithmetic (``score``: ``ops/metrics.py``,
+  probabilities clipped as ``sklearn.metrics.log_loss`` clips them).
 
 The first metric drives early stopping: AUC (binary), RMSE (regression),
 accuracy (multiclass); multilabel monitors logloss (the JAX script's
@@ -28,11 +29,25 @@ Run on the CPU, three seeds of every row it runs:
 row runs so in effect (its multilabel ``accuracy`` fails, so the early
 stopping it monitors never fires).
 
+The loaders draw their tables from numpy's generators, whose Zipf stream
+is not the same in every numpy release: the criteo- and avazu-style
+tables of numpy 2.3 are not those of numpy 2.0, which drew the tables of
+the JAX package's and this tool's CPU runs. ``--write-tables DIR`` saves
+each row's table where the reference's numpy runs, and ``--tables DIR``
+trains on those tables elsewhere:
+
+    python -m deeptables_torch.tools.parity_quality --write-tables tmp/t
+    python -m deeptables_torch.tools.parity_quality --device cuda \
+        --tables tmp/t
+
+Every result records its table's digest (``table``, ``table_digest``).
+
 Each finished (row, seed) is written at once to the results file
 (``--out``, default ``parity_results.json`` beside this script), which
 only this process writes; ``--report`` prints each row's mean ± σ
-(population σ, as the JAX script reports). Needs pandas and scikit-learn;
-imports nothing of JAX.
+(population σ, as the JAX script reports). numpy and torch alone: the
+split comes from ``data/split.py`` (scikit-learn's rows), so it runs on
+the card's machine (``--device cuda``); imports nothing of JAX.
 """
 
 import argparse
@@ -44,6 +59,10 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+from ..data import columns as cl
+from ..data.split import train_test_split
+from ..ops import metrics
 
 SEEDS = (0, 1, 2)
 EPOCHS = 8
@@ -59,13 +78,38 @@ TASK_METRICS = {'binary': ['AUC', 'logloss'], 'regression': ['rmse'],
                 'multiclass': ['accuracy'], 'multilabel': ['logloss']}
 
 
-def configs():
+def table_digest(table) -> str:
+    """A digest of a table's names, kinds and values."""
+    return cl.as_columns(table, rename=False).signature()[:16]
+
+
+def write_table(path, table):
+    """A table (numpy columns; text as unicode arrays) to an ``.npz``."""
+    cols = cl.as_columns(table, rename=False)
+    arrays = {f'c{j}': (cols[n].astype(str) if cols.kinds[n] == 'str'
+                        else cols[n]) for j, n in enumerate(cols.columns)}
+    names = [[type(n).__name__, n, cols.kinds[n]] for n in cols.columns]
+    np.savez_compressed(path, names=np.array(json.dumps(names)), **arrays)
+
+
+def read_table(path) -> cl.Columns:
+    """The table :func:`write_table` wrote, as ``Columns``."""
+    out = cl.Columns()
+    with np.load(path) as data:
+        for j, (typ, name, kind) in enumerate(json.loads(str(data['names']))):
+            out.set(int(name) if typ == 'int' else name, data[f'c{j}'], kind)
+    return out
+
+
+def configs(tables=None):
     """The rows of ``benchmarks/parity_quality.py:_configs`` that the port
-    runs: loader, target, task, nets and the extra config."""
+    runs: loader, target, task, nets and the extra config. With ``tables``
+    (a directory of :func:`write_table` files) each loader reads its row's
+    table from ``<tables>/<row>.npz``."""
     from ..data import datasets as ds
     avazu_columns = [c for c in ds.load_avazu_synthetic(10).columns
                      if c != 'click']
-    return {
+    specs = {
         'bank_deepfm': dict(
             loader=lambda: ds.load_bank(20000), target='y',
             nets=['linear', 'fm_nets', 'dnn_nets'], conf={}),
@@ -110,12 +154,20 @@ def configs():
             loader=lambda: ds.load_bank(20000), target='y',
             nets=['afm_nets'], conf={}),
     }
+    if tables is not None:
+        for name, spec in specs.items():
+            path = os.path.join(tables, f'{name}.npz')
+            spec['loader'] = lambda path=path: read_table(path)
+    return specs
 
 
 def split(df, target, task):
-    from sklearn.model_selection import train_test_split
+    """``train_test_split(X, y, test_size=0.2, random_state=42,
+    stratify=...)`` of a DataFrame or ``Columns``, as the JAX script
+    splits (``data.split`` draws scikit-learn's rows)."""
     if isinstance(target, list):
-        y = df[target].to_numpy(np.float32)
+        y = np.column_stack([np.asarray(df[t]) for t in target]) \
+            .astype(np.float32)
         df = df.drop(columns=target)
     else:
         y = np.asarray(df.pop(target))
@@ -124,33 +176,42 @@ def split(df, target, task):
                             stratify=strat)
 
 
+def _log_loss(labels, proba):
+    """``sklearn.metrics.log_loss``: probabilities clipped to
+    [eps, 1 - eps] at their type's machine epsilon."""
+    proba = np.asarray(proba)
+    if proba.ndim == 1:
+        proba = np.column_stack([1 - proba, proba])
+    eps = np.finfo(proba.dtype if proba.dtype.kind == 'f'
+                   else np.float64).eps
+    return metrics.logloss(labels, proba, eps=eps)
+
+
 def score(task, y_true, pred):
     """The JAX script's ``_score`` for the regression, multiclass and
-    multilabel rows."""
-    from sklearn.metrics import (accuracy_score, log_loss,
-                                 mean_absolute_error, mean_squared_error,
-                                 roc_auc_score)
+    multilabel rows (its scikit-learn scorers' arithmetic)."""
     if task == 'regression':
-        return {'rmse': float(np.sqrt(mean_squared_error(y_true, pred))),
-                'mae': float(mean_absolute_error(y_true, pred))}
+        return {'rmse': metrics.rmse(y_true, pred),
+                'mae': metrics.mae(y_true, pred)}
     if task == 'multiclass':
         classes = list(np.unique(y_true))
         yi = np.asarray([classes.index(v) for v in y_true])
-        return {'logloss': float(log_loss(yi, pred,
-                                          labels=list(range(len(classes))))),
-                'accuracy': float(accuracy_score(yi, pred.argmax(1)))}
+        return {'logloss': _log_loss(yi, pred),
+                'accuracy': metrics.accuracy(yi, pred)}
     p = np.clip(pred, 1e-7, 1 - 1e-7)
-    return {'auc': float(roc_auc_score(y_true, pred, average='macro')),
+    return {'auc': float(np.mean([metrics.auc(y_true[:, k], pred[:, k])
+                                  for k in range(y_true.shape[1])])),
             'logloss': float(np.mean([
-                log_loss(y_true[:, k], p[:, k], labels=[0, 1])
+                _log_loss(y_true[:, k], p[:, k])
                 for k in range(y_true.shape[1])]))}
 
 
 def run(name, spec, seed, device, home_dir, patience=3):
     from ..models import DeepTable, ModelConfig
     task = spec.get('task', 'binary')
-    X_train, X_test, y_train, y_test = split(spec['loader'](),
-                                             spec['target'], task)
+    table = spec['loader']()
+    digest = table_digest(table)
+    X_train, X_test, y_train, y_test = split(table, spec['target'], task)
     conf = ModelConfig(nets=spec['nets'], metrics=TASK_METRICS[task],
                        earlystopping_patience=patience, seed=seed,
                        home_dir=home_dir, **spec['conf'])
@@ -159,7 +220,7 @@ def run(name, spec, seed, device, home_dir, patience=3):
     _, history = dt.fit(X_train, y_train, epochs=EPOCHS, batch_size=BATCH,
                         verbose=0)
     out = {'fit_seconds': round(time.time() - t0, 1),
-           'epochs_run': len(history.history['loss'])}
+           'epochs_run': len(history.history['loss']), 'table': digest}
     if task == 'binary':
         result = dt.evaluate(X_test, y_test, verbose=0)
         out.update(auc=float(result['AUC']), logloss=float(result['logloss']))
@@ -185,7 +246,7 @@ def report(results):
         if not runs:
             continue
         keys = [k for k in next(iter(runs.values()))
-                if k not in ('fit_seconds', 'epochs_run', 'device')]
+                if k not in ('fit_seconds', 'epochs_run', 'device', 'table')]
         cells = []
         for key in keys:
             xs = [r[key] for r in runs.values()]
@@ -209,19 +270,31 @@ def main(argv=None):
                              "JAX multilabel row's effective protocol)")
     parser.add_argument('--report', action='store_true',
                         help='print the results file and run nothing')
+    parser.add_argument('--tables', default=None,
+                        help='train on the tables --write-tables wrote here')
+    parser.add_argument('--write-tables', default=None,
+                        help="write each row's table to this directory and "
+                             'run nothing')
     args = parser.parse_args(argv)
     results = load(args.out)
     if args.report:
         print(report(results))
         return 0
-    import torch
-    if args.threads:
-        torch.set_num_threads(args.threads)
-    specs = configs()
+    specs = configs(args.tables)
     rows = [r for r in args.rows.split(',') if r]
     unknown = set(rows) - set(specs)
     if unknown:
         parser.error(f'unknown rows {sorted(unknown)}; rows: {list(ROWS)}')
+    if args.write_tables:
+        os.makedirs(args.write_tables, exist_ok=True)
+        for name in rows:
+            table = specs[name]['loader']()
+            write_table(os.path.join(args.write_tables, f'{name}.npz'), table)
+            print(json.dumps({'row': name, 'table': table_digest(table)}))
+        return 0
+    import torch
+    if args.threads:
+        torch.set_num_threads(args.threads)
     home_dir = tempfile.mkdtemp(prefix='dt_parity_')
     try:
         for name in rows:

@@ -1,18 +1,19 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them. The four
-exceptions are the host-only modules ``models/preprocessor.py`` and
-``models/transformers.py``, which import pandas and scikit-learn,
-``data/streaming.py``, which imports pandas, and ``models/hyper_dt.py``
-(AutoML over ``DeepTable``), which imports pandas; nothing on the card's
-path imports them (``make_experiment`` loads the last on first use). The host utilities (``eda``, ``preprocessing``,
-``utils/feature_importance.py``, ``utils/quicktest.py``) import pandas and
-scikit-learn only inside the functions that use them.
+JAX package, so that it runs on a machine that has none of them. The one
+exception is the host-only module ``data/streaming.py`` (CSV/Parquet
+chunks through pandas), which nothing on the card's path imports. The
+estimator layer (``models/preprocessor.py``, ``models/transformers.py``,
+``models/deeptable.py``, ``models/hyper_dt.py``, ``preprocessing``,
+``tools/parity_quality.py``) runs on numpy alone; the host utilities
+(``eda``, ``utils/feature_importance.py``, ``utils/quicktest.py``), a
+``DeepTable``'s ``probe_evaluate``, GBM leaf features and the leaderboards
+import pandas or scikit-learn only inside the functions that use them.
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch``
-but those two, ``deeptables_torch.models`` (whose preprocessor exports are
-lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
+but the host-only one, ``deeptables_torch.models`` (whose estimator exports
+are lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
 no scikit-learn, a ``fit`` over a ``CriteoStreamLoader`` on TSV shards (the
 native parser, the card's streaming path), an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
@@ -20,12 +21,13 @@ and ``ops/kernels/cin.py``) and an AutoInt ``fit`` on the avazu-style columns
 (``ops/attention_grad.py``, ``ops/kernels/field_attention.py``, the fused
 block too). It hides any CUDA device, so that ``DeepModel`` without a
 device must raise. ``DeepTable`` and ``ModelSet`` (``models/deeptable.py``,
-``models/modelset.py``) import there too, and load through
-``deeptables_torch.models``'s lazy exports: they import pandas and
-scikit-learn inside the functions that use them. ``serving``,
-``models.deeptable``, ``models.modelset``, ``data``, ``data.fast_ingest`` and
-``data.criteo`` also import each on its own with those blocked, and
-``serving`` then loads neither ``DeepTable`` nor the preprocessor.
+``models/modelset.py``) and the preprocessor import there too, and load
+through ``deeptables_torch.models``'s lazy exports. ``serving``,
+``models.deeptable``, ``models.modelset``, ``data``, ``data.fast_ingest``,
+``data.criteo``, ``models.preprocessor``, ``models.hyper_dt`` and
+``tools.parity_quality`` also import each on its own with those blocked,
+and ``serving`` then loads neither ``DeepTable`` nor the preprocessor.
+(``tests/test_torch_estimator.py`` runs the estimator itself so.)
 """
 
 import os
@@ -39,12 +41,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
            'deeptables_tpu')
-# the port's only modules that import pandas (and scikit-learn) at module
-# level: the host's preprocessing and streaming, off the card's path
-HOST_ONLY = ('deeptables_torch.models.preprocessor',
-             'deeptables_torch.models.transformers',
-             'deeptables_torch.data.streaming',
-             'deeptables_torch.models.hyper_dt')
+# the port's only module that imports pandas at module level: the host's
+# streaming from CSV/Parquet files, off the card's path
+HOST_ONLY = ('deeptables_torch.data.streaming',)
 
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -64,14 +63,14 @@ for info in pkgutil.walk_packages(deeptables_torch.__path__,
 import deeptables_torch.models
 from deeptables_torch.models import DeepModel as _DeepModel
 for name in ('DefaultPreprocessor', 'AbstractPreprocessor'):
-    try:
-        getattr(deeptables_torch.models, name)
-    except ImportError:
-        pass
-    else:
-        raise AssertionError(f'{name} loaded with pandas blocked')
+    getattr(deeptables_torch.models, name)  # the estimator needs no pandas
 assert {'deeptables_torch.models.deeptable',
-        'deeptables_torch.models.modelset'} <= set(modules)
+        'deeptables_torch.models.modelset',
+        'deeptables_torch.models.preprocessor',
+        'deeptables_torch.models.transformers',
+        'deeptables_torch.models.hyper_dt',
+        'deeptables_torch.data.columns',
+        'deeptables_torch.tools.parity_quality'} <= set(modules)
 from deeptables_torch.models import DeepTable, ModelInfo, ModelSet
 from deeptables_torch import DeepTable as _DeepTable, ModelSet as _ModelSet
 assert DeepTable is _DeepTable and ModelSet is _ModelSet
@@ -235,7 +234,10 @@ print('ok')
                                     'deeptables_torch.models.modelset',
                                     'deeptables_torch.data',
                                     'deeptables_torch.data.fast_ingest',
-                                    'deeptables_torch.data.criteo'])
+                                    'deeptables_torch.data.criteo',
+                                    'deeptables_torch.models.preprocessor',
+                                    'deeptables_torch.models.hyper_dt',
+                                    'deeptables_torch.tools.parity_quality'])
 def test_module_imports_alone_without_host_libraries(module):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
                PYTHONPATH=str(REPO))
@@ -271,13 +273,20 @@ def test_sources_name_no_blocked_module():
 
 
 def test_host_only_modules_import_pandas():
-    """The three modules exempted above do need pandas at module level (so
-    the exemption names no module that could do without it);
-    transformers.py imports scikit-learn too."""
-    lines = {}
+    """The module exempted above does need pandas at module level (so the
+    exemption names no module that could do without it), and it is the
+    streaming module alone: the estimator layer imports neither pandas nor
+    scikit-learn at module level."""
+    assert HOST_ONLY == ('deeptables_torch.data.streaming',)
     for name in HOST_ONLY:
-        lines[name] = (REPO / (name.replace('.', '/') + '.py')).read_text() \
+        lines = (REPO / (name.replace('.', '/') + '.py')).read_text() \
             .splitlines()
-        assert 'import pandas as pd' in lines[name], name
-    assert any(line.startswith('from sklearn') for line in
-               lines['deeptables_torch.models.transformers'])
+        assert 'import pandas as pd' in lines, name
+    for path in ('models/preprocessor.py', 'models/transformers.py',
+                 'models/deeptable.py', 'models/hyper_dt.py',
+                 'data/datasets.py', 'tools/parity_quality.py',
+                 'preprocessing/utils.py'):
+        lines = (REPO / 'deeptables_torch' / path).read_text().splitlines()
+        assert not any(line.startswith(('import pandas', 'from pandas',
+                                        'import sklearn', 'from sklearn'))
+                       for line in lines), path
