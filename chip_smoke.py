@@ -243,6 +243,36 @@ included), into R rows, with its bound and ``index_add_``'s time.
       (checked): numpy's Zipf stream differs between releases, and with
       it the criteo- and avazu-style tables.
 
+11. ``stream_csv`` (five lines and ``stream_csv_wall``): out-of-core
+    training from CSV through ``DeepTable``, again with ``pandas`` and
+    ``sklearn`` blocked. Four training shards of 50,000 rows and a
+    validation shard of 10,000, written with the standard library's
+    ``csv`` in the Criteo display-ads layout: ``label``, the 13 dense
+    columns of ``load_criteo_synthetic`` (~5% of fields empty) and its 26
+    categorical columns as 8-hex-digit tokens of a 32-bit hash of the id
+    (~3% empty). DeepFM at full criteo width (D=16, DNN 1024/512 relu,
+    ``C1``..``C26`` categorical) under the default ``'float32'`` policy,
+    batches of 8192, chunks of 25,000 rows read by ``columns.read_csv``:
+    - ``stream_csv_pre``: ``fit_preprocessor_streaming`` (exact) gives the
+      column lists, vocabularies and fills of ``DeepTable``'s in-memory fit
+      of the shards read whole and concatenated, the means within
+      ``STREAM_CSV_MEAN_RTOL``; the pass's seconds and rows/s.
+    - ``stream_csv_card_vs_cpu``: ``DeepTable.fit`` over a
+      ``StreamingDataLoader`` on the card and with ``device='cpu'`` from
+      one seed, embedding dropout off, three steps and the validation
+      loader: losses rtol 1e-4, parameters by ``check_params``.
+    - ``stream_csv_fit``: two epochs with the validation loader: the loss
+      falls, examples/s an epoch and the step times (host clock,
+      synchronised); K1 and K2-bwd once a step, K2-fwd once a step and a
+      validation batch (checked).
+    - ``stream_csv_cv``: ``fit_cross_validation_streaming``, 3 folds of one
+      epoch over the first two shards: finite scores, K1, K2-fwd and
+      K2-bwd in every fold's fit.
+    - ``stream_csv_estimator``: both leaderboards come back as
+      ``Columns``; ``probe_evaluate`` on ``dnn_nets``' output (validation
+      rows, AUC above 0.5); ``get_score_importances`` (``n_iter=1``, 2000
+      rows): 39 finite rows, sorted.
+
 Then a ``profiler`` line
 (``incomplete_windows``: the timing windows that
 lost launches three times in a row, whose times are the means of the
@@ -445,6 +475,25 @@ ESTIMATOR_BASELINE = {
     'avazu_autoint': {'auc': (0.7299, 0.0178), 'logloss': (0.4393, 0.0302)},
 }
 ESTIMATOR_BLOCKED = ('pandas', 'sklearn')
+# the stream_csv phase: DeepFM at full criteo width (the package's default
+# float32 policy) through DeepTable from CSV shards in the Criteo
+# display-ads layout, read by columns.read_csv with pandas and scikit-learn
+# blocked: four training shards and a validation one of
+# load_criteo_synthetic's rows, ~5% of dense and ~3% of categorical fields
+# empty; chunks of STREAM_CSV_CHUNK rows; the probe's rows of the
+# validation shard (train, test) and the importances' rows
+STREAM_CSV_SHARDS, STREAM_CSV_ROWS, STREAM_CSV_VAL_ROWS = 4, 50_000, 10_000
+STREAM_CSV_CHUNK = 25_000
+STREAM_CSV_MISSING = {'dense': 0.05, 'categorical': 0.03}
+STREAM_CSV_SEED = 31
+STREAM_CSV_EPOCHS, STREAM_CSV_FOLDS = 2, 3
+# the shards the streaming CV folds (each fold reads them three times)
+STREAM_CSV_CV_SHARDS = 2
+STREAM_CSV_PROBE_ROWS = (6000, 4000)
+STREAM_CSV_IMPORTANCE_ROWS = 2000
+# the streamed imputation means against the in-memory ones: sums of chunks
+# against one pairwise sum
+STREAM_CSV_MEAN_RTOL = 1e-9
 # the digests (parity_quality.table_digest) of those rows' tables as numpy
 # 2.0 draws them: the tables of BASELINE.md's rows and of the port's CPU
 # parity runs. Another numpy's Zipf stream draws other criteo- and
@@ -3159,11 +3208,17 @@ def estimator_phase(torch, port, kernel_fns, tmp):
     """``DeepTable`` on the card with pandas and scikit-learn blocked (see
     the module's docstring, 10). Returns the launches of the runs on the
     card."""
+    return blocked_run(_estimator_runs, torch, port, kernel_fns, tmp)
+
+
+def blocked_run(run, *args):
+    """``run(*args)`` with ESTIMATOR_BLOCKED set to None in sys.modules, so
+    that importing them fails; restored after."""
     saved = {name: sys.modules.get(name) for name in ESTIMATOR_BLOCKED}
     for name in ESTIMATOR_BLOCKED:
         sys.modules[name] = None
     try:
-        return _estimator_runs(torch, port, kernel_fns, tmp)
+        return run(*args)
     finally:
         for name, module in saved.items():
             if module is None:
@@ -3334,6 +3389,393 @@ def _estimator_runs(torch, port, kernel_fns, tmp):
     return launches
 
 
+def criteo_tokens(cat):
+    """8-hex-digit tokens of a 32-bit hash (murmur3's finaliser) of each id
+    and its column, as Criteo's public data writes its categories."""
+    mask = np.uint64(0xffffffff)
+    h = ((cat.astype(np.uint64) + np.uint64(1)) * np.uint64(0x9e3779b1)
+         + (np.arange(cat.shape[1], dtype=np.uint64) + np.uint64(1))
+         * np.uint64(0x85ebca6b)) & mask
+    for shift, mult in ((16, 0x85ebca6b), (13, 0xc2b2ae35), (16, None)):
+        h ^= h >> np.uint64(shift)
+        if mult is not None:
+            h = (h * np.uint64(mult)) & mask
+    digits = np.frombuffer(b'0123456789abcdef', np.uint8)
+    text = np.empty(h.shape + (8,), np.uint8)
+    for k in range(8):
+        text[..., k] = digits[((h >> np.uint64(28 - 4 * k))
+                               & np.uint64(15)).astype(np.intp)]
+    return text.view('S8')[..., 0].astype('U8')
+
+
+def write_stream_csv(tmp, load_criteo_synthetic):
+    """The stream_csv phase's shards in ``tmp``, written with the standard
+    library's csv: {'train': [paths], 'val': [path]} and the seconds it
+    took."""
+    import csv
+    t0 = time.perf_counter()
+    n_train = STREAM_CSV_SHARDS * STREAM_CSV_ROWS
+    cat, dense, y, _ = load_criteo_synthetic(
+        n_rows=n_train + STREAM_CSV_VAL_ROWS, seed=STREAM_CSV_SEED,
+        return_arrays=True)
+    rng = np.random.default_rng(STREAM_CSV_SEED)
+    dense_text = dense.astype(str)
+    dense_text[rng.random(dense.shape) < STREAM_CSV_MISSING['dense']] = ''
+    tokens = criteo_tokens(cat)
+    tokens[rng.random(cat.shape) < STREAM_CSV_MISSING['categorical']] = ''
+    table = np.concatenate([y.astype(np.int64).astype(str)[:, None],
+                            dense_text, tokens], axis=1)
+    header = (['label'] + [f'I{j}' for j in range(1, N_DENSE + 1)]
+              + [f'C{j}' for j in range(1, F_CRITEO + 1)])
+    paths = {'train': [], 'val': []}
+    bounds = [(k * STREAM_CSV_ROWS, (k + 1) * STREAM_CSV_ROWS)
+              for k in range(STREAM_CSV_SHARDS)] + [(n_train, len(y))]
+    for k, (lo, hi) in enumerate(bounds):
+        split = 'val' if k == STREAM_CSV_SHARDS else 'train'
+        path = os.path.join(tmp, f'{split}_{k}.csv')
+        with open(path, 'w', newline='') as f:
+            writer = csv.writer(f, lineterminator='\n')
+            writer.writerow(header)
+            writer.writerows(table[lo:hi].tolist())
+        paths[split].append(path)
+    return paths, time.perf_counter() - t0
+
+
+def stream_csv_config(port, tmp, **extra):
+    """DeepFM at full criteo width on the CSV columns, the default policy."""
+    return port.ModelConfig(
+        nets=NETS['DeepFM'], metrics=['AUC'], embeddings_output_dim=D_CRITEO,
+        categorical_columns=[f'C{j}' for j in range(1, F_CRITEO + 1)],
+        dnn_params={'hidden_units': ((1024, 0, False), (512, 0, False)),
+                    'activation': 'relu'},
+        earlystopping_patience=0, home_dir=os.path.join(tmp, 'dt'), **extra)
+
+
+def preprocessor_summary(pre):
+    """A fitted preprocessor's column lists, vocabularies and imputation
+    fills (a column's mean, or its constant), and the columns that take a
+    mean: from the in-memory fit's ColumnTransformer of SimpleImputers or
+    the streaming fit's FixedImputer."""
+    encoders = pre.X_transformers['label_encoder'].encoders
+    step = pre.X_transformers['imputation']
+    fills, means = {}, set()
+    if hasattr(step, 'means'):
+        fills.update(step.means)
+        fills.update({c: '' for c in step.obj_cats})
+        fills.update({c: 0 for c in step.num_cats})
+        means.update(step.means)
+    else:
+        for _, imputer, cols in step.transformer.transformers_:
+            if isinstance(imputer, str):
+                continue
+            fills.update(zip(cols, imputer.statistics_.tolist()))
+            if imputer.strategy == 'mean':
+                means.update(cols)
+    return {'categorical': [(c.name, c.vocabulary_size,
+                             c.embeddings_output_dim)
+                            for c in pre.categorical_columns],
+            'continuous': [(c.name, list(c.column_names))
+                           for c in pre.continuous_columns],
+            'vocabularies': {c: np.asarray(e.classes_)
+                             for c, e in encoders.items()},
+            'fills': fills, 'means': means}
+
+
+def stream_csv_phase(torch, port, kernel_fns, tmp, load_criteo_synthetic):
+    """DeepTable from CSV shards on the card with pandas and scikit-learn
+    blocked (see the module's docstring, 11). Returns the launches of the
+    runs on the card."""
+    t0 = time.perf_counter()
+    launches = blocked_run(_stream_csv_runs, torch, port, kernel_fns, tmp,
+                           load_criteo_synthetic)
+    emit({'phase': 'stream_csv_wall', 's': time.perf_counter() - t0,
+          'launches': {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def _stream_csv_runs(torch, port, kernel_fns, tmp, load_criteo_synthetic):
+    from deeptables_torch.data import columns
+    from deeptables_torch.data.streaming import (ChunkedSource,
+                                                 StreamingDataLoader,
+                                                 fit_preprocessor_streaming)
+    from deeptables_torch.models import DeepModel, DeepTable
+    from deeptables_torch.models.callbacks import LambdaCallback
+    from deeptables_torch.models.deeptable import probe_evaluate
+    from deeptables_torch.models.preprocessor import DefaultPreprocessor
+    from deeptables_torch.ops import metrics as metrics_lib
+    from deeptables_torch.utils.feature_importance import \
+        get_score_importances
+    launches = dict.fromkeys(kernel_fns, 0)
+
+    def add(counts):
+        for name, count in counts.items():
+            launches[name] += count
+        return counts
+
+    paths, write_s = write_stream_csv(tmp, load_criteo_synthetic)
+    n_train = STREAM_CSV_SHARDS * STREAM_CSV_ROWS
+    nbytes = sum(os.path.getsize(p) for p in paths['train'])
+
+    # (a) the exact streaming fit against DeepTable's in-memory one
+    source = ChunkedSource(paths['train'], chunk_size=STREAM_CSV_CHUNK)
+    pre = DefaultPreprocessor(stream_csv_config(port, tmp), use_cache=False)
+    t = time.perf_counter()
+    fit_preprocessor_streaming(pre, source, 'label')
+    pre_s = time.perf_counter() - t
+    t = time.perf_counter()
+    table = columns.concat([columns.read_csv(p) for p in paths['train']])
+    read_s = time.perf_counter() - t
+    check(isinstance(table, columns.Columns) and len(table) == n_train,
+          f'read_csv gave {type(table)} of {len(table)} rows')
+    y = table.pop('label')
+    reset_launches(kernel_fns)
+    memory_dt = DeepTable(stream_csv_config(port, tmp), device=None,
+                          preprocessor=DefaultPreprocessor(
+                              stream_csv_config(port, tmp), use_cache=False))
+    t = time.perf_counter()
+    memory_dt.fit(table, y, epochs=1, batch_size=TRAIN_BATCH,
+                  steps_per_epoch=1, verbose=0)
+    memory_fit_s = time.perf_counter() - t
+    add(read_launches(kernel_fns))
+    streamed, in_memory = (preprocessor_summary(p)
+                           for p in (pre, memory_dt.preprocessor))
+    check(streamed['categorical'] == in_memory['categorical']
+          and streamed['continuous'] == in_memory['continuous'],
+          'stream_csv: the streamed and in-memory column lists differ')
+    check(list(streamed['vocabularies']) == list(in_memory['vocabularies'])
+          and all(np.array_equal(v, in_memory['vocabularies'][c])
+                  for c, v in streamed['vocabularies'].items()),
+          'stream_csv: the streamed and in-memory vocabularies differ')
+    check(streamed['means'] == in_memory['means'] and set(streamed['fills'])
+          == set(in_memory['fills']),
+          'stream_csv: the imputed columns differ')
+    mean_rel = 0.
+    for c, fill in streamed['fills'].items():
+        if c in streamed['means']:
+            mean_rel = max(mean_rel, abs(fill - in_memory['fills'][c])
+                           / abs(in_memory['fills'][c]))
+        else:
+            check(fill == in_memory['fills'][c],
+                  f'stream_csv: the fill of {c}: {fill!r}, in memory '
+                  f'{in_memory["fills"][c]!r}')
+    check(mean_rel <= STREAM_CSV_MEAN_RTOL,
+          f'stream_csv: imputation means differ by {mean_rel} (relative)')
+    vocab = {c: len(v) for c, v in streamed['vocabularies'].items()}
+    emit({'phase': 'stream_csv_pre', 'rows': n_train, 'bytes': nbytes,
+          'files': len(paths['train']), 'chunk_rows': STREAM_CSV_CHUNK,
+          'write_s': write_s, 'fit_preprocessor_streaming_s': pre_s,
+          'pass_rows_per_s': n_train / pre_s, 'whole_read_s': read_s,
+          'read_rows_per_s': n_train / read_s,
+          'read_mb_per_s': nbytes / 1e6 / read_s,
+          'memory_fit_s': memory_fit_s,
+          'equal': {'columns': True, 'vocabularies': True, 'fills': True},
+          'mean_max_rel_diff': mean_rel, 'mean_rtol': STREAM_CSV_MEAN_RTOL,
+          'vocabulary_rows': int(sum(vocab.values())),
+          'cpu_count': os.cpu_count()})
+    del memory_dt, table
+    torch.cuda.empty_cache()
+
+    def loaders():
+        train = StreamingDataLoader(source, pre, 'label',
+                                    batch_size=TRAIN_BATCH,
+                                    seed=STREAM_CSV_SEED)
+        val = StreamingDataLoader(
+            ChunkedSource(paths['val'], chunk_size=STREAM_CSV_CHUNK), pre,
+            'label', batch_size=TRAIN_BATCH, shuffle_in_chunk=False,
+            drop_remainder=False)
+        return train, val
+
+    # (b) the card against the CPU, three steps from one seed
+    fits = {}
+    for run, device in (('card', None), ('cpu', 'cpu')):
+        reset_launches(kernel_fns)
+        dt = DeepTable(stream_csv_config(port, tmp, embedding_dropout=0),
+                       preprocessor=pre, device=device)
+        train, val = loaders()
+        t = time.perf_counter()
+        _, history = dt.fit(train, epochs=1, verbose=0,
+                            steps_per_epoch=STREAM_COMPARE_STEPS,
+                            validation_data=val)
+        fits[run] = ({k: v.detach().cpu() for k, v in
+                      dt.get_model().module.state_dict().items()},
+                     {k: v[0] for k, v in history.history.data.items()},
+                     time.perf_counter() - t)
+        if run == 'card':
+            counts = add(read_launches(kernel_fns))
+            check(all(counts[k] > 0 for k in ('emb_grad', 'fm_fwd',
+                                              'fm_bwd')),
+                  f'stream_csv: the card fit launched {counts}')
+        del dt
+    (card_state, card_logs, card_s), (cpu_state, cpu_logs, cpu_s) = \
+        fits['card'], fits['cpu']
+    loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                 for k in ('loss', 'val_loss')}
+    for k, d in loss_diff.items():
+        check(d <= 1e-4 * abs(cpu_logs[k]),
+              f'stream_csv: card {k} {card_logs[k]} vs CPU {cpu_logs[k]}')
+    params = check_params('stream_csv', card_state, cpu_state)
+    emit({'phase': 'stream_csv_card_vs_cpu', 'dtype_policy': 'float32',
+          'steps': STREAM_COMPARE_STEPS, 'card': card_logs, 'cpu': cpu_logs,
+          'loss_diff': loss_diff, 'fit_s': {'card': card_s, 'cpu': cpu_s},
+          'params_over_atol': {k: v['over_atol'] for k, v in params.items()
+                               if v['over_atol']},
+          'params_max_abs_diff': max(v['max_abs_diff']
+                                     for v in params.values()),
+          'tolerance': {'loss_rtol': 1e-4, 'param_atol': PARAM_ATOL,
+                        'param_outlier_share': PARAM_OUTLIERS},
+          'blocked': list(ESTIMATOR_BLOCKED)})
+    del fits, card_state, cpu_state
+    torch.cuda.empty_cache()
+
+    # (c) two epochs on the card, step times on the host clock
+    step_s, val_s, epochs = [], [], []
+    train_step, loader_logits = DeepModel._train_step, \
+        DeepModel._loader_logits
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    def timed_validation(self, loader):
+        t = time.perf_counter()
+        out = loader_logits(self, loader)
+        val_s.append(time.perf_counter() - t)
+        return out
+
+    def epoch_begin(epoch, logs=None):
+        torch.cuda.synchronize()
+        epochs.append({'t': time.perf_counter(), 'first_step': len(step_s)})
+
+    def epoch_end(epoch, logs=None):
+        torch.cuda.synchronize()
+        epochs[-1].update(s=time.perf_counter() - epochs[-1].pop('t'),
+                          steps=len(step_s) - epochs[-1]['first_step'])
+    train, val = loaders()
+    val_batches = -(-STREAM_CSV_VAL_ROWS // TRAIN_BATCH)
+    reset_launches(kernel_fns)
+    fit_dt = DeepTable(stream_csv_config(port, tmp), preprocessor=pre,
+                       device=None)
+    DeepModel._train_step, DeepModel._loader_logits = \
+        timed_step, timed_validation
+    try:
+        t = time.perf_counter()
+        _, history = fit_dt.fit(
+            train, epochs=STREAM_CSV_EPOCHS, verbose=0, validation_data=val,
+            callbacks=[LambdaCallback(on_epoch_begin=epoch_begin,
+                                      on_epoch_end=epoch_end)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        DeepModel._train_step, DeepModel._loader_logits = \
+            train_step, loader_logits
+    counts = add(read_launches(kernel_fns))
+    logs = {k: list(v) for k, v in history.history.data.items()}
+    steps = len(step_s)
+    per_epoch = [e['steps'] for e in epochs]
+    check(len(per_epoch) == STREAM_CSV_EPOCHS and min(per_epoch) > 0,
+          f'stream_csv steps by epoch {per_epoch}')
+    check(all(math.isfinite(v) for vs in logs.values() for v in vs),
+          f'stream_csv: non-finite logs {logs}')
+    check(logs['loss'][-1] < logs['loss'][0],
+          f'stream_csv: the loss did not fall: {logs["loss"]}')
+    expected = dict.fromkeys(kernel_fns, 0)
+    expected.update(emb_grad=steps, fm_bwd=steps,
+                    fm_fwd=steps + STREAM_CSV_EPOCHS * val_batches)
+    check(counts == expected, f'stream_csv: {steps} steps and '
+                              f'{STREAM_CSV_EPOCHS} validations of '
+                              f'{val_batches} batches launched {counts}, '
+                              f'expected {expected}')
+    emit({'phase': 'stream_csv_fit', 'model': 'DeepFM',
+          'dtype_policy': 'float32', 'batch_size': TRAIN_BATCH,
+          'train_rows': n_train, 'val_rows': STREAM_CSV_VAL_ROWS,
+          'epochs': STREAM_CSV_EPOCHS, 'steps_per_epoch': per_epoch,
+          'val_batches': val_batches, 'fit_s': fit_s,
+          'epoch_s': [e['s'] for e in epochs], 'validation_s': val_s,
+          'examples_per_s': [TRAIN_BATCH * e['steps'] / (e['s'] - v)
+                             for e, v in zip(epochs, val_s)],
+          'median_step_ms': 1e3 * sorted(step_s)[steps // 2],
+          'step_ms': [1e3 * t for t in step_s], 'launches': counts,
+          'logs': logs, 'table_rows': int(sum(
+              c.vocabulary_size for c in pre.categorical_columns))})
+
+    # (d) cross-validation over the first STREAM_CSV_CV_SHARDS shards, K1
+    # and K2 in every fold
+    reset_launches(kernel_fns)
+    folds = fold_launches(kernel_fns)
+    cv_dt = DeepTable(stream_csv_config(port, tmp), preprocessor=pre,
+                      device=None)
+    t = time.perf_counter()
+    scores = cv_dt.fit_cross_validation_streaming(
+        ChunkedSource(paths['train'][:STREAM_CSV_CV_SHARDS],
+                      chunk_size=STREAM_CSV_CHUNK), 'label',
+        num_folds=STREAM_CSV_FOLDS, batch_size=TRAIN_BATCH, epochs=1,
+        verbose=0, callbacks=[folds])
+    cv_s = time.perf_counter() - t
+    add(read_launches(kernel_fns))
+    check(len(scores) == STREAM_CSV_FOLDS and all(
+        math.isfinite(v) for score in scores for v in score.values()),
+        f'stream_csv: fold scores {scores}')
+    check(len(folds.folds) == STREAM_CSV_FOLDS and all(
+        fold[k] > 0 for fold in folds.folds
+        for k in ('emb_grad', 'fm_fwd', 'fm_bwd')),
+        f'stream_csv: the folds launched {folds.folds}')
+    emit({'phase': 'stream_csv_cv', 'folds': STREAM_CSV_FOLDS,
+          'rows': STREAM_CSV_CV_SHARDS * STREAM_CSV_ROWS, 'cv_s': cv_s,
+          'scores': scores,
+          'fold_launches': [{k: v for k, v in fold.items() if v}
+                            for fold in folds.folds]})
+
+    # (e) the leaderboards, the linear probe, permutation importances
+    reset_launches(kernel_fns)
+    boards = {'fit': fit_dt.leaderboard, 'cv': cv_dt.leaderboard}
+    for name, board in boards.items():
+        check(isinstance(board, columns.Columns),
+              f'stream_csv: the {name} leaderboard is {type(board)}')
+    check(list(boards['cv']['model']) == [
+        f'{"+".join(NETS["DeepFM"])}-stream-kfold-{k}'
+        for k in range(1, STREAM_CSV_FOLDS + 1)],
+        f'stream_csv: the CV leaderboard {boards["cv"]["model"]}')
+    val_table = columns.read_csv(paths['val'][0])
+    val_y = val_table.pop('label')
+    n_probe, n_test = STREAM_CSV_PROBE_ROWS
+    t = time.perf_counter()
+    probe = probe_evaluate(
+        fit_dt, val_table.take(np.arange(n_probe)), val_y[:n_probe],
+        val_table.take(np.arange(n_probe, n_probe + n_test)),
+        val_y[n_probe:n_probe + n_test], layers=['dnn_nets_out'],
+        score_fn={'auc': metrics_lib.auc, 'accuracy': metrics_lib.accuracy})
+    probe_s = time.perf_counter() - t
+    check(probe['dnn_nets_out']['auc'] > 0.5,
+          f'stream_csv: the probe scored {probe}')
+    rows = np.arange(STREAM_CSV_IMPORTANCE_ROWS)
+    t = time.perf_counter()
+    importances = get_score_importances(
+        fit_dt, val_table.take(rows), val_y[rows], 'AUC', n_iter=1,
+        mode='max')
+    importance_s = time.perf_counter() - t
+    values = importances[:, 1].astype(float)
+    check(importances.shape == (N_DENSE + F_CRITEO, 2)
+          and np.isfinite(values).all()
+          and list(values) == sorted(values, reverse=True),
+          f'stream_csv: importances {importances.tolist()}')
+    add(read_launches(kernel_fns))
+    emit({'phase': 'stream_csv_estimator',
+          'leaderboards': {name: {'rows': len(board),
+                                  'columns': board.columns}
+                           for name, board in boards.items()},
+          'probe': probe, 'probe_rows': list(STREAM_CSV_PROBE_ROWS),
+          'probe_s': probe_s, 'importance_rows': len(rows),
+          'importance_s': importance_s,
+          'importances_top5': importances[:5].tolist()})
+    del fit_dt, cv_dt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if sys.argv[1:2] == ['--sharded-rank']:
@@ -3462,6 +3904,12 @@ def main():
     with tempfile.TemporaryDirectory(prefix='chip_smoke_estimator_') as tmp:
         for name, count in estimator_phase(torch, port, kernel_fns,
                                            tmp).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_stream_csv_') as tmp:
+        for name, count in stream_csv_phase(torch, port, kernel_fns, tmp,
+                                            load_criteo_synthetic).items():
             launches[name] += count
         torch.cuda.empty_cache()
 

@@ -9,13 +9,14 @@ kernel. It is compiled at first use with the host compiler (``$CXX``, else
 CUDA libraries of ``ops/kernels/_build.py`` (the hash covers the source,
 the compiler and its flags) and loaded with ``ctypes``. Without a compiler
 the parsers fall back, with a warning, to their plain Python twins
-(``_parse_criteo_py``; pandas for ``parse_numeric_csv``), as the JAX package
-does; ``have_native()`` says which ran.
+(``_parse_criteo_py``; ``columns.read_csv`` for ``parse_numeric_csv``), as
+the JAX package does; ``have_native()`` says which ran.
 """
 
 import ctypes
 import glob
 import hashlib
+import io
 import os
 import shlex
 import subprocess
@@ -23,6 +24,7 @@ import threading
 
 import numpy as np
 
+from . import columns
 from ..ops.kernels._build import BUILD_ROOT, CSRC_DIR
 from ..utils import dt_logging
 
@@ -177,8 +179,8 @@ def _parse_criteo_py(data, n_dense, n_cat, hash_buckets):
 
 def parse_numeric_csv(data: bytes, n_cols: int, skip_header=True,
                       n_threads=None):
-    """Parse a numeric CSV → float32 (N, n_cols) matrix (pandas only
-    without the native library)."""
+    """Parse a numeric CSV → float32 (N, n_cols) matrix (without the native
+    library: ``columns.read_csv``, typed as ``pd.read_csv`` types it)."""
     if n_threads is None:
         n_threads = min(os.cpu_count() or 1, 16)
     lib = get_library()
@@ -191,11 +193,9 @@ def parse_numeric_csv(data: bytes, n_cols: int, skip_header=True,
                                          ctypes.POINTER(ctypes.c_float)),
                                      n_lines)
         return out[:rows]
-    import io
-    import pandas as pd
-    df = pd.read_csv(io.BytesIO(data),
-                     header=0 if skip_header else None)
-    return df.to_numpy(np.float32)
+    table = columns.read_csv(io.StringIO(data.decode('utf-8'), newline=''),
+                             header=0 if skip_header else None)
+    return columns.to_2d(table, np.float32)
 
 
 class CriteoTsvSource:

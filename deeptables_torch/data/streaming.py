@@ -3,25 +3,26 @@
 ``deeptables_tpu/data/streaming.py``.
 
 Trains on datasets larger than host memory by streaming file shards: a
-chunked reader over CSV/Parquet shards (or in-memory DataFrames), a
+chunked reader over CSV/Parquet shards (or in-memory tables), a
 preprocessor fitted on exact one-pass statistics (or a bounded sample), and
 a loader that transforms the next chunk on a worker thread while the model
 trains on the current one. With ``num_hosts`` > 1 each host reads a
 disjoint subset of the files.
 
-The module needs pandas (the preprocessor does too), so it runs on the host
-only; the card's machine, which has no pandas, streams Criteo TSV through
-``data/criteo.py`` instead.
+Chunks are named numpy columns (``data.columns.Columns``): CSV is read by
+``columns.read_csv``, which types each chunk as ``pd.read_csv`` does, so
+the module needs neither pandas nor scikit-learn. Parquet alone is read by
+``pandas.read_parquet`` (``columns.read_parquet``: pandas and pyarrow).
 """
 
 import collections
 import concurrent.futures
 import glob as _glob
-from typing import Iterator, Optional, Sequence, Union
+from typing import Iterator, Optional
 
 import numpy as np
-import pandas as pd
 
+from . import columns as cl
 from . import pipeline
 from ..utils import dt_logging
 
@@ -29,17 +30,16 @@ logger = dt_logging.get_logger(__name__)
 
 
 class ChunkedSource:
-    """Iterate (host-sharded) CSV/Parquet files — or in-memory DataFrames —
-    as DataFrame chunks.  DataFrame inputs preserve pandas dtypes exactly
-    (bool/Categorical), matching what the in-memory fit path would see."""
+    """Iterate (host-sharded) CSV/Parquet files — or in-memory tables (a
+    DataFrame, a dict of 1-D arrays, ``Columns``) — as ``Columns`` chunks.
+    A table keeps its kinds exactly (bool, Categorical), matching what the
+    in-memory fit path would see."""
 
-    def __init__(self, paths: Union[str, Sequence[str], pd.DataFrame,
-                                    Sequence[pd.DataFrame]],
-                 chunk_size: int = 100_000,
+    def __init__(self, paths, chunk_size: int = 100_000,
                  host_id: int = 0, num_hosts: int = 1):
         if isinstance(paths, str):
             paths = sorted(_glob.glob(paths)) or [paths]
-        elif isinstance(paths, pd.DataFrame):
+        elif isinstance(paths, (dict, cl.Columns)) or cl.is_frame(paths):
             paths = [paths]
         self.paths = list(paths)
         if num_hosts > 1:
@@ -47,20 +47,33 @@ class ChunkedSource:
             self.paths = self.paths[host_id::num_hosts]
         self.chunk_size = chunk_size
 
-    def iter_chunks(self) -> Iterator[pd.DataFrame]:
+    def iter_chunks(self) -> Iterator[cl.Columns]:
         for path in self.paths:
-            if isinstance(path, pd.DataFrame):
-                for s in range(0, len(path), self.chunk_size):
-                    yield path.iloc[s:s + self.chunk_size]
-            elif path.endswith('.parquet'):
-                df = pd.read_parquet(path)
-                for s in range(0, len(df), self.chunk_size):
-                    yield df.iloc[s:s + self.chunk_size]
-            else:
-                for chunk in pd.read_csv(path, chunksize=self.chunk_size):
-                    yield chunk
+            if isinstance(path, str) and not path.endswith('.parquet'):
+                yield from cl.read_csv(path, chunksize=self.chunk_size)
+                continue
+            table = cl.read_parquet(path) if isinstance(path, str) \
+                else cl.as_columns(path, rename=False)
+            for s in range(0, len(table), self.chunk_size):
+                yield table.take(np.arange(s, min(s + self.chunk_size,
+                                                  len(table))))
 
-    def sample(self, n_rows: int) -> pd.DataFrame:
+    def n_rows(self) -> int:
+        """The rows ``iter_chunks`` yields: CSV rows counted without being
+        typed, a table's rows by its length."""
+        total = 0
+        for path in self.paths:
+            if isinstance(path, dict):
+                total += len(cl.as_columns(path, rename=False))
+            elif not isinstance(path, str):
+                total += len(path)
+            elif path.endswith('.parquet'):
+                total += len(cl.read_parquet(path))
+            else:
+                total += cl.count_csv_rows(path)
+        return total
+
+    def sample(self, n_rows: int) -> cl.Columns:
         """First-n sample used to fit the preprocessor (bounded memory)."""
         parts = []
         total = 0
@@ -71,7 +84,8 @@ class ChunkedSource:
                 break
         if not parts:
             raise ValueError('source produced no data')
-        return pd.concat(parts).head(n_rows)
+        sample = cl.concat(parts)
+        return sample.take(np.arange(min(n_rows, len(sample))))
 
 
 class StreamingDataLoader:
@@ -122,7 +136,7 @@ class StreamingDataLoader:
     def steps(self):
         if self._steps_per_epoch is None:
             # one counting pass (cheap: row counts only)
-            total = sum(len(c) for c in self.source.iter_chunks())
+            total = self.source.n_rows()
             if self.fold_spec is not None:
                 num_folds, _f, role = self.fold_spec
                 frac = 1.0 / num_folds
@@ -130,10 +144,11 @@ class StreamingDataLoader:
             self._steps_per_epoch = max(total // self.batch_size, 1)
         return self._steps_per_epoch
 
-    def _chunk_to_batches(self, chunk: pd.DataFrame, shuffle_seed,
+    def _chunk_to_batches(self, chunk: cl.Columns, shuffle_seed,
                           base_offset=0):
         if self.fold_spec is not None:
-            chunk = chunk[self._fold_mask(len(chunk), base_offset)]
+            chunk = chunk.take(np.flatnonzero(
+                self._fold_mask(len(chunk), base_offset)))
             if len(chunk) == 0:
                 return []
         y_raw = chunk[self.target]
@@ -250,20 +265,22 @@ class ColumnStats:
     def mean(self) -> float:
         return self.sum_ / self.n_nonnull_num if self.n_nonnull_num else 0.0
 
-    def update(self, col: pd.Series, var_len_sep: Optional[str] = None):
-        self.dtypes.add(str(col.dtype))
+    def update(self, col, kind: str, var_len_sep: Optional[str] = None):
+        """Add one chunk's column: its values and its kind (``Columns``)."""
+        is_category = kind.startswith('category[')
+        self.dtypes.add('category' if is_category else kind)
         # record the imputer fill kind from the ACTUAL chunk dtype (a
         # Categorical resolves via its categories' dtype) — see
         # wants_string_fill
-        cats = getattr(col.dtype, 'categories', None)
-        base = str(cats.dtype if cats is not None else col.dtype).lower()
+        base = (kind[len('category['):-1] if is_category else kind).lower()
         if base.startswith(('object', 'str')):
             self.string_fill = True
-        nonnull = col.dropna()
+        missing = cl.isna(col)
+        nonnull = col[~missing]
         if len(nonnull) < len(col):
             self.has_nan = True
         if not self.unique_overflow:
-            self.uniques.update(pd.unique(nonnull))
+            self.uniques.update(cl.unique(nonnull))
             if len(self.uniques) > self.unique_cap \
                     and not self.is_categorical_dtype:
                 # numeric high-cardinality: only the count bound is needed
@@ -272,15 +289,15 @@ class ColumnStats:
         if var_len_sep is not None:
             if self.tokens is None:
                 self.tokens = set()
-            for v in nonnull.astype(str):
+            for v in cl.as_str(nonnull):
                 parts = [p for p in v.split(var_len_sep) if p != '']
                 self.tokens.update(parts)
                 self.max_token_len = max(self.max_token_len, len(parts))
             return
         if self.is_categorical_dtype:
             return
-        vals = pd.to_numeric(nonnull, errors='coerce').dropna()
-        arr = vals.to_numpy(np.float64)
+        arr = cl.to_float(nonnull)
+        arr = arr[~np.isnan(arr)]
         if arr.size:
             self.n_nonnull_num += arr.size
             self.sum_ += float(arr.sum())
@@ -340,10 +357,10 @@ class YStats:
         self.n_rows = 0
         self.dtypes = set()
 
-    def update(self, y: pd.Series):
-        if y.isna().any():
+    def update(self, y):
+        if cl.isna(y).any():
             raise ValueError('Missing values in y.')
-        self.uniques.update(pd.unique(y))
+        self.uniques.update(cl.unique(y))
         self.n_rows += len(y)
         self.dtypes.add(y.dtype.kind)
 
@@ -372,9 +389,8 @@ def collect_streaming_stats(source: ChunkedSource, target: str, config,
                 st = col_stats[c] = ColumnStats(
                     unique_cap=unique_cap, vc_cap=vc_cap,
                     reservoir_size=reservoir_size, seed=seed)
-            st.update(X[c], var_len_sep=var_len_seps.get(c))
-            nan_counts[c] = nan_counts.get(c, 0) \
-                + int(X[c].isna().sum())
+            st.update(X[c], X.kinds[c], var_len_sep=var_len_seps.get(c))
+            nan_counts[c] = nan_counts.get(c, 0) + int(cl.isna(X[c]).sum())
     for c, st in col_stats.items():
         st.n_nan = nan_counts.get(c, 0)
     return col_stats, y_stats, n_rows

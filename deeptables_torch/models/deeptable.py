@@ -14,18 +14,19 @@ on ``device``: ``None`` is the current CUDA device (an error without one),
 ``'cpu'`` the plain PyTorch path. It takes a DataFrame, a dict of 1-D
 arrays or a 2-D array, converted once at the entry to named numpy columns
 (``data.columns``), and needs neither pandas nor scikit-learn: the folds
-come from ``data.split``, the test-proba CSV files are written with numpy;
-only ``probe_evaluate`` imports scikit-learn. Cross-validation folds run
-one after another; ``n_jobs`` is accepted and ignored. ``fit``,
-``evaluate`` and ``predict`` take a streaming loader
-(``data/streaming.py``), and
-``fit_cross_validation_streaming`` folds a stream by position.
+come from ``data.split``, the test-proba CSV files are written with numpy,
+and ``probe_evaluate`` fits scikit-learn's logistic regression on scipy.
+Cross-validation folds run one after another; ``n_jobs`` is accepted and
+ignored. ``fit``, ``evaluate`` and ``predict`` take a streaming loader
+(``data/streaming.py``), and ``fit_cross_validation_streaming`` folds a
+stream by position; neither touches pandas.
 ``config.distribute_strategy`` (a ``parallel.DataParallel``) reaches every
 ``DeepModel`` with the config: each rank of the process group fits its
 rows of each batch, and rank 0 alone writes ``save``'s files.
 """
 
 import copy
+import math
 import os
 import pickle
 import time
@@ -661,11 +662,148 @@ def write_csv(path, values):
             f.write(','.join(row) + '\n')
 
 
+def _libm(fn, x):
+    """``fn`` (from ``math``: the C library's, which scikit-learn's Cython
+    losses call) element by element; numpy's own exp and log differ from it
+    in the last bit of a few per cent of values, enough to move L-BFGS's
+    path."""
+    return np.frompyfunc(fn, 1, 1)(x).astype(np.float64)
+
+
+def _logistic_loss_gradient(coef, X, target, n_classes, l2):
+    """scikit-learn's (1.9) ``LinearModelLoss.loss_gradient`` of the half
+    binomial (two classes) or half multinomial loss at ``coef`` (the
+    weights, then the intercept last; classes contiguous for multinomial),
+    in the type of ``X``: the mean loss plus ``l2 / 2 · |w|²``, the intercept
+    unpenalised, and its gradient."""
+    n = len(X)
+    if n_classes == 2:
+        weights, intercept = coef[:-1], coef[-1]
+        raw = (X @ weights.astype(X.dtype) + intercept.astype(X.dtype)) \
+            .astype(np.float64)
+        y = target.astype(np.float64)
+        loss = np.empty(n)
+        grad = np.empty(n)
+        # the branches of sklearn/_loss/_loss.pyx.tp closs_grad_half_binomial
+        for mask, sign in ((raw <= -37, None), ((raw > -37) & (raw <= -2), -1),
+                           ((raw > -2) & (raw <= 18), 1), (raw > 18, 0)):
+            r, t = raw[mask], y[mask]
+            if sign is None:
+                e = _libm(math.exp, r)
+                loss[mask], grad[mask] = e - t * r, e - t
+            elif sign == -1:
+                e = _libm(math.exp, r)
+                loss[mask] = _libm(math.log1p, e) - t * r
+                grad[mask] = ((1 - t) * e - t) / (1 + e)
+            else:
+                e = _libm(math.exp, -r)
+                loss[mask] = (_libm(math.log1p, e) if sign else e) \
+                    + (1 - t) * r
+                grad[mask] = ((1 - t) - t * e) / (1 + e)
+        loss, grad_pointwise = loss.astype(X.dtype), grad.astype(X.dtype)
+        value = float(loss.sum() / n)
+        value += float(0.5 * l2 * (weights @ weights))
+        grad_pointwise /= n
+        out = np.empty_like(coef, dtype=weights.dtype)
+        out[:-1] = X.T @ grad_pointwise + l2 * weights
+        out[-1] = grad_pointwise.sum()
+        return value, out
+    full = coef.reshape((n_classes, -1), order='F')
+    weights, intercept = full[:, :-1], full[:, -1]
+    raw = X @ weights.astype(X.dtype).T + intercept.astype(X.dtype)
+    # sklearn/_loss/_loss.pyx.tp CyHalfMultinomialLoss.loss_gradient: the
+    # exponentials stored in the input's type, their sum in double
+    top = raw.max(axis=1)
+    p = _libm(math.exp, raw.astype(np.float64) - top[:, None]) \
+        .astype(raw.dtype)
+    sums = p.astype(np.float64).sum(axis=1).astype(raw.dtype)
+    rows = np.arange(n)
+    labels = target.astype(np.int64)
+    loss = (_libm(math.log, sums.astype(np.float64)) + top).astype(raw.dtype)
+    loss = loss - raw[rows, labels]
+    p /= sums[:, None]
+    grad_pointwise = p
+    grad_pointwise[rows, labels] -= 1
+    value = float(loss.sum() / n)
+    flat = np.ravel(weights, order='K')  # sklearn.utils.extmath.squared_norm
+    value += float(0.5 * l2 * (flat @ flat))
+    grad_pointwise /= n
+    out = np.empty((n_classes, weights.shape[1] + 1), dtype=weights.dtype,
+                   order='F')
+    out[:, :-1] = grad_pointwise.T @ X + l2 * weights
+    out[:, -1] = grad_pointwise.sum(axis=0)
+    return value, out.ravel(order='F')
+
+
+def _logistic_regression(X, y, C=1.0, max_iter=1000, tol=1e-4):
+    """scikit-learn's ``LogisticRegression(C, max_iter, tol).fit(X, y)``
+    (the default l2 penalty and lbfgs solver) on scipy: L-BFGS-B from zero
+    with its options, in float32 for float32 features (else float64).
+    Returns ``(classes, coef (n_classes or 1, n_features), intercept)``."""
+    from scipy import optimize
+    X = np.asarray(X)
+    if X.dtype not in (np.float32, np.float64):
+        X = X.astype(np.float64)
+    X = np.ascontiguousarray(X)
+    y = np.asarray(y).reshape(-1)
+    classes = np.unique(y)
+    n_classes = len(classes)
+    if n_classes < 2:
+        raise ValueError(f'This solver needs samples of at least 2 classes '
+                         f'in the data, but the data contains only one '
+                         f'class: {classes[0]}')
+    if n_classes == 2:
+        target = (y == classes[1]).astype(X.dtype)
+        w0 = np.zeros(X.shape[1] + 1, dtype=X.dtype)
+    else:
+        target = np.searchsorted(classes, y).astype(X.dtype)
+        w0 = np.zeros((n_classes, X.shape[1] + 1), dtype=X.dtype,
+                      order='F').ravel(order='F')
+    l2 = 1.0 / (C * len(X))
+    result = optimize.minimize(
+        _logistic_loss_gradient, w0, method='L-BFGS-B', jac=True,
+        args=(X, target, n_classes, l2),
+        options={'maxiter': max_iter, 'maxls': 50, 'gtol': tol,
+                 'ftol': 64 * np.finfo(float).eps})
+    if n_classes == 2:
+        coef = np.asarray(result.x, dtype=X.dtype)
+        return classes, coef[:-1][None, :], coef[-1:]
+    coef = np.asarray(result.x, dtype=X.dtype).reshape((n_classes, -1),
+                                                       order='F')
+    return classes, coef[:, :-1], coef[:, -1]
+
+
+def _logistic_predict(model, X):
+    """(probabilities (n, n_classes), predicted labels) of a fitted
+    ``_logistic_regression``, as ``predict_proba`` and ``predict`` give
+    them."""
+    from scipy.special import expit
+    classes, coef, intercept = model
+    X = np.asarray(X)
+    if X.dtype not in (np.float32, np.float64):
+        X = X.astype(np.float64)
+    scores = X @ coef.T + intercept
+    if len(classes) == 2:
+        scores = scores.reshape(-1)
+        p = expit(scores)
+        return np.stack([1 - p, p], axis=1), classes[(scores > 0).astype(int)]
+    p = scores - scores.max(axis=1)[:, None]
+    np.exp(p, p)
+    p /= p.sum(axis=1)[:, None]
+    return p, classes[scores.argmax(axis=1)]
+
+
 def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):
     """Linear-probe evaluation of intermediate representations: a logistic
-    regression on each layer's activations, scored on the test rows."""
-    from sklearn.linear_model import LogisticRegression
-    from sklearn.metrics import roc_auc_score
+    regression (``_logistic_regression``, scikit-learn's on scipy) on each
+    layer's activations, scored on the test rows: the accuracy, or each of
+    ``score_fn``. A score function that is scikit-learn's ``roc_auc_score``
+    or the port's ``ops.metrics.auc`` is given the probabilities of the
+    second class, any other the predicted labels."""
+    try:
+        from sklearn.metrics import roc_auc_score
+    except ImportError:
+        roc_auc_score = None
     logger.info('Extracting features of train set...')
     features_train = dt.apply(X, output_layers=layers)
     logger.info('Extracting features of test set...')
@@ -679,16 +817,17 @@ def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):
 
     result = {}
     for i, x_train in enumerate(features_train):
-        clf = LogisticRegression(random_state=0, max_iter=1000).fit(x_train, y)
-        y_proba = clf.predict_proba(features_test[i])[:, 1]
-        y_score = clf.predict(features_test[i])
+        model = _logistic_regression(x_train, y)
+        proba, y_score = _logistic_predict(model, features_test[i])
+        y_proba = proba[:, 1]
         if len(score_fn) == 0:
-            score = clf.score(features_test[i], y_test)
+            score = float(np.mean(y_score == np.asarray(y_test).reshape(-1)))
             result[layers[i]] = {'accuracy': score}
         else:
             result[layers[i]] = {}
             for metric, fn in score_fn.items():
-                if fn == roc_auc_score:
+                if fn is metrics_lib.auc or (roc_auc_score is not None
+                                             and fn == roc_auc_score):
                     score = fn(y_test, y_proba)
                 else:
                     score = fn(y_test, y_score)

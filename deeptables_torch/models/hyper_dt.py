@@ -9,8 +9,9 @@ The same search spaces (``default_dt_space``, ``mini_dt_space``,
 numpy in the JAX package's order (one seed gives the same samples in both
 packages), a trial store with best-trial reload, and ``make_experiment``,
 over the port's ``DeepTable``, on numpy alone like ``DeepTable`` (the
-split from ``data.split``); pandas is imported only to read a csv/parquet
-path and to build the ``leaderboard`` frame. Every ``DeepTable`` a
+split from ``data.split``); pandas is imported only to read a parquet
+path, and ``leaderboard`` is a DataFrame where pandas imports, else
+``Columns``. Every ``DeepTable`` a
 search builds runs on ``device`` (default: the current CUDA device;
 ``'cpu'`` runs the plain path).
 """
@@ -519,12 +520,18 @@ class HyperDT:
                  'succeeded': t.succeeded, 'elapsed': t.elapsed,
                  'nets': t.sample['config'].get('nets')}
                 for t in self.history]
-        import pandas as pd
-        df = pd.DataFrame(rows)
-        if len(df):
-            df = df.sort_values('reward',
-                                ascending=not self._greater_is_better)
-        return df
+        table = cl.records_table(rows)
+        if not rows:
+            return table
+        if cl.is_frame(table):
+            return table.sort_values('reward',
+                                     ascending=not self._greater_is_better)
+        # sort_values: missing rewards last in either direction
+        reward = cl.to_float(table['reward'])
+        order = np.argsort(reward if not self._greater_is_better
+                           else -reward, kind='stable')
+        table.index = np.arange(len(rows))
+        return table.take(order)
 
 
 class Experiment:
@@ -570,13 +577,12 @@ def _mean_scores(fold_scores):
 
 
 def _read_table(data):
-    """The columns of a csv/parquet path (read with pandas), of a
-    DataFrame, a dict of 1-D arrays or ``Columns`` (a copy: the target is
-    popped from it)."""
+    """The columns of a csv path (``columns.read_csv``), a parquet path
+    (``pandas.read_parquet``), a DataFrame, a dict of 1-D arrays or
+    ``Columns`` (a copy: the target is popped from it)."""
     if isinstance(data, str):
-        import pandas as pd
-        data = pd.read_parquet(data) if data.endswith('.parquet') \
-            else pd.read_csv(data)
+        data = cl.read_parquet(data) if data.endswith('.parquet') \
+            else cl.read_csv(data)
     return cl.as_columns(data, rename=False).copy()
 
 
@@ -589,7 +595,8 @@ def make_experiment(train_data, target=None, eval_data=None, test_data=None,
     """Create a runnable experiment (parity: reference hyper_dt.py:452).
 
     ``train_data`` is a DataFrame, a dict of 1-D arrays, ``Columns`` (or a
-    csv/parquet path, read with pandas) containing the ``target`` column.
+    csv path, or a parquet path, read with pandas) containing the ``target``
+    column.
     ModelConfig fields passed as kwargs are forwarded to every trial's
     config; every trial's ``DeepTable`` runs on ``device``.
     """

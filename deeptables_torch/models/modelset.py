@@ -4,11 +4,13 @@
 
 Scores fall back to the last epoch of a fit history, min/max ordering is
 inferred from the metric name in ``auto`` mode, and ``leaderboard`` returns
-a DataFrame with the sort metric starred. The registry keeps an
+a table with the sort metric starred: a DataFrame where pandas imports,
+else ``data.columns.Columns`` with the same columns. The registry keeps an
 insertion-ordered ``{name: ModelInfo}`` mapping; ranking is a ``sorted``
-view. pandas is imported by ``leaderboard`` only.
+view.
 """
 
+from ..data import columns
 from ..utils import consts
 
 
@@ -100,5 +102,4 @@ class ModelSet:
             rows.append(row)
         if not rows:
             return None
-        import pandas as pd
-        return pd.DataFrame(rows)
+        return columns.records_table(rows)

@@ -10,8 +10,8 @@ smoothing semantics) and target-rate/order encoding (:33-54).
 (``data.columns``, the folds of ``data.split.StratifiedKFold``) and take a
 DataFrame, a dict of 1-D arrays or ``Columns``; given a DataFrame they
 return DataFrames (and the target as a Series), the values the JAX
-package's pandas code gives. ``target_rate_encodeing`` takes a DataFrame
-and uses its methods.
+package's pandas code gives. ``target_rate_encodeing`` works on the same
+columns.
 """
 
 import numpy as np
@@ -127,23 +127,59 @@ def target_encoding(train, target, test=None, feat_to_encode=None,
     return encoded, test, features, target_y
 
 
+def _nargsort(values):
+    """``sort_values``' order of a float column: numpy's quicksort of the
+    values that are not NaN, then the NaN rows in their order."""
+    missing = np.isnan(values)
+    idx = np.arange(len(values))
+    return np.concatenate([idx[~missing][np.argsort(values[~missing],
+                                                    kind='quicksort')],
+                           idx[missing]])
+
+
 def target_rate_encodeing(feat_to_encode, target, df, mode='order'):
     """Per-category target-rate (or rate-order) encoding (parity: upstream
-    preprocessing/utils.py:33-54).  mode: 'order' | 'rate'."""
-    df = df.copy()
+    preprocessing/utils.py:33-54).  mode: 'order' | 'rate'.
+
+    Each column becomes its text (``columns.as_str``, a missing value
+    ``'-1'``); each category's rate is its rows' count of target 1 over
+    those of 0 and 1, and ``<col>_tre`` is the rate, or the category's
+    1-based position in the categories sorted by rate (as ``sort_values``
+    sorts). ``df`` is what ``columns.as_columns`` takes; a DataFrame comes
+    back as a DataFrame."""
+    frame = cl.is_frame(df)
+    df = cl.as_columns(df, rename=False).copy()
+    y = df[target]
+    counted = ~cl.isna(y)
     for col in feat_to_encode:
-        df[col] = df[col].astype('str').fillna('-1')
-        data = df[[col, target]].groupby(col)[target] \
-            .value_counts().unstack().fillna(0)
-        pos = data[1] if 1 in data.columns else 0
-        neg = data[0] if 0 in data.columns else 0
-        data['rate'] = pos / (pos + neg).replace(0, np.nan)
-        data = data.sort_values(by=['rate']).reset_index()
+        text = cl.as_str(df[col]).astype(object)
+        text[cl.isna(df[col])] = '-1'
+        df.set(col, text, 'str')
+        # groupby(col)[target].value_counts().unstack(): the categories of
+        # rows with a target, sorted, and their counts of 1 and 0
+        keys, inverse = np.unique(text[counted].astype(str),
+                                  return_inverse=True)
+        y_counted = y[counted]
+        pos = np.bincount(inverse[y_counted == 1], minlength=len(keys))
+        neg = np.bincount(inverse[y_counted == 0], minlength=len(keys))
+        total = (pos + neg).astype(np.float64)
+        total[total == 0] = np.nan
+        rate = pos / total
+        order = _nargsort(rate)
         nn = f'{col}_tre'
+        codes = np.searchsorted(keys, text.astype(str))
+        found = (codes < len(keys)) & (keys[np.minimum(codes, len(keys) - 1)]
+                                       == text.astype(str)) if len(keys) \
+            else np.zeros(len(text), bool)
         if mode == 'order':
-            dict_ord = {k: i + 1 for i, k in enumerate(data[col].values)}
-            df[nn] = df[col].map(dict_ord).astype('int32')
+            if not found.all():
+                raise ValueError('Cannot convert non-finite values (NA or '
+                                 'inf) to integer')
+            position = np.empty(len(keys), np.int32)
+            position[order] = np.arange(1, len(keys) + 1)
+            df.set(nn, position[codes])
         else:
-            dict_ord = dict(zip(data[col].values, data['rate'].values))
-            df[nn] = df[col].map(dict_ord)
-    return df
+            values = np.full(len(text), np.nan)
+            values[found] = rate[codes[found]]
+            df.set(nn, values)
+    return cl.to_frame(df) if frame else df

@@ -6,12 +6,15 @@ Capability parity with upstream's ``utils/feature_importance.py``, which
 wraps eli5's ``get_score_importances`` (feature_importance.py:14-46). eli5
 is an optional package upstream; the permutation loop is written out here
 instead: for each column, shuffle its values ``n_iter`` times and measure
-the mean score decrease relative to the base score. ``X`` is a pandas
-DataFrame, so this runs on the host.
+the mean score decrease relative to the base score. ``X`` is what
+``data.columns.as_columns`` takes (a DataFrame, a dict of 1-D arrays,
+``Columns``); a column is permuted on a copy of its named numpy columns,
+so the permutations, and the importances, are those of the DataFrame.
 """
 
 import numpy as np
 
+from ..data import columns as cl
 from ..ops import metrics as metrics_lib
 from . import dt_logging
 
@@ -48,9 +51,9 @@ def get_score_importances(dt_model, X, y, metric, n_iter=5, mode='min',
     Returns an array of (column, mean_score_decrease) rows like upstream
     (feature_importance.py:38-40).
     """
-    columns = X.columns.to_list()
+    X = cl.as_columns(X, rename=False)
+    columns = X.columns
     score = _score_fn(dt_model, columns, metric, mode)
-    X = X.reset_index(drop=True)
     y = np.asarray(y)
     rng = np.random.default_rng(random_state)
 
@@ -58,11 +61,10 @@ def get_score_importances(dt_model, X, y, metric, n_iter=5, mode='min',
     decreases = np.zeros((n_iter, len(columns)))
     for it in range(n_iter):
         for j, col in enumerate(columns):
-            # permute one column on a DataFrame copy so every column keeps
-            # its dtype (an object ndarray round-trip would break the
-            # preprocessor's numeric-column handling)
+            # permute one column on a copy so every column keeps its kind
             X_perm = X.copy()
-            X_perm[col] = rng.permutation(X_perm[col].to_numpy())
+            X_perm.set(col, rng.permutation(X[col]), X.kinds[col],
+                       X.categories.get(col))
             decreases[it, j] = base_score - score(X_perm, y)
     feature_importances = np.stack(
         [columns, decreases.mean(axis=0)], axis=1)

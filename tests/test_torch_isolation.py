@@ -1,19 +1,20 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them. The one
-exception is the host-only module ``data/streaming.py`` (CSV/Parquet
-chunks through pandas), which nothing on the card's path imports. The
-estimator layer (``models/preprocessor.py``, ``models/transformers.py``,
+JAX package, so that it runs on a machine that has none of them. No module
+is exempt: ``data/streaming.py`` reads CSV through ``data/columns.py``
+(Parquet alone through pandas, imported where it is read). The estimator
+layer (``models/preprocessor.py``, ``models/transformers.py``,
 ``models/deeptable.py``, ``models/hyper_dt.py``, ``preprocessing``,
-``tools/parity_quality.py``) runs on numpy alone; the host utilities
-(``eda``, ``utils/feature_importance.py``, ``utils/quicktest.py``), a
-``DeepTable``'s ``probe_evaluate``, GBM leaf features and the leaderboards
-import pandas or scikit-learn only inside the functions that use them.
+``tools/parity_quality.py``), ``probe_evaluate``, the leaderboards,
+``utils/feature_importance.py`` and ``utils/quicktest.py`` run on numpy
+and scipy alone; ``eda``, ``utils/shap.py`` and GBM leaf features import
+pandas, scikit-learn or their own packages only inside the functions that
+use them.
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch``
-but the host-only one, ``deeptables_torch.models`` (whose estimator exports
-are lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
+(``HOST_ONLY`` names none), ``deeptables_torch.models`` (whose estimator
+exports are lazy) and ``chip_smoke.py``, and runs a DeepFM forward and a ``fit`` with its default
 (stratified) validation split on ``device='cpu'``, so that training needs
 no scikit-learn, a ``fit`` over a ``CriteoStreamLoader`` on TSV shards (the
 native parser, the card's streaming path), an xDeepFM ``fit`` (the CIN modules, ``ops/cin_grad.py``
@@ -41,9 +42,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
            'deeptables_tpu')
-# the port's only module that imports pandas at module level: the host's
-# streaming from CSV/Parquet files, off the card's path
-HOST_ONLY = ('deeptables_torch.data.streaming',)
+# the port's modules that may import pandas at module level: none
+HOST_ONLY = ()
 
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -253,9 +253,9 @@ def test_module_imports_alone_without_host_libraries(module):
 def test_sources_name_no_blocked_module():
     """No import statement of the port or chip_smoke.py names a blocked
     module; pandas and scikit-learn only inside a function (as
-    ``DeepTable``'s cross-validation and probe, and ``ModelSet``'s
-    leaderboard, import them), or in the host-only modules, which import
-    pandas and scikit-learn and nothing else blocked."""
+    ``eda`` and ``utils/shap.py`` import them), or in the host-only
+    modules (none), which import pandas and scikit-learn and nothing else
+    blocked."""
     host_only = {REPO / (name.replace('.', '/') + '.py') for name in HOST_ONLY}
     files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
@@ -273,20 +273,14 @@ def test_sources_name_no_blocked_module():
 
 
 def test_host_only_modules_import_pandas():
-    """The module exempted above does need pandas at module level (so the
-    exemption names no module that could do without it), and it is the
-    streaming module alone: the estimator layer imports neither pandas nor
+    """No module is exempted above, and no module of the port, the
+    streaming module and the estimator layer included, imports pandas or
     scikit-learn at module level."""
-    assert HOST_ONLY == ('deeptables_torch.data.streaming',)
-    for name in HOST_ONLY:
-        lines = (REPO / (name.replace('.', '/') + '.py')).read_text() \
-            .splitlines()
-        assert 'import pandas as pd' in lines, name
-    for path in ('models/preprocessor.py', 'models/transformers.py',
-                 'models/deeptable.py', 'models/hyper_dt.py',
-                 'data/datasets.py', 'tools/parity_quality.py',
-                 'preprocessing/utils.py'):
-        lines = (REPO / 'deeptables_torch' / path).read_text().splitlines()
+    assert HOST_ONLY == ()
+    files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
+    assert REPO / 'deeptables_torch' / 'data' / 'streaming.py' in files
+    for path in files:
+        lines = path.read_text().splitlines()
         assert not any(line.startswith(('import pandas', 'from pandas',
                                         'import sklearn', 'from sklearn'))
                        for line in lines), path
