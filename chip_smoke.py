@@ -273,6 +273,42 @@ included), into R rows, with its bound and ``index_add_``'s time.
       rows, AUC above 0.5); ``get_score_importances`` (``n_iter=1``, 2000
       rows): 39 finite rows, sorted.
 
+12. ``gbm`` (three lines and ``gbm_wall``): GBM leaf features
+    (``DeepTable(apply_gbm_features=True)``: ``models/gbm.py``, scikit-learn
+    1.9.0's boosting and trees on the host, built from
+    ``csrc/gbm_tree.cpp`` at first use), with ``pandas``, ``sklearn``,
+    ``pyarrow`` and ``lightgbm`` blocked:
+    - ``gbm_leaves``: the parity tool's ``bank_deepfm``,
+      ``glass_multiclass`` and ``boston_regression`` tables (binary,
+      multiclass, regression), each held to its digest (``GBM_TABLES``);
+      ``DefaultPreprocessor`` with ``gbm_params={'random_state': 0}`` on
+      the row's train split gives ``gbm_leaf_*`` columns whose digest is
+      scikit-learn's (``GBM_LEAF_DIGESTS``, recorded from the JAX
+      package); the encoder's fit seconds a table.
+    - ``gbm_card_vs_cpu``: ``DeepTable`` at the ``bank_deepfm`` row with
+      the leaves, both ``gbm_feature_type``s, on the card and with
+      ``device='cpu'`` from one seed, embedding dropout off, three steps:
+      losses rtol 1e-4, parameters by ``check_params``.
+    - ``gbm_criteo``: DeepFM at full criteo width (float32, D=16, DNN
+      1024/512 relu) through ``DeepTable`` on 100,000 rows of
+      ``load_criteo_synthetic``, 10 GBM leaf columns as embedding fields
+      (K2 at F=36), one epoch at B=8192 with a fifth held out: the step
+      losses fall, the GBM fit's seconds, examples/s, ``val_auc``; K1 and
+      K2-bwd once a step, K2-fwd once a step and a validation batch
+      (checked).
+
+13. ``parquet`` (two lines and ``parquet_wall``), with the same packages
+    blocked: ``parquet_read``: every file of ``tests/torch_data/`` (the
+    bank table in two SNAPPY shards and edge cases: every kind with nulls,
+    GZIP, uncompressed, data page v2, no dictionary, a dictionary that
+    falls back to PLAIN, row groups, an index, zero rows) read by
+    ``columns.read_parquet`` to the digest of ``pd.read_parquet``'s table
+    (``PARQUET_DIGESTS``), rows/s; AutoML's ``_read_table`` reads a
+    ``.parquet`` path. ``parquet_fit``: ``fit_preprocessor_streaming`` and
+    one epoch of ``DeepTable.fit(StreamingDataLoader)`` at the
+    ``bank_deepfm`` row over the two shards: the step losses fall, K1,
+    K2-fwd and K2-bwd once a step (checked).
+
 Then a ``profiler`` line
 (``incomplete_windows``: the timing windows that
 lost launches three times in a row, whose times are the means of the
@@ -284,7 +320,9 @@ nonzero. Without a CUDA device, or outside a checkout, it prints no result
 and exits nonzero.
 """
 
+import contextlib
 import functools
+import hashlib
 import itertools
 import json
 import math
@@ -474,7 +512,7 @@ ESTIMATOR_BASELINE = {
                        'logloss': (0.3718, 0.0032)},
     'avazu_autoint': {'auc': (0.7299, 0.0178), 'logloss': (0.4393, 0.0302)},
 }
-ESTIMATOR_BLOCKED = ('pandas', 'sklearn')
+ESTIMATOR_BLOCKED = ('pandas', 'sklearn', 'pyarrow', 'lightgbm')
 # the stream_csv phase: DeepFM at full criteo width (the package's default
 # float32 policy) through DeepTable from CSV shards in the Criteo
 # display-ads layout, read by columns.read_csv with pandas and scikit-learn
@@ -502,6 +540,48 @@ STREAM_CSV_MEAN_RTOL = 1e-9
 ESTIMATOR_TABLES = {'bank_deepfm': '5d67b946b3437391',
                     'criteo_xdeepfm': 'ff1371b6dfcecb53',
                     'avazu_autoint': '766566b60adf6216'}
+# the gbm phases: GBM leaf features (models/gbm.py, scikit-learn 1.9.0's
+# trees) on the parity tool's binary, multiclass and regression tables,
+# whose digests (parity_quality.table_digest) are these on numpy 2.0 and
+# 2.3 alike, fitted by DefaultPreprocessor with apply_gbm_features=True and
+# these gbm_params on the row's train split. GBM_LEAF_DIGESTS are the first
+# 16 hex digits of the sha256 of the gbm_leaf_* columns (int32, C order) of
+# the JAX package's preprocessor over scikit-learn 1.9.0 on the same split
+# (tests/test_torch_preprocessor.py recomputes them)
+GBM_ROWS = ('bank_deepfm', 'glass_multiclass', 'boston_regression')
+GBM_TABLES = {'bank_deepfm': '5d67b946b3437391',
+              'glass_multiclass': '9a57e7e1877f6326',
+              'boston_regression': '26bf7ae3c8ce8197'}
+GBM_PARAMS = {'random_state': 0}
+GBM_LEAF_DIGESTS = {'bank_deepfm': 'cb3a29bb9920a5e0',
+                    'glass_multiclass': 'ba0495f7d44ecc7c',
+                    'boston_regression': 'a1db61fc7042060c'}
+GBM_FEATURE_TYPES = ('embedding', 'dense')
+# gbm_criteo: DeepFM at full criteo width with 10 GBM leaf columns, fitted
+# through DeepTable on these rows of load_criteo_synthetic, one epoch,
+# a fifth of the rows held out for validation
+GBM_CRITEO_ROWS, GBM_CRITEO_VALIDATION = 100_000, 0.2
+# the parquet phase: the files of tests/torch_data/ (written by pyarrow
+# 25.0.0 from pandas 3.0.3, tests/torch_parquet_fixtures.py) and the
+# digests (columns_digest) of pd.read_parquet's tables, which
+# columns.read_parquet must give (tests/test_torch_parquet.py recomputes
+# them); the bank shards feed a streaming fit of the bank_deepfm row
+PARQUET_DIR = 'tests/torch_data'
+PARQUET_DIGESTS = {
+    'bank_0.parquet': '191fc5979ff6126f',
+    'bank_1.parquet': '0c5b283b23d176bf',
+    'dictionary_fallback.parquet': 'd991adc846c14e79',
+    'index.parquet': '367d5c71c2430cd9',
+    'kinds_gzip.parquet': 'e21d844a442eba17',
+    'kinds_no_dictionary.parquet': 'f581e7d215c6a2c7',
+    'kinds_page_v2.parquet': 'e21d844a442eba17',
+    'kinds_snappy.parquet': 'e21d844a442eba17',
+    'kinds_uncompressed.parquet': 'e21d844a442eba17',
+    'range_index.parquet': 'd66a8062724de9e8',
+    'row_groups.parquet': 'e21d844a442eba17',
+    'zero_rows.parquet': '53e707318ac3f886'}
+PARQUET_BANK = ('bank_0.parquet', 'bank_1.parquet')
+PARQUET_CHUNK = 5000
 
 
 def emit(obj):
@@ -3776,6 +3856,355 @@ def _stream_csv_runs(torch, port, kernel_fns, tmp, load_criteo_synthetic):
     return launches
 
 
+def loss_fell(losses) -> bool:
+    """Whether the mean of the last third of one epoch's step losses is
+    below that of the first third."""
+    k = len(losses) // 3
+    return k > 0 and all(map(math.isfinite, losses)) and \
+        np.mean(losses[-k:]) < np.mean(losses[:k])
+
+
+def gbm_config(ModelConfig, spec, **extra):
+    """The parity row's ModelConfig with GBM leaf features."""
+    return ModelConfig(nets=spec['nets'], apply_gbm_features=True,
+                       gbm_params=dict(GBM_PARAMS),
+                       **dict(spec['conf'], **extra))
+
+
+def gbm_leaf_digest(X, columns) -> str:
+    """The first 16 hex digits of the sha256 of the ``columns`` of ``X``
+    as one int32 array in C order."""
+    leaves = np.column_stack([np.asarray(X[c]) for c in columns])
+    return hashlib.sha256(np.ascontiguousarray(
+        leaves.astype(np.int32)).tobytes()).hexdigest()[:16]
+
+
+def gbm_leaves(DefaultPreprocessor, ModelConfig, pq, row, to_frame=None):
+    """(table digest, leaf digest, leaf columns, fit seconds) of the parity
+    row's preprocessor with GBM leaf features fitted on its train split
+    (``to_frame`` converts the split for a DataFrame preprocessor)."""
+    spec = pq.configs()[row]
+    table = spec['loader']()
+    digest = pq.table_digest(table)  # (split pops the target)
+    X_train, _, y_train, _ = pq.split(table, spec['target'],
+                                      spec.get('task', 'binary'))
+    if to_frame is not None:
+        X_train = to_frame(X_train)
+    pre = DefaultPreprocessor(gbm_config(ModelConfig, spec), use_cache=False)
+    t0 = time.perf_counter()
+    X, _ = pre.fit_transform(X_train, y_train)
+    fit_s = time.perf_counter() - t0
+    names = pre.X_transformers['gbm_features'].new_columns
+    return digest, gbm_leaf_digest(X, names), len(names), fit_s
+
+
+def columns_digest(pq, cols) -> str:
+    """``table_digest`` of ``cols`` with its categoricals' categories and
+    a stored index."""
+    h = hashlib.sha256(pq.table_digest(cols).encode())
+    for name in cols.columns:
+        if name in cols.categories:
+            h.update(repr((name, list(cols.categories[name]))).encode())
+    index = None if cols.index is None else np.asarray(cols.index)
+    if index is not None and not np.array_equal(index, np.arange(len(cols))):
+        h.update(index.astype(np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name):
+    """Inside, each call of ``owner.name`` is timed: yields the list its
+    seconds go to."""
+    original = getattr(owner, name)
+    seconds = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+    setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, original)
+
+
+def gbm_phase(torch, port, kernel_fns, tmp):
+    """GBM leaf features on the card with pandas, scikit-learn, pyarrow and
+    LightGBM blocked (see the module's docstring, 12). Returns the launches
+    of the runs on the card."""
+    from deeptables_torch.models.transformers import GbmLeavesEncoder
+    t0 = time.perf_counter()
+    with timed_calls(GbmLeavesEncoder, 'fit_transform') as gbm_fit_s:
+        launches = blocked_run(_gbm_runs, torch, port, kernel_fns, tmp,
+                               gbm_fit_s)
+    emit({'phase': 'gbm_wall', 's': time.perf_counter() - t0,
+          'launches': {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def _gbm_runs(torch, port, kernel_fns, tmp, gbm_fit_s):
+    from deeptables_torch.data.columns import Columns
+    from deeptables_torch.data.datasets import load_criteo_synthetic
+    from deeptables_torch.models import DeepModel, DeepTable, ModelConfig
+    from deeptables_torch.models import gbm
+    from deeptables_torch.models.preprocessor import DefaultPreprocessor
+    from deeptables_torch.tools import parity_quality as pq
+    launches = dict.fromkeys(kernel_fns, 0)
+
+    def add(counts):
+        for name, count in counts.items():
+            launches[name] += count
+        return counts
+
+    # (a) the leaves of the three tasks, bit-equal to scikit-learn's
+    t = time.perf_counter()
+    gbm.get_library()
+    build_s = time.perf_counter() - t
+    rows = {}
+    for row in GBM_ROWS:
+        del gbm_fit_s[:]
+        table, leaves, n_leaves, fit_s = gbm_leaves(
+            DefaultPreprocessor, ModelConfig, pq, row)
+        check(table == GBM_TABLES[row],
+              f'gbm_leaves: the {row} table is {table}, not '
+              f'{GBM_TABLES[row]}')
+        check(leaves == GBM_LEAF_DIGESTS[row],
+              f'gbm_leaves: {row} leaves {leaves}, scikit-learn '
+              f'{GBM_LEAF_DIGESTS[row]}')
+        rows[row] = {'table': table, 'leaf_digest': leaves,
+                     'leaf_columns': n_leaves, 'gbm_fit_s': gbm_fit_s[0],
+                     'preprocessor_fit_s': fit_s}
+    emit({'phase': 'gbm_leaves', 'params': GBM_PARAMS, 'build_s': build_s,
+          'rows': rows, 'equal': True})
+
+    # (b) DeepTable with the leaves, card against CPU, three steps
+    spec = pq.configs()['bank_deepfm']
+    table = spec['loader']()
+    check(isinstance(table, Columns), f'load_bank gave {type(table)}')
+    X_train, X_test, y_train, y_test = pq.split(table, spec['target'],
+                                                'binary')
+    compared = {}
+    for feature_type in GBM_FEATURE_TYPES:
+        fits = {}
+        for run, device in (('card', None), ('cpu', 'cpu')):
+            reset_launches(kernel_fns)
+            dt = DeepTable(gbm_config(
+                ModelConfig, spec, gbm_feature_type=feature_type,
+                embedding_dropout=0, metrics=pq.TASK_METRICS['binary'],
+                earlystopping_patience=3, seed=0,
+                home_dir=os.path.join(tmp, 'dt')), device=device)
+            t = time.perf_counter()
+            _, history = dt.fit(X_train, y_train, epochs=1,
+                                batch_size=pq.BATCH, verbose=0,
+                                steps_per_epoch=ESTIMATOR_STEPS)
+            fit_s = time.perf_counter() - t
+            if run == 'card':
+                counts = add(read_launches(kernel_fns))
+                check(all(counts[k] > 0 for k in ('emb_grad', 'fm_fwd',
+                                                  'fm_bwd')),
+                      f'gbm_card_vs_cpu: the card fit launched {counts}')
+            fits[run] = ({k: v.detach().cpu() for k, v in
+                          dt.get_model().module.state_dict().items()},
+                         {k: v[0] for k, v in history.history.data.items()},
+                         fit_s, len(dt.preprocessor.categorical_columns))
+            del dt
+        (card_state, card_logs, card_s, n_cat), (cpu_state, cpu_logs,
+                                                 cpu_s, _) = \
+            fits['card'], fits['cpu']
+        loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                     for k in ('loss', 'val_loss')}
+        for k, d in loss_diff.items():
+            check(d <= 1e-4 * abs(cpu_logs[k]),
+                  f'gbm_card_vs_cpu ({feature_type}): card {k} '
+                  f'{card_logs[k]} vs CPU {cpu_logs[k]}')
+        running = [k for k in cpu_state if '.running_' in k]
+        params = check_params(f'gbm_card_vs_cpu ({feature_type})',
+                              card_state, cpu_state, loose=running,
+                              loose_atol=PARAM_ATOL,
+                              loose_rtol=ESTIMATOR_RUNNING_RTOL)
+        compared[feature_type] = {
+            'categorical_columns': n_cat, 'card': card_logs, 'cpu': cpu_logs,
+            'loss_diff': loss_diff, 'fit_s': {'card': card_s, 'cpu': cpu_s},
+            'params_over_atol': {k: v['over_atol'] for k, v in
+                                 params.items() if v['over_atol']},
+            'params_max_abs_diff': max(v['max_abs_diff']
+                                       for v in params.values())}
+    emit({'phase': 'gbm_card_vs_cpu', 'row': 'bank_deepfm',
+          'steps': ESTIMATOR_STEPS, 'train_rows': len(y_train),
+          'feature_types': compared,
+          'tolerance': {'loss_rtol': 1e-4, 'param_atol': PARAM_ATOL,
+                        'param_outlier_share': PARAM_OUTLIERS}})
+    del fits, card_state, cpu_state
+    torch.cuda.empty_cache()
+
+    # (c) DeepFM at full criteo width with the leaves, one epoch
+    table = load_criteo_synthetic(GBM_CRITEO_ROWS)
+    y = np.asarray(table.pop('label'))
+    step_s = []
+    train_step = DeepModel._train_step
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(out[0]))
+        return out
+    del gbm_fit_s[:]
+    step_loss = []
+    reset_launches(kernel_fns)
+    dt = DeepTable(stream_csv_config(port, tmp, apply_gbm_features=True,
+                                     gbm_params=dict(GBM_PARAMS)),
+                   device=None)
+    DeepModel._train_step = timed_step
+    try:
+        t = time.perf_counter()
+        _, history = dt.fit(table, y, epochs=1, batch_size=TRAIN_BATCH,
+                            verbose=0,
+                            validation_split=GBM_CRITEO_VALIDATION)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        DeepModel._train_step = train_step
+    counts = add(read_launches(kernel_fns))
+    logs = {k: list(v) for k, v in history.history.data.items()}
+    steps = len(step_s)
+    n_val = int(round(GBM_CRITEO_ROWS * GBM_CRITEO_VALIDATION))
+    val_batches = -(-n_val // TRAIN_BATCH)
+    n_leaf = len(dt.preprocessor.X_transformers['gbm_features'].new_columns)
+    fields = len(dt.preprocessor.categorical_columns)
+    check(n_leaf == GBM_PARAMS.get('n_estimators', 10) and
+          fields == F_CRITEO + n_leaf,
+          f'gbm_criteo: {n_leaf} leaf columns, {fields} embedding fields')
+    check(all(math.isfinite(v) for vs in logs.values() for v in vs),
+          f'gbm_criteo: non-finite logs {logs}')
+    check(loss_fell(step_loss), f'gbm_criteo: the step losses {step_loss} '
+                                f'did not fall')
+    expected = dict.fromkeys(kernel_fns, 0)
+    expected.update(emb_grad=steps, fm_bwd=steps,
+                    fm_fwd=steps + val_batches)
+    check(counts == expected, f'gbm_criteo: {steps} steps and '
+                              f'{val_batches} validation batches launched '
+                              f'{counts}, expected {expected}')
+    train_rows = GBM_CRITEO_ROWS - n_val
+    emit({'phase': 'gbm_criteo', 'model': 'DeepFM', 'dtype_policy':
+          'float32', 'rows': GBM_CRITEO_ROWS, 'train_rows': train_rows,
+          'val_rows': n_val, 'batch_size': TRAIN_BATCH,
+          'leaf_columns': n_leaf, 'embedding_fields': fields,
+          'gbm_fit_s': gbm_fit_s[0], 'fit_s': fit_s, 'steps': steps,
+          'examples_per_s': TRAIN_BATCH * steps / sum(step_s),
+          'median_step_ms': 1e3 * sorted(step_s)[steps // 2],
+          'step_losses': step_loss, 'logs': logs,
+          'val_auc': logs.get('val_auc', [None])[-1], 'launches': counts})
+    del dt, table
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parquet_phase(torch, port, kernel_fns, tmp):
+    """Parquet on the card with pandas, scikit-learn, pyarrow and LightGBM
+    blocked (see the module's docstring, 13). Returns the launches of the
+    runs on the card."""
+    t0 = time.perf_counter()
+    launches = blocked_run(_parquet_runs, torch, port, kernel_fns, tmp)
+    emit({'phase': 'parquet_wall', 's': time.perf_counter() - t0,
+          'launches': {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def _parquet_runs(torch, port, kernel_fns, tmp):
+    from deeptables_torch.data import columns
+    from deeptables_torch.data.streaming import (ChunkedSource,
+                                                 StreamingDataLoader,
+                                                 fit_preprocessor_streaming)
+    from deeptables_torch.models import DeepModel, DeepTable, ModelConfig
+    from deeptables_torch.models.hyper_dt import _read_table
+    from deeptables_torch.models.preprocessor import DefaultPreprocessor
+    from deeptables_torch.tools import parity_quality as pq
+    launches = dict.fromkeys(kernel_fns, 0)
+    # (a) every fixture read to its digest
+    reads = {}
+    for name, digest in PARQUET_DIGESTS.items():
+        path = ROOT / PARQUET_DIR / name
+        t = time.perf_counter()
+        cols = columns.read_parquet(str(path))
+        read_s = time.perf_counter() - t
+        got = columns_digest(pq, cols)
+        check(got == digest, f'parquet: {name} reads to {got}, '
+                             f'pd.read_parquet to {digest}')
+        reads[name] = {'rows': len(cols), 'columns': len(cols.columns),
+                       'bytes': path.stat().st_size, 's': read_s,
+                       'rows_per_s': len(cols) / read_s}
+    bank = [str(ROOT / PARQUET_DIR / name) for name in PARQUET_BANK]
+    bank_rows = sum(reads[name]['rows'] for name in PARQUET_BANK)
+    bank_s = sum(reads[name]['s'] for name in PARQUET_BANK)
+    table = _read_table(bank[0])
+    check(isinstance(table, columns.Columns) and
+          columns_digest(pq, table) == PARQUET_DIGESTS[PARQUET_BANK[0]],
+          '_read_table: the parquet path read otherwise')
+    emit({'phase': 'parquet_read', 'files': reads,
+          'bank_rows_per_s': bank_rows / bank_s, 'equal': True})
+
+    # (b) a streaming fit of the bank_deepfm row over the two shards
+    spec = pq.configs()['bank_deepfm']
+    config = ModelConfig(nets=spec['nets'], metrics=['AUC'],
+                         earlystopping_patience=0, seed=0,
+                         home_dir=os.path.join(tmp, 'dt'), **spec['conf'])
+    source = ChunkedSource(bank, chunk_size=PARQUET_CHUNK)
+    check(source.n_rows() == bank_rows, f'parquet: n_rows '
+                                        f'{source.n_rows()}')
+    t = time.perf_counter()
+    pre = fit_preprocessor_streaming(
+        DefaultPreprocessor(config, use_cache=False), source,
+        spec['target'])
+    pre_s = time.perf_counter() - t
+    train = StreamingDataLoader(source, pre, spec['target'],
+                                batch_size=pq.BATCH, seed=0)
+    step_s, step_loss = [], []
+    train_step = DeepModel._train_step
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(out[0]))
+        return out
+    reset_launches(kernel_fns)
+    dt = DeepTable(config, preprocessor=pre, device=None)
+    DeepModel._train_step = timed_step
+    try:
+        t = time.perf_counter()
+        _, history = dt.fit(train, epochs=1, verbose=0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    finally:
+        DeepModel._train_step = train_step
+    counts = read_launches(kernel_fns)
+    for name, count in counts.items():
+        launches[name] += count
+    steps = len(step_s)
+    check(loss_fell(step_loss), f'parquet: the step losses {step_loss} did '
+                                f'not fall')
+    check(all(counts[k] == steps for k in ('emb_grad', 'fm_fwd', 'fm_bwd')),
+          f'parquet: {steps} steps launched {counts}')
+    emit({'phase': 'parquet_fit', 'row': 'bank_deepfm', 'rows': bank_rows,
+          'chunk_rows': PARQUET_CHUNK, 'batch_size': pq.BATCH,
+          'preprocessor_s': pre_s, 'fit_s': fit_s, 'steps': steps,
+          'examples_per_s': pq.BATCH * steps / sum(step_s),
+          'step_losses': step_loss,
+          'logs': {k: list(v) for k, v in history.history.data.items()},
+          'launches': counts})
+    del dt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if sys.argv[1:2] == ['--sharded-rank']:
@@ -3910,6 +4339,17 @@ def main():
     with tempfile.TemporaryDirectory(prefix='chip_smoke_stream_csv_') as tmp:
         for name, count in stream_csv_phase(torch, port, kernel_fns, tmp,
                                             load_criteo_synthetic).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_gbm_') as tmp:
+        for name, count in gbm_phase(torch, port, kernel_fns, tmp).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_parquet_') as tmp:
+        for name, count in parquet_phase(torch, port, kernel_fns,
+                                         tmp).items():
             launches[name] += count
         torch.cuda.empty_cache()
 

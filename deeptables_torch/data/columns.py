@@ -22,10 +22,11 @@ preprocessor's results depend on: ``Series.astype(str)`` (``as_str``),
 ``nunique`` (``nunique``), ``pd.to_numeric`` (``to_float``),
 ``np.asarray(df)`` (``to_2d``), the dtypes ``pd.DataFrame`` infers for a
 2-D array (``Columns.from_2d``), ``pd.read_csv`` (``read_csv``),
-``pd.concat`` (``concat``) and ``pd.DataFrame`` of records
-(``from_records``). pandas is imported only by ``to_frame``,
-``read_parquet``, ``records_table`` and the conversion of a DataFrame,
-which only a DataFrame reaches.
+``pd.concat`` (``concat``), ``pd.DataFrame`` of records
+(``from_records``) and ``pd.read_parquet`` (``read_parquet``, by
+``data/parquet.py``). pandas is imported only by ``to_frame``,
+``records_table`` and the conversion of a DataFrame, which only a
+DataFrame reaches.
 """
 
 import csv
@@ -987,14 +988,10 @@ def read_csv(path, chunksize=None, header=0):
 
 
 def read_parquet(path):
-    """``pd.read_parquet(path)`` as ``Columns``: Parquet needs pandas and
-    pyarrow, imported here."""
-    try:
-        import pandas as pd
-    except ImportError as e:
-        raise ImportError(f'reading {path} needs pandas and pyarrow '
-                          f'(pandas.read_parquet)') from e
-    return as_columns(pd.read_parquet(path), rename=False)
+    """``as_columns(pd.read_parquet(path), rename=False)`` on numpy alone
+    (``data/parquet.py``: neither pandas nor pyarrow)."""
+    from . import parquet
+    return parquet.read_parquet(path)
 
 
 def _concat_kind(parts, name):

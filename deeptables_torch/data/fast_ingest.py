@@ -15,57 +15,29 @@ the JAX package does; ``have_native()`` says which ran.
 
 import ctypes
 import glob
-import hashlib
 import io
 import os
-import shlex
 import subprocess
 import threading
 
 import numpy as np
 
 from . import columns
+from ..ops.kernels import _build
 from ..ops.kernels._build import BUILD_ROOT, CSRC_DIR
 from ..utils import dt_logging
 
 logger = dt_logging.get_logger(__name__)
 
 SOURCE = CSRC_DIR / 'fast_ingest.cpp'
-CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread')
 
 _lib = None
 _lib_lock = threading.Lock()
 _build_failed = False
 
 
-def _compiler():
-    return shlex.split(os.environ.get('CXX') or 'g++')
-
-
 def _library_path():
-    digest = hashlib.sha256(' '.join(_compiler() + list(CXX_FLAGS)).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_ROOT / digest.hexdigest()[:16] / 'libfast_ingest.so'
-
-
-def _build_library():
-    """Compile the source unless its library exists; return the library's
-    path. It is written under a temporary name and renamed into place, so a
-    process that loads it never sees a half-written file."""
-    out = _library_path()
-    if out.is_file():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = _compiler() + list(CXX_FLAGS) + [str(SOURCE), '-o', str(tmp)]
-    logger.info(f'building the native ingest library: {" ".join(cmd)}')
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, out)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
-    return out
+    return _build.host_library_path(SOURCE)
 
 
 def get_library():
@@ -77,7 +49,7 @@ def get_library():
         if _lib is not None or _build_failed:
             return _lib
         try:
-            lib = ctypes.CDLL(str(_build_library()))
+            lib = ctypes.CDLL(str(_build.build_host_library(SOURCE)))
         except (OSError, subprocess.CalledProcessError) as e:
             detail = getattr(e, 'stderr', '') or e
             logger.warning(f'native ingest unavailable ({detail}); '

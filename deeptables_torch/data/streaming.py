@@ -10,9 +10,10 @@ trains on the current one. With ``num_hosts`` > 1 each host reads a
 disjoint subset of the files.
 
 Chunks are named numpy columns (``data.columns.Columns``): CSV is read by
-``columns.read_csv``, which types each chunk as ``pd.read_csv`` does, so
-the module needs neither pandas nor scikit-learn. Parquet alone is read by
-``pandas.read_parquet`` (``columns.read_parquet``: pandas and pyarrow).
+``columns.read_csv``, which types each chunk as ``pd.read_csv`` does, and
+Parquet by ``columns.read_parquet`` (``data/parquet.py``), which reads a
+file as ``pd.read_parquet`` does, so the module needs neither pandas,
+pyarrow nor scikit-learn.
 """
 
 import collections
@@ -23,7 +24,7 @@ from typing import Iterator, Optional
 import numpy as np
 
 from . import columns as cl
-from . import pipeline
+from . import parquet, pipeline
 from ..utils import dt_logging
 
 logger = dt_logging.get_logger(__name__)
@@ -60,7 +61,8 @@ class ChunkedSource:
 
     def n_rows(self) -> int:
         """The rows ``iter_chunks`` yields: CSV rows counted without being
-        typed, a table's rows by its length."""
+        typed, a Parquet file's from its footer, a table's rows by its
+        length."""
         total = 0
         for path in self.paths:
             if isinstance(path, dict):
@@ -68,7 +70,7 @@ class ChunkedSource:
             elif not isinstance(path, str):
                 total += len(path)
             elif path.endswith('.parquet'):
-                total += len(cl.read_parquet(path))
+                total += parquet.num_rows(path)
             else:
                 total += cl.count_csv_rows(path)
         return total

@@ -793,6 +793,13 @@ def _logistic_predict(model, X):
     return p, classes[scores.argmax(axis=1)]
 
 
+def _is_sklearn_auc(fn) -> bool:
+    """Whether ``fn`` is scikit-learn's ``roc_auc_score``, known by its
+    name and module (scikit-learn is not imported)."""
+    return getattr(fn, '__name__', None) == 'roc_auc_score' and \
+        getattr(fn, '__module__', '').startswith('sklearn.')
+
+
 def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):
     """Linear-probe evaluation of intermediate representations: a logistic
     regression (``_logistic_regression``, scikit-learn's on scipy) on each
@@ -800,10 +807,6 @@ def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):
     ``score_fn``. A score function that is scikit-learn's ``roc_auc_score``
     or the port's ``ops.metrics.auc`` is given the probabilities of the
     second class, any other the predicted labels."""
-    try:
-        from sklearn.metrics import roc_auc_score
-    except ImportError:
-        roc_auc_score = None
     logger.info('Extracting features of train set...')
     features_train = dt.apply(X, output_layers=layers)
     logger.info('Extracting features of test set...')
@@ -826,8 +829,7 @@ def probe_evaluate(dt, X, y, X_test, y_test, layers, score_fn={}):
         else:
             result[layers[i]] = {}
             for metric, fn in score_fn.items():
-                if fn is metrics_lib.auc or (roc_auc_score is not None
-                                             and fn == roc_auc_score):
+                if fn is metrics_lib.auc or _is_sklearn_auc(fn):
                     score = fn(y_test, y_proba)
                 else:
                     score = fn(y_test, y_score)

@@ -9,9 +9,9 @@ The same search spaces (``default_dt_space``, ``mini_dt_space``,
 numpy in the JAX package's order (one seed gives the same samples in both
 packages), a trial store with best-trial reload, and ``make_experiment``,
 over the port's ``DeepTable``, on numpy alone like ``DeepTable`` (the
-split from ``data.split``); pandas is imported only to read a parquet
-path, and ``leaderboard`` is a DataFrame where pandas imports, else
-``Columns``. Every ``DeepTable`` a
+split from ``data.split``, a csv or parquet path read by
+``columns.read_csv`` / ``read_parquet``); ``leaderboard`` is a DataFrame
+where pandas imports, else ``Columns``. Every ``DeepTable`` a
 search builds runs on ``device`` (default: the current CUDA device;
 ``'cpu'`` runs the plain path).
 """
@@ -578,7 +578,7 @@ def _mean_scores(fold_scores):
 
 def _read_table(data):
     """The columns of a csv path (``columns.read_csv``), a parquet path
-    (``pandas.read_parquet``), a DataFrame, a dict of 1-D arrays or
+    (``columns.read_parquet``), a DataFrame, a dict of 1-D arrays or
     ``Columns`` (a copy: the target is popped from it)."""
     if isinstance(data, str):
         data = cl.read_parquet(data) if data.endswith('.parquet') \
@@ -595,7 +595,7 @@ def make_experiment(train_data, target=None, eval_data=None, test_data=None,
     """Create a runnable experiment (parity: reference hyper_dt.py:452).
 
     ``train_data`` is a DataFrame, a dict of 1-D arrays, ``Columns`` (or a
-    csv path, or a parquet path, read with pandas) containing the ``target``
+    csv or parquet path, read on numpy alone) containing the ``target``
     column.
     ModelConfig fields passed as kwargs are forwarded to every trial's
     config; every trial's ``DeepTable`` runs on ``device``.

@@ -712,25 +712,19 @@ def _have_lightgbm() -> bool:
         return False
 
 
-def _have_sklearn() -> bool:
-    try:
-        import sklearn  # noqa: F401
-        return True
-    except Exception:
-        return False
-
-
 class GbmLeavesEncoder:
     """Append per-tree leaf indices as new features
     (parity: hypernets LgbmLeavesEncoder at reference preprocessor.py:436).
 
     Backend: LightGBM trees when the optional ``lightgbm`` package is
     importable (matching the reference exactly — same optional-import
-    pattern as utils/dart_early_stopping.py), else sklearn's
-    GradientBoosting models.  Either way the per-sample leaf index of every
-    tree becomes a new ``gbm_leaf_<i>`` column, label-encoded via a
-    vectorized ``np.searchsorted`` over the sorted unique leaf values
-    (unseen leaves map to the out-of-vocabulary code ``len(classes)``).
+    pattern as utils/dart_early_stopping.py), else ``'sklearn'``:
+    scikit-learn's GradientBoosting algorithm, whose trees ``models/gbm.py``
+    grows bit for bit without scikit-learn. Either way the per-sample leaf
+    index of every tree becomes a new ``gbm_leaf_<i>`` column,
+    label-encoded via a vectorized ``np.searchsorted`` over the sorted
+    unique leaf values (unseen leaves map to the out-of-vocabulary code
+    ``len(classes)``).
     """
 
     def __init__(self, cat_vars, cont_vars, task, **gbm_params):
@@ -754,7 +748,8 @@ class GbmLeavesEncoder:
 
     def _feature_frame(self, X):
         """The features as one 2-D array: each column numeric, NaN as 0,
-        their common numpy type (``np.asarray`` of the DataFrame)."""
+        their common numpy type (``np.asarray`` of the DataFrame): the array
+        that scikit-learn's ``validate_data`` would cast to float32."""
         cols = [c for c in (self.cat_vars + self.cont_vars) if c in X.columns]
         parts = []
         for c in cols:
@@ -772,10 +767,6 @@ class GbmLeavesEncoder:
         regression = self.task == consts.TASK_REGRESSION
         if self.backend is None:
             self.backend = 'lightgbm' if _have_lightgbm() else 'sklearn'
-        if self.backend == 'sklearn' and not _have_sklearn():
-            raise ImportError('apply_gbm_features needs LightGBM (lightgbm) '
-                              'or scikit-learn (sklearn); neither imports '
-                              'here.')
         if self.backend == 'lightgbm':
             import lightgbm
             p = dict(self.gbm_params)
@@ -786,10 +777,9 @@ class GbmLeavesEncoder:
                 else lightgbm.LGBMClassifier
             self.model = cls(**p)
         else:
-            from sklearn.ensemble import (GradientBoostingClassifier,
-                                          GradientBoostingRegressor)
-            cls = GradientBoostingRegressor if regression \
-                else GradientBoostingClassifier
+            from . import gbm
+            cls = gbm.GradientBoostingRegressor if regression \
+                else gbm.GradientBoostingClassifier
             self.model = cls(**self.gbm_params)
         self.model.fit(feats, np.asarray(y).reshape(-1))
 

@@ -12,12 +12,18 @@ library as ``lib<name>.log``.
 
 Nothing here runs at import: the first kernel launch calls :func:`library`.
 A build that fails raises with the compiler's output.
+
+The host C++ sources (``csrc/*.cpp``: the native ingest parsers, the GBM
+tree grower) are built by :func:`build_host_library` with ``$CXX`` (else
+``g++``) into ``build/deeptables_torch/<hash>/lib<name>.so`` the same way,
+the hash covering the source, the compiler and its flags.
 """
 
 import ctypes
 import functools
 import hashlib
 import os
+import shlex
 import shutil
 import subprocess
 import threading
@@ -105,3 +111,38 @@ def library(name: str) -> ctypes.CDLL:
     if not path.is_file():
         raise FileNotFoundError(f'no CUDA source csrc/{name}.cu to build')
     return ctypes.CDLL(str(path))
+
+
+HOST_CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread')
+
+
+def host_compiler():
+    return shlex.split(os.environ.get('CXX') or 'g++')
+
+
+def host_library_path(source: Path, flags=HOST_CXX_FLAGS) -> Path:
+    """Where :func:`build_host_library` puts the library of ``source``."""
+    digest = hashlib.sha256(' '.join(host_compiler() + list(flags)).encode())
+    digest.update(source.read_bytes())
+    return BUILD_ROOT / digest.hexdigest()[:16] / f'lib{source.stem}.so'
+
+
+def build_host_library(source: Path, flags=HOST_CXX_FLAGS) -> Path:
+    """Compile a host C++ source unless its library exists; return the
+    library's path. It is written under a temporary name and renamed into
+    place, so a process that loads it never sees a half-written file. A
+    failed compile raises ``subprocess.CalledProcessError`` (its ``stderr``
+    holds the compiler's message); a missing compiler ``OSError``."""
+    out = host_library_path(source, flags)
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = host_compiler() + list(flags) + [str(source), '-o', str(tmp)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+    return out

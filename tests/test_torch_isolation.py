@@ -1,15 +1,16 @@
 # -*- coding:utf-8 -*-
-"""The port imports nothing of JAX, flax, optax, pandas, scikit-learn or the
-JAX package, so that it runs on a machine that has none of them. No module
-is exempt: ``data/streaming.py`` reads CSV through ``data/columns.py``
-(Parquet alone through pandas, imported where it is read). The estimator
-layer (``models/preprocessor.py``, ``models/transformers.py``,
-``models/deeptable.py``, ``models/hyper_dt.py``, ``preprocessing``,
-``tools/parity_quality.py``), ``probe_evaluate``, the leaderboards,
-``utils/feature_importance.py`` and ``utils/quicktest.py`` run on numpy
-and scipy alone; ``eda``, ``utils/shap.py`` and GBM leaf features import
-pandas, scikit-learn or their own packages only inside the functions that
-use them.
+"""The port imports nothing of JAX, flax, optax, pandas, scikit-learn,
+pyarrow, LightGBM or the JAX package, so that it runs on a machine that has
+none of them. No module is exempt: ``data/streaming.py`` reads CSV through
+``data/columns.py`` and Parquet through ``data/parquet.py``. The estimator
+layer (``models/preprocessor.py``, ``models/transformers.py`` with GBM
+leaf features over ``models/gbm.py``, ``models/deeptable.py``,
+``models/hyper_dt.py``, ``preprocessing``, ``tools/parity_quality.py``),
+``probe_evaluate``, the leaderboards, ``utils/feature_importance.py`` and
+``utils/quicktest.py`` run on numpy and scipy alone; ``eda`` and
+``utils/shap.py`` import pandas or their own packages only inside the
+functions that use them, and no module imports scikit-learn or pyarrow at
+all (LightGBM only where GBM leaf features find it).
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch``
@@ -40,8 +41,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 
-BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn',
-           'deeptables_tpu')
+BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'pyarrow',
+           'lightgbm', 'deeptables_tpu')
+# packages that no module of the port imports, not even inside a function
+NEVER = ('sklearn', 'pyarrow')
 # the port's modules that may import pandas at module level: none
 HOST_ONLY = ()
 
@@ -199,6 +202,18 @@ feats = DAE(encoder_units=(8, 8), feature_units=2).fit_transform(
     dense.astype(np.float32), batch_size=4, epochs=2, verbose=0,
     device='cpu')
 assert feats.shape == (9, 2)
+# GBM leaf features (scikit-learn's trees, models/gbm.py) and Parquet
+# (data/parquet.py) need neither scikit-learn nor pyarrow
+from deeptables_torch.data import columns as cl
+from deeptables_torch.models.transformers import GbmLeavesEncoder
+table = cl.Columns({'a': np.arange(40) % 7, 'b': np.linspace(0, 1, 40)})
+encoder = GbmLeavesEncoder(['a'], ['b'], 'binary', n_estimators=3,
+                           random_state=0)
+table = encoder.fit_transform(table, np.arange(40) % 3 == 0)
+assert encoder.backend == 'sklearn' and encoder.new_columns == [
+    'gbm_leaf_0', 'gbm_leaf_1', 'gbm_leaf_2']
+parquet = cl.read_parquet('tests/torch_data/kinds_snappy.parquet')
+assert len(parquet) == 400 and parquet.kinds['s'] == 'str'
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))
@@ -252,10 +267,10 @@ def test_module_imports_alone_without_host_libraries(module):
 
 def test_sources_name_no_blocked_module():
     """No import statement of the port or chip_smoke.py names a blocked
-    module; pandas and scikit-learn only inside a function (as
-    ``eda`` and ``utils/shap.py`` import them), or in the host-only
-    modules (none), which import pandas and scikit-learn and nothing else
-    blocked."""
+    module; pandas and LightGBM only inside a function (as ``eda`` and GBM
+    leaf features import them), or in the host-only modules (none), which
+    import pandas and nothing else blocked; scikit-learn and pyarrow
+    nowhere."""
     host_only = {REPO / (name.replace('.', '/') + '.py') for name in HOST_ONLY}
     files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')
@@ -265,9 +280,10 @@ def test_sources_name_no_blocked_module():
             if not words or words[0] not in ('import', 'from'):
                 continue
             top = words[1].split('.')[0]
-            if top in ('pandas', 'sklearn') and line[:1].isspace():
+            assert top not in NEVER, f'{path}:{number}: {line.strip()}'
+            if top in ('pandas', 'lightgbm') and line[:1].isspace():
                 continue  # a lazy import inside a function
-            if top in ('pandas', 'sklearn') and path in host_only:
+            if top == 'pandas' and path in host_only:
                 continue
             assert top not in BLOCKED, f'{path}:{number}: {line.strip()}'
 

@@ -13,12 +13,24 @@ edges, scaler ranges, the GBM's trees) and every integer column of the
 transformed frames. Float columns and float state are held to rtol 1e-12:
 both packages run the same float64 arithmetic in numpy, pandas and
 scikit-learn, so they agree to the bit here, and the tolerance admits only
-a library's change of summation order. (The GBM features fit scikit-learn's
-gradient boosting with a fixed ``random_state``: unseeded, it breaks ties
-between features at random and two fits build other trees.)
+a library's change of summation order. (The GBM features fit gradient
+boosting with a fixed ``random_state``: unseeded, it breaks ties between
+features at random and two fits build other trees. The JAX package's
+encoder fits scikit-learn's, the port's ``models/gbm.py``, whose trees are
+held equal here node by node and whose ``gbm_leaf_*`` columns are held
+equal bit for bit; ``chip_smoke.py``'s ``GBM_LEAF_DIGESTS`` are recomputed
+from the JAX package, and a ``DeepTable`` fit with GBM leaf features in a
+subprocess with scikit-learn, pandas, pyarrow and LightGBM blocked is
+bit-equal to the same fit with them present.)
 """
 
+import importlib.util
 import math
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -91,10 +103,32 @@ def _state(obj, depth=0):
         return [_state(v, depth + 1) for v in items]
     if isinstance(obj, (pd.Series, pd.Index)):
         return _state(obj.to_numpy(), depth + 1)
+    if type(obj).__name__ in GBM_CLASSES:
+        return (type(obj).__name__, _gbm_state(obj, depth + 1))
     if type(obj).__module__.startswith(('sklearn', 'deeptables')):
         # (a fitted tree keeps its nodes in what it pickles)
         return (type(obj).__name__, _state(obj.__getstate__(), depth + 1))
     return type(obj).__name__
+
+
+GBM_CLASSES = ('GradientBoostingClassifier', 'GradientBoostingRegressor')
+TREE_ARRAYS = ('children_left', 'children_right', 'feature', 'threshold',
+               'value')
+
+
+def _gbm_state(model, depth):
+    """A fitted gradient boosting model (scikit-learn's, or the port's in
+    ``models/gbm.py``) as its classes and, tree by tree, the arrays that
+    ``apply`` reads and the leaves' values."""
+    trees = []
+    for row in model.estimators_:
+        for est in row:
+            tree = getattr(est, 'tree_', est)
+            arrays = {f: np.asarray(getattr(tree, f)) for f in TREE_ARRAYS}
+            arrays['value'] = arrays['value'].reshape(-1)
+            trees.append(_state(arrays, depth + 1))
+    return {'classes': _state(getattr(model, 'classes_', None), depth + 1),
+            'shape': list(model.estimators_.shape), 'trees': trees}
 
 
 def _assert_state_equal(port, ref, path=''):
@@ -249,12 +283,135 @@ def test_auto_discard_unique():
 
 def test_apply_gbm_features_sklearn_backend():
     df, y = _adult(300)
+    held_out, _ = _adult(120, seed=5)
     for feature_type in ('embedding', 'dense'):
-        port, _ = _fit_both(df, y, apply_gbm_features=True,
-                            gbm_feature_type=feature_type,
-                            gbm_params={'n_estimators': 3,
-                                        'random_state': 0})
+        port, ref = _fit_both(df, y, apply_gbm_features=True,
+                              gbm_feature_type=feature_type,
+                              gbm_params={'n_estimators': 3,
+                                          'random_state': 0})
         assert port.X_transformers['gbm_features'].backend == 'sklearn'
+        names = port.X_transformers['gbm_features'].new_columns
+        assert names == [f'gbm_leaf_{t}' for t in range(3)]
+        for rows in (df, held_out):
+            X_port = port.transform_X(rows.copy())
+            X_ref = ref.transform_X(rows.copy())
+            for name in names:
+                np.testing.assert_array_equal(np.asarray(X_port[name]),
+                                              np.asarray(X_ref[name]),
+                                              err_msg=name)
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  REPO / 'chip_smoke.py')
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize('row', ['bank_deepfm', 'glass_multiclass',
+                                 'boston_regression'])
+def test_gbm_leaf_digests_are_sklearns(row):
+    """chip_smoke.py's GBM_TABLES and GBM_LEAF_DIGESTS: the JAX package's
+    preprocessor over scikit-learn gives them on the parity row's train
+    split, and so does the port's."""
+    from deeptables_torch.data import columns as cl
+    from deeptables_torch.tools import parity_quality
+    cs = _chip_smoke()
+    assert row in cs.GBM_ROWS
+
+    def frame(X):
+        return X if cl.is_frame(X) else cl.to_frame(X)
+    for module, config in ((jax_preprocessor, JaxModelConfig),
+                           (preprocessor, ModelConfig)):
+        table, leaves, n_leaves, _ = cs.gbm_leaves(
+            module.DefaultPreprocessor, config, parity_quality, row,
+            to_frame=frame if module is jax_preprocessor else None)
+        assert table == cs.GBM_TABLES[row], module
+        assert leaves == cs.GBM_LEAF_DIGESTS[row], module
+        assert n_leaves >= 10
+
+
+GBM_SCRIPT = r'''
+import pickle, sys
+MODE, DATA, OUT = sys.argv[1:4]
+if MODE == 'blocked':
+    for name in ('sklearn', 'pandas', 'pyarrow', 'lightgbm'):
+        sys.modules[name] = None
+import numpy as np
+import torch
+from deeptables_torch.models import DeepTable, ModelConfig
+with open(DATA, 'rb') as f:
+    X, y = pickle.load(f)
+out = {}
+for feature_type in ('embedding', 'dense'):
+    torch.manual_seed(0)
+    dt = DeepTable(ModelConfig(
+        nets=['linear', 'fm_nets', 'dnn_nets'], apply_gbm_features=True,
+        gbm_feature_type=feature_type, embedding_dropout=0, seed=0,
+        gbm_params={'n_estimators': 4, 'max_leaf_nodes': 5,
+                    'random_state': 0},
+        dnn_params={'hidden_units': ((16, 0, False),)}), device='cpu')
+    dt.fit(dict(X), y, epochs=1, batch_size=64, verbose=0)
+    encoder = dt.preprocessor.X_transformers['gbm_features']
+    leaves = encoder.transform(dt.preprocessor.transform_X(dict(X)))
+    out[feature_type] = {
+        'backend': encoder.backend,
+        'leaves': {n: np.asarray(leaves[n]) for n in encoder.new_columns},
+        'proba': dt.predict_proba(dict(X)),
+        'state': {k: v.numpy() for k, v in
+                  dt.get_model().module.state_dict().items()}}
+out['modules'] = [m for m in ('sklearn', 'pandas', 'pyarrow')
+                  if sys.modules.get(m) is not None]
+with open(OUT, 'wb') as f:
+    pickle.dump(out, f)
+print('ok')
+'''
+
+
+def test_deeptable_gbm_features_without_sklearn(tmp_path):
+    """``DeepTable(apply_gbm_features=True)`` with scikit-learn (and pandas,
+    pyarrow, LightGBM) blocked is bit-equal to the same fit with them
+    present."""
+    from deeptables_torch.data import columns as cl
+    df, y = _adult(300)
+    cols = cl.as_columns(df)
+    data = tmp_path / 'data.pkl'
+    with open(data, 'wb') as f:  # numpy arrays alone: no pandas type
+        pickle.dump(({n: cols[n] for n in cols.columns},
+                     np.asarray(y, dtype=object)), f)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
+               PYTHONPATH=str(REPO))
+    procs = {mode: subprocess.Popen(
+        [sys.executable, '-c', GBM_SCRIPT, mode, str(data),
+         str(tmp_path / f'{mode}.pkl')], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode in ('blocked', 'present')}
+    results = {}
+    for mode, proc in procs.items():
+        try:
+            _, stderr = proc.communicate(timeout=240)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, stderr[-4000:]
+        with open(tmp_path / f'{mode}.pkl', 'rb') as f:
+            results[mode] = pickle.load(f)
+    blocked, present = results['blocked'], results['present']
+    assert blocked.pop('modules') == []
+    assert 'sklearn' not in present.pop('modules')
+    for feature_type, got in blocked.items():
+        ref = present[feature_type]
+        assert got['backend'] == ref['backend'] == 'sklearn'
+        assert list(got['leaves']) == list(ref['leaves'])
+        for name, values in ref['leaves'].items():
+            np.testing.assert_array_equal(got['leaves'][name], values)
+        np.testing.assert_array_equal(got['proba'], ref['proba'])
+        assert list(got['state']) == list(ref['state'])
+        for k, v in ref['state'].items():
+            np.testing.assert_array_equal(got['state'][k], v, err_msg=k)
 
 
 def test_missing_y_raises():

@@ -62,8 +62,8 @@ from test_torch_streaming import (FIT_CONFIG, MESSY_CONFIG, _jax_init_state,
                                   _synthetic, _typed_frame)
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ('pandas', 'sklearn', 'jax', 'jaxlib', 'flax', 'optax',
-           'deeptables_tpu')
+BLOCKED = ('pandas', 'sklearn', 'pyarrow', 'jax', 'jaxlib', 'flax',
+           'optax', 'deeptables_tpu')
 TYPED_CONFIG = dict(nets=['dnn_nets'], metrics=['AUC'])
 CRITEO_CONFIG = dict(nets=['linear', 'fm_nets', 'dnn_nets'],
                      metrics=['AUC'], embedding_dropout=0,
@@ -461,12 +461,9 @@ out['boards'] = boards
 dt_mod.DeepTable._deep_model = deep_model
 quick = quicktest.test(device='cpu')
 out['quicktest'] = (quick.task, type(quick).__name__)
-if MODE == 'blocked':
-    try:
-        cl.read_parquet(os.path.join(DATA, 'none.parquet'))
-    except ImportError as e:
-        out['parquet_error'] = str(e)
-out['modules'] = sorted(m for m in ('pandas', 'sklearn')
+table = cl.read_parquet(os.path.join(DATA, 'table.parquet'))
+out['parquet'] = {n: (table.kinds[n], table[n]) for n in table.columns}
+out['modules'] = sorted(m for m in ('pandas', 'sklearn', 'pyarrow')
                         if sys.modules.get(m) is not None)
 with open(os.path.join(OUT, 'result.pkl'), 'wb') as f:
     pickle.dump(out, f)
@@ -483,6 +480,12 @@ def _start(mode, data, out):
          mode, str(data), str(out)],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
+
+
+def _parquet_frame():
+    return pd.DataFrame({'x': np.arange(6, dtype=np.int32),
+                         'f': [0.5, np.nan, 2.0, 3.0, np.nan, 1.0],
+                         's': ['a', None, 'b', 'a', 'c', None]})
 
 
 def _jax_pair(paths, config, chunk_size):
@@ -519,6 +522,7 @@ def runs(shards):
               'init': str(init), 'synth': synth, 'fit_config': FIT_CONFIG}
     with open(tmp / 'inputs.pkl', 'wb') as f:
         pickle.dump(inputs, f)
+    _parquet_frame().to_parquet(tmp / 'table.parquet')
     procs = {}
     for mode in ('blocked', 'frame'):
         (tmp / mode).mkdir()
@@ -541,9 +545,20 @@ def test_blocked_run_imports_neither_pandas_nor_sklearn(runs):
     assert 'pandas' in runs['frame']['modules']
     assert runs['blocked']['quicktest'] == runs['frame']['quicktest'] == \
         ('binary', 'DeepTable')
-    # Parquet alone needs pandas (and pyarrow), and says so
-    error = runs['blocked']['parquet_error']
-    assert 'pandas' in error and 'pyarrow' in error
+    # Parquet reads without pandas and pyarrow (data/parquet.py), as
+    # pd.read_parquet reads it
+    expected = cl.as_columns(_parquet_frame(), rename=False)
+    for mode in ('blocked', 'frame'):
+        got = runs[mode]['parquet']
+        assert list(got) == expected.columns
+        for name in expected.columns:
+            kind, values = got[name]
+            assert kind == expected.kinds[name], name
+            missing = cl.isna(expected[name])
+            np.testing.assert_array_equal(cl.isna(values), missing)
+            np.testing.assert_array_equal(values[~missing],
+                                          expected[name][~missing],
+                                          err_msg=name)
 
 
 def test_read_table_reads_a_csv_path_as_pandas(shards):
