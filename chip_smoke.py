@@ -273,11 +273,12 @@ included), into R rows, with its bound and ``index_add_``'s time.
       rows, AUC above 0.5); ``get_score_importances`` (``n_iter=1``, 2000
       rows): 39 finite rows, sorted.
 
-12. ``gbm`` (three lines and ``gbm_wall``): GBM leaf features
+12. ``gbm`` (four lines and ``gbm_wall``): GBM leaf features
     (``DeepTable(apply_gbm_features=True)``: ``models/gbm.py``, scikit-learn
     1.9.0's boosting and trees on the host, built from
     ``csrc/gbm_tree.cpp`` at first use), with ``pandas``, ``sklearn``,
-    ``pyarrow`` and ``lightgbm`` blocked:
+    ``pyarrow``, ``lightgbm``, ``zstandard``, ``lz4`` and ``brotli``
+    blocked (``ESTIMATOR_BLOCKED``):
     - ``gbm_leaves``: the parity tool's ``bank_deepfm``,
       ``glass_multiclass`` and ``boston_regression`` tables (binary,
       multiclass, regression), each held to its digest (``GBM_TABLES``);
@@ -285,10 +286,19 @@ included), into R rows, with its bound and ``index_add_``'s time.
       the row's train split gives ``gbm_leaf_*`` columns whose digest is
       scikit-learn's (``GBM_LEAF_DIGESTS``, recorded from the JAX
       package); the encoder's fit seconds a table.
+    - ``gbm_options``: each option past the defaults (``GBM_OPTIONS``: the
+      exponential loss on bank; absolute, Huber and quantile error on
+      boston; ``ccp_alpha``, early stopping, ``init='zero'``,
+      ``min_weight_fraction_leaf`` with ``subsample`` on all three) gives
+      the leaves of the JAX package over scikit-learn
+      (``GBM_OPTION_DIGESTS``); each fit's seconds.
     - ``gbm_card_vs_cpu``: ``DeepTable`` at the ``bank_deepfm`` row with
-      the leaves, both ``gbm_feature_type``s, on the card and with
-      ``device='cpu'`` from one seed, embedding dropout off, three steps:
-      losses rtol 1e-4, parameters by ``check_params``.
+      the leaves, both ``gbm_feature_type``s, and as embeddings grown with
+      ``GBM_FIT_OPTIONS`` (exponential loss, ``ccp_alpha``, early
+      stopping), on the card and with ``device='cpu'`` from one seed,
+      embedding dropout off, three steps: losses rtol 1e-4, parameters by
+      ``check_params``; K1 and K2 launched on the card, the fields (K2's F)
+      given.
     - ``gbm_criteo``: DeepFM at full criteo width (float32, D=16, DNN
       1024/512 relu) through ``DeepTable`` on 100,000 rows of
       ``load_criteo_synthetic``, 10 GBM leaf columns as embedding fields
@@ -297,17 +307,36 @@ included), into R rows, with its bound and ``index_add_``'s time.
       K2-bwd once a step, K2-fwd once a step and a validation batch
       (checked).
 
-13. ``parquet`` (two lines and ``parquet_wall``), with the same packages
+13. ``parquet`` (four lines and ``parquet_wall``), with the same packages
     blocked: ``parquet_read``: every file of ``tests/torch_data/`` (the
     bank table in two SNAPPY shards and edge cases: every kind with nulls,
     GZIP, uncompressed, data page v2, no dictionary, a dictionary that
-    falls back to PLAIN, row groups, an index, zero rows) read by
+    falls back to PLAIN, row groups, an index, zero rows; ZSTD, LZ4_RAW,
+    LZ4 in Hadoop's framing, the DELTA encodings and BYTE_STREAM_SPLIT,
+    INT96 timestamps; the Criteo-layout shards) read by
     ``columns.read_parquet`` to the digest of ``pd.read_parquet``'s table
     (``PARQUET_DIGESTS``), rows/s; AutoML's ``_read_table`` reads a
-    ``.parquet`` path. ``parquet_fit``: ``fit_preprocessor_streaming`` and
-    one epoch of ``DeepTable.fit(StreamingDataLoader)`` at the
-    ``bank_deepfm`` row over the two shards: the step losses fall, K1,
-    K2-fwd and K2-bwd once a step (checked).
+    ``.parquet`` path. ``parquet_codecs``: each codec's read rows/s and
+    MB/s on the kinds files (``PARQUET_CODEC_FILES``, best of three), and
+    the native ZSTD and LZ4 decoders (``csrc/parquet_codecs.cpp``) alone
+    on the Criteo shards' pages, MB/s out and in. ``parquet_fit``:
+    ``fit_preprocessor_streaming`` and one epoch of
+    ``DeepTable.fit(StreamingDataLoader)`` at the ``bank_deepfm`` row over
+    the two shards: the step losses fall, K1, K2-fwd and K2-bwd once a
+    step (checked). ``parquet_criteo``: DeepFM at full criteo width
+    (``stream_csv``'s configuration, float32, B=8192) through
+    ``DeepTable`` from the two ZSTD shards (``ChunkedSource`` →
+    ``fit_preprocessor_streaming`` → ``StreamingDataLoader``), validated
+    on the LZ4_RAW shard: the card against the CPU over three steps
+    (losses rtol 1e-4, ``check_params``), then two epochs: the step
+    losses fall, K1 and K2-bwd once a step, K2-fwd once a step and a
+    validation batch (checked); the preprocessor's seconds, examples/s an
+    epoch and the read's share of it (``columns.read_parquet``'s seconds,
+    validation reads included, over the epoch's).
+
+14. ``eda``: ``columns_info``, ``reduce_mem_usage`` and
+    ``top_categories`` on the ``bank_deepfm`` row's table as ``Columns``
+    with the same packages blocked, at their digests (``EDA_DIGESTS``).
 
 Then a ``profiler`` line
 (``incomplete_windows``: the timing windows that
@@ -512,7 +541,8 @@ ESTIMATOR_BASELINE = {
                        'logloss': (0.3718, 0.0032)},
     'avazu_autoint': {'auc': (0.7299, 0.0178), 'logloss': (0.4393, 0.0302)},
 }
-ESTIMATOR_BLOCKED = ('pandas', 'sklearn', 'pyarrow', 'lightgbm')
+ESTIMATOR_BLOCKED = ('pandas', 'sklearn', 'pyarrow', 'lightgbm', 'zstandard',
+                     'lz4', 'brotli')
 # the stream_csv phase: DeepFM at full criteo width (the package's default
 # float32 policy) through DeepTable from CSV shards in the Criteo
 # display-ads layout, read by columns.read_csv with pandas and scikit-learn
@@ -557,6 +587,45 @@ GBM_LEAF_DIGESTS = {'bank_deepfm': 'cb3a29bb9920a5e0',
                     'glass_multiclass': 'ba0495f7d44ecc7c',
                     'boston_regression': 'a1db61fc7042060c'}
 GBM_FEATURE_TYPES = ('embedding', 'dense')
+# each option of scikit-learn's gradient boosting past the defaults, on the
+# rows whose task takes it, with GBM_PARAMS: (rows, gbm_params), and the
+# leaves' digests of the JAX package's preprocessor over scikit-learn 1.9.0
+# (tests/test_torch_preprocessor.py recomputes them)
+GBM_OPTIONS = {
+    'exponential': (('bank_deepfm',), {'loss': 'exponential'}),
+    'absolute_error': (('boston_regression',), {'loss': 'absolute_error'}),
+    'huber': (('boston_regression',), {'loss': 'huber', 'alpha': 0.8}),
+    'quantile': (('boston_regression',), {'loss': 'quantile',
+                                          'alpha': 0.3}),
+    'ccp_alpha': (GBM_ROWS, {'ccp_alpha': 0.002, 'max_depth': 5}),
+    'n_iter_no_change': (GBM_ROWS, {'n_iter_no_change': 2,
+                                    'n_estimators': 40,
+                                    'learning_rate': 0.5}),
+    'init_zero': (GBM_ROWS, {'init': 'zero'}),
+    'min_weight_fraction_leaf': (GBM_ROWS, {'min_weight_fraction_leaf': 0.05,
+                                            'subsample': 0.8}),
+}
+GBM_OPTION_DIGESTS = {
+    'exponential': {'bank_deepfm': '93086d2679fbc7d4'},
+    'absolute_error': {'boston_regression': '8fd392ade6816cd8'},
+    'huber': {'boston_regression': '11bc7a68aa25cdc0'},
+    'quantile': {'boston_regression': '53d8e8db1c0b94a7'},
+    'ccp_alpha': {'bank_deepfm': '45f22c2f4005243e',
+                  'glass_multiclass': '79cbfaf46592bd23',
+                  'boston_regression': 'a56c04362a9254cc'},
+    'n_iter_no_change': {'bank_deepfm': '1c1d7e798f8aeaeb',
+                         'glass_multiclass': 'e06969cfc842fe24',
+                         'boston_regression': '2d31748ef5b76dec'},
+    'init_zero': {'bank_deepfm': '95f491d528fa48ca',
+                  'glass_multiclass': 'c46acdd814066092',
+                  'boston_regression': 'a1db61fc7042060c'},
+    'min_weight_fraction_leaf': {'bank_deepfm': 'cc2c06e3f4b9191d',
+                                 'glass_multiclass': 'bbe3405310f6dcf7',
+                                 'boston_regression': 'fda455e9b374199c'}}
+# the DeepTable fit of bank_deepfm on leaves grown with these options
+GBM_FIT_OPTIONS = {'loss': 'exponential', 'ccp_alpha': 1e-4,
+                   'n_iter_no_change': 3, 'n_estimators': 30,
+                   'learning_rate': 0.3}
 # gbm_criteo: DeepFM at full criteo width with 10 GBM leaf columns, fitted
 # through DeepTable on these rows of load_criteo_synthetic, one epoch,
 # a fifth of the rows held out for validation
@@ -570,18 +639,56 @@ PARQUET_DIR = 'tests/torch_data'
 PARQUET_DIGESTS = {
     'bank_0.parquet': '191fc5979ff6126f',
     'bank_1.parquet': '0c5b283b23d176bf',
+    'criteo_train_0.parquet': '8a19062c4a770994',
+    'criteo_train_1.parquet': '37b1dc9e615375f8',
+    'criteo_val.parquet': '0ef1b662567792ba',
     'dictionary_fallback.parquet': 'd991adc846c14e79',
     'index.parquet': '367d5c71c2430cd9',
+    'int96.parquet': 'd8f2622ecbb0d419',
+    'kinds_delta.parquet': 'f581e7d215c6a2c7',
     'kinds_gzip.parquet': 'e21d844a442eba17',
+    'kinds_lz4_hadoop.parquet': 'e21d844a442eba17',
+    'kinds_lz4_raw.parquet': 'e21d844a442eba17',
     'kinds_no_dictionary.parquet': 'f581e7d215c6a2c7',
     'kinds_page_v2.parquet': 'e21d844a442eba17',
     'kinds_snappy.parquet': 'e21d844a442eba17',
     'kinds_uncompressed.parquet': 'e21d844a442eba17',
+    'kinds_zstd.parquet': 'e21d844a442eba17',
     'range_index.parquet': 'd66a8062724de9e8',
     'row_groups.parquet': 'e21d844a442eba17',
     'zero_rows.parquet': '53e707318ac3f886'}
 PARQUET_BANK = ('bank_0.parquet', 'bank_1.parquet')
 PARQUET_CHUNK = 5000
+# the eda phase: columns_info, reduce_mem_usage and top_categories on the
+# bank_deepfm row's table as Columns with pandas blocked; the tables'
+# digests (parity_quality.table_digest) as numpy 2.0 computes them here,
+# columns_info's statistics rounded to EDA_DIGITS significant digits: their
+# float sums move in the last bit between numpy releases (three of the 17
+# deviations on numpy 2.3.5), as pandas' own do (tests/test_torch_aux.py
+# recomputes them and holds the helpers to the JAX package's on the same
+# DataFrame)
+EDA_DIGESTS = {'columns_info': '9869d1c7dd7b68a1',
+               'reduce_mem_usage': '05ce820105ba9d72',
+               'top_categories': ['self-employed', 'housemaid', 'retired',
+                                  'blue-collar', 'admin.']}
+EDA_TOP = ('job', 5)
+EDA_DIGITS = 12
+# the Criteo-layout shards (tests/torch_parquet_fixtures.py): two ZSTD
+# training shards of 16,384 rows (one dictionary-encoded, one with
+# DELTA_BYTE_ARRAY tokens and BYTE_STREAM_SPLIT dense columns) and an
+# LZ4_RAW validation shard of 4,096; DeepFM at full criteo width fits two
+# epochs from them in chunks of PARQUET_CRITEO_CHUNK rows
+PARQUET_CRITEO = ('criteo_train_0.parquet', 'criteo_train_1.parquet')
+PARQUET_CRITEO_VAL = 'criteo_val.parquet'
+PARQUET_CRITEO_CHUNK = 8192
+PARQUET_CRITEO_EPOCHS = 2
+# the files each codec's read rate is taken on
+PARQUET_CODEC_FILES = {'UNCOMPRESSED': 'kinds_uncompressed.parquet',
+                       'SNAPPY': 'kinds_snappy.parquet',
+                       'GZIP': 'kinds_gzip.parquet',
+                       'ZSTD': 'kinds_zstd.parquet',
+                       'LZ4_RAW': 'kinds_lz4_raw.parquet',
+                       'LZ4': 'kinds_lz4_hadoop.parquet'}
 
 
 def emit(obj):
@@ -3864,10 +3971,11 @@ def loss_fell(losses) -> bool:
         np.mean(losses[-k:]) < np.mean(losses[:k])
 
 
-def gbm_config(ModelConfig, spec, **extra):
-    """The parity row's ModelConfig with GBM leaf features."""
+def gbm_config(ModelConfig, spec, gbm_params=None, **extra):
+    """The parity row's ModelConfig with GBM leaf features (GBM_PARAMS
+    unless ``gbm_params``)."""
     return ModelConfig(nets=spec['nets'], apply_gbm_features=True,
-                       gbm_params=dict(GBM_PARAMS),
+                       gbm_params=dict(gbm_params or GBM_PARAMS),
                        **dict(spec['conf'], **extra))
 
 
@@ -3879,10 +3987,12 @@ def gbm_leaf_digest(X, columns) -> str:
         leaves.astype(np.int32)).tobytes()).hexdigest()[:16]
 
 
-def gbm_leaves(DefaultPreprocessor, ModelConfig, pq, row, to_frame=None):
+def gbm_leaves(DefaultPreprocessor, ModelConfig, pq, row, to_frame=None,
+               gbm_params=None):
     """(table digest, leaf digest, leaf columns, fit seconds) of the parity
-    row's preprocessor with GBM leaf features fitted on its train split
-    (``to_frame`` converts the split for a DataFrame preprocessor)."""
+    row's preprocessor with GBM leaf features (``gbm_params``, else
+    GBM_PARAMS) fitted on its train split (``to_frame`` converts the split
+    for a DataFrame preprocessor)."""
     spec = pq.configs()[row]
     table = spec['loader']()
     digest = pq.table_digest(table)  # (split pops the target)
@@ -3890,7 +4000,8 @@ def gbm_leaves(DefaultPreprocessor, ModelConfig, pq, row, to_frame=None):
                                       spec.get('task', 'binary'))
     if to_frame is not None:
         X_train = to_frame(X_train)
-    pre = DefaultPreprocessor(gbm_config(ModelConfig, spec), use_cache=False)
+    pre = DefaultPreprocessor(gbm_config(ModelConfig, spec, gbm_params),
+                              use_cache=False)
     t0 = time.perf_counter()
     X, _ = pre.fit_transform(X_train, y_train)
     fit_s = time.perf_counter() - t0
@@ -3980,6 +4091,22 @@ def _gbm_runs(torch, port, kernel_fns, tmp, gbm_fit_s):
     emit({'phase': 'gbm_leaves', 'params': GBM_PARAMS, 'build_s': build_s,
           'rows': rows, 'equal': True})
 
+    # (a2) every option past the defaults, its leaves at the JAX package's
+    options = {}
+    for option, (option_rows, params) in GBM_OPTIONS.items():
+        for row in option_rows:
+            del gbm_fit_s[:]
+            _, leaves, n_leaves, fit_s = gbm_leaves(
+                DefaultPreprocessor, ModelConfig, pq, row,
+                gbm_params=dict(GBM_PARAMS, **params))
+            check(leaves == GBM_OPTION_DIGESTS[option][row],
+                  f'gbm_options: {option} on {row}: leaves {leaves}, '
+                  f'scikit-learn {GBM_OPTION_DIGESTS[option][row]}')
+            options.setdefault(option, {'params': params})[row] = {
+                'leaf_digest': leaves, 'leaf_columns': n_leaves,
+                'gbm_fit_s': gbm_fit_s[0]}
+    emit({'phase': 'gbm_options', 'options': options, 'equal': True})
+
     # (b) DeepTable with the leaves, card against CPU, three steps
     spec = pq.configs()['bank_deepfm']
     table = spec['loader']()
@@ -3987,12 +4114,15 @@ def _gbm_runs(torch, port, kernel_fns, tmp, gbm_fit_s):
     X_train, X_test, y_train, y_test = pq.split(table, spec['target'],
                                                 'binary')
     compared = {}
-    for feature_type in GBM_FEATURE_TYPES:
+    runs = [(feature_type, feature_type, GBM_PARAMS)
+            for feature_type in GBM_FEATURE_TYPES]
+    runs.append(('options', 'embedding', dict(GBM_PARAMS, **GBM_FIT_OPTIONS)))
+    for name, feature_type, gbm_params in runs:
         fits = {}
         for run, device in (('card', None), ('cpu', 'cpu')):
             reset_launches(kernel_fns)
             dt = DeepTable(gbm_config(
-                ModelConfig, spec, gbm_feature_type=feature_type,
+                ModelConfig, spec, gbm_params, gbm_feature_type=feature_type,
                 embedding_dropout=0, metrics=pq.TASK_METRICS['binary'],
                 earlystopping_patience=3, seed=0,
                 home_dir=os.path.join(tmp, 'dt')), device=device)
@@ -4009,23 +4139,24 @@ def _gbm_runs(torch, port, kernel_fns, tmp, gbm_fit_s):
             fits[run] = ({k: v.detach().cpu() for k, v in
                           dt.get_model().module.state_dict().items()},
                          {k: v[0] for k, v in history.history.data.items()},
-                         fit_s, len(dt.preprocessor.categorical_columns))
+                         fit_s, len(dt.preprocessor.categorical_columns),
+                         counts if run == 'card' else None)
             del dt
-        (card_state, card_logs, card_s, n_cat), (cpu_state, cpu_logs,
-                                                 cpu_s, _) = \
-            fits['card'], fits['cpu']
+        (card_state, card_logs, card_s, n_cat, card_counts), \
+            (cpu_state, cpu_logs, cpu_s, _, _) = fits['card'], fits['cpu']
         loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
                      for k in ('loss', 'val_loss')}
         for k, d in loss_diff.items():
             check(d <= 1e-4 * abs(cpu_logs[k]),
-                  f'gbm_card_vs_cpu ({feature_type}): card {k} '
+                  f'gbm_card_vs_cpu ({name}): card {k} '
                   f'{card_logs[k]} vs CPU {cpu_logs[k]}')
         running = [k for k in cpu_state if '.running_' in k]
-        params = check_params(f'gbm_card_vs_cpu ({feature_type})',
+        params = check_params(f'gbm_card_vs_cpu ({name})',
                               card_state, cpu_state, loose=running,
                               loose_atol=PARAM_ATOL,
                               loose_rtol=ESTIMATOR_RUNNING_RTOL)
-        compared[feature_type] = {
+        compared[name] = {
+            'gbm_params': gbm_params, 'launches': card_counts,
             'categorical_columns': n_cat, 'card': card_logs, 'cpu': cpu_logs,
             'loss_diff': loss_diff, 'fit_s': {'card': card_s, 'cpu': cpu_s},
             'params_over_atol': {k: v['over_atol'] for k, v in
@@ -4117,7 +4248,7 @@ def parquet_phase(torch, port, kernel_fns, tmp):
 
 
 def _parquet_runs(torch, port, kernel_fns, tmp):
-    from deeptables_torch.data import columns
+    from deeptables_torch.data import columns, parquet
     from deeptables_torch.data.streaming import (ChunkedSource,
                                                  StreamingDataLoader,
                                                  fit_preprocessor_streaming)
@@ -4148,6 +4279,41 @@ def _parquet_runs(torch, port, kernel_fns, tmp):
           '_read_table: the parquet path read otherwise')
     emit({'phase': 'parquet_read', 'files': reads,
           'bank_rows_per_s': bank_rows / bank_s, 'equal': True})
+
+    # (a2) each codec's read rate on the kinds files (best of three), and
+    # the native decoders alone on the criteo shards' pages
+    codecs = {}
+    for codec, name in PARQUET_CODEC_FILES.items():
+        path = ROOT / PARQUET_DIR / name
+        best = math.inf
+        for _ in range(3):
+            t = time.perf_counter()
+            columns.read_parquet(str(path))
+            best = min(best, time.perf_counter() - t)
+        codecs[codec] = {'file': name, 'rows': reads[name]['rows'],
+                         'bytes': reads[name]['bytes'], 's': best,
+                         'rows_per_s': reads[name]['rows'] / best,
+                         'mb_per_s': reads[name]['bytes'] / 1e6 / best}
+    decoders = {}
+    for codec, names in ((6, PARQUET_CRITEO), (7, (PARQUET_CRITEO_VAL,))):
+        pages = [(c, body, size) for name in names
+                 for c, body, size in parquet.compressed_pages(
+                     str(ROOT / PARQUET_DIR / name)) if c == codec]
+        packed = sum(len(body) for _, body, _ in pages)
+        unpacked = sum(size for _, _, size in pages)
+        best = math.inf
+        for _ in range(3):
+            t = time.perf_counter()
+            for c, body, size in pages:
+                parquet.native_decompress(c, body, size)
+            best = min(best, time.perf_counter() - t)
+        decoders[parquet.CODECS[codec]] = {
+            'files': list(names), 'pages': len(pages),
+            'compressed_bytes': packed, 'bytes': unpacked, 's': best,
+            'out_mb_per_s': unpacked / 1e6 / best,
+            'in_mb_per_s': packed / 1e6 / best}
+    emit({'phase': 'parquet_codecs', 'read': codecs, 'decoders': decoders,
+          'cpu_count': os.cpu_count()})
 
     # (b) a streaming fit of the bank_deepfm row over the two shards
     spec = pq.configs()['bank_deepfm']
@@ -4202,7 +4368,202 @@ def _parquet_runs(torch, port, kernel_fns, tmp):
           'launches': counts})
     del dt
     torch.cuda.empty_cache()
+    for name, count in parquet_criteo(torch, port, kernel_fns,
+                                      tmp).items():
+        launches[name] += count
     return launches
+
+
+def parquet_criteo(torch, port, kernel_fns, tmp):
+    """DeepFM at full criteo width through DeepTable from the ZSTD shards,
+    validated on the LZ4_RAW one: the streamed preprocessor, the card
+    against the CPU over three steps, then PARQUET_CRITEO_EPOCHS epochs
+    with the read's share of each. Returns the launches on the card."""
+    from deeptables_torch.data import columns
+    from deeptables_torch.data.streaming import (ChunkedSource,
+                                                 StreamingDataLoader,
+                                                 fit_preprocessor_streaming)
+    from deeptables_torch.models import DeepModel, DeepTable
+    from deeptables_torch.models.callbacks import LambdaCallback
+    from deeptables_torch.models.preprocessor import DefaultPreprocessor
+    launches = dict.fromkeys(kernel_fns, 0)
+    train_paths = [str(ROOT / PARQUET_DIR / n) for n in PARQUET_CRITEO]
+    val_path = str(ROOT / PARQUET_DIR / PARQUET_CRITEO_VAL)
+    source = ChunkedSource(train_paths, chunk_size=PARQUET_CRITEO_CHUNK)
+    n_train = source.n_rows()
+    t = time.perf_counter()
+    pre = fit_preprocessor_streaming(
+        DefaultPreprocessor(stream_csv_config(port, tmp), use_cache=False),
+        source, 'label')
+    pre_s = time.perf_counter() - t
+
+    def loaders():
+        train = StreamingDataLoader(source, pre, 'label',
+                                    batch_size=TRAIN_BATCH,
+                                    seed=STREAM_CSV_SEED)
+        val = StreamingDataLoader(
+            ChunkedSource([val_path], chunk_size=PARQUET_CRITEO_CHUNK), pre,
+            'label', batch_size=TRAIN_BATCH, shuffle_in_chunk=False,
+            drop_remainder=False)
+        return train, val
+
+    # (c) the card against the CPU, three steps from one seed
+    fits = {}
+    for run, device in (('card', None), ('cpu', 'cpu')):
+        reset_launches(kernel_fns)
+        dt = DeepTable(stream_csv_config(port, tmp, embedding_dropout=0),
+                       preprocessor=pre, device=device)
+        train, val = loaders()
+        _, history = dt.fit(train, epochs=1, verbose=0,
+                            steps_per_epoch=STREAM_COMPARE_STEPS,
+                            validation_data=val)
+        if run == 'card':
+            counts = read_launches(kernel_fns)
+            for name, count in counts.items():
+                launches[name] += count
+            check(all(counts[k] > 0 for k in ('emb_grad', 'fm_fwd',
+                                              'fm_bwd')),
+                  f'parquet_criteo: the card fit launched {counts}')
+        fits[run] = ({k: v.detach().cpu() for k, v in
+                      dt.get_model().module.state_dict().items()},
+                     {k: v[0] for k, v in history.history.data.items()})
+        del dt
+    (card_state, card_logs), (cpu_state, cpu_logs) = fits['card'], \
+        fits['cpu']
+    loss_diff = {k: abs(card_logs[k] - cpu_logs[k])
+                 for k in ('loss', 'val_loss')}
+    for k, d in loss_diff.items():
+        check(d <= 1e-4 * abs(cpu_logs[k]),
+              f'parquet_criteo: card {k} {card_logs[k]} vs CPU '
+              f'{cpu_logs[k]}')
+    params = check_params('parquet_criteo', card_state, cpu_state)
+    card_vs_cpu = {
+        'steps': STREAM_COMPARE_STEPS, 'card': card_logs, 'cpu': cpu_logs,
+        'loss_diff': loss_diff,
+        'params_over_atol': {k: v['over_atol'] for k, v in params.items()
+                             if v['over_atol']},
+        'params_max_abs_diff': max(v['max_abs_diff']
+                                   for v in params.values())}
+    del fits, card_state, cpu_state
+    torch.cuda.empty_cache()
+
+    # (d) the epochs, each step and each read timed
+    step_s, step_loss, epochs = [], [], []
+    train_step = DeepModel._train_step
+
+    def timed_step(self, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(out[0]))
+        return out
+
+    def epoch_begin(epoch, logs=None):
+        torch.cuda.synchronize()
+        epochs.append({'t': time.perf_counter(), 'first_step': len(step_s),
+                       'first_read': len(read_s)})
+
+    def epoch_end(epoch, logs=None):
+        torch.cuda.synchronize()
+        e = epochs[-1]
+        e.update(s=time.perf_counter() - e.pop('t'),
+                 steps=len(step_s) - e['first_step'],
+                 read_s=sum(read_s[e.pop('first_read'):]))
+    train, val = loaders()
+    val_batches = -(-ChunkedSource([val_path]).n_rows() // TRAIN_BATCH)
+    reset_launches(kernel_fns)
+    dt = DeepTable(stream_csv_config(port, tmp), preprocessor=pre,
+                   device=None)
+    DeepModel._train_step = timed_step
+    try:
+        with timed_calls(columns, 'read_parquet') as read_s:
+            t = time.perf_counter()
+            _, history = dt.fit(
+                train, epochs=PARQUET_CRITEO_EPOCHS, verbose=0,
+                validation_data=val,
+                callbacks=[LambdaCallback(on_epoch_begin=epoch_begin,
+                                          on_epoch_end=epoch_end)])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+    finally:
+        DeepModel._train_step = train_step
+    counts = read_launches(kernel_fns)
+    for name, count in counts.items():
+        launches[name] += count
+    steps = len(step_s)
+    logs = {k: list(v) for k, v in history.history.data.items()}
+    check(steps == PARQUET_CRITEO_EPOCHS * (n_train // TRAIN_BATCH),
+          f'parquet_criteo: {steps} steps')
+    check(all(math.isfinite(v) for vs in logs.values() for v in vs),
+          f'parquet_criteo: non-finite logs {logs}')
+    check(loss_fell(step_loss), f'parquet_criteo: the step losses '
+                                f'{step_loss} did not fall')
+    expected = dict.fromkeys(kernel_fns, 0)
+    expected.update(emb_grad=steps, fm_bwd=steps,
+                    fm_fwd=steps + PARQUET_CRITEO_EPOCHS * val_batches)
+    check(counts == expected, f'parquet_criteo: {steps} steps and '
+                              f'{PARQUET_CRITEO_EPOCHS} validations of '
+                              f'{val_batches} batches launched {counts}, '
+                              f'expected {expected}')
+    emit({'phase': 'parquet_criteo', 'model': 'DeepFM',
+          'dtype_policy': 'float32', 'batch_size': TRAIN_BATCH,
+          'train_files': list(PARQUET_CRITEO),
+          'val_file': PARQUET_CRITEO_VAL, 'train_rows': n_train,
+          'chunk_rows': PARQUET_CRITEO_CHUNK, 'preprocessor_s': pre_s,
+          'card_vs_cpu': card_vs_cpu,
+          'tolerance': {'loss_rtol': 1e-4, 'param_atol': PARAM_ATOL,
+                        'param_outlier_share': PARAM_OUTLIERS},
+          'epochs': PARQUET_CRITEO_EPOCHS, 'steps': steps, 'fit_s': fit_s,
+          'epoch_s': [e['s'] for e in epochs],
+          'read_share': [e['read_s'] / e['s'] for e in epochs],
+          'examples_per_s': [TRAIN_BATCH * e['steps'] / e['s']
+                             for e in epochs],
+          'step_examples_per_s': TRAIN_BATCH * steps / sum(step_s),
+          'median_step_ms': 1e3 * sorted(step_s)[steps // 2],
+          'step_losses': step_loss, 'logs': logs, 'launches': counts,
+          'table_rows': int(sum(c.vocabulary_size
+                                for c in pre.categorical_columns))})
+    del dt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eda_phase():
+    """``eda``'s helpers on the bank table as ``Columns`` with pandas,
+    scikit-learn, pyarrow, LightGBM and the compression packages blocked
+    (see the module's docstring, 14)."""
+    return blocked_run(eda_runs)
+
+
+def eda_runs():
+    """(columns_info's digest, reduce_mem_usage's, the top categories, the
+    seconds each took) on the bank_deepfm row's table as Columns."""
+    from deeptables_torch.data.columns import Columns
+    from deeptables_torch.eda import utils as eda
+    from deeptables_torch.tools import parity_quality as pq
+    table = pq.configs()['bank_deepfm']['loader']()
+    check(isinstance(table, Columns), f'load_bank gave {type(table)}')
+    t = time.perf_counter()
+    info = eda.columns_info(table)
+    info_s = time.perf_counter() - t
+    check(isinstance(info, Columns) and list(info.index) == table.columns,
+          f'columns_info gave {type(info)}')
+    t = time.perf_counter()
+    reduced = eda.reduce_mem_usage(table.copy(), verbose=False)
+    reduce_s = time.perf_counter() - t
+    top = eda.top_categories(table, *EDA_TOP).tolist()
+    for name in ('Min', 'Mean', 'Max', 'Std'):
+        info.set(name, [float(f'{v:.{EDA_DIGITS}g}') for v in info[name]],
+                 info.kinds[name])
+    return {'rows': len(table), 'columns': len(table.columns),
+            'columns_info': pq.table_digest(info),
+            'reduce_mem_usage': pq.table_digest(reduced),
+            'reduced_kinds': {n: reduced.kinds[n] for n in reduced.columns
+                              if reduced.kinds[n] != table.kinds[n]},
+            'top_categories': top, 'columns_info_s': info_s,
+            'reduce_mem_usage_s': reduce_s}
 
 
 def main():
@@ -4352,6 +4713,13 @@ def main():
                                          tmp).items():
             launches[name] += count
         torch.cuda.empty_cache()
+
+    got = eda_phase()
+    for key, digest in EDA_DIGESTS.items():
+        check(got[key] == digest, f'eda: {key} {got[key]}, recorded '
+                                  f'{digest}')
+    emit(dict(phase='eda', blocked=list(ESTIMATOR_BLOCKED), equal=True,
+              **got))
 
     head = next(r for r in rows if (r['dtype'], r['B'], r['F'],
                                     r['x_offset']) == (*HEADLINE, F_CRITEO, 0))

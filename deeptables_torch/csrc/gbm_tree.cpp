@@ -1,9 +1,10 @@
 // One regression tree grown exactly as scikit-learn 1.9.0's
 // DecisionTreeRegressor(criterion="squared_error", splitter="best") grows
 // it on dense float32 inputs, plus the per-sample pieces of its gradient
-// boosting that scikit-learn computes in C (the losses' gradients, the
-// subsample mask). Host code, built with the host compiler and loaded with
-// ctypes by models/gbm.py.
+// boosting that scikit-learn computes in C (the losses, their gradients and
+// links, the subsample mask) and its minimal cost-complexity pruning. Host
+// code, built with the host compiler and loaded with ctypes by
+// models/gbm.py.
 //
 // Each part follows its scikit-learn source line for line, because the
 // trees depend on the order of floating-point sums and of swaps:
@@ -15,7 +16,10 @@
 //   build_depth_first        sklearn/tree/_tree.pyx DepthFirstTreeBuilder
 //   build_best_first         sklearn/tree/_tree.pyx BestFirstTreeBuilder
 //   tree_apply               sklearn/tree/_tree.pyx Tree._apply_dense
-//   neg_gradient_*           sklearn/_loss/_loss.pyx.tp
+//   tree_prune               sklearn/tree/_tree.pyx _cost_complexity_prune,
+//                            _AlphaPruner, _build_pruned_tree
+//   neg_gradient_*, loss     sklearn/_loss/_loss.pyx.tp
+//   logit                    scipy's xsf logit (scipy.special.logit)
 //   sample_mask              sklearn/ensemble/_gradient_boosting.pyx
 // Missing values in the inputs are refused by the caller, as scikit-learn's
 // gradient boosting refuses them, so the splitter's missing-value passes
@@ -485,12 +489,17 @@ struct TreeOut {
     double* threshold;
     uint8_t* missing_go_to_left;
     double* value;
+    double* impurity;
+    double* weighted_n_node_samples;
 
     // Tree._add_node; -1 when the caller's arrays are too small
     intp add_node(intp parent, bool is_left, bool is_leaf, intp feat,
-                  double thresh, bool mgl) {
+                  double thresh, bool mgl, double node_impurity,
+                  double node_weight) {
         intp node_id = node_count;
         if (node_id >= capacity) return -1;
+        impurity[node_id] = node_impurity;
+        weighted_n_node_samples[node_id] = node_weight;
         if (parent != TREE_UNDEFINED) {
             if (is_left) left[parent] = node_id;
             else right[parent] = node_id;
@@ -558,7 +567,9 @@ intp build_depth_first(Splitter& splitter, TreeOut& tree,
         }
         intp node_id = tree.add_node(rec.parent, rec.is_left, is_leaf,
                                      split.feature, split.threshold,
-                                     split.missing_go_to_left);
+                                     split.missing_go_to_left,
+                                     parent_record.impurity,
+                                     weighted_n_node_samples);
         if (node_id < 0) return -1;
         tree.value[node_id] = splitter.criterion.node_value();
         if (!is_leaf) {
@@ -615,7 +626,9 @@ struct BestFirst {
         }
         intp node_id = tree.add_node(parent, is_left, is_leaf, split.feature,
                                      split.threshold,
-                                     split.missing_go_to_left);
+                                     split.missing_go_to_left,
+                                     parent_record->impurity,
+                                     weighted_n_node_samples);
         if (node_id < 0) return false;
         tree.value[node_id] = splitter.criterion.node_value();
         res->node_id = node_id;
@@ -684,6 +697,106 @@ struct BestFirst {
     }
 };
 
+// _cost_complexity_prune with _AlphaPruner: the leaves of the pruned tree
+void cost_complexity_prune(intp n_nodes, const intp* child_l,
+                           const intp* child_r, const double* impurity,
+                           const double* weighted_n_node_samples,
+                           double ccp_alpha, uint8_t* leaves_in_subtree) {
+    double total_sum_weights = weighted_n_node_samples[0];
+    std::vector<double> r_node(n_nodes), r_branch(n_nodes, 0.0);
+    std::vector<intp> parent(n_nodes, 0), n_leaves(n_nodes, 0);
+    std::vector<uint8_t> candidate_nodes(n_nodes, 0), in_subtree(n_nodes, 1);
+    for (intp i = 0; i < n_nodes; ++i) {
+        leaves_in_subtree[i] = 0;
+        r_node[i] = weighted_n_node_samples[i] * impurity[i] /
+                    total_sum_weights;
+    }
+    std::stack<std::pair<intp, intp>> ccp_stack;  // (node, parent)
+    ccp_stack.push({0, TREE_UNDEFINED});
+    while (!ccp_stack.empty()) {
+        auto rec = ccp_stack.top();
+        ccp_stack.pop();
+        intp node_idx = rec.first;
+        parent[node_idx] = rec.second;
+        if (child_l[node_idx] == TREE_LEAF) {
+            leaves_in_subtree[node_idx] = 1;
+        } else {
+            ccp_stack.push({child_l[node_idx], node_idx});
+            ccp_stack.push({child_r[node_idx], node_idx});
+        }
+    }
+    for (intp leaf_idx = 0; leaf_idx < n_nodes; ++leaf_idx) {
+        if (!leaves_in_subtree[leaf_idx]) continue;
+        r_branch[leaf_idx] = r_node[leaf_idx];
+        double current_r = r_node[leaf_idx];
+        intp idx = leaf_idx;
+        while (idx != 0) {
+            intp parent_idx = parent[idx];
+            r_branch[parent_idx] += current_r;
+            n_leaves[parent_idx] += 1;
+            idx = parent_idx;
+        }
+    }
+    for (intp i = 0; i < n_nodes; ++i)
+        candidate_nodes[i] = !leaves_in_subtree[i];
+    intp pruned_branch_node_idx = 0;
+    std::stack<intp> node_indices_stack;
+    while (candidate_nodes[0]) {
+        double effective_alpha = DBL_MAX;
+        for (intp i = 0; i < n_nodes; ++i) {
+            if (!candidate_nodes[i]) continue;
+            double subtree_alpha =
+                (r_node[i] - r_branch[i]) / (double)(n_leaves[i] - 1);
+            if (subtree_alpha < effective_alpha) {
+                effective_alpha = subtree_alpha;
+                pruned_branch_node_idx = i;
+            }
+        }
+        if (ccp_alpha < effective_alpha) break;
+        node_indices_stack.push(pruned_branch_node_idx);
+        while (!node_indices_stack.empty()) {
+            intp node_idx = node_indices_stack.top();
+            node_indices_stack.pop();
+            if (!in_subtree[node_idx]) continue;
+            candidate_nodes[node_idx] = 0;
+            leaves_in_subtree[node_idx] = 0;
+            in_subtree[node_idx] = 0;
+            if (child_l[node_idx] != TREE_LEAF) {
+                node_indices_stack.push(child_l[node_idx]);
+                node_indices_stack.push(child_r[node_idx]);
+            }
+        }
+        leaves_in_subtree[pruned_branch_node_idx] = 1;
+        in_subtree[pruned_branch_node_idx] = 1;
+        intp n_pruned_leaves = n_leaves[pruned_branch_node_idx] - 1;
+        n_leaves[pruned_branch_node_idx] = 0;
+        double r_diff = r_node[pruned_branch_node_idx] -
+                        r_branch[pruned_branch_node_idx];
+        r_branch[pruned_branch_node_idx] = r_node[pruned_branch_node_idx];
+        intp node_idx = parent[pruned_branch_node_idx];
+        while (node_idx != TREE_UNDEFINED) {
+            n_leaves[node_idx] -= n_pruned_leaves;
+            r_branch[node_idx] += r_diff;
+            node_idx = parent[node_idx];
+        }
+    }
+}
+
+// xsf's logit: log(x / (1 - x)) away from 1/2, log1p near it
+inline double xsf_logit(double x) {
+    if (x < 0.3 || x > 0.65) return std::log(x / (1 - x));
+    double s = 2 * (x - 0.5);
+    return std::log1p(s) - std::log1p(-s);
+}
+
+inline double log1pexp(double x) {
+    if (x <= -37) return std::exp(x);
+    if (x <= -2) return std::log1p(std::exp(x));
+    if (x <= 18) return std::log(1. + std::exp(x));
+    if (x <= 33.3) return x + std::exp(-x);
+    return x;
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,7 +813,8 @@ int64_t gbm_tree_fit(const float* X, int64_t n_samples, int64_t n_features,
                      double min_impurity_decrease, uint32_t seed,
                      int64_t capacity, int64_t* left, int64_t* right,
                      int64_t* feature, double* threshold,
-                     uint8_t* missing_go_to_left, double* value) {
+                     uint8_t* missing_go_to_left, double* value,
+                     double* impurity, double* weighted_n_node_samples) {
     Splitter splitter;
     splitter.X = X;
     splitter.n_total = n_samples;
@@ -713,7 +827,8 @@ int64_t gbm_tree_fit(const float* X, int64_t n_samples, int64_t n_features,
     splitter.rand_r_state = seed;
     splitter.init();
     TreeOut tree{capacity, 0, left, right, feature, threshold,
-                 missing_go_to_left, value};
+                 missing_go_to_left, value, impurity,
+                 weighted_n_node_samples};
     if (max_leaf_nodes < 0)
         return build_depth_first(splitter, tree, min_samples_split,
                                  min_samples_leaf, min_weight_leaf, max_depth,
@@ -721,6 +836,55 @@ int64_t gbm_tree_fit(const float* X, int64_t n_samples, int64_t n_features,
     BestFirst best_first{splitter, tree, min_samples_split, min_samples_leaf,
                          min_weight_leaf, max_depth, min_impurity_decrease};
     return best_first.build(max_leaf_nodes);
+}
+
+// Minimal cost-complexity pruning of a tree of n_nodes nodes at ccp_alpha
+// (DecisionTreeRegressor._prune_tree): the pruned tree's nodes, numbered
+// depth first as _build_pruned_tree adds them, go to the out_ arrays (of
+// n_nodes entries); returns its node count.
+int64_t gbm_tree_prune(int64_t n_nodes, const int64_t* left,
+                       const int64_t* right, const int64_t* feature,
+                       const double* threshold,
+                       const uint8_t* missing_go_to_left, const double* value,
+                       const double* impurity,
+                       const double* weighted_n_node_samples,
+                       double ccp_alpha, int64_t* out_left,
+                       int64_t* out_right, int64_t* out_feature,
+                       double* out_threshold, uint8_t* out_missing_go_to_left,
+                       double* out_value, double* out_impurity,
+                       double* out_weighted_n_node_samples) {
+    std::vector<uint8_t> leaves_in_subtree(n_nodes);
+    cost_complexity_prune(n_nodes, left, right, impurity,
+                          weighted_n_node_samples, ccp_alpha,
+                          leaves_in_subtree.data());
+    TreeOut tree{n_nodes, 0, out_left, out_right, out_feature,
+                 out_threshold, out_missing_go_to_left, out_value,
+                 out_impurity, out_weighted_n_node_samples};
+    struct Record {
+        intp start, depth, parent;
+        bool is_left;
+    };
+    std::stack<Record> prune_stack;
+    prune_stack.push({0, 0, TREE_UNDEFINED, false});
+    while (!prune_stack.empty()) {
+        Record rec = prune_stack.top();
+        prune_stack.pop();
+        intp orig = rec.start;
+        bool is_leaf = leaves_in_subtree[orig];
+        if (!is_leaf && left[orig] == TREE_LEAF && right[orig] == TREE_LEAF)
+            return -2;
+        intp node_id = tree.add_node(rec.parent, rec.is_left, is_leaf,
+                                     feature[orig], threshold[orig],
+                                     missing_go_to_left[orig], impurity[orig],
+                                     weighted_n_node_samples[orig]);
+        if (node_id < 0) return -1;
+        out_value[node_id] = value[orig];
+        if (!is_leaf) {
+            prune_stack.push({right[orig], rec.depth + 1, node_id, false});
+            prune_stack.push({left[orig], rec.depth + 1, node_id, true});
+        }
+    }
+    return tree.node_count;
 }
 
 // The leaf each row of X (float32, C order) reaches.
@@ -778,6 +942,43 @@ void gbm_neg_gradient_multinomial(const double* y_true, const double* raw,
             out[i * n_classes + k] = -(p[k] - (double)(y_true[i] == k));
         }
     }
+}
+
+// Exponential loss: the negative gradient -(-y exp(-raw) + (1 - y) exp(raw)).
+void gbm_neg_gradient_exponential(const double* y_true, const double* raw,
+                                  int64_t n, double* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        double tmp = std::exp(raw[i]);
+        out[i] = -(-y_true[i] / tmp + (1 - y_true[i]) * tmp);
+    }
+}
+
+// The pointwise losses scikit-learn computes in C: kind 0 half binomial,
+// 1 half multinomial (raw of shape (n, n_classes), C order), 2 exponential.
+void gbm_loss(int64_t kind, const double* y_true, const double* raw,
+              int64_t n, int64_t n_classes, double* out) {
+    for (int64_t i = 0; i < n; ++i) {
+        if (kind == 0) {
+            out[i] = log1pexp(raw[i]) - y_true[i] * raw[i];
+        } else if (kind == 1) {
+            const double* r = raw + i * n_classes;
+            double max_value = r[0], sum_exps = 0;
+            for (int64_t k = 1; k < n_classes; ++k)
+                if (max_value < r[k]) max_value = r[k];
+            for (int64_t k = 0; k < n_classes; ++k)
+                sum_exps += std::exp(r[k] - max_value);
+            out[i] = std::log(sum_exps) + max_value;
+            out[i] -= r[(int64_t)y_true[i]];
+        } else {
+            double tmp = std::exp(raw[i]);
+            out[i] = y_true[i] / tmp + (1 - y_true[i]) * tmp;
+        }
+    }
+}
+
+// scipy.special.logit of each of n probabilities.
+void gbm_logit(const double* p, int64_t n, double* out) {
+    for (int64_t i = 0; i < n; ++i) out[i] = xsf_logit(p[i]);
 }
 
 // The subsample mask of n_in_bag of n rows from uniform draws `rand`.

@@ -8,12 +8,21 @@ It reads flat schemas of the Parquet format up to 2.6:
 
 - the footer's Thrift compact protocol (decoded in Python);
 - data pages v1 and v2, any number of row groups;
-- pages uncompressed, SNAPPY (decompressed here) or GZIP (``zlib``);
+- pages uncompressed, SNAPPY (decompressed here), GZIP (``zlib``), ZSTD,
+  LZ4_RAW and LZ4 (Hadoop's framing, else one bare block, as Arrow reads
+  it); ZSTD and LZ4 by ``csrc/parquet_codecs.cpp``, host C++ built with
+  the host compiler at first use (a failed build raises with the
+  compiler's message);
 - PLAIN and RLE_DICTIONARY / PLAIN_DICTIONARY values, also a column chunk
   that falls back from its dictionary to PLAIN part way through;
+  DELTA_BINARY_PACKED (INT32, INT64), DELTA_LENGTH_BYTE_ARRAY and
+  DELTA_BYTE_ARRAY (BYTE_ARRAY), BYTE_STREAM_SPLIT (FLOAT, DOUBLE, INT32,
+  INT64), in numpy;
 - the RLE / bit-packed hybrid of definition levels and dictionary indices;
-- BOOLEAN, INT32, INT64, FLOAT, DOUBLE and BYTE_ARRAY with the String
-  logical type (and INT32 with the Null type, pyarrow's all-null column).
+- BOOLEAN, INT32, INT64, INT96 (Impala's timestamps: ``datetime64[ns]``, as
+  ``pd.read_parquet`` gives them), FLOAT, DOUBLE and BYTE_ARRAY with the
+  String logical type (and INT32 with the Null type, pyarrow's all-null
+  column).
 
 The ``pandas`` key-value metadata, where the file has it, names the index
 columns, which are dropped (a stored index, or a range other than
@@ -24,18 +33,22 @@ categorical of strings is ``category[str]`` with the file's categories;
 nullable integers and floats, and integers with nulls, are ``float64``
 with NaN; a boolean column with nulls is ``object`` (``None``, or NaN for
 pandas' nullable ``boolean``); timestamps are ``datetime64[<unit>]`` with
-NaT; an all-null column is ``object`` of ``None``. Other codecs (ZSTD,
-LZ4, BROTLI, ...), encodings (DELTA_*, BYTE_STREAM_SPLIT), physical types
-and nested schemas raise ``ValueError`` naming them.
+NaT; an all-null column is ``object`` of ``None``. The BROTLI and LZO
+codecs, FIXED_LEN_BYTE_ARRAY and nested schemas raise ``ValueError``
+naming them.
 """
 
+import ctypes
 import json
 import struct
+import subprocess
+import threading
 import zlib
 
 import numpy as np
 
 from . import columns as cl
+from ..ops.kernels import _build
 
 MAGIC = b'PAR1'
 CODECS = {0: 'UNCOMPRESSED', 1: 'SNAPPY', 2: 'GZIP', 3: 'LZO', 4: 'BROTLI',
@@ -51,6 +64,11 @@ PLAIN_DTYPES = {'INT32': '<i4', 'INT64': '<i8', 'FLOAT': '<f4',
 PAGE_DATA, PAGE_INDEX, PAGE_DICTIONARY, PAGE_DATA_V2 = 0, 1, 2, 3
 REQUIRED, OPTIONAL, REPEATED = 0, 1, 2
 TIME_UNITS = {1: 'ms', 2: 'us', 3: 'ns'}  # LogicalType TimeUnit's fields
+JULIAN_UNIX_EPOCH = 2440588  # the Julian day of 1970-01-01
+NS_PER_DAY = 86400 * 10 ** 9
+CODEC_SOURCE = _build.CSRC_DIR / 'parquet_codecs.cpp'
+NATIVE_CODECS = {5: 'pq_lz4_hadoop_decompress', 6: 'pq_zstd_decompress',
+                 7: 'pq_lz4_raw_decompress'}
 NULLABLE_INTS = ('Int8', 'Int16', 'Int32', 'Int64', 'UInt8', 'UInt16',
                  'UInt32', 'UInt64')
 
@@ -182,33 +200,92 @@ def snappy_decompress(data) -> bytes:
     return bytes(out)
 
 
+_codecs = None
+_codecs_lock = threading.Lock()
+
+
+def codec_library():
+    """The native ZSTD and LZ4 decoders (``csrc/parquet_codecs.cpp``),
+    built at first use."""
+    global _codecs
+    with _codecs_lock:
+        if _codecs is not None:
+            return _codecs
+        try:
+            path = _build.build_host_library(CODEC_SOURCE)
+        except subprocess.CalledProcessError as e:
+            raise RuntimeError(f'building {CODEC_SOURCE.name} failed:\n'
+                               f'{e.stderr}') from e
+        lib = ctypes.CDLL(str(path))
+        for name in NATIVE_CODECS.values():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
+                           ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+        _codecs = lib
+        return _codecs
+
+
+def native_decompress(codec, data, size) -> bytes:
+    """``data`` decompressed by the native decoder of ``codec`` (5, 6 or
+    7) into exactly ``size`` bytes; a corrupt page raises ``ValueError``."""
+    data = bytes(data)
+    out = bytearray(size)
+    dst = (ctypes.c_char * size).from_buffer(out) if size else None
+    err = ctypes.create_string_buffer(256)
+    got = getattr(codec_library(), NATIVE_CODECS[codec])(
+        data, len(data), dst, size, err, len(err))
+    name = CODECS[codec]
+    if got < 0:
+        raise ValueError(f'Parquet: corrupt {name} page: '
+                         f'{err.value.decode()}')
+    if got != size:
+        raise ValueError(f'Parquet: corrupt {name} page: {got} bytes for '
+                         f'its {size}')
+    return bytes(out)
+
+
 def _decompress(codec, data, size):
     if codec == 0:
         return bytes(data)
     if codec == 1:
-        return snappy_decompress(data)
+        try:
+            out = snappy_decompress(data)
+        except IndexError as e:  # a page cut short
+            raise ValueError('Parquet: corrupt SNAPPY page') from e
+        if len(out) != size:
+            raise ValueError('Parquet: corrupt SNAPPY page')
+        return out
     if codec == 2:
-        out = zlib.decompress(bytes(data), 47)  # gzip or zlib header
+        try:
+            out = zlib.decompress(bytes(data), 47)  # gzip or zlib header
+        except zlib.error as e:
+            raise ValueError(f'Parquet: corrupt GZIP page: {e}') from e
         if len(out) != size:
             raise ValueError('Parquet: corrupt GZIP page')
         return out
+    if codec in NATIVE_CODECS:
+        return native_decompress(codec, data, size)
     raise ValueError(f'Parquet: the {CODECS.get(codec, codec)} codec is not '
-                     f'read (only UNCOMPRESSED, SNAPPY and GZIP)')
+                     f'read (only UNCOMPRESSED, SNAPPY, GZIP, LZ4, ZSTD and '
+                     f'LZ4_RAW)')
 
 
 # -- encodings --------------------------------------------------------------
 
 def _unpack_bits(buf, bit_width, count):
-    """``count`` little-endian bit-packed values of ``bit_width`` bits."""
+    """``count`` little-endian bit-packed values of ``bit_width`` bits (up
+    to 64), as uint64."""
     if bit_width == 0:
-        return np.zeros(count, np.int64)
+        return np.zeros(count, np.uint64)
     nbytes = (count * bit_width + 7) // 8
     raw = np.frombuffer(buf, np.uint8, min(nbytes, len(buf)))
     if len(raw) < nbytes:  # a last run cut short of its padding
         raw = np.concatenate([raw, np.zeros(nbytes - len(raw), np.uint8)])
     bits = np.unpackbits(raw, bitorder='little')[:count * bit_width]
-    weights = (1 << np.arange(bit_width, dtype=np.int64))
-    return bits.reshape(count, bit_width).astype(np.int64) @ weights
+    weights = np.left_shift(np.uint64(1), np.arange(bit_width,
+                                                    dtype=np.uint64))
+    return bits.reshape(count, bit_width).astype(np.uint64) @ weights
 
 
 def rle_hybrid(buf, bit_width, count):
@@ -224,7 +301,7 @@ def rle_hybrid(buf, bit_width, count):
         if header & 1:
             groups = header >> 1
             n = groups * 8
-            values = _unpack_bits(buf[t.pos:], bit_width, n)
+            values = _unpack_bits(buf[t.pos:], bit_width, n).astype(np.int64)
             t.pos += groups * bit_width
         else:
             n = header >> 1
@@ -238,11 +315,18 @@ def rle_hybrid(buf, bit_width, count):
 
 
 def _plain(buf, ptype, count):
-    """``count`` PLAIN values of physical type ``ptype``."""
+    """``count`` PLAIN values of physical type ``ptype`` (INT96 as int64
+    nanoseconds since the Unix epoch)."""
     if ptype in PLAIN_DTYPES:
         dtype = np.dtype(PLAIN_DTYPES[ptype])
         return np.frombuffer(buf, dtype, count).astype(
             dtype.newbyteorder('='))
+    if ptype == 'INT96':
+        # 8 bytes of nanoseconds in the day, then the 4-byte Julian day
+        raw = np.frombuffer(buf, np.dtype([('ns', '<i8'), ('day', '<i4')]),
+                            count)
+        days = raw['day'].astype(np.int64) - JULIAN_UNIX_EPOCH
+        return days * NS_PER_DAY + raw['ns']
     if ptype == 'BOOLEAN':
         return _unpack_bits(buf, 1, count).astype(bool)
     if ptype == 'BYTE_ARRAY':
@@ -256,6 +340,161 @@ def _plain(buf, ptype, count):
             pos += n
         return out
     raise ValueError(f'Parquet: physical type {ptype} is not read')
+
+
+def _uleb(buf, pos):
+    """(an unsigned LEB128 varint, the position after it)."""
+    result = shift = 0
+    while True:
+        if pos >= len(buf):
+            raise ValueError('Parquet: a DELTA header ends early')
+        b = buf[pos]
+        pos += 1
+        result |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return result, pos
+        shift += 7
+
+
+def _zigzag(n):
+    return (n >> 1) ^ -(n & 1)
+
+
+def delta_binary_packed(buf, pos, bits):
+    """DELTA_BINARY_PACKED at ``pos`` of ``buf``: (the values as a signed
+    array of ``bits`` bits, the position after them). The deltas add up
+    modulo 2**64, then wrap to the type's width, as the format's modular
+    arithmetic does."""
+    block, pos = _uleb(buf, pos)
+    n_mini, pos = _uleb(buf, pos)
+    total, pos = _uleb(buf, pos)
+    first, pos = _uleb(buf, pos)
+    first = _zigzag(first)
+    if block <= 0 or block % 128 or n_mini <= 0 or block % n_mini or \
+            (block // n_mini) % 32:
+        raise ValueError(f'Parquet: a corrupt DELTA_BINARY_PACKED header '
+                         f'(blocks of {block} in {n_mini} miniblocks)')
+    per = block // n_mini
+    starts, widths, mins = [], [], []
+    need = total - 1
+    while need > 0:
+        min_delta, pos = _uleb(buf, pos)
+        if pos + n_mini > len(buf):
+            raise ValueError('Parquet: a DELTA_BINARY_PACKED block ends '
+                             'early')
+        block_widths = bytes(buf[pos:pos + n_mini])
+        pos += n_mini
+        for width in block_widths:
+            if need <= 0:
+                break  # the last block's unneeded miniblocks are absent
+            if width > 64:
+                raise ValueError(f'Parquet: a DELTA_BINARY_PACKED '
+                                 f'miniblock {width} bits wide')
+            starts.append(pos)
+            widths.append(width)
+            mins.append(_zigzag(min_delta) & 0xFFFFFFFFFFFFFFFF)
+            pos += per * width // 8
+            if pos > len(buf):
+                raise ValueError('Parquet: a DELTA_BINARY_PACKED miniblock '
+                                 'ends early')
+            need -= per
+    deltas = np.zeros((len(starts), per), np.uint64)
+    widths = np.array(widths, np.int64)
+    data = np.frombuffer(buf, np.uint8)
+    for width in np.unique(widths[widths > 0]):
+        rows = np.nonzero(widths == width)[0]
+        nbytes = per * int(width) // 8
+        gathered = data[np.array(starts)[rows, None]
+                        + np.arange(nbytes)].reshape(-1)
+        deltas[rows] = _unpack_bits(gathered, int(width),
+                                    len(rows) * per).reshape(len(rows), per)
+    deltas += np.array(mins, np.uint64)[:, None]
+    values = np.empty(total, np.uint64)
+    if total:
+        values[0] = first & 0xFFFFFFFFFFFFFFFF
+        np.cumsum(deltas.reshape(-1)[:total - 1], out=values[1:])
+        values[1:] += values[0]
+    return values.astype(f'u{bits // 8}').view(f'i{bits // 8}'), pos
+
+
+def _byte_arrays(data, lengths):
+    """(the byte strings of ``lengths`` one after another in ``data``, the
+    bytes they take)."""
+    ends = np.cumsum(lengths, dtype=np.int64)
+    if len(lengths) and (ends[-1] > len(data) or lengths.min() < 0):
+        raise ValueError('Parquet: byte arrays past their page')
+    data = bytes(data[:int(ends[-1])] if len(lengths) else b'')
+    out = np.empty(len(lengths), object)
+    out[:] = [data[a:b] for a, b in zip((ends - lengths).tolist(),
+                                        ends.tolist())]
+    return out, len(data)
+
+
+def delta_length_byte_array(buf, pos):
+    """DELTA_LENGTH_BYTE_ARRAY: (the values, the position after them)."""
+    lengths, pos = delta_binary_packed(buf, pos, 32)
+    values, used = _byte_arrays(buf[pos:], lengths)
+    return values, pos + used
+
+
+def delta_byte_array(buf, pos):
+    """DELTA_BYTE_ARRAY: each value the previous one's prefix of the given
+    length, then its suffix."""
+    prefixes, pos = delta_binary_packed(buf, pos, 32)
+    suffixes, pos = delta_length_byte_array(buf, pos)
+    if len(prefixes) != len(suffixes):
+        raise ValueError('Parquet: a corrupt DELTA_BYTE_ARRAY page')
+    if len(prefixes) and prefixes.min() < 0:
+        raise ValueError('Parquet: a negative DELTA_BYTE_ARRAY prefix')
+    values = []
+    previous = b''
+    for p, suffix in zip(prefixes.tolist(), suffixes.tolist()):
+        if p > len(previous):
+            raise ValueError('Parquet: a DELTA_BYTE_ARRAY prefix past the '
+                             'previous value')
+        previous = previous[:p] + suffix if p else suffix
+        values.append(previous)
+    out = np.empty(len(values), object)
+    out[:] = values
+    return out, pos
+
+
+def byte_stream_split(buf, ptype, count):
+    """BYTE_STREAM_SPLIT: byte k of every value in stream k."""
+    dtype = np.dtype(PLAIN_DTYPES[ptype])
+    width = dtype.itemsize
+    if count * width > len(buf):
+        raise ValueError('Parquet: a BYTE_STREAM_SPLIT page ends early')
+    streams = np.frombuffer(buf, np.uint8, count * width).reshape(width,
+                                                                  count)
+    return np.ascontiguousarray(streams.T).view(dtype).reshape(count) \
+        .astype(dtype.newbyteorder('='))
+
+
+def _values(data, pos, encoding, ptype, k):
+    """``k`` non-null values of a data page by a value encoding that needs
+    no dictionary."""
+    if encoding == 0:
+        return _plain(data[pos:], ptype, k)
+    if encoding == 3 and ptype == 'BOOLEAN':  # RLE, length-prefixed
+        length = int.from_bytes(data[pos:pos + 4], 'little')
+        return rle_hybrid(data[pos + 4:pos + 4 + length], 1, k).astype(bool)
+    if encoding == 5 and ptype in ('INT32', 'INT64'):
+        values, _ = delta_binary_packed(data, pos, 32 if ptype == 'INT32'
+                                        else 64)
+    elif encoding == 6 and ptype == 'BYTE_ARRAY':
+        values, _ = delta_length_byte_array(data, pos)
+    elif encoding == 7 and ptype == 'BYTE_ARRAY':
+        values, _ = delta_byte_array(data, pos)
+    elif encoding == 9 and ptype in PLAIN_DTYPES:
+        return byte_stream_split(data[pos:], ptype, k)
+    else:
+        raise ValueError(f'Parquet: the {ENCODINGS.get(encoding, encoding)} '
+                         f'encoding of {ptype} is not read')
+    if len(values) != k:
+        raise ValueError(f'Parquet: a {ENCODINGS[encoding]} page holds '
+                         f'{len(values)} values for {k}')
+    return values
 
 
 # -- the file ---------------------------------------------------------------
@@ -300,24 +539,30 @@ def _leaves(schema):
     return leaves
 
 
+def _pages(f, md):
+    """(header, body) of each page of the column chunk whose metadata is
+    ``md``, the dictionary page first where there is one."""
+    f.seek(md.get(11) or md[9])
+    raw = f.read(md[7])
+    t = _Thrift(raw)
+    while t.pos < len(raw):
+        header = t.struct()
+        body = raw[t.pos:t.pos + header[3]]
+        t.pos += header[3]
+        yield header, body
+
+
 def _read_chunk(f, chunk, ptype, optional, num_rows):
     """One column chunk, page by page: (the non-null values, a mask of the
     rows that have one, whether the values were PLAIN) for each data page,
     and the dictionary page's values (None without one)."""
     md = chunk[3]
     codec = md[4]
-    start = md.get(11) or md[9]  # the dictionary page first, if any
-    f.seek(start)
-    raw = f.read(md[7])
-    t = _Thrift(raw)
     dictionary = None
     values, present, plain = [], [], []
     rows = 0
-    while rows < md[5]:
-        header = t.struct()
-        kind, size, csize = header[1], header[2], header[3]
-        body = raw[t.pos:t.pos + csize]
-        t.pos += csize
+    for header, body in _pages(f, md):
+        kind, size = header[1], header[2]
         if kind == PAGE_DICTIONARY:
             page = header[7]
             _check_encoding(page[2], (0, 2))
@@ -352,13 +597,7 @@ def _read_chunk(f, chunk, ptype, optional, num_rows):
             raise ValueError(f'Parquet: page type {kind} is not read')
         mask = levels.astype(bool) if optional else np.ones(n, bool)
         k = int(mask.sum())
-        if encoding == 0:
-            page_values = _plain(data[pos:], ptype, k)
-        elif encoding == 3 and ptype == 'BOOLEAN':  # RLE, length-prefixed
-            length = int.from_bytes(data[pos:pos + 4], 'little')
-            page_values = rle_hybrid(data[pos + 4:pos + 4 + length], 1,
-                                     k).astype(bool)
-        elif encoding in (2, 8):
+        if encoding in (2, 8):
             if dictionary is None:
                 raise ValueError('Parquet: a dictionary-encoded page without '
                                  'a dictionary page')
@@ -366,9 +605,7 @@ def _read_chunk(f, chunk, ptype, optional, num_rows):
             idx = rle_hybrid(data[pos + 1:], bit_width, k)
             page_values = dictionary[idx]
         else:
-            raise ValueError(f'Parquet: the '
-                             f'{ENCODINGS.get(encoding, encoding)} encoding '
-                             f'is not read (only PLAIN and dictionary)')
+            page_values = _values(data, pos, encoding, ptype, k)
         values.append(page_values)
         present.append(mask)
         plain.append(encoding not in (2, 8))
@@ -473,6 +710,11 @@ def _column(name, el, chunks, pandas_col):
         if values:
             out[present] = [bool(v) for v in np.concatenate(values)]
         return out, 'object', None
+    if ptype == 'INT96':
+        out = np.full(n, np.datetime64('NaT'), 'datetime64[ns]')
+        if values:
+            out[present] = np.concatenate(values).view('datetime64[ns]')
+        return out, 'datetime64[ns]', None
     if ptype in ('FLOAT', 'DOUBLE'):
         dtype = np.float32 if ptype == 'FLOAT' else np.float64
         if numpy_type in ('Float32', 'Float64'):
@@ -513,6 +755,25 @@ def _column(name, el, chunks, pandas_col):
                      f'which is not read')
 
 
+def compressed_pages(path):
+    """Each page of the file as (codec id, its compressed bytes, the size
+    they decompress to): the values part of a v2 page (codec 0 where the
+    page is stored uncompressed), the whole body of a v1 or dictionary
+    page."""
+    with open(path, 'rb') as f:
+        meta = _footer(f)
+        for group in meta.get(4, []):
+            for chunk in group[1]:
+                md = chunk[3]
+                for header, body in _pages(f, md):
+                    size, codec = header[2], md[4]
+                    if header[1] == PAGE_DATA_V2:
+                        levels = header[8][5] + header[8][6]
+                        body, size = body[levels:], size - levels
+                        codec = codec if header[8].get(7, True) else 0
+                    yield codec, body, size
+
+
 def read_parquet(path) -> cl.Columns:
     """A Parquet file as ``Columns`` (see the module's docstring)."""
     with open(path, 'rb') as f:
@@ -535,8 +796,8 @@ def read_parquet(path) -> cl.Columns:
                     raise ValueError('Parquet: columns in other files are '
                                      'not read')
                 ptype = TYPES[el[1]]
-                if ptype not in ('BOOLEAN', 'INT32', 'INT64', 'FLOAT',
-                                 'DOUBLE', 'BYTE_ARRAY'):
+                if ptype not in ('BOOLEAN', 'INT32', 'INT64', 'INT96',
+                                 'FLOAT', 'DOUBLE', 'BYTE_ARRAY'):
                     raise ValueError(f'Parquet: column {name!r} has '
                                      f'physical type {ptype}, which is not '
                                      f'read')

@@ -66,9 +66,11 @@ def _approximate_mode(class_counts, n_draws, rng):
 def split_indices(n_samples: int, test_size=0.25, random_state=None,
                   stratify=None):
     """(train, test) row indices as scikit-learn's ``train_test_split``
-    draws them."""
+    draws them (``random_state`` a seed, or a ``RandomState`` to draw
+    from)."""
     n_train, n_test = _split_sizes(n_samples, test_size)
-    rng = np.random.RandomState(random_state)
+    rng = random_state if isinstance(random_state, np.random.RandomState) \
+        else np.random.RandomState(random_state)
     if stratify is None:
         permutation = rng.permutation(n_samples)
         return permutation[n_test:n_test + n_train], permutation[:n_test]

@@ -8,6 +8,7 @@ the same inputs go through both and are held exactly equal; where an
 optional package (lightgbm, shap) is missing, both raise ImportError."""
 
 import json
+import sys
 
 import numpy as np
 import pandas as pd
@@ -26,6 +27,7 @@ from deeptables_tpu.utils import profiling as jax_profiling
 from deeptables_tpu.utils import shap as jax_shap
 import deeptables_torch.eda as eda
 import deeptables_torch.preprocessing as preprocessing
+from deeptables_torch.data import columns as cl
 from deeptables_torch.data.datasets import load_bank
 from deeptables_torch.datasets import dsutils
 from deeptables_torch.models import DeepTable, ModelConfig
@@ -183,6 +185,123 @@ def test_eda_matches_jax():
     pd.testing.assert_frame_equal(
         port, jax_eda.reduce_mem_usage(mixed.copy(), verbose=False))
     assert port['a'].dtype == np.int8 and port['c'].dtype == np.int32
+
+
+def _eda_frame(n=300, seed=3):
+    """Tied counts, booleans, all-missing columns, a categorical with an
+    unused category, times, mixed objects, each integer width."""
+    rs = np.random.RandomState(seed)
+    mixed = [(1, 'a', None, 2.5)[k] for k in rs.randint(0, 4, n)]
+    return pd.DataFrame({
+        'ties': np.repeat([5, 2, 9, 7], n // 4)[rs.permutation(n)],
+        'flag': rs.rand(n) < .5,
+        'const_bool': np.ones(n, bool),
+        'f': np.where(rs.rand(n) < .1, np.nan, rs.randint(0, 5, n) / 4),
+        'f32': rs.randn(n).astype(np.float32),
+        'f32_ties': (rs.randint(0, 3, n) / 2).astype(np.float32),
+        'nan': np.full(n, np.nan),
+        'i16': rs.randint(-300, 300, n).astype(np.int16),
+        'i32': rs.randint(-5, 5, n).astype(np.int32),
+        'i64_big': rs.randint(0, 2 ** 40, n),
+        'u8': rs.randint(0, 5, n).astype(np.uint8),
+        's': pd.array(rs.choice(['a', 'bb', None, 'c'], n), dtype='str'),
+        's_missing': pd.array([None] * n, dtype='str'),
+        'cat': pd.Categorical(rs.choice(['q', 'p', None], n),
+                              categories=['r', 'q', 'p', 'unused']),
+        'cat_int': pd.Categorical(rs.choice([3, 1, 2], n)),
+        'obj': pd.Series(mixed, dtype=object),
+        'when': pd.to_datetime(rs.randint(0, 4, n) * 86_400 + 1_600_000_000
+                               + rs.randint(0, 2, n) * 0.5, unit='s'),
+    })
+
+
+def _same_number(a, b):
+    a, b = float(a), float(b)
+    return (a != a and b != b) or a == b
+
+
+def _assert_info_equal(port, jax_info):
+    """The port's ``columns_info`` (a DataFrame, or ``Columns``) against
+    the JAX helper's DataFrame: the same rows, dtypes by name, counts,
+    statistics and top-N strings."""
+    rows = list(jax_info.index)
+    if isinstance(port, cl.Columns):
+        assert list(port.index) == rows
+        get = {c: port[c] for c in port.columns}
+    else:
+        assert list(port.index) == rows
+        get = {c: port[c].to_numpy() for c in port.columns}
+    assert list(get) == list(jax_info.columns)
+    for j, name in enumerate(rows):
+        assert get['DataType'][j] == str(jax_info['DataType'].iloc[j]), name
+        for c in ('#Nulls', '#Uniques'):
+            assert get[c][j] == jax_info[c].iloc[j], (name, c)
+        for c in ('Min', 'Mean', 'Max', 'Std'):
+            assert _same_number(get[c][j], jax_info[c].iloc[j]), \
+                (name, c, get[c][j], jax_info[c].iloc[j])
+        for c in jax_info.columns[7:]:
+            assert get[c][j] == jax_info[c].iloc[j], (name, c)
+
+
+@pytest.mark.parametrize('table', ['bank', 'edges', 'edges_small'])
+@pytest.mark.parametrize('pandas_blocked', [False, True])
+def test_eda_on_columns_matches_jax(monkeypatch, table, pandas_blocked):
+    """``columns_info``, ``top_categories`` and ``reduce_mem_usage`` on
+    ``Columns`` give what the JAX helpers give on the same DataFrame; with
+    pandas blocked ``columns_info`` returns ``Columns``."""
+    if table == 'bank':
+        frame = load_bank(2000)
+        frame = frame if isinstance(frame, pd.DataFrame) \
+            else cl.to_frame(frame)
+        feature = 'job'
+    else:
+        frame = _eda_frame(*((40, 5) if table == 'edges_small' else ()))
+        feature = 'ties'
+    expected = jax_eda.columns_info(frame.copy(), topN=5)
+    top = list(jax_eda.top_categories(frame, feature, topN=3))
+    reduced = cl.as_columns(jax_eda.reduce_mem_usage(frame.copy(),
+                                                     verbose=False),
+                            rename=False)
+    cols = cl.as_columns(frame, rename=False)
+    if pandas_blocked:
+        monkeypatch.setitem(sys.modules, 'pandas', None)
+    info = eda.columns_info(cols, topN=5)
+    assert isinstance(info, cl.Columns) == pandas_blocked
+    _assert_info_equal(info, expected)
+    assert list(eda.top_categories(cols, feature, topN=3)) == top
+    got = eda.reduce_mem_usage(cols, verbose=False)
+    assert got is cols
+    assert got.columns == reduced.columns
+    for name in reduced.columns:
+        a, b = got[name], reduced[name]
+        assert got.kinds[name] == reduced.kinds[name], name
+        assert a.dtype == b.dtype, name
+        assert all(_same_number(x, y) if isinstance(x, float) else
+                   (x is y or x == y) for x, y in zip(a.tolist(),
+                                                      b.tolist())), name
+
+
+def test_eda_digests_are_chip_smokes(monkeypatch):
+    """chip_smoke.py's EDA_DIGESTS: its eda phase with pandas blocked gives
+    them here, and the port's ``columns_info`` of the bank table there is
+    the JAX helper's of the same DataFrame."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+    spec = importlib.util.spec_from_file_location('chip_smoke', path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from deeptables_torch.tools import parity_quality
+    frame = parity_quality.configs()['bank_deepfm']['loader']()
+    frame = frame if isinstance(frame, pd.DataFrame) else cl.to_frame(frame)
+    expected = jax_eda.columns_info(frame.copy())
+    for name in cs.ESTIMATOR_BLOCKED:
+        monkeypatch.setitem(sys.modules, name, None)
+    got = cs.eda_runs()
+    for key, digest in cs.EDA_DIGESTS.items():
+        assert got[key] == digest, key
+    _assert_info_equal(eda.columns_info(cl.as_columns(frame, rename=False)),
+                       expected)
 
 
 # ---------------------------------------------------------------- datasets

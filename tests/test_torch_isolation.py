@@ -1,6 +1,7 @@
 # -*- coding:utf-8 -*-
 """The port imports nothing of JAX, flax, optax, pandas, scikit-learn,
-pyarrow, LightGBM or the JAX package, so that it runs on a machine that has
+pyarrow, LightGBM, the compression packages (``zstandard``, ``lz4``,
+``brotli``) or the JAX package, so that it runs on a machine that has
 none of them. No module is exempt: ``data/streaming.py`` reads CSV through
 ``data/columns.py`` and Parquet through ``data/parquet.py``. The estimator
 layer (``models/preprocessor.py``, ``models/transformers.py`` with GBM
@@ -10,7 +11,8 @@ leaf features over ``models/gbm.py``, ``models/deeptable.py``,
 ``utils/quicktest.py`` run on numpy and scipy alone; ``eda`` and
 ``utils/shap.py`` import pandas or their own packages only inside the
 functions that use them, and no module imports scikit-learn or pyarrow at
-all (LightGBM only where GBM leaf features find it).
+all (LightGBM only where GBM leaf features find it). ZSTD and LZ4 pages
+are read by the port's own decoders (``csrc/parquet_codecs.cpp``).
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
 import of them fail), then imports every module of ``deeptables_torch``
@@ -42,9 +44,9 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'pyarrow',
-           'lightgbm', 'deeptables_tpu')
+           'lightgbm', 'zstandard', 'lz4', 'brotli', 'deeptables_tpu')
 # packages that no module of the port imports, not even inside a function
-NEVER = ('sklearn', 'pyarrow')
+NEVER = ('sklearn', 'pyarrow', 'zstandard', 'lz4', 'brotli')
 # the port's modules that may import pandas at module level: none
 HOST_ONLY = ()
 
@@ -214,6 +216,9 @@ assert encoder.backend == 'sklearn' and encoder.new_columns == [
     'gbm_leaf_0', 'gbm_leaf_1', 'gbm_leaf_2']
 parquet = cl.read_parquet('tests/torch_data/kinds_snappy.parquet')
 assert len(parquet) == 400 and parquet.kinds['s'] == 'str'
+for name in ('kinds_zstd', 'kinds_lz4_raw', 'kinds_delta'):
+    other = cl.read_parquet(f'tests/torch_data/{name}.parquet')
+    assert other.columns == parquet.columns, name
 for name in BLOCKED:
     assert sys.modules[name] is None, name
 print(len(modules))
@@ -269,8 +274,8 @@ def test_sources_name_no_blocked_module():
     """No import statement of the port or chip_smoke.py names a blocked
     module; pandas and LightGBM only inside a function (as ``eda`` and GBM
     leaf features import them), or in the host-only modules (none), which
-    import pandas and nothing else blocked; scikit-learn and pyarrow
-    nowhere."""
+    import pandas and nothing else blocked; scikit-learn, pyarrow and the
+    compression packages nowhere."""
     host_only = {REPO / (name.replace('.', '/') + '.py') for name in HOST_ONLY}
     files = sorted((REPO / 'deeptables_torch').rglob('*.py'))
     files.append(REPO / 'chip_smoke.py')

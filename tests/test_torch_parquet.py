@@ -6,16 +6,21 @@
 same names in the same order, the same kinds, values and categories. It is
 held so on the committed files of ``tests/torch_data/``
 (``tests/torch_parquet_fixtures.py``) and on files written here with each
-writer setting it reads; codecs, encodings and schemas it does not read
-raise by name. The fixtures' digests, which ``chip_smoke.py`` holds the
-reader to on the card, are recomputed from pandas, and ``ChunkedSource``
-streams Parquet in a subprocess with pandas and pyarrow blocked.
+writer setting it reads (ZSTD, LZ4, the DELTA encodings, BYTE_STREAM_SPLIT
+and INT96 among them); codecs and schemas it does not read raise by name.
+The native ZSTD decoder is held to ``zstandard`` and the LZ4 one to
+pyarrow's codec on a corpus, and corrupt pages raise ``ValueError``. The
+fixtures' digests, which ``chip_smoke.py`` holds the reader to on the card,
+are recomputed from pandas; the port's ``ChunkedSource`` gives the JAX
+package's chunks, and streams Parquet in a subprocess with pandas, pyarrow
+and the compression packages blocked.
 """
 
 import decimal
 import importlib.util
 import os
 import pickle
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -25,11 +30,13 @@ import pandas as pd
 import pyarrow as pa
 import pyarrow.parquet as pq
 import pytest
+import zstandard
 
 from deeptables_torch.data import columns as cl
 from deeptables_torch.data import parquet, streaming
 from deeptables_torch.models import hyper_dt
 from deeptables_torch.tools import parity_quality
+from deeptables_tpu.data import streaming as jax_streaming
 
 import torch_parquet_fixtures as fixtures
 
@@ -101,6 +108,15 @@ WRITES = {
     'small_pages_v2': {'row_group_size': 150, 'data_page_size': 300,
                        'data_page_version': '2.0'},
     'format_1_0': {'version': '1.0'},
+    'zstd': {'compression': 'zstd'},
+    'zstd_page_v2_small': {'compression': 'zstd', 'data_page_version': '2.0',
+                           'data_page_size': 300, 'row_group_size': 150},
+    'lz4': {'compression': 'lz4'},
+    'lz4_page_v2': {'compression': 'lz4', 'data_page_version': '2.0'},
+    'int96': {'use_deprecated_int96_timestamps': True},
+    'int96_no_dictionary_zstd': {'use_deprecated_int96_timestamps': True,
+                                 'use_dictionary': False,
+                                 'compression': 'zstd'},
 }
 
 
@@ -139,25 +155,62 @@ def test_written_edge_reads_as_pandas(tmp_path, case):
     _assert_reads_as_pandas(path)
 
 
-@pytest.mark.parametrize('codec', ['zstd', 'lz4', 'brotli'])
+@pytest.mark.parametrize('codec', ['brotli', 'lzo'])
 def test_codecs_not_read_raise_by_name(tmp_path, codec):
     path = tmp_path / 'c.parquet'
-    fixtures.kinds_frame(20).to_parquet(path, compression=codec)
-    name = {'lz4': 'LZ4'}.get(codec, codec.upper())
-    with pytest.raises(ValueError, match=name):
+    if codec == 'lzo':  # pyarrow writes no LZO: an LZ4_RAW file relabelled
+        fixtures.kinds_frame(20).to_parquet(path, compression='lz4')
+        raw = path.read_bytes()
+        path.write_bytes(raw.replace(fixtures.CODEC_LZ4_RAW, b'\x15\x06'))
+    else:
+        fixtures.kinds_frame(20).to_parquet(path, compression=codec)
+    with pytest.raises(ValueError, match=codec.upper()):
         cl.read_parquet(str(path))
 
 
-@pytest.mark.parametrize('column, encoding', [
-    ('i64', 'DELTA_BINARY_PACKED'), ('f64', 'BYTE_STREAM_SPLIT'),
-    ('s', 'DELTA_LENGTH_BYTE_ARRAY'), ('s', 'DELTA_BYTE_ARRAY')])
-def test_encodings_not_read_raise_by_name(tmp_path, column, encoding):
+# each value encoding on each physical type that takes it, pages v1 and v2
+ENCODED = [('i64', 'DELTA_BINARY_PACKED'), ('i32', 'DELTA_BINARY_PACKED'),
+           ('u64', 'DELTA_BINARY_PACKED'), ('Int64', 'DELTA_BINARY_PACKED'),
+           ('f64', 'BYTE_STREAM_SPLIT'), ('f32', 'BYTE_STREAM_SPLIT'),
+           ('i32', 'BYTE_STREAM_SPLIT'), ('i64', 'BYTE_STREAM_SPLIT'),
+           ('s', 'DELTA_LENGTH_BYTE_ARRAY'), ('s_long', 'DELTA_BYTE_ARRAY'),
+           ('s', 'DELTA_BYTE_ARRAY'), ('s_object', 'DELTA_BYTE_ARRAY')]
+
+
+@pytest.mark.parametrize('page', ['1.0', '2.0'])
+@pytest.mark.parametrize('column, encoding', ENCODED)
+def test_encodings_read_as_pandas(tmp_path, column, encoding, page):
     path = tmp_path / 'e.parquet'
-    table = pa.Table.from_pandas(fixtures.kinds_frame(50)[[column]])
-    pq.write_table(table, path, use_dictionary=False,
-                   column_encoding={column: encoding})
-    with pytest.raises(ValueError, match=encoding):
-        cl.read_parquet(str(path))
+    frame = fixtures.kinds_frame(1100, seed=len(encoding))[[column]]
+    pq.write_table(pa.Table.from_pandas(frame), path, use_dictionary=False,
+                   column_encoding={column: encoding},
+                   data_page_version=page, data_page_size=2000)
+    encodings = {e for rg in range(pq.ParquetFile(path).num_row_groups)
+                 for e in pq.ParquetFile(path).metadata.row_group(rg)
+                 .column(0).encodings}
+    assert encoding in encodings
+    _assert_reads_as_pandas(path)
+
+
+@pytest.mark.parametrize('dtype', [np.int32, np.int64])
+def test_delta_binary_packed_wraps_and_takes_every_width(tmp_path, dtype):
+    """Deltas of every bit width up to the type's, sums that wrap in the
+    type's width, a run of equal values (width 0), as pyarrow writes
+    them."""
+    rs = np.random.RandomState(8)
+    info = np.iinfo(dtype)
+    values = np.concatenate([
+        [info.min, info.max, info.min, 0, info.max, -1],
+        rs.randint(info.min, info.max, 700, dtype=dtype),
+        np.cumsum(rs.randint(0, 3, 400)), np.full(300, 5),
+        (1 << rs.randint(0, 31, 500)) * rs.choice([-1, 1], 500)]).astype(dtype)
+    path = tmp_path / 'dbp.parquet'
+    pq.write_table(pa.table({'v': values}), path, use_dictionary=False,
+                   column_encoding={'v': 'DELTA_BINARY_PACKED'},
+                   compression=None)
+    got = cl.read_parquet(str(path))['v']
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got, values)
 
 
 def test_nested_schema_and_other_types_raise(tmp_path):
@@ -190,7 +243,9 @@ def test_snappy_decompress_matches_pyarrows_compress(data):
 def test_fixture_digests_are_pandas_tables():
     """``PARQUET_DIGESTS`` in chip_smoke.py are the digests of
     ``pd.read_parquet``'s tables of the committed files, and every file is
-    listed."""
+    listed; the first files stay under 2 MiB, those written since the
+    codecs and encodings of ``csrc/parquet_codecs.cpp`` are read under 4 MB
+    together."""
     cs = _chip_smoke()
     assert sorted(cs.PARQUET_DIGESTS) == FILES
     assert tuple(cs.PARQUET_BANK) == fixtures.BANK_SHARDS
@@ -199,7 +254,177 @@ def test_fixture_digests_are_pandas_tables():
                               rename=False)
         assert cs.columns_digest(parity_quality, table) == \
             cs.PARQUET_DIGESTS[name], name
-    assert sum((fixtures.DATA / n).stat().st_size for n in FILES) < 2 << 20
+    first = [n for n in FILES if n not in fixtures.NEW_FILES]
+    assert sum((fixtures.DATA / n).stat().st_size for n in first) < 2 << 20
+    assert set(fixtures.NEW_FILES) <= set(FILES)
+    assert sum((fixtures.DATA / n).stat().st_size
+               for n in fixtures.NEW_FILES) < 4_000_000
+    assert tuple(cs.PARQUET_CRITEO) == fixtures.CRITEO_SHARDS
+    assert cs.PARQUET_CRITEO_VAL == fixtures.CRITEO_VAL
+
+
+def _corpus(name):
+    rs = np.random.RandomState(2)
+    return {
+        'empty': b'',
+        'one_byte_repeated': b'q' * 300_000,
+        'incompressible': rs.bytes(200_000),
+        'text': ' '.join(f'word{v}' for v in rs.randint(0, 5000, 90_000))
+        .encode(),
+        'columns': np.concatenate([
+            rs.randint(0, 40, 60_000).astype('<i4').view(np.uint8),
+            np.cumsum(rs.randint(0, 9, 30_000)).astype('<i8').view(np.uint8),
+            rs.randn(20_000).astype('<f4').view(np.uint8)]).tobytes(),
+        'mixed': (b'abc' * 3000 + rs.bytes(2000)) * 30,
+    }[name]
+
+
+CORPUS = ['empty', 'one_byte_repeated', 'incompressible', 'text', 'columns',
+          'mixed']
+
+
+@pytest.mark.parametrize('level', [-5, 1, 3, 19, 22])
+@pytest.mark.parametrize('data', CORPUS)
+def test_zstd_decoder_equals_zstandard(data, level):
+    """Every level, with and without the content size and the checksum;
+    at 19 and 22 also a long window with long-distance matching, and a
+    stream of several blocks without a content size."""
+    raw = _corpus(data)
+    packed = [zstandard.ZstdCompressor(
+        level=level, write_checksum=checksum,
+        write_content_size=size).compress(raw)
+        for checksum in (False, True) for size in (False, True)]
+    if level >= 19:
+        params = zstandard.ZstdCompressionParameters.from_level(
+            level, window_log=27, enable_ldm=True)
+        packed.append(zstandard.ZstdCompressor(
+            compression_params=params).compress(raw))
+        chunks = zstandard.ZstdCompressor(level=level).compressobj()
+        packed.append(b''.join(chunks.compress(raw[i:i + 50_000])
+                               for i in range(0, len(raw), 50_000))
+                      + chunks.flush())
+    for page in packed:
+        assert parquet.native_decompress(6, page, len(raw)) == raw
+
+
+def test_zstd_decoder_reads_frames_in_a_row_and_skippable_frames():
+    parts = [_corpus('text')[:70_000], b'', _corpus('incompressible')[:9000],
+             b'end']
+    skippable = struct.pack('<II', 0x184D2A57, 5) + b'12345'
+    page = skippable + b''.join(
+        zstandard.ZstdCompressor(level=3, write_checksum=True).compress(p)
+        for p in parts) + skippable
+    assert parquet.native_decompress(6, page, sum(map(len, parts))) == \
+        b''.join(parts)
+    assert parquet.native_decompress(6, b'', 0) == b''
+
+
+@pytest.mark.parametrize('data', CORPUS)
+def test_lz4_decoders_equal_pyarrow(data):
+    """LZ4_RAW (codec 7) against pyarrow's ``lz4_raw``; LZ4 (codec 5) in
+    Hadoop's framing (big-endian lengths before each block), and as one
+    bare block, Arrow's fall-back."""
+    raw = _corpus(data)
+    block = pa.compress(raw, codec='lz4_raw', asbytes=True)
+    assert parquet.native_decompress(7, block, len(raw)) == raw
+    assert parquet.native_decompress(5, block, len(raw)) == raw
+    framed = b''
+    for i in range(0, max(len(raw), 1), 64_000):
+        part = raw[i:i + 64_000]
+        packed = pa.compress(part, codec='lz4_raw', asbytes=True)
+        framed += struct.pack('>II', len(part), len(packed)) + packed
+    assert parquet.native_decompress(5, framed, len(raw)) == raw
+
+
+def _corruptions(page, rs, n=40):
+    """Truncations, and pages with a few bytes overwritten."""
+    for k in range(n):
+        if k % 2 == 0:
+            yield page[:rs.randint(0, len(page))]
+        else:
+            bad = bytearray(page)
+            for _ in range(rs.randint(1, 4)):
+                bad[rs.randint(0, len(bad))] ^= rs.randint(1, 256)
+            yield bytes(bad)
+
+
+@pytest.mark.parametrize('codec', ['ZSTD', 'LZ4_RAW', 'LZ4', 'SNAPPY',
+                                   'GZIP'])
+def test_corrupt_pages_raise_value_error(codec):
+    """A corrupt page raises ValueError, never reads past its buffer and
+    never gives a page of the wrong size. ZSTD frames carry their checksum,
+    so a changed byte is caught; LZ4, SNAPPY and GZIP are cut short."""
+    rs = np.random.RandomState(4)
+    raw = _corpus('columns')
+    ids = {name: key for key, name in parquet.CODECS.items()}
+    if codec == 'ZSTD':
+        page = zstandard.ZstdCompressor(level=3,
+                                        write_checksum=True).compress(raw)
+        pages = list(_corruptions(page, rs))
+    else:
+        arrow_codec = {'LZ4_RAW': 'lz4_raw', 'LZ4': 'lz4_raw',
+                       'SNAPPY': 'snappy', 'GZIP': 'gzip'}[codec]
+        page = pa.compress(raw, codec=arrow_codec, asbytes=True)
+        pages = [page[:rs.randint(1, len(page) - 1)] for _ in range(40)]
+    for bad in pages:
+        with pytest.raises(ValueError):
+            parquet._decompress(ids[codec], bad, len(raw))
+
+
+@pytest.mark.parametrize('name', ['kinds_page_v2.parquet',
+                                  fixtures.CRITEO_SHARDS[1],
+                                  fixtures.CRITEO_VAL])
+def test_compressed_pages_decompress_to_their_sizes(name):
+    """``compressed_pages`` (which chip_smoke.py times the ZSTD decoder on)
+    gives every page of the file, each decompressing to its size."""
+    path = fixtures.DATA / name
+    pages = list(parquet.compressed_pages(str(path)))
+    meta = pq.ParquetFile(path).metadata
+    assert len(pages) >= meta.num_row_groups * meta.num_columns
+    for codec, body, size in pages:
+        assert len(parquet._decompress(codec, body, size)) == size
+
+
+def test_corrupt_zstd_file_raises(tmp_path):
+    raw = (fixtures.DATA / 'kinds_zstd.parquet').read_bytes()
+    path = tmp_path / 'bad.parquet'
+    meta = parquet._Thrift(raw[-8 - int.from_bytes(raw[-8:-4], 'little'):
+                               -8]).struct()
+    chunk = meta[4][0][1][0][3]
+    start = chunk.get(11) or chunk[9]
+    path.write_bytes(raw[:start + 40] + bytes(60) + raw[start + 100:])
+    with pytest.raises(ValueError, match='ZSTD'):
+        cl.read_parquet(str(path))
+
+
+def test_codec_library_build_failure_raises(monkeypatch, tmp_path):
+    """A failed build raises with the compiler's message; nothing falls
+    back to a decoder in Python."""
+    source = tmp_path / 'parquet_codecs.cpp'
+    source.write_text('this is not C++\n')
+    monkeypatch.setattr(parquet, 'CODEC_SOURCE', source)
+    monkeypatch.setattr(parquet, '_codecs', None)
+    monkeypatch.setattr(parquet._build, 'BUILD_ROOT', tmp_path / 'build')
+    with pytest.raises(RuntimeError, match='parquet_codecs.cpp failed'):
+        parquet.codec_library()
+
+
+@pytest.mark.parametrize('name', fixtures.NEW_FILES)
+def test_chunked_source_equals_the_jax_packages(name):
+    """The port's ``ChunkedSource`` over a new fixture gives the JAX
+    package's chunks (``pd.read_parquet``) as ``Columns``."""
+    path = str(fixtures.DATA / name)
+    port = list(streaming.ChunkedSource([path], chunk_size=3000)
+                .iter_chunks())
+    jax = list(jax_streaming.ChunkedSource([path], chunk_size=3000)
+               .iter_chunks())
+    assert len(port) == len(jax) > 0
+    for got, frame in zip(port, jax):
+        expected = cl.as_columns(frame, rename=False)
+        assert got.columns == expected.columns
+        for column in expected.columns:
+            assert got.kinds[column] == expected.kinds[column], column
+            assert _same_values(got[column], expected[column]), column
 
 
 def test_read_table_reads_a_parquet_path():
@@ -213,7 +438,7 @@ def test_read_table_reads_a_parquet_path():
 
 STREAM = r'''
 import pickle, sys
-for name in ('pandas', 'pyarrow', 'sklearn'):
+for name in BLOCKED:
     sys.modules[name] = None
 from deeptables_torch.data import streaming
 paths, out = sys.argv[1:-1], sys.argv[-1]
@@ -222,18 +447,22 @@ chunks = [{n: (c.kinds[n], c[n]) for n in c.columns}
           for c in source.iter_chunks()]
 with open(out, 'wb') as f:
     pickle.dump({'n_rows': source.n_rows(), 'chunks': chunks,
-                 'modules': [m for m in ('pandas', 'pyarrow', 'sklearn')
+                 'modules': [m for m in BLOCKED
                              if sys.modules.get(m) is not None]}, f)
 print('ok')
 '''
+BLOCKED = ('pandas', 'pyarrow', 'sklearn', 'zstandard', 'lz4', 'brotli')
 
 
-def test_chunked_source_streams_parquet_without_pandas(tmp_path):
-    paths = [str(fixtures.DATA / n) for n in fixtures.BANK_SHARDS]
+def _stream_without_pandas(tmp_path, paths):
+    """The chunks ``ChunkedSource`` streams from ``paths`` in a subprocess
+    with BLOCKED blocked, against those of the DataFrames pandas reads."""
     out = tmp_path / 'chunks.pkl'
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='', OMP_NUM_THREADS='1',
                PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, '-c', STREAM, *paths, str(out)],
+    proc = subprocess.run([sys.executable, '-c',
+                           f'BLOCKED = {BLOCKED!r}\n' + STREAM, *paths,
+                           str(out)],
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -242,8 +471,7 @@ def test_chunked_source_streams_parquet_without_pandas(tmp_path):
     assert result['modules'] == []
     expected = [c for c in streaming.ChunkedSource(
         [pd.read_parquet(p) for p in paths], chunk_size=3000).iter_chunks()]
-    assert result['n_rows'] == sum(len(c) for c in expected) == \
-        fixtures.BANK_ROWS
+    assert result['n_rows'] == sum(len(c) for c in expected)
     assert len(result['chunks']) == len(expected)
     for got, chunk in zip(result['chunks'], expected):
         assert list(got) == chunk.columns
@@ -251,3 +479,20 @@ def test_chunked_source_streams_parquet_without_pandas(tmp_path):
             kind, values = got[name]
             assert kind == chunk.kinds[name], name
             assert _same_values(values, chunk[name]), name
+    return result
+
+
+def test_chunked_source_streams_parquet_without_pandas(tmp_path):
+    paths = [str(fixtures.DATA / n) for n in fixtures.BANK_SHARDS]
+    result = _stream_without_pandas(tmp_path, paths)
+    assert result['n_rows'] == fixtures.BANK_ROWS
+
+
+def test_chunked_source_streams_zstd_and_lz4_without_pandas(tmp_path):
+    """The Criteo-layout shards (ZSTD with and without dictionary, LZ4_RAW)
+    with pandas, pyarrow and the compression packages blocked."""
+    paths = [str(fixtures.DATA / n)
+             for n in fixtures.CRITEO_SHARDS + (fixtures.CRITEO_VAL,)]
+    result = _stream_without_pandas(tmp_path, paths)
+    assert result['n_rows'] == len(fixtures.CRITEO_SHARDS) * \
+        fixtures.CRITEO_ROWS + fixtures.CRITEO_VAL_ROWS

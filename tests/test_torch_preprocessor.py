@@ -335,6 +335,32 @@ def test_gbm_leaf_digests_are_sklearns(row):
         assert n_leaves >= 10
 
 
+def _gbm_option_cases():
+    cs = _chip_smoke()
+    return [(option, row) for option, (rows, _) in cs.GBM_OPTIONS.items()
+            for row in rows]
+
+
+@pytest.mark.parametrize('option, row', _gbm_option_cases())
+def test_gbm_option_digests_are_sklearns(option, row):
+    """chip_smoke.py's GBM_OPTION_DIGESTS: each option of scikit-learn's
+    gradient boosting in ``gbm_params``, the JAX package's preprocessor over
+    scikit-learn gives them on the parity row's train split (the port's
+    leaves are held to the JAX encoder's with each option in
+    ``test_torch_gbm.py``, and to these digests on the card)."""
+    from deeptables_torch.data import columns as cl
+    from deeptables_torch.tools import parity_quality
+    cs = _chip_smoke()
+    params = dict(cs.GBM_PARAMS, **cs.GBM_OPTIONS[option][1])
+    table, leaves, n_leaves, _ = cs.gbm_leaves(
+        jax_preprocessor.DefaultPreprocessor, JaxModelConfig,
+        parity_quality, row, gbm_params=params,
+        to_frame=lambda X: X if cl.is_frame(X) else cl.to_frame(X))
+    assert table == cs.GBM_TABLES[row]
+    assert leaves == cs.GBM_OPTION_DIGESTS[option][row]
+    assert n_leaves >= 10
+
+
 GBM_SCRIPT = r'''
 import pickle, sys
 MODE, DATA, OUT = sys.argv[1:4]
