@@ -240,8 +240,9 @@ included), into R rows, with its bound and ``index_add_``'s time.
       every metric finite, every AUC above the row's mean less 5 σ where
       the table is the one ``BASELINE.md`` trained on (its digest,
       ``ESTIMATOR_TABLES``), else above half way from chance to that mean
-      (checked): numpy's Zipf stream differs between releases, and with
-      it the criteo- and avazu-style tables.
+      (checked). numpy's own Zipf stream differs between releases; the
+      port's loaders draw numpy 2.0's on any release, so every row's
+      ``baseline_table`` should read true.
 
 11. ``stream_csv`` (five lines and ``stream_csv_wall``): out-of-core
     training from CSV through ``DeepTable``, again with ``pandas`` and
@@ -312,14 +313,15 @@ included), into R rows, with its bound and ``index_add_``'s time.
     bank table in two SNAPPY shards and edge cases: every kind with nulls,
     GZIP, uncompressed, data page v2, no dictionary, a dictionary that
     falls back to PLAIN, row groups, an index, zero rows; ZSTD, LZ4_RAW,
-    LZ4 in Hadoop's framing, the DELTA encodings and BYTE_STREAM_SPLIT,
-    INT96 timestamps; the Criteo-layout shards) read by
+    LZ4 in Hadoop's framing, BROTLI, the DELTA encodings and
+    BYTE_STREAM_SPLIT, INT96 timestamps; the Criteo-layout shards) read by
     ``columns.read_parquet`` to the digest of ``pd.read_parquet``'s table
     (``PARQUET_DIGESTS``), rows/s; AutoML's ``_read_table`` reads a
     ``.parquet`` path. ``parquet_codecs``: each codec's read rows/s and
     MB/s on the kinds files (``PARQUET_CODEC_FILES``, best of three), and
     the native ZSTD and LZ4 decoders (``csrc/parquet_codecs.cpp``) alone
-    on the Criteo shards' pages, MB/s out and in. ``parquet_fit``:
+    on the Criteo shards' pages, the BROTLI decoder alone on
+    ``kinds_brotli.parquet``'s pages, MB/s out and in. ``parquet_fit``:
     ``fit_preprocessor_streaming`` and one epoch of
     ``DeepTable.fit(StreamingDataLoader)`` at the ``bank_deepfm`` row over
     the two shards: the step losses fall, K1, K2-fwd and K2-bwd once a
@@ -334,7 +336,21 @@ included), into R rows, with its bound and ``index_add_``'s time.
     epoch and the read's share of it (``columns.read_parquet``'s seconds,
     validation reads included, over the epoch's).
 
-14. ``eda``: ``columns_info``, ``reduce_mem_usage`` and
+14. ``explain``: ``DeepTablesExplainer`` (Kernel SHAP without shap,
+    ``utils/shap.py``) with ``shap`` blocked as well
+    (``EXPLAIN_BLOCKED``), at the JAX defaults (background 100,
+    ``nsamples='auto'``), on the ``bank_deepfm`` row (M = 16: sampled
+    coalitions and the AIC lasso; K2-fwd in every predict, checked) and
+    the ``glass_multiclass`` row (M = 10: every coalition), each fitted on
+    the card by the parity tool's protocol and explained on
+    ``EXPLAIN_ROWS`` test rows: glass's values equal the Shapley values enumerated from the
+    same predictions, every row's values sum to ``f(x) - E f``, and the
+    card's values equal the CPU path's on the same model (saved, loaded
+    with ``device='cpu'``) where no synthetic prediction's hard class
+    flips (the flips counted and bounded), all to ``EXPLAIN_ATOL``; the
+    synthetic rows a second through ``predict``, the seconds a row.
+
+15. ``eda``: ``columns_info``, ``reduce_mem_usage`` and
     ``top_categories`` on the ``bank_deepfm`` row's table as ``Columns``
     with the same packages blocked, at their digests (``EDA_DIGESTS``).
 
@@ -564,9 +580,10 @@ STREAM_CSV_IMPORTANCE_ROWS = 2000
 STREAM_CSV_MEAN_RTOL = 1e-9
 # the digests (parity_quality.table_digest) of those rows' tables as numpy
 # 2.0 draws them: the tables of BASELINE.md's rows and of the port's CPU
-# parity runs. Another numpy's Zipf stream draws other criteo- and
-# avazu-style tables (numpy 2.3's do): a row on another table is held to
-# half way from chance to its BASELINE.md mean instead
+# parity runs. The port's loaders draw their Zipf ids as numpy 2.0 does on
+# any numpy (data/datasets.py, zipf), so the card's tables are these; a row
+# on another table would be held to half way from chance to its
+# BASELINE.md mean instead
 ESTIMATOR_TABLES = {'bank_deepfm': '5d67b946b3437391',
                     'criteo_xdeepfm': 'ff1371b6dfcecb53',
                     'avazu_autoint': '766566b60adf6216'}
@@ -646,6 +663,7 @@ PARQUET_DIGESTS = {
     'index.parquet': '367d5c71c2430cd9',
     'int96.parquet': 'd8f2622ecbb0d419',
     'kinds_delta.parquet': 'f581e7d215c6a2c7',
+    'kinds_brotli.parquet': 'e21d844a442eba17',
     'kinds_gzip.parquet': 'e21d844a442eba17',
     'kinds_lz4_hadoop.parquet': 'e21d844a442eba17',
     'kinds_lz4_raw.parquet': 'e21d844a442eba17',
@@ -688,7 +706,28 @@ PARQUET_CODEC_FILES = {'UNCOMPRESSED': 'kinds_uncompressed.parquet',
                        'GZIP': 'kinds_gzip.parquet',
                        'ZSTD': 'kinds_zstd.parquet',
                        'LZ4_RAW': 'kinds_lz4_raw.parquet',
-                       'LZ4': 'kinds_lz4_hadoop.parquet'}
+                       'LZ4': 'kinds_lz4_hadoop.parquet',
+                       'BROTLI': 'kinds_brotli.parquet'}
+# the explain phase: DeepTablesExplainer (Kernel SHAP, utils/shap.py) at
+# the JAX defaults (a background of 100 rows, nsamples 'auto') with shap
+# blocked too, on the parity tool's bank_deepfm row (M = 16 varying
+# features: 2080 sampled coalitions, the AIC lasso; K2-fwd in every
+# predict) and glass_multiclass row (M = 10: all 1022 coalitions), each
+# fitted on the card by the parity tool's protocol (EPOCHS, patience 3: a
+# weaker bank model calls every row 'yes', 81% of the table, and explains
+# nothing); EXPLAIN_ROWS test rows explained
+# (cut from a larger set to keep the phase near a minute; the background
+# is not cut). Glass's values equal the Shapley values the phase
+# enumerates from the same predictions to EXPLAIN_ATOL; every row's sum
+# equals f(x) - E f to EXPLAIN_ATOL; the card's values equal the port's
+# CPU path on the same model (saved and loaded on the CPU) to EXPLAIN_ATOL
+# where the two give the same hard class on every synthetic row; a
+# probability within rounding of 0.5 may flip, and the share of synthetic
+# predictions that flip must stay under EXPLAIN_FLIP_SHARE
+EXPLAIN_BLOCKED = ESTIMATOR_BLOCKED + ('shap',)
+EXPLAIN_ROWS = 2
+EXPLAIN_ATOL = 1e-9
+EXPLAIN_FLIP_SHARE = 1e-3
 
 
 def emit(obj):
@@ -3398,11 +3437,11 @@ def estimator_phase(torch, port, kernel_fns, tmp):
     return blocked_run(_estimator_runs, torch, port, kernel_fns, tmp)
 
 
-def blocked_run(run, *args):
-    """``run(*args)`` with ESTIMATOR_BLOCKED set to None in sys.modules, so
-    that importing them fails; restored after."""
-    saved = {name: sys.modules.get(name) for name in ESTIMATOR_BLOCKED}
-    for name in ESTIMATOR_BLOCKED:
+def blocked_run(run, *args, blocked=ESTIMATOR_BLOCKED):
+    """``run(*args)`` with ``blocked`` (ESTIMATOR_BLOCKED) set to None in
+    sys.modules, so that importing them fails; restored after."""
+    saved = {name: sys.modules.get(name) for name in blocked}
+    for name in blocked:
         sys.modules[name] = None
     try:
         return run(*args)
@@ -4295,7 +4334,8 @@ def _parquet_runs(torch, port, kernel_fns, tmp):
                          'rows_per_s': reads[name]['rows'] / best,
                          'mb_per_s': reads[name]['bytes'] / 1e6 / best}
     decoders = {}
-    for codec, names in ((6, PARQUET_CRITEO), (7, (PARQUET_CRITEO_VAL,))):
+    for codec, names in ((6, PARQUET_CRITEO), (7, (PARQUET_CRITEO_VAL,)),
+                         (4, (PARQUET_CODEC_FILES['BROTLI'],))):
         pages = [(c, body, size) for name in names
                  for c, body, size in parquet.compressed_pages(
                      str(ROOT / PARQUET_DIR / name)) if c == codec]
@@ -4566,6 +4606,146 @@ def eda_runs():
             'reduce_mem_usage_s': reduce_s}
 
 
+def explain_phase(torch, port, kernel_fns, tmp):
+    """``DeepTablesExplainer`` on the card with pandas, scikit-learn and
+    shap blocked (see the module's docstring, 14). Returns the launches of
+    the runs on the card."""
+    return blocked_run(_explain_runs, torch, port, kernel_fns, tmp,
+                       blocked=EXPLAIN_BLOCKED)
+
+
+def _enumerated_shapley(explainer, x, varying):
+    """The Shapley values of v(S) = mean_b f(x_S, b_S') over every
+    coalition of the varying features, from the explainer's own f."""
+    from itertools import product
+    M = len(varying)
+    masks = np.array(list(product([0.0, 1.0], repeat=M)))
+    y = explainer.predict_fn(explainer.synthetic_rows(x, varying, masks))
+    v = y.astype(np.float64).reshape(len(masks), -1).mean(axis=1)
+    index = {tuple(m): k for k, m in enumerate(masks)}
+    phi = np.zeros(M)
+    for k, mask in enumerate(masks):
+        s = int(mask.sum())
+        for i in np.flatnonzero(mask == 0.0):
+            with_i = mask.copy()
+            with_i[i] = 1.0
+            w = math.factorial(s) * math.factorial(M - s - 1) \
+                / math.factorial(M)
+            phi[i] += w * (v[index[tuple(with_i)]] - v[k])
+    return phi
+
+
+def _explain_runs(torch, port, kernel_fns, tmp):
+    from deeptables_torch.data.columns import Columns
+    from deeptables_torch.models import DeepTable, ModelConfig
+    from deeptables_torch.tools import parity_quality as pq
+    from deeptables_torch.utils import shap
+    check(not shap.have_shap, 'explain: shap imports with it blocked')
+    wall = time.perf_counter()
+    launches = dict.fromkeys(kernel_fns, 0)
+    specs = pq.configs()
+    out = {}
+    for name in ('bank_deepfm', 'glass_multiclass'):
+        spec = specs[name]
+        task = spec.get('task', 'binary')
+        table = spec['loader']()
+        check(isinstance(table, Columns), f'explain: {name} gave '
+                                          f'{type(table)}, not Columns')
+        X_train, X_test, y_train, _ = pq.split(table, spec['target'], task)
+        config = ModelConfig(nets=spec['nets'], metrics=pq.TASK_METRICS[task],
+                             earlystopping_patience=3, seed=0,
+                             home_dir=os.path.join(tmp, name), **spec['conf'])
+        dt = DeepTable(config)
+        t0 = time.perf_counter()
+        dt.fit(X_train, y_train, epochs=pq.EPOCHS, batch_size=pq.BATCH,
+               verbose=0)
+        fit_s = time.perf_counter() - t0
+        path = os.path.join(tmp, f'{name}_saved')
+        dt.save(path)
+        cpu_dt = DeepTable.load(path, device='cpu')
+        rows = X_test.take(np.arange(EXPLAIN_ROWS))
+
+        def explain(model):
+            explainer = shap.DeepTablesExplainer(model, X_train)
+            predict = explainer.predict_fn
+            seen = []
+
+            def recording(matrix):
+                seen.append(predict(matrix))
+                return seen[-1]
+            explainer.predict_fn = recording
+            t = time.perf_counter()
+            values = explainer.get_shap_values(rows)
+            return explainer, values, time.perf_counter() - t, seen
+
+        reset_launches(kernel_fns)
+        card, card_values, card_s, card_y = explain(dt)
+        counts = read_launches(kernel_fns)
+        for kernel, count in counts.items():
+            launches[kernel] += count
+        cpu, cpu_values, cpu_s, cpu_y = explain(cpu_dt)
+        matrix = card._rows(rows)
+        fx = card.predict_fn(matrix).astype(np.float64)
+        classes = len(np.unique(card.predict_fn(card.background)))
+        check(classes > 1, f'explain: {name} predicts one class for the '
+                           f'whole background')
+        background = card.background.shape[0]
+        synthetic = sum(len(y) for y in card_y if len(y) > background)
+        flips = sum(int(np.sum(a != b)) for a, b in zip(card_y, cpu_y))
+        check(flips <= EXPLAIN_FLIP_SHARE * synthetic,
+              f'explain: {name} flips {flips} of {synthetic} predictions')
+        efficiency = float(np.max(np.abs(card_values.sum(axis=1)
+                                         - (fx - card.expected_value))))
+        check(efficiency <= EXPLAIN_ATOL,
+              f'explain: {name} efficiency off by {efficiency}')
+        card_vs_cpu = float(np.max(np.abs(card_values - cpu_values)))
+        if flips == 0:
+            check(card_vs_cpu <= EXPLAIN_ATOL,
+                  f'explain: {name} card vs CPU {card_vs_cpu}')
+        varying = [len(shap.varying_features(x, card.background))
+                   for x in matrix]
+        result = {'task': task, 'M': varying,
+                  'background': background,
+                  'nsamples': [min(2 * m + 2 ** 11, 2 ** m - 2)
+                               for m in varying],
+                  'explained_rows': EXPLAIN_ROWS, 'fit_s': fit_s,
+                  'expected_value': card.expected_value,
+                  'background_classes': classes,
+                  'nonzero_values': [int(np.count_nonzero(v))
+                                     for v in card_values],
+                  'efficiency_max_abs_err': efficiency,
+                  'card_vs_cpu_max_abs_diff': card_vs_cpu,
+                  'flipped_predictions': flips,
+                  'synthetic_predictions': synthetic,
+                  'tolerance': {'atol': EXPLAIN_ATOL,
+                                'flip_share': EXPLAIN_FLIP_SHARE},
+                  'synthetic_rows_per_s': synthetic / card_s,
+                  's_per_row': card_s / EXPLAIN_ROWS,
+                  'cpu_s_per_row': cpu_s / EXPLAIN_ROWS,
+                  'launches': {k: v for k, v in counts.items() if v}}
+        if name == 'glass_multiclass':
+            worst = 0.0
+            for x, phi in zip(matrix, card_values):
+                v = shap.varying_features(x, card.background)
+                check(len(v) <= 11, f'explain: glass has {len(v)} features')
+                exact = _enumerated_shapley(card, x, v)
+                worst = max(worst, float(np.max(np.abs(phi[v] - exact))))
+            check(worst <= EXPLAIN_ATOL,
+                  f'explain: glass off the enumeration by {worst}')
+            result['vs_enumeration_max_abs_err'] = worst
+        else:
+            check(counts['fm_fwd'] > 0,
+                  f'explain: bank_deepfm launched {counts} on the card')
+        check(np.count_nonzero(card_values) > 0,
+              f'explain: {name} explains every row by zeros')
+        out[name] = result
+        del dt, cpu_dt, card, cpu
+        torch.cuda.empty_cache()
+    emit({'phase': 'explain', 'blocked': list(EXPLAIN_BLOCKED),
+          'rows': out, 'wall_s': time.perf_counter() - wall})
+    return launches
+
+
 def main():
     import torch
     if sys.argv[1:2] == ['--sharded-rank']:
@@ -4710,6 +4890,12 @@ def main():
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_parquet_') as tmp:
         for name, count in parquet_phase(torch, port, kernel_fns,
+                                         tmp).items():
+            launches[name] += count
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_explain_') as tmp:
+        for name, count in explain_phase(torch, port, kernel_fns,
                                          tmp).items():
             launches[name] += count
         torch.cuda.empty_cache()

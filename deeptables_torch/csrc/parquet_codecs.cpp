@@ -1,5 +1,6 @@
 // Decoders of the Parquet page codecs that the standard library lacks:
-// ZSTD frames (RFC 8878) and LZ4 blocks (raw, and in Hadoop's framing).
+// ZSTD frames (RFC 8878), LZ4 blocks (raw, and in Hadoop's framing) and
+// BROTLI streams (RFC 7932).
 // Host code, built with the host compiler and loaded with ctypes by
 // data/parquet.py.
 //
@@ -16,11 +17,15 @@
 // skippable frames; the content checksum (XXH64's low 32 bits) where the
 // frame has one. A frame with a dictionary ID is refused: Parquet writes
 // none.
+//
+// BROTLI: see the section below; no brotli library is linked or loaded.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <string>
+#include <vector>
 
 namespace {
 
@@ -809,6 +814,742 @@ int64_t lz4_hadoop(const uint8_t* src, size_t size, uint8_t* dst,
     return pos == size ? (int64_t)written : -1;
 }
 
+// -- BROTLI (RFC 7932) ------------------------------------------------------
+//
+// One stream into a flat output buffer (a page's whole size is known, so
+// the window is the output itself): meta-blocks uncompressed, metadata or
+// compressed; simple and complex prefix codes; block types and counts for
+// literals, insert-and-copy commands and distances; NPOSTFIX/NDIRECT; the
+// four literal context modes and the context maps (zero runs, inverse
+// move-to-front); the last-four-distances ring; references past the window
+// into the static dictionary with Appendix B's 121 transforms. The
+// dictionary (Appendix A, 122,784 bytes) is handed over once by the caller
+// (pq_brotli_set_dictionary), which checks its digest.
+
+namespace brotli {
+
+struct Transform {
+    const char* prefix;
+    int type;
+    const char* suffix;
+};
+
+enum {
+    kIdentity = 0,
+    kOmitLast1, kOmitLast2, kOmitLast3, kOmitLast4, kOmitLast5, kOmitLast6,
+    kOmitLast7, kOmitLast8, kOmitLast9,
+    kUppercaseFirst, kUppercaseAll,
+    kOmitFirst1, kOmitFirst2, kOmitFirst3, kOmitFirst4, kOmitFirst5,
+    kOmitFirst6, kOmitFirst7, kOmitFirst8, kOmitFirst9
+};
+
+// Section 7.1: the context lookup tables of the UTF8 and signed modes, and
+// below Appendix B's transforms, as libbrotlicommon 1.0.9 holds them
+const uint8_t kLut0[256] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 4, 0, 0, 4, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    8, 12, 16, 12, 12, 20, 12, 16, 24, 28, 12, 12, 32, 12, 36, 12,
+    44, 44, 44, 44, 44, 44, 44, 44, 44, 44, 32, 32, 24, 40, 28, 12,
+    12, 48, 52, 52, 52, 48, 52, 52, 52, 48, 52, 52, 52, 52, 52, 48,
+    52, 52, 52, 52, 52, 48, 52, 52, 52, 52, 52, 24, 12, 28, 12, 12,
+    12, 56, 60, 60, 60, 56, 60, 60, 60, 56, 60, 60, 60, 60, 60, 56,
+    60, 60, 60, 60, 60, 56, 60, 60, 60, 60, 60, 24, 12, 28, 12, 0,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1,
+    2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3,
+    2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3,
+    2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3,
+    2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3,
+};
+const uint8_t kLut1[256] = {
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1,
+    1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1,
+    1, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 1, 1, 1, 1, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+};
+const uint8_t kLut2[256] = {
+    0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+    3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3,
+    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4, 4,
+    5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5,
+    5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5,
+    5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5,
+    6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 6, 7,
+};
+const Transform kTransforms[121] = {
+    {"", kIdentity, ""},  // 0
+    {"", kIdentity, " "},  // 1
+    {" ", kIdentity, " "},  // 2
+    {"", kOmitFirst1, ""},  // 3
+    {"", kUppercaseFirst, " "},  // 4
+    {"", kIdentity, " the "},  // 5
+    {" ", kIdentity, ""},  // 6
+    {"s ", kIdentity, " "},  // 7
+    {"", kIdentity, " of "},  // 8
+    {"", kUppercaseFirst, ""},  // 9
+    {"", kIdentity, " and "},  // 10
+    {"", kOmitFirst2, ""},  // 11
+    {"", kOmitLast1, ""},  // 12
+    {", ", kIdentity, " "},  // 13
+    {"", kIdentity, ", "},  // 14
+    {" ", kUppercaseFirst, " "},  // 15
+    {"", kIdentity, " in "},  // 16
+    {"", kIdentity, " to "},  // 17
+    {"e ", kIdentity, " "},  // 18
+    {"", kIdentity, "\""},  // 19
+    {"", kIdentity, "."},  // 20
+    {"", kIdentity, "\">"},  // 21
+    {"", kIdentity, "\x0a"},  // 22
+    {"", kOmitLast3, ""},  // 23
+    {"", kIdentity, "]"},  // 24
+    {"", kIdentity, " for "},  // 25
+    {"", kOmitFirst3, ""},  // 26
+    {"", kOmitLast2, ""},  // 27
+    {"", kIdentity, " a "},  // 28
+    {"", kIdentity, " that "},  // 29
+    {" ", kUppercaseFirst, ""},  // 30
+    {"", kIdentity, ". "},  // 31
+    {".", kIdentity, ""},  // 32
+    {" ", kIdentity, ", "},  // 33
+    {"", kOmitFirst4, ""},  // 34
+    {"", kIdentity, " with "},  // 35
+    {"", kIdentity, "'"},  // 36
+    {"", kIdentity, " from "},  // 37
+    {"", kIdentity, " by "},  // 38
+    {"", kOmitFirst5, ""},  // 39
+    {"", kOmitFirst6, ""},  // 40
+    {" the ", kIdentity, ""},  // 41
+    {"", kOmitLast4, ""},  // 42
+    {"", kIdentity, ". The "},  // 43
+    {"", kUppercaseAll, ""},  // 44
+    {"", kIdentity, " on "},  // 45
+    {"", kIdentity, " as "},  // 46
+    {"", kIdentity, " is "},  // 47
+    {"", kOmitLast7, ""},  // 48
+    {"", kOmitLast1, "ing "},  // 49
+    {"", kIdentity, "\x0a" "\x09"},  // 50
+    {"", kIdentity, ":"},  // 51
+    {" ", kIdentity, ". "},  // 52
+    {"", kIdentity, "ed "},  // 53
+    {"", kOmitFirst9, ""},  // 54
+    {"", kOmitFirst7, ""},  // 55
+    {"", kOmitLast6, ""},  // 56
+    {"", kIdentity, "("},  // 57
+    {"", kUppercaseFirst, ", "},  // 58
+    {"", kOmitLast8, ""},  // 59
+    {"", kIdentity, " at "},  // 60
+    {"", kIdentity, "ly "},  // 61
+    {" the ", kIdentity, " of "},  // 62
+    {"", kOmitLast5, ""},  // 63
+    {"", kOmitLast9, ""},  // 64
+    {" ", kUppercaseFirst, ", "},  // 65
+    {"", kUppercaseFirst, "\""},  // 66
+    {".", kIdentity, "("},  // 67
+    {"", kUppercaseAll, " "},  // 68
+    {"", kUppercaseFirst, "\">"},  // 69
+    {"", kIdentity, "=\""},  // 70
+    {" ", kIdentity, "."},  // 71
+    {".com/", kIdentity, ""},  // 72
+    {" the ", kIdentity, " of the "},  // 73
+    {"", kUppercaseFirst, "'"},  // 74
+    {"", kIdentity, ". This "},  // 75
+    {"", kIdentity, ","},  // 76
+    {".", kIdentity, " "},  // 77
+    {"", kUppercaseFirst, "("},  // 78
+    {"", kUppercaseFirst, "."},  // 79
+    {"", kIdentity, " not "},  // 80
+    {" ", kIdentity, "=\""},  // 81
+    {"", kIdentity, "er "},  // 82
+    {" ", kUppercaseAll, " "},  // 83
+    {"", kIdentity, "al "},  // 84
+    {" ", kUppercaseAll, ""},  // 85
+    {"", kIdentity, "='"},  // 86
+    {"", kUppercaseAll, "\""},  // 87
+    {"", kUppercaseFirst, ". "},  // 88
+    {" ", kIdentity, "("},  // 89
+    {"", kIdentity, "ful "},  // 90
+    {" ", kUppercaseFirst, ". "},  // 91
+    {"", kIdentity, "ive "},  // 92
+    {"", kIdentity, "less "},  // 93
+    {"", kUppercaseAll, "'"},  // 94
+    {"", kIdentity, "est "},  // 95
+    {" ", kUppercaseFirst, "."},  // 96
+    {"", kUppercaseAll, "\">"},  // 97
+    {" ", kIdentity, "='"},  // 98
+    {"", kUppercaseFirst, ","},  // 99
+    {"", kIdentity, "ize "},  // 100
+    {"", kUppercaseAll, "."},  // 101
+    {"\xc2" "\xa0", kIdentity, ""},  // 102
+    {" ", kIdentity, ","},  // 103
+    {"", kUppercaseFirst, "=\""},  // 104
+    {"", kUppercaseAll, "=\""},  // 105
+    {"", kIdentity, "ous "},  // 106
+    {"", kUppercaseAll, ", "},  // 107
+    {"", kUppercaseFirst, "='"},  // 108
+    {" ", kUppercaseFirst, ","},  // 109
+    {" ", kUppercaseAll, "=\""},  // 110
+    {" ", kUppercaseAll, ", "},  // 111
+    {"", kUppercaseAll, ","},  // 112
+    {"", kUppercaseAll, "("},  // 113
+    {"", kUppercaseAll, ". "},  // 114
+    {" ", kUppercaseAll, "."},  // 115
+    {"", kUppercaseAll, "='"},  // 116
+    {" ", kUppercaseAll, ". "},  // 117
+    {" ", kUppercaseFirst, "=\""},  // 118
+    {" ", kUppercaseAll, "='"},  // 119
+    {" ", kUppercaseFirst, "='"},  // 120
+};
+
+const size_t kDictionarySize = 122784;
+// Appendix A: log2 of the number of words of each length 4..24
+const int kSizeBitsByLength[25] = {0,  0,  0,  0,  10, 10, 11, 11, 10,
+                                   10, 10, 10, 10, 9,  9,  8,  7,  7,
+                                   8,  7,  7,  6,  6,  5,  5};
+const uint8_t* dictionary = nullptr;
+uint32_t offsets_by_length[25];
+
+// Section 4: the insert and copy length codes' bases and extra bits
+const uint32_t kInsertBase[24] = {0,   1,   2,   3,    4,    5,    6,    8,
+                                  10,  14,  18,  26,   34,   50,   66,   98,
+                                  130, 194, 322, 578,  1090, 2114, 6210, 22594};
+const int kInsertExtra[24] = {0, 0, 0, 0, 0, 0, 1, 1, 2, 2,  3,  3,
+                              4, 4, 5, 5, 6, 7, 8, 9, 10, 12, 14, 24};
+const uint32_t kCopyBase[24] = {2,   3,   4,   5,   6,   7,    8,    9,
+                                10,  12,  14,  18,  22,  30,   38,   54,
+                                70,  102, 134, 198, 326, 582, 1094, 2118};
+const int kCopyExtra[24] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1,  2,  2,
+                            3, 3, 4, 4, 5, 5, 6, 7, 8, 9, 10, 24};
+// Section 6: block count codes
+const uint32_t kBlockBase[26] = {1,    5,    9,    13,   17,   25,  33,
+                                 41,   49,   65,   81,   97,   113, 145,
+                                 177,  209,  241,  305,  369,  497, 753,
+                                 1265, 2289, 4337, 8433, 16625};
+const int kBlockExtra[26] = {2, 2, 2, 2, 3, 3, 3, 3, 4,  4,  4,  4,  5,
+                             5, 5, 5, 6, 6, 7, 8, 9, 10, 11, 12, 13, 24};
+// Section 3.5: the order of the code length code lengths, and the static
+// prefix code they are written in (indexed by the next four bits)
+const int kCodeLengthOrder[18] = {1, 2,  3, 4,  0,  5,  17, 6,  16,
+                                  7, 8,  9, 10, 11, 12, 13, 14, 15};
+const uint8_t kCodeLengthPrefixLength[16] = {2, 2, 2, 3, 2, 2, 2, 4,
+                                             2, 2, 2, 3, 2, 2, 2, 4};
+const uint8_t kCodeLengthPrefixValue[16] = {0, 4, 3, 2, 0, 4, 3, 1,
+                                            0, 4, 3, 2, 0, 4, 3, 5};
+
+// Bits read least significant first; a read past the end fails.
+struct BitReader {
+    const uint8_t* src;
+    size_t size;
+    size_t pos = 0;  // next byte to load
+    uint64_t acc = 0;
+    int avail = 0;   // bits in acc
+    size_t loaded_past_end = 0;  // zero bytes loaded past the end
+
+    BitReader(const uint8_t* s, size_t n) : src(s), size(n) {}
+
+    void fill(int need) {
+        while (avail < need) {
+            uint64_t byte = 0;
+            if (pos < size) {
+                byte = src[pos];
+            } else {
+                ++loaded_past_end;
+            }
+            ++pos;
+            acc |= byte << avail;
+            avail += 8;
+        }
+    }
+    void check() const {
+        // the zero bytes loaded past the end must not have been consumed
+        if (loaded_past_end * 8 > (size_t)avail)
+            fail("BROTLI: stream cut short");
+    }
+    uint32_t peek(int n) {
+        fill(n);
+        return (uint32_t)(acc & ((1ULL << n) - 1));
+    }
+    void drop(int n) {
+        acc >>= n;
+        avail -= n;
+        check();
+    }
+    uint32_t read(int n) {
+        if (n == 0) return 0;
+        uint32_t v = peek(n);
+        drop(n);
+        return v;
+    }
+    // to the next byte boundary; the skipped bits must be zero
+    void align() {
+        int skip = avail & 7;
+        if (read(skip) != 0) fail("BROTLI: nonzero padding bits");
+    }
+    // the next byte of the stream at a byte boundary
+    size_t byte_position() const { return pos - (size_t)(avail / 8); }
+    void skip_bytes(size_t n) {
+        size_t at = byte_position();
+        if (n > size - std::min(at, size) || at > size)
+            fail("BROTLI: stream cut short");
+        pos = at + n;
+        acc = 0;
+        avail = 0;
+    }
+};
+
+// A canonical prefix code: codes assigned in order of (length, symbol),
+// read one bit at a time from the code's most significant bit.
+struct PrefixCode {
+    uint16_t count[16] = {0};
+    std::vector<uint16_t> symbols;
+    int single = -1;  // the one symbol of a code of no bits
+
+    void build(const uint8_t* lengths, int alphabet) {
+        std::fill(count, count + 16, 0);
+        symbols.clear();
+        for (int s = 0; s < alphabet; ++s) ++count[lengths[s]];
+        count[0] = 0;
+        for (int len = 1; len < 16; ++len)
+            for (int s = 0; s < alphabet; ++s)
+                if (lengths[s] == len) symbols.push_back((uint16_t)s);
+    }
+    int decode(BitReader& br) const {
+        if (single >= 0) return single;
+        int code = 0, first = 0, index = 0;
+        for (int len = 1; len < 16; ++len) {
+            code |= (int)br.read(1);
+            int n = count[len];
+            if (code - n < first) return symbols[index + (code - first)];
+            index += n;
+            first = (first + n) << 1;
+            code <<= 1;
+        }
+        fail("BROTLI: invalid prefix code");
+    }
+};
+
+int bit_width(uint32_t v) {  // bits to write v
+    int n = 0;
+    while (v) {
+        ++n;
+        v >>= 1;
+    }
+    return n;
+}
+
+// Section 3.4 and 3.5: a prefix code over `alphabet` symbols
+void read_prefix_code(BitReader& br, int alphabet, PrefixCode& code) {
+    std::vector<uint8_t> lengths((size_t)alphabet, 0);
+    code.single = -1;
+    uint32_t hskip = br.read(2);
+    if (hskip == 1) {  // simple
+        int nsym = (int)br.read(2) + 1;
+        int bits = bit_width((uint32_t)alphabet - 1);
+        int sym[4];
+        for (int i = 0; i < nsym; ++i) {
+            sym[i] = (int)br.read(bits);
+            if (sym[i] >= alphabet) fail("BROTLI: simple code symbol too big");
+            for (int j = 0; j < i; ++j)
+                if (sym[j] == sym[i]) fail("BROTLI: simple code repeats a symbol");
+        }
+        if (nsym == 1) {
+            code.single = sym[0];
+            return;
+        }
+        if (nsym == 2) {
+            lengths[sym[0]] = lengths[sym[1]] = 1;
+        } else if (nsym == 3) {
+            lengths[sym[0]] = 1;
+            lengths[sym[1]] = lengths[sym[2]] = 2;
+        } else if (br.read(1) == 0) {
+            for (int i = 0; i < 4; ++i) lengths[sym[i]] = 2;
+        } else {
+            lengths[sym[0]] = 1;
+            lengths[sym[1]] = 2;
+            lengths[sym[2]] = lengths[sym[3]] = 3;
+        }
+        code.build(lengths.data(), alphabet);
+        return;
+    }
+    // complex: the code length code first
+    uint8_t cl_lengths[18] = {0};
+    int space = 32, num_codes = 0;
+    for (int i = (int)hskip; i < 18; ++i) {
+        uint32_t ix = br.peek(4);
+        br.drop(kCodeLengthPrefixLength[ix]);
+        int v = kCodeLengthPrefixValue[ix];
+        cl_lengths[kCodeLengthOrder[i]] = (uint8_t)v;
+        if (v != 0) {
+            space -= 32 >> v;
+            ++num_codes;
+            if (space <= 0) break;
+        }
+    }
+    if (!(num_codes == 1 || space == 0))
+        fail("BROTLI: invalid code length code");
+    PrefixCode cl_code;
+    if (num_codes == 1) {
+        for (int s = 0; s < 18; ++s)
+            if (cl_lengths[s]) cl_code.single = s;
+    } else {
+        cl_code.build(cl_lengths, 18);
+    }
+    int symbol = 0, prev_len = 8, repeat = 0, repeat_len = 0;
+    int left = 32768;
+    while (symbol < alphabet && left > 0) {
+        int len = cl_code.decode(br);
+        if (len < 16) {
+            repeat = 0;
+            lengths[(size_t)symbol++] = (uint8_t)len;
+            if (len != 0) {
+                prev_len = len;
+                left -= 32768 >> len;
+            }
+            continue;
+        }
+        int extra = len == 16 ? 2 : 3;
+        int new_len = len == 16 ? prev_len : 0;
+        if (repeat_len != new_len) {
+            repeat = 0;
+            repeat_len = new_len;
+        }
+        int old = repeat;
+        if (repeat > 0) repeat = (repeat - 2) << extra;
+        repeat += (int)br.read(extra) + 3;
+        int delta = repeat - old;
+        if (symbol + delta > alphabet) fail("BROTLI: code lengths overrun");
+        for (int i = 0; i < delta; ++i) lengths[(size_t)symbol++] = (uint8_t)repeat_len;
+        if (repeat_len != 0) left -= delta << (15 - repeat_len);
+    }
+    if (left != 0) fail("BROTLI: incomplete prefix code");
+    code.build(lengths.data(), alphabet);
+}
+
+uint32_t read_var_uint8(BitReader& br) {  // Section 9.2: 0..255
+    if (br.read(1) == 0) return 0;
+    uint32_t n = br.read(3);
+    if (n == 0) return 1;
+    return br.read((int)n) + (1u << n);
+}
+
+uint32_t read_block_count(BitReader& br, const PrefixCode& code) {
+    int c = code.decode(br);
+    return kBlockBase[c] + br.read(kBlockExtra[c]);
+}
+
+// Section 7.3: a context map of `size` entries over `ntrees` trees
+void read_context_map(BitReader& br, int ntrees, std::vector<uint8_t>& map) {
+    std::fill(map.begin(), map.end(), 0);
+    if (ntrees < 2) return;
+    int rlemax = br.read(1) ? (int)br.read(4) + 1 : 0;
+    PrefixCode code;
+    read_prefix_code(br, ntrees + rlemax, code);
+    size_t i = 0;
+    while (i < map.size()) {
+        int c = code.decode(br);
+        if (c == 0) {
+            map[i++] = 0;
+        } else if (c <= rlemax) {
+            size_t reps = ((size_t)1 << c) + br.read(c);
+            if (reps > map.size() - i) fail("BROTLI: context map overrun");
+            for (size_t k = 0; k < reps; ++k) map[i++] = 0;
+        } else {
+            map[i++] = (uint8_t)(c - rlemax);
+        }
+    }
+    if (br.read(1)) {  // inverse move-to-front
+        uint8_t mtf[256];
+        for (int k = 0; k < 256; ++k) mtf[k] = (uint8_t)k;
+        for (auto& v : map) {
+            uint8_t index = v, value = mtf[index];
+            v = value;
+            std::memmove(mtf + 1, mtf, index);
+            mtf[0] = value;
+        }
+    }
+    for (auto v : map)
+        if (v >= ntrees) fail("BROTLI: context map names a missing tree");
+}
+
+// Block types and counts of one category (Section 6)
+struct Blocks {
+    uint32_t ntypes = 1, type = 0, prev = 1, left = 1u << 24;
+    PrefixCode types, counts;
+
+    void read(BitReader& br) {
+        ntypes = read_var_uint8(br) + 1;
+        type = 0;
+        prev = 1;
+        left = 1u << 24;
+        if (ntypes >= 2) {
+            read_prefix_code(br, (int)ntypes + 2, types);
+            read_prefix_code(br, 26, counts);
+            left = read_block_count(br, counts);
+        }
+    }
+    void next(BitReader& br) {  // one symbol of this category
+        if (left == 0) {
+            int c = types.decode(br);
+            uint32_t t = c == 0 ? prev : c == 1 ? type + 1 : (uint32_t)c - 2;
+            if (t >= ntypes) t -= ntypes;
+            if (t >= ntypes) fail("BROTLI: invalid block type");
+            prev = type;
+            type = t;
+            left = read_block_count(br, counts);
+        }
+        --left;
+    }
+};
+
+struct Output {
+    uint8_t* dst;
+    size_t capacity;
+    size_t pos = 0;
+
+    void put(uint8_t b) {
+        if (pos >= capacity) fail("BROTLI: more bytes than the page holds");
+        dst[pos++] = b;
+    }
+};
+
+int to_upper(uint8_t* p) {  // Appendix B's uppercase of one character
+    if (p[0] < 0xc0) {
+        if (p[0] >= 'a' && p[0] <= 'z') p[0] ^= 32;
+        return 1;
+    }
+    if (p[0] < 0xe0) {
+        p[1] ^= 32;
+        return 2;
+    }
+    p[2] ^= 5;
+    return 3;
+}
+
+// A dictionary word of `len` bytes, transformed (Appendix B)
+void dictionary_word(Output& out, int len, uint32_t word_id) {
+    if (dictionary == nullptr) fail("BROTLI: the static dictionary is not loaded");
+    if (len < 4 || len > 24) fail("BROTLI: invalid distance");
+    int bits = kSizeBitsByLength[len];
+    uint32_t index = word_id & ((1u << bits) - 1);
+    uint32_t transform_id = word_id >> bits;
+    if (transform_id >= 121) fail("BROTLI: invalid dictionary transform");
+    const Transform& t = kTransforms[transform_id];
+    const uint8_t* word = dictionary + offsets_by_length[len] + (size_t)index * len;
+    uint8_t buf[64];  // the word and three bytes the uppercasing may touch
+    int n = 0, skip = 0;
+    if (t.type >= kOmitLast1 && t.type <= kOmitLast9) n = len - t.type;
+    else if (t.type >= kOmitFirst1) {
+        skip = t.type - kOmitFirst1 + 1;
+        n = len - skip;
+    } else n = len;
+    if (n < 0) n = 0;
+    std::memset(buf, 0, sizeof(buf));
+    std::memcpy(buf, word + skip, (size_t)n);
+    if (t.type == kUppercaseFirst && n > 0) {
+        to_upper(buf);
+    } else if (t.type == kUppercaseAll) {
+        for (int i = 0; i < n;) i += to_upper(buf + i);
+    }
+    for (const char* p = t.prefix; *p; ++p) out.put((uint8_t)*p);
+    for (int i = 0; i < n; ++i) out.put(buf[i]);
+    for (const char* p = t.suffix; *p; ++p) out.put((uint8_t)*p);
+}
+
+size_t decompress(const uint8_t* src, size_t size, uint8_t* dst,
+                  size_t capacity) {
+    BitReader br(src, size);
+    Output out{dst, capacity};
+    // Section 9.1: the window
+    int wbits;
+    if (br.read(1) == 0) {
+        wbits = 16;
+    } else {
+        uint32_t n = br.read(3);
+        if (n != 0) {
+            wbits = 17 + (int)n;
+        } else {
+            n = br.read(3);
+            if (n == 1) fail("BROTLI: large-window streams are not read");
+            wbits = n == 0 ? 17 : 8 + (int)n;
+        }
+    }
+    const size_t window = ((size_t)1 << wbits) - 16;
+    uint32_t ring[4] = {16, 15, 11, 4};  // ring[idx & 3] is the last
+    uint32_t ring_idx = 3;
+    std::vector<PrefixCode> literal_codes, command_codes, distance_codes;
+    std::vector<uint8_t> literal_map, distance_map, modes;
+    bool last = false;
+    while (!last) {
+        last = br.read(1) != 0;
+        if (last && br.read(1)) break;  // ISLASTEMPTY
+        uint32_t nibbles_code = br.read(2);
+        if (nibbles_code == 3) {  // metadata
+            if (br.read(1) != 0) fail("BROTLI: reserved bit set");
+            int skip_bytes = (int)br.read(2);
+            size_t skip = 0;
+            for (int i = 0; i < skip_bytes; ++i) {
+                uint32_t b = br.read(8);
+                if (i + 1 == skip_bytes && skip_bytes > 1 && b == 0)
+                    fail("BROTLI: invalid metadata length");
+                skip |= (size_t)b << (8 * i);
+            }
+            if (skip_bytes) ++skip;
+            br.align();
+            br.skip_bytes(skip);
+            continue;
+        }
+        int nibbles = 4 + (int)nibbles_code;
+        size_t mlen = 0;
+        for (int i = 0; i < nibbles; ++i) {
+            uint32_t v = br.read(4);
+            if (i + 1 == nibbles && nibbles > 4 && v == 0)
+                fail("BROTLI: invalid meta-block length");
+            mlen |= (size_t)v << (4 * i);
+        }
+        ++mlen;
+        if (!last && br.read(1)) {  // uncompressed
+            br.align();
+            size_t at = br.byte_position();
+            if (at > size || mlen > size - at) fail("BROTLI: stream cut short");
+            if (mlen > out.capacity - out.pos)
+                fail("BROTLI: more bytes than the page holds");
+            std::memcpy(out.dst + out.pos, src + at, mlen);
+            out.pos += mlen;
+            br.skip_bytes(mlen);
+            continue;
+        }
+        // a compressed meta-block: its header (Section 9.2)
+        Blocks lit, cmd, dist;
+        lit.read(br);
+        cmd.read(br);
+        dist.read(br);
+        uint32_t npostfix = br.read(2);
+        uint32_t ndirect = br.read(4) << npostfix;
+        modes.assign(lit.ntypes, 0);
+        for (auto& m : modes) m = (uint8_t)br.read(2);
+        int ntrees_l = (int)read_var_uint8(br) + 1;
+        literal_map.assign((size_t)64 * lit.ntypes, 0);
+        read_context_map(br, ntrees_l, literal_map);
+        int ntrees_d = (int)read_var_uint8(br) + 1;
+        distance_map.assign((size_t)4 * dist.ntypes, 0);
+        read_context_map(br, ntrees_d, distance_map);
+        literal_codes.assign((size_t)ntrees_l, PrefixCode());
+        for (auto& c : literal_codes) read_prefix_code(br, 256, c);
+        command_codes.assign(cmd.ntypes, PrefixCode());
+        for (auto& c : command_codes) read_prefix_code(br, 704, c);
+        const int dist_alphabet = 16 + (int)ndirect + (48 << npostfix);
+        distance_codes.assign((size_t)ntrees_d, PrefixCode());
+        for (auto& c : distance_codes) read_prefix_code(br, dist_alphabet, c);
+        const uint32_t postfix_mask = (1u << npostfix) - 1;
+
+        // the commands (Section 9.3)
+        size_t left = mlen;
+        while (left > 0) {
+            cmd.next(br);
+            int code = command_codes[cmd.type].decode(br);
+            static const int ins_base[11] = {0, 0, 0, 0, 8, 8, 0, 16, 8, 16, 16};
+            static const int copy_base[11] = {0, 8, 0, 8, 0, 8, 16, 0, 16, 8, 16};
+            int cell = code >> 6;
+            int ins_code = ins_base[cell] + ((code >> 3) & 7);
+            int copy_code = copy_base[cell] + (code & 7);
+            size_t insert = kInsertBase[ins_code] + br.read(kInsertExtra[ins_code]);
+            size_t copy = kCopyBase[copy_code] + br.read(kCopyExtra[copy_code]);
+            if (insert > left) fail("BROTLI: insert past the meta-block");
+            for (size_t i = 0; i < insert; ++i) {
+                lit.next(br);
+                uint8_t p1 = out.pos >= 1 ? out.dst[out.pos - 1] : 0;
+                uint8_t p2 = out.pos >= 2 ? out.dst[out.pos - 2] : 0;
+                int ctx;
+                switch (modes[lit.type]) {
+                    case 0: ctx = p1 & 0x3f; break;
+                    case 1: ctx = p1 >> 2; break;
+                    case 2: ctx = kLut0[p1] | kLut1[p2]; break;
+                    default: ctx = (kLut2[p1] << 3) | kLut2[p2]; break;
+                }
+                int tree = literal_map[(size_t)64 * lit.type + ctx];
+                out.put((uint8_t)literal_codes[(size_t)tree].decode(br));
+            }
+            left -= insert;
+            if (left == 0) break;
+            uint32_t distance;
+            bool push = true;
+            if (cell < 2) {  // the implicit distance code 0
+                distance = ring[ring_idx & 3];
+                push = false;
+            } else {
+                dist.next(br);
+                int dctx = copy > 4 ? 3 : (int)copy - 2;
+                int tree = distance_map[(size_t)4 * dist.type + dctx];
+                uint32_t dcode = (uint32_t)distance_codes[(size_t)tree].decode(br);
+                if (dcode < 16) {
+                    static const int which[16] = {0, 1, 2, 3, 0, 0, 0, 0,
+                                                  0, 0, 1, 1, 1, 1, 1, 1};
+                    static const int delta[16] = {0, 0, 0, 0, -1, 1, -2, 2,
+                                                  -3, 3, -1, 1, -2, 2, -3, 3};
+                    int64_t d = (int64_t)ring[(ring_idx - which[dcode]) & 3] +
+                                delta[dcode];
+                    if (d <= 0) fail("BROTLI: invalid distance");
+                    distance = (uint32_t)d;
+                    push = dcode != 0;
+                } else if (dcode < 16 + ndirect) {
+                    distance = dcode - 15;
+                } else {
+                    uint32_t x = dcode - ndirect - 16;
+                    int ndistbits = 1 + (int)(x >> (npostfix + 1));
+                    uint32_t dextra = br.read(ndistbits);
+                    uint32_t hcode = x >> npostfix, lcode = x & postfix_mask;
+                    uint64_t offset = ((uint64_t)(2 + (hcode & 1)) << ndistbits) - 4;
+                    uint64_t d = ((offset + dextra) << npostfix) + lcode + ndirect + 1;
+                    if (d > 0x7FFFFFFCu) fail("BROTLI: invalid distance");
+                    distance = (uint32_t)d;
+                }
+            }
+            size_t max_distance = std::min(window, out.pos);
+            size_t before = out.pos;
+            if (distance > max_distance) {  // a static dictionary word
+                dictionary_word(out, (int)copy, distance - (uint32_t)max_distance - 1);
+                push = false;
+            } else {
+                if (copy > out.capacity - out.pos)
+                    fail("BROTLI: more bytes than the page holds");
+                uint8_t* d = out.dst + out.pos;
+                const uint8_t* s = d - distance;
+                for (size_t i = 0; i < copy; ++i) d[i] = s[i];
+                out.pos += copy;
+            }
+            size_t wrote = out.pos - before;
+            if (wrote > left) fail("BROTLI: copy past the meta-block");
+            left -= wrote;
+            if (push) ring[++ring_idx & 3] = distance;
+        }
+    }
+    return out.pos;
+}
+
+}  // namespace brotli
+
 void set_error(char* err, int64_t cap, const std::string& message) {
     if (cap <= 0) return;
     std::snprintf(err, (size_t)cap, "%s", message.c_str());
@@ -847,6 +1588,34 @@ int64_t pq_lz4_hadoop_decompress(const uint8_t* src, int64_t size,
     int64_t got = lz4_hadoop(src, (size_t)size, dst, (size_t)capacity);
     if (got >= 0) return got;
     return pq_lz4_raw_decompress(src, size, dst, capacity, err, err_cap);
+}
+
+// The static dictionary (RFC 7932 Appendix A), copied once; the caller
+// checks its digest. Returns 0, or -1 for a buffer of another size.
+int64_t pq_brotli_set_dictionary(const uint8_t* data, int64_t size) {
+    if (size != (int64_t)brotli::kDictionarySize) return -1;
+    static std::vector<uint8_t> words;
+    words.assign(data, data + size);
+    uint32_t offset = 0;
+    for (int len = 0; len < 25; ++len) {
+        brotli::offsets_by_length[len] = offset;
+        if (brotli::kSizeBitsByLength[len])
+            offset += (uint32_t)len << brotli::kSizeBitsByLength[len];
+    }
+    if (offset != brotli::kDictionarySize) return -1;
+    brotli::dictionary = words.data();
+    return 0;
+}
+
+int64_t pq_brotli_decompress(const uint8_t* src, int64_t size, uint8_t* dst,
+                             int64_t capacity, char* err, int64_t err_cap) {
+    try {
+        return (int64_t)brotli::decompress(src, (size_t)size, dst,
+                                           (size_t)capacity);
+    } catch (const Error& e) {
+        set_error(err, err_cap, e.message);
+        return -1;
+    }
 }
 
 }  // extern "C"

@@ -9,9 +9,17 @@ DataFrame where pandas is installed (as the JAX loaders do), else as
 ``data.columns.Columns`` with the same values column for column.
 """
 
+import copy
+import math
+
 import numpy as np
 
 from .columns import Columns
+
+# (double)INT64_MAX, the bound of numpy's Zipf loop
+_ZIPF_X_MAX = 9.223372036854775807e18
+# four ulps: np.power may differ from libm's pow by one
+_ZIPF_NEAR = 4 * 2.0 ** -52
 
 
 def _table(data):
@@ -26,6 +34,76 @@ def _table(data):
 
 def _rng(seed):
     return np.random.default_rng(seed)
+
+
+def _zipf_scalar(u, v, am1, b, e):
+    """One attempt of the Zipf loop in Python floats (libm's ``pow``): the
+    draw, or 0 when the attempt is rejected."""
+    x = math.floor(math.pow(1.0 - u, e))
+    if x > _ZIPF_X_MAX or x < 1.0:
+        return 0
+    t = math.pow(1.0 + 1.0 / x, am1)
+    return int(x) if v * x * (t - 1.0) / (b - 1.0) <= t / b else 0
+
+
+def _zipf_attempts(u, v, am1, b, e):
+    """The attempts ``(u[i], v[i])`` of the Zipf loop at once: each draw,
+    0 where rejected. An attempt whose outcome an ulp of ``pow`` could
+    change is redone by :func:`_zipf_scalar`."""
+    with np.errstate(over='ignore'):
+        p = np.power(1.0 - u, e)
+    x = np.floor(p)
+    ok = (x >= 1.0) & (x <= _ZIPF_X_MAX)
+    xs = np.where(ok, x, 1.0)
+    t = np.power(1.0 + 1.0 / xs, am1)
+    lhs = v * xs * (t - 1.0) / (b - 1.0)
+    rhs = t / b
+    out = np.where(ok & (lhs <= rhs), xs, 0.0).astype(np.int64)
+    near = ((np.floor(p * (1.0 + _ZIPF_NEAR)) != np.floor(p * (1.0 - _ZIPF_NEAR)))
+            | (np.abs(p - _ZIPF_X_MAX) <= _ZIPF_NEAR * _ZIPF_X_MAX)
+            | (ok & (np.abs(lhs - rhs) <= _ZIPF_NEAR * (
+                v * xs * t / (b - 1.0) + np.abs(lhs) + rhs))))
+    for i in np.flatnonzero(near):
+        out[i] = _zipf_scalar(float(u[i]), float(v[i]), am1, b, e)
+    return out
+
+
+def zipf(rng, a, size):
+    """``size`` Zipf draws from the generator ``rng`` as numpy 2.0's
+    ``Generator.zipf(a, size)`` makes them, on any numpy release, leaving
+    ``rng`` where that call leaves it.
+
+    numpy 2.0 draws each value by rejection over the generator's doubles,
+    two an attempt: ``U = 1 - random()``, ``V = random()``,
+    ``X = floor(U ** (-1 / (a - 1)))``; ``X`` outside ``[1, 2**63 - 1]`` is
+    rejected, else accepted when ``V·X·(T - 1)/(b - 1) <= T/b`` with
+    ``T = (1 + 1/X) ** (a - 1)`` and ``b = 2 ** (a - 1)``. Later releases
+    draw ``U`` otherwise, so their tables differ. Here the attempts are
+    drawn in batches from a copy of ``rng`` and the first accepted ones
+    kept; ``rng`` is then moved on by the doubles they consumed."""
+    a = float(a)
+    if not 1.0 < a < 1025.0:
+        raise ValueError(f'zipf: a must lie in (1, 1025), got {a}')
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    e = -1.0 / am1
+    n = int(np.prod(size))
+    out = np.empty(n, dtype=np.int64)
+    src = copy.deepcopy(rng)
+    got = used = 0
+    rate = 0.5
+    while got < n:
+        k = int((n - got) / rate * 1.1) + 64
+        d = src.random(2 * k)
+        x = _zipf_attempts(d[0::2], d[1::2], am1, b, e)
+        hit = np.flatnonzero(x)
+        rate = max(len(hit) / k, 0.01)
+        take = hit[:n - got]
+        out[got:got + len(take)] = x[take]
+        got += len(take)
+        used += 2 * (int(take[-1]) + 1 if got == n else k)
+    rng.random(used)  # the doubles the kept attempts consumed
+    return out.reshape(size)
 
 
 def _categorical(rng, n, values, p=None):
@@ -256,7 +334,7 @@ def load_criteo_synthetic(n_rows=100_000, n_cat=26, n_dense=13,
         max_vocab)
     cat = np.empty((n_rows, n_cat), dtype=np.int64)
     for j, v in enumerate(vocab_sizes):
-        z = rng.zipf(1.2, size=n_rows)
+        z = zipf(rng, 1.2, n_rows)
         cat[:, j] = (z - 1) % v
     dense = np.maximum(rng.normal(2.0, 1.5, (n_rows, n_dense)), 0)
     dense = np.log1p(dense).astype(np.float32)
@@ -292,8 +370,8 @@ def _avazu_fields(n_rows=100_000, seed=31):
         'app_id': rng.integers(0, 6000, n_rows),
         'app_domain': rng.integers(0, 500, n_rows),
         'app_category': rng.integers(0, 30, n_rows),
-        'device_id': (rng.zipf(1.3, n_rows) - 1) % 200_000,
-        'device_ip': (rng.zipf(1.2, n_rows) - 1) % 500_000,
+        'device_id': (zipf(rng, 1.3, n_rows) - 1) % 200_000,
+        'device_ip': (zipf(rng, 1.2, n_rows) - 1) % 500_000,
         'device_model': rng.integers(0, 7000, n_rows),
         'device_type': rng.integers(0, 5, n_rows),
         'device_conn_type': rng.integers(0, 5, n_rows),

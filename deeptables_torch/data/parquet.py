@@ -9,10 +9,12 @@ It reads flat schemas of the Parquet format up to 2.6:
 - the footer's Thrift compact protocol (decoded in Python);
 - data pages v1 and v2, any number of row groups;
 - pages uncompressed, SNAPPY (decompressed here), GZIP (``zlib``), ZSTD,
-  LZ4_RAW and LZ4 (Hadoop's framing, else one bare block, as Arrow reads
-  it); ZSTD and LZ4 by ``csrc/parquet_codecs.cpp``, host C++ built with
-  the host compiler at first use (a failed build raises with the
-  compiler's message);
+  LZ4_RAW, LZ4 (Hadoop's framing, else one bare block, as Arrow reads it)
+  and BROTLI; ZSTD, LZ4 and BROTLI by ``csrc/parquet_codecs.cpp``, host
+  C++ built with the host compiler at first use (a failed build raises
+  with the compiler's message), BROTLI with RFC 7932's static dictionary
+  from ``csrc/brotli_dictionary.zlib`` (zlib-compressed), whose SHA-256 is
+  checked when it is loaded;
 - PLAIN and RLE_DICTIONARY / PLAIN_DICTIONARY values, also a column chunk
   that falls back from its dictionary to PLAIN part way through;
   DELTA_BINARY_PACKED (INT32, INT64), DELTA_LENGTH_BYTE_ARRAY and
@@ -33,12 +35,13 @@ categorical of strings is ``category[str]`` with the file's categories;
 nullable integers and floats, and integers with nulls, are ``float64``
 with NaN; a boolean column with nulls is ``object`` (``None``, or NaN for
 pandas' nullable ``boolean``); timestamps are ``datetime64[<unit>]`` with
-NaT; an all-null column is ``object`` of ``None``. The BROTLI and LZO
-codecs, FIXED_LEN_BYTE_ARRAY and nested schemas raise ``ValueError``
-naming them.
+NaT; an all-null column is ``object`` of ``None``. The LZO codec,
+FIXED_LEN_BYTE_ARRAY and nested schemas raise ``ValueError`` naming
+them.
 """
 
 import ctypes
+import hashlib
 import json
 import struct
 import subprocess
@@ -67,8 +70,12 @@ TIME_UNITS = {1: 'ms', 2: 'us', 3: 'ns'}  # LogicalType TimeUnit's fields
 JULIAN_UNIX_EPOCH = 2440588  # the Julian day of 1970-01-01
 NS_PER_DAY = 86400 * 10 ** 9
 CODEC_SOURCE = _build.CSRC_DIR / 'parquet_codecs.cpp'
-NATIVE_CODECS = {5: 'pq_lz4_hadoop_decompress', 6: 'pq_zstd_decompress',
-                 7: 'pq_lz4_raw_decompress'}
+NATIVE_CODECS = {4: 'pq_brotli_decompress', 5: 'pq_lz4_hadoop_decompress',
+                 6: 'pq_zstd_decompress', 7: 'pq_lz4_raw_decompress'}
+# RFC 7932 Appendix A, the dictionary BROTLI streams refer into
+BROTLI_DICTIONARY = _build.CSRC_DIR / 'brotli_dictionary.zlib'
+BROTLI_DICTIONARY_SHA256 = ('20e42eb1b511c21806d4d227d07e5dd0'
+                            '6877d8ce7b3a817f378f313653f35c70')
 NULLABLE_INTS = ('Int8', 'Int16', 'Int32', 'Int64', 'UInt8', 'UInt16',
                  'UInt32', 'UInt64')
 
@@ -205,8 +212,9 @@ _codecs_lock = threading.Lock()
 
 
 def codec_library():
-    """The native ZSTD and LZ4 decoders (``csrc/parquet_codecs.cpp``),
-    built at first use."""
+    """The native ZSTD, LZ4 and BROTLI decoders
+    (``csrc/parquet_codecs.cpp``), built at first use; BROTLI's dictionary
+    is handed over once its digest is checked."""
     global _codecs
     with _codecs_lock:
         if _codecs is not None:
@@ -222,13 +230,29 @@ def codec_library():
             fn.restype = ctypes.c_int64
             fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                            ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
+        words = brotli_dictionary()
+        lib.pq_brotli_set_dictionary.restype = ctypes.c_int64
+        lib.pq_brotli_set_dictionary.argtypes = [ctypes.c_char_p,
+                                                 ctypes.c_int64]
+        if lib.pq_brotli_set_dictionary(words, len(words)) != 0:
+            raise ValueError('BROTLI: the decoder refused its dictionary')
         _codecs = lib
         return _codecs
 
 
+def brotli_dictionary() -> bytes:
+    """RFC 7932's static dictionary (122,784 bytes), its SHA-256 checked."""
+    words = zlib.decompress(BROTLI_DICTIONARY.read_bytes())
+    if hashlib.sha256(words).hexdigest() != BROTLI_DICTIONARY_SHA256:
+        raise ValueError(f'{BROTLI_DICTIONARY.name}: not RFC 7932\'s BROTLI '
+                         f'dictionary (SHA-256 differs)')
+    return words
+
+
 def native_decompress(codec, data, size) -> bytes:
-    """``data`` decompressed by the native decoder of ``codec`` (5, 6 or
-    7) into exactly ``size`` bytes; a corrupt page raises ``ValueError``."""
+    """``data`` decompressed by the native decoder of ``codec`` (4, 5, 6
+    or 7) into exactly ``size`` bytes; a corrupt page raises
+    ``ValueError``."""
     data = bytes(data)
     out = bytearray(size)
     dst = (ctypes.c_char * size).from_buffer(out) if size else None
@@ -267,8 +291,8 @@ def _decompress(codec, data, size):
     if codec in NATIVE_CODECS:
         return native_decompress(codec, data, size)
     raise ValueError(f'Parquet: the {CODECS.get(codec, codec)} codec is not '
-                     f'read (only UNCOMPRESSED, SNAPPY, GZIP, LZ4, ZSTD and '
-                     f'LZ4_RAW)')
+                     f'read (only UNCOMPRESSED, SNAPPY, GZIP, BROTLI, LZ4, '
+                     f'ZSTD and LZ4_RAW)')
 
 
 # -- encodings --------------------------------------------------------------

@@ -29,18 +29,10 @@ Run on the CPU, three seeds of every row it runs:
 row runs so in effect (its multilabel ``accuracy`` fails, so the early
 stopping it monitors never fires).
 
-The loaders draw their tables from numpy's generators, whose Zipf stream
-is not the same in every numpy release: the criteo- and avazu-style
-tables of numpy 2.3 are not those of numpy 2.0, which drew the tables of
-the JAX package's and this tool's CPU runs. ``--write-tables DIR`` saves
-each row's table where the reference's numpy runs, and ``--tables DIR``
-trains on those tables elsewhere:
-
-    python -m deeptables_torch.tools.parity_quality --write-tables tmp/t
-    python -m deeptables_torch.tools.parity_quality --device cuda \
-        --tables tmp/t
-
-Every result records its table's digest (``table``, ``table_digest``).
+The criteo- and avazu-style tables are numpy 2.0's on any numpy release
+(``data/datasets.py`` draws their Zipf ids as numpy 2.0 does), the tables
+of ``BASELINE.md`` and of this tool's CPU runs. Every result records its
+table's digest (``table``, ``table_digest``).
 
 Each finished (row, seed) is written at once to the results file
 (``--out``, default ``parity_results.json`` beside this script), which
@@ -52,7 +44,6 @@ the card's machine (``--device cuda``); imports nothing of JAX.
 
 import argparse
 import json
-import os
 import shutil
 import tempfile
 import time
@@ -83,29 +74,9 @@ def table_digest(table) -> str:
     return cl.as_columns(table, rename=False).signature()[:16]
 
 
-def write_table(path, table):
-    """A table (numpy columns; text as unicode arrays) to an ``.npz``."""
-    cols = cl.as_columns(table, rename=False)
-    arrays = {f'c{j}': (cols[n].astype(str) if cols.kinds[n] == 'str'
-                        else cols[n]) for j, n in enumerate(cols.columns)}
-    names = [[type(n).__name__, n, cols.kinds[n]] for n in cols.columns]
-    np.savez_compressed(path, names=np.array(json.dumps(names)), **arrays)
-
-
-def read_table(path) -> cl.Columns:
-    """The table :func:`write_table` wrote, as ``Columns``."""
-    out = cl.Columns()
-    with np.load(path) as data:
-        for j, (typ, name, kind) in enumerate(json.loads(str(data['names']))):
-            out.set(int(name) if typ == 'int' else name, data[f'c{j}'], kind)
-    return out
-
-
-def configs(tables=None):
+def configs():
     """The rows of ``benchmarks/parity_quality.py:_configs`` that the port
-    runs: loader, target, task, nets and the extra config. With ``tables``
-    (a directory of :func:`write_table` files) each loader reads its row's
-    table from ``<tables>/<row>.npz``."""
+    runs: loader, target, task, nets and the extra config."""
     from ..data import datasets as ds
     avazu_columns = [c for c in ds.load_avazu_synthetic(10).columns
                      if c != 'click']
@@ -154,10 +125,6 @@ def configs(tables=None):
             loader=lambda: ds.load_bank(20000), target='y',
             nets=['afm_nets'], conf={}),
     }
-    if tables is not None:
-        for name, spec in specs.items():
-            path = os.path.join(tables, f'{name}.npz')
-            spec['loader'] = lambda path=path: read_table(path)
     return specs
 
 
@@ -270,28 +237,16 @@ def main(argv=None):
                              "JAX multilabel row's effective protocol)")
     parser.add_argument('--report', action='store_true',
                         help='print the results file and run nothing')
-    parser.add_argument('--tables', default=None,
-                        help='train on the tables --write-tables wrote here')
-    parser.add_argument('--write-tables', default=None,
-                        help="write each row's table to this directory and "
-                             'run nothing')
     args = parser.parse_args(argv)
     results = load(args.out)
     if args.report:
         print(report(results))
         return 0
-    specs = configs(args.tables)
+    specs = configs()
     rows = [r for r in args.rows.split(',') if r]
     unknown = set(rows) - set(specs)
     if unknown:
         parser.error(f'unknown rows {sorted(unknown)}; rows: {list(ROWS)}')
-    if args.write_tables:
-        os.makedirs(args.write_tables, exist_ok=True)
-        for name in rows:
-            table = specs[name]['loader']()
-            write_table(os.path.join(args.write_tables, f'{name}.npz'), table)
-            print(json.dumps({'row': name, 'table': table_digest(table)}))
-        return 0
     import torch
     if args.threads:
         torch.set_num_threads(args.threads)

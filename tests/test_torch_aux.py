@@ -378,8 +378,20 @@ def test_dart_early_stopping_formats_like_jax():
         dart_early_stopping._format_eval_result(('valid',))
 
 
+class _Sum:
+    """A stand-in ``DeepTable`` whose prediction is a row's sum."""
+
+    def predict(self, frame, encode_to_label=False):
+        return cl.to_2d(frame).astype(np.float64).sum(axis=1)
+
+
 def test_shap_gate_matches_jax():
+    # the flag says whether shap imports, as JAX's does; the port explains
+    # without it (an additive f: each value is x_j - mean_b b_j)
     assert shap.have_shap == jax_shap.have_shap == _has('shap')
-    if not shap.have_shap:
-        with pytest.raises(ImportError, match='shap'):
-            shap.DeepTablesExplainer(None, None)
+    bg = pd.DataFrame({'a': [1.0, 2.0, 4.0], 'b': [0.0, 3.0, 3.0]})
+    explainer = shap.DeepTablesExplainer(_Sum(), bg)
+    values = explainer.get_shap_values(np.array([[5.0, 1.0]]))
+    np.testing.assert_allclose(values, [[5.0 - 7 / 3, 1.0 - 2.0]],
+                               atol=1e-12)
+    assert explainer.expected_value == pytest.approx(13 / 3)

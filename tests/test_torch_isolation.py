@@ -10,8 +10,8 @@ leaf features over ``models/gbm.py``, ``models/deeptable.py``,
 ``probe_evaluate``, the leaderboards, ``utils/feature_importance.py`` and
 ``utils/quicktest.py`` run on numpy and scipy alone; ``eda`` and
 ``utils/shap.py`` import pandas or their own packages only inside the
-functions that use them, and no module imports scikit-learn or pyarrow at
-all (LightGBM only where GBM leaf features find it). ZSTD and LZ4 pages
+functions that use them, and no module imports scikit-learn, pyarrow or
+shap at all (Kernel SHAP runs there, its lasso selection the port's own) (LightGBM only where GBM leaf features find it). ZSTD and LZ4 pages
 are read by the port's own decoders (``csrc/parquet_codecs.cpp``).
 
 A subprocess blocks those modules (``sys.modules[name] = None`` makes any
@@ -44,9 +44,10 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'pandas', 'sklearn', 'pyarrow',
-           'lightgbm', 'zstandard', 'lz4', 'brotli', 'deeptables_tpu')
+           'lightgbm', 'zstandard', 'lz4', 'brotli', 'shap',
+           'deeptables_tpu')
 # packages that no module of the port imports, not even inside a function
-NEVER = ('sklearn', 'pyarrow', 'zstandard', 'lz4', 'brotli')
+NEVER = ('sklearn', 'pyarrow', 'zstandard', 'lz4', 'brotli', 'shap')
 # the port's modules that may import pandas at module level: none
 HOST_ONLY = ()
 
@@ -117,6 +118,18 @@ holder = type('Holder', (), {'task': 'binary', 'preprocessor': None,
                              'get_model': lambda self, selector: model})()
 assert Predictor(holder).predict_proba_arrays(
     {'cat': cat, 'input_continuous_all': dense}).shape == (9, 2)
+# Kernel SHAP without shap or scikit-learn, in the sampled regime (M = 12)
+# whose lasso selection is the port's own
+from deeptables_torch.data.columns import Columns, to_2d
+from deeptables_torch.utils.shap import DeepTablesExplainer
+summed = type('Summed', (), {'predict': lambda self, frame, **kw:
+                             to_2d(frame).sum(axis=1)})()
+background = Columns({f'f{j}': np.random.default_rng(j).normal(size=6)
+                      for j in range(12)})
+explainer = DeepTablesExplainer(summed, background)
+phi = explainer.get_shap_values(np.ones((1, 12)))
+assert phi.shape == (1, 12) and abs(
+    phi.sum() - (12 - explainer.expected_value)) < 1e-9
 y = (np.arange(9) % 2).astype(np.float32)
 history = model.fit({'cat': cat, 'input_continuous_all': dense}, y,
                     batch_size=4, epochs=2, verbose=0)

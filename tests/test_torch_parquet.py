@@ -6,10 +6,13 @@
 same names in the same order, the same kinds, values and categories. It is
 held so on the committed files of ``tests/torch_data/``
 (``tests/torch_parquet_fixtures.py``) and on files written here with each
-writer setting it reads (ZSTD, LZ4, the DELTA encodings, BYTE_STREAM_SPLIT
-and INT96 among them); codecs and schemas it does not read raise by name.
-The native ZSTD decoder is held to ``zstandard`` and the LZ4 one to
-pyarrow's codec on a corpus, and corrupt pages raise ``ValueError``. The
+writer setting it reads (ZSTD, LZ4, BROTLI at every level, the DELTA
+encodings, BYTE_STREAM_SPLIT and INT96 among them); codecs and schemas it
+does not read raise by name. The native ZSTD decoder is held to
+``zstandard`` and the LZ4 and BROTLI ones to pyarrow's codecs on a corpus
+(BROTLI also on streams written here: every dictionary transform, the
+window sizes, metadata and uncompressed meta-blocks, context maps), and
+corrupt pages raise ``ValueError``; BROTLI's dictionary is RFC 7932's. The
 fixtures' digests, which ``chip_smoke.py`` holds the reader to on the card,
 are recomputed from pandas; the port's ``ChunkedSource`` gives the JAX
 package's chunks, and streams Parquet in a subprocess with pandas, pyarrow
@@ -23,6 +26,7 @@ import pickle
 import struct
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -157,15 +161,17 @@ def test_written_edge_reads_as_pandas(tmp_path, case):
 
 @pytest.mark.parametrize('codec', ['brotli', 'lzo'])
 def test_codecs_not_read_raise_by_name(tmp_path, codec):
+    """LZO raises by name; BROTLI, once refused so, reads as pandas."""
     path = tmp_path / 'c.parquet'
     if codec == 'lzo':  # pyarrow writes no LZO: an LZ4_RAW file relabelled
         fixtures.kinds_frame(20).to_parquet(path, compression='lz4')
         raw = path.read_bytes()
         path.write_bytes(raw.replace(fixtures.CODEC_LZ4_RAW, b'\x15\x06'))
-    else:
-        fixtures.kinds_frame(20).to_parquet(path, compression=codec)
-    with pytest.raises(ValueError, match=codec.upper()):
-        cl.read_parquet(str(path))
+        with pytest.raises(ValueError, match=codec.upper()):
+            cl.read_parquet(str(path))
+        return
+    fixtures.kinds_frame(20).to_parquet(path, compression=codec)
+    _assert_reads_as_pandas(path)
 
 
 # each value encoding on each physical type that takes it, pages v1 and v2
@@ -349,7 +355,7 @@ def _corruptions(page, rs, n=40):
 
 
 @pytest.mark.parametrize('codec', ['ZSTD', 'LZ4_RAW', 'LZ4', 'SNAPPY',
-                                   'GZIP'])
+                                   'GZIP', 'BROTLI'])
 def test_corrupt_pages_raise_value_error(codec):
     """A corrupt page raises ValueError, never reads past its buffer and
     never gives a page of the wrong size. ZSTD frames carry their checksum,
@@ -363,12 +369,298 @@ def test_corrupt_pages_raise_value_error(codec):
         pages = list(_corruptions(page, rs))
     else:
         arrow_codec = {'LZ4_RAW': 'lz4_raw', 'LZ4': 'lz4_raw',
-                       'SNAPPY': 'snappy', 'GZIP': 'gzip'}[codec]
+                       'SNAPPY': 'snappy', 'GZIP': 'gzip',
+                       'BROTLI': 'brotli'}[codec]
         page = pa.compress(raw, codec=arrow_codec, asbytes=True)
         pages = [page[:rs.randint(1, len(page) - 1)] for _ in range(40)]
     for bad in pages:
         with pytest.raises(ValueError):
             parquet._decompress(ids[codec], bad, len(raw))
+
+
+# -- BROTLI (csrc/parquet_codecs.cpp, RFC 7932) ------------------------------
+
+def _dictionary_words(rs, n):
+    """``n`` words (bytes) of RFC 7932's dictionary, some capitalised or
+    upper case: text whose BROTLI streams refer into the dictionary through
+    its transforms."""
+    words = parquet.brotli_dictionary()
+    out = []
+    for _ in range(n):
+        length = int(rs.randint(4, 13))
+        bits = {4: 10, 5: 10, 6: 11, 7: 11, 8: 10, 9: 10, 10: 10, 11: 10,
+                12: 10}[length]
+        offset = sum(k << {4: 10, 5: 10, 6: 11, 7: 11, 8: 10, 9: 10, 10: 10,
+                           11: 10}[k] for k in range(4, length))
+        index = int(rs.randint(0, 1 << bits))
+        word = words[offset + index * length:offset + (index + 1) * length]
+        style = rs.randint(0, 6)
+        out.append(word.capitalize() if style == 0 else
+                   word.upper() if style == 1 else word)
+    return out
+
+
+def _text_frame(n, seed):
+    """The kinds frame beside sentences of dictionary words."""
+    rs = np.random.RandomState(seed)
+    words = [w.decode('latin-1') for w in _dictionary_words(rs, 4 * n)]
+    glue = [' ', ' the ', ', ', ' of ', '. ', ' and ', '="', "'"]
+    text = [''.join(words[4 * i + k] + glue[rs.randint(0, len(glue))]
+                    for k in range(4)) for i in range(n)]
+    frame = fixtures.kinds_frame(n, seed=seed)
+    frame['text'] = text
+    frame['noise'] = [rs.bytes(24).hex() for _ in range(n)]
+    return frame
+
+
+@pytest.mark.parametrize('page', ['1.0', '2.0'])
+@pytest.mark.parametrize('level', range(12))
+def test_brotli_levels_read_as_pandas(tmp_path, level, page):
+    """Every compression level, pages v1 and v2, text that brings
+    dictionary references and transforms, incompressible hex."""
+    path = tmp_path / 'b.parquet'
+    _text_frame(300, seed=level).to_parquet(
+        path, compression='brotli', compression_level=level,
+        data_page_version=page, use_dictionary=level % 2 == 0)
+    _assert_reads_as_pandas(path)
+
+
+@pytest.mark.parametrize('level', [0, 1, 5, 9, 11])
+@pytest.mark.parametrize('data', CORPUS + ['words'])
+def test_brotli_decoder_equals_pyarrow(data, level):
+    raw = (b' '.join(_dictionary_words(np.random.RandomState(3), 20_000))
+           if data == 'words' else _corpus(data))
+    if level >= 9:  # the slow encoder's levels on a part of each
+        raw = raw[:60_000]
+    page = pa.Codec('brotli', compression_level=level).compress(
+        raw, asbytes=True)
+    assert parquet.native_decompress(4, page, len(raw)) == raw
+
+
+class _Bits:
+    """Bits written least significant first, as BROTLI reads them."""
+
+    def __init__(self):
+        self.value, self.n = 0, 0
+
+    def put(self, value, n):
+        self.value |= (value & ((1 << n) - 1)) << self.n
+        self.n += n
+
+    def align(self):
+        self.n = -(-self.n // 8) * 8
+
+    def bytes(self):
+        return self.value.to_bytes(-(-self.n // 8), 'little')
+
+
+def _wbits(bits, wbits):
+    if wbits == 16:
+        bits.put(0, 1)
+    elif wbits >= 18:
+        bits.put(1, 1)
+        bits.put(wbits - 17, 3)
+    else:
+        bits.put(1, 1)
+        bits.put(0, 3)
+        bits.put(0 if wbits == 17 else wbits - 8, 3)
+
+
+def _simple_code(bits, alphabet, symbols):
+    bits.put(1, 2)  # HSKIP 1: a simple prefix code
+    bits.put(len(symbols) - 1, 2)
+    for symbol in symbols:
+        bits.put(symbol, (alphabet - 1).bit_length())
+
+
+def _meta_header(bits, mlen, last=True):
+    bits.put(int(last), 1)
+    if last:
+        bits.put(0, 1)
+    bits.put(0, 2)  # four nibbles
+    bits.put(mlen - 1, 16)
+    if not last:
+        bits.put(0, 1)  # compressed
+
+
+def _word_stream(length, word_id, mlen, wbits=22, metadata=b''):
+    """One meta-block whose one command copies a static dictionary word
+    (``length`` bytes, ``word_id``: transform and index), every prefix code
+    a single symbol; a metadata meta-block first if ``metadata``."""
+    bits = _Bits()
+    _wbits(bits, wbits)
+    if metadata:
+        bits.put(0, 1)
+        bits.put(3, 2)  # MNIBBLES 0: metadata
+        bits.put(0, 1)
+        bits.put(1, 2)  # MSKIPBYTES
+        bits.put(len(metadata) - 1, 8)
+        bits.align()
+        bits.put(int.from_bytes(metadata, 'little'), 8 * len(metadata))
+    _meta_header(bits, mlen)
+    bits.put(0, 3)  # one block type each
+    bits.put(0, 6)  # NPOSTFIX, NDIRECT
+    bits.put(0, 2)  # the literal context mode
+    bits.put(0, 2)  # one literal tree, one distance tree
+    _simple_code(bits, 256, [ord('x')])
+    copy_base = [2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 18, 22, 30]
+    copy_extra = [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 2, 2, 3, 3]
+    code = max(c for c in range(len(copy_base)) if copy_base[c] <= length)
+    cell = {0: 2, 1: 3}[code // 8]
+    _simple_code(bits, 704, [cell * 64 + (code & 7)])
+    distance = word_id  # distance - 1: nothing written before it
+    for x in range(48):
+        ndistbits = 1 + (x >> 1)
+        offset = ((2 + (x & 1)) << ndistbits) - 4
+        if offset <= distance < offset + (1 << ndistbits):
+            break
+    _simple_code(bits, 64, [16 + x])
+    bits.put(length - copy_base[code], copy_extra[code])
+    bits.put(distance - offset, ndistbits)
+    return bits.bytes()
+
+
+def _arrow_brotli(stream, size):
+    return pa.decompress(stream, decompressed_size=size, codec='brotli',
+                         asbytes=True)
+
+
+def _word_case(length, word_id, **kwargs):
+    """The stream and pyarrow's output: its meta-block length is the one
+    length pyarrow's decoder takes; None where the transformed word is
+    empty (a meta-block holds at least a byte)."""
+    for mlen in range(1, length + 16):
+        stream = _word_stream(length, word_id, mlen, **kwargs)
+        try:
+            return stream, _arrow_brotli(stream, mlen)
+        except (OSError, pa.ArrowException):
+            continue
+    return None, None
+
+
+def test_brotli_every_dictionary_transform_equals_pyarrow():
+    """Each of Appendix B's 121 transforms on words of several lengths
+    (omitting more than a word holds, uppercasing UTF-8 lead bytes), the
+    window sizes, a metadata meta-block first."""
+    rs = np.random.RandomState(7)
+    bits_by_length = {4: 10, 9: 10, 13: 9, 21: 6}
+    cases = 0
+    for transform in range(121):
+        lengths = 0
+        for length, nbits in bits_by_length.items():
+            word_id = (transform << nbits) | int(rs.randint(0, 1 << nbits))
+            wbits = [10, 15, 16, 17, 18, 24][cases % 6]
+            stream, expected = _word_case(
+                length, word_id, wbits=wbits,
+                metadata=b'meta' if cases % 5 == 0 else b'')
+            if stream is None:
+                continue
+            assert parquet.native_decompress(4, stream, len(expected)) == \
+                expected
+            cases += 1
+            lengths += 1
+        # omitting up to nine bytes may leave a short word empty
+        assert lengths >= 2, transform
+    assert cases > 440
+    bad = _word_stream(4, 121 << 10, 4)
+    with pytest.raises(ValueError, match='BROTLI.*transform'):
+        parquet.native_decompress(4, bad, 4)
+
+
+def test_brotli_context_map_and_uncompressed_blocks_equal_pyarrow():
+    """A literal context map (runs of zeros, inverse move-to-front) read
+    in each context mode, and an uncompressed meta-block before it."""
+    rs = np.random.RandomState(9)
+    for mode in range(4):
+        for rlemax in (0, 2):
+            bits = _Bits()
+            _wbits(bits, 16)
+            raw = bytes(rs.randint(0, 256, 37).astype(np.uint8))
+            bits.put(0, 1)
+            bits.put(0, 2)
+            bits.put(len(raw) - 1, 16)
+            bits.put(1, 1)  # uncompressed
+            bits.align()
+            bits.put(int.from_bytes(raw, 'little'), 8 * len(raw))
+            n = 40
+            _meta_header(bits, n)
+            bits.put(0, 3)
+            bits.put(0, 6)
+            bits.put(mode, 2)
+            bits.put(1, 1)  # NTREESL - 1 = 1
+            bits.put(0, 3)
+            bits.put(int(rlemax > 0), 1)
+            if rlemax:
+                bits.put(rlemax - 1, 4)
+                _simple_code(bits, 2 + rlemax, [0, 2, 3])
+                # codes by (length, symbol): 0 -> '0', 2 -> '01', 3 -> '11'
+                for k in range(16):
+                    if k % 3 == 0:
+                        bits.put(1, 1)
+                        bits.put(1, 1)  # symbol 3: tree 1
+                    else:
+                        bits.put(0, 1)
+                        bits.put(1, 1)  # symbol 2: a run of 2**2 + extra
+                        bits.put(k % 4 == 1, 2)
+            else:
+                _simple_code(bits, 2, [0, 1])
+                for k in range(64):
+                    bits.put(int(rs.rand() < 0.5), 1)
+            bits.put(1, 1)  # inverse move-to-front
+            bits.put(0, 1)  # one distance tree
+            _simple_code(bits, 256, [ord('a')])
+            _simple_code(bits, 256, [ord('b')])
+            _simple_code(bits, 704, [4 * 64 + (12 - 8) * 8])  # insert 34+
+            _simple_code(bits, 64, [0])
+            bits.put(n - 34, 4)
+            stream = bits.bytes()
+            try:
+                expected = raw + _arrow_brotli(stream, len(raw) + n)[len(raw):]
+            except (OSError, pa.ArrowException):
+                # a written map longer than 64 entries: refused alike
+                with pytest.raises(ValueError, match='BROTLI'):
+                    parquet.native_decompress(4, stream, len(raw) + n)
+                continue
+            assert parquet.native_decompress(4, stream, len(expected)) == \
+                expected
+
+
+def test_brotli_corrupt_streams_raise_by_name():
+    """Cut streams raise ValueError naming BROTLI; changed bytes raise so or
+    decode to some page of the right size (BROTLI has no checksum); a
+    large-window stream raises by name."""
+    rs = np.random.RandomState(5)
+    raw = _corpus('columns')
+    page = pa.Codec('brotli', compression_level=9).compress(raw, asbytes=True)
+    for cut in rs.randint(0, len(page) - 1, 40):
+        with pytest.raises(ValueError, match='BROTLI'):
+            parquet.native_decompress(4, page[:cut], len(raw))
+    for bad in _corruptions(page, rs, 60):
+        try:
+            out = parquet.native_decompress(4, bad, len(raw))
+        except ValueError as e:
+            assert 'BROTLI' in str(e)
+        else:
+            assert len(out) == len(raw)
+    bits = _Bits()
+    bits.put(0b0010001, 7)  # the large-window marker
+    with pytest.raises(ValueError, match='BROTLI.*large-window'):
+        parquet.native_decompress(4, bits.bytes() + bytes(8), 10)
+
+
+def test_brotli_dictionary_is_rfc_7932s(monkeypatch, tmp_path):
+    import hashlib
+    words = parquet.brotli_dictionary()
+    assert len(words) == 122_784
+    assert hashlib.sha256(words).hexdigest() == \
+        parquet.BROTLI_DICTIONARY_SHA256
+    assert words.startswith(b'timedownlifeleftback')
+    bad = tmp_path / 'dictionary.zlib'
+    bad.write_bytes(zlib.compress(words[:-1] + b'?'))
+    monkeypatch.setattr(parquet, 'BROTLI_DICTIONARY', bad)
+    monkeypatch.setattr(parquet, '_codecs', None)
+    with pytest.raises(ValueError, match='SHA-256'):
+        parquet.codec_library()
 
 
 @pytest.mark.parametrize('name', ['kinds_page_v2.parquet',
@@ -448,7 +740,9 @@ chunks = [{n: (c.kinds[n], c[n]) for n in c.columns}
 with open(out, 'wb') as f:
     pickle.dump({'n_rows': source.n_rows(), 'chunks': chunks,
                  'modules': [m for m in BLOCKED
-                             if sys.modules.get(m) is not None]}, f)
+                             if sys.modules.get(m) is not None],
+                 'brotli_maps': [line for line in open('/proc/self/maps')
+                                 if 'brotli' in line.lower()]}, f)
 print('ok')
 '''
 BLOCKED = ('pandas', 'pyarrow', 'sklearn', 'zstandard', 'lz4', 'brotli')
@@ -486,6 +780,15 @@ def test_chunked_source_streams_parquet_without_pandas(tmp_path):
     paths = [str(fixtures.DATA / n) for n in fixtures.BANK_SHARDS]
     result = _stream_without_pandas(tmp_path, paths)
     assert result['n_rows'] == fixtures.BANK_ROWS
+
+
+def test_chunked_source_streams_brotli_without_pandas(tmp_path):
+    """The BROTLI kinds file with pandas, pyarrow and the compression
+    packages blocked; no brotli library is mapped into the process."""
+    result = _stream_without_pandas(
+        tmp_path, [str(fixtures.DATA / 'kinds_brotli.parquet')])
+    assert result['n_rows'] == 400
+    assert result['brotli_maps'] == []
 
 
 def test_chunked_source_streams_zstd_and_lz4_without_pandas(tmp_path):

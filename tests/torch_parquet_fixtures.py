@@ -11,6 +11,7 @@ that ``csrc/parquet_codecs.cpp`` and the numpy decoders read:
 
 - ``kinds_zstd.parquet`` and ``kinds_lz4_raw.parquet``: the kinds frame in
   ZSTD and in LZ4_RAW (pyarrow's ``compression='lz4'``);
+- ``kinds_brotli.parquet``: the kinds frame in BROTLI at level 11;
 - ``kinds_lz4_hadoop.parquet``: the LZ4_RAW file with its footer's codec
   rewritten from 7 to 5 (LZ4), which pyarrow reads through its fall-back
   from Hadoop's framing to a bare block;
@@ -49,7 +50,8 @@ CRITEO_ROWS, CRITEO_VAL_ROWS, CRITEO_SEED = 16384, 4096, 41
 # the files written since the codecs and encodings above are read
 NEW_FILES = ('kinds_zstd.parquet', 'kinds_lz4_raw.parquet',
              'kinds_lz4_hadoop.parquet', 'kinds_delta.parquet',
-             'int96.parquet') + CRITEO_SHARDS + (CRITEO_VAL,)
+             'int96.parquet', 'kinds_brotli.parquet') + CRITEO_SHARDS + (
+                 CRITEO_VAL,)
 # the compact protocol's ColumnMetaData.codec (field 4, an i32, after field
 # 3): LZ4_RAW (7) and LZ4 (5) as zig-zag varints
 CODEC_LZ4_RAW, CODEC_LZ4 = b'\x15\x0e', b'\x15\x0a'
@@ -166,6 +168,8 @@ def codec_edges():
     return {
         'kinds_zstd.parquet': (base, {'compression': 'zstd'}),
         'kinds_lz4_raw.parquet': (base, {'compression': 'lz4'}),
+        'kinds_brotli.parquet': (base, {'compression': 'brotli',
+                                        'compression_level': 11}),
         'kinds_delta.parquet': (base, {
             'use_dictionary': False, 'data_page_version': '2.0',
             'column_encoding': delta_encodings(base)}),
