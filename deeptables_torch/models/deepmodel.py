@@ -55,6 +55,7 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import sharded_embedding
 from ..utils import consts, dt_logging
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, iterate
 
 logger = dt_logging.get_logger(__name__)
 
@@ -156,6 +157,8 @@ class DeepTabularModel(nn.Module):
             raise ValueError(f'Unexpected logit output. nets={config.nets}')
         # a plain list: the nets are not submodules, their layers are
         self._nets = nets
+        self._net_spans = {name: f'deeptables.model.net.{name}'
+                           for name, _ in nets}
 
         # ---- logit stacking ----
         if len(nets) > 1:
@@ -242,9 +245,49 @@ class DeepTabularModel(nn.Module):
         moves BatchNorm's running statistics, and taps the activity
         regularizer's penalty over the float32 embedding outputs as
         ``__embeddings_activity_reg__`` (only in training: nothing else
-        reads it)."""
+        reads it). Its parts run in the spans ``model.embedding``,
+        ``model.dense``, ``model.net.<name>`` and ``model.head``."""
         ctx = deepnets.TraceContext(training, generator)
 
+        with annotate('deeptables.model.embedding'):
+            embeddings = self._embeddings(batch, training, generator, ctx)
+
+        with annotate('deeptables.model.dense'):
+            dense_layer = self._dense(batch, training, generator)
+            flatten_emb_layer = flatten_embeddings(embeddings)
+            if flatten_emb_layer is not None:
+                ctx.tap('flatten_embeddings', flatten_emb_layer)
+            parts = [p for p in (flatten_emb_layer, dense_layer)
+                     if p is not None]
+            concat_emb_dense = parts[0] if len(parts) == 1 \
+                else torch.cat(parts, dim=-1)
+            concat_emb_dense = self.bn_concat_emb_dense(concat_emb_dense,
+                                                        training=training)
+            ctx.tap('concat_embedding_dense', concat_emb_dense)
+
+        outs = collections.OrderedDict()
+        flax_ordered = None
+        for name, net in self._nets:
+            with annotate(self._net_spans[name]):
+                net_embeddings = embeddings
+                if getattr(net, 'fields_in_flax_order', False):
+                    if flax_ordered is None:
+                        flax_ordered = self._in_flax_order(embeddings)
+                    net_embeddings = flax_ordered
+                out = net(net_embeddings, flatten_emb_layer, dense_layer,
+                          concat_emb_dense, ctx)
+            outs[name] = out
+            ctx.tap(f'{name}_out', out)
+
+        with annotate('deeptables.model.head'):
+            logits = self._head(outs)
+        ctx.tap('task_output', logits)
+        return logits, ctx.taps
+
+    def _embeddings(self, batch, training, generator, ctx):
+        """The fields' embeddings (the categorical columns', then each
+        var-len column's) in the compute type, and the activity
+        regularizer's tap."""
         embeddings = EmbeddingList()
         if self.categorical_columns:
             emb_layer = getattr(
@@ -264,43 +307,28 @@ class DeepTabularModel(nn.Module):
                 [e.to(self.compute_dtype) for e in embeddings],
                 stacked=None if stacked is None
                 else stacked.to(self.compute_dtype))
+        return embeddings
 
-        dense_layer = None
-        if self.continuous_columns:
-            groups = [batch[g.name].to(self.compute_dtype)
-                      for g in self.continuous_columns]
-            dense_layer = groups[0] if len(groups) == 1 \
-                else torch.cat(groups, dim=-1)
-            if training:  # flax 'dropout_dense_input'
-                dense_layer = dropout(dense_layer, self.config.dense_dropout,
-                                      generator)
-            if self.config.dense_batch_norm:
-                dense_layer = getattr(self, consts.LAYER_NAME_BN_DENSE_ALL)(
-                    dense_layer, training=training)
+    def _dense(self, batch, training, generator):
+        """The dense inputs concatenated in the compute type, dropped out
+        in training and batch-normalised (``dense_batch_norm``), or None."""
+        if not self.continuous_columns:
+            return None
+        groups = [batch[g.name].to(self.compute_dtype)
+                  for g in self.continuous_columns]
+        dense_layer = groups[0] if len(groups) == 1 \
+            else torch.cat(groups, dim=-1)
+        if training:  # flax 'dropout_dense_input'
+            dense_layer = dropout(dense_layer, self.config.dense_dropout,
+                                  generator)
+        if self.config.dense_batch_norm:
+            dense_layer = getattr(self, consts.LAYER_NAME_BN_DENSE_ALL)(
+                dense_layer, training=training)
+        return dense_layer
 
-        flatten_emb_layer = flatten_embeddings(embeddings)
-        if flatten_emb_layer is not None:
-            ctx.tap('flatten_embeddings', flatten_emb_layer)
-        parts = [p for p in (flatten_emb_layer, dense_layer) if p is not None]
-        concat_emb_dense = parts[0] if len(parts) == 1 \
-            else torch.cat(parts, dim=-1)
-        concat_emb_dense = self.bn_concat_emb_dense(concat_emb_dense,
-                                                    training=training)
-        ctx.tap('concat_embedding_dense', concat_emb_dense)
-
-        outs = collections.OrderedDict()
-        flax_ordered = None
-        for name, net in self._nets:
-            net_embeddings = embeddings
-            if getattr(net, 'fields_in_flax_order', False):
-                if flax_ordered is None:
-                    flax_ordered = self._in_flax_order(embeddings)
-                net_embeddings = flax_ordered
-            out = net(net_embeddings, flatten_emb_layer, dense_layer,
-                      concat_emb_dense, ctx)
-            outs[name] = out
-            ctx.tap(f'{name}_out', out)
-
+    def _head(self, outs):
+        """The nets' outputs stacked (``stacking_op``) into the task
+        head's logits."""
         if len(outs) > 1:
             logits_list = []
             for name, out in outs.items():
@@ -316,10 +344,7 @@ class DeepTabularModel(nn.Module):
         else:
             (out,) = outs.values()
             x = out.reshape(out.shape[0], -1) if out.dim() > 2 else out
-
-        logits = self.task_output(x.float())
-        ctx.tap('task_output', logits)
-        return logits, ctx.taps
+        return self.task_output(x.float())
 
 
 def probas_from_logits(logits: torch.Tensor, task: str) -> torch.Tensor:
@@ -452,6 +477,8 @@ class DeepModel:
         self.loss_state: Optional[torch.Tensor] = None
         # draws the dropout masks of training; made by fit
         self.generator: Optional[torch.Generator] = None
+        # the train steps run so far: the number each step's span carries
+        self.steps_trained = 0
         self._strategy = None
         if model_file is not None:
             self._load_weights(model_file)
@@ -499,14 +526,23 @@ class DeepModel:
 
     def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Host batch → tensors on the model's device, ids checked first."""
-        if pipeline.CAT_KEY in batch:
-            pipeline.check_categorical_ids(batch[pipeline.CAT_KEY],
-                                           self.categorical_columns)
-        for col in self.var_len_categorical_columns:
-            if col.name in batch:
-                pipeline.check_var_len_ids(batch[col.name], col)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        with annotate('deeptables.input.check_ids'):
+            if pipeline.CAT_KEY in batch:
+                pipeline.check_categorical_ids(batch[pipeline.CAT_KEY],
+                                               self.categorical_columns)
+            for col in self.var_len_categorical_columns:
+                if col.name in batch:
+                    pipeline.check_var_len_ids(batch[col.name], col)
+        return self._copy_in(batch)
+
+    def _copy_in(self, arrays: Dict[str, Optional[np.ndarray]]):
+        """Host arrays (None stays None) → tensors on the model's device, in
+        the span ``input.copy`` that counts the bytes copied."""
+        with annotate('deeptables.input.copy', bytes=sum(
+                v.nbytes for v in arrays.values() if v is not None)):
+            return {k: None if v is None else torch.from_numpy(
+                np.ascontiguousarray(v)).to(self.device)
+                for k, v in arrays.items()}
 
     def _sharded_embedding(self):
         """The categorical embedding layer when it holds row-sharded
@@ -680,26 +716,29 @@ class DeepModel:
         """``training_loss`` in parts: (the loss without the row-sharded
         tables' weight penalty, that penalty of this rank's shards or None,
         logits, the loss's new state or None). Without row-sharded tables
-        the first part is the whole loss."""
+        the first part is the whole loss. The loss and the penalties run
+        in the span ``step.loss``."""
         logits, taps = self.module(inputs, training=True,
                                    generator=self.generator)
-        new_state = None
-        if getattr(loss_fn, 'stateful', False):
-            loss, new_state = loss_fn(logits, y, w, state=self.loss_state)
-        else:
-            loss = loss_fn(logits, y, w)
-        if weight_share is not None \
-                and not getattr(loss_fn, 'rank_share', False):
-            loss = loss * weight_share
-        if '__embeddings_activity_reg__' in taps:
-            loss = loss + taps['__embeddings_activity_reg__']
-        sharded = self._sharded_embedding() is not None
-        penalty = self.embedding_weight_penalty(
-            sharded=False if sharded else None)
-        if penalty is not None and self._penalty_on_rank(weight_share):
-            loss = loss + penalty
-        shard_penalty = self.embedding_weight_penalty(sharded=True) \
-            if sharded else None
+        with annotate('deeptables.step.loss'):
+            new_state = None
+            if getattr(loss_fn, 'stateful', False):
+                loss, new_state = loss_fn(logits, y, w,
+                                          state=self.loss_state)
+            else:
+                loss = loss_fn(logits, y, w)
+            if weight_share is not None \
+                    and not getattr(loss_fn, 'rank_share', False):
+                loss = loss * weight_share
+            if '__embeddings_activity_reg__' in taps:
+                loss = loss + taps['__embeddings_activity_reg__']
+            sharded = self._sharded_embedding() is not None
+            penalty = self.embedding_weight_penalty(
+                sharded=False if sharded else None)
+            if penalty is not None and self._penalty_on_rank(weight_share):
+                loss = loss + penalty
+            shard_penalty = self.embedding_weight_penalty(sharded=True) \
+                if sharded else None
         return loss, shard_penalty, logits, new_state
 
     def _train_step(self, batch: Dict[str, np.ndarray], yb: np.ndarray,
@@ -716,7 +755,20 @@ class DeepModel:
         returns the global batch's loss and logits. With a model axis, rank
         (d, m) takes data shard d's rows, the sums run over the data axis,
         and the row-sharded tables' weight penalty is summed over the model
-        axis into the loss returned."""
+        axis into the loss returned.
+
+        The step runs in the span ``step`` (its number, from 1 over the
+        model's life, and its rows), its parts in ``input.*``,
+        ``step.forward`` (the model's spans and ``step.loss``),
+        ``step.backward``, ``step.all_reduce``,
+        ``step.optimizer`` (the update, then the gradients dropped) and
+        ``step.loss_state`` (``utils.profiling.annotate``)."""
+        self.steps_trained += 1
+        with annotate('deeptables.step', step=self.steps_trained,
+                      rows=len(yb)):
+            return self._step(batch, yb, wb, loss_fn)
+
+    def _step(self, batch, yb, wb, loss_fn):
         shard = self.strategy.shard
         share = None
         if shard is not None:
@@ -731,30 +783,37 @@ class DeepModel:
             batch = {k: v[rows] for k, v in batch.items()}
             yb = yb[rows]
         inputs = self.to_device(batch)
-        y = torch.from_numpy(np.ascontiguousarray(yb)).to(self.device)
-        w = None if wb is None else torch.from_numpy(wb).to(self.device)
-        with mesh_lib.row_shard(shard):
+        labels = self._copy_in({'y': yb, 'w': wb})
+        with annotate('deeptables.step.forward'), mesh_lib.row_shard(shard):
             loss, shard_penalty, logits, new_state = \
-                self._training_loss_parts(inputs, y, w, loss_fn, share)
-        self.optimizer.zero_grad(set_to_none=True)
-        if shard_penalty is not None and self._penalty_on_rank(share):
-            (loss + shard_penalty).backward()
-        else:
-            loss.backward()
+                self._training_loss_parts(inputs, labels['y'], labels['w'],
+                                          loss_fn, share)
+        with annotate('deeptables.step.backward'):
+            if shard_penalty is not None and self._penalty_on_rank(share):
+                (loss + shard_penalty).backward()
+            else:
+                loss.backward()
         if shard is not None:
-            mesh_lib.all_reduce_gradients(self.module.parameters(), shard)
-        self.optimizer.step()
-        if new_state is not None:
-            self.loss_state = new_state.detach()
-        loss, logits = loss.detach(), logits.detach()
+            with annotate('deeptables.step.all_reduce'):
+                mesh_lib.all_reduce_gradients(self.module.parameters(),
+                                              shard)
+        with annotate('deeptables.step.optimizer'):
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+        with annotate('deeptables.step.loss_state'):
+            if new_state is not None:
+                self.loss_state = new_state.detach()
+            loss, logits = loss.detach(), logits.detach()
         if shard is not None:
-            torch.distributed.all_reduce(loss, group=shard.group)
-            logits = mesh_lib.all_gather_rows(logits, shard)
+            with annotate('deeptables.step.all_reduce'):
+                torch.distributed.all_reduce(loss, group=shard.group)
+                logits = mesh_lib.all_gather_rows(logits, shard)
         if shard_penalty is not None:
-            shard_penalty = shard_penalty.detach()
-            torch.distributed.all_reduce(
-                shard_penalty, group=self.strategy.model_axis.group)
-            loss = loss + shard_penalty
+            with annotate('deeptables.step.all_reduce'):
+                shard_penalty = shard_penalty.detach()
+                torch.distributed.all_reduce(
+                    shard_penalty, group=self.strategy.model_axis.group)
+                loss = loss + shard_penalty
         return loss, logits
 
     def _split_validation(self, X, y, validation_split, validation_data):
@@ -829,7 +888,8 @@ class DeepModel:
                 cb.on_epoch_begin(epoch)
             epoch_losses, train_logits, train_ys = [], [], []
             metric_examples = 0
-            for step, (batch, yb, wb, _valid) in enumerate(it, 1):
+            for step, (batch, yb, wb, _valid) in enumerate(
+                    iterate('deeptables.fit.batch', it), 1):
                 loss, logits = self._train_step(batch, yb, wb, loss_fn)
                 epoch_losses.append(loss)
                 if metric_cap is None or metric_examples < metric_cap:
@@ -840,28 +900,24 @@ class DeepModel:
                 if step >= steps:
                     break
 
-            logs = {'loss': float(torch.stack(epoch_losses).mean())}
-            if train_logits:
-                tp = probas_from_logits(torch.cat(train_logits),
-                                        self.task).cpu().numpy()
-                ty = np.concatenate(train_ys)
-                for name, fn in metric_specs:
-                    try:
-                        logs[name] = float(fn(ty, tp))
-                    except Exception as e:  # a user metric must not end fit
-                        logger.warning(f'metric {name} failed: {e}')
+            with annotate('deeptables.fit.train_metrics'):
+                logs = {'loss': float(torch.stack(epoch_losses).mean())}
+                if train_logits:
+                    tp = probas_from_logits(torch.cat(train_logits),
+                                            self.task).cpu().numpy()
+                    self._add_metrics(logs, metric_specs,
+                                      np.concatenate(train_ys), tp)
 
             if (epoch + 1) % validation_freq == 0:
-                val_logits = torch.from_numpy(self._predict_logits(
-                    val_arrays, len(y_val_arr), batch_size))
-                val_probas = probas_from_logits(val_logits, self.task).numpy()
-                logs['val_loss'] = float(loss_fn(
-                    val_logits, torch.from_numpy(y_val_arr)))
-                for name, fn in metric_specs:
-                    try:
-                        logs[f'val_{name}'] = float(fn(y_val_arr, val_probas))
-                    except Exception as e:  # a user metric must not end fit
-                        logger.warning(f'val metric {name} failed: {e}')
+                with annotate('deeptables.fit.validation'):
+                    val_logits = torch.from_numpy(self._predict_logits(
+                        val_arrays, len(y_val_arr), batch_size))
+                    val_probas = probas_from_logits(val_logits,
+                                                    self.task).numpy()
+                    logs['val_loss'] = float(loss_fn(
+                        val_logits, torch.from_numpy(y_val_arr)))
+                    self._add_metrics(logs, metric_specs, y_val_arr,
+                                      val_probas, 'val_')
 
             if verbose and self.strategy.is_chief:
                 msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())
@@ -876,6 +932,17 @@ class DeepModel:
         logger.info(f'Training finished in {time.time() - t_start:.2f}s.')
         history.history = IgnoreCaseDict(history.history)
         return history
+
+    @staticmethod
+    def _add_metrics(logs, metric_specs, y, probas, prefix=''):
+        """``<prefix><metric>`` of each metric into ``logs``; a metric that
+        raises is logged and left out."""
+        for name, fn in metric_specs:
+            try:
+                logs[prefix + name] = float(fn(y, probas))
+            except Exception as e:  # a user metric must not end fit
+                what = 'val metric' if prefix else 'metric'
+                logger.warning(f'{what} {name} failed: {e}')
 
     def make_optimizer(self) -> torch.optim.Optimizer:
         """The optimizer of ``config.optimizer`` over the module's
@@ -955,24 +1022,25 @@ class DeepModel:
             for cb in cbs:
                 cb.on_epoch_begin(epoch)
             losses = []
-            for batch, yb, wb, _valid in train_loader:
+            for batch, yb, wb, _valid in iterate('deeptables.fit.batch',
+                                                 train_loader):
                 loss, _ = self._train_step(batch, yb, wb, loss_fn)
                 losses.append(loss)
                 if steps_per_epoch and len(losses) >= steps_per_epoch:
                     break
-            logs = {'loss': float(torch.stack(losses).mean())}
+            with annotate('deeptables.fit.train_metrics'):
+                logs = {'loss': float(torch.stack(losses).mean())}
 
             if val_loader is not None:
-                val_logits, val_y = self._loader_logits(val_loader)
-                val_logits = torch.from_numpy(val_logits)
-                val_probas = probas_from_logits(val_logits, self.task).numpy()
-                logs['val_loss'] = float(loss_fn(val_logits,
-                                                 torch.from_numpy(val_y)))
-                for name, fn in metric_specs:
-                    try:
-                        logs[f'val_{name}'] = float(fn(val_y, val_probas))
-                    except Exception as e:  # a user metric must not end fit
-                        logger.warning(f'val metric {name} failed: {e}')
+                with annotate('deeptables.fit.validation'):
+                    val_logits, val_y = self._loader_logits(val_loader)
+                    val_logits = torch.from_numpy(val_logits)
+                    val_probas = probas_from_logits(val_logits,
+                                                    self.task).numpy()
+                    logs['val_loss'] = float(loss_fn(
+                        val_logits, torch.from_numpy(val_y)))
+                    self._add_metrics(logs, metric_specs, val_y, val_probas,
+                                      'val_')
 
             if verbose and self.strategy.is_chief:
                 msg = ' - '.join(f'{k}: {v:.4f}' for k, v in logs.items())

@@ -35,6 +35,7 @@ import math
 import torch
 
 from . import _build
+from ...utils.profiling import spanned
 
 _FWD = {torch.float32: 'dt_cin_fwd_f32', torch.bfloat16: 'dt_cin_fwd_bf16'}
 _BWD = {torch.float32: 'dt_cin_bwd_f32', torch.bfloat16: 'dt_cin_bwd_bf16'}
@@ -327,6 +328,7 @@ def _raise_on(err: int, lib, what: str):
                            f'({lib.dt_cin_error_string(err).decode()})')
 
 
+@spanned('deeptables.kernel.cin_fwd')
 def cin_fwd(x0: torch.Tensor, h: torch.Tensor,
             w: torch.Tensor) -> torch.Tensor:
     """The contraction z ``(B, L, D)`` float32 of contiguous x0, h and w of
@@ -376,6 +378,7 @@ def cin_fwd(x0: torch.Tensor, h: torch.Tensor,
     return z
 
 
+@spanned('deeptables.kernel.cin_bwd')
 def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
             dz: torch.Tensor):
     """Gradient of :func:`cin_fwd` given dz ``(B, L, D)``, all operands

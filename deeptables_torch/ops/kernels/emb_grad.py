@@ -25,6 +25,7 @@ import functools
 import torch
 
 from . import _build, pointer_alignment
+from ...utils.profiling import spanned
 
 
 def emb_grad_reference(ids: torch.Tensor, g: torch.Tensor,
@@ -121,6 +122,7 @@ def _library():
     return lib
 
 
+@spanned('deeptables.kernel.emb_grad')
 def emb_grad(ids: torch.Tensor, g: torch.Tensor,
              num_rows: int) -> torch.Tensor:
     """The float32 ``(num_rows, D)`` gradient of a table read at the flat

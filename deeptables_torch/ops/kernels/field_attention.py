@@ -41,6 +41,7 @@ import functools
 import torch
 
 from . import _build
+from ...utils.profiling import spanned
 
 _FA = {(torch.float32, torch.float32): 'f32_f32',
        (torch.bfloat16, torch.bfloat16): 'bf16_bf16',
@@ -408,6 +409,7 @@ def _launch_tile(what, ptrs, x, num_heads, d_head, out_dtype=None):
                            f'{err} ({lib.dt_fa_error_string(err).decode()})')
 
 
+@spanned('deeptables.kernel.fa_fwd')
 def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            num_heads: int, out_dtype=None) -> torch.Tensor:
     """K5 forward on contiguous ``(B, F, H·dh)`` q, k, v of one type
@@ -442,6 +444,7 @@ def fa_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@spanned('deeptables.kernel.fa_bwd')
 def fa_bwd(q, k, v, do, num_heads: int):
     """K5 backward: ``(dq, dk, dv)`` in q's type, given do ``(B, F, H·dh)``
     in the forward output's type (q's, or float32). The softmax is recomputed
@@ -486,6 +489,7 @@ def _check_block(what, x, w_aug, num_heads):
     return dh
 
 
+@spanned('deeptables.kernel.ab_fwd')
 def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
            num_heads: int) -> torch.Tensor:
     """K6 forward on a contiguous ``(B, F, U)`` x and ``(U+1, 4U)`` w_aug,
@@ -517,6 +521,7 @@ def ab_fwd(x: torch.Tensor, w_aug: torch.Tensor,
     return out
 
 
+@spanned('deeptables.kernel.ab_bwd')
 def ab_bwd(x: torch.Tensor, w_aug: torch.Tensor, do: torch.Tensor,
            num_heads: int) -> torch.Tensor:
     """K6 backward: dpre ``(B, F, 4U)`` in x's type, given x, w_aug and do

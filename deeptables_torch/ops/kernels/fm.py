@@ -20,6 +20,7 @@ import functools
 import torch
 
 from . import _build, pointer_alignment
+from ...utils.profiling import spanned
 
 _FWD = {torch.float32: 'dt_fm_fwd_f32', torch.bfloat16: 'dt_fm_fwd_bf16'}
 _FWD_VEC16 = {torch.float32: 'dt_fm_fwd_vec16_f32',
@@ -113,6 +114,7 @@ def _raise_on(err: int, lib, what: str):
                            f'({lib.dt_fm_error_string(err).decode()})')
 
 
+@spanned('deeptables.kernel.fm')
 def _fm_forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == 'cpu':
         return fm_reference(x)
@@ -133,6 +135,7 @@ def _fm_forward(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@spanned('deeptables.kernel.fm_backward')
 def fm_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Gradient of FM pooling with respect to a contiguous ``(B, F, D)``
     float32 or bfloat16 ``x``, given the output's gradient ``g`` (``B`` values

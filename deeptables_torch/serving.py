@@ -10,8 +10,13 @@ numpy probabilities; binary tasks get the estimator's ``(n, 2)`` layout.
 through ``DeepTable`` and its preprocessor (numpy alone), which this module
 imports inside them only: the packed-array path (``predict_proba_arrays``)
 needs neither.
+
+A request runs in the span ``serve.request`` (its id, distinct in the
+process, its ``rows`` and ``padded_rows``), its parts in ``serve.pad``,
+``serve.forward`` and ``serve.copy_back`` (``utils.profiling.annotate``).
 """
 
+import itertools
 import math
 from typing import Dict, Optional, Sequence
 
@@ -20,10 +25,13 @@ import numpy as np
 from .data import pipeline
 from .models.deepmodel import DeepModel, probas_from_logits
 from .utils import consts, dt_logging
+from .utils.profiling import annotate
 
 logger = dt_logging.get_logger(__name__)
 
 DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
+# the ids of the requests' spans
+_REQUEST_IDS = itertools.count(1)
 
 
 def fix_binary_predict_proba_result(proba):
@@ -34,6 +42,20 @@ def fix_binary_predict_proba_result(proba):
     if proba.shape[-1] == 1:
         proba = np.concatenate([1 - proba, proba], axis=1)
     return proba
+
+
+def _rows(arrays: Dict[str, np.ndarray], start: int, count: int,
+          size: int) -> Dict[str, np.ndarray]:
+    """Rows ``[start, start + count)`` of each array, padded with zero rows
+    to ``size``."""
+    chunk = {}
+    for k, v in arrays.items():
+        part = v[start:start + count]
+        if count < size:
+            pad = np.zeros((size - count,) + part.shape[1:], part.dtype)
+            part = np.concatenate([part, pad])
+        chunk[k] = part
+    return chunk
 
 
 class Predictor:
@@ -65,8 +87,10 @@ class Predictor:
         return int(math.ceil(n / self.buckets[-1]) * self.buckets[-1])
 
     def _forward(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
-        logits, _ = self.model.forward_batch(batch)
-        return probas_from_logits(logits, self.task).cpu().numpy()
+        with annotate('deeptables.serve.forward'):
+            logits, _ = self.model.forward_batch(batch)
+        with annotate('deeptables.serve.copy_back'):
+            return probas_from_logits(logits, self.task).cpu().numpy()
 
     def warmup(self):
         """Run every batch bucket once (loads the kernels, sizes the
@@ -102,21 +126,18 @@ class Predictor:
         if n is None:
             n = len(next(iter(arrays.values())))
         bucket = self._bucket_for(n)
-        outs = []
-        for start in range(0, n, bucket):
-            count = min(bucket, n - start)
-            chunk = {}
-            for k, v in arrays.items():
-                part = v[start:start + count]
-                if count < bucket:
-                    pad = np.zeros((bucket - count,) + part.shape[1:],
-                                   part.dtype)
-                    part = np.concatenate([part, pad])
-                chunk[k] = part
-            outs.append(self._forward(chunk)[:count])
-        proba = np.concatenate(outs)
-        if self.task == consts.TASK_BINARY:
-            proba = fix_binary_predict_proba_result(proba)
+        with annotate('deeptables.serve.request', request=next(_REQUEST_IDS),
+                      rows=n, padded_rows=-n % bucket):
+            outs = []
+            for start in range(0, n, bucket):
+                count = min(bucket, n - start)
+                with annotate('deeptables.serve.pad'):
+                    chunk = _rows(arrays, start, count, bucket)
+                outs.append(self._forward(chunk)[:count])
+            with annotate('deeptables.serve.copy_back'):
+                proba = np.concatenate(outs)
+                if self.task == consts.TASK_BINARY:
+                    proba = fix_binary_predict_proba_result(proba)
         return proba
 
     def predict(self, X, encode_to_label=True):
