@@ -68,9 +68,15 @@ these phases, each printing one JSON line:
    ``cin_bwd`` rows name the kernels that ran: ``design`` ``wgmma``
    (bfloat16 on the tensor cores), ``wgmma_f32`` (float32 on the tensor
    cores, three exact bfloat16 planes) at every one of these shapes, which
-   the script checks; one more float32 row, B=1024 at (26, 227, 193), past
-   those kernels' shared memory, holds the CUDA-core ``simt`` kernels
-   against the plain versions the same way.
+   the script checks. Two more float32 rows: xDeepFM at the paper's 200
+   maps, (26, 200, 200) at B=8192, D=10, whose K3 takes
+   ``wgmma_f32_rs`` (dz split in registers: its three planes do not fit a
+   block), with ``simt_ms`` (the CUDA-core kernels at the same shape) and
+   ``designs`` (``cin_bwd.designs`` counted over the kernel's own timed
+   calls) beside the yardstick and the bound; and B=1024 at
+   (26, 229, 193), past every tensor-core kernel's shared memory, which
+   holds the CUDA-core ``simt`` kernels against the plain versions the
+   same way.
 5. ``kernel`` for ``fa_fwd`` and ``fa_bwd`` (K5, field attention and its
    gradient) and ``ab_fwd`` and ``ab_bwd`` (K6, the fused attention block)
    against their plain versions at AutoInt's shapes (F=22, 2 heads of
@@ -439,8 +445,12 @@ CIN_FGCNN_LAYERS = {'fgcnn_layer1': (F_FGCNN, F_FGCNN, 128),
 CIN_BATCHES = (4096, 8192, 4093)
 CIN_HEADLINE = ('bfloat16', 'layer2', 8192)
 # a float32 (layer, F, G, L, B) past the tensor-core kernels' shared memory
-# (F + G > 252 for K4, L > 192 for K3): the CUDA-core kernels
-CIN_SIMT_EDGE = ('simt_edge', 26, 227, 193, 1024)
+# (F + G > 252 for K4, G > 228 for K3's dW pass): the CUDA-core kernels
+CIN_SIMT_EDGE = ('simt_edge', 26, 229, 193, 1024)
+# xDeepFM's layers 1-2 at the paper's 200 maps (perfbench's
+# xdeepfm_criteo_synth: D = 10), float32 (layer, F, G, L, B, D): K3's dz
+# planes do not fit a block, so its dx0/dh pass splits dz in registers
+CIN_200_MAPS = ('xdeepfm_200maps', 26, 200, 200, 8192, 10)
 # the tensor-core K4 and K3 kernels as ptxas names them (mangled: one
 # template a pass, instantiated for each type), by design and G tile: the
 # card line reports each one's registers and spills
@@ -450,6 +460,9 @@ CIN_PTXAS = {
              'dx_n64': f'cin_bwd_dx_wgmma_kernelI{t}Li64E',
              'dw': f'cin_bwd_dw_wgmma_kernelI{t}E'}
     for design, t in (('wgmma', '13__nv_bfloat16'), ('wgmma_f32', 'f'))}
+CIN_PTXAS['wgmma_f32_rs'] = {
+    'dx_n32': 'cin_bwd_dx_rs_wgmma_kernelILi32E',
+    'dx_n64': 'cin_bwd_dx_rs_wgmma_kernelILi64E'}
 # the K4 and K3 kernels of each design, as the profiler names them
 CIN_DESIGN_KERNELS = {
     design: (f'cin_fwd_wgmma_kernel<{t}>', f'cin_bwd_dx_wgmma_kernel<{t},',
@@ -1150,14 +1163,14 @@ def cin_kernel_phase(torch, cin_module):
         dtype = getattr(torch, dtype_name)
         itemsize = torch.empty((), dtype=dtype).element_size()
         rtol_out = 0. if dtype_name == 'float32' else 1e-2
-        shapes = [(layer, F, G, L, B)
+        shapes = [(layer, F, G, L, B, D_CRITEO)
                   for layer, (F, G, L) in CIN_LAYERS.items()
                   for B in CIN_BATCHES]
-        shapes += [(layer, F, G, L, TRAIN_BATCH)
+        shapes += [(layer, F, G, L, TRAIN_BATCH, D_CRITEO)
                    for layer, (F, G, L) in CIN_FGCNN_LAYERS.items()]
         if dtype_name == 'float32':
-            shapes.append(CIN_SIMT_EDGE)
-        for layer, F, G, L, B in shapes:
+            shapes += [CIN_200_MAPS, CIN_SIMT_EDGE + (D_CRITEO,)]
+        for layer, F, G, L, B, D in shapes:
             def make():
                 return tuple(
                     torch.randn(shape, generator=gen, device='cuda')
@@ -1237,6 +1250,23 @@ def cin_kernel_phase(torch, cin_module):
                     else cin_module.bwd_design(dtype, F, G, L))
                 want = ('simt' if layer == CIN_SIMT_EDGE[0]
                         else 'wgmma' if itemsize == 2 else 'wgmma_f32')
+                if name == 'cin_bwd' and layer == CIN_200_MAPS[0]:
+                    want = 'wgmma_f32_rs'
+                    before = dict(bwd.designs)
+                    call_ms(torch, kernel, bufs, iters)
+                    row['designs'] = {
+                        k: v - before.get(k, 0)
+                        for k, v in bwd.designs.items()
+                        if v != before.get(k, 0)}
+                    check(list(row['designs']) == [want],
+                          f"K3 at {layer} counted {row['designs']}")
+                    design = cin_module.bwd_design
+                    cin_module.bwd_design = lambda *shape: 'simt'
+                    try:
+                        row['simt_ms'] = device_ms(torch, kernel, bufs,
+                                                   iters)
+                    finally:
+                        cin_module.bwd_design = design
                 check(row['design'] == want,
                       f"{name} ran the {row['design']} kernels on "
                       f'{dtype_name} {layer}, expected {want}')
@@ -4925,7 +4955,8 @@ def main():
                         if r['layer'] in CIN_FGCNN_LAYERS]
                  for name in cin_rows}
     # float32 at the training batch, every layer, and the CUDA-core row
-    cin_f32 = {name: [{k: r[k] for k in cin_keys} for r in cin_rows[name]
+    cin_f32 = {name: [{k: r[k] for k in cin_keys + ('simt_ms', 'designs')
+                       if k in r} for r in cin_rows[name]
                       if r['dtype'] == 'float32'
                       and r['B'] in (TRAIN_BATCH, CIN_SIMT_EDGE[4])]
                for name in cin_rows}

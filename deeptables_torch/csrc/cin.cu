@@ -45,6 +45,8 @@
 // cin_bwd_dx_wgmma_kernel<T, GT>, cin_bwd_dw_wgmma_kernel<T>) and one
 // launcher a direction; wg::Split<T> holds what differs between the types:
 // the planes of each operand, blocks an SM, ring stages, tile strides.
+// float32's K3 has a second dx0/dh pass, cin_bwd_dx_rs_wgmma_kernel<GT>, for
+// the shapes whose dz planes do not fit a block (below).
 //
 // K4, bfloat16 (cin_fwd_wgmma_kernel<__nv_bfloat16>): the GEMM
 // Z^T (N, L) = P^T (N, K) . W^T (K, L), K = F*G, on wgmma m64n128k16
@@ -185,9 +187,54 @@
 //    (48 KB a chunk) as it is stored: the next chunk's dz is loaded into
 //    registers before this chunk's wgmmas and split into the other buffer
 //    after them. The N ranges fill whole waves of one block an SM
-//    (wgmma_bwd_plan). G <= 228 fits.
+//    (wgmma_bwd_plan). G <= 228 fits. Where D is not a multiple of 8 (or
+//    an operand not 16-byte aligned: xDeepFM's D = 10) x0 and h go in by
+//    4-byte cp.async, which no thread waits on before the wgmmas, and dz
+//    by scalar loads into the registers that already carry it; each
+//    thread's columns are found by one division a chunk (Columns), not
+//    one an element. A block loads only the h rows its 128 pair rows read
+//    (128 of G = 200: the pass reads its operands from L2 again for every
+//    tile of pair rows, and at 200 maps that traffic bounds it).
 // 4. cin_sum_kernel sums the dW partials in a fixed order: no atomics, the
 //    same bits on every call.
+//
+// K3, float32 past the dz planes (bwd_design 'wgmma_f32_rs'): at
+// xDeepFM's 200 maps (F, G, L) = (26, 200, 200) the dz planes above take
+// 3 * 128 * 256 * 2 = 196,608 bytes and, with the ring at two stages,
+// 246,816 in all: past a block's 232,448. This pass keeps dz once, in
+// float32, and splits it in registers:
+// 1. cin_bwd_dx_rs_wgmma_kernel<GT>: the same GEMM, G tiles, ring, W
+//    planes and fold as cin_bwd_dx_wgmma_kernel<float, GT>, but A, dz^T,
+//    comes from registers: each 16-wide l step every thread loads its
+//    m64 x k16 fragment (rows n, four 8-byte loads) from a float32 [n][l]
+//    tile, splits it with split<3> into three bfloat16 A fragments and
+//    issues the six plane-pair wgmmas (split_wgmma_rs, m64nGTk16 with A
+//    from registers) against the stage's three W planes: the same planes
+//    and products as the shared-memory design, summed in the same
+//    accumulator. The next step's fragments are built while a step's six
+//    wgmmas run; the first step's are kept for every f. A thread gathers
+//    one column of dz (one division) and stores it in 16-byte words.
+//    The tile's rows are L padded to 16 (not 64: 13 steps an f at L = 200,
+//    not 16) plus 8 floats, so that the four rows that a half warp's
+//    8-byte loads touch start 8 banks apart. Shared memory (wg::dx_rs_smem_bytes):
+//    1024 + stages * 3 * GT * 128 + 128 * (L_16 + 8) * 4 + 16 * stages,
+//    the ring at 4, 3 or 2 stages, the most that fit; 209,984 bytes at
+//    (G, L) = (200, 200) with 4 stages. Its limit, at two stages: L <= 336
+//    for G > 32, L <= 384 for G <= 32; past it (or past the dW pass's
+//    G <= 228) the CUDA-core kernels run. One block an SM, 187 registers
+//    (n64) or 126 (n32), no spills.
+// 2-4. cin_sum_kernel for dx0, the float32 dW pass and its sum, as above,
+//    but with ranges of at most 2048 columns (wgmma_bwd_plan): wgmma's
+//    accumulator drops the bits below each step's largest term, so its
+//    error grows with the columns one block sums. At (26, 200, 200),
+//    B = 8192, D = 10, three ranges put dW 0.45 of the tests' 1e-5 *
+//    sum|terms| from the plain version and xDeepFM's second-layer dW
+//    gradient 1.7e-4 of its norm from the float32 reference; 40 ranges
+//    0.054 and 4.4e-5, and the pass ran faster (6.3 ms against 6.7: 25
+//    waves, not 2; H100).
+// bwd_design takes this pass only where the shared-memory planes do not
+// fit: every shape that fits them keeps that pass, its ranges and its
+// bits.
 //
 // K4 and K3 on the CUDA cores (design 'simt': shapes past the tensor-core
 // kernels' shared memory, float32 and bfloat16), up to four launches:
@@ -219,6 +266,7 @@
 // scratch buffers) and returns cudaGetLastError().
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver library link
 #include <cuda_bf16.h>
@@ -446,6 +494,29 @@ template <typename T>
 __host__ __device__ __forceinline__ int64_t dw_smem_bytes(int F, int G) {
   return 1024 + 2 * dw_buffer_bytes<T>(F, G);
 }
+// K3's float32 dx0/dh pass with dz kept once in float32 (bwd_design
+// 'wgmma_f32_rs'): the dz tile's row stride in floats, L padded to the
+// 16-wide l step and 8 more, so that the rows start 8 banks apart (the
+// four rows of a half warp's 8-byte fragment loads hit 32 banks)
+constexpr int kDzSkew = 8;
+__host__ __device__ __forceinline__ int dx_rs_ld(int L) {
+  return (L + 15) / 16 * 16 + kDzSkew;
+}
+// the ring of `stages` stages of one f's 64 l x G tile of the three W
+// planes, the float32 dz tile of 128 columns, the ring's barriers
+__host__ __device__ __forceinline__ int64_t dx_rs_smem_bytes(int G, int L,
+                                                             int stages) {
+  return 1024 +
+         static_cast<int64_t>(stages) * Split<float>::kOp * bwd_g_tile(G) *
+             kLChunk * 2 +
+         static_cast<int64_t>(kDpCols) * dx_rs_ld(L) * 4 + 2 * stages * 8;
+}
+// the most ring stages, 4 down to 2, that fit a block; 0 if none does
+__host__ __device__ __forceinline__ int dx_rs_stages(int G, int L) {
+  for (int stages = 4; stages >= 2; --stages)
+    if (dx_rs_smem_bytes(G, L, stages) <= kMaxSmemBytes) return stages;
+  return 0;
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
@@ -564,6 +635,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// 4 bytes, through L1: a float32 element where the 16-byte copy does not
+// apply
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -613,6 +692,52 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t desc_a,
     wgmma_m64n64k16_ss(d, desc_a, desc_b, accumulate);
   else
     wgmma_m64n32k16_ss(d, desc_a, desc_b, accumulate);
+}
+
+// d (64 x 64 f32) = a (64 x 16 bf16, registers) . B (16 x 64 bf16 at desc,
+// K-major), + d unless `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                  uint64_t desc,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+// d (64 x 32 f32) = a (64 x 16 bf16, registers) . B (16 x 32 bf16 at desc,
+// K-major), + d unless `accumulate` is 0
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a,
+                                                  uint64_t desc,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc, int accumulate) {
+  static_assert(N == 32 || N == 64, "n32 or n64");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs(d, a, desc, accumulate);
+  else
+    wgmma_m64n32k16_rs(d, a, desc, accumulate);
 }
 
 __device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
@@ -678,6 +803,21 @@ __device__ __forceinline__ void split_wgmma_ss(float* d, const uint64_t* a,
     wgmma_ss<N>(d, a[2], b[0], 1);
     wgmma_ss<N>(d, a[1], b[1], 1);
   }
+}
+
+// The same with A's three planes from registers (a[plane]), n = N: the six
+// plane pairs of the header in split_wgmma_ss's order
+template <int N>
+__device__ __forceinline__ void split_wgmma_rs(float* d,
+                                               const uint32_t (*a)[4],
+                                               const uint64_t* b,
+                                               int accumulate) {
+  wgmma_rs<N>(d, a[0], b[0], accumulate);
+  wgmma_rs<N>(d, a[0], b[1], 1);
+  wgmma_rs<N>(d, a[1], b[0], 1);
+  wgmma_rs<N>(d, a[0], b[2], 1);
+  wgmma_rs<N>(d, a[2], b[0], 1);
+  wgmma_rs<N>(d, a[1], b[1], 1);
 }
 
 // This thread's A fragments of one 16-wide k step in the pair's planes
@@ -775,6 +915,40 @@ __device__ __forceinline__ void fetch8(float* v, const T* a, int R, int row,
     }
   }
 }
+
+// Columns n .. n + C - 1 of a (B, R, D) tensor, walked from one division:
+// each one's batch row b (-1 at columns >= end) and d. A thread whose
+// columns stay fixed over many rows (the dW pass's gathers where D is not
+// a multiple of 8) finds them once a chunk, not once an element.
+template <int C>
+struct Columns {
+  int64_t b[C];
+  int d[C];
+  __device__ __forceinline__ Columns(int64_t n, int64_t end, int D) {
+    int64_t bb = n / D;
+    int dd = static_cast<int>(n - bb * D);
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+      b[i] = n + i < end ? bb : -1;
+      d[i] = dd;
+      if (++dd == D) {
+        dd = 0;
+        ++bb;
+      }
+    }
+  }
+  // column i of row `row` of a, as float32; zero past end or where the row
+  // is out of range
+  template <typename T>
+  __device__ __forceinline__ float get(const T* a, int R, int row,
+                                       bool row_ok, int i, int D) const {
+    return row_ok && b[i] >= 0 ? to_f32(a[at(R, row, i, D)]) : 0.f;
+  }
+  // the offset of column i of row `row`
+  __device__ __forceinline__ int64_t at(int R, int row, int i, int D) const {
+    return (b[i] * R + row) * static_cast<int64_t>(D) + d[i];
+  }
+};
 
 // The 16 bytes of columns n, n+1, .. of row `row` into shared memory:
 // cp.async where `vec`, else loaded one by one; zeros past `end` or where
@@ -1387,6 +1561,230 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
   }
 }
 
+// K3's float32 dx0/dh pass with dz kept once in float32 (bwd_design
+// 'wgmma_f32_rs'): cin_bwd_dx_wgmma_kernel<float, GT>'s GEMM, ring and fold,
+// with A, dz^T, split into its three planes in registers at every 16-wide l
+// step from a float32 [n][l] tile (rows of dx_rs_ld(L) floats) and fed to
+// wgmma from registers. W as the other float32 pass takes it. See the
+// header.
+template <int GT>
+__global__ void __launch_bounds__(wg::kBlockThreads, 1)
+    cin_bwd_dx_rs_wgmma_kernel(const __grid_constant__ CUtensorMap w_map,
+                               const float* __restrict__ x0,
+                               const float* __restrict__ h,
+                               const float* __restrict__ dz,
+                               float* __restrict__ dx0,
+                               float* __restrict__ dx0_part,
+                               float* __restrict__ dh, int64_t N, int F, int G,
+                               int L, int D, int g_pad, int l_pad,
+                               int stages) {
+  using namespace wg;
+  constexpr int kP = Split<float>::kOp;
+  constexpr int kAcc = GT / 2;  // a thread's share of the 64 x GT tile
+  constexpr int kPlane = GT * kLChunk * 2;  // a W plane's tile
+  constexpr int kStage = kP * kPlane;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int ld = dx_rs_ld(L);
+  float* dzs = reinterpret_cast<float*>(ring + stages * kStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dzs + kDpCols * ld);
+  int* released = reinterpret_cast<int*>(full + stages);
+  const int t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kDpCols;
+  const int g0 = blockIdx.y * GT;
+  const int panels = l_pad / kLChunk;
+  const int chunks = F * panels;  // chunk c: f = c / panels, l panel c % panels
+  const int steps = (L + 15) / 16;  // 16-wide l steps of each f
+
+  // chunk c into stage s: one TMA load a W plane, one barrier
+  auto load_stage = [&](int c, int s) {
+    mbar_expect_tx(full + s, kStage);
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      tma_load_2d(ring + s * kStage + p * kPlane, &w_map, full + s,
+                  (c % panels) * kLChunk, (p * F + c / panels) * g_pad + g0);
+  };
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int c = 0; c < stages && c < chunks; ++c) load_stage(c, c);
+  }
+
+  // the block's dz columns, [n][l] as float32: a thread owns one column and
+  // every other run of 8 l, stored as two 16-byte words; zeros past N and L
+  {
+    const int nl = t % kDpCols;
+    const int64_t n = n0 + nl;
+    const float* dc = dz + (n < N ? column(n, L, D) : 0);
+    float* row = dzs + nl * ld;
+#pragma unroll 2
+    for (int l = 8 * (t / kDpCols); l < 16 * steps; l += 16) {
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = n < N && l + i < L ? dc[static_cast<int64_t>(l + i) * D] : 0.f;
+      reinterpret_cast<float4*>(row + l)[0] = make_float4(v[0], v[1], v[2], v[3]);
+      reinterpret_cast<float4*>(row + l)[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+  // This thread's accumulator elements (the wgmma D layout): rows
+  // n = n0 + r0 + 8r, columns g = g0 + 8j + c0 + {0, 1}; acc[4j + 2r + e].
+  // x0's offsets of its rows (-1 past N) and h there.
+  const int r0 = 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  int64_t xcol[2];
+  float2 hv[GT / 8][2];  // [j][r]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t n = n0 + r0 + 8 * r;
+    const bool valid = n < N;
+    xcol[r] = valid ? column(n, F, D) : -1;
+    const float* hc = h + (valid ? column(n, G, D) : 0);
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j) {
+      const int g = g0 + 8 * j + c0;
+      hv[j][r] = make_float2(
+          valid && g < G ? hc[static_cast<int64_t>(g) * D] : 0.f,
+          valid && g + 1 < G ? hc[static_cast<int64_t>(g + 1) * D] : 0.f);
+    }
+  }
+  __syncthreads();
+
+  // This thread's A fragments of l step s in dz's three planes (the layout
+  // of pair_fragment: rows r0 and r0 + 8, l = 16s + c0 + {0, 1, 8, 9})
+  const float* a_row = dzs + r0 * ld + c0;
+  auto fragment = [&](uint32_t (*a)[4], int s) {
+    const float* p = a_row + 16 * s;
+    const float2 v0 = *reinterpret_cast<const float2*>(p);
+    const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+    const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+    const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+    split<kP>(v0.x, v0.y, a, 0);
+    split<kP>(v1.x, v1.y, a, 1);
+    split<kP>(v2.x, v2.y, a, 2);
+    split<kP>(v3.x, v3.y, a, 3);
+  };
+
+  float dhacc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dhacc[i] = 0.f;
+  float acc[kAcc];
+  // the first step's fragments, the same for every f, are kept; two sets
+  // take the other steps in turn, the next one's built while this step's
+  // six wgmmas run
+  uint32_t first[kP][4];
+  uint32_t frag[2][kP][4];  // [set][plane][register]
+  fragment(first, 0);
+
+  // a warp is done with chunk c's stage: the last of the 8 warps to say so
+  // loads the chunk `stages` ahead into it
+  auto release = [&](int c) {
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      const int s = c % stages;
+      if (atomicAdd(released + s, 1) == kWarps - 1) {
+        released[s] = 0;
+        if (c + stages < chunks) load_stage(c + stages, s);
+      }
+    }
+  };
+
+  for (int f = 0; f < F; ++f) {
+    // x0[f, n] of this thread's rows, loaded while the wgmmas run
+    float xv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      xv[r] = xcol[r] >= 0 ? x0[xcol[r] + static_cast<int64_t>(f) * D] : 0.f;
+    for (int p = 0; p < panels; ++p) {
+      const int c = f * panels + p;
+      const int s = c % stages;
+      mbar_wait(full + s, (c / stages) & 1);
+      uint64_t b_desc[kP];
+#pragma unroll
+      for (int q = 0; q < kP; ++q)
+        b_desc[q] = smem_desc(ring + s * kStage + q * kPlane);
+      // a panel's 4 steps (fewer in the last: L padded to 16, not 64), so
+      // step 4p + kk > 0 takes fragment set kk % 2
+#pragma unroll
+      for (int kk = 0; kk < kLChunk / 16; ++kk) {
+        const int step = 4 * p + kk;
+        if (step < steps) {
+          // +2 in the address fields: 16 bf16 = 32 bytes along l
+          uint64_t b[kP];
+#pragma unroll
+          for (int q = 0; q < kP; ++q) b[q] = b_desc[q] + 2 * kk;
+          wgmma_fence();
+          if (step == 0)
+            split_wgmma_rs<GT>(acc, first, b, 0);
+          else
+            split_wgmma_rs<GT>(acc, frag[kk & 1], b, 1);
+          wgmma_commit();
+          // the step before is done: its fragment set is free and, at a
+          // panel's first step, so is the panel before's stage
+          wgmma_wait<1>();
+          if (kk == 0 && p > 0) release(c - 1);
+          if (step + 1 < steps) fragment(frag[(kk & 1) ^ 1], step + 1);
+        }
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) fence_operand(acc[i]);
+    release(f * panels + panels - 1);
+
+    // acc = dpair[f, g, n]: dh += acc * x0[f, n]; dx0[f, n] = sum_g acc * h
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r;
+        sum[r] = fmaf(acc[i], hv[j][r].x, sum[r]);
+        sum[r] = fmaf(acc[i + 1], hv[j][r].y, sum[r]);
+        dhacc[i] = fmaf(acc[i], xv[r], dhacc[i]);
+        dhacc[i + 1] = fmaf(acc[i + 1], xv[r], dhacc[i + 1]);
+      }
+    // the quad of lanes that hold one row's columns, in a fixed order
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (xcol[r] < 0) continue;
+        const int64_t at = xcol[r] + static_cast<int64_t>(f) * D;
+        if (dx0_part != nullptr)
+          dx0_part[blockIdx.y * N * static_cast<int64_t>(F) + at] = sum[r];
+        else
+          dx0[at] = sum[r];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int64_t n = n0 + r0 + 8 * r;
+    if (n >= N) continue;
+    float* hc = dh + column(n, G, D);
+#pragma unroll
+    for (int j = 0; j < GT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int g = g0 + 8 * j + c0 + e;
+        if (g < G)
+          hc[static_cast<int64_t>(g) * D] = dhacc[4 * j + 2 * r + e];
+      }
+  }
+}
+
 // dW on the tensor cores: dW^T (k, l) = P (k, n) . dz^T (n, l) over one
 // column range, wgmma m64n128k16, A (the pair) built in registers and split
 // into its planes, B (dz) from shared memory in its planes. Writes a
@@ -1439,6 +1837,14 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
     for (int e = t; e < kDwLd; e += kBlockThreads)
       x_tile(b)[xr * kDwLd + e] = from_f32<T>(0.f);
 
+  // the h rows the tile's pair rows k0 .. k0 + 127 read: g = k % G for nh
+  // consecutive g from g_lo (all G where the tile spans G rows or more);
+  // the others are not loaded
+  const int g_lo = k0 % G;
+  const int k_n = K - k0 < kDwRows ? K - k0 : kDwRows;
+  const int nh = k_n < G ? k_n : G;
+  auto h_row = [&](int r) { return g_lo + r < G ? g_lo + r : g_lo + r - G; };
+
   // chunk c's x0 and h rows into buffer b by cp.async, and its dz where dz
   // takes one plane (as stored)
   auto load = [&](int c, int b) {
@@ -1453,14 +1859,39 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
     }
     T* xt = x_tile(b);
     T* ht = h_tile(b);
-    for (int e = t; e < (xr + G) * (kDwCols / kE); e += kBlockThreads) {
-      const int grp = e % (kDwCols / kE), row = e / (kDwCols / kE);
-      if (row < xr)
-        load_columns(xt + row * kDwLd + kE * grp, x0, F, f_lo + row,
-                     f_lo + row < F, cb + kE * grp, end, D, vec);
-      else
-        load_columns(ht + (row - xr) * kDwLd + kE * grp, h, G, row - xr,
-                     true, cb + kE * grp, end, D, vec);
+    if (S::kOp == 1 || vec) {
+      for (int e = t; e < (xr + nh) * (kDwCols / kE); e += kBlockThreads) {
+        const int grp = e % (kDwCols / kE), row = e / (kDwCols / kE);
+        if (row < xr) {
+          load_columns(xt + row * kDwLd + kE * grp, x0, F, f_lo + row,
+                       f_lo + row < F, cb + kE * grp, end, D, vec);
+        } else {
+          const int g = h_row(row - xr);
+          load_columns(ht + g * kDwLd + kE * grp, h, G, g, true,
+                       cb + kE * grp, end, D, vec);
+        }
+      }
+    } else {
+      // float32 where D is not a multiple of 8: 4-byte copies, each
+      // thread's kE columns found once (its group is the same in every
+      // row: 256 is a multiple of the groups a row)
+      const int grp = t % (kDwCols / kE);
+      const Columns<kE> cols(cb + kE * grp, end, D);
+      for (int row = t / (kDwCols / kE); row < xr + nh;
+           row += kBlockThreads / (kDwCols / kE)) {
+        const bool x = row < xr;
+        const bool ok = !x || f_lo + row < F;
+        const T* src = x ? x0 : h;
+        const int R = x ? F : G, r = x ? f_lo + row : h_row(row - xr);
+        T* dst = (x ? xt + row * kDwLd : ht + r * kDwLd) + kE * grp;
+#pragma unroll
+        for (int i = 0; i < kE; ++i) {
+          if (ok && cols.b[i] >= 0)
+            cp_async4(dst + i, src + cols.at(R, r, i, D));
+          else
+            dst[i] = from_f32<T>(0.f);
+        }
+      }
     }
   };
   // dz in more than one plane: item i of this thread is l = e / 8, columns
@@ -1468,11 +1899,19 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
   // buffer b's planes
   auto fetch_dz = [&](int c, float (*v)[8]) {
     const int64_t cb = begin + static_cast<int64_t>(c) * kDwCols;
+    // its 8 columns are the same in every item: found once
+    const Columns<8> cols(cb + 8 * (t % 8), end, D);
 #pragma unroll
     for (int i = 0; i < kDwItems; ++i) {
       const int e = t + i * kBlockThreads;
       const int grp = e % 8, l = e / 8;
-      fetch8(v[i], dz, L, l0 + l, l0 + l < L, cb + 8 * grp, end, D, vec);
+      if (vec) {
+        fetch8(v[i], dz, L, l0 + l, l0 + l < L, cb + 8 * grp, end, D, true);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[i][j] = cols.get(dz, L, l0 + l, l0 + l < L, j, D);
+      }
     }
   };
   auto store_dz = [&](float (*v)[8], int b) {
@@ -1494,7 +1933,8 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
   };
 
   // this thread's two pair rows (the A fragment layout, as in K4) and their
-  // x0 and h rows in the chunk tiles; rows past K read the zero row
+  // x0 and h rows in the chunk tiles; rows past K read the zero row (times
+  // h row g_lo, which is loaded)
   const int r0 = 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
   int xoff[2], hoff[2];
@@ -1503,7 +1943,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads, wg::Split<T>::kBlocks)
     const int k = k0 + r0 + 8 * r;
     const bool valid = k < K;
     xoff[r] = (valid ? k / G - f_lo : xr) * kDwLd + c0;
-    hoff[r] = (valid ? k % G : 0) * kDwLd + c0;
+    hoff[r] = (valid ? k % G : g_lo) * kDwLd + c0;
   }
 
   float v[kDwItems][8];
@@ -1739,18 +2179,23 @@ bool aligned16(const void* p) {
 // tile (32 for G <= 32, else 64), l_pad of 64. dx0_part: (g_pad / tile *
 // B*F*D) float32 when G > 64, else unused. dw_part: (splits * L*F*G)
 // float32; the dW reduction over N is cut into ranges of cols_per_split
-// columns (a multiple of 64).
+// columns (a multiple of 64). `rs`: float32's dx0/dh pass with dz kept
+// once in float32 (bwd_design 'wgmma_f32_rs').
 template <typename T>
 cudaError_t launch_bwd_wgmma(const T* x0, const T* h,
                              const __nv_bfloat16* w_t, const T* dz, T* dx0,
                              T* dh, float* dw, float* dx0_part,
                              float* dw_part, int64_t B, int F, int G, int L,
                              int D, int g_pad, int l_pad, int splits,
-                             int64_t cols_per_split, cudaStream_t stream) {
+                             int64_t cols_per_split, bool rs,
+                             cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   constexpr int planes = wg::Split<T>::kOp;
   const int64_t N = B * D;
   const int gt = wg::bwd_g_tile(G);
-  const int stages = wg::dx_stages<T>(F, G, l_pad);
+  const int stages = !rs ? wg::dx_stages<T>(F, G, l_pad)
+                     : f32 ? wg::dx_rs_stages(G, L)
+                           : 0;
   if (B < 1 || bad_shape(N, F, G, L, D) || l_pad % wg::kLChunk != 0 ||
       l_pad < L || g_pad % gt != 0 || g_pad < G || g_pad - G >= gt ||
       planes * static_cast<int64_t>(F) * g_pad > 0x7fffffff || splits < 1 ||
@@ -1791,10 +2236,32 @@ cudaError_t launch_bwd_wgmma(const T* x0, const T* h,
   const dim3 dx_grid(static_cast<unsigned>(ceil_div(N, wg::kDpCols)),
                      static_cast<unsigned>(gtiles));
   const int dx_smem =
-      static_cast<int>(wg::dx_smem_bytes<T>(F, G, l_pad, stages));
+      static_cast<int>(rs ? wg::dx_rs_smem_bytes(G, L, stages)
+                          : wg::dx_smem_bytes<T>(F, G, l_pad, stages));
   const bool dz_vec = D % 8 == 0 && aligned16(dz);
   float* part = gtiles > 1 ? dx0_part : nullptr;
-  if (gt == 32)
+  if (rs) {
+    if constexpr (f32) {  // bfloat16 has no such pass: stages == 0 above
+      static const cudaError_t attr_rs32 = cudaFuncSetAttribute(
+          cin_bwd_dx_rs_wgmma_kernel<32>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmemBytes);
+      static const cudaError_t attr_rs64 = cudaFuncSetAttribute(
+          cin_bwd_dx_rs_wgmma_kernel<64>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kMaxSmemBytes);
+      if (attr_rs32 != cudaSuccess) return attr_rs32;
+      if (attr_rs64 != cudaSuccess) return attr_rs64;
+      if (gt == 32)
+        cin_bwd_dx_rs_wgmma_kernel<32><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                         stream>>>(
+            map, x0, h, dz, dx0, part, dh, N, F, G, L, D, g_pad, l_pad,
+            stages);
+      else
+        cin_bwd_dx_rs_wgmma_kernel<64><<<dx_grid, wg::kBlockThreads, dx_smem,
+                                         stream>>>(
+            map, x0, h, dz, dx0, part, dh, N, F, G, L, D, g_pad, l_pad,
+            stages);
+    }
+  } else if (gt == 32)
     cin_bwd_dx_wgmma_kernel<T, 32><<<dx_grid, wg::kBlockThreads, dx_smem,
                                      stream>>>(
         map, x0, h, dz, dx0, part, dh, N, F, G, L, D, g_pad, l_pad, stages,
@@ -1900,7 +2367,7 @@ int dt_cin_bwd_bf16_wgmma(const void* x0, const void* h, const void* w_t,
       static_cast<__nv_bfloat16*>(dx0), static_cast<__nv_bfloat16*>(dh),
       static_cast<float*>(dw), static_cast<float*>(dx0_part),
       static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
-      cols_per_split, static_cast<cudaStream_t>(stream)));
+      cols_per_split, false, static_cast<cudaStream_t>(stream)));
 }
 
 // K4 in float32 on the tensor cores: w_planes (3, l_pad, k_pad) as
@@ -1915,7 +2382,9 @@ int dt_cin_fwd_f32_wgmma(const void* x0, const void* h, const void* w_planes,
 }
 
 // K3 in float32 on the tensor cores: w_t (3, F, g_pad, l_pad), dx0_part
-// and dw_part as launch_bwd_wgmma takes them.
+// and dw_part as launch_bwd_wgmma takes them; the dx0/dh pass with dz in
+// three bfloat16 planes (dt_cin_bwd_f32_wgmma) or kept once in float32
+// (dt_cin_bwd_f32_rs_wgmma).
 int dt_cin_bwd_f32_wgmma(const void* x0, const void* h, const void* w_t,
                          const void* dz, void* dx0, void* dh, void* dw,
                          void* dx0_part, void* dw_part, int64_t B, int F,
@@ -1927,7 +2396,22 @@ int dt_cin_bwd_f32_wgmma(const void* x0, const void* h, const void* w_t,
       static_cast<float*>(dx0), static_cast<float*>(dh),
       static_cast<float*>(dw), static_cast<float*>(dx0_part),
       static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
-      cols_per_split, static_cast<cudaStream_t>(stream)));
+      cols_per_split, false, static_cast<cudaStream_t>(stream)));
+}
+
+int dt_cin_bwd_f32_rs_wgmma(const void* x0, const void* h, const void* w_t,
+                            const void* dz, void* dx0, void* dh, void* dw,
+                            void* dx0_part, void* dw_part, int64_t B, int F,
+                            int G, int L, int D, int g_pad, int l_pad,
+                            int splits, int64_t cols_per_split,
+                            void* stream) {
+  return static_cast<int>(launch_bwd_wgmma(
+      static_cast<const float*>(x0), static_cast<const float*>(h),
+      static_cast<const __nv_bfloat16*>(w_t), static_cast<const float*>(dz),
+      static_cast<float*>(dx0), static_cast<float*>(dh),
+      static_cast<float*>(dw), static_cast<float*>(dx0_part),
+      static_cast<float*>(dw_part), B, F, G, L, D, g_pad, l_pad, splits,
+      cols_per_split, true, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dt_cin_error_string(int err) {

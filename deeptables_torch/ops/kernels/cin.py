@@ -16,10 +16,11 @@ stays out of device memory and how both types run on the tensor cores:
 ``'wgmma'`` for bfloat16 (the pair split exactly into two bfloat16 halves),
 ``'wgmma_f32'`` for float32 (every float32 operand split exactly into three
 bfloat16 planes by :func:`split_bf16x3`, six plane products: float32
-products, not TF32) and ``'simt'``, the CUDA cores, for shapes past the
-tensor-core kernels' shared memory. The tensor-core designs sum in wgmma's
-float32 accumulator, which rounds unlike IEEE float32 summation (see
-:func:`cin_fwd`). On a CUDA tensor each
+products, not TF32), ``'wgmma_f32_rs'`` for a float32 K3 whose dz planes do
+not fit a block (dz split in registers instead) and ``'simt'``, the CUDA
+cores, for shapes past the tensor-core kernels' shared memory. The
+tensor-core designs sum in wgmma's float32 accumulator, which rounds
+unlike IEEE float32 summation (see :func:`cin_fwd`). On a CUDA tensor each
 wrapper launches its kernels or raises; :func:`cin_fwd_reference` and
 :func:`cin_bwd_reference` run for CPU tensors only. The JAX package's
 batch-minor ``(F, D·B)`` operands are ``(1, F, D·B)`` tensors here.
@@ -41,7 +42,8 @@ _FWD = {torch.float32: 'dt_cin_fwd_f32', torch.bfloat16: 'dt_cin_fwd_bf16'}
 _BWD = {torch.float32: 'dt_cin_bwd_f32', torch.bfloat16: 'dt_cin_bwd_bf16'}
 # the tensor-core K3 of each design
 _BWD_WGMMA = {'wgmma': 'dt_cin_bwd_bf16_wgmma',
-              'wgmma_f32': 'dt_cin_bwd_f32_wgmma'}
+              'wgmma_f32': 'dt_cin_bwd_f32_wgmma',
+              'wgmma_f32_rs': 'dt_cin_bwd_f32_rs_wgmma'}
 
 # csrc/cin.cu's tiling, which sizes the scratch buffers of the backward
 _DW_TILE = 128
@@ -80,6 +82,14 @@ _TILE_LD_F32 = 132
 _L_TILE = 128
 _DW_LD_F32 = 72
 _DW_DZ_BYTES = 16384
+# ... and the float32 dx0/dh pass that keeps dz once in float32 (cin.cu's
+# wg::dx_rs_smem_bytes): a ring of 4, 3 or 2 stages of one f's tile of the
+# three W planes beside 128 float32 dz columns, L padded to 16 and 8 floats
+# more a row
+_L_STEP = 16
+_DZ_SKEW = 8
+# ... whose dW ranges hold at most this many columns (see wgmma_bwd_plan)
+_RS_MAX_COLS = 2048
 _BF16_MAX = float(torch.finfo(torch.bfloat16).max)
 
 
@@ -190,14 +200,33 @@ def bwd_g_tile(G: int) -> int:
     return 32 if G <= 32 else 64
 
 
+def dx_rs_smem_bytes(G: int, L: int, stages: int) -> int:
+    """Shared memory of the float32 dx0/dh pass that keeps dz once in
+    float32 (:func:`bwd_design` ``'wgmma_f32_rs'``), as ``csrc/cin.cu``'s
+    ``wg::dx_rs_smem_bytes`` reckons it: 1 KB of alignment slack, a ring of
+    ``stages`` stages of one f's 64 l × G tile of the three bfloat16 W
+    planes, the 128 columns of dz in float32 with L padded to 16 and 8
+    floats more a row (the rows 8 banks apart), 16 bytes of barrier and
+    counter a stage. A block takes at most 232,448 bytes: with the fewest
+    stages, 2, L ≤ 336 fits at a G tile of 64 and L ≤ 384 at 32."""
+    ld = -(-L // _L_STEP) * _L_STEP + _DZ_SKEW
+    return (1024 + stages * 3 * bwd_g_tile(G) * _L_CHUNK * 2
+            + _DX_COLS * ld * 4 + 2 * stages * 8)
+
+
 def bwd_design(dtype: torch.dtype, F: int, G: int, L: int) -> str:
     """Which K3 kernels a CUDA call runs, by type and shape: ``'wgmma'``
     (bfloat16 on the tensor cores: dpair = Wᵀ·dz as a bfloat16 GEMM folded
     into dx0 and dh in registers, and dW with the pair split exactly into
     two bfloat16 halves), ``'wgmma_f32'`` (float32 the same way, every
-    operand split exactly into three bfloat16 planes) or ``'simt'`` (the
-    CUDA cores: shapes whose tiles do not fit a block's shared memory; the
-    dz tile grows with L, the dW pass's h rows with G)."""
+    operand split exactly into three bfloat16 planes, dz's stored in shared
+    memory), ``'wgmma_f32_rs'`` (float32 where those dz planes do not fit a
+    block: dz kept once in float32 and split in registers at every l step,
+    :func:`dx_rs_smem_bytes`; the same dW pass, the same six plane products)
+    or ``'simt'`` (the CUDA cores: shapes whose tiles do not fit a block's
+    shared memory; the dz tile grows with L, the dW pass's h rows with G).
+    So float32 takes the tensor cores for L ≤ 336 (L ≤ 384 for G ≤ 32) and
+    G ≤ 228 at F = 3."""
     l_pad = -(-L // _L_CHUNK) * _L_CHUNK
     x_rows = min(F, 127 // G + 2)
     if dtype == torch.bfloat16:
@@ -208,14 +237,19 @@ def bwd_design(dtype: torch.dtype, F: int, G: int, L: int) -> str:
                    // 1024) * 1024
         fits = max(dx, 1024 + 2 * buffer) <= _MAX_SMEM_BYTES
         return 'wgmma' if fits else 'simt'
+    buffer = -(-(3 * _DW_DZ_BYTES + (x_rows + 1 + G) * _DW_LD_F32 * 4)
+               // 1024) * 1024
+    if 1024 + 2 * buffer > _MAX_SMEM_BYTES:
+        return 'simt'
     # the dz planes and the dx0/dh ring at its fewest stages, 2 (it takes
     # 4, 3 or 2, the most that fit)
     dx = (1024 + 3 * _DX_COLS * l_pad * 2
           + 2 * (3 * bwd_g_tile(G) * _L_CHUNK * 2 + 2 * 8))
-    buffer = -(-(3 * _DW_DZ_BYTES + (x_rows + 1 + G) * _DW_LD_F32 * 4)
-               // 1024) * 1024
-    fits = max(dx, 1024 + 2 * buffer) <= _MAX_SMEM_BYTES
-    return 'wgmma_f32' if fits else 'simt'
+    if dx <= _MAX_SMEM_BYTES:
+        return 'wgmma_f32'
+    if dx_rs_smem_bytes(G, L, 2) <= _MAX_SMEM_BYTES:
+        return 'wgmma_f32_rs'
+    return 'simt'
 
 
 def dpair_w(w: torch.Tensor) -> torch.Tensor:
@@ -247,8 +281,15 @@ def wgmma_bwd_plan(N: int, F: int, G: int, L: int, design: str = 'wgmma'):
     columns and none empty. ``'wgmma'`` (bfloat16, two blocks an SM): as
     many ranges as fill one wave of two blocks on each of the card's SMs.
     ``'wgmma_f32'`` (one block an SM): the fewest ranges whose blocks fill
-    their last wave of the card's SMs to 90% (at most 64; else the fullest).
-    The dx0/dh pass sums dx0 over ``g_tiles`` tiles of G."""
+    their last wave of the card's SMs to 90% (at most 64; else the
+    fullest). ``'wgmma_f32_rs'`` (the same dW pass): as many, and at least
+    enough that no range holds over 2048 columns. wgmma's accumulator
+    drops the bits below each step's largest term, an error that grows
+    with the range one block sums: at xDeepFM's 200 maps, B = 8192, D = 10,
+    three ranges left the second layer's dW gradient 1.7e-4 of its norm
+    from the float32 reference and 2048-column ranges 4.4e-5; the partials
+    are summed in IEEE float32 (H100). The dx0/dh pass sums dx0 over
+    ``g_tiles`` tiles of G."""
     tiles = math.ceil(F * G / _DW_ROWS) * math.ceil(L / _DW_ROWS)
     most = max(1, min(math.ceil(N / _MIN_COLS_PER_SPLIT), 65535))
     if design == 'wgmma':
@@ -260,6 +301,8 @@ def wgmma_bwd_plan(N: int, F: int, G: int, L: int, design: str = 'wgmma'):
         candidates = range(1, min(64, most) + 1)
         splits = next((s for s in candidates if fill(s) >= 0.9),
                       max(candidates, key=fill))
+        if design == 'wgmma_f32_rs':
+            splits = max(splits, min(math.ceil(N / _RS_MAX_COLS), 65535))
     cols = math.ceil(math.ceil(N / splits) / _DW_COLS) * _DW_COLS
     return math.ceil(N / cols), cols, math.ceil(G / bwd_g_tile(G))
 
@@ -390,8 +433,13 @@ def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
     version or to another design. Every design takes the float32 products
     of the inputs, sums them in float32 and rounds dx0 and dh once; the
     tensor-core designs sum dpair and dW in wgmma's float32 accumulator,
-    which rounds unlike IEEE float32 summation (see :func:`cin_fwd`).
-    ``cin_bwd.launches`` counts the calls."""
+    which rounds unlike IEEE float32 summation (see :func:`cin_fwd`). The
+    two float32 tensor-core designs differ in where the dx0/dh pass splits
+    dz, ``'wgmma_f32'`` once into three bfloat16 planes in shared memory,
+    ``'wgmma_f32_rs'`` (L past the planes' shared memory) in registers from
+    a float32 tile, and in the dW pass's ranges (:func:`wgmma_bwd_plan`);
+    both launch one ``cin_bwd_dx`` kernel a call. ``cin_bwd.launches`` counts the calls, ``cin_bwd.designs`` the
+    calls by design name."""
     _check_shapes('cin_bwd', x0, h, w, dz)
     if x0.device.type == 'cpu':
         return cin_bwd_reference(x0, h, w, dz)
@@ -431,8 +479,10 @@ def cin_bwd(x0: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
                 dw_part.data_ptr(), B, F, G, L, D, splits, stream)
     _raise_on(err, lib, 'cin_bwd')
     cin_bwd.launches += 1
+    cin_bwd.designs[design] = cin_bwd.designs.get(design, 0) + 1
     return dx0, dh, dw
 
 
 cin_fwd.launches = 0
 cin_bwd.launches = 0
+cin_bwd.designs = {}

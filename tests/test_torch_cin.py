@@ -25,6 +25,8 @@ JAX package, on the CPU.
 """
 
 import logging
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -45,8 +47,9 @@ from deeptables_torch.ops.kernels.cin import (bwd_design, bwd_g_tile,
                                               bwd_plan, cin_bwd,
                                               cin_bwd_reference, cin_fwd,
                                               cin_fwd_reference, dpair_w,
-                                              fwd_design, padded_w,
-                                              split_bf16x3, wgmma_bwd_plan)
+                                              dx_rs_smem_bytes, fwd_design,
+                                              padded_w, split_bf16x3,
+                                              wgmma_bwd_plan)
 from torch_parity import Case
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
@@ -297,28 +300,90 @@ def test_bwd_design_takes_the_tensor_cores_for_bfloat16_only():
     """Each type's tensor-core K3 where both passes' tiles fit, the CUDA
     cores just past, at the exact boundaries: bfloat16 L ≤ 704 (the dx0/dh
     pass's dz tile) and G ≤ 686 at F = 3 (the dW pass's h rows); float32
-    (three planes of dz in the dx0/dh pass, a ring of at least two stages)
-    L ≤ 192, or L ≤ 256 for G ≤ 32, and G ≤ 228 at F = 3."""
+    with three planes of dz in the dx0/dh pass (a ring of at least two
+    stages) L ≤ 192, or L ≤ 256 for G ≤ 32; past that, dz kept once in
+    float32 and split in registers (``'wgmma_f32_rs'``) to L ≤ 336, or
+    L ≤ 384 for G ≤ 32; and G ≤ 228 at F = 3."""
     for F, G, L in ((26, 26, 128), (26, 64, 128), (26, 128, 128),
                     (104, 104, 128), (104, 64, 128), (1, 1, 1)):
         assert bwd_design(torch.bfloat16, F, G, L) == 'wgmma'
         assert bwd_design(torch.float32, F, G, L) == 'wgmma_f32'
     assert bwd_design(torch.bfloat16, 5, 7, 300) == 'wgmma'
-    assert bwd_design(torch.float32, 5, 7, 300) == 'simt'
+    assert bwd_design(torch.float32, 5, 7, 300) == 'wgmma_f32_rs'
+    # xDeepFM at the paper's 200 maps: layer 0's dz planes fit (G tile
+    # 32), layers 1 and 2 split dz in registers
+    assert bwd_design(torch.float32, 26, 26, 200) == 'wgmma_f32'
+    assert bwd_design(torch.float32, 26, 200, 200) == 'wgmma_f32_rs'
+    assert bwd_design(torch.bfloat16, 26, 200, 200) == 'wgmma'
     # the dx0/dh pass's dz tile: 128 columns of L padded to 64
     assert bwd_design(torch.bfloat16, 26, 64, 704) == 'wgmma'
     assert bwd_design(torch.bfloat16, 26, 64, 705) == 'simt'
     assert bwd_design(torch.bfloat16, 5, 4, 900) == 'simt'
     assert bwd_design(torch.float32, 26, 64, 192) == 'wgmma_f32'
-    assert bwd_design(torch.float32, 26, 64, 193) == 'simt'
+    assert bwd_design(torch.float32, 26, 64, 193) == 'wgmma_f32_rs'
     assert bwd_design(torch.float32, 26, 32, 256) == 'wgmma_f32'
-    assert bwd_design(torch.float32, 26, 32, 257) == 'simt'
+    assert bwd_design(torch.float32, 26, 32, 257) == 'wgmma_f32_rs'
+    # ... and in float32 past the planes: L padded to 16, G tiles of 64
+    # and 32
+    assert bwd_design(torch.float32, 26, 64, 336) == 'wgmma_f32_rs'
+    assert bwd_design(torch.float32, 26, 64, 337) == 'simt'
+    assert bwd_design(torch.float32, 26, 200, 337) == 'simt'
+    assert bwd_design(torch.float32, 26, 32, 384) == 'wgmma_f32_rs'
+    assert bwd_design(torch.float32, 26, 32, 385) == 'simt'
     # the dW pass's two buffers of h rows
     assert bwd_design(torch.bfloat16, 3, 686, 5) == 'wgmma'
     assert bwd_design(torch.bfloat16, 3, 687, 5) == 'simt'
     assert bwd_design(torch.bfloat16, 3, 700, 5) == 'simt'
     assert bwd_design(torch.float32, 3, 228, 5) == 'wgmma_f32'
     assert bwd_design(torch.float32, 3, 229, 5) == 'simt'
+    assert bwd_design(torch.float32, 3, 229, 300) == 'simt'
+
+
+def _cin_cu_function(src, name, constants):
+    """``csrc/cin.cu``'s ``wg::<name>``, a lone ``return`` of integer
+    arithmetic, as a Python function of its parameters: the C expression
+    with its casts dropped, ``Split<float>::kOp`` as 3 and ``/`` as floor
+    division (every operand is positive)."""
+    m = re.search(rf'\b{name}\(([^)]*)\)\s*\{{\s*return (.*?);\s*\}}',
+                  src, re.S)
+    params = [p.split()[-1] for p in m.group(1).split(',')]
+    expr = re.sub(r'static_cast<\w+>', '', m.group(2))
+    expr = expr.replace('Split<float>::kOp', '3').replace('/', '//')
+    return eval(f"lambda {', '.join(params)}: ({expr})", constants)
+
+
+def test_dx_rs_smem_bytes_is_cin_cu_s_reckoning():
+    """The wrapper's shared memory of the float32 dx0/dh pass that splits
+    dz in registers equals ``csrc/cin.cu``'s ``wg::dx_rs_smem_bytes`` (read
+    from the source, with its constants) at every L to 400 and both G
+    tiles, so ``bwd_design`` sends it only the shapes whose launch the C
+    side takes: the first L in and the first L out at each tile."""
+    src = (Path(__file__).resolve().parents[1] / 'deeptables_torch' / 'csrc'
+           / 'cin.cu').read_text()
+    constants = {}
+    for name, value in re.findall(r'constexpr int (k\w+) = ([\w\s*+]+);',
+                                  src):
+        try:
+            constants[name] = eval(value, dict(constants))
+        except NameError:  # a constant of Split<T>'s, not of these
+            pass
+    constants['bwd_g_tile'] = bwd_g_tile
+    constants['dx_rs_ld'] = _cin_cu_function(src, 'dx_rs_ld', constants)
+    c_bytes = _cin_cu_function(src, 'dx_rs_smem_bytes', constants)
+    limit = constants['kMaxSmemBytes']
+    assert limit == 232448
+    for G in (26, 64, 200):
+        for L in range(1, 401):
+            for stages in (2, 3, 4):
+                assert dx_rs_smem_bytes(G, L, stages) == \
+                    c_bytes(G, L, stages), (G, L, stages)
+    # the limits: first in, first out, at G tiles 32 and 64
+    for G, last in ((26, 384), (64, 336), (200, 336)):
+        assert c_bytes(G, last, 2) <= limit < c_bytes(G, last + 1, 2)
+        assert bwd_design(torch.float32, 26, G, last) == 'wgmma_f32_rs'
+        assert bwd_design(torch.float32, 26, G, last + 1) == 'simt'
+    # xDeepFM's layers 1-2: four stages of the ring fit
+    assert c_bytes(200, 200, 4) == 209984 <= limit
 
 
 @pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
@@ -423,6 +488,27 @@ def test_wgmma_f32_bwd_plan_fills_whole_waves(N, F, G, L):
     expected = {(131072, 26, 26, 128): 20, (131072, 26, 64, 128): 10,
                 (131072, 104, 104, 128): 3, (131072, 104, 64, 128): 5}
     assert splits == expected.get((N, F, G, L), splits)
+
+
+@pytest.mark.parametrize('N,F,G,L', [(81920, 26, 200, 200),
+                                     (65488, 26, 200, 200),
+                                     (4093 * 16, 26, 64, 193),
+                                     (8192, 5, 7, 300), (16, 5, 7, 300),
+                                     (1, 1, 1, 1)])
+def test_wgmma_f32_rs_bwd_plan_keeps_each_range_short(N, F, G, L):
+    """The float32 design that splits dz in registers runs the same dW pass
+    with at least the ranges of ``'wgmma_f32'``, and as many more as keep
+    every range within 2048 columns (the accumulator's run); every column
+    in one range."""
+    splits, cols, g_tiles = wgmma_bwd_plan(N, F, G, L, 'wgmma_f32_rs')
+    base, base_cols, _ = wgmma_bwd_plan(N, F, G, L, 'wgmma_f32')
+    assert cols % 64 == 0 and cols <= 2048
+    assert (splits - 1) * cols < N <= splits * cols
+    assert splits >= base and cols <= base_cols
+    assert g_tiles == -(-G // bwd_g_tile(G))
+    # xDeepFM's layers 1-2 at B = 8192, D = 10: 40 ranges, not 3
+    if (N, G) == (81920, 200):
+        assert (splits, cols, base) == (40, 2048, 3)
 
 
 def test_wrappers_reject_bad_shapes():

@@ -611,23 +611,33 @@ def _fwd_expected(dtype, F, G):
 # (G = 700: the dW pass's h rows; L = 900: the dx0/dh pass's dz tile),
 # which take the CUDA-core kernels
 CIN_BWD_SIMT = [(3, 3, 700, 5, 4), (5, 4, 6, 900, 16)]
-# ... and float32 shapes past the three-plane kernels' shared memory: L =
-# 300 and 257 (G ≤ 32), 193 (G > 32), the dz planes; G = 229, the h rows
-CIN_BWD_SIMT_F32 = [(5, 7, 9, 300, 16), (64, 26, 64, 256, 16),
-                    (7, 5, 20, 257, 16), (9, 26, 64, 193, 16),
-                    (6, 3, 229, 5, 16)]
+# ... and float32 shapes past the three dz planes' shared memory (L = 300,
+# 257 and 385 for G ≤ 32; 193, 256 and 337 for G > 32), which take the
+# dx0/dh pass that splits dz in registers up to its own limit (L ≤ 384 for
+# G ≤ 32, L ≤ 336 past it) and the CUDA cores past that; and G = 229, past
+# the dW pass's h rows
+CIN_BWD_RS_F32 = [(5, 7, 9, 300, 16), (64, 26, 64, 256, 16),
+                  (7, 5, 20, 257, 16), (9, 26, 64, 193, 16),
+                  (7, 5, 20, 384, 16), (9, 26, 64, 336, 16),
+                  (3, 26, 200, 200, 10)]
+CIN_BWD_SIMT_F32 = [(6, 3, 229, 5, 16), (7, 5, 20, 385, 16),
+                    (9, 26, 64, 337, 16)]
 CIN_BWD_SHAPES = CIN_SHAPES + [
     (37, 26, 26, 100, 16), (64, 26, 64, 256, 16), (5, 7, 9, 300, 16),
     (300, 26, 128, 128, 16), (19, 5, 26, 40, 16), (41, 26, 26, 128, 12),
     (17, 5, 13, 128, 33), (1, 26, 64, 128, 16), (1, 26, 26, 128, 592),
     (64, 126, 126, 128, 16)] + CIN_BWD_SIMT + [(7, 5, 20, 257, 16), (9, 26, 64, 193, 16),
                         (6, 3, 229, 5, 16), (11, 26, 64, 192, 16),
-                        (6, 3, 228, 5, 16)]
+                        (6, 3, 228, 5, 16), (7, 5, 20, 384, 16),
+                        (9, 26, 64, 336, 16), (3, 26, 200, 200, 10),
+                        (7, 5, 20, 385, 16), (9, 26, 64, 337, 16)]
 
 
 def _bwd_expected(dtype, shape):
     if dtype == torch.bfloat16:
         return 'simt' if shape in CIN_BWD_SIMT else 'wgmma'
+    if shape in CIN_BWD_RS_F32:
+        return 'wgmma_f32_rs'
     return 'simt' if shape in CIN_BWD_SIMT + CIN_BWD_SIMT_F32 \
         else 'wgmma_f32'
 
@@ -665,10 +675,12 @@ def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 7 * B + F + G + L)
     assert bwd_design(dtype, F, G, L) == _bwd_expected(dtype,
                                                        (B, F, G, L, D))
-    before = cin_bwd.launches
+    design = bwd_design(dtype, F, G, L)
+    before = cin_bwd.launches, cin_bwd.designs.get(design, 0)
     dx0, dh, dw = cin_bwd(x0, h, w, dz)
     torch.cuda.synchronize()
-    assert cin_bwd.launches == before + 1
+    assert (cin_bwd.launches, cin_bwd.designs[design]) == (before[0] + 1,
+                                                           before[1] + 1)
     assert (dx0.shape, dh.shape, dw.shape) == (x0.shape, h.shape, w.shape)
     assert dx0.dtype == dh.dtype == dtype and dw.dtype == torch.float32
     expected = cin_bwd_reference(x0, h, w, dz)
@@ -681,25 +693,35 @@ def test_cin_bwd_kernel_matches_reference(cuda, B, F, G, L, D, dtype):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('B,F,G,L,D', [(4096, 26, 64, 128, 16),
-                                       (3, 4, 130, 9, 5), (3, 3, 700, 5, 4)])
+                                       (3, 4, 130, 9, 5), (3, 3, 700, 5, 4),
+                                       (512, 26, 200, 200, 10)])
 def test_cin_bwd_runs_the_kernels_its_design_names(cuda, B, F, G, L, D,
                                                    dtype):
     """The kernels that ran, by name (torch.profiler): a shape that fits
     runs its type's tensor-core passes (the ``<float>`` instantiations in
-    float32) and never the CUDA-core ones."""
+    float32; at 200 maps the dx0/dh pass that splits dz in registers beside
+    the float32 dW pass), one ``cin_bwd_dx`` kernel a call, and never the
+    CUDA-core ones; ``cin_bwd.designs`` counts each call under its
+    design."""
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, dtype, 5)
+    design = bwd_design(dtype, F, G, L)
+    before = cin_bwd.designs.get(design, 0)
     names = _ran(cin_bwd, x0, h, w, dz)
+    assert cin_bwd.designs[design] > before
     wgmma = {n for n in names if 'cin_bwd_' in n and 'wgmma' in n}
     simt = {n for n in names if 'cin_bwd_' in n and 'wgmma' not in n}
-    design = bwd_design(dtype, F, G, L)
+    dx = {n for n in wgmma if 'cin_bwd_dx' in n}
     if design == 'simt':
         assert len(simt) == 2 and not wgmma, names
     else:
         f32 = {n for n in wgmma if 'wgmma_kernel<float' in n}
-        assert len(wgmma) == 2 and not simt, names
-        assert f32 == (wgmma if design == 'wgmma_f32' else set()), names
-        assert design == ('wgmma_f32' if dtype == torch.float32
-                          else 'wgmma')
+        rs = {n for n in dx if 'cin_bwd_dx_rs_wgmma_kernel<' in n}
+        assert len(wgmma) == 2 and len(dx) == 1 and not simt, names
+        expected = {'wgmma': (set(), set()), 'wgmma_f32': (wgmma, set()),
+                    'wgmma_f32_rs': (wgmma - dx, dx)}[design]
+        assert (f32, rs) == expected, names
+        assert design == ('wgmma' if dtype == torch.bfloat16
+                          else 'wgmma_f32_rs' if L == 200 else 'wgmma_f32')
 
 
 def test_cin_bwd_launch_failure_raises(cuda, monkeypatch):
@@ -733,20 +755,25 @@ def test_cin_f32_launch_failure_raises(cuda, monkeypatch):
 
 @pytest.mark.parametrize('B', [8192, 4093])
 @pytest.mark.parametrize('F,G,L', [(26, 26, 128), (26, 64, 128),
-                                   (104, 104, 128), (104, 64, 128)])
+                                   (104, 104, 128), (104, 64, 128),
+                                   (26, 200, 200)])
 def test_cin_f32_kernels_at_the_main_path_shapes(cuda, F, G, L, B):
-    """Float32 K4 and K3 on the tensor cores at xDeepFM's layers and
+    """Float32 K4 and K3 on the tensor cores at xDeepFM's layers (128 maps
+    and the paper's 200: K3's dx0/dh pass then splits dz in registers) and
     fgcnn_cin's, against the plain versions at 1e-5 of the sum of the
     terms' magnitudes; K3 gives the same bits on a second call (fixed-order
     sums, no atomics)."""
     D = 16
     x0, h, w, dz = _cin_inputs(B, F, G, L, D, torch.float32, B + G)
+    design = 'wgmma_f32_rs' if L == 200 else 'wgmma_f32'
     assert fwd_design(torch.float32, F, G) == 'wgmma_f32'
-    assert bwd_design(torch.float32, F, G, L) == 'wgmma_f32'
+    assert bwd_design(torch.float32, F, G, L) == design
+    before = cin_bwd.designs.get(design, 0)
     z = cin_fwd(x0, h, w)
     grads = cin_bwd(x0, h, w, dz)
     again = cin_bwd(x0, h, w, dz)
     torch.cuda.synchronize()
+    assert cin_bwd.designs[design] == before + 2
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     del again
     _cin_close(z, cin_fwd_reference(x0, h, w),
@@ -758,14 +785,23 @@ def test_cin_f32_kernels_at_the_main_path_shapes(cuda, F, G, L, B):
         _cin_close(got, ref, s)
 
 
-def _exact_operands(full, seed, B=1, F=2, G=2, L=2, D=2):
+# (L, the l where w and dz are not zero) of the exact checks: each float32
+# K3 design's dx0/dh pass, the dz planes in shared memory at L = 2 and dz
+# split in registers at L = 257 (its l in three 64-wide panels and the last
+# 16-wide step)
+EXACT_L = {'wgmma_f32': (2, None), 'wgmma_f32_rs': (257, (0, 1, 130, 256))}
+
+
+def _exact_operands(full, seed, B=1, F=2, G=2, L=2, D=2, support=None):
     """Float32 x0, h, w, dz on the card whose contraction and gradient the
     float32 kernels must give bit for bit: the operand ``full`` holds
-    values of 20 significant bits, ±[1, 2), the others ±1. Every term, plane
-    product and partial sum is then a multiple of 2⁻¹⁹ under 2⁴ (at most
-    four terms a sum), 23 bits: exact in float32 and in the tensor cores'
-    accumulator. Two bfloat16 planes hold at most ~18 bits: the third plane
-    of ``full`` (of the pair where ``full`` is x0 or h) decides the bits."""
+    values of 20 significant bits, ±[1, 2), the others ±1; w and dz are zero
+    at every l but those of ``support`` (all of them by default), at most
+    four. Every term, plane product and partial sum is then a multiple of
+    2⁻¹⁹ under 2⁴ (at most eight terms a sum), 23 bits: exact in float32
+    and in the tensor cores' accumulator. Two bfloat16 planes hold at most
+    ~18 bits: the third plane of ``full`` (of the pair where ``full`` is x0
+    or h) decides the bits."""
     rng = np.random.RandomState(seed)
     shapes = {'x0': (B, F, D), 'h': (B, G, D), 'w': (L, F, G),
               'dz': (B, L, D)}
@@ -777,6 +813,10 @@ def _exact_operands(full, seed, B=1, F=2, G=2, L=2, D=2):
             out[name] = signs * mantissas * 2.0 ** -19
         else:
             out[name] = signs
+    if support is not None:
+        off = np.setdiff1d(np.arange(L), support)
+        out['w'][off] = 0.
+        out['dz'][:, off] = 0.
     return [torch.from_numpy(out[k]).float() for k in ('x0', 'h', 'w', 'dz')]
 
 
@@ -800,33 +840,32 @@ def _two_planes(v):
 def test_cin_f32_kernels_keep_every_plane_bit_for_bit(cuda, full):
     """Float32 K4 and K3 on operands whose third bfloat16 plane decides the
     result, while every sum stays exact (``_exact_operands``): z, dx0, dh
-    and dW equal the float64 contraction bit for bit. Each operand takes
-    the third plane by another route: the pair's in K4's and the dW pass's
-    registers (x0, h), W's from the wrapper (w), dz's in both K3 passes'
-    stores (dz). Without that plane the exact answer moves (checked here
-    on the CPU), so a kernel that lost it would fail."""
-    ops = _exact_operands(full, seed=len(full))
-    exact = _exact_contraction(*ops)
-    cut = [_two_planes(t) if name == full else t
-           for name, t in zip(('x0', 'h', 'w', 'dz'), ops)]
-    assert any(not torch.equal(a, b)
-               for a, b in zip(_exact_contraction(*cut), exact))
-    x0, h, w, dz = (t.cuda() for t in ops)
+    and dW equal the float64 contraction bit for bit, in each float32 K3
+    design (``EXACT_L``). Each operand takes the third plane by another
+    route: the pair's in K4's and the dW pass's registers (x0, h), W's from
+    the wrapper (w), dz's in both K3 passes' stores or, at L = 257, the
+    dx0/dh pass's registers (dz). Without that plane the exact answer moves
+    (checked here on the CPU), so a kernel that lost it would fail."""
     assert fwd_design(torch.float32, 2, 2) == 'wgmma_f32'
-    assert bwd_design(torch.float32, 2, 2, 2) == 'wgmma_f32'
-    got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
-    for a, b in zip(got, exact):
-        assert torch.equal(a.cpu(), b)
+    for design, (L, support) in EXACT_L.items():
+        ops = _exact_operands(full, seed=len(full), L=L, support=support)
+        exact = _exact_contraction(*ops)
+        cut = [_two_planes(t) if name == full else t
+               for name, t in zip(('x0', 'h', 'w', 'dz'), ops)]
+        assert any(not torch.equal(a, b)
+                   for a, b in zip(_exact_contraction(*cut), exact))
+        x0, h, w, dz = (t.cuda() for t in ops)
+        assert bwd_design(torch.float32, 2, 2, L) == design
+        got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
+        for a, b in zip(got, exact):
+            assert torch.equal(a.cpu(), b), design
 
 
 def test_cin_f32_kernels_without_w_plane3_fail_the_exact_check(
         cuda, monkeypatch):
     """The check above has teeth on the card: with W's third plane zeroed
     where the wrapper lays it out (``padded_w``, ``dpair_w``), z, dx0 and
-    dh no longer equal the exact contraction."""
-    ops = _exact_operands('w', seed=1)
-    exact = _exact_contraction(*ops)
-    x0, h, w, dz = (t.cuda() for t in ops)
+    dh no longer equal the exact contraction, in each float32 K3 design."""
     for name in ('padded_w', 'dpair_w'):
         layout = getattr(cin_module, name)
 
@@ -835,10 +874,15 @@ def test_cin_f32_kernels_without_w_plane3_fail_the_exact_check(
             out[2] = 0
             return out
         monkeypatch.setattr(cin_module, name, cut)
-    got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
-    for a, b in zip(got[:3], exact[:3]):
-        assert not torch.equal(a.cpu(), b)
-    assert torch.equal(got[3].cpu(), exact[3])  # dW does not read W
+    for design, (L, support) in EXACT_L.items():
+        ops = _exact_operands('w', seed=1, L=L, support=support)
+        exact = _exact_contraction(*ops)
+        x0, h, w, dz = (t.cuda() for t in ops)
+        assert bwd_design(torch.float32, 2, 2, L) == design
+        got = (cin_fwd(x0, h, w),) + tuple(cin_bwd(x0, h, w, dz))
+        for a, b in zip(got[:3], exact[:3]):
+            assert not torch.equal(a.cpu(), b), design
+        assert torch.equal(got[3].cpu(), exact[3])  # dW does not read W
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
