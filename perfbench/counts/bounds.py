@@ -1,6 +1,10 @@
 """Least times of single kernels and layers on the card, from their shapes
 (the roofline's larger bound: operations over the peak rate of the input
-type, bytes over HBM bandwidth)."""
+type, bytes over HBM bandwidth). A net's own kernels' bounds are in its
+module (``perfbench/nets``)."""
+
+from dataclasses import dataclass
+from typing import Callable
 
 from .peaks import BF16_OPS_PER_S, HBM_BYTES_PER_S, TF32_OPS_PER_S
 
@@ -9,28 +13,25 @@ from .peaks import BF16_OPS_PER_S, HBM_BYTES_PER_S, TF32_OPS_PER_S
 ADAM_BYTES_PER_PARAM = 28
 
 
-def cin_bound(kernel: str, B: int, F: int, G: int, L: int, D: int,
-              itemsize: int):
-    """Least time of the CIN contraction (``'cin_fwd'``, K4) or its
-    gradient (``'cin_bwd'``, K3) in seconds, and its operations. Bytes:
-    each input read once, each output written once (z and dW float32, dx0
-    and dh in the input type). Operations: the GEMM (2·L·F·G per column)
-    and the pair products (F·G per column); the gradient twice the GEMM
-    (dpair and dW) and 5·F·G per column (pair, dx0 and dh products and
-    sums). Every operation at the tensor cores' rate on the input type:
-    bfloat16's 989 TFLOP/s, float32's 495, TF32's rate."""
-    N = B * D
-    if kernel == 'cin_fwd':
-        nbytes = itemsize * (N * F + N * G + L * F * G) + 4 * L * N
-        ops = 2 * L * F * G * N + F * G * N
-    elif kernel == 'cin_bwd':
-        nbytes = itemsize * (2 * N * F + 2 * N * G + L * F * G + L * N) \
-            + 4 * L * F * G
-        ops = 4 * L * F * G * N + 5 * F * G * N
-    else:
-        raise ValueError(kernel)
+@dataclass(frozen=True)
+class KernelBound:
+    """What a roofline reader needs of one hand-written kernel of a net:
+    ``least(*shape, itemsize)``, its least time in seconds and its
+    operations at a call's shape; ``runs(name)``, whether a device kernel
+    of the trace does part of its work; ``once_a_call(name)``, whether it
+    is the device kernel launched once a call (to count the calls the
+    profiler saw)."""
+    least: Callable
+    runs: Callable[[str], bool]
+    once_a_call: Callable[[str], bool]
+
+
+def least_time(ops: int, nbytes: int, itemsize: int) -> float:
+    """The roofline's larger bound: ``ops`` at the tensor cores' rate on
+    the input type (bfloat16's 989 TFLOP/s; float32's, TF32's 495),
+    ``nbytes`` at HBM bandwidth."""
     rate = BF16_OPS_PER_S if itemsize == 2 else TF32_OPS_PER_S
-    return max(nbytes / HBM_BYTES_PER_S, ops / rate), ops
+    return max(nbytes / HBM_BYTES_PER_S, ops / rate)
 
 
 def adam_bound(n_params: int) -> float:

@@ -18,9 +18,9 @@ the first timed request.
 
 Correct: once the window has closed, a sample of ``SAMPLE_REQUESTS`` of
 its requests drawn from the seed, and its longest request, are answered
-again by the reference (``reference/model.py``, inference BatchNorm) from
-the same weights and rows; compared is the largest gap between a returned
-probability and the reference's."""
+again by the reference (``reference/model.py``, inference BatchNorm, in
+float64) from the same weights and rows; compared is the largest gap
+between a returned probability and the reference's."""
 
 import math
 import time
@@ -30,11 +30,11 @@ import torch
 
 from deeptables_torch.serving import Predictor
 
+from perfbench import nets as nets_lib
 from perfbench.harness import (compare, device as dev, faults, inputs, port,
                                spans, trace as trace_lib, weights)
 from perfbench.harness.outcome import Outcome, phase_seconds
 from perfbench.reference import model as ref_model
-from perfbench.reference.model import cin_maps
 
 DISTINCT_SIZES = 128
 OFFSETS = 4096
@@ -43,6 +43,8 @@ SAMPLE_REQUESTS = 24
 # the window on
 PROFILE_AFTER = 0.25
 PROFILE_SECONDS = 1.0
+# the reference that judges the answers, as ``train_fit.PRECISION``
+PRECISION = 'fp64'
 
 
 class Mix:
@@ -85,7 +87,7 @@ def setup(cell, seed, device, fault=None, marks=None):
     dev.synchronize(device)
     marks.append(('weights', time.time()))
     predictor = Predictor(port.estimator(model))
-    faults.apply(fault, model, predictor)
+    faults.apply(fault, config, model, predictor)
     probe = spans.Probe(model)
     for size in sorted(set(mix.sizes.tolist())):
         predictor.predict_proba_arrays(mix.arrays(0, size), size)
@@ -145,7 +147,7 @@ def sample(answers, seed, count=SAMPLE_REQUESTS):
     return sorted(picked)
 
 
-def reference(cell, seed, device, mix, requests, precision='fp32'):
+def reference(cell, seed, device, mix, requests, precision=PRECISION):
     """The reference's probabilities ``(n, 2)`` of each ``(offset, size)``."""
     params = ref_model.cast(weights.make(cell.config, seed, device),
                             precision)
@@ -176,15 +178,6 @@ def proba_gap(program, ref):
     return worst if len(program) == len(ref) else math.inf
 
 
-def cin_calls(config, forward_rows):
-    if 'cin_nets' not in config['nets']:
-        return {}
-    n_fields, dim = len(config['vocabulary']), int(config['embedding_dim'])
-    layers, _ = cin_maps(config)
-    return {'cin_fwd': [(rows, n_fields, g, maps, dim)
-                        for rows in forward_rows for maps, g in layers]}
-
-
 def run(cell, seed, seconds, trace, device, t0, fault=None):
     marks = [('start', t0)]
     mix, model, probe, predictor = setup(cell, seed, device, fault, marks)
@@ -197,7 +190,8 @@ def run(cell, seed, seconds, trace, device, t0, fault=None):
         trace_lib.Profiler(dev.is_cuda(device)) if trace else None)
     peak = dev.memory_peak(device)
     if trace:
-        record['cin_calls'] = cin_calls(cell.config, record['forward_rows'])
+        record['kernel_calls'] = nets_lib.kernel_calls(
+            cell.config, [(rows, 'infer') for rows in record['forward_rows']])
     probe.remove()
     del predictor, model, probe
     dev.free(device)

@@ -1,6 +1,8 @@
 """The card: synchronising, memory, and the port's launch counters."""
 
 import gc
+import importlib
+import pkgutil
 
 import torch
 
@@ -31,11 +33,24 @@ def free(device):
 
 
 def launch_counters() -> dict:
-    """The port's kernel wrappers' ``launches`` counters."""
-    from deeptables_torch.ops.kernels import cin, emb_grad, fm
-    return {'cin_fwd': cin.cin_fwd.launches, 'cin_bwd': cin.cin_bwd.launches,
-            'fm': fm.fm.launches, 'fm_backward': fm.fm_backward.launches,
-            'emb_grad': emb_grad.emb_grad.launches}
+    """Every ``launches`` counter of the port's kernel wrappers
+    (``deeptables_torch.ops.kernels``), by the wrapper's name: each module
+    of the package is read, and each function it defines that carries an
+    int ``launches``. Two wrappers of one name are refused, since the
+    kernels' bounds and calls know a wrapper by its name alone."""
+    from deeptables_torch.ops import kernels
+    counters = {}
+    for info in pkgutil.iter_modules(kernels.__path__):
+        module = importlib.import_module(f'{kernels.__name__}.{info.name}')
+        for name, obj in vars(module).items():
+            launches = getattr(obj, 'launches', None)
+            if isinstance(launches, int) and \
+                    getattr(obj, '__module__', None) == module.__name__:
+                if name in counters:
+                    raise ValueError(f'two kernel wrappers named {name!r}: '
+                                     f'{module.__name__} and another')
+                counters[name] = launches
+    return counters
 
 
 def counter_deltas(before: dict, after: dict) -> dict:

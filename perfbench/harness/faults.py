@@ -10,15 +10,13 @@ harness records what it handed in and the program computes something else.
   in place of the first row's;
 - ``half_rows``: a request is answered as if the second half of its rows
   were zeros;
-- ``cin_tile``: the CIN's second contraction (K4 of layer 1) returns its
-  last ``CIN_TILE`` maps as zeros, as a kernel that skipped them would; its
-  gradient is left as it was."""
+- a net's own faults, by the name its module gives them (``faults`` of
+  ``perfbench/nets/faults/<net>.py``)."""
 
 import functools
+import importlib
 
-import torch
-
-CIN_TILE = 8
+from .. import nets as nets_lib
 
 
 def _half_batch(original, batch, yb, wb, loss_fn):
@@ -41,28 +39,20 @@ def _half_rows(original, arrays, n=None):
     return original(cut, n)
 
 
-def _plant_cin_tile(model):
-    """Set ``cin_tile`` over the port's contraction (a module global of
-    ``ops/interactions.py``), replacing one planted before."""
-    from deeptables_torch.ops import interactions
-    original = getattr(interactions.cin_contract, 'planted_over',
-                       interactions.cin_contract)
-    target = model.build().cin_layer.f_1
-
-    def contract(x0, h, w, *args):
-        z = original(x0, h, w, *args)
-        if w is not target:
-            return z
-        lost = torch.zeros_like(z)
-        lost[:, -CIN_TILE:] = z[:, -CIN_TILE:].detach()
-        return z - lost
-
-    contract.planted_over = original
-    interactions.cin_contract = contract
+def of_nets(config) -> dict:
+    """``{fault: plant(model)}`` of every net of the configuration that
+    has a ``nets/faults/<net>.py``."""
+    out = {}
+    for name in config['nets']:
+        nets_lib.path(name)
+        if (nets_lib.NETS_DIR / 'faults' / f'{name}.py').is_file():
+            out.update(importlib.import_module(
+                f'{nets_lib.__name__}.faults.{name}').faults)
+    return out
 
 
-def apply(name, model, predictor=None):
-    """Plant fault ``name`` (None: none) in ``model`` or, for
+def apply(name, config, model, predictor=None):
+    """Plant fault ``name`` (None: none) in ``model`` of ``config`` or, for
     ``half_rows``, in ``predictor``."""
     if name is None:
         return
@@ -74,10 +64,11 @@ def apply(name, model, predictor=None):
     elif name == 'altered_answer':
         model.forward_batch = functools.partial(_altered_answer,
                                                 model.forward_batch)
-    elif name == 'cin_tile':
-        _plant_cin_tile(model)
     elif name == 'half_rows':
         predictor.predict_proba_arrays = functools.partial(
             _half_rows, predictor.predict_proba_arrays)
     else:
-        raise ValueError(f'unknown fault {name!r}')
+        plant = of_nets(config).get(name)
+        if plant is None:
+            raise ValueError(f'unknown fault {name!r}')
+        plant(model)

@@ -8,6 +8,7 @@ a model that holds anything the configuration does not name."""
 
 import types
 
+import numpy as np
 import torch
 
 from deeptables_torch.models.config import ModelConfig
@@ -15,35 +16,32 @@ from deeptables_torch.models.deepmodel import DeepModel
 from deeptables_torch.models.metainfo import (CategoricalColumn,
                                               ContinuousColumn)
 
+from .. import nets as nets_lib
+
 CAT_KEY = 'cat'
 DENSE_KEY = 'input_continuous_all'
 
 
 def build(config, seed: int, device, metrics=('AUC',)) -> DeepModel:
     """A binary task under binary cross-entropy, trained with Adam (the
-    reference's model), with no embedding dropout."""
+    reference's model), with no embedding dropout; each net's settings from
+    its module (``perfbench/nets``). With no dense features the model has no
+    continuous column."""
     dim = int(config['embedding_dim'])
-    dropout = float(config['dnn_dropout'])
     settings = dict(
         nets=list(config['nets']), metrics=list(metrics), task='binary',
         loss='binary_crossentropy', optimizer='adam',
         learning_rate=float(config['learning_rate']), embedding_dropout=0.0,
         embeddings_output_dim=dim,
         dense_batch_norm=bool(config.get('dense_batch_norm', True)),
-        dnn_params={'hidden_units': tuple(
-            (int(u), dropout, False) for u in config['dnn_hidden_units']),
-            'activation': config['dnn_activation']},
         dtype_policy=config['dtype_policy'], seed=int(seed))
-    if 'cin_nets' in config['nets']:
-        settings['cin_params'] = {
-            'cross_layer_size': tuple(config['cin_cross_layer_size']),
-            'activation': config['cin_activation'], 'use_residual': False,
-            'use_bias': False, 'direct': bool(config.get('cin_direct', False)),
-            'reduce_D': False}
+    for _, net in nets_lib.of(config):
+        settings.update(net.port_settings(config))
     cats = tuple(CategoricalColumn(f'C{i + 1}', int(v) + 1, dim)
                  for i, v in enumerate(config['vocabulary']))
+    n_dense = int(config['dense_features'])
     conts = (ContinuousColumn(DENSE_KEY, [
-        f'I{i + 1}' for i in range(int(config['dense_features']))]),)
+        f'I{i + 1}' for i in range(n_dense)]),) if n_dense else ()
     return DeepModel('binary', 2, ModelConfig(**settings), cats, conts,
                      device=device)
 
@@ -52,21 +50,16 @@ def port_names(config) -> dict:
     """``{reference leaf or statistic: the port's state_dict key}``."""
     names = {'embeddings':
              f'emb_categorical_vars_all.embeddings_d{config["embedding_dim"]}'}
-    for ref_bn, port_bn in (('bn_dense', 'bn_dense_all'),
-                            ('bn_concat', 'bn_concat_emb_dense')):
+    bns = [('bn_concat', 'bn_concat_emb_dense')]
+    if int(config['dense_features']) and config.get('dense_batch_norm', True):
+        bns.insert(0, ('bn_dense', 'bn_dense_all'))
+    for ref_bn, port_bn in bns:
         for ref_key, port_key in (('gamma', 'weight'), ('beta', 'bias'),
                                   ('mean', 'running_mean'),
                                   ('var', 'running_var')):
             names[f'{ref_bn}.{ref_key}'] = f'{port_bn}.{port_key}'
-    names['linear.w'] = 'linear_logit.weight'
-    for i in range(len(config.get('cin_cross_layer_size') or ())):
-        names[f'cin.{i}.w'] = f'cin_layer.f_{i}'
-    names['cin.out.w'] = 'cin_layer.exFM_out.weight'
-    names['cin.out.b'] = 'cin_layer.exFM_out.bias'
-    for i in range(len(config['dnn_hidden_units'])):
-        names[f'dnn.{i}.w'] = f'dnn_dense_{i + 1}.weight'
-        names[f'dnn.{i}.b'] = f'dnn_dense_{i + 1}.bias'
-    names['dnn.logit.w'] = 'dense_logit_dnn_nets.weight'
+    for _, net in nets_lib.of(config):
+        names.update(net.port_names(config))
     names['out.w'] = 'task_output.weight'
     names['out.b'] = 'task_output.bias'
     return names
@@ -108,4 +101,17 @@ def estimator(model: DeepModel):
 
 
 def arrays(cat, dense) -> dict:
+    """The port's input of the rows: no dense key where ``dense`` has no
+    columns."""
+    if dense.shape[1] == 0:
+        return {CAT_KEY: cat}
     return {CAT_KEY: cat, DENSE_KEY: dense}
+
+
+def columns(batch) -> tuple:
+    """``(cat, dense)`` of a batch of :func:`arrays`, copied; ``dense`` with
+    no columns where the batch has none."""
+    cat = batch[CAT_KEY]
+    if DENSE_KEY not in batch:
+        return cat.copy(), np.zeros((len(cat), 0), dtype=np.float32)
+    return cat.copy(), batch[DENSE_KEY].copy()

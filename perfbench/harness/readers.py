@@ -1,14 +1,12 @@
 """Readings shared by the metric readers of ``perfbench/metrics``: each
 returns None where the traced stretch holds nothing to read."""
 
-import re
 import sys
 
+from .. import nets as nets_lib
 from ..counts import bounds, flops, peaks
 from ..reference.model import param_specs
 from .spans import OPTIMIZER_STEP
-
-CIN_KERNEL = re.compile(r'\bcin_\w*kernel\b')
 
 
 def idle_pct(ctx):
@@ -64,19 +62,22 @@ def optimizer_roofline_pct(ctx):
     return 100.0 * least / (busy / 1e6)
 
 
-def cin_roofline_pct(ctx, kernels=('cin_fwd', 'cin_bwd')):
-    """Least time of the CIN kernels' calls in the stretch over the device
-    time of the kernels from ``csrc/cin.cu``. The calls' shapes come from
-    the harness's records (``record['cin_calls']``); a call the profiler
-    lost is left out of both sides, by the share of launches it saw of
-    those the program's counters count."""
+def kernel_roofline_pct(ctx, kernels):
+    """Least time of the calls of ``kernels`` (hand-written kernels of the
+    configuration's nets) in the stretch over the device time of the device
+    kernels that do their work. The calls' shapes come from the harness's
+    records (``record['kernel_calls']``), each kernel's bound and device
+    kernels from its net's module (``bounds``); a call the profiler lost is
+    left out of both sides, by the share of launches it saw of those the
+    program's counters count."""
     trace = ctx.trace
-    calls = ctx.record.get('cin_calls') or {}
+    calls = ctx.record.get('kernel_calls') or {}
     if trace is None or not any(calls.get(k) for k in kernels):
         return None
+    specs = nets_lib.bounds(ctx.config)
     itemsize = peaks.itemsize(ctx.config['dtype_policy'])
-    events = [e for e in trace.device if CIN_KERNEL.search(e[0])
-              and any(k in e[0] for k in kernels + ('cin_sum',))]
+    events = [e for e in trace.device
+              if any(specs[k].runs(e[0]) for k in kernels)]
     busy = sum(b - a for _, a, b, _ in events) / 1e6
     if busy <= 0:
         return None
@@ -85,11 +86,9 @@ def cin_roofline_pct(ctx, kernels=('cin_fwd', 'cin_bwd')):
         shapes = calls.get(kernel) or []
         if not shapes:
             continue
-        total = sum(bounds.cin_bound(kernel, *shape, itemsize)[0]
-                    for shape in shapes)
-        # one kernel a K4 call; K3's dx0/dh pass once a call
-        marker = 'cin_fwd' if kernel == 'cin_fwd' else 'cin_bwd_dx'
-        seen = sum(1 for e in events if marker in e[0])
+        spec = specs[kernel]
+        total = sum(spec.least(*shape, itemsize)[0] for shape in shapes)
+        seen = sum(1 for e in events if spec.once_a_call(e[0]))
         counted = ctx.record.get('launches', {}).get(kernel, len(shapes))
         if seen != len(shapes) or counted != len(shapes):
             print(f'note: {kernel}: the profiler saw {seen} launches, the '

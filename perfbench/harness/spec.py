@@ -1,13 +1,17 @@
 """A cell of ``BENCHMARK.json`` and the files it names, found by name:
-``configs/<config>.json``, ``traffic/<traffic>.json`` (its ``driver``:
-``drivers/<driver>.py``), ``limits/<cell>.json`` and, for each per-layer
-metric, ``metrics/<metric>.py``. Adding a configuration, a traffic mix or a
-metric is adding its file and naming it in ``BENCHMARK.json``."""
+``configs/<config>.json``, each net its ``nets`` names (``nets/<net>.py``),
+``traffic/<traffic>.json`` (its ``driver``: ``drivers/<driver>.py``),
+``limits/<cell>.json`` and, for each per-layer metric,
+``metrics/<metric>.py``. Adding a configuration, a net, a traffic mix or a
+metric is adding its file and naming it in ``BENCHMARK.json`` or the
+configuration."""
 
 import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+
+from .. import nets as nets_lib
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
@@ -58,6 +62,8 @@ def cell(name: str, root: Path = ROOT, bench_dir: Path = BENCH_DIR) -> Cell:
         if config.get(key, value) != value:
             raise ValueError(f'{workload["config"]}: {key} {config[key]!r}; '
                              f'the reference computes {value!r} only')
+    for net in config['nets']:
+        nets_lib.path(net, bench_dir / 'nets')
     return Cell(
         name=name, chips=int(workload['chips']), config=config,
         traffic=load_json(

@@ -6,11 +6,13 @@ single leaf can be drawn again (:func:`leaf`) and the reference gets the
 same weights without keeping a copy. The running statistics of the
 BatchNorms (read at inference) are set from the inputs' own distribution:
 the embeddings' ``U(-0.05, 0.05)`` and the dense inputs' moments, moved by
-a few percent."""
+a few percent; a net's own BatchNorms as its module says
+(``perfbench/nets``)."""
 
 import numpy as np
 import torch
 
+from .. import nets as nets_lib
 from ..reference import model as ref
 
 
@@ -37,17 +39,22 @@ def leaf(config, seed: int, device, name: str) -> torch.Tensor:
 
 
 def make(config, seed: int, device) -> dict:
-    """``{leaf: tensor}`` for every trained leaf, and ``bn_*.mean`` /
-    ``bn_*.var`` running statistics."""
+    """``{leaf: tensor}`` for every trained leaf, the ``bn_*.mean`` /
+    ``bn_*.var`` running statistics, and those of the BatchNorms the nets
+    own (each net's ``statistics``, where it has any), drawn after the
+    shared ones."""
     specs = ref.param_specs(config)
     params = {spec[0]: _draw(spec, _generator(seed, i, device), device)
               for i, spec in enumerate(specs)}
     gen = _generator(seed, len(specs), device)
 
+    def draw(shape, lo, hi):
+        return torch.empty(shape, dtype=torch.float32, device=device
+                           ).uniform_(lo, hi, generator=gen)
+
     def jitter(values, rel):
         values = torch.as_tensor(values, dtype=torch.float32, device=device)
-        noise = torch.empty_like(values).uniform_(-rel, rel, generator=gen)
-        return values * (1 + noise)
+        return values * (1 + draw(values.shape, -rel, rel))
 
     n_fields = len(config['vocabulary'])
     dim = int(config['embedding_dim'])
@@ -62,9 +69,11 @@ def make(config, seed: int, device) -> dict:
     else:
         dense_mean = torch.full((n_dense,), mean, device=device)
         dense_var = torch.full((n_dense,), var, device=device)
-    emb_mean = torch.empty(n_fields * dim, device=device).uniform_(
-        -0.005, 0.005, generator=gen)
+    emb_mean = draw(n_fields * dim, -0.005, 0.005)
     params['bn_concat.mean'] = torch.cat([emb_mean, dense_mean])
     params['bn_concat.var'] = torch.cat(
         [jitter([emb_var] * (n_fields * dim), 0.1), dense_var])
+    for _, net in nets_lib.of(config):
+        if hasattr(net, 'statistics'):
+            params.update(net.statistics(config, draw))
     return params

@@ -2,8 +2,8 @@
 chunks it is given: its least time over the device time of the kernels
 from ``csrc/cin.cu``."""
 
-from perfbench.harness.readers import cin_roofline_pct
+from perfbench.harness.readers import kernel_roofline_pct
 
 
 def read(ctx):
-    return cin_roofline_pct(ctx, ('cin_fwd',))
+    return kernel_roofline_pct(ctx, ('cin_fwd',))

@@ -1,9 +1,9 @@
 """K4 (``cin_fwd``) and K3 (``cin_bwd``) in the traced epoch: their least
-time (counts/bounds.py) over the device time of the kernels from
-``csrc/cin.cu``."""
+time (``bounds`` of nets/cin_nets.py) over the device time of the kernels
+from ``csrc/cin.cu``."""
 
-from perfbench.harness.readers import cin_roofline_pct
+from perfbench.harness.readers import kernel_roofline_pct
 
 
 def read(ctx):
-    return cin_roofline_pct(ctx, ('cin_fwd', 'cin_bwd'))
+    return kernel_roofline_pct(ctx, ('cin_fwd', 'cin_bwd'))

@@ -1,4 +1,4 @@
-"""Plain PyTorch DeepFM and xDeepFM, as DeepTables defines them.
+"""The plain PyTorch model of a configuration, as DeepTables defines it.
 
 The benchmark's reference: it imports nothing of the measured package and
 takes only what the harness made (inputs, initial weights). Every tensor is
@@ -8,42 +8,36 @@ operands rounded to TF32 as the tensor cores round them
 (``precision='tf32'``, forward and backward).
 
 ``precision='fp64'`` runs the same model in float64 (the caller casts the
-weights and inputs): a witness of how far float32 itself lies from the
-exact result.
+weights and inputs): the reference that judges the program, since float32
+itself lies as far from the exact result as the program may.
 
 The model (``config``: a configuration file of ``perfbench/configs``):
 
 - one embedding table of ``Σ (vocabulary_j + 1)`` rows and D columns;
   column j's ids index its own region, which starts at the sum of the
   regions before it;
-- the dense inputs go through a BatchNorm (``dense_batch_norm``);
+- the dense inputs, where the configuration has any (``dense_features``),
+  go through a BatchNorm (``dense_batch_norm``);
 - ``concat`` = [flattened embeddings (F·D), normalised dense] through a
-  second BatchNorm feeds the DNN;
+  second BatchNorm;
 - BatchNorm as flax computes it: batch mean and the biased variance
   ``E[x²] − E[x]²`` (clamped at 0) in training, the running statistics at
   inference, epsilon 1e-3;
-- nets, their logits added: ``linear`` (one Dense without bias over
-  [per-field sums of the embeddings, normalised dense]), ``fm_nets``
-  (``0.5·Σ_d[(Σ_f e)² − Σ_f e²]``), ``cin_nets`` (layer i:
-  ``z_bld = Σ_fg x0_bfd·h_bgd·W_lfg``, then ``cin_activation``; with
-  ``cin_direct`` every layer passes all its maps on and outputs them all,
-  else every layer but the last passes half of its maps on and outputs the
-  other half; the outputs' sums over d through a Dense with bias) and
-  ``dnn_nets`` (Dense with bias and ``dnn_activation`` per hidden layer,
-  then a Dense without bias to one logit);
+- the configuration's nets (``perfbench/nets/<net>.py``), each a logit
+  from :class:`Parts`, added in the configuration's order;
 - the head: a Dense with bias from the summed logit to the logit.
 """
 
 import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-BN_EPSILON = 1e-3
+from .. import nets as nets_lib
 
-# the activations a configuration may name, by DeepTables' names
-ACTIVATIONS = {'relu': torch.relu, 'linear': lambda x: x}
+BN_EPSILON = 1e-3
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -98,68 +92,44 @@ def table_rows(config) -> list:
     return [int(v) + 1 for v in config['vocabulary']]
 
 
-def cin_maps(config):
-    """``[(L_i, G_i)]`` of each CIN layer and the width of its output."""
-    sizes = list(config.get('cin_cross_layer_size') or ())
-    direct = bool(config.get('cin_direct', False))
-    layers, width = [], 0
-    g = len(config['vocabulary'])
-    for i, size in enumerate(sizes):
-        layers.append((size, g))
-        if direct or i == len(sizes) - 1:
-            g = size
-            width += size
-        else:
-            g = size // 2
-            width += size - size // 2
-    return layers, width
+def he(fan_in):
+    """He's uniform initializer of a layer of ``fan_in`` inputs."""
+    limit = math.sqrt(6.0 / fan_in)
+    return ('uniform', -limit, limit)
+
+
+def lecun(fan_in):
+    """LeCun's uniform initializer of a layer of ``fan_in`` inputs."""
+    limit = math.sqrt(3.0 / fan_in)
+    return ('uniform', -limit, limit)
+
+
+SMALL = ('uniform', -0.05, 0.05)
+GAMMA = ('uniform', 0.8, 1.2)
+BETA = ('uniform', -0.1, 0.1)
+
+
+def concat_width(config) -> int:
+    return len(config['vocabulary']) * int(config['embedding_dim']) + \
+        int(config['dense_features'])
 
 
 def param_specs(config):
     """The trained leaves, in a fixed order: ``[(name, shape, init)]`` with
-    ``init`` one of ``('uniform', lo, hi)``. Dense weights are
-    ``(out, in)``; CIN weights ``(L, F, G)``."""
-    n_fields = len(config['vocabulary'])
+    ``init`` one of ``('uniform', lo, hi)``: the table, the BatchNorms, each
+    net's leaves in the configuration's order, the head."""
     dim = int(config['embedding_dim'])
     n_dense = int(config['dense_features'])
-    concat = n_fields * dim + n_dense
-    nets = config['nets']
-
-    def he(fan_in):
-        limit = math.sqrt(6.0 / fan_in)
-        return ('uniform', -limit, limit)
-
-    def lecun(fan_in):
-        limit = math.sqrt(3.0 / fan_in)
-        return ('uniform', -limit, limit)
-
-    small = ('uniform', -0.05, 0.05)
-    gamma = ('uniform', 0.8, 1.2)
-    beta = ('uniform', -0.1, 0.1)
-    specs = [('embeddings', (sum(table_rows(config)), dim), small)]
+    concat = concat_width(config)
+    specs = [('embeddings', (sum(table_rows(config)), dim), SMALL)]
     if n_dense and config.get('dense_batch_norm', True):
-        specs += [('bn_dense.gamma', (n_dense,), gamma),
-                  ('bn_dense.beta', (n_dense,), beta)]
-    specs += [('bn_concat.gamma', (concat,), gamma),
-              ('bn_concat.beta', (concat,), beta)]
-    if 'linear' in nets:
-        specs.append(('linear.w', (1, n_fields + n_dense),
-                      lecun(n_fields + n_dense)))
-    if 'cin_nets' in nets:
-        layers, width = cin_maps(config)
-        for i, (size, g) in enumerate(layers):
-            specs.append((f'cin.{i}.w', (size, n_fields, g),
-                          he(n_fields * g)))
-        specs += [('cin.out.w', (1, width), lecun(width)),
-                  ('cin.out.b', (1,), small)]
-    if 'dnn_nets' in nets:
-        width = concat
-        for i, units in enumerate(config['dnn_hidden_units']):
-            specs += [(f'dnn.{i}.w', (units, width), he(width)),
-                      (f'dnn.{i}.b', (units,), small)]
-            width = units
-        specs.append(('dnn.logit.w', (1, width), lecun(width)))
-    specs += [('out.w', (1, 1), lecun(1)), ('out.b', (1,), small)]
+        specs += [('bn_dense.gamma', (n_dense,), GAMMA),
+                  ('bn_dense.beta', (n_dense,), BETA)]
+    specs += [('bn_concat.gamma', (concat,), GAMMA),
+              ('bn_concat.beta', (concat,), BETA)]
+    for _, net in nets_lib.of(config):
+        specs += net.param_specs(config)
+    specs += [('out.w', (1, 1), lecun(1)), ('out.b', (1,), SMALL)]
     return specs
 
 
@@ -184,33 +154,21 @@ def batch_norm(x, gamma, beta, mean, var, training):
     return (x - mean) * torch.rsqrt(var + BN_EPSILON) * gamma + beta
 
 
-def _cin(params, config, emb, precision):
-    batch, n_fields, dim = emb.shape
-    layers, _ = cin_maps(config)
-    activation = ACTIVATIONS[config['cin_activation']]
-    direct = bool(config.get('cin_direct', False))
-    hidden, outs = emb, []
-    for i, (size, g) in enumerate(layers):
-        pair = emb[:, :, None, :] * hidden[:, None, :, :]  # (B, F, G, D)
-        cols = pair.reshape(batch, n_fields * g, dim).permute(1, 0, 2)
-        z = matmul(params[f'cin.{i}.w'].reshape(size, n_fields * g),
-                   cols.reshape(n_fields * g, batch * dim), precision)
-        z = activation(z.reshape(size, batch, dim).permute(1, 0, 2))
-        if direct or i == len(layers) - 1:
-            hidden = z
-            outs.append(z)
-        else:
-            hidden, out = z[:, :size // 2], z[:, size // 2:]
-            outs.append(out)
-    result = torch.cat(outs, dim=1).sum(dim=-1)
-    return matmul(result, params['cin.out.w'].t(), precision) \
-        + params['cin.out.b']
+class Parts(NamedTuple):
+    """What the nets read: the stacked embeddings ``(B, F, D)``, the
+    normalised dense inputs ``(B, n_dense)`` (no columns where the
+    configuration has none) and the BatchNormed concatenation ``(B, F·D +
+    n_dense)``."""
+    embeddings: torch.Tensor
+    dense: torch.Tensor
+    concat: torch.Tensor
 
 
 def forward(params, config, cat, dense, training, precision='fp32'):
     """Logits ``(B, 1)`` of int64 column-local ids ``cat (B, F)`` and float32
     ``dense (B, n_dense)``. ``params`` holds :func:`param_specs`' leaves and,
-    for inference, the running statistics ``bn_*.mean`` / ``bn_*.var``."""
+    for inference, the running statistics ``bn_*.mean`` / ``bn_*.var`` and
+    those of the nets' own BatchNorms."""
     rows = table_rows(config)
     offsets = torch.tensor([0] + rows[:-1], device=cat.device).cumsum(0)
     batch, n_fields = cat.shape
@@ -229,24 +187,11 @@ def forward(params, config, cat, dense, training, precision='fp32'):
                         params.get('bn_concat.mean'),
                         params.get('bn_concat.var'), training)
 
+    parts = Parts(emb, dense_bn, concat)
     logit = torch.zeros((batch, 1), dtype=emb.dtype, device=cat.device)
-    nets = config['nets']
-    if 'linear' in nets:
-        logit = logit + matmul(torch.cat([emb.sum(dim=-1), dense_bn], dim=1),
-                               params['linear.w'].t(), precision)
-    if 'fm_nets' in nets:
-        s = emb.sum(dim=1)
-        logit = logit + 0.5 * (s * s - (emb * emb).sum(dim=1)).sum(
-            dim=1, keepdim=True)
-    if 'cin_nets' in nets:
-        logit = logit + _cin(params, config, emb, precision)
-    if 'dnn_nets' in nets:
-        activation = ACTIVATIONS[config['dnn_activation']]
-        h = concat
-        for i in range(len(config['dnn_hidden_units'])):
-            h = activation(matmul(h, params[f'dnn.{i}.w'].t(), precision)
-                           + params[f'dnn.{i}.b'])
-        logit = logit + matmul(h, params['dnn.logit.w'].t(), precision)
+    for _, net in nets_lib.of(config):
+        logit = logit + net.forward(params, config, parts, training,
+                                    precision)
     return matmul(logit, params['out.w'].t(), precision) + params['out.b']
 
 

@@ -5,6 +5,7 @@ import pytest
 
 from perfbench.counts import bounds, flops, peaks
 from perfbench.harness import readers, spec as spec_lib
+from perfbench.nets import cin_nets
 
 
 def config(name):
@@ -39,12 +40,12 @@ def test_xdeepfm_forward_by_hand():
 
 def test_cin_bound_by_hand():
     # K4 at the first layer's shape, float32: bytes and operations
-    seconds, ops = bounds.cin_bound('cin_fwd', 8192, 26, 26, 128, 16, 4)
+    seconds, ops = cin_nets.cin_bound('cin_fwd', 8192, 26, 26, 128, 16, 4)
     n = 8192 * 16
     assert ops == 2 * 128 * 26 * 26 * n + 26 * 26 * n
     nbytes = 4 * (n * 26 + n * 26 + 128 * 26 * 26) + 4 * 128 * n
     assert seconds == pytest.approx(max(nbytes / 3.35e12, ops / 495e12))
-    seconds, ops = bounds.cin_bound('cin_bwd', 8192, 26, 64, 128, 16, 2)
+    seconds, ops = cin_nets.cin_bound('cin_bwd', 8192, 26, 64, 128, 16, 2)
     assert ops == 4 * 128 * 26 * 64 * n + 5 * 26 * 64 * n
     assert seconds == pytest.approx(ops / 989e12)
 

@@ -5,6 +5,8 @@ limits and a per-layer metric are added as new files alone. And
 import json
 import re
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -24,9 +26,74 @@ def benchmark():
     return spec_lib.load_json(ROOT / 'BENCHMARK.json')
 
 
+# a net the harness lacks, as a later configuration would bring it: DCN's
+# cross layers (the port's ``cross_nets``), x_{l+1} = x0·(x_l·w_l) + x_l + b_l
+# over the BatchNormed concatenation, then a Dense without bias to a logit
+CROSS_NETS = '''
+from perfbench.reference import model as ref
+
+
+def _layers(config):
+    return int(config['cross_layers'])
+
+
+def param_specs(config):
+    n = ref.concat_width(config)
+    specs = []
+    for i in range(_layers(config)):
+        specs += [(f'cross.{i}.w', (n, 1), ref.lecun(n)),
+                  (f'cross.{i}.b', (n,), ref.SMALL)]
+    return specs + [('cross.logit.w', (1, n), ref.lecun(n))]
+
+
+def forward(params, config, parts, training, precision):
+    x0 = x = parts.concat
+    for i in range(_layers(config)):
+        x = x0 * ref.matmul(x, params[f'cross.{i}.w'], precision) + x \\
+            + params[f'cross.{i}.b']
+    return ref.matmul(x, params['cross.logit.w'].t(), precision)
+
+
+def ops_per_row(config):
+    return (5 * _layers(config) + 2) * ref.concat_width(config)
+
+
+def port_settings(config):
+    return {'cross_params': {'num_cross_layer': _layers(config)}}
+
+
+def port_names(config):
+    names = {'cross.logit.w': 'dense_logit_cross_nets.weight'}
+    for i in range(_layers(config)):
+        names[f'cross.{i}.w'] = f'cross_layer.kernels_{i}'
+        names[f'cross.{i}.b'] = f'cross_layer.bias_{i}'
+    return names
+'''
+
+# run in a copy of the checkout: its cells, each driver's whole run
+IN_COPY = '''
+import json, sys, time
+sys.path[:0] = [{copy!r}]
+sys.path.append({root!r})
+import perfbench
+from perfbench.harness import compare, spec
+assert perfbench.__file__.startswith({copy!r}), perfbench.__file__
+out = {{}}
+for name in {cells!r}:
+    cell = spec.cell(name)
+    result = spec.driver(cell.traffic['driver']).run(
+        cell, 2 ** 31 + 29, 0.3, False, 'cpu', time.time())
+    out[name] = dict(checks=result.checks, failed=result.failed,
+                     correct=compare.all_within(result.checks))
+print(json.dumps(out))
+'''
+
+
 def test_new_files_alone(tmp_path):
     """A copy of the harness gains a configuration, a mix, limits and a
-    metric; nothing that was there is edited."""
+    metric; then a configuration of a net it lacks (``cross_nets``) and no
+    dense features, with that net's module, whose cells train and serve on
+    the CPU within the tiny limits; nothing that was there is edited."""
     bench = tmp_path / 'perfbench'
     shutil.copytree(spec_lib.BENCH_DIR, bench,
                     ignore=shutil.ignore_patterns('__pycache__'))
@@ -65,6 +132,35 @@ def test_new_files_alone(tmp_path):
     trace = Trace(start=0.0, end=2500.0)
     assert reader.read(ReadContext(cfg, mix, trace, {})) == 2.5
     assert spec_lib.driver(mix['driver'], bench_dir=bench).run
+
+    (bench / 'nets' / 'cross_nets.py').write_text(CROSS_NETS)
+    cross = dict(tiny.config('deepfm_criteo_kaggle'), name='dcn_tiny',
+                 nets=['linear', 'cross_nets', 'dnn_nets'],
+                 dense_features=0, cross_layers=2)
+    (bench / 'configs' / 'dcn_tiny.json').write_text(json.dumps(cross))
+    doc['configs'].append({'name': 'dcn_tiny', 'source': 'x',
+                           'file': 'perfbench/configs/dcn_tiny.json',
+                           'reduced': [], 'why': 'a test'})
+    cells = []
+    for kind in ('train', 'serve'):
+        (bench / 'traffic' / f'tiny_{kind}.json').write_text(
+            json.dumps(tiny.traffic(kind)))
+        driver = tiny.traffic(kind)['driver']
+        (bench / 'limits' / f'dcn_tiny.tiny_{kind}.json').write_text(
+            json.dumps(tiny.LIMITS[driver]))
+        doc['workloads'].append({
+            'name': f'dcn_tiny.tiny_{kind}', 'config': 'dcn_tiny',
+            'traffic': f'tiny_{kind}', 'chips': 1, 'why': 'a test'})
+        cells.append(f'dcn_tiny.tiny_{kind}')
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(doc))
+    proc = subprocess.run(
+        [sys.executable, '-c', IN_COPY.format(
+            copy=str(tmp_path), root=str(ROOT), cells=cells)],
+        cwd=tmp_path, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in cells:
+        assert runs[name]['correct'] and runs[name]['failed'] == 0, runs
     assert all(p.read_bytes() == data for p, data in before.items())
 
 

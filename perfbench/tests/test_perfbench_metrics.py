@@ -8,6 +8,7 @@ from perfbench.counts import bounds, flops
 from perfbench.harness import readers, spans, spec as spec_lib
 from perfbench.harness.outcome import ReadContext
 from perfbench.harness.trace import Trace, short_name
+from perfbench.nets import cin_nets
 
 
 def x(cat, name, ts, dur, corr=None, tid=1):
@@ -113,10 +114,10 @@ def test_optimizer_roofline_reader():
 
 def test_cin_roofline_readers(capsys):
     shape = (64, 5, 5, 8, 4)
-    record = {'cin_calls': {'cin_fwd': [shape], 'cin_bwd': [shape]},
+    record = {'kernel_calls': {'cin_fwd': [shape], 'cin_bwd': [shape]},
               'launches': {'cin_fwd': 1, 'cin_bwd': 1}}
-    fwd = bounds.cin_bound('cin_fwd', *shape, 4)[0]
-    bwd = bounds.cin_bound('cin_bwd', *shape, 4)[0]
+    fwd = cin_nets.cin_bound('cin_fwd', *shape, 4)[0]
+    bwd = cin_nets.cin_bound('cin_bwd', *shape, 4)[0]
     read = spec_lib.metric('cin_roofline_pct.train').read
     assert read(context(record)) == pytest.approx(
         100 * (fwd + bwd) / 400e-6)
@@ -125,7 +126,7 @@ def test_cin_roofline_readers(capsys):
         100 * fwd / 200e-6)
     assert capsys.readouterr().err == ''
     # two K4 calls counted, one seen: the bound of the one seen
-    record['cin_calls']['cin_fwd'] = [shape, shape]
+    record['kernel_calls']['cin_fwd'] = [shape, shape]
     record['launches']['cin_fwd'] = 2
     assert read(context(record, 'serve')) == pytest.approx(
         100 * fwd / 200e-6)

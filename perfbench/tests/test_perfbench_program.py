@@ -100,7 +100,7 @@ def test_program_ranges_change_no_existing_reading():
                   'host_ops'):
         assert getattr(traced, field) == getattr(plain, field)
     record = {'train_steps': 1, 'batch_size': 64,
-              'cin_calls': {'cin_fwd': [(64, 5, 5, 8, 4)],
+              'kernel_calls': {'cin_fwd': [(64, 5, 5, 8, 4)],
                             'cin_bwd': [(64, 5, 5, 8, 4)]},
               'launches': {'cin_fwd': 1, 'cin_bwd': 1}}
     for entry in spec_lib.load_json(ROOT / 'BENCHMARK.json')['per_layer']:
