@@ -38,7 +38,8 @@ What it maps:
   ``(F·U)`` output is in plan order, so the layer that reads it
   (``task_output`` when AutoInt is the only net, else
   ``dense_logit_autoint_nets``) has its rows permuted in blocks of U, like
-  ``dnn_dense_1``.
+  ``dnn_dense_1``. A model that sets ``autoint_params['num_units']`` (the
+  port's own key) is refused: the JAX package has no such blocks.
 - The nets that read the fields in the JAX package's order in the port too
   (the pair products, AFM, FGCNN, FiBiNet; ``models/deepnets.py``) map one
   to one: ``*outer_product_layer/kernel``, ``bilinear_weight`` and AFM's
@@ -103,6 +104,12 @@ def state_dict_from_flax(variables, categorical_columns, continuous_columns,
     """flax variables of a JAX ``DeepTabularModel`` → the port's
     ``state_dict`` (CPU float32 tensors) for the same schema and config."""
     del continuous_columns  # their width is the same in both layouts
+    if 'autoint_nets' in tuple(config.nets) and \
+            config.autoint_params.get('num_units') is not None:
+        raise ValueError(
+            "autoint_params['num_units'] is the port's own key: the JAX "
+            'package builds every AutoInt block at the embedding width, so '
+            'its variables cannot fill a model of another block width')
     params = variables['params']
     stats = variables.get('batch_stats', {})
     var_cols = {consts.LAYER_PREFIX_EMBEDDING + c.name: c

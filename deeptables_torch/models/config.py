@@ -14,6 +14,10 @@ is the capacity of ``'sharded_a2a'``'s exchange (None: exact).
 ``train_steps_per_dispatch`` (steps a TPU dispatch) is accepted and not
 read.
 ``nets`` is normalized through the port's own ``deepnets.get_nets``.
+``autoint_params`` takes one key the JAX package lacks: ``num_units``, the
+output width (``num_heads·d_head``) of every interacting layer, absent or
+None for the input width as the JAX package builds them
+(``ops/interactions.MultiheadAttention``).
 """
 
 import dataclasses

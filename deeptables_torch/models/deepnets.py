@@ -42,6 +42,7 @@ from ..ops.interactions import (CIN, FM, SENET, BilinearInteraction, Cross,
                                 InnerProduct, MultiheadAttention,
                                 OuterProduct)
 from ..ops.layers import BatchNorm, Dense
+from ..utils.profiling import annotate
 
 WideDeep = ['linear', 'dnn_nets']
 DeepFM = ['linear', 'fm_nets', 'dnn_nets']
@@ -132,22 +133,33 @@ class CINNet(nn.Module):
 class AutoIntNet(nn.Module):
     """``num_attention`` stacked ``MultiheadAttention`` blocks named
     ``autoint_attention_{i}``; the output (B, F, U) flattened to
-    (B, F·U)."""
+    (B, F·U). Block 0 reads the embeddings (width D), each later block the
+    one before it; every block outputs U = ``autoint_params['num_units']``
+    (None: D). Each block's forward is the span ``deeptables.autoint.block``
+    (counts: ``block``, ``fields``, ``heads``, ``d_head``, ``units_in``,
+    ``units_out``)."""
 
     def __init__(self, n_fields, dim, params, generator=None):
         super().__init__()
         self.num_attention = int(params['num_attention'])
+        width, self.block_spans = dim, []
         for i in range(self.num_attention):
-            self.add_module(f'autoint_attention_{i}', MultiheadAttention(
-                dim, params, generator=generator))
-        self.output_dim = n_fields * dim
+            block = MultiheadAttention(width, params, generator=generator)
+            self.add_module(f'autoint_attention_{i}', block)
+            self.block_spans.append(dict(
+                block=i, fields=n_fields, heads=block.num_heads,
+                d_head=block.num_units // block.num_heads,
+                units_in=width, units_out=block.num_units))
+            width = block.num_units
+        self.output_dim = n_fields * width
 
     def forward(self, embeddings, flatten_emb_layer, dense_layer,
                 concat_emb_dense, ctx):
         output = concat_embeddings(embeddings)
         for i in range(self.num_attention):
-            output = getattr(self, f'autoint_attention_{i}')(
-                output, training=ctx.training, generator=ctx.generator)
+            with annotate('deeptables.autoint.block', **self.block_spans[i]):
+                output = getattr(self, f'autoint_attention_{i}')(
+                    output, training=ctx.training, generator=ctx.generator)
         return output.reshape(output.shape[0], -1)
 
 

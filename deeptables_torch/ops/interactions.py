@@ -241,14 +241,16 @@ class CIN(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """AutoInt interacting layer, (B, F, U) → (B, F, U) float32: the port of
-    ``deeptables_tpu/ops/interactions.py::MultiheadAttention``.
+    """AutoInt interacting layer, (B, F, U_in) → (B, F, U) float32: the port
+    of ``deeptables_tpu/ops/interactions.py::MultiheadAttention``.
 
     The projections ``dense_Q``, ``dense_K``, ``dense_V`` (and with
-    ``use_residual`` ``dense_residual``), U → U with he_uniform kernels, run
-    in x's type (flax's ``nn.Dense(dtype=x.dtype)``), then relu. Field
-    attention per head (``ops/attention_grad.field_attention``: the K5
-    kernels on a CUDA input) gives the context; with ``layout``
+    ``use_residual`` ``dense_residual``), U_in → U with he_uniform kernels,
+    U = ``num_units`` (``H·dh``; None, the default: U_in, as the JAX
+    package builds every block), run in x's type (flax's
+    ``nn.Dense(dtype=x.dtype)``), then relu. Field attention per head
+    (``ops/attention_grad.field_attention``: the K5 kernels on a CUDA
+    input) gives the context; with ``layout``
     ``'batch_minor'`` (the default) it is cast to x's type before the
     residual add, with any other layout it stays float32, as in the two JAX
     layouts. Then the residual, relu and ``batch_normalize`` (flax
@@ -256,13 +258,19 @@ class MultiheadAttention(nn.Module):
     a stack runs in float32).
 
     ``autoint_params``: ``num_heads``, ``dropout_rate``, ``use_residual``,
-    ``layout``, ``fuse_projections`` and ``use_fused_kernel``.
+    ``layout``, ``fuse_projections``, ``use_fused_kernel`` and
+    ``num_units``.
+    - ``num_units`` (the port's own key: the JAX package has none) sets U,
+      the output width of every block, as the AutoInt paper's layers
+      (arXiv:1810.11921: d = 16 → 2 heads of 32); the first block of a stack
+      maps the embedding width to it.
     - ``fuse_projections`` with ``use_residual``, ``dropout_rate == 0``,
       the batch-minor layout and ``use_fused_kernel`` (where the JAX
       package fuses) runs the whole block but BatchNorm as one kernel pair
       (``attention_block``: K6), on ``w_aug = [[Wq|Wk|Wv|Wr]; [bq|bk|bv|br]]``
       packed from the four Dense parameters each call (their names stay).
-      Its q, k, v and r stay float32.
+      Its q, k, v and r stay float32. K6 takes square blocks only (U_in =
+      U): a block that asks for it at another width is refused.
     - ``dropout_rate > 0`` drops attention weights in training, with masks
       from the model's ``torch.Generator``; no kernel runs on that path,
       whether training or not, as in the JAX package.
@@ -275,21 +283,32 @@ class MultiheadAttention(nn.Module):
     # layers nested in it (flax's ``autoint_attention_{i}/dense_Q``)
     flax_scope = True
 
-    def __init__(self, num_units: int, params: Dict[str, Any],
+    def __init__(self, in_units: int, params: Dict[str, Any],
                  generator=None):
         super().__init__()
         self.num_heads = int(params.get('num_heads', 1))
         self.dropout_rate = float(params.get('dropout_rate', 0))
         self.use_residual = bool(params.get('use_residual', True))
+        out = params.get('num_units')
+        num_units = in_units if out is None else int(out)
         if num_units % self.num_heads != 0:
-            raise ValueError(f'embedding dim {num_units} must be divisible '
-                             f'by num_heads {self.num_heads}')
+            raise ValueError(
+                f'{"embedding dim" if out is None else "num_units"} '
+                f'{num_units} must be divisible by num_heads {self.num_heads}')
+        self.num_units = num_units
         self.batch_minor = params.get('layout', 'batch_minor') == 'batch_minor'
         use_fused_kernel = bool(params.get('use_fused_kernel', True))
         # the JAX package fuses the block on its batch-minor kernel path only
         self.fused = (bool(params.get('fuse_projections', False))
                       and self.use_residual and self.dropout_rate == 0
                       and self.batch_minor and use_fused_kernel)
+        if params.get('fuse_projections') and num_units != in_units:
+            raise ValueError(
+                f"autoint_params={{'fuse_projections': True}} with num_units "
+                f'{num_units} and an input of width {in_units}: the fused '
+                f'block (K6) packs the four projections into one square '
+                f'(U+1, 4U) w_aug, so its input and output widths must be '
+                f'equal; leave fuse_projections unset at this width')
         if not use_fused_kernel:
             dt_logging.get_logger(__name__).warning(
                 "autoint_params={'use_fused_kernel': False}: it selected the "
@@ -299,7 +318,7 @@ class MultiheadAttention(nn.Module):
         if self.use_residual:
             names.append('dense_residual')
         for name in names:
-            self.add_module(name, Dense(num_units, num_units,
+            self.add_module(name, Dense(in_units, num_units,
                                         kernel_init='he_uniform',
                                         generator=generator))
         self.batch_normalize = BatchNorm(num_units)

@@ -34,6 +34,7 @@
   block's weights see the bfloat16 roundings of the module test).
 """
 
+import hashlib
 import logging
 import types
 
@@ -49,11 +50,16 @@ from deeptables_tpu.ops import losses as jax_losses
 from deeptables_tpu.ops.kernels.field_attention import (
     attention_block, attention_block_oracle, field_attention)
 from deeptables_torch import bridge, serving
+from deeptables_torch.models.config import ModelConfig
+from deeptables_torch.models.deepmodel import DeepModel
+from deeptables_torch.models.metainfo import CategoricalColumn
 from deeptables_torch.ops import attention_grad, losses
 from deeptables_torch.ops.interactions import MultiheadAttention
 from deeptables_torch.ops.kernels.field_attention import (
     ab_bwd, ab_bwd_reference, ab_fwd, ab_fwd_reference, fa_bwd,
     fa_bwd_reference, fa_fwd, fa_fwd_reference)
+from perfbench.harness import inputs, port, spec as spec_lib, weights
+from perfbench.reference import model as bench_ref
 from torch_parity import Case
 
 torch.set_num_threads(1)  # the suite runs several xdist workers
@@ -577,3 +583,181 @@ def test_autoint_predictor_matches_jax(autoint_params, dtype):
             predictor.predict_proba_arrays(arrays),
             jax_predictor.predict_proba_arrays(arrays),
             atol=1e-5 if dtype == F32 else 1e-3)
+
+
+# ------------------------------------------- num_units: the paper's widths
+
+# the benchmark's AutoInt configuration cut to five columns at its own
+# widths: D = 16 into 3 layers of 2 heads of 32 (16 → 64 → 64 → 64)
+NUM_UNITS_VOCAB = [7, 11, 13, 50, 3]
+NUM_UNITS_ROWS = 16
+# the state of ``_default_autoint()`` as the port built it before
+# ``num_units`` existed (names, shapes and seeded values): the default and
+# an explicit None or input width draw the same weights in the same order
+DEFAULT_AUTOINT_STATE_SHA256 = \
+    '5c1e5b1cb00738cfbfe0f9146ea663003c1c1df9072242a95b4e40cb1eb67dee'
+
+
+def _bench_config(**changes):
+    cfg = spec_lib.load_json(spec_lib.BENCH_DIR / 'configs'
+                             / 'autoint_avazu.json')
+    cfg.update(vocabulary=NUM_UNITS_VOCAB, **changes)
+    return cfg
+
+
+def _num_units_model(cfg, seed):
+    """The port's model of ``cfg`` through the benchmark's harness, its
+    every parameter and running statistic set from ``seed``."""
+    model = port.build(cfg, seed, 'cpu')
+    port.load(model, weights.make(cfg, seed, 'cpu'), cfg)
+    return model
+
+
+def _num_units_rows(cfg, seed):
+    rng = np.random.default_rng(seed)
+    cat, dense = inputs.rows(rng, cfg, NUM_UNITS_ROWS, 1.2)
+    return cat, dense, inputs.labels(rng, cat, dense)
+
+
+@pytest.mark.parametrize('training', [False, True], ids=['eval', 'train'])
+def test_num_units_autoint_matches_the_plain_reference(training):
+    """The port's AutoInt at ``num_units=64`` (2 heads of 32 over D = 16)
+    against ``perfbench/nets/autoint_nets.py`` in float64, on the harness's
+    seeded weights: the logits (BatchNorm on the batch's statistics in
+    training, on the running ones in eval) and, in training, the gradient
+    of the binary cross-entropy for every leaf. float32 against float64:
+    rtol 1e-4 with 1e-4 of the tensor's largest value, as the float32 cases
+    above; the concatenation's BatchNorm, which no net reads, gets no
+    gradient in the port and exactly 0 in the reference."""
+    cfg = _bench_config()
+    seed = 2 ** 31 + 5
+    model = _num_units_model(cfg, seed)
+    block = model.build().autoint_attention_0
+    assert tuple(block.dense_Q.weight.shape) == (64, 16)
+    assert (block.num_units, block.num_heads) == (64, 2)
+    cat, dense, y = _num_units_rows(cfg, 3)
+    params = bench_ref.cast(weights.make(cfg, seed, 'cpu'), 'fp64')
+    names = [name for name, _, _ in bench_ref.param_specs(cfg)]
+    for name in names:
+        params[name].requires_grad_(True)
+    want = bench_ref.forward(params, cfg, torch.as_tensor(cat).long(),
+                       torch.as_tensor(dense).double(), training, 'fp64')
+    module = model.build()
+    got, _ = module(model.to_device(port.arrays(cat, dense)),
+                    training=training)
+    _close(got.detach().numpy(), want.detach().numpy(), F32, 'logits')
+    if not training:
+        return
+    yt = torch.as_tensor(y)
+    want_grads = torch.autograd.grad(bench_ref.bce(want, yt),
+                                     [params[n] for n in names])
+    leaves = port.leaves(model, cfg)
+    got_grads = torch.autograd.grad(bench_ref.bce(got, yt),
+                                    [leaves[n] for n in names],
+                                    allow_unused=True)
+    for name, g, w in zip(names, got_grads, want_grads):
+        g = torch.zeros_like(leaves[name]) if g is None else g
+        if name.startswith('bn_concat.'):
+            assert not w.any(), name
+        _close(g.numpy(), w.numpy(), F32, name)
+
+
+def _default_autoint(**extra):
+    cats = tuple(CategoricalColumn(f'C{i}', v, 8)
+                 for i, v in enumerate(NUM_UNITS_VOCAB))
+    return DeepModel('binary', 2, ModelConfig(
+        nets=['autoint_nets'], task='binary', metrics=['AUC'],
+        embeddings_output_dim=8, embedding_dropout=0, seed=11,
+        autoint_params=dict(num_attention=2, num_heads=2, dropout_rate=0,
+                            use_residual=True, **extra)), cats, (),
+        device='cpu')
+
+
+@pytest.mark.parametrize('extra', [
+    {}, {'num_units': None}, {'num_units': 8}, {'fuse_projections': True},
+    {'fuse_projections': True, 'num_units': None},
+    {'fuse_projections': True, 'num_units': 8}],
+    ids=['unset', 'none', 'input_width', 'fused', 'fused_none',
+         'fused_input_width'])
+def test_num_units_unset_is_the_model_of_before(extra):
+    """Unset, None or the input width: the parameters' names, shapes and
+    seeded values as before ``num_units`` (a digest of the state the port
+    built then), and the same logits as the model that never names it."""
+    model = _default_autoint(**extra)
+    digest = hashlib.sha256()
+    for key, value in model.build().state_dict().items():
+        digest.update(key.encode())
+        digest.update(value.numpy().tobytes())
+    assert digest.hexdigest() == DEFAULT_AUTOINT_STATE_SHA256
+    plain = _default_autoint(
+        **{k: v for k, v in extra.items() if k != 'num_units'})
+    rng = np.random.default_rng(1)
+    cat = np.stack([rng.integers(0, v, 40) for v in NUM_UNITS_VOCAB], 1)
+    batch = {'cat': cat.astype(np.int32)}
+    with torch.no_grad():
+        for training in (False, True):
+            got, _ = model.build()(model.to_device(batch), training=training)
+            want, _ = plain.build()(plain.to_device(batch),
+                                    training=training)
+            assert torch.equal(got, want), training
+
+
+def test_fuse_projections_refuses_a_non_square_block():
+    params = {'num_heads': 2, 'num_units': 64, 'fuse_projections': True}
+    with pytest.raises(ValueError, match='fuse_projections.*square'):
+        MultiheadAttention(16, params)
+    with pytest.raises(ValueError, match='fuse_projections'):
+        _default_autoint(fuse_projections=True, num_units=16).build()
+    # square blocks fuse as before; num_units past the first block is square
+    assert MultiheadAttention(64, params).fused
+
+
+def test_num_units_survives_save_load_and_serves_alike(tmp_path):
+    cfg = _bench_config()
+    model = _num_units_model(cfg, 2 ** 31 + 9)
+    path = str(tmp_path / 'autoint.pkl')
+    model.save(path)
+    loaded = DeepModel.load(path, device='cpu')
+    assert loaded.config.autoint_params['num_units'] == 64
+    assert loaded.build().autoint_attention_2.num_units == 64
+
+    def holder(m):
+        return types.SimpleNamespace(task='binary', preprocessor=None,
+                                     get_model=lambda selector: m)
+    for n in (1, 37):
+        cat, _, _ = _num_units_rows(cfg, n)
+        arrays = {'cat': cat}
+        np.testing.assert_array_equal(
+            serving.Predictor(holder(loaded), batch_buckets=(8, 64))
+            .predict_proba_arrays(arrays),
+            serving.Predictor(holder(model), batch_buckets=(8, 64))
+            .predict_proba_arrays(arrays))
+
+
+def test_bridge_refuses_num_units():
+    model = _default_autoint(num_units=16)
+    with pytest.raises(ValueError, match='num_units'):
+        bridge.state_dict_from_flax({'params': {}},
+                                    model.categorical_columns, (),
+                                    model.config)
+
+
+def test_each_interacting_layer_is_a_span():
+    """Under a profiler each layer's forward is a ``autoint.block`` span
+    inside the net's, with its shape as counts."""
+    from deeptables_torch.utils import profiling
+    cfg = _bench_config()
+    model = _num_units_model(cfg, 7)
+    cat, dense, _ = _num_units_rows(cfg, 1)
+    batch = model.to_device(port.arrays(cat, dense))
+    profiling.take_spans()
+    with torch.profiler.profile(), torch.no_grad():
+        model.build()(batch)
+    log = profiling.take_spans()
+    by_id = {e['id']: e for e in log}
+    blocks = [e for e in log if e['name'] == 'deeptables.autoint.block']
+    assert [e['counts'] for e in blocks] == [
+        dict(block=i, fields=5, heads=2, d_head=32,
+             units_in=16 if i == 0 else 64, units_out=64) for i in range(3)]
+    assert all(by_id[e['parent']]['name'] ==
+               'deeptables.model.net.autoint_nets' for e in blocks)

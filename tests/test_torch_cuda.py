@@ -1101,6 +1101,27 @@ def test_field_attention_kernels_match_reference(cuda, B, F, H, dh, dtype,
         _fa_close(got, ref)
 
 
+def test_field_attention_kernels_at_the_papers_widths(cuda):
+    """K5 at the AutoInt paper's widths and the benchmark cell's batch:
+    B = 32,768, F = 22, 2 heads of dh = 32, float32, where the tile design
+    takes 2 examples a forward tile and 1 a backward tile (88 and 44 of a
+    block's threads); the tolerances of the test above."""
+    B, F, H, dh = 32768, 22, 2, 32
+    assert fa.fa_design(*F32, B, F, H, dh) == 'tile'
+    assert (fa.fa_tile_examples('fa_fwd', *F32, F, H, dh),
+            fa.fa_tile_examples('fa_bwd', *F32, F, H, dh)) == (2, 1)
+    q, k, v, do, _, _, _ = _fa_inputs(B, F, H, dh, *F32, 32)
+    before = fa.fa_fwd.launches, fa.fa_bwd.launches
+    out = fa.fa_fwd(q, k, v, H)
+    grads = fa.fa_bwd(q, k, v, do, H)
+    torch.cuda.synchronize()
+    assert (fa.fa_fwd.launches, fa.fa_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    _fa_close(out, fa.fa_fwd_reference(q, k, v, H))
+    for got, ref in zip(grads, fa.fa_bwd_reference(q, k, v, do, H)):
+        _fa_close(got, ref)
+
+
 # K6's tile design at ragged tiles: every B, F and (H, dh) of these (the
 # shapes of FA_SHAPES left out), then the shapes on each side of where the
 # design hands over to the one-warp kernels: U = 64 and 72; F = 104 and
